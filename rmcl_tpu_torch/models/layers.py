@@ -1,0 +1,94 @@
+"""NN primitives (port of ``rmcl_tpu/models/layers.py``).
+
+Parameters are fp32 masters in torch layouts: a linear weight is (out, in).
+``linear`` casts them to the activation type at use, LayerNorm runs in fp32
+whatever the activation type, GELU is the exact-erf form.  Initialisation
+follows the reference's ``init_weights``: truncated normal (std 0.02, cut at
+two std) for linear and embedding weights, zero biases, LayerNorm 1 and 0.
+Dropout is absent: the port runs deterministic forwards only.
+"""
+
+from __future__ import annotations
+
+from typing import Optional
+
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+INIT_STD = 0.02
+
+
+def trunc_normal_(t: torch.Tensor, generator: torch.Generator,
+                  std: float = INIT_STD) -> torch.Tensor:
+    with torch.no_grad():
+        return nn.init.trunc_normal_(t, std=std, a=-2 * std, b=2 * std,
+                                     generator=generator)
+
+
+def linear(x: torch.Tensor, weight: torch.Tensor,
+           bias: Optional[torch.Tensor] = None) -> torch.Tensor:
+    y = x @ weight.to(x.dtype).t()
+    return y if bias is None else y + bias.to(x.dtype)
+
+
+def layer_norm(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor,
+               eps: float) -> torch.Tensor:
+    """LayerNorm in fp32 whatever the activation type, rounded back."""
+    x32 = x.float()
+    mean = x32.mean(-1, keepdim=True)
+    var = ((x32 - mean) ** 2).mean(-1, keepdim=True)
+    return ((x32 - mean) * torch.rsqrt(var + eps) * weight + bias).to(x.dtype)
+
+
+gelu = F.gelu   # exact erf form, as torch.nn.GELU's default
+
+
+class Linear(nn.Module):
+    def __init__(self, in_features: int, out_features: int, bias: bool = True):
+        super().__init__()
+        self.weight = nn.Parameter(torch.empty(out_features, in_features))
+        self.bias = nn.Parameter(torch.empty(out_features)) if bias else None
+
+    def reset_parameters(self, generator: torch.Generator) -> None:
+        trunc_normal_(self.weight, generator)
+        if self.bias is not None:
+            nn.init.zeros_(self.bias)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return linear(x, self.weight, self.bias)
+
+
+class LayerNorm(nn.Module):
+    def __init__(self, dim: int, eps: float):
+        super().__init__()
+        self.eps = eps
+        self.weight = nn.Parameter(torch.empty(dim))
+        self.bias = nn.Parameter(torch.empty(dim))
+
+    def reset_parameters(self, generator: torch.Generator) -> None:
+        nn.init.ones_(self.weight)
+        nn.init.zeros_(self.bias)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return layer_norm(x, self.weight, self.bias, self.eps)
+
+
+class Embedding(nn.Module):
+    def __init__(self, num: int, dim: int):
+        super().__init__()
+        self.weight = nn.Parameter(torch.empty(num, dim))
+
+    def reset_parameters(self, generator: torch.Generator) -> None:
+        trunc_normal_(self.weight, generator)
+
+    def forward(self, ids: torch.Tensor) -> torch.Tensor:
+        return F.embedding(ids, self.weight)
+
+
+def reset_all(module: nn.Module, generator: torch.Generator) -> None:
+    """Initialise every submodule that defines ``reset_parameters(generator)``,
+    in module order."""
+    for m in module.modules():
+        if m is not module and hasattr(m, "reset_parameters"):
+            m.reset_parameters(generator)

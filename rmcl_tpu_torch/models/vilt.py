@@ -1,0 +1,107 @@
+"""Single-stream ViLT (port of ``rmcl_tpu/models/vilt.py``), deterministic
+inference.
+
+The module tree carries the reference state_dict names
+(``rmcl_tpu/compat/torch_loader.py``), so a reference checkpoint, or the
+JAX package's parameters through ``compat/from_jax.py``, load with
+``load_reference_state_dict``.  Heads are built per active loss as
+``init_vilt`` builds them, for the heads that serving uses: pooler, ITM,
+MLM, VQA, rank output and the MoCo projector.
+"""
+
+from __future__ import annotations
+
+from typing import Dict, List, Optional
+
+import torch
+from torch import nn
+
+from rmcl_tpu_torch.models.heads import Classifier, ITMHead, MLMHead, MoCoHead, Pooler
+from rmcl_tpu_torch.models.layers import Embedding, Linear, reset_all
+from rmcl_tpu_torch.models.text_embeddings import TextEmbeddings
+from rmcl_tpu_torch.models.vit import ViT, normalize_u8
+
+MOCO_PROJ_DIM = 128
+
+
+def _needs(cfg, *names: str) -> bool:
+    return any(cfg.loss_names.get(n, 0) > 0 for n in names)
+
+
+class ViLT(nn.Module):
+    def __init__(self, cfg):
+        super().__init__()
+        C = cfg.hidden_size
+        self.compute_dtype = getattr(torch, cfg.compute_dtype)
+        self.grid_hw = tuple(cfg.grid_hw)
+        self.patch_size = cfg.patch_size
+        self.max_image_len = cfg.max_image_len
+
+        self.text_embeddings = TextEmbeddings(cfg.vocab_size, C, cfg.max_text_len)
+        self.token_type_embeddings = Embedding(
+            3 if _needs(cfg, "nlvr2", "nlvr2_attacked") else 2, C)
+        self.transformer = ViT(C, cfg.num_heads, cfg.num_layers, cfg.mlp_ratio,
+                               cfg.patch_size, cfg.image_size)
+        self.pooler = Pooler(C)
+        if _needs(cfg, "mlm"):
+            self.mlm_score = MLMHead(C, cfg.vocab_size)
+        if _needs(cfg, "itm", "irtr"):
+            self.itm_score = ITMHead(C)
+        if _needs(cfg, "vqa", "vqa_attacked"):
+            self.vqa_classifier = Classifier(C, 2 * C, cfg.vqav2_label_size)
+        if _needs(cfg, "irtr"):
+            self.rank_output = Linear(C, 1)
+        if _needs(cfg, "moco", "irtr_attacked"):
+            self.moco_head = MoCoHead(C, C, MOCO_PROJ_DIM)
+
+    @torch.no_grad()
+    def init(self, generator: torch.Generator) -> "ViLT":
+        """Seeded initialisation, as ``init_vilt`` does it (different numbers:
+        torch's generator is not JAX's)."""
+        reset_all(self, generator)
+        tte = self.token_type_embeddings.weight
+        if tte.shape[0] == 3:
+            tte[2] = tte[1]          # NLVR2's third row starts as the image row
+        if hasattr(self, "rank_output"):
+            self.rank_output.weight.copy_(self.itm_score.fc.weight[1:2])
+            self.rank_output.bias.copy_(self.itm_score.fc.bias[1:2])
+        return self
+
+    def load_reference_state_dict(self, sd: Dict[str, torch.Tensor]) -> List[str]:
+        """Load a reference-named state dict.  Entries of parts this model
+        does not build (momentum twins ``k_*``, the MoCo queue, heads of
+        losses it does not serve) are skipped and returned; a missing or
+        misshapen entry of a part it builds raises."""
+        own = {name for name, _ in self.named_children()}
+        keep = {k: v for k, v in sd.items() if k.split(".", 1)[0] in own}
+        self.load_state_dict(keep, strict=True)
+        return sorted(set(sd) - set(keep))
+
+    def infer(self, batch: Dict[str, torch.Tensor],
+              block_matrices: Optional[List[Dict[str, torch.Tensor]]] = None
+              ) -> Dict[str, torch.Tensor]:
+        """Deterministic forward of a wire-format batch: ``image`` patch rows
+        (B, N, P*P*3) as uint8 with ``image_hw`` (B, 2), or normalised fp32;
+        ``text_ids`` and ``text_masks`` (B, T).  ``block_matrices`` are the
+        transformer's weights cast once (``ViT.block_matrices``)."""
+        dtype = self.compute_dtype
+        img = batch["image"]
+        if img.dim() != 3:
+            raise ValueError("the port takes patch rows (B, N, P*P*3), the "
+                             "image_layout='patch' wire format")
+        if img.dtype == torch.uint8:
+            img = normalize_u8(img, batch.get("image_hw"), self.grid_hw, self.patch_size)
+        text = self.text_embeddings(batch["text_ids"], dtype)
+        image, image_masks = self.transformer.visual_embed(
+            img, self.grid_hw, self.max_image_len, dtype)
+        tte = self.token_type_embeddings.weight
+        text = text + tte[0].to(dtype)
+        image = image + tte[1].to(dtype)
+
+        x = torch.cat([text, image], dim=1)
+        masks = torch.cat([batch["text_masks"].int(), image_masks], dim=1)
+        x = self.transformer(x, masks, block_matrices)
+        T = text.shape[1]
+        return {"text_feats": x[:, :T], "image_feats": x[:, T:],
+                "cls_feats": self.pooler(x), "raw_cls_feats": x[:, 0],
+                "image_masks": image_masks}

@@ -1,0 +1,194 @@
+"""ViT backbone of single-stream ViLT (port of ``rmcl_tpu/models/vit.py``),
+deterministic forward only.
+
+* u8 wire format: ``normalize_u8`` is ``(v/255 - 0.5)/0.5`` in fp32, in that
+  order, with padding forced to exactly 0.0 from ``image_hw`` per pixel.
+* ``visual_embed`` takes patch rows (B, N, P*P*3): one matmul against the
+  patch kernel, a validity mask read from each row's first pixel, a batched
+  align_corners bilinear resample of the pos-embed to each sample's valid
+  grid, and a stable sort by validity when ``max_image_len`` < N.
+* ``ViT.forward`` runs the blocks, each as two fused ops
+  (``ops/fused_block.py``: ``attn_half`` then ``mlp_half``, residuals fused
+  in), then the final LayerNorm.  Unlike the TPU kernels the CUDA kernels
+  mask their own ragged edges, so the sequence is not padded to 128.
+
+LayerNorm eps inside the ViT is 1e-6.
+"""
+
+from __future__ import annotations
+
+from typing import Dict, List, Optional, Tuple
+
+import torch
+from torch import nn
+
+from rmcl_tpu_torch.models.layers import LayerNorm, Linear, linear, trunc_normal_
+from rmcl_tpu_torch.ops.fused_block import attn_half, mlp_half
+
+VIT_LN_EPS = 1e-6
+
+
+# ------------------------------------------------------------ u8 wire format
+def normalize_u8(v: torch.Tensor, hw: Optional[torch.Tensor],
+                 grid_hw: Tuple[int, int], patch_size: int) -> torch.Tensor:
+    """u8 patch rows (B, N, P*P*3) -> fp32 normalised rows, exactly as the
+    host pipeline normalises; pixels outside each sample's (h, w) are 0.0."""
+    x = (v.float() / 255.0 - 0.5) / 0.5
+    if hw is None:
+        return x
+    gw, P = grid_hw[1], patch_size
+    if v.dim() != 3 or v.shape[1] != grid_hw[0] * gw:
+        raise ValueError(f"u8 patch rows with hw metadata need the bucket grid "
+                         f"{grid_hw}: got shape {tuple(v.shape)}")
+    n = torch.arange(v.shape[1], device=v.device)
+    e = torch.arange(v.shape[2], device=v.device)
+    py = (n // gw)[:, None] * P + e[None, :] // (P * 3)
+    px = (n % gw)[:, None] * P + (e[None, :] % (P * 3)) // 3
+    valid = (py[None] < hw[:, 0, None, None]) & (px[None] < hw[:, 1, None, None])
+    return torch.where(valid, x, 0.0)
+
+
+# ------------------------------------------------- pos-embed interpolation
+def bilinear_weights(n_out: int, size: torch.Tensor, n_src: int) -> torch.Tensor:
+    """(B, n_out, n_src) align_corners bilinear row weights for per-sample
+    valid lengths ``size`` (B,); rows at or past ``size`` are zero."""
+    r = torch.arange(n_out, dtype=torch.float32, device=size.device)
+    denom = torch.clamp(size - 1, min=1).float()[:, None]
+    src = r[None] * (n_src - 1) / denom                      # (B, n_out)
+    i0 = torch.clamp(torch.floor(src).long(), 0, n_src - 1)
+    i1 = torch.clamp(i0 + 1, max=n_src - 1)
+    t = src - i0.float()
+    cols = torch.arange(n_src, device=size.device)
+    w = ((cols == i0[..., None]) * (1.0 - t[..., None])
+         + (cols == i1[..., None]) * t[..., None])
+    return w * (r[None, :, None] < size[:, None, None])
+
+
+def resample_pos_embed(spatial: torch.Tensor, h: torch.Tensor, w: torch.Tensor,
+                       gh: int, gw: int) -> torch.Tensor:
+    """spatial (S, S, C) fp32; h, w (B,) valid grid sizes -> (B, gh, gw, C):
+    bilinear to (h, w), zero past it."""
+    S = spatial.shape[0]
+    R = bilinear_weights(gh, h, S)                           # (B, gh, S)
+    Cw = bilinear_weights(gw, w, S)                          # (B, gw, S)
+    return torch.einsum("brs,stc,bwt->brwc", R, spatial.float(), Cw)
+
+
+# ------------------------------------------------------------------ modules
+class PatchEmbed(nn.Module):
+    """Conv(P, stride P) patch embedding, applied to patch rows as one matmul."""
+
+    def __init__(self, hidden_size: int, patch_size: int):
+        super().__init__()
+        self.patch_size = patch_size
+        self.proj = nn.Module()
+        self.proj.weight = nn.Parameter(
+            torch.empty(hidden_size, 3, patch_size, patch_size))
+        self.proj.bias = nn.Parameter(torch.empty(hidden_size))
+
+    def reset_parameters(self, generator: torch.Generator) -> None:
+        trunc_normal_(self.proj.weight, generator)
+        nn.init.zeros_(self.proj.bias)
+
+    def forward(self, rows: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
+        """rows (B, N, P*P*3) in (ph, pw, channel) order -> (B, N, C)."""
+        w = self.proj.weight
+        kernel = w.permute(0, 2, 3, 1).reshape(w.shape[0], -1)   # (C, P*P*3)
+        return linear(rows.to(dtype), kernel, self.proj.bias)
+
+
+class Block(nn.Module):
+    """Pre-norm transformer block; names follow the reference state_dict."""
+
+    def __init__(self, hidden_size: int, num_heads: int, mlp_ratio: int):
+        super().__init__()
+        C = hidden_size
+        self.num_heads = num_heads
+        self.norm1 = LayerNorm(C, VIT_LN_EPS)
+        self.attn = nn.ModuleDict({"qkv": Linear(C, 3 * C), "proj": Linear(C, C)})
+        self.norm2 = LayerNorm(C, VIT_LN_EPS)
+        self.mlp = nn.ModuleDict({"fc1": Linear(C, mlp_ratio * C),
+                                  "fc2": Linear(mlp_ratio * C, C)})
+
+    def matrices(self, dtype: torch.dtype) -> Dict[str, torch.Tensor]:
+        """The four weight matrices in ``dtype``, as the fused ops take them."""
+        ws = {"wqkv": self.attn["qkv"].weight, "wproj": self.attn["proj"].weight,
+              "w1": self.mlp["fc1"].weight, "w2": self.mlp["fc2"].weight}
+        return {k: w.detach().to(dtype).contiguous() for k, w in ws.items()}
+
+    def forward(self, x: torch.Tensor, mask: torch.Tensor,
+                mats: Dict[str, torch.Tensor]) -> torch.Tensor:
+        x = attn_half(x, mask, self.norm1.weight, self.norm1.bias,
+                      mats["wqkv"], self.attn["qkv"].bias,
+                      mats["wproj"], self.attn["proj"].bias,
+                      self.num_heads, VIT_LN_EPS, residual=True)
+        return mlp_half(x, self.norm2.weight, self.norm2.bias,
+                        mats["w1"], self.mlp["fc1"].bias,
+                        mats["w2"], self.mlp["fc2"].bias,
+                        VIT_LN_EPS, residual=True)
+
+
+class ViT(nn.Module):
+    def __init__(self, hidden_size: int, num_heads: int, num_layers: int,
+                 mlp_ratio: int, patch_size: int, img_size: int):
+        super().__init__()
+        C = hidden_size
+        self.pos_grid = img_size // patch_size   # grid the pos-embed lives on
+        self.patch_embed = PatchEmbed(C, patch_size)
+        self.cls_token = nn.Parameter(torch.empty(1, 1, C))
+        self.pos_embed = nn.Parameter(torch.empty(1, self.pos_grid ** 2 + 1, C))
+        self.mask_token = nn.Parameter(torch.empty(1, 1, C))   # MPP only; unused here
+        self.blocks = nn.ModuleList(
+            Block(C, num_heads, mlp_ratio) for _ in range(num_layers))
+        self.norm = LayerNorm(C, VIT_LN_EPS)
+
+    def reset_parameters(self, generator: torch.Generator) -> None:
+        trunc_normal_(self.cls_token, generator)
+        trunc_normal_(self.pos_embed, generator)
+        nn.init.zeros_(self.mask_token)
+
+    def block_matrices(self, dtype: torch.dtype) -> List[Dict[str, torch.Tensor]]:
+        """Every block's weight matrices cast to ``dtype`` once; pass the
+        result to ``forward`` so that serving does not cast per call."""
+        return [blk.matrices(dtype) for blk in self.blocks]
+
+    def visual_embed(self, rows: torch.Tensor, grid_hw: Tuple[int, int],
+                     max_image_len: int, dtype: torch.dtype):
+        """Normalised patch rows (B, N, P*P*3) -> (x (B, L+1, C), mask (B, L+1) int32)."""
+        gh, gw = grid_hw
+        B, N, _ = rows.shape
+        C = self.cls_token.shape[-1]
+        x = self.patch_embed(rows, dtype)
+        # a patch is valid when its top-left pixel is: elements 0..2 of its row
+        first = rows[:, :, :3].float()
+        m = ((first[..., 0] + first[..., 1]) + first[..., 2] != 0).reshape(B, gh, gw)
+        x_h, x_w = m[:, :, 0].sum(1), m[:, 0, :].sum(1)
+
+        spatial = self.pos_embed[0, 1:].reshape(self.pos_grid, self.pos_grid, C)
+        pos = resample_pos_embed(spatial, x_h, x_w, gh, gw).reshape(B, N, C)
+        mask = m.reshape(B, N)
+
+        L = N if max_image_len is None or max_image_len <= 0 else min(N, max_image_len)
+        if L < N:
+            # valid patches first in row-major order, like the JAX package
+            order = torch.argsort((~mask).int(), dim=1, stable=True)[:, :L]
+            x = torch.gather(x, 1, order[..., None].expand(-1, -1, C))
+            pos = torch.gather(pos, 1, order[..., None].expand(-1, -1, C))
+            mask = torch.gather(mask, 1, order)
+
+        x = torch.cat([self.cls_token.to(dtype).expand(B, 1, C), x], dim=1)
+        pos_full = torch.cat([self.pos_embed[:, :1].expand(B, 1, C), pos], dim=1)
+        x = x + pos_full.to(dtype)
+        x_mask = torch.cat([torch.ones(B, 1, dtype=torch.int32, device=rows.device),
+                            mask.int()], dim=1)
+        return x, x_mask
+
+    def forward(self, x: torch.Tensor, mask: torch.Tensor,
+                block_matrices: Optional[List[Dict[str, torch.Tensor]]] = None
+                ) -> torch.Tensor:
+        """(B, S, C) activations, (B, S) int32 mask -> final-normed (B, S, C)."""
+        if block_matrices is None:
+            block_matrices = self.block_matrices(x.dtype)
+        for blk, mats in zip(self.blocks, block_matrices):
+            x = blk(x, mask, mats)
+        return self.norm(x)
