@@ -1,18 +1,31 @@
-"""Smoke run of the PyTorch port's serving path on one NVIDIA GPU.
+"""Smoke run of the PyTorch port on one NVIDIA GPU: the serving path and the
+PGD image attack.
 
     python3 chip_smoke.py
 
-Run from the root of the repository.  ViLT-B/32 at full width
-(``task_finetune_vqa``: C=768, 12 layers, 12 heads, patch 32, bucket
-384x608 so S = 40 + 229 = 269, 3129 VQA labels, bf16 compute, u8 wire) with
-seeded random weights.  Phases, any failure exits non-zero:
+Run from the root of the repository.  ViLT-B/32 at full width and depth
+(C=768, 12 layers, 12 heads, patch 32, bucket 384x608, bf16 compute) with
+seeded random weights: ``task_finetune_vqa`` for serving (S = 40 + 229 =
+269, 3129 VQA labels, u8 wire) and ``task_moco`` for the attack
+(max_image_len 200 so S = 40 + 201 = 241, 16 pairs, queue 65,536 x 128,
+adv_steps_img 5, adv_lr_img 0.05, adv_max_norm_img 0.005, temperature 0.07).
+Phases, any failure exits non-zero:
 
   1. device    a CUDA device, its name and power limit (nvidia-smi)
   2. build     nvcc builds rmcl_tpu_torch/csrc for sm_90a
-  3. kernels   attn_half and mlp_half against their plain versions at
-               B=8, S=269 with a random key mask: fp32 (TF32 off) error
-               <= 2e-4 * max(1, max|ref|), bf16 error <= 2e-2 * max|ref|;
-               kernel and plain times (median of 20 after warm-up, CUDA events)
+  3. kernels   each op against its plain version on the same inputs, random
+               key mask: attn_half and mlp_half at B=8, S=269 (serving) and,
+               in bf16, at B=16, S=241 (the attack); attn_half_dx and
+               mlp_half_dx, recomputing and from the saved qkv / h, at
+               B=16, S=241 with a random g.  fp32 (TF32 off) error
+               <= 2e-4 * max(1, max|ref|), bf16 error <= 2e-2 * max|ref|.
+               Kernel and plain times are the median of 20 after warm-up,
+               CUDA events.  Each op's bound is worked out from these shapes
+               (bytes over 3.35 TB/s against operations over 989 TFLOP/s
+               bf16).  Beside the device sub-kernels the one PyTorch call
+               that computes the same function is timed (F.linear for a GEMM
+               without LayerNorm, F.scaled_dot_product_attention for the
+               attention core); the port never calls them.
   4. serving   a batch-8 Session answers 20 synthetic wire-format requests
                (last chunk short: padded); every block of every forward must
                go through both kernels (launch counters); outputs finite
@@ -20,10 +33,37 @@ seeded random weights.  Phases, any failure exits non-zero:
                vs the card: fp32 kernels (VQA logits within
                1e-3 * max(1, max|ref|)) and bf16 kernels (cls_feats cosine
                >= 0.99 per request)
+  6. pgd       make_pgd_moco(fast=True), 5 steps in bf16 on 16 synthetic
+               pairs (ragged valid image sizes, padded text), keys from
+               infer_k + k_moco_head, a seeded normalised queue.  Launch
+               counters: 12 x 5 of each of the four ops, so every block
+               forward and backward went through the kernels.  delta finite,
+               0 < max|delta| <= 0.005 + 1e-6, zero on padding and unselected
+               patches; InfoNCE of image + delta above the clean image's.
+               Time per attack and per iteration (median of 3, host clock
+               around the attack + synchronize).
+  7. pgd slice 4 pairs in fp32: the CPU through the plain ops against the
+               card's fp32 kernels, delta after 5 steps within 2.5e-4 (5% of
+               the Linf bound) everywhere and within 1e-5 on at least 99% of
+               the elements; and make_pgd_vqa for one step on phase 5's
+               task_finetune_vqa models, same check.  Each step adds
+               adv_lr * g / max|g| and clips, so an error in g moves an
+               unclipped component by 0.05 times its relative size, and a
+               near-tie for max|g| changes the divisor by that same relative
+               amount: there is no discontinuity to special-case.  Where g
+               is within its own error of 0 the sign may differ, which the
+               small per-step size bounds (hence the two-part tolerance).
 
 The line before the last is the kernels' JSON record; the last line is
 ``{"ok": true, "device": {...}}``.  Without a card, or outside the
 repository, it exits non-zero and prints no result.
+
+    python3 chip_smoke.py --profile
+
+runs phases 1 and 2 and then, in place of the checks, traces five serving
+forwards and two attacks with ``torch.profiler`` and prints, for each, the
+device time by kernel name, the device-busy and wall time per call and the
+idle share (the breakdowns of PERF.md section 5).
 """
 
 from __future__ import annotations
@@ -44,11 +84,18 @@ BATCH = 8
 N_REQUESTS = 20
 N_CPU = 4
 SEED = 0
+PGD_CONFIG = "task_moco"
+PGD_BATCH = 16
 KERNELS = {  # op -> the Pallas kernel body it replaces
     "attn_half": "rmcl_tpu/ops/pallas_block.py:112",
     "mlp_half": "rmcl_tpu/ops/pallas_block.py:526",
+    "attn_half_dx": "rmcl_tpu/ops/pallas_block.py:336",
+    "mlp_half_dx": "rmcl_tpu/ops/pallas_block.py:626",
 }
 SOURCE = "rmcl_tpu_torch/csrc/block_kernels.cu"
+PEAK_BYTES_S = 3.35e12      # H100 SXM device memory
+PEAK_BF16_FLOPS = 989e12    # H100 SXM tensor cores, dense bf16
+DELTA_TOL, DELTA_TIGHT, DELTA_TIGHT_SHARE = 2.5e-4, 1e-5, 0.99
 
 
 class SmokeFailure(Exception):
@@ -116,15 +163,60 @@ def _block_inputs(dev, C=768, H=12, B=BATCH, S=269):
     return x, mask, ln, attn, mlp, H
 
 
+def op_work(name: str, B: int, S: int, C: int, saved: bool = False) -> tuple:
+    """(operations, bytes) one call of an op needs at these shapes in bf16:
+    each input read once, each output written once (weights 2 bytes, biases
+    and LayerNorm parameters 4); 2 operations per multiply-add of every
+    product the op is defined by."""
+    M, C4 = B * S, 4 * C
+    act = 2 * M * C                       # one (B, S, C) bf16 tensor
+    if name == "attn_half":               # qkv, proj; q.k^T, p.v
+        return (8 * M * C * C + 4 * B * S * S * C,
+                2 * act + 4 * M + 2 * 4 * C * C + 4 * 6 * C)
+    if name == "mlp_half":                # fc1, fc2
+        return 4 * M * C * C4, 2 * act + 2 * 2 * C * C4 + 4 * (3 * C + C4)
+    if name == "attn_half_dx":            # [qkv], g.Wproj, dqkv.Wqkv; s, dp, dq, dk, dv
+        return ((8 if saved else 14) * M * C * C + 10 * B * S * S * C,
+                3 * act + 4 * M + 2 * 4 * C * C + 4 * 5 * C + (3 * act if saved else 0))
+    if name == "mlp_half_dx":             # [fc1], g.W2, dh.W1
+        return ((4 if saved else 6) * M * C * C4,
+                3 * act + 2 * 2 * C * C4 + 4 * (2 * C + C4) + (2 * M * C4 if saved else 0))
+    raise KeyError(name)
+
+
+def bound(name: str, B: int, S: int, C: int, saved: bool = False) -> tuple:
+    ops, nbytes = op_work(name, B, S, C, saved)
+    t_ops, t_bytes = ops / PEAK_BF16_FLOPS * 1e3, nbytes / PEAK_BYTES_S * 1e3
+    return max(t_ops, t_bytes), "operations" if t_ops >= t_bytes else "bytes"
+
+
+def _compare(name, tag, shape, op, plain, args, rtol, fp32):
+    ref = plain(*args).float()
+    out = op(*args).float()
+    torch.cuda.synchronize()
+    check(bool(torch.isfinite(out).all()), f"{name} {tag}: non-finite output")
+    err = (out - ref).abs().max().item()
+    ref_max = ref.abs().max().item()
+    tol = rtol * (max(1.0, ref_max) if fp32 else ref_max)
+    ms = time_ms(lambda: op(*args))
+    plain_ms = time_ms(lambda: plain(*args))
+    print(f"[kernels] {name} {tag} {shape}: max_abs_err={err!r} (tol {tol:.3g}, "
+          f"max|ref|={ref_max:.4g}) kernel_ms={ms!r} plain_ms={plain_ms!r}")
+    check(err <= tol, f"{name} {tag}: error {err} > {tol}")
+    return dict(err=err, ms=ms, plain_ms=plain_ms)
+
+
 def phase_kernels(dev) -> dict:
     from rmcl_tpu_torch.ops import fused_block as FB
     from rmcl_tpu_torch.models.vit import VIT_LN_EPS as eps
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    x, mask, (lw, lb), (wq, bq, wp, bp), (w1, b1, w2, b2), H = _block_inputs(dev)
     res = {}
+    C = 768
     with torch.inference_mode():
-        for dtype, rtol in ((torch.float32, 2e-4), (torch.bfloat16, 2e-2)):
+        # ---- forwards at the serving shape
+        x, mask, (lw, lb), (wq, bq, wp, bp), (w1, b1, w2, b2), H = _block_inputs(dev)
+        for dtype, rtol, tag in ((torch.float32, 2e-4, "fp32"), (torch.bfloat16, 2e-2, "bf16")):
             xd = x.to(dtype)
             calls = {
                 "attn_half": (FB.attn_half, FB.attn_half_plain,
@@ -133,22 +225,100 @@ def phase_kernels(dev) -> dict:
                              (xd, lw, lb, w1.to(dtype), b1, w2.to(dtype), b2, eps)),
             }
             for name, (op, plain, args) in calls.items():
-                ref = plain(*args).float()
-                out = op(*args).float()
-                torch.cuda.synchronize()
-                check(bool(torch.isfinite(out).all()), f"{name} {dtype}: non-finite output")
-                err = (out - ref).abs().max().item()
-                ref_max = ref.abs().max().item()
-                tol = rtol * (max(1.0, ref_max) if dtype == torch.float32 else ref_max)
-                ms = time_ms(lambda: op(*args))
-                plain_ms = time_ms(lambda: plain(*args))
-                tag = "fp32" if dtype == torch.float32 else "bf16"
-                print(f"[kernels] {name} {tag} B=8 S=269 C=768 H=12: max_abs_err={err!r} "
-                      f"(tol {tol:.3g}, max|ref|={ref_max:.4g}) kernel_ms={ms!r} "
-                      f"plain_ms={plain_ms!r}")
-                check(err <= tol, f"{name} {tag}: error {err} > {tol}")
-                res.setdefault(name, {})[tag] = dict(err=err, ms=ms, plain_ms=plain_ms)
+                res.setdefault(name, {})[tag] = _compare(
+                    name, tag, "B=8 S=269 C=768 H=12", op, plain, args, rtol,
+                    dtype == torch.float32)
+
+        # ---- the attack shape: the forwards in bf16, the dx ops in both types
+        x, mask, (lw, lb), (wq, bq, wp, bp), (w1, b1, w2, b2), H = _block_inputs(
+            dev, B=PGD_BATCH, S=241)
+        gen = torch.Generator(device=dev).manual_seed(SEED + 1)
+        g = torch.randn(x.shape, generator=gen, device=dev)
+        shape = f"B={PGD_BATCH} S=241 C=768 H=12"
+        for dtype, rtol, tag in ((torch.float32, 2e-4, "fp32"), (torch.bfloat16, 2e-2, "bf16")):
+            xd, gd = x.to(dtype), g.to(dtype)
+            a_w = (xd, mask, lw, lb, wq.to(dtype), bq, wp.to(dtype))
+            m_w = (xd, lw, lb, w1.to(dtype), b1, w2.to(dtype))
+            if tag == "bf16":
+                for name, op, plain, args in (
+                        ("attn_half", FB.attn_half, FB.attn_half_plain, (*a_w, bp, H, eps)),
+                        ("mlp_half", FB.mlp_half, FB.mlp_half_plain, (*m_w, b2, eps))):
+                    res[name]["bf16_pgd_shape"] = _compare(name, tag, shape, op, plain,
+                                                           args, rtol, False)
+            qkv = FB._attn_fwd(*a_w, bp, H, eps, True)[1]
+            h = FB._mlp_fwd(*m_w, b2, eps, True, keep_h=True)[1]
+            for variant, q_saved, h_saved in (("saved", qkv, h), ("recompute", None, None)):
+                calls = {
+                    "attn_half_dx": (FB.attn_half_dx, FB.attn_half_dx_plain,
+                                     (*a_w, gd, H, eps, True, q_saved)),
+                    "mlp_half_dx": (FB.mlp_half_dx, FB.mlp_half_dx_plain,
+                                    (*m_w, gd, eps, True, h_saved)),
+                }
+                for name, (op, plain, args) in calls.items():
+                    res.setdefault(name, {})[f"{tag}_{variant}"] = _compare(
+                        f"{name}[{variant}]", tag, shape, op, plain, args, rtol,
+                        dtype == torch.float32)
+
+        res["sub_kernels"] = _library_yardsticks(dev, FB, x.to(torch.bfloat16), mask,
+                                                 wq.to(torch.bfloat16), bq, H)
+    for name in KERNELS:
+        B, S = (BATCH, 269) if name in ("attn_half", "mlp_half") else (PGD_BATCH, 241)
+        res[name]["bound_ms"], res[name]["bound_by"] = bound(name, B, S, C, saved=True)
+        print(f"[kernels] {name} bf16 B={B} S={S}: bound_ms={res[name]['bound_ms']!r} "
+              f"(bound by {res[name]['bound_by']})")
+    for name in ("attn_half", "mlp_half"):
+        res[name]["pgd_shape_bound_ms"] = bound(name, PGD_BATCH, 241, C)[0]
+    for name in ("attn_half_dx", "mlp_half_dx"):
+        res[name]["recompute_bound_ms"] = bound(name, PGD_BATCH, 241, C, saved=False)[0]
     return res
+
+
+def _library_yardsticks(dev, FB, x, mask, wqkv, bqkv, H) -> list:
+    """The device sub-kernels beside the one PyTorch call that computes the
+    same function, bf16 at the attack's shapes.  Timed and printed only."""
+    import torch.nn.functional as F
+    from rmcl_tpu_torch.ops import _build
+    lib = _build.library()
+    B, S, C = x.shape
+    M, D = B * S, C // H
+    gen = torch.Generator(device=dev).manual_seed(SEED + 2)
+    out = []
+    for label, K, N in (("qkv", C, 3 * C), ("proj", C, C), ("fc1", C, 4 * C),
+                        ("fc2", 4 * C, C)):
+        a = torch.randn(M, K, generator=gen, device=dev).bfloat16()
+        w = (torch.randn(N, K, generator=gen, device=dev) * 0.02).bfloat16()
+        bias = torch.randn(N, generator=gen, device=dev) * 0.02
+        bias16 = bias.bfloat16()
+        o = torch.empty(M, N, device=dev, dtype=torch.bfloat16)
+        ms = time_ms(lambda: FB._gemm(lib, a, w, bias, o))
+        lib_ms = time_ms(lambda: F.linear(a, w, bias16))
+        err = (o.float() - F.linear(a, w, bias16).float()).abs().max().item()
+        flops = 2 * M * N * K
+        print(f"[kernels] ln_gemm without LN ({label}: M={M} N={N} K={K}) bf16: "
+              f"kernel_ms={ms!r} ({flops / ms / 1e9:.1f} TFLOP/s) F.linear_ms={lib_ms!r} "
+              f"({flops / lib_ms / 1e9:.1f} TFLOP/s) max_abs_diff={err!r}")
+        out.append(dict(name=f"ln_gemm[{label}]", ms=ms, library_ms=lib_ms,
+                        library="F.linear"))
+    qkv = torch.empty(M, 3 * C, device=dev, dtype=torch.bfloat16)
+    FB._gemm(lib, x.view(M, C), wqkv, bqkv, qkv)
+    att = torch.empty(M, C, device=dev, dtype=torch.bfloat16)
+    stream = torch.cuda.current_stream(dev).cuda_stream
+
+    def ours():
+        _build.check(lib.rmcl_masked_attention_fwd(
+            1, qkv.data_ptr(), mask.data_ptr(), att.data_ptr(), B, S, H, D, D ** -0.5,
+            stream), "masked_attention_fwd")
+
+    q, k, v = qkv.view(B, S, 3, H, D).permute(2, 0, 3, 1, 4)
+    keep = (mask > 0)[:, None, None, :]
+    sdpa = lambda: F.scaled_dot_product_attention(q, k, v, attn_mask=keep)  # noqa: E731
+    ms, lib_ms = time_ms(ours), time_ms(sdpa)
+    err = (att.view(B, S, H, D).float() - sdpa().transpose(1, 2).float()).abs().max().item()
+    print(f"[kernels] masked_attention_fwd (B={B} S={S} H={H} D={D}) bf16: kernel_ms={ms!r} "
+          f"scaled_dot_product_attention_ms={lib_ms!r} max_abs_diff={err!r}")
+    out.append(dict(name="masked_attention_fwd", ms=ms, library_ms=lib_ms,
+                    library="F.scaled_dot_product_attention"))
+    return out
 
 
 def synthetic_requests(cfg, n: int, seed: int) -> dict:
@@ -177,9 +347,7 @@ def synthetic_requests(cfg, n: int, seed: int) -> dict:
 
 def phase_serving(cfg, model, reqs, dev) -> tuple:
     from rmcl_tpu_torch.ops import fused_block as FB
-    from rmcl_tpu_torch._host import reference_module
-    from rmcl_tpu_torch.serve import Session
-    postprocess = reference_module("serve").postprocess
+    from rmcl_tpu_torch.serve import Session, postprocess
 
     sess = Session(cfg, model, "vqa", BATCH, dev)
     sess.infer({k: v[:BATCH] for k, v in reqs.items()})     # warm-up
@@ -192,7 +360,7 @@ def phase_serving(cfg, model, reqs, dev) -> tuple:
     passes = -(-N_REQUESTS // BATCH)
     print(f"[serving] {N_REQUESTS} requests, batch {BATCH}: {passes} forward passes, "
           f"launches {counts}")
-    for name in KERNELS:
+    for name in ("attn_half", "mlp_half"):
         check(counts[name] == cfg.num_layers * passes,
               f"{name} launched {counts[name]} times, expected "
               f"{cfg.num_layers} x {passes}")
@@ -221,7 +389,7 @@ def phase_serving(cfg, model, reqs, dev) -> tuple:
     return sess, counts
 
 
-def phase_slice(cfg, cpu_state, sess, reqs, dev) -> None:
+def phase_slice(cfg, cpu_state, sess, reqs, dev) -> tuple:
     from rmcl_tpu_torch.models.vilt import ViLT
     cfg32 = cfg.replace(compute_dtype="float32")
     few = {k: v[:N_CPU] for k, v in reqs.items()}
@@ -251,9 +419,229 @@ def phase_slice(cfg, cpu_state, sess, reqs, dev) -> None:
           f"{[round(c, 6) for c in cos.tolist()]} (min {cos.min().item()!r}, need >= 0.99)")
     check(diff <= tol, f"fp32 slice differs from the CPU by {diff} > {tol}")
     check(bool((cos >= 0.99).all()), f"bf16 cls_feats cosine {cos.tolist()} < 0.99")
+    return cpu32, gpu32
+
+
+# ------------------------------------------------------------------- PGD
+def pgd_batch(cfg, n: int, seed: int, dev) -> dict:
+    """n pairs for the attack: normalised float32 patch rows (zero outside
+    each image's valid size) and padded text, on ``dev``."""
+    from rmcl_tpu_torch.models.vit import normalize_u8
+    reqs = {k: torch.from_numpy(v).to(dev)
+            for k, v in synthetic_requests(cfg, n, seed).items()}
+    img = normalize_u8(reqs["image"], reqs["image_hw"], cfg.grid_hw, cfg.patch_size)
+    return {"image": img, "text_ids": reqs["text_ids"], "text_masks": reqs["text_masks"]}
+
+
+def moco_keys(model, batch) -> torch.Tensor:
+    from rmcl_tpu_torch.objectives.losses import l2_normalize
+    with torch.inference_mode():
+        k = l2_normalize(model.k_moco_head(model.infer_k(batch)["cls_feats"]), dim=1)
+    return k.clone()
+
+
+def moco_loss(model, batch, img, k, temperature) -> float:
+    from rmcl_tpu_torch.objectives.contrastive import infonce
+    from rmcl_tpu_torch.objectives.losses import l2_normalize
+    with torch.inference_mode():
+        q = l2_normalize(model.moco_head(model.infer(dict(batch, image=img))["cls_feats"]),
+                         dim=1)
+        return infonce(q, k, model.proj_queue, temperature)[0].item()
+
+
+def live_patches(model, cfg, img) -> torch.Tensor:
+    """(B, N) bool: patches that are valid and selected, where delta may be non-zero."""
+    prep = model.transformer.visual_embed_prepare(img, cfg.grid_hw, cfg.max_image_len)
+    valid = prep.x_mask[:, 1:] > 0
+    if prep.sel is None:
+        return valid
+    return torch.zeros(img.shape[:2], dtype=torch.bool, device=img.device).scatter_(
+        1, prep.sel, valid)
+
+
+def pgd_setup(dev) -> tuple:
+    """The attack's model (seeded, on ``dev``), its CPU state, 16 pairs, their
+    keys and the attack closure."""
+    from rmcl_tpu_torch import build_config
+    from rmcl_tpu_torch.attacks.pgd import make_pgd_moco
+    from rmcl_tpu_torch.serve import seeded_model
+    cfg = build_config(PGD_CONFIG)
+    model = seeded_model(cfg, SEED).eval()
+    g = torch.Generator().manual_seed(SEED + 3)
+    with torch.no_grad():   # a seeded queue of l2-normalised keys, and twins that differ
+        q = torch.nn.functional.normalize(torch.randn(model.proj_queue.shape, generator=g),
+                                          dim=0)
+        model.proj_queue.copy_(q.to(model.proj_queue.dtype))
+        for p in model.k_transformer.parameters():
+            p.add_(torch.randn(p.shape, generator=g) * 0.02)
+    cpu_state = copy.deepcopy(model.state_dict())
+    model = model.to(dev)
+    batch = pgd_batch(cfg, PGD_BATCH, SEED + 4, dev)
+    k = moco_keys(model, batch)
+    attack = make_pgd_moco(model, cfg.adv_steps_img, cfg.adv_lr_img, cfg.adv_max_norm_img,
+                           cfg.temperature, fast=True)
+    attack(batch, k, model.proj_queue)                     # warm-up
+    torch.cuda.synchronize()
+    return cfg, model, cpu_state, batch, k, attack
+
+
+def phase_pgd(dev) -> tuple:
+    from rmcl_tpu_torch.ops import fused_block as FB
+    t0 = time.perf_counter()
+    cfg, model, cpu_state, batch, k, attack = pgd_setup(dev)
+    print(f"[pgd] {PGD_CONFIG}: model, queue {tuple(model.proj_queue.shape)} "
+          f"{model.proj_queue.dtype}, {PGD_BATCH} pairs and keys ready in "
+          f"{time.perf_counter() - t0:.1f} s; S = {cfg.seq_len}")
+
+    FB.reset_launches()
+    delta = attack(batch, k, model.proj_queue)
+    torch.cuda.synchronize()
+    counts = dict(FB.launches)
+    want = cfg.num_layers * cfg.adv_steps_img
+    print(f"[pgd] {cfg.adv_steps_img} steps, {PGD_BATCH} pairs, bf16: launches {counts}")
+    for name in KERNELS:
+        check(counts[name] == want, f"{name} launched {counts[name]} times in the attack, "
+                                    f"expected {cfg.num_layers} x {cfg.adv_steps_img}")
+
+    check(delta.shape == batch["image"].shape, f"delta shape {tuple(delta.shape)}")
+    check(bool(torch.isfinite(delta).all()), "non-finite delta")
+    dmax = delta.abs().max().item()
+    check(0 < dmax <= cfg.adv_max_norm_img + 1e-6, f"max|delta| = {dmax}")
+    live = live_patches(model, cfg, batch["image"])
+    off = delta[~live].abs().max().item() if bool((~live).any()) else 0.0
+    check(off == 0.0, f"delta is {off} on padding or unselected patches")
+    moved = (delta.abs().amax(dim=-1) > 0)[live].float().mean().item()
+    clean = moco_loss(model, batch, batch["image"], k, cfg.temperature)
+    adv = moco_loss(model, batch, batch["image"] + delta, k, cfg.temperature)
+    print(f"[pgd] max|delta|={dmax!r}; {int(live.sum())} live patches of "
+          f"{live.numel()}, {moved:.3f} of them moved, delta 0 elsewhere; "
+          f"InfoNCE clean={clean!r} attacked={adv!r}")
+    check(adv > clean, f"InfoNCE did not rise: {clean} -> {adv}")
+
+    walls = []
+    for _ in range(3):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        attack(batch, k, model.proj_queue)
+        torch.cuda.synchronize()
+        walls.append((time.perf_counter() - t) * 1e3)
+    ms = statistics.median(walls)
+    print(f"[pgd] attack {ms!r} ms, {ms / cfg.adv_steps_img!r} ms per iteration "
+          f"(median of 3; forward + dx backward of {cfg.num_layers} blocks, heads, "
+          f"InfoNCE over the queue, the step)")
+    return cfg, cpu_state, counts
+
+
+def _delta_check(what: str, ref: torch.Tensor, ours: torch.Tensor, bound_: float) -> None:
+    diff = (ours.cpu() - ref).abs()
+    worst = diff.max().item()
+    tight = (diff <= DELTA_TIGHT).float().mean().item()
+    print(f"[pgd slice] {what}: max|delta|={ref.abs().max().item()!r} (bound {bound_}); "
+          f"card fp32 kernels vs CPU fp32 plain max_abs_diff={worst!r} (tol {DELTA_TOL}), "
+          f"{tight:.5f} of the elements within {DELTA_TIGHT} (need {DELTA_TIGHT_SHARE})")
+    check(ref.abs().max().item() > 0, f"{what}: the CPU attack did not move")
+    check(worst <= DELTA_TOL, f"{what}: delta differs by {worst} > {DELTA_TOL}")
+    check(tight >= DELTA_TIGHT_SHARE, f"{what}: only {tight} of delta within {DELTA_TIGHT}")
+
+
+def phase_pgd_slice(cfg, cpu_state, vqa_cfg, vqa_cpu32, vqa_gpu32, dev) -> None:
+    from rmcl_tpu_torch.attacks.pgd import make_pgd_moco, make_pgd_vqa
+    from rmcl_tpu_torch.models.vilt import ViLT
+    cfg32 = cfg.replace(compute_dtype="float32", queue_dtype="float32")
+    cpu32 = ViLT(cfg32).eval()
+    cpu32.load_state_dict({k: v.float() if v.is_floating_point() else v
+                           for k, v in cpu_state.items()})
+    gpu32 = copy.deepcopy(cpu32).to(dev)
+    batch = pgd_batch(cfg, N_CPU, SEED + 4, "cpu")
+    on_dev = {k: v.to(dev) for k, v in batch.items()}
+    k = moco_keys(cpu32, batch)
+    args = (cfg.adv_steps_img, cfg.adv_lr_img, cfg.adv_max_norm_img, cfg.temperature)
+    t0 = time.perf_counter()
+    ref = make_pgd_moco(cpu32, *args)(batch, k, cpu32.proj_queue)
+    cpu_s = time.perf_counter() - t0
+    ours = make_pgd_moco(gpu32, *args)(on_dev, k.to(dev), gpu32.proj_queue)
+    torch.cuda.synchronize()
+    _delta_check(f"make_pgd_moco, {N_CPU} pairs, {args[0]} steps (CPU {cpu_s:.1f} s)",
+                 ref, ours, cfg.adv_max_norm_img)
+
+    # one BCE-ascent step on the serving phase's fp32 VQA models
+    vb = pgd_batch(vqa_cfg, N_CPU, SEED, "cpu")
+    gen = torch.Generator().manual_seed(SEED + 5)
+    targets = torch.rand(N_CPU, vqa_cfg.vqav2_label_size, generator=gen)
+    targets = torch.where(targets > 0.999, targets, 0.0)
+    vargs = (1, cfg.adv_lr_img, cfg.adv_max_norm_img, vqa_cfg.vqav2_label_size)
+    ref = make_pgd_vqa(vqa_cpu32, *vargs)(vb, targets)
+    ours = make_pgd_vqa(vqa_gpu32, *vargs)({k_: v.to(dev) for k_, v in vb.items()},
+                                           targets.to(dev))
+    torch.cuda.synchronize()
+    _delta_check(f"make_pgd_vqa, {N_CPU} requests, 1 step", ref, ours, cfg.adv_max_norm_img)
+
+
+# --------------------------------------------------------------- profile
+def _device_us(evt) -> float:
+    for attr in ("self_device_time_total", "self_cuda_time_total"):
+        if hasattr(evt, attr):
+            return float(getattr(evt, attr))
+    return 0.0
+
+
+def _trace(what: str, fn, calls: int) -> None:
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3 / calls
+    from torch.autograd import DeviceType
+    # device-side events only: a host op's device time is its kernels' again
+    rows = [(e.key, e.count, _device_us(e)) for e in prof.key_averages()
+            if e.device_type == DeviceType.CUDA]
+    rows = sorted((r for r in rows if r[2] > 0), key=lambda r: -r[2])
+    busy = sum(r[2] for r in rows) / 1e3 / calls
+    check(busy > 0, f"{what}: the profiler saw no device time")
+    print(f"[profile] {what}: wall {wall!r} ms per call under the profiler, device busy "
+          f"{busy!r} ms, idle share {1 - busy / wall:.3f}; "
+          f"{sum(r[1] for r in rows) / calls:.0f} device kernels and copies per call")
+    for key, count, us in rows[:12]:
+        print(f"[profile]   {us / 1e3 / calls:9.4f} ms  {100 * us / 1e3 / calls / wall:5.1f}% "
+              f"of wall  x{count / calls:<6.0f} {key[:90]}")
+    rest = sum(r[2] for r in rows[12:]) / 1e3 / calls
+    print(f"[profile]   {rest:9.4f} ms  {100 * rest / wall:5.1f}% of wall  every other kernel")
+
+
+def phase_profile(dev) -> None:
+    from rmcl_tpu_torch import build_config
+    from rmcl_tpu_torch.serve import Session, seeded_model
+    cfg = build_config(CONFIG)
+    sess = Session(cfg, seeded_model(cfg, SEED), "vqa", BATCH, dev)
+    full = synthetic_requests(cfg, BATCH, SEED)
+    for _ in range(3):
+        sess.forward(full)
+    _trace(f"serving, {CONFIG}, one batch-{BATCH} Session.forward, bf16",
+           lambda: sess.forward(full), 5)
+    del sess
+    pcfg, model, _, batch, k, attack = pgd_setup(dev)
+    _trace(f"pgd, {PGD_CONFIG}, one {pcfg.adv_steps_img}-step attack on {PGD_BATCH} pairs, "
+           f"bf16", lambda: attack(batch, k, model.proj_queue), 2)
 
 
 def main() -> int:
+    if sys.argv[1:] == ["--profile"]:
+        try:
+            from rmcl_tpu_torch import build_config  # noqa: F401
+            phase_device()
+            phase_build()
+            phase_profile(torch.device("cuda", 0))
+        except Exception as e:  # noqa: BLE001  any failure ends the run
+            traceback.print_exc()
+            print(f"chip_smoke --profile: FAILED: {e}", file=sys.stderr)
+            return 1
+        return 0
+    if sys.argv[1:]:
+        print("usage: python3 chip_smoke.py [--profile]", file=sys.stderr)
+        return 2
     try:
         from rmcl_tpu_torch import build_config
         from rmcl_tpu_torch.serve import seeded_model
@@ -275,16 +663,38 @@ def main() -> int:
         reqs = synthetic_requests(cfg, N_REQUESTS, SEED)
         sess, counts = phase_serving(cfg, model, reqs, dev)
         phase = "slice"
-        phase_slice(cfg, cpu_state, sess, reqs, dev)
+        vqa_cpu32, vqa_gpu32 = phase_slice(cfg, cpu_state, sess, reqs, dev)
+        del sess, model
+        phase = "pgd"
+        pgd_cfg, pgd_state, pgd_counts = phase_pgd(dev)
+        phase = "pgd slice"
+        phase_pgd_slice(pgd_cfg, pgd_state, cfg, vqa_cpu32, vqa_gpu32, dev)
     except Exception as e:  # noqa: BLE001  every phase failure ends the run
         traceback.print_exc()
         print(f"chip_smoke: FAILED in phase {phase}: {e}", file=sys.stderr)
         return 1
-    print(json.dumps({"kernels": [
-        {"name": name, "route": "cuda", "source": SOURCE, "replaces": replaces,
-         "launches": counts[name], "max_abs_err": kres[name]["bf16"]["err"],
-         "ms": kres[name]["bf16"]["ms"], "plain_ms": kres[name]["bf16"]["plain_ms"]}
-        for name, replaces in KERNELS.items()]}))
+    records = []
+    for name, replaces in KERNELS.items():
+        r = kres[name]
+        dx = name.endswith("_dx")
+        main = r["bf16_saved"] if dx else r["bf16"]
+        rec = {"name": name, "route": "cuda", "source": SOURCE, "replaces": replaces,
+               "launches": pgd_counts[name] if dx else counts[name],
+               "launches_by_path": {"serving": counts.get(name, 0), "pgd": pgd_counts[name]},
+               "max_abs_err": main["err"], "ms": main["ms"], "plain_ms": main["plain_ms"],
+               "bound_ms": r["bound_ms"], "bound_by": r["bound_by"], "library_ms": None,
+               "shape": "B=16 S=241" if dx else "B=8 S=269"}
+        if dx:   # the path's default keeps qkv / h; the recomputing variant beside it
+            rec.update(variant="saved", recompute_ms=r["bf16_recompute"]["ms"],
+                       recompute_plain_ms=r["bf16_recompute"]["plain_ms"],
+                       recompute_max_abs_err=r["bf16_recompute"]["err"],
+                       recompute_bound_ms=r["recompute_bound_ms"])
+        else:
+            rec.update(pgd_shape_ms=r["bf16_pgd_shape"]["ms"],
+                       pgd_shape_plain_ms=r["bf16_pgd_shape"]["plain_ms"],
+                       pgd_shape_bound_ms=r["pgd_shape_bound_ms"])
+        records.append(rec)
+    print(json.dumps({"kernels": records, "sub_kernels": kres["sub_kernels"]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

@@ -1,22 +1,26 @@
 """rmcl_tpu_torch: the PyTorch/CUDA port of rmcl_tpu for one NVIDIA H100.
 
-The JAX package ``rmcl_tpu`` is the reference; this package imports torch
-and never jax.  This slice is the serving path (``rmcl serve``):
+The JAX package ``rmcl_tpu`` is the reference; this package imports torch,
+never jax, and nothing of ``rmcl_tpu``: what it needs of that package's
+jax-free host modules it keeps as its own copies.  Ported so far: the
+serving path (``rmcl serve``) and the PGD image attack.
 
-  ops/        the two deterministic block halves (attn_half, mlp_half):
-              hand-written CUDA kernels on CUDA tensors, plain versions on
-              CPU tensors; nvcc build + ctypes binding (ops/_build.py)
-  csrc/       the CUDA C++ sources, built at first use into _build/
-  models/     layers, text embeddings, ViT, heads, ViLT (reference
-              state_dict names)
-  compat/     the JAX package's parameters as the port's state dict
-  serve.py    build_infer_fn, batch_spec, Session
-  cli/run.py  python -m rmcl_tpu_torch.cli.run serve ...
-
-The config and the host pipeline are the JAX package's own jax-free
-modules (see _host.py).
+  ops/         the two deterministic block halves and their dx-only
+               backwards (attn_half, mlp_half, attn_half_dx, mlp_half_dx):
+               hand-written CUDA kernels on CUDA tensors, plain versions on
+               CPU tensors; nvcc build + ctypes binding (ops/_build.py)
+  csrc/        the CUDA C++ sources, built at first use into _build/
+  core/        the config dataclass and its named presets
+  data/        tokenizer, serving image transform, patch-row relayout
+  models/      layers, text embeddings, ViT, heads, ViLT with its momentum
+               twins and MoCo queue (reference state_dict names)
+  objectives/  the loss primitives and InfoNCE that the attacks use
+  attacks/     PGD on the pixels (moco, vqa, irtr)
+  compat/      the JAX package's parameters as the port's state dict
+  serve.py     build_infer_fn, batch_spec, Session, postprocess
+  cli/run.py   python -m rmcl_tpu_torch.cli.run serve ...
 """
 
-from rmcl_tpu_torch._host import build_config  # noqa: F401
+from rmcl_tpu_torch.core.config import build_config  # noqa: F401
 from rmcl_tpu_torch.models.vilt import ViLT  # noqa: F401
 from rmcl_tpu_torch.serve import TASKS, Session, build_infer_fn  # noqa: F401

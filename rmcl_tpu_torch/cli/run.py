@@ -1,30 +1,57 @@
 """Command line of the PyTorch port.
 
     python -m rmcl_tpu_torch.cli.run serve <task> input=reqs.jsonl [output=out.jsonl]
-        [batch_size=N] with <named_config> [key=value ...] [load_path=state_dict.pt]
+        [batch_size=N] [device=cuda|cpu] with <named_config> [key=value ...]
+        [load_path=state_dict.pt]
 
 Requests are one JSON object per line, ``{"image": path, "text": str}``;
 each output line is the ``rmcl serve`` record of its request.  ``load_path``
 is a ``torch.save``d reference-named state dict, plain or under
 ``"state_dict"`` as in a Lightning checkpoint; without it the weights are
-drawn from the config's seed.  Serves on the first CUDA device when there
-is one, else on the CPU through the plain ops.
+drawn from the config's seed.  Serves on the first CUDA device and fails
+when there is none; ``device=cpu`` asks for the CPU and the plain ops.
 """
 
 from __future__ import annotations
 
+import ast
 import json
 import sys
-from typing import List, Optional
+from typing import Any, Dict, List, Optional, Tuple
 
 import torch
 
-from rmcl_tpu_torch._host import build_config, reference_module
+from rmcl_tpu_torch.core.config import build_config
+
+# reference key spellings accepted verbatim: the GPU wording maps onto the
+# device-count/per-device fields 1:1
+_KEY_ALIASES = {
+    "per_gpu_batchsize": "per_device_batchsize",
+    "num_gpus": "num_devices",
+}
+
+
+def parse_with(argv: List[str]) -> Tuple[List[str], Dict[str, Any]]:
+    """``name1 name2 key=value ...`` -> (named configs, overrides); values
+    are Python literals where they parse as one, else strings."""
+    names: List[str] = []
+    overrides: Dict[str, Any] = {}
+    for tok in argv:
+        if "=" in tok:
+            k, v = tok.split("=", 1)
+            k = _KEY_ALIASES.get(k, k)
+            try:
+                overrides[k] = ast.literal_eval(v)
+            except (ValueError, SyntaxError):
+                overrides[k] = v
+        else:
+            names.append(tok)
+    return names, overrides
 
 
 def _usage(tasks) -> int:
     print(f"usage: python -m rmcl_tpu_torch.cli.run serve {{{'|'.join(tasks)}}} "
-          "input=FILE [output=FILE] [batch_size=N] with <named_config> "
+          "input=FILE [output=FILE] [batch_size=N] [device=cuda|cpu] with <named_config> "
           "[load_path=FILE]", file=sys.stderr)
     return 2
 
@@ -32,12 +59,13 @@ def _usage(tasks) -> int:
 def serve(argv: List[str]) -> int:
     from PIL import Image
 
+    from rmcl_tpu_torch.data.tokenizer import get_tokenizer
     from rmcl_tpu_torch.serve import (TASKS, Session, load_state_dict_file,
-                                      seeded_model)
+                                      postprocess, seeded_model)
     if not argv or argv[0] not in TASKS:
         return _usage(TASKS)
     task, rest = argv[0], argv[1:]
-    opts = {"input": None, "output": None, "batch_size": "1"}
+    opts = {"input": None, "output": None, "batch_size": "1", "device": "cuda"}
     while rest and rest[0].split("=", 1)[0] in opts and "=" in rest[0]:
         k, v = rest[0].split("=", 1)
         opts[k] = v
@@ -46,7 +74,7 @@ def serve(argv: List[str]) -> int:
         return _usage(TASKS)
     if rest and rest[0] == "with":
         rest = rest[1:]
-    names, overrides = reference_module("cli.run").parse_with(rest)
+    names, overrides = parse_with(rest)
     cfg = build_config(*names, **overrides)
 
     model = seeded_model(cfg)
@@ -55,10 +83,12 @@ def serve(argv: List[str]) -> int:
         if skipped:
             print(f"[rmcl_tpu_torch] {len(skipped)} checkpoint entries not used "
                   f"for serving (e.g. {skipped[0]})", file=sys.stderr)
-    device = torch.device("cuda" if torch.cuda.is_available() else "cpu")
-    tok = reference_module("data.tokenizer").get_tokenizer(cfg.tokenizer)
+    device = torch.device(opts["device"])
+    if device.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError("no CUDA device: serve on a GPU, or pass device=cpu "
+                           "to run the plain ops on the CPU")
+    tok = get_tokenizer(cfg.tokenizer)
     sess = Session(cfg, model, task, int(opts["batch_size"]), device, tokenizer=tok)
-    postprocess = reference_module("serve").postprocess
 
     with open(opts["input"]) as fin:
         reqs = [json.loads(ln) for ln in fin if ln.strip()]

@@ -1,4 +1,4 @@
-"""The JAX package's parameters as the port's state dict, without jax.
+"""The JAX package's parameters and state as the port's state dict, without jax.
 
 The same mapping as ``rmcl_tpu/compat/torch_loader.py:export_state_dict``,
 written over numpy only:
@@ -8,12 +8,15 @@ written over numpy only:
   * the stacked ``transformer.blocks`` (leading layer axis) become
     ``transformer.blocks.{i}``;
   * ``mask_token`` (C,) becomes (1, 1, C);
-  * every other leaf keeps its dotted path and its value.
+  * every other leaf keeps its dotted path and its value; the momentum
+    twins (``k_*`` trees) go through the same rules;
+  * the model state's ``proj_queue`` keeps its (128, K) value and
+    ``proj_queue_ptr`` () becomes (1,).
 """
 
 from __future__ import annotations
 
-from typing import Any, Dict
+from typing import Any, Dict, Optional
 
 import numpy as np
 
@@ -45,9 +48,14 @@ def _layer(node, i: int):
             for k, v in node.items()}
 
 
-def state_dict_from_jax(params: Dict[str, Any], num_layers: int) -> Dict[str, np.ndarray]:
-    """JAX parameter pytree (nested dicts of arrays) -> reference-named
-    state dict of numpy arrays in torch layouts."""
+def state_dict_from_jax(params: Dict[str, Any], num_layers: int,
+                        state: Optional[Dict[str, Any]] = None) -> Dict[str, np.ndarray]:
+    """JAX parameter pytree (nested dicts of arrays), and optionally the
+    model state (the MoCo queue), -> reference-named state dict of numpy
+    arrays in torch layouts."""
     out: Dict[str, np.ndarray] = {}
     _leaves("", params, num_layers, out)
+    if state and "proj_queue" in state:
+        out["proj_queue"] = np.array(state["proj_queue"], order="C")
+        out["proj_queue_ptr"] = np.array(state["proj_queue_ptr"]).reshape(1)
     return out

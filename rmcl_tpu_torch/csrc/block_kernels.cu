@@ -1,10 +1,15 @@
-// Hand-written Hopper kernels for the deterministic ViLT block halves.
+// Hand-written Hopper kernels for the deterministic ViLT block halves:
+// the two forwards and their dx-only backwards.
 //
 // Replaces (JAX package, Pallas on the TPU):
 //   rmcl_tpu/ops/pallas_block.py:_fwd_impl / _half_block_kernel / _attn_fwd_math
 //     (fused_attn_half_det: x + proj(MHA(qkv(LN1 x))))
 //   rmcl_tpu/ops/pallas_block.py:_mlp_fwd_impl / _mlp_half_kernel
 //     (fused_mlp_half: x + fc2(gelu_erf(fc1(LN2 x))))
+//   rmcl_tpu/ops/pallas_block.py:_dx_bwd_impl / _half_block_dx[_saved]_kernel /
+//     _attn_bwd_math (dx of the attention half, weights frozen)
+//   rmcl_tpu/ops/pallas_block.py:_mlp_dx_impl / _mlp_dx[_saved]_kernel
+//     (dx of the MLP half, weights frozen)
 //
 // The TPU kernels run one sample per grid step with every block weight
 // resident in VMEM.  That does not carry over: wqkv alone is 3.5 MB in
@@ -14,6 +19,18 @@
 //                    -> ln_gemm(proj + bias + residual)
 //   MLP half       = ln_gemm(LN2 -> fc1 + bias -> GELU)
 //                    -> ln_gemm(fc2 + bias + residual)
+//   attention dx   = [ln_gemm(LN1 -> qkv + bias), unless qkv was saved]
+//                    -> gemm(dattn = g . Wproj) -> masked_attention_bwd_dq
+//                    -> masked_attention_bwd_dkv -> gemm(dy = dqkv . Wqkv, fp32)
+//                    -> ln_bwd_dx (+ g)
+//   MLP dx         = [ln_gemm(LN2 -> fc1 + bias), unless h was saved]
+//                    -> gemm(dh = (g . W2) * gelu'(h)) -> gemm(dy = dh . W1, fp32)
+//                    -> ln_bwd_dx (+ g)
+// The TPU backward bodies hold every weight and three fp32 (H, S, S)
+// tensors per sample on chip; no SM can, so the backward is the same kind
+// of chain.  The weights are stored (out, in), so a backward product
+// g . W contracts over W's rows: the GEMM takes that operand layout as a
+// template flag and no weight is ever transposed.
 //
 // What bounds them on an H100.  A layer's bf16 weights are 14 MB.  At
 // serving batch 8 and S = 269 the GEMMs have M = 2,152 rows, about 1,500
@@ -33,14 +50,27 @@
 //     qkv buffer (column order (3, H, D)), keeps K/V tiles in shared
 //     memory and runs an online softmax, so no S x S tensor reaches device
 //     memory.
+//   * The attention backward recomputes P tile by tile from q, k and the
+//     key mask in two kernels, so no S x S tensor reaches device memory and
+//     no atomics are needed: masked_attention_bwd_dq owns a query tile
+//     (pass 1 over the keys: row max, row sum and sum_t dp.p; pass 2: ds
+//     and dq), masked_attention_bwd_dkv owns a key tile and walks the
+//     queries with the row statistics the first kernel left.  Both are fp32
+//     SIMT loops like the forward core: bound by operations, far from the
+//     tensor cores' rate.
 //   * Not yet done (left for later work): the qkv buffer, the attention
-//     output and the (S, 4C) MLP hidden pass through device memory, which
-//     the TPU kernels kept on chip; no TMA, wgmma or pipelining.
+//     output, the (S, 4C) MLP hidden and the backward's dattn, dqkv, dh and
+//     fp32 dy pass through device memory, which the TPU kernels kept on
+//     chip; no TMA, wgmma or pipelining.
 //
 // Numerics follow the Pallas kernels: LayerNorm, softmax and every
 // accumulation in fp32; activations rounded to the activation type at the
 // same points (matmul output, + bias, GELU, + residual, P before P.V);
-// key bias -1e30 on masked keys; scores scaled by D**-0.5.
+// key bias -1e30 on masked keys; scores scaled by D**-0.5.  Backward:
+// dattn rounded; dp fp32; ds = p (dp - sum dp.p) scale from the fp32 p, then
+// rounded; dv from the rounded p; dq, dk, dv rounded; g . W2 stays fp32
+// into the GELU derivative, whose product is rounded; dy fp32, never
+// rounded; the LayerNorm backward and + g in fp32, one final cast.
 //
 // Interface: plain C, loaded with ctypes.  Every entry point takes device
 // pointers, sizes and the CUDA stream, launches on that stream, allocates
@@ -82,33 +112,44 @@ __device__ __forceinline__ float warp_max(float v) {
 }
 
 // ------------------------------------------------------------------ ln_gemm
-// out[M, N] = epi(LN?(A)[M, K] . W[N, K]^T + bias[N])
+// out[M, N] = epi(LN?(A)[M, K] . B + bias[N]), B[k][n] = W[n][k] when W is
+// stored (N, K) (forward: the weight's own (out, in) layout), or
+// B[k][n] = W[k][n] when W is stored (K, N) (WKN; backward: g . W against
+// the same stored weight).
 //   LN (when ln_w != nullptr): fp32 mean and variance per row over K, then
 //   (x - mean) * rsqrt(var + eps) * ln_w + ln_b, rounded to T.
-//   epi: round to T, + bias (rounded to T), [exact-erf GELU], [+ residual].
-// A, W, residual and out are T; ln_w, ln_b and bias are fp32.
-// Needs K % 8 == 0 and 16-byte aligned A and W (the wrapper checks).
+//   epi EPI_BIAS:  round to T, [+ bias rounded to T], [keep a copy in aux,
+//                  then exact-erf GELU], [+ residual]; out is T.
+//   epi EPI_DGELU: acc * gelu'(aux[m][n]) in fp32, rounded once; out is T.
+//   epi EPI_F32:   the fp32 accumulator as it is; out is float.
+// A, W, residual and aux are T; ln_w, ln_b and bias are fp32.
+// Needs K % 8 == 0, for WKN also N % 8 == 0, and 16-byte aligned A and W
+// (the wrapper checks).
 
 constexpr int BM = 64, BN = 64, BK = 32, GEMM_THREADS = 256;
 constexpr int LDC = BN + 4;
+constexpr int EPI_BIAS = 0, EPI_DGELU = 1, EPI_F32 = 2;
 
-template <typename T>
+template <typename T, bool WKN>
 __global__ void __launch_bounds__(GEMM_THREADS)
 ln_gemm_kernel(const T* __restrict__ A, const float* __restrict__ ln_w,
                const float* __restrict__ ln_b, float eps,
                const T* __restrict__ W, const float* __restrict__ bias,
-               const T* __restrict__ residual, T* __restrict__ out,
-               int M, int N, int K, int gelu) {
+               const T* __restrict__ residual, T* __restrict__ aux,
+               void* __restrict__ out_v, int M, int N, int K, int gelu, int epi) {
   constexpr bool kBf16 = std::is_same<T, bf16>::value;
   // row stride of the staged tiles: WMMA needs a multiple of 16 bytes;
   // the FMA path reads columns across threads, so an odd stride keeps
   // those reads on distinct banks
   constexpr int LDS = kBf16 ? BK + 8 : BK + 1;
+  // a (K, N) weight tile is staged as [BK][LDW]; its reads run along n
+  constexpr int LDW = BN + 8;
   constexpr int VEC = 16 / sizeof(T);
   constexpr int CHUNKS = BK / VEC;
+  constexpr int NCHUNKS = BN / VEC;
 
   __shared__ __align__(128) T As[BM * LDS];
-  __shared__ __align__(128) T Ws[BN * LDS];
+  __shared__ __align__(128) T Ws[WKN ? BK * LDW : BN * LDS];
   __shared__ __align__(128) float Cs[BM * LDC];
   __shared__ float s_mean[BM], s_rstd[BM];
 
@@ -177,14 +218,26 @@ ln_gemm_kernel(const T* __restrict__ A, const float* __restrict__ ln_w,
 #pragma unroll
       for (int q = 0; q < VEC; ++q) As[r * LDS + kc + q] = from_f<T>(v[q]);
     }
-    for (int c = tid; c < BN * CHUNKS; c += GEMM_THREADS) {
-      const int r = c / CHUNKS, kc = (c % CHUNKS) * VEC;
-      const int n = bn + r, k = k0 + kc;
-      uint4 raw = make_uint4(0u, 0u, 0u, 0u);
-      if (n < N && k < K) raw = *reinterpret_cast<const uint4*>(W + (size_t)n * K + k);
-      const T* e = reinterpret_cast<const T*>(&raw);
+    if constexpr (WKN) {
+      for (int c = tid; c < BK * NCHUNKS; c += GEMM_THREADS) {
+        const int r = c / NCHUNKS, nc = (c % NCHUNKS) * VEC;
+        const int k = k0 + r, n = bn + nc;
+        uint4 raw = make_uint4(0u, 0u, 0u, 0u);
+        if (k < K && n < N) raw = *reinterpret_cast<const uint4*>(W + (size_t)k * N + n);
+        const T* e = reinterpret_cast<const T*>(&raw);
 #pragma unroll
-      for (int q = 0; q < VEC; ++q) Ws[r * LDS + kc + q] = e[q];
+        for (int q = 0; q < VEC; ++q) Ws[r * LDW + nc + q] = e[q];
+      }
+    } else {
+      for (int c = tid; c < BN * CHUNKS; c += GEMM_THREADS) {
+        const int r = c / CHUNKS, kc = (c % CHUNKS) * VEC;
+        const int n = bn + r, k = k0 + kc;
+        uint4 raw = make_uint4(0u, 0u, 0u, 0u);
+        if (n < N && k < K) raw = *reinterpret_cast<const uint4*>(W + (size_t)n * K + k);
+        const T* e = reinterpret_cast<const T*>(&raw);
+#pragma unroll
+        for (int q = 0; q < VEC; ++q) Ws[r * LDS + kc + q] = e[q];
+      }
     }
     __syncthreads();
 
@@ -196,11 +249,19 @@ ln_gemm_kernel(const T* __restrict__ A, const float* __restrict__ ln_w,
         nvcuda::wmma::load_matrix_sync(afrag, As + (wm * 16) * LDS + kk, LDS);
 #pragma unroll
         for (int j = 0; j < 2; ++j) {
-          // B[k][n] = W[n][k]: the staged W tile read column-major
-          nvcuda::wmma::fragment<nvcuda::wmma::matrix_b, 16, 16, 16, bf16,
-                                 nvcuda::wmma::col_major> bfrag;
-          nvcuda::wmma::load_matrix_sync(bfrag, Ws + (wn * 32 + j * 16) * LDS + kk, LDS);
-          nvcuda::wmma::mma_sync(cfrag[j], afrag, bfrag, cfrag[j]);
+          if constexpr (WKN) {
+            // B[k][n] = W[k][n]: the staged [BK][LDW] tile read row-major
+            nvcuda::wmma::fragment<nvcuda::wmma::matrix_b, 16, 16, 16, bf16,
+                                   nvcuda::wmma::row_major> bfrag;
+            nvcuda::wmma::load_matrix_sync(bfrag, Ws + kk * LDW + wn * 32 + j * 16, LDW);
+            nvcuda::wmma::mma_sync(cfrag[j], afrag, bfrag, cfrag[j]);
+          } else {
+            // B[k][n] = W[n][k]: the staged W tile read column-major
+            nvcuda::wmma::fragment<nvcuda::wmma::matrix_b, 16, 16, 16, bf16,
+                                   nvcuda::wmma::col_major> bfrag;
+            nvcuda::wmma::load_matrix_sync(bfrag, Ws + (wn * 32 + j * 16) * LDS + kk, LDS);
+            nvcuda::wmma::mma_sync(cfrag[j], afrag, bfrag, cfrag[j]);
+          }
         }
       }
     } else {
@@ -210,7 +271,8 @@ ln_gemm_kernel(const T* __restrict__ A, const float* __restrict__ ln_w,
 #pragma unroll
         for (int i = 0; i < 4; ++i) a[i] = to_f<T>(As[(ty + 16 * i) * LDS + kk]);
 #pragma unroll
-        for (int j = 0; j < 4; ++j) b[j] = to_f<T>(Ws[(tx + 16 * j) * LDS + kk]);
+        for (int j = 0; j < 4; ++j)
+          b[j] = to_f<T>(WKN ? Ws[kk * LDW + tx + 16 * j] : Ws[(tx + 16 * j) * LDS + kk]);
 #pragma unroll
         for (int i = 0; i < 4; ++i)
 #pragma unroll
@@ -237,11 +299,72 @@ ln_gemm_kernel(const T* __restrict__ A, const float* __restrict__ ln_w,
     const int r = idx / BN, c = idx % BN;
     const int m = bm + r, n = bn + c;
     if (m >= M || n >= N) continue;
-    float v = rnd<T>(Cs[r * LDC + c]);
-    v = rnd<T>(v + rnd<T>(bias[n]));
-    if (gelu) v = rnd<T>(0.5f * v * (1.f + erff(v * 0.70710678118654752f)));
-    if (residual != nullptr) v = rnd<T>(v + to_f<T>(residual[(size_t)m * N + n]));
-    out[(size_t)m * N + n] = from_f<T>(v);
+    const size_t o = (size_t)m * N + n;
+    const float acc1 = Cs[r * LDC + c];
+    if (epi == EPI_F32) {
+      static_cast<float*>(out_v)[o] = acc1;
+      continue;
+    }
+    T* out = static_cast<T*>(out_v);
+    if (epi == EPI_DGELU) {
+      // exact-erf gelu'(h) = Phi(h) + h phi(h), in fp32
+      const float h = to_f<T>(aux[o]);
+      const float cdf = 0.5f * (1.f + erff(h * 0.70710678118654752f));
+      const float pdf = expf(-0.5f * h * h) * 0.3989422804014327f;
+      out[o] = from_f<T>(acc1 * (cdf + h * pdf));
+      continue;
+    }
+    float v = rnd<T>(acc1);
+    if (bias != nullptr) v = rnd<T>(v + rnd<T>(bias[n]));
+    if (gelu) {
+      if (aux != nullptr) aux[o] = from_f<T>(v);   // pre-GELU h, kept for the backward
+      v = rnd<T>(0.5f * v * (1.f + erff(v * 0.70710678118654752f)));
+    }
+    if (residual != nullptr) v = rnd<T>(v + to_f<T>(residual[o]));
+    out[o] = from_f<T>(v);
+  }
+}
+
+// ------------------------------------------------------------------ ln_bwd_dx
+// dx[m] = rstd (dyh - mean(dyh) - xhat mean(dyh xhat)) [+ g[m]], dyh = dy * ln_w,
+// with mean, rstd and xhat of row m of x recomputed in fp32; one warp per row.
+// x, g and dx are T, dy is fp32.
+
+constexpr int LNB_THREADS = 256;
+
+template <typename T>
+__global__ void __launch_bounds__(LNB_THREADS)
+ln_bwd_dx_kernel(const T* __restrict__ x, const float* __restrict__ dy,
+                 const float* __restrict__ ln_w, const T* __restrict__ g,
+                 T* __restrict__ dx, int M, int C, float eps) {
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int m = blockIdx.x * (LNB_THREADS / 32) + warp;
+  if (m >= M) return;
+  const T* xr = x + (size_t)m * C;
+  const float* dr = dy + (size_t)m * C;
+  float s = 0.f;
+  for (int c = lane; c < C; c += 32) s += to_f<T>(xr[c]);
+  const float mean = warp_sum(s) / (float)C;
+  float ss = 0.f;
+  for (int c = lane; c < C; c += 32) {
+    const float d = to_f<T>(xr[c]) - mean;
+    ss += d * d;
+  }
+  const float rstd = 1.f / sqrtf(warp_sum(ss) / (float)C + eps);
+  float s1 = 0.f, s2 = 0.f;
+  for (int c = lane; c < C; c += 32) {
+    const float xhat = (to_f<T>(xr[c]) - mean) * rstd;
+    const float dyh = dr[c] * ln_w[c];
+    s1 += dyh;
+    s2 += dyh * xhat;
+  }
+  const float m1 = warp_sum(s1) / (float)C, m2 = warp_sum(s2) / (float)C;
+  for (int c = lane; c < C; c += 32) {
+    const float xhat = (to_f<T>(xr[c]) - mean) * rstd;
+    const float dyh = dr[c] * ln_w[c];
+    float v = rstd * (dyh - m1 - xhat * m2);
+    if (g != nullptr) v += to_f<T>(g[(size_t)m * C + c]);
+    dx[(size_t)m * C + c] = from_f<T>(v);
   }
 }
 
@@ -374,6 +497,310 @@ masked_attention_fwd_kernel(const T* __restrict__ qkv, const int32_t* __restrict
   }
 }
 
+// ---------------------------------------------- masked attention, backward
+// Given qkv (B, S, 3C), the key mask and dattn (B, S, C) (the gradient at
+// the attention output, head h at columns h*D ..), write dq, dk, dv into
+// dqkv (B, S, 3C) in qkv's column order.  With s = q.k^T scale + key bias,
+// p = softmax(s) in fp32 and pb = p rounded to T:
+//   dp = dattn . v^T (fp32)        delta = sum_t dp p (fp32 p)
+//   ds = round(p (dp - delta) scale)
+//   dq = round(ds . k)   dk = round(ds^T . q)   dv = round(pb^T . dattn)
+// Two kernels, so that every output element has one owner and nothing is
+// accumulated across blocks:
+//   bwd_dq  one block per (query tile, head, sample).  Pass 1 over the key
+//           tiles: running row max m, row sum l and sum_t e^(s - m) dp,
+//           rescaled as in the forward; delta is their quotient.  m, l and
+//           delta go to stats (B, H, S, 3).  Pass 2: ds per tile, dq.
+//   bwd_dkv one block per (key tile, head, sample), launched after bwd_dq:
+//           walks the query tiles, rebuilds p and ds from stats, and
+//           accumulates dk and dv.
+// Scores are summed over d in the same order in all three attention
+// kernels, so each sees the same s, bit for bit.
+
+inline size_t attention_bwd_dq_smem_bytes(int D) {
+  // Qs [AQ][D], dOs [AQ][D], Ks [AK][D + 1], Vs [AK][D + 1], dSs [AQ][AK], key bias [AK]
+  return sizeof(float) * (2 * (size_t)AQ * D + 2 * (size_t)AK * (D + 1) +
+                          (size_t)AQ * AK + AK);
+}
+
+inline size_t attention_bwd_dkv_smem_bytes(int D) {
+  // Ks [AK][D], Vs [AK][D], Qs [AQ][D + 1], dOs [AQ][D + 1], Ps [AK][AQ], dSs [AK][AQ],
+  // stats [AQ][3]
+  return sizeof(float) * (2 * (size_t)AK * D + 2 * (size_t)AQ * (D + 1) +
+                          2 * (size_t)AK * AQ + 3 * AQ);
+}
+
+template <typename T>
+__global__ void __launch_bounds__(ATT_THREADS)
+masked_attention_bwd_dq_kernel(const T* __restrict__ qkv, const int32_t* __restrict__ mask,
+                               const T* __restrict__ dattn, T* __restrict__ dqkv,
+                               float* __restrict__ stats, int S, int H, int D, float scale) {
+  extern __shared__ __align__(16) float smem[];
+  float* Qs = smem;
+  float* dOs = Qs + AQ * D;
+  float* Ks = dOs + AQ * D;
+  float* Vs = Ks + AK * (D + 1);
+  float* dSs = Vs + AK * (D + 1);
+  float* kbias = dSs + AQ * AK;
+
+  const int C = H * D;
+  const int q0 = blockIdx.x * AQ, h = blockIdx.y, b = blockIdx.z;
+  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
+  const T* base = qkv + (size_t)b * S * 3 * C;
+  const T* dbase = dattn + (size_t)b * S * C;
+
+  for (int idx = tid; idx < AQ * D; idx += ATT_THREADS) {
+    const int r = idx / D, d = idx % D, s = q0 + r;
+    Qs[idx] = s < S ? to_f<T>(base[(size_t)s * 3 * C + h * D + d]) : 0.f;
+    dOs[idx] = s < S ? to_f<T>(dbase[(size_t)s * C + h * D + d]) : 0.f;
+  }
+
+  float m_run[ROWS_PER_WARP], l_run[ROWS_PER_WARP], a_run[ROWS_PER_WARP];
+#pragma unroll
+  for (int r = 0; r < ROWS_PER_WARP; ++r) {
+    m_run[r] = -INFINITY;
+    l_run[r] = 0.f;
+    a_run[r] = 0.f;
+  }
+  float dq[ROWS_PER_WARP][MAX_D / 32];
+#pragma unroll
+  for (int r = 0; r < ROWS_PER_WARP; ++r)
+#pragma unroll
+    for (int i = 0; i < MAX_D / 32; ++i) dq[r][i] = 0.f;
+
+  for (int pass = 0; pass < 2; ++pass) {
+    for (int k0 = 0; k0 < S; k0 += AK) {
+      __syncthreads();  // the previous tile's K, V, bias and ds are consumed
+      for (int idx = tid; idx < AK * D; idx += ATT_THREADS) {
+        const int j = idx / D, d = idx % D, s = k0 + j;
+        float kv = 0.f, vv = 0.f;
+        if (s < S) {
+          const T* row = base + (size_t)s * 3 * C + h * D + d;
+          kv = to_f<T>(row[C]);
+          vv = to_f<T>(row[2 * C]);
+        }
+        Ks[j * (D + 1) + d] = kv;
+        Vs[j * (D + 1) + d] = vv;
+      }
+      for (int j = tid; j < AK; j += ATT_THREADS) {
+        const int s = k0 + j;
+        kbias[j] = s < S ? (mask[(size_t)b * S + s] > 0 ? 0.f : NEG_BIAS) : -INFINITY;
+      }
+      __syncthreads();
+
+      float sc[ROWS_PER_WARP][2], dp[ROWS_PER_WARP][2];
+#pragma unroll
+      for (int r = 0; r < ROWS_PER_WARP; ++r) sc[r][0] = sc[r][1] = dp[r][0] = dp[r][1] = 0.f;
+      for (int d = 0; d < D; ++d) {
+        const float ka = Ks[lane * (D + 1) + d], kb = Ks[(lane + 32) * (D + 1) + d];
+        const float va = Vs[lane * (D + 1) + d], vb = Vs[(lane + 32) * (D + 1) + d];
+#pragma unroll
+        for (int r = 0; r < ROWS_PER_WARP; ++r) {
+          const float q = Qs[(warp * ROWS_PER_WARP + r) * D + d];
+          const float g = dOs[(warp * ROWS_PER_WARP + r) * D + d];
+          sc[r][0] = fmaf(q, ka, sc[r][0]);
+          sc[r][1] = fmaf(q, kb, sc[r][1]);
+          dp[r][0] = fmaf(g, va, dp[r][0]);
+          dp[r][1] = fmaf(g, vb, dp[r][1]);
+        }
+      }
+
+      if (pass == 0) {
+#pragma unroll
+        for (int r = 0; r < ROWS_PER_WARP; ++r) {
+          const float s0 = sc[r][0] * scale + kbias[lane];
+          const float s1 = sc[r][1] * scale + kbias[lane + 32];
+          const float m_new = fmaxf(m_run[r], warp_max(fmaxf(s0, s1)));
+          const float alpha = expf(m_run[r] - m_new);
+          const float p0 = expf(s0 - m_new), p1 = expf(s1 - m_new);
+          l_run[r] = l_run[r] * alpha + warp_sum(p0 + p1);
+          a_run[r] = a_run[r] * alpha + warp_sum(p0 * dp[r][0] + p1 * dp[r][1]);
+          m_run[r] = m_new;
+        }
+      } else {
+#pragma unroll
+        for (int r = 0; r < ROWS_PER_WARP; ++r) {
+          const float s0 = sc[r][0] * scale + kbias[lane];
+          const float s1 = sc[r][1] * scale + kbias[lane + 32];
+          const float delta = a_run[r] / l_run[r];
+          const float p0 = expf(s0 - m_run[r]) / l_run[r];
+          const float p1 = expf(s1 - m_run[r]) / l_run[r];
+          float* drow = dSs + (warp * ROWS_PER_WARP + r) * AK;
+          drow[lane] = rnd<T>(p0 * (dp[r][0] - delta) * scale);
+          drow[lane + 32] = rnd<T>(p1 * (dp[r][1] - delta) * scale);
+        }
+        __syncwarp();
+
+        const int jn = min(AK, S - k0);
+        for (int j = 0; j < jn; ++j) {
+          float kv[MAX_D / 32];
+#pragma unroll
+          for (int i = 0; i < MAX_D / 32; ++i) {
+            const int d = lane + 32 * i;
+            kv[i] = d < D ? Ks[j * (D + 1) + d] : 0.f;
+          }
+#pragma unroll
+          for (int r = 0; r < ROWS_PER_WARP; ++r) {
+            const float ds = dSs[(warp * ROWS_PER_WARP + r) * AK + j];
+#pragma unroll
+            for (int i = 0; i < MAX_D / 32; ++i) dq[r][i] = fmaf(ds, kv[i], dq[r][i]);
+          }
+        }
+      }
+    }
+  }
+
+#pragma unroll
+  for (int r = 0; r < ROWS_PER_WARP; ++r) {
+    const int s = q0 + warp * ROWS_PER_WARP + r;
+    if (s >= S) continue;
+    if (lane == 0) {
+      float* st = stats + (((size_t)b * H + h) * S + s) * 3;
+      st[0] = m_run[r];
+      st[1] = l_run[r];
+      st[2] = a_run[r] / l_run[r];
+    }
+    T* orow = dqkv + ((size_t)b * S + s) * 3 * C + h * D;
+#pragma unroll
+    for (int i = 0; i < MAX_D / 32; ++i) {
+      const int d = lane + 32 * i;
+      if (d < D) orow[d] = from_f<T>(dq[r][i]);
+    }
+  }
+}
+
+template <typename T>
+__global__ void __launch_bounds__(ATT_THREADS)
+masked_attention_bwd_dkv_kernel(const T* __restrict__ qkv, const int32_t* __restrict__ mask,
+                                const T* __restrict__ dattn,
+                                const float* __restrict__ stats, T* __restrict__ dqkv,
+                                int S, int H, int D, float scale) {
+  extern __shared__ __align__(16) float smem[];
+  float* Ks = smem;
+  float* Vs = Ks + AK * D;
+  float* Qs = Vs + AK * D;
+  float* dOs = Qs + AQ * (D + 1);
+  float* Ps = dOs + AQ * (D + 1);
+  float* dSs = Ps + AK * AQ;
+  float* st = dSs + AK * AQ;
+
+  const int C = H * D;
+  const int t0 = blockIdx.x * AK, h = blockIdx.y, b = blockIdx.z;
+  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
+  const T* base = qkv + (size_t)b * S * 3 * C;
+  const T* dbase = dattn + (size_t)b * S * C;
+  const float* sbase = stats + ((size_t)b * H + h) * S * 3;
+
+  for (int idx = tid; idx < AK * D; idx += ATT_THREADS) {
+    const int j = idx / D, d = idx % D, t = t0 + j;
+    float kv = 0.f, vv = 0.f;
+    if (t < S) {
+      const T* row = base + (size_t)t * 3 * C + h * D + d;
+      kv = to_f<T>(row[C]);
+      vv = to_f<T>(row[2 * C]);
+    }
+    Ks[idx] = kv;
+    Vs[idx] = vv;
+  }
+
+  // this warp's keys: rows warp * ROWS_PER_WARP + r of the tile
+  float kb[ROWS_PER_WARP], dk[ROWS_PER_WARP][MAX_D / 32], dv[ROWS_PER_WARP][MAX_D / 32];
+#pragma unroll
+  for (int r = 0; r < ROWS_PER_WARP; ++r) {
+    const int t = t0 + warp * ROWS_PER_WARP + r;
+    kb[r] = t < S ? (mask[(size_t)b * S + t] > 0 ? 0.f : NEG_BIAS) : -INFINITY;
+#pragma unroll
+    for (int i = 0; i < MAX_D / 32; ++i) dk[r][i] = dv[r][i] = 0.f;
+  }
+
+  for (int q0 = 0; q0 < S; q0 += AQ) {
+    __syncthreads();  // the previous tile's Q, dattn and stats are consumed
+    for (int idx = tid; idx < AQ * D; idx += ATT_THREADS) {
+      const int j = idx / D, d = idx % D, s = q0 + j;
+      Qs[j * (D + 1) + d] = s < S ? to_f<T>(base[(size_t)s * 3 * C + h * D + d]) : 0.f;
+      dOs[j * (D + 1) + d] = s < S ? to_f<T>(dbase[(size_t)s * C + h * D + d]) : 0.f;
+    }
+    for (int idx = tid; idx < AQ * 3; idx += ATT_THREADS) {
+      const int s = q0 + idx / 3;
+      // rows past S: any finite statistics; their p and ds are forced to 0 below
+      st[idx] = s < S ? sbase[(size_t)s * 3 + idx % 3] : (idx % 3 == 1 ? 1.f : 0.f);
+    }
+    __syncthreads();
+
+    float sc[ROWS_PER_WARP][2], dp[ROWS_PER_WARP][2];
+#pragma unroll
+    for (int r = 0; r < ROWS_PER_WARP; ++r) sc[r][0] = sc[r][1] = dp[r][0] = dp[r][1] = 0.f;
+    for (int d = 0; d < D; ++d) {
+      const float qa = Qs[lane * (D + 1) + d], qb = Qs[(lane + 32) * (D + 1) + d];
+      const float ga = dOs[lane * (D + 1) + d], gb = dOs[(lane + 32) * (D + 1) + d];
+#pragma unroll
+      for (int r = 0; r < ROWS_PER_WARP; ++r) {
+        const float k = Ks[(warp * ROWS_PER_WARP + r) * D + d];
+        const float v = Vs[(warp * ROWS_PER_WARP + r) * D + d];
+        sc[r][0] = fmaf(qa, k, sc[r][0]);
+        sc[r][1] = fmaf(qb, k, sc[r][1]);
+        dp[r][0] = fmaf(ga, v, dp[r][0]);
+        dp[r][1] = fmaf(gb, v, dp[r][1]);
+      }
+    }
+
+#pragma unroll
+    for (int r = 0; r < ROWS_PER_WARP; ++r) {
+      float* prow = Ps + (warp * ROWS_PER_WARP + r) * AQ;
+      float* drow = dSs + (warp * ROWS_PER_WARP + r) * AQ;
+#pragma unroll
+      for (int c = 0; c < 2; ++c) {
+        const int sl = lane + 32 * c;
+        float p = 0.f, ds = 0.f;
+        if (q0 + sl < S) {
+          p = expf(sc[r][c] * scale + kb[r] - st[sl * 3]) / st[sl * 3 + 1];
+          ds = rnd<T>(p * (dp[r][c] - st[sl * 3 + 2]) * scale);
+          p = rnd<T>(p);
+        }
+        prow[sl] = p;
+        drow[sl] = ds;
+      }
+    }
+    __syncwarp();
+
+    const int jn = min(AQ, S - q0);
+    for (int j = 0; j < jn; ++j) {
+      float qv[MAX_D / 32], gv[MAX_D / 32];
+#pragma unroll
+      for (int i = 0; i < MAX_D / 32; ++i) {
+        const int d = lane + 32 * i;
+        qv[i] = d < D ? Qs[j * (D + 1) + d] : 0.f;
+        gv[i] = d < D ? dOs[j * (D + 1) + d] : 0.f;
+      }
+#pragma unroll
+      for (int r = 0; r < ROWS_PER_WARP; ++r) {
+        const float ds = dSs[(warp * ROWS_PER_WARP + r) * AQ + j];
+        const float p = Ps[(warp * ROWS_PER_WARP + r) * AQ + j];
+#pragma unroll
+        for (int i = 0; i < MAX_D / 32; ++i) {
+          dk[r][i] = fmaf(ds, qv[i], dk[r][i]);
+          dv[r][i] = fmaf(p, gv[i], dv[r][i]);
+        }
+      }
+    }
+  }
+
+#pragma unroll
+  for (int r = 0; r < ROWS_PER_WARP; ++r) {
+    const int t = t0 + warp * ROWS_PER_WARP + r;
+    if (t >= S) continue;
+    T* orow = dqkv + ((size_t)b * S + t) * 3 * C + h * D;
+#pragma unroll
+    for (int i = 0; i < MAX_D / 32; ++i) {
+      const int d = lane + 32 * i;
+      if (d < D) {
+        orow[C + d] = from_f<T>(dk[r][i]);
+        orow[2 * C + d] = from_f<T>(dv[r][i]);
+      }
+    }
+  }
+}
+
 template <typename T>
 cudaError_t launch_attention(const void* qkv, const void* mask, void* out, int B, int S,
                              int H, int D, float scale, cudaStream_t stream) {
@@ -390,15 +817,54 @@ cudaError_t launch_attention(const void* qkv, const void* mask, void* out, int B
 }
 
 template <typename T>
+cudaError_t launch_attention_bwd(const void* qkv, const void* mask, const void* dattn,
+                                 void* dqkv, void* stats, int B, int S, int H, int D,
+                                 float scale, cudaStream_t stream) {
+  const size_t smem_q = attention_bwd_dq_smem_bytes(D);
+  const size_t smem_kv = attention_bwd_dkv_smem_bytes(D);
+  cudaError_t err = cudaFuncSetAttribute(masked_attention_bwd_dq_kernel<T>,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                         (int)smem_q);
+  if (err != cudaSuccess) return err;
+  err = cudaFuncSetAttribute(masked_attention_bwd_dkv_kernel<T>,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem_kv);
+  if (err != cudaSuccess) return err;
+  const dim3 grid_q((S + AQ - 1) / AQ, H, B), grid_kv((S + AK - 1) / AK, H, B);
+  masked_attention_bwd_dq_kernel<T><<<grid_q, ATT_THREADS, smem_q, stream>>>(
+      static_cast<const T*>(qkv), static_cast<const int32_t*>(mask),
+      static_cast<const T*>(dattn), static_cast<T*>(dqkv), static_cast<float*>(stats),
+      S, H, D, scale);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  masked_attention_bwd_dkv_kernel<T><<<grid_kv, ATT_THREADS, smem_kv, stream>>>(
+      static_cast<const T*>(qkv), static_cast<const int32_t*>(mask),
+      static_cast<const T*>(dattn), static_cast<const float*>(stats),
+      static_cast<T*>(dqkv), S, H, D, scale);
+  return cudaGetLastError();
+}
+
+template <typename T, bool WKN>
 cudaError_t launch_gemm(const void* a, const void* ln_w, const void* ln_b, float eps,
-                        const void* w, const void* bias, const void* residual, void* out,
-                        int M, int N, int K, int gelu, cudaStream_t stream) {
+                        const void* w, const void* bias, const void* residual, void* aux,
+                        void* out, int M, int N, int K, int gelu, int epi,
+                        cudaStream_t stream) {
   const dim3 grid((N + BN - 1) / BN, (M + BM - 1) / BM);
-  ln_gemm_kernel<T><<<grid, GEMM_THREADS, 0, stream>>>(
+  ln_gemm_kernel<T, WKN><<<grid, GEMM_THREADS, 0, stream>>>(
       static_cast<const T*>(a), static_cast<const float*>(ln_w),
       static_cast<const float*>(ln_b), eps, static_cast<const T*>(w),
-      static_cast<const float*>(bias), static_cast<const T*>(residual), static_cast<T*>(out),
-      M, N, K, gelu);
+      static_cast<const float*>(bias), static_cast<const T*>(residual),
+      static_cast<T*>(aux), out, M, N, K, gelu, epi);
+  return cudaGetLastError();
+}
+
+template <typename T>
+cudaError_t launch_ln_bwd_dx(const void* x, const void* dy, const void* ln_w, const void* g,
+                             void* dx, int M, int C, float eps, cudaStream_t stream) {
+  const int rows = LNB_THREADS / 32;
+  ln_bwd_dx_kernel<T><<<(M + rows - 1) / rows, LNB_THREADS, 0, stream>>>(
+      static_cast<const T*>(x), static_cast<const float*>(dy),
+      static_cast<const float*>(ln_w), static_cast<const T*>(g), static_cast<T*>(dx), M, C,
+      eps);
   return cudaGetLastError();
 }
 
@@ -408,16 +874,48 @@ extern "C" {
 
 const char* rmcl_error_string(int err) { return cudaGetErrorString((cudaError_t)err); }
 
+// aux: with gelu, where the pre-GELU value is kept (or null); epi and w_kn
+// as described at ln_gemm_kernel (w_kn = 1: W is stored (K, N))
 int rmcl_ln_gemm(int dtype, const void* a, const void* ln_w, const void* ln_b, float eps,
-                 const void* w, const void* bias, const void* residual, void* out, int M,
-                 int N, int K, int gelu, void* stream) {
+                 const void* w, const void* bias, const void* residual, void* aux,
+                 void* out, int M, int N, int K, int gelu, int epi, int w_kn,
+                 void* stream) {
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (epi < EPI_BIAS || epi > EPI_F32 || (epi == EPI_DGELU && aux == nullptr))
+    return (int)cudaErrorInvalidValue;
   if (dtype == 0)
-    return (int)launch_gemm<float>(a, ln_w, ln_b, eps, w, bias, residual, out, M, N, K,
-                                   gelu, st);
+    return (int)(w_kn ? launch_gemm<float, true>(a, ln_w, ln_b, eps, w, bias, residual, aux,
+                                                 out, M, N, K, gelu, epi, st)
+                      : launch_gemm<float, false>(a, ln_w, ln_b, eps, w, bias, residual,
+                                                  aux, out, M, N, K, gelu, epi, st));
   if (dtype == 1)
-    return (int)launch_gemm<bf16>(a, ln_w, ln_b, eps, w, bias, residual, out, M, N, K,
-                                  gelu, st);
+    return (int)(w_kn ? launch_gemm<bf16, true>(a, ln_w, ln_b, eps, w, bias, residual, aux,
+                                                out, M, N, K, gelu, epi, st)
+                      : launch_gemm<bf16, false>(a, ln_w, ln_b, eps, w, bias, residual, aux,
+                                                 out, M, N, K, gelu, epi, st));
+  return (int)cudaErrorInvalidValue;
+}
+
+int rmcl_ln_bwd_dx(int dtype, const void* x, const void* dy, const void* ln_w, const void* g,
+                   void* dx, int M, int C, float eps, void* stream) {
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (dtype == 0) return (int)launch_ln_bwd_dx<float>(x, dy, ln_w, g, dx, M, C, eps, st);
+  if (dtype == 1) return (int)launch_ln_bwd_dx<bf16>(x, dy, ln_w, g, dx, M, C, eps, st);
+  return (int)cudaErrorInvalidValue;
+}
+
+// stats: (B, H, S, 3) fp32 scratch; dqkv: (B, S, 3C), every element written
+int rmcl_masked_attention_bwd(int dtype, const void* qkv, const void* mask,
+                              const void* dattn, void* dqkv, void* stats, int B, int S,
+                              int H, int D, float scale, void* stream) {
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (D > MAX_D) return (int)cudaErrorInvalidValue;
+  if (dtype == 0)
+    return (int)launch_attention_bwd<float>(qkv, mask, dattn, dqkv, stats, B, S, H, D, scale,
+                                            st);
+  if (dtype == 1)
+    return (int)launch_attention_bwd<bf16>(qkv, mask, dattn, dqkv, stats, B, S, H, D, scale,
+                                           st);
   return (int)cudaErrorInvalidValue;
 }
 

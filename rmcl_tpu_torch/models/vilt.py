@@ -1,12 +1,16 @@
 """Single-stream ViLT (port of ``rmcl_tpu/models/vilt.py``), deterministic
-inference.
+forward.
 
 The module tree carries the reference state_dict names
 (``rmcl_tpu/compat/torch_loader.py``), so a reference checkpoint, or the
-JAX package's parameters through ``compat/from_jax.py``, load with
-``load_reference_state_dict``.  Heads are built per active loss as
-``init_vilt`` builds them, for the heads that serving uses: pooler, ITM,
-MLM, VQA, rank output and the MoCo projector.
+JAX package's parameters and state through ``compat/from_jax.py``, load
+with ``load_reference_state_dict``.  Heads are built per active loss as
+``init_vilt`` builds them, for the heads ported so far: pooler, ITM, MLM,
+VQA, rank output and the MoCo projector.  With the ``moco`` loss active the
+model also carries the momentum twins (``k_text_embeddings``,
+``k_token_type_embeddings``, ``k_transformer``, ``k_moco_head``; the key
+path shares ``pooler``) and the negatives queue (``proj_queue``,
+``proj_queue_ptr``) as buffers; ``infer_k`` runs the twins.
 """
 
 from __future__ import annotations
@@ -53,6 +57,17 @@ class ViLT(nn.Module):
             self.rank_output = Linear(C, 1)
         if _needs(cfg, "moco", "irtr_attacked"):
             self.moco_head = MoCoHead(C, C, MOCO_PROJ_DIM)
+        if _needs(cfg, "moco"):
+            self.k_text_embeddings = TextEmbeddings(cfg.vocab_size, C, cfg.max_text_len)
+            self.k_token_type_embeddings = Embedding(
+                self.token_type_embeddings.weight.shape[0], C)
+            self.k_transformer = ViT(C, cfg.num_heads, cfg.num_layers, cfg.mlp_ratio,
+                                     cfg.patch_size, cfg.image_size)
+            self.k_moco_head = MoCoHead(C, C, MOCO_PROJ_DIM)
+            qdt = getattr(torch, cfg.queue_dtype or cfg.compute_dtype)
+            self.register_buffer("proj_queue",
+                                 torch.zeros(MOCO_PROJ_DIM, cfg.num_negative, dtype=qdt))
+            self.register_buffer("proj_queue_ptr", torch.zeros(1, dtype=torch.int32))
 
     @torch.no_grad()
     def init(self, generator: torch.Generator) -> "ViLT":
@@ -65,43 +80,71 @@ class ViLT(nn.Module):
         if hasattr(self, "rank_output"):
             self.rank_output.weight.copy_(self.itm_score.fc.weight[1:2])
             self.rank_output.bias.copy_(self.itm_score.fc.bias[1:2])
+        if hasattr(self, "k_transformer"):
+            # momentum twins start as exact copies; the queue as random
+            # UNnormalised vectors (reference vilt_module.py:92-94, :270-273)
+            for name in ("text_embeddings", "token_type_embeddings", "transformer",
+                         "moco_head"):
+                getattr(self, "k_" + name).load_state_dict(
+                    getattr(self, name).state_dict())
+            q = torch.randn(self.proj_queue.shape, generator=generator)
+            self.proj_queue.copy_(q.to(self.proj_queue.dtype))
+            self.proj_queue_ptr.zero_()
         return self
 
     def load_reference_state_dict(self, sd: Dict[str, torch.Tensor]) -> List[str]:
         """Load a reference-named state dict.  Entries of parts this model
-        does not build (momentum twins ``k_*``, the MoCo queue, heads of
-        losses it does not serve) are skipped and returned; a missing or
-        misshapen entry of a part it builds raises."""
+        does not build (heads of losses that are not active or not ported)
+        are skipped and returned; a missing or misshapen entry of a part it
+        builds raises, except the queue state, which a checkpoint may lack
+        (the model then keeps its own)."""
         own = {name for name, _ in self.named_children()}
         keep = {k: v for k, v in sd.items() if k.split(".", 1)[0] in own}
+        for name, buf in self.named_buffers(recurse=False):
+            keep[name] = sd.get(name, buf)
         self.load_state_dict(keep, strict=True)
         return sorted(set(sd) - set(keep))
 
     def infer(self, batch: Dict[str, torch.Tensor],
-              block_matrices: Optional[List[Dict[str, torch.Tensor]]] = None
-              ) -> Dict[str, torch.Tensor]:
+              block_matrices: Optional[List[Dict[str, torch.Tensor]]] = None,
+              image_token_type_idx: int = 1,
+              image_embeds: Optional[torch.Tensor] = None,
+              image_masks: Optional[torch.Tensor] = None,
+              prefix: str = "") -> Dict[str, torch.Tensor]:
         """Deterministic forward of a wire-format batch: ``image`` patch rows
         (B, N, P*P*3) as uint8 with ``image_hw`` (B, 2), or normalised fp32;
         ``text_ids`` and ``text_masks`` (B, T).  ``block_matrices`` are the
-        transformer's weights cast once (``ViT.block_matrices``)."""
+        transformer's weights cast once (``ViT.block_matrices``).  With
+        ``image_embeds`` and ``image_masks`` (``ViT.visual_embed_from_prep``)
+        the image is not embedded again.  ``prefix="k_"`` runs the momentum
+        twins (with the shared pooler)."""
         dtype = self.compute_dtype
-        img = batch["image"]
-        if img.dim() != 3:
-            raise ValueError("the port takes patch rows (B, N, P*P*3), the "
-                             "image_layout='patch' wire format")
-        if img.dtype == torch.uint8:
-            img = normalize_u8(img, batch.get("image_hw"), self.grid_hw, self.patch_size)
-        text = self.text_embeddings(batch["text_ids"], dtype)
-        image, image_masks = self.transformer.visual_embed(
-            img, self.grid_hw, self.max_image_len, dtype)
-        tte = self.token_type_embeddings.weight
+        transformer = getattr(self, prefix + "transformer")
+        text = getattr(self, prefix + "text_embeddings")(batch["text_ids"], dtype)
+        if image_embeds is None and image_masks is None:
+            img = batch["image"]
+            if img.dim() != 3:
+                raise ValueError("the port takes patch rows (B, N, P*P*3), the "
+                                 "image_layout='patch' wire format")
+            if img.dtype == torch.uint8:
+                img = normalize_u8(img, batch.get("image_hw"), self.grid_hw,
+                                   self.patch_size)
+            image_embeds, image_masks = transformer.visual_embed(
+                img, self.grid_hw, self.max_image_len, dtype)
+        else:
+            image_embeds = image_embeds.to(dtype)
+        tte = getattr(self, prefix + "token_type_embeddings").weight
         text = text + tte[0].to(dtype)
-        image = image + tte[1].to(dtype)
+        image = image_embeds + tte[image_token_type_idx].to(dtype)
 
         x = torch.cat([text, image], dim=1)
-        masks = torch.cat([batch["text_masks"].int(), image_masks], dim=1)
-        x = self.transformer(x, masks, block_matrices)
+        masks = torch.cat([batch["text_masks"].int(), image_masks.int()], dim=1)
+        x = transformer(x, masks, block_matrices)
         T = text.shape[1]
         return {"text_feats": x[:, :T], "image_feats": x[:, T:],
                 "cls_feats": self.pooler(x), "raw_cls_feats": x[:, 0],
                 "image_masks": image_masks}
+
+    def infer_k(self, batch: Dict[str, torch.Tensor], **kw) -> Dict[str, torch.Tensor]:
+        """``infer`` through the momentum twins (the key encoder)."""
+        return self.infer(batch, prefix="k_", **kw)

@@ -1,12 +1,16 @@
 """ViT backbone of single-stream ViLT (port of ``rmcl_tpu/models/vit.py``),
-deterministic forward only.
+deterministic forward, differentiable with respect to its input.
 
 * u8 wire format: ``normalize_u8`` is ``(v/255 - 0.5)/0.5`` in fp32, in that
   order, with padding forced to exactly 0.0 from ``image_hw`` per pixel.
 * ``visual_embed`` takes patch rows (B, N, P*P*3): one matmul against the
   patch kernel, a validity mask read from each row's first pixel, a batched
   align_corners bilinear resample of the pos-embed to each sample's valid
-  grid, and a stable sort by validity when ``max_image_len`` < N.
+  grid, and a stable sort by validity when ``max_image_len`` < N.  It is
+  ``visual_embed_from_prep(visual_embed_prepare(rows))``: everything that
+  does not depend on a pixel perturbation is in the ``VisualPrep``, so the
+  PGD loop (``attacks/pgd.py``) prepares once and pays one matmul per
+  iteration.
 * ``ViT.forward`` runs the blocks, each as two fused ops
   (``ops/fused_block.py``: ``attn_half`` then ``mlp_half``, residuals fused
   in), then the final LayerNorm.  Unlike the TPU kernels the CUDA kernels
@@ -17,7 +21,7 @@ LayerNorm eps inside the ViT is 1e-6.
 
 from __future__ import annotations
 
-from typing import Dict, List, Optional, Tuple
+from typing import Dict, List, NamedTuple, Optional, Tuple
 
 import torch
 from torch import nn
@@ -72,6 +76,31 @@ def resample_pos_embed(spatial: torch.Tensor, h: torch.Tensor, w: torch.Tensor,
     R = bilinear_weights(gh, h, S)                           # (B, gh, S)
     Cw = bilinear_weights(gw, w, S)                          # (B, gw, S)
     return torch.einsum("brs,stc,bwt->brwc", R, spatial.float(), Cw)
+
+
+# ------------------------------------------------- hoisted visual geometry
+class VisualPrep(NamedTuple):
+    """The part of the visual embedding that a pixel perturbation cannot
+    change, computed once from the clean image.  Padding patches are masked
+    as attention keys and their own outputs never reach ``cls_feats``, so
+    the loss gradient is exactly zero on padding pixels and on valid but
+    unselected patches: the validity mask, the pos-embed resample and the
+    patch selection stay what the clean image gave."""
+    rows_sel: torch.Tensor            # (B, L, P*P*3) selected clean patch rows
+    sel: Optional[torch.Tensor]       # (B, L) indices into the N-patch grid, or None
+    pos_full: torch.Tensor            # (B, L+1, C) fp32 pos embeds incl the CLS row
+    x_mask: torch.Tensor              # (B, L+1) int32
+    n_patches: int                    # N = gh*gw
+
+
+def scatter_delta(prep: VisualPrep, delta_sel: torch.Tensor) -> torch.Tensor:
+    """A selected-space perturbation (B, L, F) back in full patch rows
+    (B, N, F); unselected rows carry zero gradient, so zero-fill is exact."""
+    if prep.sel is None:
+        return delta_sel
+    B, L, F = delta_sel.shape
+    out = delta_sel.new_zeros(B, prep.n_patches, F)
+    return out.scatter_(1, prep.sel[..., None].expand(-1, -1, F), delta_sel)
 
 
 # ------------------------------------------------------------------ modules
@@ -152,13 +181,13 @@ class ViT(nn.Module):
         result to ``forward`` so that serving does not cast per call."""
         return [blk.matrices(dtype) for blk in self.blocks]
 
-    def visual_embed(self, rows: torch.Tensor, grid_hw: Tuple[int, int],
-                     max_image_len: int, dtype: torch.dtype):
-        """Normalised patch rows (B, N, P*P*3) -> (x (B, L+1, C), mask (B, L+1) int32)."""
+    def visual_embed_prepare(self, rows: torch.Tensor, grid_hw: Tuple[int, int],
+                             max_image_len: int) -> "VisualPrep":
+        """Everything in ``visual_embed`` that does not depend on a pixel
+        perturbation, from the CLEAN normalised patch rows (B, N, P*P*3)."""
         gh, gw = grid_hw
         B, N, _ = rows.shape
         C = self.cls_token.shape[-1]
-        x = self.patch_embed(rows, dtype)
         # a patch is valid when its top-left pixel is: elements 0..2 of its row
         first = rows[:, :, :3].float()
         m = ((first[..., 0] + first[..., 1]) + first[..., 2] != 0).reshape(B, gh, gw)
@@ -169,19 +198,36 @@ class ViT(nn.Module):
         mask = m.reshape(B, N)
 
         L = N if max_image_len is None or max_image_len <= 0 else min(N, max_image_len)
+        sel = None
         if L < N:
             # valid patches first in row-major order, like the JAX package
-            order = torch.argsort((~mask).int(), dim=1, stable=True)[:, :L]
-            x = torch.gather(x, 1, order[..., None].expand(-1, -1, C))
-            pos = torch.gather(pos, 1, order[..., None].expand(-1, -1, C))
-            mask = torch.gather(mask, 1, order)
+            sel = torch.argsort((~mask).int(), dim=1, stable=True)[:, :L]
+            rows = torch.gather(rows, 1, sel[..., None].expand(-1, -1, rows.shape[-1]))
+            pos = torch.gather(pos, 1, sel[..., None].expand(-1, -1, C))
+            mask = torch.gather(mask, 1, sel)
 
-        x = torch.cat([self.cls_token.to(dtype).expand(B, 1, C), x], dim=1)
-        pos_full = torch.cat([self.pos_embed[:, :1].expand(B, 1, C), pos], dim=1)
-        x = x + pos_full.to(dtype)
+        pos_full = torch.cat([self.pos_embed[:, :1].float().expand(B, 1, C), pos], dim=1)
         x_mask = torch.cat([torch.ones(B, 1, dtype=torch.int32, device=rows.device),
                             mask.int()], dim=1)
-        return x, x_mask
+        return VisualPrep(rows, sel, pos_full, x_mask, N)
+
+    def visual_embed_from_prep(self, prep: "VisualPrep",
+                               delta_sel: Optional[torch.Tensor],
+                               dtype: torch.dtype):
+        """Patch rows (+ a perturbation in selected-patch space) -> embeddings
+        with the prepared geometry: one matmul and the pos/cls adds.
+        Returns (x (B, L+1, C), mask (B, L+1) int32)."""
+        rows = prep.rows_sel if delta_sel is None else prep.rows_sel + delta_sel
+        x = self.patch_embed(rows, dtype)
+        B, _, C = x.shape
+        x = torch.cat([self.cls_token.to(dtype).expand(B, 1, C), x], dim=1)
+        return x + prep.pos_full.to(dtype), prep.x_mask
+
+    def visual_embed(self, rows: torch.Tensor, grid_hw: Tuple[int, int],
+                     max_image_len: int, dtype: torch.dtype):
+        """Normalised patch rows (B, N, P*P*3) -> (x (B, L+1, C), mask (B, L+1) int32)."""
+        prep = self.visual_embed_prepare(rows, grid_hw, max_image_len)
+        return self.visual_embed_from_prep(prep, None, dtype)
 
     def forward(self, x: torch.Tensor, mask: torch.Tensor,
                 block_matrices: Optional[List[Dict[str, torch.Tensor]]] = None

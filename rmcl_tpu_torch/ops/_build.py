@@ -28,8 +28,13 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 # entry point -> ctypes argtypes; every pointer and the stream as c_void_p
 SIGNATURES = {
-    # dtype, a, ln_w, ln_b, eps, w, bias, residual, out, M, N, K, gelu, stream
-    "rmcl_ln_gemm": [_I, _P, _P, _P, _F, _P, _P, _P, _P, _I, _I, _I, _I, _P],
+    # dtype, a, ln_w, ln_b, eps, w, bias, residual, aux, out, M, N, K, gelu,
+    # epi, w_kn, stream
+    "rmcl_ln_gemm": [_I, _P, _P, _P, _F, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
+    # dtype, x, dy, ln_w, g, dx, M, C, eps, stream
+    "rmcl_ln_bwd_dx": [_I, _P, _P, _P, _P, _P, _I, _I, _F, _P],
+    # dtype, qkv, mask, dattn, dqkv, stats, B, S, H, D, scale, stream
+    "rmcl_masked_attention_bwd": [_I, _P, _P, _P, _P, _P, _I, _I, _I, _I, _F, _P],
     # dtype, qkv, mask, out, B, S, H, D, scale, stream
     "rmcl_masked_attention_fwd": [_I, _P, _P, _P, _I, _I, _I, _I, _F, _P],
 }

@@ -6,8 +6,8 @@ serves the live ``ViLT`` module: ``Session`` holds it on one device with
 its block weights cast once to the compute type, chunks requests into
 batches of the session's size and pads a short chunk by repeating its
 first request (padded rows are dropped before returning), as
-``ArtifactSession`` does.  Outputs are float32 numpy arrays; the
-``postprocess`` of the JAX package turns them into response records.
+``ArtifactSession`` does.  Outputs are float32 numpy arrays;
+``postprocess`` turns them into response records.
 
 Tasks:
   mlm   -> (B, T, vocab) logits
@@ -19,7 +19,7 @@ Tasks:
 
 from __future__ import annotations
 
-from typing import Callable, Dict, Optional, Sequence, Tuple
+from typing import Callable, Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -126,8 +126,7 @@ class Session:
         fitted to the bucket (``ArtifactSession._prep_image``)."""
         from PIL import Image
 
-        from rmcl_tpu_torch._host import reference_module
-        tr = reference_module("data.transforms")
+        from rmcl_tpu_torch.data import transforms as tr
         cfg = self.cfg
         if self._transform is None:
             self._transform = tr.pixelbert_transform(
@@ -150,8 +149,7 @@ class Session:
 
     def assemble(self, images: Sequence, texts: Sequence[str]) -> Dict[str, np.ndarray]:
         """Raw requests -> wire-format batch (leading axis = len(images))."""
-        from rmcl_tpu_torch._host import reference_module
-        to_rows = reference_module("data.arrow_dataset")._images_to_patch_rows
+        from rmcl_tpu_torch.data.patch_rows import images_to_patch_rows as to_rows
         if self.tokenizer is None:
             raise ValueError("raw requests need a tokenizer")
         H, W = self.cfg.image_bucket_hw
@@ -174,6 +172,37 @@ class Session:
         if not images:
             raise ValueError("predict() needs at least one request")
         return self.infer(self.assemble(images, texts))
+
+
+def postprocess(task: str, out, tokenizer=None, text_ids=None,
+                topk: int = 5) -> List[Dict]:
+    """Raw task outputs -> JSON-serializable per-request records (the
+    `rmcl serve` response format)."""
+    out = np.asarray(out, np.float32)
+    recs: List[Dict] = []
+    for i in range(out.shape[0]):
+        if task == "itm":
+            p = np.exp(out[i] - out[i].max())
+            p /= p.sum()
+            recs.append({"match_prob": float(p[1])})
+        elif task == "rank":
+            recs.append({"score": float(out[i])})
+        elif task == "embed":
+            recs.append({"embedding": [float(x) for x in out[i]]})
+        elif task == "vqa":
+            p = np.exp(out[i] - out[i].max())
+            p /= p.sum()
+            top = np.argsort(-p)[:topk]
+            recs.append({"answers": [[int(j), float(p[j])] for j in top]})
+        else:  # mlm: argmax token at each [MASK] position
+            ids = np.asarray(text_ids[i])
+            mask_id = tokenizer.mask_token_id
+            pos = np.where(ids == mask_id)[0]
+            pred = out[i].argmax(axis=-1)
+            recs.append({"fills": [
+                [int(p_), tokenizer.convert_ids_to_tokens(int(pred[p_]))]
+                for p_ in pos]})
+    return recs
 
 
 def load_state_dict_file(path: str) -> Dict[str, torch.Tensor]:

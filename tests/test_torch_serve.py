@@ -108,7 +108,7 @@ def test_cli_serve_matches_jax_records(tmp_path):
 
     overrides = [f"{k}={v!r}" for k, v in TINY.items()]
     rc = main(["serve", "vqa", f"input={inp}", f"output={outp}", "batch_size=2",
-               "with", *overrides, "loss_names={'vqa': 1}",
+               "device=cpu", "with", *overrides, "loss_names={'vqa': 1}",
                f"tokenizer={vocab}", f"load_path={ckpt}"])
     assert rc == 0
     with open(outp) as f:
@@ -138,19 +138,20 @@ _SESSION_RUN = (
     "     'text_masks': np.ones((3, 10), np.int32)}\n"
     "out = Session(cfg, seeded_model(cfg), 'vqa', 2, 'cpu').infer(b)\n"
     "assert out.shape == (3, 7) and np.isfinite(out).all()\n"
-    "from rmcl_tpu.serve import postprocess\n"
+    "from rmcl_tpu_torch.serve import postprocess\n"
     "assert len(postprocess('vqa', out)) == 3\n")
 _CLI_RUN = (   # raw requests: PNG, tokenizer, image pipeline, serve CLI
     "import json, numpy as np\n"
     "from PIL import Image\n"
-    "from rmcl_tpu_torch._host import reference_module\n"
     "from rmcl_tpu_torch.cli.run import main\n"
-    "vocab = reference_module('data.tokenizer').make_tiny_vocab('vocab.txt', ['red', 'dog'])\n"
+    "from rmcl_tpu_torch.data.tokenizer import make_tiny_vocab\n"
+    "vocab = make_tiny_vocab('vocab.txt', ['red', 'dog'])\n"
     "Image.fromarray(np.full((40, 64, 3), 128, np.uint8)).save('im.png')\n"
     "with open('reqs.jsonl', 'w') as f:\n"
     "    f.write(json.dumps({'image': 'im.png', 'text': 'red dog'}) + '\\n')\n"
     f"args = [f'{{k}}={{v!r}}' for k, v in {TINY!r}.items()]\n"
-    "assert main(['serve', 'vqa', 'input=reqs.jsonl', 'output=out.jsonl', 'with',\n"
+    "assert main(['serve', 'vqa', 'input=reqs.jsonl', 'output=out.jsonl',\n"
+    "             'device=cpu', 'with',\n"
     "             *args, \"loss_names={'vqa': 1}\", f'tokenizer={vocab}']) == 0\n"
     "with open('out.jsonl') as f:\n"
     "    assert len(f.readlines()) == 1\n")
@@ -160,7 +161,8 @@ _CLI_RUN = (   # raw requests: PNG, tokenizer, image pipeline, serve CLI
 def test_port_never_imports_jax(run, tmp_path):
     code = (
         f"import sys\nsys.path.insert(0, {REPO!r})\n{run}"
-        "assert 'jax' not in sys.modules, sorted(m for m in sys.modules if 'jax' in m)\n"
+        "bad = sorted(m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'rmcl_tpu'))\n"
+        "assert not bad, bad\n"
         "print('OK')\n")
     env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
     p = subprocess.run([sys.executable, "-c", code], cwd=tmp_path, env=env,
