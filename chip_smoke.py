@@ -1,5 +1,5 @@
-"""Smoke run of the PyTorch port on one NVIDIA GPU: the serving path and the
-PGD image attack.
+"""Smoke run of the PyTorch port on one NVIDIA GPU: the serving path, the PGD
+image attack and the task_moco training step.
 
     python3 chip_smoke.py
 
@@ -8,7 +8,9 @@ Run from the root of the repository.  ViLT-B/32 at full width and depth
 seeded random weights: ``task_finetune_vqa`` for serving (S = 40 + 229 =
 269, 3129 VQA labels, u8 wire) and ``task_moco`` for the attack
 (max_image_len 200 so S = 40 + 201 = 241, 16 pairs, queue 65,536 x 128,
-adv_steps_img 5, adv_lr_img 0.05, adv_max_norm_img 0.005, temperature 0.07).
+adv_steps_img 5, adv_lr_img 0.05, adv_max_norm_img 0.005, temperature 0.07)
+and for the training step (the same, image and text views on, drop_rate 0.1,
+momentum 0.999, AdamW at 1e-4 with warmup 0 so that the first update moves).
 Phases, any failure exits non-zero:
 
   1. device    a CUDA device, its name and power limit (nvidia-smi)
@@ -25,7 +27,15 @@ Phases, any failure exits non-zero:
                bf16).  Beside the device sub-kernels the one PyTorch call
                that computes the same function is timed (F.linear for a GEMM
                without LayerNorm, F.scaled_dot_product_attention for the
-               attention core); the port never calls them.
+               attention core, torch.matmul(A.t(), B) for the weight-gradient
+               GEMM); the port never calls them.
+               The training ops at B=16, S=241, fp32 and bf16, p = 0.1 and
+               p = 0: attn_half_train and mlp_half_train, and their backwards
+               on the forward's kept tensors with a random g, every output
+               against its plain version (each relative to its own max); the
+               masks the kernels emit, forward and backward, equal
+               philox.keep_mask bit for bit, keep rate within 0.002 of 0.9;
+               two backward calls give identical bits.
   4. serving   a batch-8 Session answers 20 synthetic wire-format requests
                (last chunk short: padded); every block of every forward must
                go through both kernels (launch counters); outputs finite
@@ -54,6 +64,27 @@ Phases, any failure exits non-zero:
                is within its own error of 0 the sign may differ, which the
                small per-step size bounds (hence the two-part tolerance).
 
+  8. train     create_train_state + make_train_step for task_moco, bf16, 16
+               pairs with seeded attacked ids (three tokens of each caption
+               substituted), one warm-up step and three timed.  Per step the
+               launch counters read 48 of each training forward (12 x 4
+               views), 36 of each training backward (12 x 3 views), 72 of
+               each deterministic forward (12 key encoder + 60 attack) and 60
+               of each dx op; every loss finite; every trainable parameter
+               moved (but the unused mask_token) and no twin by more than the
+               momentum step allows; the queue pointer advanced by 16 and the
+               written columns equal the step's keys.  Step time (median of
+               3, host clock + synchronize), pairs/s, the split by CUDA
+               events into key forward / attack / views / optimizer, and
+               max_memory_allocated.
+  9. train slice  one step of 4 pairs in fp32 at full width and depth: the card's
+               kernels against the CPU's plain ops from the same weights,
+               batch and dropout seeds (so the same masks): loss within 1e-5
+               relative; every gradient, updated parameter, twin and the
+               queue within 2e-4 * max(1, max|ref|); the pointer equal.  An
+               AdamW step moves an element by at most the rate (1e-4), so the
+               share of elements within 2% of the rate is printed beside it.
+
 The line before the last is the kernels' JSON record; the last line is
 ``{"ok": true, "device": {...}}``.  Without a card, or outside the
 repository, it exits non-zero and prints no result.
@@ -61,7 +92,8 @@ repository, it exits non-zero and prints no result.
     python3 chip_smoke.py --profile
 
 runs phases 1 and 2 and then, in place of the checks, traces five serving
-forwards and two attacks with ``torch.profiler`` and prints, for each, the
+forwards, two attacks and two training steps with ``torch.profiler`` and
+prints, for each, the
 device time by kernel name, the device-busy and wall time per call and the
 idle share (the breakdowns of PERF.md section 5).
 """
@@ -91,7 +123,14 @@ KERNELS = {  # op -> the Pallas kernel body it replaces
     "mlp_half": "rmcl_tpu/ops/pallas_block.py:526",
     "attn_half_dx": "rmcl_tpu/ops/pallas_block.py:336",
     "mlp_half_dx": "rmcl_tpu/ops/pallas_block.py:626",
+    "attn_half_train": "rmcl_tpu/ops/pallas_block.py:1260",
+    "attn_half_train_bwd": "rmcl_tpu/ops/pallas_block.py:1280",
+    "mlp_half_train": "rmcl_tpu/ops/pallas_block.py:743",
+    "mlp_half_train_bwd": "rmcl_tpu/ops/pallas_block.py:795",
 }
+TRAIN_OPS = ("attn_half_train", "attn_half_train_bwd", "mlp_half_train", "mlp_half_train_bwd")
+TRAIN_STEPS = 3
+DROP_P = 0.1
 SOURCE = "rmcl_tpu_torch/csrc/block_kernels.cu"
 PEAK_BYTES_S = 3.35e12      # H100 SXM device memory
 PEAK_BF16_FLOPS = 989e12    # H100 SXM tensor cores, dense bf16
@@ -170,11 +209,19 @@ def op_work(name: str, B: int, S: int, C: int, saved: bool = False) -> tuple:
     product the op is defined by."""
     M, C4 = B * S, 4 * C
     act = 2 * M * C                       # one (B, S, C) bf16 tensor
-    if name == "attn_half":               # qkv, proj; q.k^T, p.v
+    if name in ("attn_half", "attn_half_train"):   # qkv, proj; q.k^T, p.v
         return (8 * M * C * C + 4 * B * S * S * C,
                 2 * act + 4 * M + 2 * 4 * C * C + 4 * 6 * C)
-    if name == "mlp_half":                # fc1, fc2
+    if name in ("mlp_half", "mlp_half_train"):     # fc1, fc2
         return 4 * M * C * C4, 2 * act + 2 * 2 * C * C4 + 4 * (3 * C + C4)
+    if name == "attn_half_train_bwd":     # the dx work from the kept qkv, + dWqkv, dWproj;
+        # reads x, g, qkv, attn; writes dx and the fp32 parameter gradients
+        return (16 * M * C * C + 10 * B * S * S * C,
+                7 * act + 4 * M + 2 * 4 * C * C + 4 * 2 * C + 4 * (4 * C * C + 6 * C))
+    if name == "mlp_half_train_bwd":      # g.W2, dh.W1, dW1, dW2; reads x, g, h, a_d
+        return (8 * M * C * C4,
+                3 * act + 2 * 2 * M * C4 + 2 * 2 * C * C4 + 4 * 2 * C
+                + 4 * (2 * C * C4 + 3 * C + C4))
     if name == "attn_half_dx":            # [qkv], g.Wproj, dqkv.Wqkv; s, dp, dq, dk, dv
         return ((8 if saved else 14) * M * C * C + 10 * B * S * S * C,
                 3 * act + 4 * M + 2 * 4 * C * C + 4 * 5 * C + (3 * act if saved else 0))
@@ -259,6 +306,8 @@ def phase_kernels(dev) -> dict:
                         f"{name}[{variant}]", tag, shape, op, plain, args, rtol,
                         dtype == torch.float32)
 
+        _train_kernels(res, dev, x, mask, g, (lw, lb), (wq, bq, wp, bp), (w1, b1, w2, b2),
+                       H, eps, shape)
         res["sub_kernels"] = _library_yardsticks(dev, FB, x.to(torch.bfloat16), mask,
                                                  wq.to(torch.bfloat16), bq, H)
     for name in KERNELS:
@@ -271,6 +320,89 @@ def phase_kernels(dev) -> dict:
     for name in ("attn_half_dx", "mlp_half_dx"):
         res[name]["recompute_bound_ms"] = bound(name, PGD_BATCH, 241, C, saved=False)[0]
     return res
+
+
+GRADS = ("dx", "dln_w", "dln_b", "dw_first", "db_first", "dw_second", "db_second")
+
+
+def _compare_all(name, tag, shape, op, plain, args, rtol, fp32, names, timed):
+    """An op with several outputs: each against the plain version's, relative
+    to its own max; two calls of the op must give identical bits."""
+    ref = plain(*args)
+    out, again = op(*args), op(*args)
+    torch.cuda.synchronize()
+    worst = 0.0
+    for n, o, o2, r in zip(names, out, again, ref):
+        check(bool(torch.isfinite(o).all()), f"{name} {tag}: non-finite {n}")
+        check(torch.equal(o, o2), f"{name} {tag}: {n} differs between two calls")
+        err = (o.float() - r.float()).abs().max().item()
+        ref_max = r.float().abs().max().item()
+        tol = rtol * (max(1.0, ref_max) if fp32 else ref_max)
+        check(err <= tol, f"{name} {tag}: {n} error {err} > {tol}")
+        worst = max(worst, err / tol)
+    rec = dict(err=(out[0].float() - ref[0].float()).abs().max().item(), worst=worst)
+    if timed:
+        rec.update(ms=time_ms(lambda: op(*args)), plain_ms=time_ms(lambda: plain(*args)))
+    print(f"[kernels] {name} {tag} {shape}: {len(names)} outputs, bit-identical twice, "
+          f"max_abs_err({names[0]})={rec['err']!r}, worst error/tolerance={worst:.3f} "
+          f"kernel_ms={rec.get('ms')!r} plain_ms={rec.get('plain_ms')!r}")
+    return rec
+
+
+def _train_kernels(res, dev, x, mask, g, ln, attn_w, mlp_w, H, eps, shape) -> None:
+    """The four training ops against their plain versions at the step's
+    shape, fp32 and bf16, p = 0.1 (timed) and p = 0; masks against philox."""
+    from rmcl_tpu_torch.ops import fused_block_train as FT
+    from rmcl_tpu_torch.ops.philox import keep_mask
+    lw, lb = ln
+    wq, bq, wp, bp = attn_w
+    w1, b1, w2, b2 = mlp_w
+    B, S, C = x.shape
+    gen = torch.Generator(device=dev).manual_seed(SEED + 6)
+    seeds = torch.randint(-2 ** 31, 2 ** 31, (B,), generator=gen, device=dev).int()
+    for p in (DROP_P, 0.0):
+        want = [keep_mask(seeds, 0, S, C, p), keep_mask(seeds, 0, S, 4 * C, p),
+                keep_mask(seeds, 1, S, C, p)]
+        rates = [m.float().mean().item() for m in want]
+        check(all(abs(r - (1 - p)) <= 0.002 for r in rates), f"keep rates {rates} at p={p}")
+        for dtype, rtol, tag in ((torch.float32, 2e-4, "fp32"), (torch.bfloat16, 2e-2, "bf16")):
+            xd, gd = x.to(dtype), g.to(dtype)
+            a_w = (lw, lb, wq.to(dtype), bq, wp.to(dtype), bp)
+            m_w = (lw, lb, w1.to(dtype), b1, w2.to(dtype), b2)
+            fp32, timed, key = dtype == torch.float32, p > 0, f"{tag}_p{p}"
+            tag_p = f"{tag} p={p}"
+            # forwards: the emitted masks, then the output
+            _, m_a = FT.attn_half_train(xd, seeds, mask, *a_w, H, eps, p, emit_mask=True)
+            _, m_1, m_2 = FT.mlp_half_train(xd, seeds, *m_w, p, eps, emit_mask=True)
+            check(torch.equal(m_a, want[0]) and torch.equal(m_1, want[1])
+                  and torch.equal(m_2, want[2]), f"forward masks differ from philox ({tag_p})")
+            res.setdefault("attn_half_train", {})[key] = _compare_all(
+                "attn_half_train", tag_p, shape,
+                lambda *a: (FT.attn_half_train(*a),),
+                lambda *a: (FT.attn_half_train_plain(*a),),
+                (xd, seeds, mask, *a_w, H, eps, p), rtol, fp32, ("out",), timed)
+            res.setdefault("mlp_half_train", {})[key] = _compare_all(
+                "mlp_half_train", tag_p, shape,
+                lambda *a: (FT.mlp_half_train(*a),),
+                lambda *a: (FT.mlp_half_train_plain(*a),),
+                (xd, seeds, *m_w, p, eps), rtol, fp32, ("out",), timed)
+            # backwards on what the forward kernels kept
+            _, qkv, att, _ = FT._attn_train_fwd(xd, seeds, mask, *a_w, H, eps, p)
+            _, h, a_d, _, _ = FT._mlp_train_fwd(xd, seeds, *m_w, eps, p, True)
+            a_args = (xd, seeds, mask, lw, lb, a_w[2], a_w[4], gd, qkv, att, H, eps, p)
+            m_args = (xd, seeds, lw, lb, m_w[2], m_w[4], gd, h, a_d, p, eps)
+            *_, m_a = FT.attn_half_train_bwd(*a_args, emit_mask=True)
+            *_, m_1, m_2 = FT.mlp_half_train_bwd(*m_args, emit_mask=True)
+            check(torch.equal(m_a, want[0]) and torch.equal(m_1, want[1])
+                  and torch.equal(m_2, want[2]), f"backward masks differ from philox ({tag_p})")
+            res.setdefault("attn_half_train_bwd", {})[key] = _compare_all(
+                "attn_half_train_bwd", tag_p, shape, FT.attn_half_train_bwd,
+                FT.attn_half_train_bwd_plain, a_args, rtol, fp32, GRADS, timed)
+            res.setdefault("mlp_half_train_bwd", {})[key] = _compare_all(
+                "mlp_half_train_bwd", tag_p, shape, FT.mlp_half_train_bwd,
+                FT.mlp_half_train_bwd_plain, m_args, rtol, fp32, GRADS, timed)
+        print(f"[kernels] p={p}: the masks of both directions equal philox.keep_mask bit "
+              f"for bit; keep rates {rates}")
 
 
 def _library_yardsticks(dev, FB, x, mask, wqkv, bqkv, H) -> list:
@@ -299,6 +431,21 @@ def _library_yardsticks(dev, FB, x, mask, wqkv, bqkv, H) -> list:
               f"({flops / lib_ms / 1e9:.1f} TFLOP/s) max_abs_diff={err!r}")
         out.append(dict(name=f"ln_gemm[{label}]", ms=ms, library_ms=lib_ms,
                         library="F.linear"))
+    from rmcl_tpu_torch.ops.fused_block_train import _gemm_tn
+    for label, Na, Nb in (("dWqkv", 3 * C, C), ("dWproj", C, C), ("dW1", 4 * C, C),
+                          ("dW2", C, 4 * C)):
+        a = torch.randn(M, Na, generator=gen, device=dev).bfloat16()
+        b = torch.randn(M, Nb, generator=gen, device=dev).bfloat16()
+        ms = time_ms(lambda: _gemm_tn(lib, a, b))
+        lib_ms = time_ms(lambda: torch.matmul(a.t(), b))
+        ref = torch.matmul(a.float().t(), b.float())
+        err = ((_gemm_tn(lib, a, b) - ref).abs().max() / ref.abs().max()).item()
+        flops = 2 * M * Na * Nb
+        print(f"[kernels] gemm_tn ({label}: M={M} -> {Na}x{Nb}) bf16 in, fp32 out: "
+              f"kernel_ms={ms!r} ({flops / ms / 1e9:.1f} TFLOP/s) torch.matmul(A.t(),B)_ms="
+              f"{lib_ms!r} ({flops / lib_ms / 1e9:.1f} TFLOP/s) max_rel_diff={err!r}")
+        out.append(dict(name=f"gemm_tn[{label}]", ms=ms, library_ms=lib_ms,
+                        library="torch.matmul(A.t(), B)"))
     qkv = torch.empty(M, 3 * C, device=dev, dtype=torch.bfloat16)
     FB._gemm(lib, x.view(M, C), wqkv, bqkv, qkv)
     att = torch.empty(M, C, device=dev, dtype=torch.bfloat16)
@@ -459,21 +606,28 @@ def live_patches(model, cfg, img) -> torch.Tensor:
         1, prep.sel, valid)
 
 
-def pgd_setup(dev) -> tuple:
-    """The attack's model (seeded, on ``dev``), its CPU state, 16 pairs, their
-    keys and the attack closure."""
-    from rmcl_tpu_torch import build_config
-    from rmcl_tpu_torch.attacks.pgd import make_pgd_moco
+def moco_model(cfg):
+    """A seeded task_moco model on the CPU with a seeded queue of l2-normalised
+    keys and momentum twins that differ from the query side."""
     from rmcl_tpu_torch.serve import seeded_model
-    cfg = build_config(PGD_CONFIG)
     model = seeded_model(cfg, SEED).eval()
     g = torch.Generator().manual_seed(SEED + 3)
-    with torch.no_grad():   # a seeded queue of l2-normalised keys, and twins that differ
+    with torch.no_grad():
         q = torch.nn.functional.normalize(torch.randn(model.proj_queue.shape, generator=g),
                                           dim=0)
         model.proj_queue.copy_(q.to(model.proj_queue.dtype))
         for p in model.k_transformer.parameters():
             p.add_(torch.randn(p.shape, generator=g) * 0.02)
+    return model
+
+
+def pgd_setup(dev) -> tuple:
+    """The attack's model (seeded, on ``dev``), its CPU state, 16 pairs, their
+    keys and the attack closure."""
+    from rmcl_tpu_torch import build_config
+    from rmcl_tpu_torch.attacks.pgd import make_pgd_moco
+    cfg = build_config(PGD_CONFIG)
+    model = moco_model(cfg)
     cpu_state = copy.deepcopy(model.state_dict())
     model = model.to(dev)
     batch = pgd_batch(cfg, PGD_BATCH, SEED + 4, dev)
@@ -500,8 +654,9 @@ def phase_pgd(dev) -> tuple:
     want = cfg.num_layers * cfg.adv_steps_img
     print(f"[pgd] {cfg.adv_steps_img} steps, {PGD_BATCH} pairs, bf16: launches {counts}")
     for name in KERNELS:
-        check(counts[name] == want, f"{name} launched {counts[name]} times in the attack, "
-                                    f"expected {cfg.num_layers} x {cfg.adv_steps_img}")
+        expect = 0 if name in TRAIN_OPS else want
+        check(counts[name] == expect, f"{name} launched {counts[name]} times in the attack, "
+                                      f"expected {expect}")
 
     check(delta.shape == batch["image"].shape, f"delta shape {tuple(delta.shape)}")
     check(bool(torch.isfinite(delta).all()), "non-finite delta")
@@ -577,6 +732,211 @@ def phase_pgd_slice(cfg, cpu_state, vqa_cfg, vqa_cpu32, vqa_gpu32, dev) -> None:
     _delta_check(f"make_pgd_vqa, {N_CPU} requests, 1 step", ref, ours, cfg.adv_max_norm_img)
 
 
+# ----------------------------------------------------------------- train
+def train_batch(cfg, n: int, seed: int, dev) -> dict:
+    """``pgd_batch`` plus attacked text: three tokens of each caption (never
+    [CLS], [SEP] or padding) substituted, as a word-substitution attack leaves it."""
+    batch = pgd_batch(cfg, n, seed, dev)
+    r = np.random.RandomState(seed + 100)
+    ids = batch["text_ids"].cpu().numpy().copy()
+    lens = batch["text_masks"].cpu().numpy().sum(1)
+    for i, L in enumerate(lens):
+        pos = 1 + r.choice(L - 2, size=min(3, L - 2), replace=False)
+        ids[i, pos] = r.randint(1000, cfg.vocab_size, len(pos))
+    batch["attacked_text_ids"] = torch.from_numpy(ids).to(dev)
+    batch["attacked_text_masks"] = batch["text_masks"]
+    return batch
+
+
+def train_config():
+    from rmcl_tpu_torch import build_config
+    return build_config(PGD_CONFIG, image_view=True, text_view=True, drop_rate=DROP_P,
+                        warmup_steps=0, max_steps=1000)
+
+
+class _StepClock:
+    """CUDA events at the attack's and the optimizer's boundaries inside a
+    training step, so that one step splits into key forward / attack / views
+    / optimizer without a timing hook in the package."""
+
+    MARKS = ("start", "attack0", "attack1", "opt0", "opt1", "end")
+
+    def __init__(self, ts):
+        import rmcl_tpu_torch.train.step as step_mod
+        self.ev = {}
+        make = step_mod.make_pgd_moco
+
+        def timed_make(*a, **kw):
+            attack = make(*a, **kw)
+
+            def timed_attack(*aa, **kk):
+                self.mark("attack0")
+                out = attack(*aa, **kk)
+                self.mark("attack1")
+                return out
+            return timed_attack
+
+        self._restore = lambda: setattr(step_mod, "make_pgd_moco", make)
+        step_mod.make_pgd_moco = timed_make
+        self._hooks = [
+            ts.optimizer.register_step_pre_hook(lambda *_: self.mark("opt0")),
+            ts.optimizer.register_step_post_hook(lambda *_: self.mark("opt1"))]
+
+    def mark(self, name):
+        self.ev[name] = torch.cuda.Event(enable_timing=True)
+        self.ev[name].record()
+
+    def split(self) -> dict:
+        t = lambda a, b: self.ev[a].elapsed_time(self.ev[b])  # noqa: E731
+        return {"momentum update + key forward": t("start", "attack0"),
+                "attack": t("attack0", "attack1"),
+                "four views forward, three backward": t("attack1", "opt0"),
+                "AdamW": t("opt0", "opt1"),
+                "recast of the block matrices, metrics": t("opt1", "end")}
+
+    def close(self):
+        self._restore()
+        for h in self._hooks:
+            h.remove()
+
+
+def train_setup(dev) -> tuple:
+    from rmcl_tpu_torch.train.step import create_train_state, make_train_step
+    cfg = train_config()
+    ts = create_train_state(cfg, model=moco_model(cfg), device=dev)
+    batch = train_batch(cfg, PGD_BATCH, SEED + 4, dev)
+    return cfg, ts, batch, make_train_step(cfg, ts)
+
+
+def _expected_keys(model, batch, old_pooler) -> torch.Tensor:
+    """The keys of the step just taken: the twins are as its momentum update
+    left them, but the shared pooler has since been trained, so the key
+    forward runs with the pooler the step had."""
+    from rmcl_tpu_torch.objectives.losses import l2_normalize
+    new_pooler = copy.deepcopy(model.pooler.state_dict())
+    model.pooler.load_state_dict(old_pooler)
+    with torch.no_grad():
+        k = l2_normalize(model.k_moco_head(model.infer_k(batch)["cls_feats"]), dim=1)
+    model.pooler.load_state_dict(new_pooler)
+    return k
+
+
+def phase_train(dev) -> dict:
+    from rmcl_tpu_torch.ops import fused_block as FB
+    t0 = time.perf_counter()
+    cfg, ts, batch, step = train_setup(dev)
+    model, L = ts.model, cfg.num_layers
+    gen = torch.Generator().manual_seed(SEED + 7)
+    n_train = sum(p.numel() for p in model.parameters() if p.requires_grad)
+    print(f"[train] {PGD_CONFIG}, image and text views, drop_rate {cfg.drop_rate}, "
+          f"{n_train / 1e6:.1f} M trainable parameters, {PGD_BATCH} pairs, state ready in "
+          f"{time.perf_counter() - t0:.1f} s")
+    step(batch, gen)                                        # warm-up
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    want = {"attn_half_train": 4 * L, "mlp_half_train": 4 * L,
+            "attn_half_train_bwd": 3 * L, "mlp_half_train_bwd": 3 * L,
+            "attn_half": L + L * cfg.adv_steps_img, "mlp_half": L + L * cfg.adv_steps_img,
+            "attn_half_dx": L * cfg.adv_steps_img, "mlp_half_dx": L * cfg.adv_steps_img}
+    clock = _StepClock(ts)
+    walls, splits, counts = [], [], None
+    try:
+        for it in range(TRAIN_STEPS):
+            before = {n: p.detach().clone() for n, p in model.named_parameters()}
+            old_pooler = copy.deepcopy(model.pooler.state_dict())
+            ptr0 = int(model.proj_queue_ptr)
+            FB.reset_launches()
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            clock.mark("start")
+            metrics = step(batch, gen)
+            clock.mark("end")
+            torch.cuda.synchronize()
+            walls.append((time.perf_counter() - t) * 1e3)
+            splits.append(clock.split())
+            counts = dict(FB.launches)
+            check(counts == want, f"step {it}: launches {counts}, expected {want}")
+            vals = {k: v.item() for k, v in metrics.items()}
+            bad = [k for k, v in vals.items() if not np.isfinite(v)]
+            check(not bad, f"step {it}: non-finite metrics {bad}")
+            # parameters: the trained ones moved, the twins by the momentum step only
+            m = cfg.momentum
+            for n, p in model.named_parameters():
+                moved = (p.detach() - before[n]).abs().max().item()
+                if n.startswith("k_"):
+                    gap = (before[n[2:]] - before[n]).abs().max().item()
+                    check(moved <= (1 - m) * gap * 1.001 + 1e-7,
+                          f"step {it}: twin {n} moved {moved}, momentum allows {(1 - m) * gap}")
+                elif not n.endswith("mask_token"):     # mask_token: MPP only, zero, unused
+                    check(moved > 0, f"step {it}: {n} did not move")
+            # queue: the pointer advanced and the written columns are the keys
+            ptr1 = int(model.proj_queue_ptr)
+            check(ptr1 == (ptr0 + PGD_BATCH) % cfg.num_negative, f"pointer {ptr0} -> {ptr1}")
+            k = _expected_keys(model, batch, old_pooler)
+            written = model.proj_queue[:, ptr0:ptr0 + PGD_BATCH].t().float()
+            kdiff = (written - k.to(model.proj_queue.dtype).float()).abs().max().item()
+            check(kdiff <= 1e-6, f"step {it}: queue columns differ from the keys by {kdiff}")
+            print(f"[train] step {it}: total_loss={vals['total_loss']!r} txt/img/both "
+                  f"{vals['attacked_txt_loss']:.4f}/{vals['attacked_img_loss']:.4f}/"
+                  f"{vals['attacked_both_loss']:.4f} lr={vals['lr']!r} pgd_delta="
+                  f"{vals['pgd_delta']:.5f}; pointer {ptr0} -> {ptr1}, keys written exactly; "
+                  f"{walls[-1]:.1f} ms")
+    finally:
+        clock.close()
+    ms = statistics.median(walls)
+    mem = torch.cuda.max_memory_allocated() / 2 ** 30
+    split = {k: statistics.median(s[k] for s in splits) for k in splits[0]}
+    print(f"[train] launches per step {counts}: every block through the kernels")
+    print(f"[train] step {ms!r} ms (median of {TRAIN_STEPS}, host clock + synchronize), "
+          f"{PGD_BATCH / ms * 1e3!r} pairs/s; max_memory_allocated {mem:.2f} GiB")
+    print("[train] split of a step by CUDA events, ms (median): "
+          + "; ".join(f"{k} {v:.2f}" for k, v in split.items()))
+    return counts
+
+
+def phase_train_slice(dev) -> None:
+    from rmcl_tpu_torch.compat.from_jax import leaves_to_jax
+    from rmcl_tpu_torch.train.step import create_train_state, make_train_step
+    cfg32 = train_config().replace(compute_dtype="float32", queue_dtype="float32")
+    base = moco_model(cfg32)
+    batch = train_batch(cfg32, N_CPU, SEED + 4, "cpu")
+    results = {}
+    for where in ("cpu", dev):
+        ts = create_train_state(cfg32, model=copy.deepcopy(base), device=where)
+        t0 = time.perf_counter()
+        metrics = make_train_step(cfg32, ts)({k: v.to(where) for k, v in batch.items()},
+                                             torch.Generator().manual_seed(SEED + 8))
+        loss = metrics["total_loss"].item()
+        results[str(where)] = (loss, leaves_to_jax(ts.model, grads=True),
+                               leaves_to_jax(ts.model), time.perf_counter() - t0)
+    (l_ref, g_ref, p_ref, cpu_s), (l_gpu, g_gpu, p_gpu, _) = results["cpu"], results[str(dev)]
+    rel = abs(l_gpu - l_ref) / abs(l_ref)
+    print(f"[train slice] {N_CPU} pairs, fp32, one step: CPU plain ops ({cpu_s:.1f} s) loss "
+          f"{l_ref!r}, card kernels {l_gpu!r}, relative difference {rel!r} (tol 1e-5)")
+    check(rel <= 1e-5, f"loss differs by {rel} relative")
+
+    def worst(ours, ref, what):
+        check(set(ours) == set(ref), f"{what}: leaves differ")
+        w = ("", 0.0)
+        for path, r in ref.items():
+            err = float(np.abs(ours[path] - r).max())
+            tol = 2e-4 * max(1.0, float(np.abs(r).max()))
+            check(err <= tol, f"{what} {path}: {err} > {tol}")
+            w = max(w, (path, err / tol), key=lambda t: t[1])
+        return w
+
+    wg, wp = worst(g_gpu, g_ref, "gradient"), worst(p_gpu, p_ref, "updated leaf")
+    check(int(p_gpu["proj_queue_ptr"]) == int(p_ref["proj_queue_ptr"]) == N_CPU, "pointer")
+    lr = train_config().learning_rate
+    trained = [p for p in g_ref if not p.startswith("k_")]
+    near = (sum(int((np.abs(p_gpu[p] - p_ref[p]) <= 0.02 * lr).sum()) for p in trained)
+            / sum(p_ref[p].size for p in trained))
+    print(f"[train slice] {len(g_ref)} gradients within 2e-4 * max(1, max|ref|) (worst "
+          f"{wg[0]} at {wg[1]:.3f} of its bound); {len(p_ref)} updated leaves (parameters, "
+          f"twins, queue) within the same bound (worst {wp[0]} at {wp[1]:.3f}); pointer "
+          f"{N_CPU}; {near:.6f} of the trained elements within 2% of the rate {lr}")
+
+
 # --------------------------------------------------------------- profile
 def _device_us(evt) -> float:
     for attr in ("self_device_time_total", "self_cuda_time_total"):
@@ -585,7 +945,7 @@ def _device_us(evt) -> float:
     return 0.0
 
 
-def _trace(what: str, fn, calls: int) -> None:
+def _trace(what: str, fn, calls: int, top: int = 12) -> None:
     from torch.profiler import ProfilerActivity, profile
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
@@ -595,19 +955,20 @@ def _trace(what: str, fn, calls: int) -> None:
         torch.cuda.synchronize()
         wall = (time.perf_counter() - t0) * 1e3 / calls
     from torch.autograd import DeviceType
-    # device-side events only: a host op's device time is its kernels' again
+    # device-side events only: a host op's device time is its kernels' again, and so
+    # is that of an annotation the optimizer puts on the device's timeline
     rows = [(e.key, e.count, _device_us(e)) for e in prof.key_averages()
-            if e.device_type == DeviceType.CUDA]
+            if e.device_type == DeviceType.CUDA and not e.key.startswith("Optimizer.")]
     rows = sorted((r for r in rows if r[2] > 0), key=lambda r: -r[2])
     busy = sum(r[2] for r in rows) / 1e3 / calls
     check(busy > 0, f"{what}: the profiler saw no device time")
     print(f"[profile] {what}: wall {wall!r} ms per call under the profiler, device busy "
           f"{busy!r} ms, idle share {1 - busy / wall:.3f}; "
           f"{sum(r[1] for r in rows) / calls:.0f} device kernels and copies per call")
-    for key, count, us in rows[:12]:
+    for key, count, us in rows[:top]:
         print(f"[profile]   {us / 1e3 / calls:9.4f} ms  {100 * us / 1e3 / calls / wall:5.1f}% "
               f"of wall  x{count / calls:<6.0f} {key[:90]}")
-    rest = sum(r[2] for r in rows[12:]) / 1e3 / calls
+    rest = sum(r[2] for r in rows[top:]) / 1e3 / calls
     print(f"[profile]   {rest:9.4f} ms  {100 * rest / wall:5.1f}% of wall  every other kernel")
 
 
@@ -625,6 +986,12 @@ def phase_profile(dev) -> None:
     pcfg, model, _, batch, k, attack = pgd_setup(dev)
     _trace(f"pgd, {PGD_CONFIG}, one {pcfg.adv_steps_img}-step attack on {PGD_BATCH} pairs, "
            f"bf16", lambda: attack(batch, k, model.proj_queue), 2)
+    del model, batch, k, attack
+    _, _, tbatch, step = train_setup(dev)
+    gen = torch.Generator().manual_seed(SEED + 7)
+    step(tbatch, gen)
+    _trace(f"train, {PGD_CONFIG}, one training step of {PGD_BATCH} pairs (image and text "
+           f"views, drop_rate {DROP_P}), bf16", lambda: step(tbatch, gen), 2, top=24)
 
 
 def main() -> int:
@@ -669,6 +1036,11 @@ def main() -> int:
         pgd_cfg, pgd_state, pgd_counts = phase_pgd(dev)
         phase = "pgd slice"
         phase_pgd_slice(pgd_cfg, pgd_state, cfg, vqa_cpu32, vqa_gpu32, dev)
+        del vqa_cpu32, vqa_gpu32
+        phase = "train"
+        train_counts = phase_train(dev)
+        phase = "train slice"
+        phase_train_slice(dev)
     except Exception as e:  # noqa: BLE001  every phase failure ends the run
         traceback.print_exc()
         print(f"chip_smoke: FAILED in phase {phase}: {e}", file=sys.stderr)
@@ -676,15 +1048,20 @@ def main() -> int:
     records = []
     for name, replaces in KERNELS.items():
         r = kres[name]
-        dx = name.endswith("_dx")
-        main = r["bf16_saved"] if dx else r["bf16"]
+        dx, train = name.endswith("_dx"), name in TRAIN_OPS
+        main = r[f"bf16_p{DROP_P}"] if train else r["bf16_saved"] if dx else r["bf16"]
         rec = {"name": name, "route": "cuda", "source": SOURCE, "replaces": replaces,
-               "launches": pgd_counts[name] if dx else counts[name],
-               "launches_by_path": {"serving": counts.get(name, 0), "pgd": pgd_counts[name]},
+               "launches": (train_counts if train else pgd_counts if dx else counts)[name],
+               "launches_by_path": {"serving": counts.get(name, 0), "pgd": pgd_counts[name],
+                                    "train": train_counts[name]},
                "max_abs_err": main["err"], "ms": main["ms"], "plain_ms": main["plain_ms"],
                "bound_ms": r["bound_ms"], "bound_by": r["bound_by"], "library_ms": None,
-               "shape": "B=16 S=241" if dx else "B=8 S=269"}
-        if dx:   # the path's default keeps qkv / h; the recomputing variant beside it
+               "shape": "B=8 S=269" if not (dx or train) else "B=16 S=241"}
+        if train:
+            rec.update(p=DROP_P, fp32_ms=r[f"fp32_p{DROP_P}"]["ms"],
+                       fp32_plain_ms=r[f"fp32_p{DROP_P}"]["plain_ms"],
+                       worst_error_over_tolerance=main["worst"])
+        elif dx:   # the path's default keeps qkv / h; the recomputing variant beside it
             rec.update(variant="saved", recompute_ms=r["bf16_recompute"]["ms"],
                        recompute_plain_ms=r["bf16_recompute"]["plain_ms"],
                        recompute_max_abs_err=r["bf16_recompute"]["err"],

@@ -3,18 +3,25 @@
 The JAX package ``rmcl_tpu`` is the reference; this package imports torch,
 never jax, and nothing of ``rmcl_tpu``: what it needs of that package's
 jax-free host modules it keeps as its own copies.  Ported so far: the
-serving path (``rmcl serve``) and the PGD image attack.
+serving path (``rmcl serve``), the PGD image attack and the task_moco
+training step.
 
   ops/         the two deterministic block halves and their dx-only
-               backwards (attn_half, mlp_half, attn_half_dx, mlp_half_dx):
-               hand-written CUDA kernels on CUDA tensors, plain versions on
-               CPU tensors; nvcc build + ctypes binding (ops/_build.py)
+               backwards (attn_half, mlp_half, attn_half_dx, mlp_half_dx),
+               the two training halves with dropout inside and their full
+               backwards (attn_half_train, mlp_half_train, *_bwd), the
+               Philox stream of the masks (philox.py): hand-written CUDA
+               kernels on CUDA tensors, plain versions on CPU tensors; nvcc
+               build + ctypes binding (ops/_build.py)
   csrc/        the CUDA C++ sources, built at first use into _build/
   core/        the config dataclass and its named presets
   data/        tokenizer, serving image transform, patch-row relayout
   models/      layers, text embeddings, ViT, heads, ViLT with its momentum
                twins and MoCo queue (reference state_dict names)
-  objectives/  the loss primitives and InfoNCE that the attacks use
+  objectives/  the loss primitives, InfoNCE, the momentum update, the
+               queue and the MoCo objective with its four views
+  train/       parameter groups, schedule and AdamW (schedule.py); TrainState
+               and make_train_step (step.py)
   attacks/     PGD on the pixels (moco, vqa, irtr)
   compat/      the JAX package's parameters as the port's state dict
   serve.py     build_infer_fn, batch_spec, Session, postprocess

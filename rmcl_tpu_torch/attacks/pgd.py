@@ -99,12 +99,15 @@ def _pgd_loop(loss_of_delta: Callable, shape, dtype, device,
 
 
 def _pgd_single_image(model, batch, head_loss: Callable,
-                      adv_steps: int, adv_lr: float, max_norm: float, fast: bool):
+                      adv_steps: int, adv_lr: float, max_norm: float, fast: bool,
+                      block_matrices=None):
     """Shared fast/slow scaffold of the single-image PGD variants
-    (moco, vqa and irtr differ only in ``head_loss``)."""
+    (moco, vqa and irtr differ only in ``head_loss``).  ``block_matrices``:
+    the transformer's matrices already cast to the compute type (a training
+    step keeps them), else cast here."""
     img = batch["image"]
     with _frozen(model):
-        mats = model.transformer.block_matrices(model.compute_dtype)
+        mats = block_matrices or model.transformer.block_matrices(model.compute_dtype)
         if fast:
             fwd, dshape, to_full = _fast_visual(model, batch, mats)
             delta = _pgd_loop(lambda d: head_loss(fwd(d)), dshape, img.dtype,
@@ -124,7 +127,8 @@ def make_pgd_moco(model, adv_steps: int, adv_lr: float, max_norm: float,
     """InfoNCE-ascent PGD (reference PGDAttack_moco.pgd_attack :130-175).
     ``k_modality`` (B, 128): normalised keys; ``neg_queue`` (128, K)."""
 
-    def attack(batch: Dict[str, torch.Tensor], k_modality, neg_queue):
+    def attack(batch: Dict[str, torch.Tensor], k_modality, neg_queue,
+               block_matrices=None):
         k_modality, neg_queue = k_modality.detach(), neg_queue.detach()
 
         def head_loss(infer):
@@ -133,7 +137,7 @@ def make_pgd_moco(model, adv_steps: int, adv_lr: float, max_norm: float,
             return loss / adv_steps
 
         return _pgd_single_image(model, batch, head_loss,
-                                 adv_steps, adv_lr, max_norm, fast)
+                                 adv_steps, adv_lr, max_norm, fast, block_matrices)
 
     return attack
 

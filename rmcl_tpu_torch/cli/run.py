@@ -10,6 +10,11 @@ is a ``torch.save``d reference-named state dict, plain or under
 ``"state_dict"`` as in a Lightning checkpoint; without it the weights are
 drawn from the config's seed.  Serves on the first CUDA device and fails
 when there is none; ``device=cpu`` asks for the CPU and the plain ops.
+
+``serve`` is the only subcommand.  Training has no command yet: the
+``task_moco`` training step is reached from Python through
+``rmcl_tpu_torch.train.step`` (``create_train_state``, ``make_train_step``)
+until the Trainer is ported.
 """
 
 from __future__ import annotations
@@ -119,7 +124,12 @@ def main(argv: Optional[List[str]] = None) -> int:
     if argv and argv[0] == "serve":
         return serve(argv[1:])
     print(__doc__)
-    return 0 if not argv or argv[0] in ("-h", "--help") else 2
+    if not argv or argv[0] in ("-h", "--help"):
+        return 0
+    print(f"unknown subcommand {argv[0]!r}: serve is the only one; training runs through "
+          "rmcl_tpu_torch/train/step.py:make_train_step until the Trainer (ROADMAP A9) "
+          "is ported", file=sys.stderr)
+    return 2
 
 
 if __name__ == "__main__":

@@ -1,4 +1,5 @@
-"""The JAX package's parameters and state as the port's state dict, without jax.
+"""The JAX package's parameters and state as the port's state dict, and the
+port's parameters and gradients under the JAX package's paths, without jax.
 
 The same mapping as ``rmcl_tpu/compat/torch_loader.py:export_state_dict``,
 written over numpy only:
@@ -12,6 +13,9 @@ written over numpy only:
     twins (``k_*`` trees) go through the same rules;
   * the model state's ``proj_queue`` keeps its (128, K) value and
     ``proj_queue_ptr`` () becomes (1,).
+
+``leaves_to_jax`` is the inverse, from a live model: it tells a linear weight
+from a LayerNorm or embedding weight by the module that owns it.
 """
 
 from __future__ import annotations
@@ -58,4 +62,49 @@ def state_dict_from_jax(params: Dict[str, Any], num_layers: int,
     if state and "proj_queue" in state:
         out["proj_queue"] = np.array(state["proj_queue"], order="C")
         out["proj_queue_ptr"] = np.array(state["proj_queue_ptr"]).reshape(1)
+    return out
+
+
+def leaves_to_jax(model, grads: bool = False) -> Dict[str, np.ndarray]:
+    """The model's parameters (or, with ``grads``, their gradients; a
+    parameter without one is left out) as {"/"-joined JAX path: numpy array in
+    the JAX package's layout}: the inverse of ``state_dict_from_jax``, so that
+    a test can compare leaf by leaf with the JAX pytree.  The queue buffers
+    come as ``proj_queue`` and ``proj_queue_ptr`` (a scalar) when the model
+    has them and ``grads`` is off."""
+    from rmcl_tpu_torch.models.layers import Linear   # torch only from here on
+    from rmcl_tpu_torch.models.vit import PatchEmbed
+
+    linear = {name for name, m in model.named_modules() if isinstance(m, Linear)}
+    patch = {name + ".proj" for name, m in model.named_modules()
+             if isinstance(m, PatchEmbed)}
+    flat: Dict[str, np.ndarray] = {}
+    for name, p in model.named_parameters():
+        t = p.grad if grads else p
+        if t is None:
+            continue
+        a = t.detach().float().cpu().numpy()
+        owner, leaf = name.rsplit(".", 1) if "." in name else ("", name)
+        if owner in patch and leaf == "weight":
+            leaf, a = "kernel", a.transpose(2, 3, 1, 0).reshape(-1, a.shape[0])
+        elif owner in linear and leaf == "weight":
+            leaf, a = "kernel", a.T
+        elif leaf == "mask_token":
+            a = a.reshape(-1)
+        flat["/".join(filter(None, [owner.replace(".", "/"), leaf]))] = a
+    out: Dict[str, np.ndarray] = {}
+    stacked: Dict[str, Dict[int, np.ndarray]] = {}
+    for path, a in flat.items():
+        parts = path.split("/")
+        if "blocks" in parts:
+            i = parts.index("blocks")
+            key = "/".join(parts[:i + 1] + parts[i + 2:])
+            stacked.setdefault(key, {})[int(parts[i + 1])] = a
+        else:
+            out[path] = a
+    for key, layers in stacked.items():
+        out[key] = np.stack([layers[i] for i in range(len(layers))])
+    if not grads and hasattr(model, "proj_queue"):
+        out["proj_queue"] = model.proj_queue.detach().float().cpu().numpy()
+        out["proj_queue_ptr"] = model.proj_queue_ptr.detach().cpu().numpy().reshape(())
     return out

@@ -1,5 +1,7 @@
-// Hand-written Hopper kernels for the deterministic ViLT block halves:
-// the two forwards and their dx-only backwards.
+// Hand-written Hopper kernels for the ViLT block halves: the deterministic
+// forwards and their dx-only backwards, and the training forwards (dropout
+// inside the kernels) with their full backwards (dx and every weight, bias
+// and LayerNorm gradient).
 //
 // Replaces (JAX package, Pallas on the TPU):
 //   rmcl_tpu/ops/pallas_block.py:_fwd_impl / _half_block_kernel / _attn_fwd_math
@@ -10,11 +12,20 @@
 //     _attn_bwd_math (dx of the attention half, weights frozen)
 //   rmcl_tpu/ops/pallas_block.py:_mlp_dx_impl / _mlp_dx[_saved]_kernel
 //     (dx of the MLP half, weights frozen)
+//   rmcl_tpu/ops/pallas_block.py:_attn_train_fwd_impl / _attn_train_kernel
+//     (fused_attn_half_train: x + drop_p(proj(MHA(qkv(LN1 x)))))
+//   rmcl_tpu/ops/pallas_block.py:_attn_train_bwd_impl / _attn_train_bwd_kernel
+//     (its backward: dx + g, dLN1, dWqkv, dbqkv, dWproj, dbproj)
+//   rmcl_tpu/ops/pallas_block.py:_mlp_train_fwd_impl / _mlp_train_kernel
+//     (fused_mlp_half_train: x + drop_p(fc2(drop_p(gelu(fc1(LN2 x))))))
+//   rmcl_tpu/ops/pallas_block.py:_mlp_train_bwd_impl / _mlp_train_bwd_kernel
+//     (its backward: dx + g, dLN2, dW1, db1, dW2, db2)
 //
 // The TPU kernels run one sample per grid step with every block weight
 // resident in VMEM.  That does not carry over: wqkv alone is 3.5 MB in
 // bf16 against the 227 KB of shared memory one block can use.  Here each
-// half is a chain of two kernels, launched by rmcl_tpu_torch/ops/fused_block.py:
+// half is a chain of kernels, launched by rmcl_tpu_torch/ops/fused_block.py and
+// rmcl_tpu_torch/ops/fused_block_train.py:
 //   attention half = ln_gemm(LN1 -> qkv + bias) -> masked_attention_fwd
 //                    -> ln_gemm(proj + bias + residual)
 //   MLP half       = ln_gemm(LN2 -> fc1 + bias -> GELU)
@@ -26,6 +37,35 @@
 //   MLP dx         = [ln_gemm(LN2 -> fc1 + bias), unless h was saved]
 //                    -> gemm(dh = (g . W2) * gelu'(h)) -> gemm(dy = dh . W1, fp32)
 //                    -> ln_bwd_dx (+ g)
+//   attention train = the attention half with a dropout epilogue on the proj
+//                    GEMM (bias, round, keep / scale, round, + x); qkv and
+//                    the attention output are kept for the backward
+//   MLP train       = the MLP half with dropout after GELU in the fc1
+//                    epilogue and after the bias in the fc2 epilogue; the
+//                    pre-GELU h and the dropped activation a_d are kept
+//   attention train backward
+//                   = drop_scale(gm = keep g / (1 - p)) -> the attention dx
+//                    chain on gm, with ln_bwd_dx also writing y = LN1 x and
+//                    the row statistics -> gemm_tn(dWqkv = dqkv^T . y)
+//                    -> gemm_tn(dWproj = gm^T . attn) -> colsum(dbqkv, dbproj)
+//                    -> ln_colsum(dLN1 w, dLN1 b)
+//   MLP train backward
+//                   = drop_scale(gf = keep2 g / (1 - p)) -> gemm(dh = keep
+//                    (gf . W2) / (1 - p) * gelu'(h)) -> gemm(dy = dh . W1,
+//                    fp32) -> ln_bwd_dx (+ g, y, statistics)
+//                    -> gemm_tn(dW1 = dh^T . y) -> gemm_tn(dW2 = gf^T . a_d)
+//                    -> colsum(db1, db2) -> ln_colsum(dLN2 w, dLN2 b)
+// The TPU training backwards accumulate the weight gradients in on-chip
+// memory across a sequential batch grid.  Blocks here run in no order, so
+// the weight gradients are GEMMs that contract over all M = B S rows at once
+// (gemm_tn: one 64x64 output tile per block, a loop over M, no split of the
+// contraction and no atomics), and the column sums take two passes with a
+// fixed summation order: every gradient is reproducible bit for bit.
+// The dropout bits are Philox-4x32-10 words that depend only on (per-sample
+// seed, draw, row within the sample, column): rmcl_tpu_torch/ops/philox.py is
+// the same function in plain torch.  The backward regenerates the masks from
+// the seeds, as the TPU kernels do; no mask reaches device memory unless a
+// caller asks for it (mask_out, for tests).
 // The TPU backward bodies hold every weight and three fp32 (H, S, S)
 // tensors per sample on chip; no SM can, so the backward is the same kind
 // of chain.  The weights are stored (out, in), so a backward product
@@ -71,6 +111,10 @@
 // rounded; dv from the rounded p; dq, dk, dv rounded; g . W2 stays fp32
 // into the GELU derivative, whose product is rounded; dy fp32, never
 // rounded; the LayerNorm backward and + g in fp32, one final cast.
+// Training: GELU stays fp32 into the dropout, whose product is rounded; the
+// output dropout acts on the rounded, biased product and rounds again before
+// + x; gm and gf are computed in fp32 and rounded; every weight, bias and
+// LayerNorm gradient is accumulated and stored in fp32.
 //
 // Interface: plain C, loaded with ctypes.  Every entry point takes device
 // pointers, sizes and the CUDA stream, launches on that stream, allocates
@@ -111,6 +155,45 @@ __device__ __forceinline__ float warp_max(float v) {
   return v;
 }
 
+// ------------------------------------------------------------------ dropout
+// Word 0 of Philox-4x32-10 with counter (col, row, draw, 0) and key (seed, 0):
+// the random word of element (row, col) of a sample's draw.
+__device__ __forceinline__ uint32_t philox_word(uint32_t seed, uint32_t draw, uint32_t row,
+                                                uint32_t col) {
+  uint32_t c0 = col, c1 = row, c2 = draw, c3 = 0u, k0 = seed, k1 = 0u;
+#pragma unroll
+  for (int r = 0; r < 10; ++r) {
+    if (r) {
+      k0 += 0x9E3779B9u;
+      k1 += 0xBB67AE85u;
+    }
+    const uint32_t hi0 = __umulhi(0xD2511F53u, c0), lo0 = 0xD2511F53u * c0;
+    const uint32_t hi1 = __umulhi(0xCD9E8D57u, c2), lo1 = 0xCD9E8D57u * c2;
+    c0 = hi1 ^ c1 ^ k0;
+    c1 = lo1;
+    c2 = hi0 ^ c3 ^ k1;
+    c3 = lo0;
+  }
+  return c0;
+}
+
+// Inverted dropout over an (M, N) array whose row m belongs to sample
+// m / rows at row m % rows.  seeds == nullptr: no dropout.
+struct Drop {
+  const int32_t* seeds;   // (B,) one stream per sample
+  int rows;               // rows per sample
+  uint32_t draw;          // which mask of the stream
+  uint32_t threshold;     // keep iff word >= threshold
+  float inv_keep;         // 1 / (1 - p)
+  void* mask_out;         // (M, N) 0/1 in the activation type, or nullptr
+};
+
+__device__ __forceinline__ bool drop_keep(const Drop& d, int m, int n) {
+  const int b = m / d.rows;
+  return philox_word((uint32_t)d.seeds[b], d.draw, (uint32_t)(m - b * d.rows),
+                     (uint32_t)n) >= d.threshold;
+}
+
 // ------------------------------------------------------------------ ln_gemm
 // out[M, N] = epi(LN?(A)[M, K] . B + bias[N]), B[k][n] = W[n][k] when W is
 // stored (N, K) (forward: the weight's own (out, in) layout), or
@@ -119,8 +202,12 @@ __device__ __forceinline__ float warp_max(float v) {
 //   LN (when ln_w != nullptr): fp32 mean and variance per row over K, then
 //   (x - mean) * rsqrt(var + eps) * ln_w + ln_b, rounded to T.
 //   epi EPI_BIAS:  round to T, [+ bias rounded to T], [keep a copy in aux,
-//                  then exact-erf GELU], [+ residual]; out is T.
-//   epi EPI_DGELU: acc * gelu'(aux[m][n]) in fp32, rounded once; out is T.
+//                  then exact-erf GELU], [dropout], [+ residual]; out is T.
+//                  With dropout the GELU value stays fp32 into the keep /
+//                  scale and is rounded once; without GELU the dropout acts
+//                  on the rounded value and rounds again.
+//   epi EPI_DGELU: [dropout of acc, fp32] * gelu'(aux[m][n]) in fp32, rounded
+//                  once; out is T.
 //   epi EPI_F32:   the fp32 accumulator as it is; out is float.
 // A, W, residual and aux are T; ln_w, ln_b and bias are fp32.
 // Needs K % 8 == 0, for WKN also N % 8 == 0, and 16-byte aligned A and W
@@ -136,7 +223,8 @@ ln_gemm_kernel(const T* __restrict__ A, const float* __restrict__ ln_w,
                const float* __restrict__ ln_b, float eps,
                const T* __restrict__ W, const float* __restrict__ bias,
                const T* __restrict__ residual, T* __restrict__ aux,
-               void* __restrict__ out_v, int M, int N, int K, int gelu, int epi) {
+               void* __restrict__ out_v, int M, int N, int K, int gelu, int epi,
+               Drop drop) {
   constexpr bool kBf16 = std::is_same<T, bf16>::value;
   // row stride of the staged tiles: WMMA needs a multiple of 16 bytes;
   // the FMA path reads columns across threads, so an odd stride keeps
@@ -306,19 +394,30 @@ ln_gemm_kernel(const T* __restrict__ A, const float* __restrict__ ln_w,
       continue;
     }
     T* out = static_cast<T*>(out_v);
+    const bool dropping = drop.seeds != nullptr;
+    bool keep = true;
+    if (dropping) {
+      keep = drop_keep(drop, m, n);
+      if (drop.mask_out != nullptr)
+        static_cast<T*>(drop.mask_out)[o] = from_f<T>(keep ? 1.f : 0.f);
+    }
     if (epi == EPI_DGELU) {
       // exact-erf gelu'(h) = Phi(h) + h phi(h), in fp32
       const float h = to_f<T>(aux[o]);
       const float cdf = 0.5f * (1.f + erff(h * 0.70710678118654752f));
       const float pdf = expf(-0.5f * h * h) * 0.3989422804014327f;
-      out[o] = from_f<T>(acc1 * (cdf + h * pdf));
+      const float da = dropping ? (keep ? acc1 * drop.inv_keep : 0.f) : acc1;
+      out[o] = from_f<T>(da * (cdf + h * pdf));
       continue;
     }
     float v = rnd<T>(acc1);
     if (bias != nullptr) v = rnd<T>(v + rnd<T>(bias[n]));
     if (gelu) {
       if (aux != nullptr) aux[o] = from_f<T>(v);   // pre-GELU h, kept for the backward
-      v = rnd<T>(0.5f * v * (1.f + erff(v * 0.70710678118654752f)));
+      const float a = 0.5f * v * (1.f + erff(v * 0.70710678118654752f));
+      v = dropping ? (keep ? rnd<T>(a * drop.inv_keep) : 0.f) : rnd<T>(a);
+    } else if (dropping) {
+      v = keep ? rnd<T>(v * drop.inv_keep) : 0.f;
     }
     if (residual != nullptr) v = rnd<T>(v + to_f<T>(residual[o]));
     out[o] = from_f<T>(v);
@@ -328,7 +427,10 @@ ln_gemm_kernel(const T* __restrict__ A, const float* __restrict__ ln_w,
 // ------------------------------------------------------------------ ln_bwd_dx
 // dx[m] = rstd (dyh - mean(dyh) - xhat mean(dyh xhat)) [+ g[m]], dyh = dy * ln_w,
 // with mean, rstd and xhat of row m of x recomputed in fp32; one warp per row.
-// x, g and dx are T, dy is fp32.
+// x, g and dx are T, dy is fp32.  For the training backwards it also writes
+// y[m] = round(xhat ln_w + ln_b) (the rounded LayerNorm output, the operand
+// of the weight-gradient GEMM) when y_out != nullptr, and (mean, rstd) of the
+// row into stats_out (M, 2) when that is given.
 
 constexpr int LNB_THREADS = 256;
 
@@ -336,7 +438,9 @@ template <typename T>
 __global__ void __launch_bounds__(LNB_THREADS)
 ln_bwd_dx_kernel(const T* __restrict__ x, const float* __restrict__ dy,
                  const float* __restrict__ ln_w, const T* __restrict__ g,
-                 T* __restrict__ dx, int M, int C, float eps) {
+                 T* __restrict__ dx, int M, int C, float eps,
+                 const float* __restrict__ ln_b, T* __restrict__ y_out,
+                 float* __restrict__ stats_out) {
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
   const int m = blockIdx.x * (LNB_THREADS / 32) + warp;
   if (m >= M) return;
@@ -365,7 +469,186 @@ ln_bwd_dx_kernel(const T* __restrict__ x, const float* __restrict__ dy,
     float v = rstd * (dyh - m1 - xhat * m2);
     if (g != nullptr) v += to_f<T>(g[(size_t)m * C + c]);
     dx[(size_t)m * C + c] = from_f<T>(v);
+    if (y_out != nullptr) y_out[(size_t)m * C + c] = from_f<T>(xhat * ln_w[c] + ln_b[c]);
   }
+  if (stats_out != nullptr && lane == 0) {
+    stats_out[(size_t)m * 2] = mean;
+    stats_out[(size_t)m * 2 + 1] = rstd;
+  }
+}
+
+// --------------------------------------------------------------- drop_scale
+// out = keep ? round(g / (1 - p)) : 0 over an (M, N) array: the masked
+// cotangent of a dropout, its mask regenerated from the seeds.
+
+constexpr int EW_THREADS = 256;
+
+template <typename T>
+__global__ void __launch_bounds__(EW_THREADS)
+drop_scale_kernel(const T* __restrict__ g, T* __restrict__ out, int M, int N, Drop drop) {
+  const size_t total = (size_t)M * N;
+  for (size_t idx = (size_t)blockIdx.x * EW_THREADS + threadIdx.x; idx < total;
+       idx += (size_t)gridDim.x * EW_THREADS) {
+    const int m = (int)(idx / N), n = (int)(idx % N);
+    const bool keep = drop_keep(drop, m, n);
+    out[idx] = from_f<T>(keep ? to_f<T>(g[idx]) * drop.inv_keep : 0.f);
+    if (drop.mask_out != nullptr)
+      static_cast<T*>(drop.mask_out)[idx] = from_f<T>(keep ? 1.f : 0.f);
+  }
+}
+
+// ------------------------------------------------------------------ gemm_tn
+// out[Na, Nb] = A^T . B in fp32 for A (M, Na) and B (M, Nb) in T: the
+// weight-gradient product, contracting over the M = B S rows.  One 64x64
+// output tile per block and a loop over M in steps of BK: each output element
+// has one owner and one summation order, so the result is reproducible.
+// Needs Na % 8 == 0 and Nb % 8 == 0 (the wrapper checks).
+
+template <typename T>
+__global__ void __launch_bounds__(GEMM_THREADS)
+gemm_tn_kernel(const T* __restrict__ A, const T* __restrict__ B, float* __restrict__ out,
+               int M, int Na, int Nb) {
+  constexpr bool kBf16 = std::is_same<T, bf16>::value;
+  constexpr int LDT = BM + 8;   // staged [BK][LDT]: rows are contraction steps
+  constexpr int VEC = 16 / sizeof(T);
+  constexpr int NCHUNKS = BM / VEC;
+  static_assert(BM == BN, "both operands are staged with one tile shape");
+
+  __shared__ __align__(128) T As[BK * LDT];
+  __shared__ __align__(128) T Bs[BK * LDT];
+  __shared__ __align__(128) float Cs[BM * LDC];
+
+  const int tid = threadIdx.x, warp = tid / 32;
+  const int bi = blockIdx.y * BM, bj = blockIdx.x * BN;
+
+  const int ty = tid / 16, tx = tid % 16;
+  float acc[4][4];
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+#pragma unroll
+    for (int j = 0; j < 4; ++j) acc[i][j] = 0.f;
+  const int wm = warp / 2, wn = warp % 2;
+  nvcuda::wmma::fragment<nvcuda::wmma::accumulator, 16, 16, 16, float> cfrag[2];
+  if constexpr (kBf16) {
+    nvcuda::wmma::fill_fragment(cfrag[0], 0.f);
+    nvcuda::wmma::fill_fragment(cfrag[1], 0.f);
+  }
+
+  for (int m0 = 0; m0 < M; m0 += BK) {
+    for (int c = tid; c < BK * NCHUNKS; c += GEMM_THREADS) {
+      const int r = c / NCHUNKS, cc = (c % NCHUNKS) * VEC;
+      const int m = m0 + r;
+      uint4 ra = make_uint4(0u, 0u, 0u, 0u), rb = make_uint4(0u, 0u, 0u, 0u);
+      if (m < M && bi + cc < Na)
+        ra = *reinterpret_cast<const uint4*>(A + (size_t)m * Na + bi + cc);
+      if (m < M && bj + cc < Nb)
+        rb = *reinterpret_cast<const uint4*>(B + (size_t)m * Nb + bj + cc);
+      *reinterpret_cast<uint4*>(As + r * LDT + cc) = ra;
+      *reinterpret_cast<uint4*>(Bs + r * LDT + cc) = rb;
+    }
+    __syncthreads();
+
+    if constexpr (kBf16) {
+#pragma unroll
+      for (int kk = 0; kk < BK; kk += 16) {
+        // A^T[i][k] = As[k][i]: the staged tile read column-major
+        nvcuda::wmma::fragment<nvcuda::wmma::matrix_a, 16, 16, 16, bf16,
+                               nvcuda::wmma::col_major> afrag;
+        nvcuda::wmma::load_matrix_sync(afrag, As + kk * LDT + wm * 16, LDT);
+#pragma unroll
+        for (int j = 0; j < 2; ++j) {
+          nvcuda::wmma::fragment<nvcuda::wmma::matrix_b, 16, 16, 16, bf16,
+                                 nvcuda::wmma::row_major> bfrag;
+          nvcuda::wmma::load_matrix_sync(bfrag, Bs + kk * LDT + wn * 32 + j * 16, LDT);
+          nvcuda::wmma::mma_sync(cfrag[j], afrag, bfrag, cfrag[j]);
+        }
+      }
+    } else {
+#pragma unroll 8
+      for (int kk = 0; kk < BK; ++kk) {
+        float a[4], b[4];
+#pragma unroll
+        for (int i = 0; i < 4; ++i) a[i] = to_f<T>(As[kk * LDT + ty + 16 * i]);
+#pragma unroll
+        for (int j = 0; j < 4; ++j) b[j] = to_f<T>(Bs[kk * LDT + tx + 16 * j]);
+#pragma unroll
+        for (int i = 0; i < 4; ++i)
+#pragma unroll
+          for (int j = 0; j < 4; ++j) acc[i][j] = fmaf(a[i], b[j], acc[i][j]);
+      }
+    }
+    __syncthreads();
+  }
+
+  if constexpr (kBf16) {
+#pragma unroll
+    for (int j = 0; j < 2; ++j)
+      nvcuda::wmma::store_matrix_sync(Cs + (wm * 16) * LDC + wn * 32 + j * 16, cfrag[j],
+                                      LDC, nvcuda::wmma::mem_row_major);
+  } else {
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+#pragma unroll
+      for (int j = 0; j < 4; ++j) Cs[(ty + 16 * i) * LDC + tx + 16 * j] = acc[i][j];
+  }
+  __syncthreads();
+
+  for (int idx = tid; idx < BM * BN; idx += GEMM_THREADS) {
+    const int r = idx / BN, c = idx % BN;
+    if (bi + r < Na && bj + c < Nb) out[(size_t)(bi + r) * Nb + bj + c] = Cs[r * LDC + c];
+  }
+}
+
+// ------------------------------------------------------------------ colsum
+// Column sums over the M rows in two passes with a fixed order: each block of
+// the first pass sums CS_ROWS rows of 128 columns into partial[slab][n]; the
+// second pass adds the slabs in order.
+//   colsum:    out[n] = sum_m a[m][n], a in T, sums in fp32 (bias gradients)
+//   ln_colsum: out[c] = sum_m dy[m][c] xhat[m][c], out[C + c] = sum_m dy[m][c]
+//              with xhat from x and the (mean, rstd) that ln_bwd_dx left
+//              (LayerNorm weight and bias gradients); partial is (slabs, 2C)
+
+constexpr int CS_THREADS = 128, CS_ROWS = 32;
+
+template <typename T>
+__global__ void __launch_bounds__(CS_THREADS)
+colsum_partial_kernel(const T* __restrict__ a, float* __restrict__ partial, int M, int N) {
+  const int n = blockIdx.x * CS_THREADS + threadIdx.x;
+  if (n >= N) return;
+  const int m0 = blockIdx.y * CS_ROWS, m1 = min(M, m0 + CS_ROWS);
+  float s = 0.f;
+  for (int m = m0; m < m1; ++m) s += to_f<T>(a[(size_t)m * N + n]);
+  partial[(size_t)blockIdx.y * N + n] = s;
+}
+
+template <typename T>
+__global__ void __launch_bounds__(CS_THREADS)
+ln_colsum_partial_kernel(const T* __restrict__ x, const float* __restrict__ dy,
+                         const float* __restrict__ stats, float* __restrict__ partial,
+                         int M, int C) {
+  const int c = blockIdx.x * CS_THREADS + threadIdx.x;
+  if (c >= C) return;
+  const int m0 = blockIdx.y * CS_ROWS, m1 = min(M, m0 + CS_ROWS);
+  float sw = 0.f, sb = 0.f;
+  for (int m = m0; m < m1; ++m) {
+    const float d = dy[(size_t)m * C + c];
+    const float xhat = (to_f<T>(x[(size_t)m * C + c]) - stats[(size_t)m * 2]) *
+                       stats[(size_t)m * 2 + 1];
+    sw += d * xhat;
+    sb += d;
+  }
+  partial[(size_t)blockIdx.y * 2 * C + c] = sw;
+  partial[(size_t)blockIdx.y * 2 * C + C + c] = sb;
+}
+
+__global__ void __launch_bounds__(CS_THREADS)
+colsum_reduce_kernel(const float* __restrict__ partial, float* __restrict__ out, int slabs,
+                     int N) {
+  const int n = blockIdx.x * CS_THREADS + threadIdx.x;
+  if (n >= N) return;
+  float s = 0.f;
+  for (int i = 0; i < slabs; ++i) s += partial[(size_t)i * N + n];
+  out[n] = s;
 }
 
 // ------------------------------------------------------ masked attention
@@ -846,25 +1129,76 @@ cudaError_t launch_attention_bwd(const void* qkv, const void* mask, const void* 
 template <typename T, bool WKN>
 cudaError_t launch_gemm(const void* a, const void* ln_w, const void* ln_b, float eps,
                         const void* w, const void* bias, const void* residual, void* aux,
-                        void* out, int M, int N, int K, int gelu, int epi,
+                        void* out, int M, int N, int K, int gelu, int epi, Drop drop,
                         cudaStream_t stream) {
   const dim3 grid((N + BN - 1) / BN, (M + BM - 1) / BM);
   ln_gemm_kernel<T, WKN><<<grid, GEMM_THREADS, 0, stream>>>(
       static_cast<const T*>(a), static_cast<const float*>(ln_w),
       static_cast<const float*>(ln_b), eps, static_cast<const T*>(w),
       static_cast<const float*>(bias), static_cast<const T*>(residual),
-      static_cast<T*>(aux), out, M, N, K, gelu, epi);
+      static_cast<T*>(aux), out, M, N, K, gelu, epi, drop);
   return cudaGetLastError();
 }
 
 template <typename T>
 cudaError_t launch_ln_bwd_dx(const void* x, const void* dy, const void* ln_w, const void* g,
-                             void* dx, int M, int C, float eps, cudaStream_t stream) {
+                             void* dx, int M, int C, float eps, const void* ln_b, void* y_out,
+                             void* stats_out, cudaStream_t stream) {
   const int rows = LNB_THREADS / 32;
   ln_bwd_dx_kernel<T><<<(M + rows - 1) / rows, LNB_THREADS, 0, stream>>>(
       static_cast<const T*>(x), static_cast<const float*>(dy),
       static_cast<const float*>(ln_w), static_cast<const T*>(g), static_cast<T*>(dx), M, C,
-      eps);
+      eps, static_cast<const float*>(ln_b), static_cast<T*>(y_out),
+      static_cast<float*>(stats_out));
+  return cudaGetLastError();
+}
+
+template <typename T>
+cudaError_t launch_drop_scale(const void* g, void* out, int M, int N, Drop drop,
+                              cudaStream_t stream) {
+  const size_t total = (size_t)M * N;
+  const int blocks = (int)((total + EW_THREADS - 1) / EW_THREADS);
+  drop_scale_kernel<T><<<blocks, EW_THREADS, 0, stream>>>(
+      static_cast<const T*>(g), static_cast<T*>(out), M, N, drop);
+  return cudaGetLastError();
+}
+
+template <typename T>
+cudaError_t launch_gemm_tn(const void* a, const void* b, void* out, int M, int Na, int Nb,
+                           cudaStream_t stream) {
+  const dim3 grid((Nb + BN - 1) / BN, (Na + BM - 1) / BM);
+  gemm_tn_kernel<T><<<grid, GEMM_THREADS, 0, stream>>>(
+      static_cast<const T*>(a), static_cast<const T*>(b), static_cast<float*>(out), M, Na,
+      Nb);
+  return cudaGetLastError();
+}
+
+inline int colsum_slabs(int M) { return (M + CS_ROWS - 1) / CS_ROWS; }
+
+template <typename T>
+cudaError_t launch_colsum(const void* a, void* partial, void* out, int M, int N,
+                          cudaStream_t stream) {
+  const int slabs = colsum_slabs(M), nb = (N + CS_THREADS - 1) / CS_THREADS;
+  colsum_partial_kernel<T><<<dim3(nb, slabs), CS_THREADS, 0, stream>>>(
+      static_cast<const T*>(a), static_cast<float*>(partial), M, N);
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  colsum_reduce_kernel<<<nb, CS_THREADS, 0, stream>>>(
+      static_cast<const float*>(partial), static_cast<float*>(out), slabs, N);
+  return cudaGetLastError();
+}
+
+template <typename T>
+cudaError_t launch_ln_colsum(const void* x, const void* dy, const void* stats, void* partial,
+                             void* out, int M, int C, cudaStream_t stream) {
+  const int slabs = colsum_slabs(M), nb = (C + CS_THREADS - 1) / CS_THREADS;
+  ln_colsum_partial_kernel<T><<<dim3(nb, slabs), CS_THREADS, 0, stream>>>(
+      static_cast<const T*>(x), static_cast<const float*>(dy),
+      static_cast<const float*>(stats), static_cast<float*>(partial), M, C);
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  colsum_reduce_kernel<<<(2 * C + CS_THREADS - 1) / CS_THREADS, CS_THREADS, 0, stream>>>(
+      static_cast<const float*>(partial), static_cast<float*>(out), slabs, 2 * C);
   return cudaGetLastError();
 }
 
@@ -875,32 +1209,88 @@ extern "C" {
 const char* rmcl_error_string(int err) { return cudaGetErrorString((cudaError_t)err); }
 
 // aux: with gelu, where the pre-GELU value is kept (or null); epi and w_kn
-// as described at ln_gemm_kernel (w_kn = 1: W is stored (K, N))
+// as described at ln_gemm_kernel (w_kn = 1: W is stored (K, N)).  Dropout
+// (see Drop) when seeds is not null: rows per sample, draw, keep threshold,
+// 1 / (1 - p) and an optional (M, N) mask output.
 int rmcl_ln_gemm(int dtype, const void* a, const void* ln_w, const void* ln_b, float eps,
                  const void* w, const void* bias, const void* residual, void* aux,
                  void* out, int M, int N, int K, int gelu, int epi, int w_kn,
-                 void* stream) {
+                 const void* seeds, int rows, unsigned draw, unsigned threshold,
+                 float inv_keep, void* mask_out, void* stream) {
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (epi < EPI_BIAS || epi > EPI_F32 || (epi == EPI_DGELU && aux == nullptr))
+  if (epi < EPI_BIAS || epi > EPI_F32 || (epi == EPI_DGELU && aux == nullptr) ||
+      (seeds != nullptr && (rows <= 0 || epi == EPI_F32)))
     return (int)cudaErrorInvalidValue;
+  const Drop drop{static_cast<const int32_t*>(seeds), rows, draw, threshold, inv_keep,
+                  mask_out};
   if (dtype == 0)
     return (int)(w_kn ? launch_gemm<float, true>(a, ln_w, ln_b, eps, w, bias, residual, aux,
-                                                 out, M, N, K, gelu, epi, st)
+                                                 out, M, N, K, gelu, epi, drop, st)
                       : launch_gemm<float, false>(a, ln_w, ln_b, eps, w, bias, residual,
-                                                  aux, out, M, N, K, gelu, epi, st));
+                                                  aux, out, M, N, K, gelu, epi, drop, st));
   if (dtype == 1)
     return (int)(w_kn ? launch_gemm<bf16, true>(a, ln_w, ln_b, eps, w, bias, residual, aux,
-                                                out, M, N, K, gelu, epi, st)
+                                                out, M, N, K, gelu, epi, drop, st)
                       : launch_gemm<bf16, false>(a, ln_w, ln_b, eps, w, bias, residual, aux,
-                                                 out, M, N, K, gelu, epi, st));
+                                                 out, M, N, K, gelu, epi, drop, st));
   return (int)cudaErrorInvalidValue;
 }
 
+// ln_b, y_out, stats_out: null for the dx-only backwards; y_out needs ln_b
 int rmcl_ln_bwd_dx(int dtype, const void* x, const void* dy, const void* ln_w, const void* g,
-                   void* dx, int M, int C, float eps, void* stream) {
+                   void* dx, int M, int C, float eps, const void* ln_b, void* y_out,
+                   void* stats_out, void* stream) {
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (dtype == 0) return (int)launch_ln_bwd_dx<float>(x, dy, ln_w, g, dx, M, C, eps, st);
-  if (dtype == 1) return (int)launch_ln_bwd_dx<bf16>(x, dy, ln_w, g, dx, M, C, eps, st);
+  if (y_out != nullptr && ln_b == nullptr) return (int)cudaErrorInvalidValue;
+  if (dtype == 0)
+    return (int)launch_ln_bwd_dx<float>(x, dy, ln_w, g, dx, M, C, eps, ln_b, y_out,
+                                        stats_out, st);
+  if (dtype == 1)
+    return (int)launch_ln_bwd_dx<bf16>(x, dy, ln_w, g, dx, M, C, eps, ln_b, y_out, stats_out,
+                                       st);
+  return (int)cudaErrorInvalidValue;
+}
+
+int rmcl_drop_scale(int dtype, const void* g, void* out, int M, int N, const void* seeds,
+                    int rows, unsigned draw, unsigned threshold, float inv_keep,
+                    void* mask_out, void* stream) {
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (seeds == nullptr || rows <= 0) return (int)cudaErrorInvalidValue;
+  const Drop drop{static_cast<const int32_t*>(seeds), rows, draw, threshold, inv_keep,
+                  mask_out};
+  if (dtype == 0) return (int)launch_drop_scale<float>(g, out, M, N, drop, st);
+  if (dtype == 1) return (int)launch_drop_scale<bf16>(g, out, M, N, drop, st);
+  return (int)cudaErrorInvalidValue;
+}
+
+// out (Na, Nb) fp32 = a^T . b, a (M, Na), b (M, Nb)
+int rmcl_gemm_tn(int dtype, const void* a, const void* b, void* out, int M, int Na, int Nb,
+                 void* stream) {
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (dtype == 0) return (int)launch_gemm_tn<float>(a, b, out, M, Na, Nb, st);
+  if (dtype == 1) return (int)launch_gemm_tn<bf16>(a, b, out, M, Na, Nb, st);
+  return (int)cudaErrorInvalidValue;
+}
+
+// rows of the partial-sum scratch the two column-sum entry points need
+int rmcl_colsum_slabs(int M) { return colsum_slabs(M); }
+
+// partial: (slabs, N) fp32 scratch; out: (N,) fp32
+int rmcl_colsum(int dtype, const void* a, void* partial, void* out, int M, int N,
+                void* stream) {
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (dtype == 0) return (int)launch_colsum<float>(a, partial, out, M, N, st);
+  if (dtype == 1) return (int)launch_colsum<bf16>(a, partial, out, M, N, st);
+  return (int)cudaErrorInvalidValue;
+}
+
+// stats: (M, 2) from rmcl_ln_bwd_dx; partial: (slabs, 2C) fp32 scratch;
+// out: (2C,) fp32, the weight gradient then the bias gradient
+int rmcl_ln_colsum(int dtype, const void* x, const void* dy, const void* stats, void* partial,
+                   void* out, int M, int C, void* stream) {
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (dtype == 0) return (int)launch_ln_colsum<float>(x, dy, stats, partial, out, M, C, st);
+  if (dtype == 1) return (int)launch_ln_colsum<bf16>(x, dy, stats, partial, out, M, C, st);
   return (int)cudaErrorInvalidValue;
 }
 

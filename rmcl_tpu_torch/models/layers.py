@@ -5,7 +5,8 @@ Parameters are fp32 masters in torch layouts: a linear weight is (out, in).
 whatever the activation type, GELU is the exact-erf form.  Initialisation
 follows the reference's ``init_weights``: truncated normal (std 0.02, cut at
 two std) for linear and embedding weights, zero biases, LayerNorm 1 and 0.
-Dropout is absent: the port runs deterministic forwards only.
+``dropout`` applies an explicit keep mask: the masks of the whole model come
+from one Philox stream (``ops/philox.py``), the blocks' inside their kernels.
 """
 
 from __future__ import annotations
@@ -42,6 +43,12 @@ def layer_norm(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor,
 
 
 gelu = F.gelu   # exact erf form, as torch.nn.GELU's default
+
+
+def dropout(x: torch.Tensor, keep: torch.Tensor, p: float) -> torch.Tensor:
+    """Inverted dropout on an explicit boolean keep mask:
+    keep ? x / (1 - p) : 0, computed in fp32 and cast back."""
+    return torch.where(keep, x.float() * (1.0 / (1.0 - p)), 0.0).to(x.dtype)
 
 
 class Linear(nn.Module):

@@ -1,5 +1,5 @@
-"""Single-stream ViLT (port of ``rmcl_tpu/models/vilt.py``), deterministic
-forward.
+"""Single-stream ViLT (port of ``rmcl_tpu/models/vilt.py``): the deterministic
+forward and the training forward with dropout.
 
 The module tree carries the reference state_dict names
 (``rmcl_tpu/compat/torch_loader.py``), so a reference checkpoint, or the
@@ -11,6 +11,13 @@ model also carries the momentum twins (``k_text_embeddings``,
 ``k_token_type_embeddings``, ``k_transformer``, ``k_moco_head``; the key
 path shares ``pooler``) and the negatives queue (``proj_queue``,
 ``proj_queue_ptr``) as buffers; ``infer_k`` runs the twins.
+
+Dropout.  The JAX package splits a key per task, view, layer and dropout
+site.  Here one int32 tensor of seeds per step (``draw_seeds``: views x
+(layers + 1) x 2 x B, from an explicit ``torch.Generator``, moved to the
+device once) feeds the one Philox stream of ``ops/philox.py``: rows 0 ..
+layers - 1 seed the blocks' two halves, the last row the dropout after the
+text embeddings and after the visual embeddings.
 """
 
 from __future__ import annotations
@@ -21,11 +28,21 @@ import torch
 from torch import nn
 
 from rmcl_tpu_torch.models.heads import Classifier, ITMHead, MLMHead, MoCoHead, Pooler
-from rmcl_tpu_torch.models.layers import Embedding, Linear, reset_all
+from rmcl_tpu_torch.models.layers import Embedding, Linear, dropout, reset_all
 from rmcl_tpu_torch.models.text_embeddings import TextEmbeddings
 from rmcl_tpu_torch.models.vit import ViT, normalize_u8
+from rmcl_tpu_torch.ops.philox import keep_mask
 
 MOCO_PROJ_DIM = 128
+
+
+def draw_seeds(generator: torch.Generator, views: int, num_layers: int, batch: int,
+               device) -> torch.Tensor:
+    """(views, num_layers + 1, 2, batch) int32 dropout seeds on ``device``: one
+    ``seeds[v]`` per training forward of ``ViLT.infer``."""
+    s = torch.randint(-2 ** 31, 2 ** 31, (views, num_layers + 1, 2, batch),
+                      generator=generator, dtype=torch.int64)
+    return s.to(torch.int32).to(device)
 
 
 def _needs(cfg, *names: str) -> bool:
@@ -40,6 +57,7 @@ class ViLT(nn.Module):
         self.grid_hw = tuple(cfg.grid_hw)
         self.patch_size = cfg.patch_size
         self.max_image_len = cfg.max_image_len
+        self.drop_rate = cfg.drop_rate
 
         self.text_embeddings = TextEmbeddings(cfg.vocab_size, C, cfg.max_text_len)
         self.token_type_embeddings = Embedding(
@@ -110,17 +128,28 @@ class ViLT(nn.Module):
               image_token_type_idx: int = 1,
               image_embeds: Optional[torch.Tensor] = None,
               image_masks: Optional[torch.Tensor] = None,
-              prefix: str = "") -> Dict[str, torch.Tensor]:
-        """Deterministic forward of a wire-format batch: ``image`` patch rows
+              prefix: str = "", deterministic: bool = True,
+              seeds: Optional[torch.Tensor] = None) -> Dict[str, torch.Tensor]:
+        """Forward of a wire-format batch: ``image`` patch rows
         (B, N, P*P*3) as uint8 with ``image_hw`` (B, 2), or normalised fp32;
         ``text_ids`` and ``text_masks`` (B, T).  ``block_matrices`` are the
         transformer's weights cast once (``ViT.block_matrices``).  With
         ``image_embeds`` and ``image_masks`` (``ViT.visual_embed_from_prep``)
         the image is not embedded again.  ``prefix="k_"`` runs the momentum
-        twins (with the shared pooler)."""
+        twins (with the shared pooler).  ``deterministic=False`` is the
+        training forward: dropout at ``drop_rate`` after both embeddings and
+        inside every block, from ``seeds`` (layers + 1, 2, B) int32, and
+        gradients to the parameters."""
         dtype = self.compute_dtype
+        if deterministic:
+            seeds = None
+        elif seeds is None:
+            raise ValueError("the training forward needs seeds (draw_seeds)")
+        p = self.drop_rate
         transformer = getattr(self, prefix + "transformer")
         text = getattr(self, prefix + "text_embeddings")(batch["text_ids"], dtype)
+        if seeds is not None and p > 0:
+            text = dropout(text, keep_mask(seeds[-1, 0], 0, *text.shape[1:], p), p)
         if image_embeds is None and image_masks is None:
             img = batch["image"]
             if img.dim() != 3:
@@ -131,6 +160,9 @@ class ViLT(nn.Module):
                                    self.patch_size)
             image_embeds, image_masks = transformer.visual_embed(
                 img, self.grid_hw, self.max_image_len, dtype)
+            if seeds is not None and p > 0:
+                image_embeds = dropout(
+                    image_embeds, keep_mask(seeds[-1, 1], 0, *image_embeds.shape[1:], p), p)
         else:
             image_embeds = image_embeds.to(dtype)
         tte = getattr(self, prefix + "token_type_embeddings").weight
@@ -139,7 +171,8 @@ class ViLT(nn.Module):
 
         x = torch.cat([text, image], dim=1)
         masks = torch.cat([batch["text_masks"].int(), image_masks.int()], dim=1)
-        x = transformer(x, masks, block_matrices)
+        x = transformer(x, masks, block_matrices,
+                        None if seeds is None else seeds[:-1], p)
         T = text.shape[1]
         return {"text_feats": x[:, :T], "image_feats": x[:, T:],
                 "cls_feats": self.pooler(x), "raw_cls_feats": x[:, 0],

@@ -1,5 +1,7 @@
-"""ViT backbone of single-stream ViLT (port of ``rmcl_tpu/models/vit.py``),
-deterministic forward, differentiable with respect to its input.
+"""ViT backbone of single-stream ViLT (port of ``rmcl_tpu/models/vit.py``):
+the deterministic forward, differentiable with respect to its input, and
+the training forward with dropout, differentiable with respect to its
+parameters too.
 
 * u8 wire format: ``normalize_u8`` is ``(v/255 - 0.5)/0.5`` in fp32, in that
   order, with padding forced to exactly 0.0 from ``image_hw`` per pixel.
@@ -11,10 +13,18 @@ deterministic forward, differentiable with respect to its input.
   does not depend on a pixel perturbation is in the ``VisualPrep``, so the
   PGD loop (``attacks/pgd.py``) prepares once and pays one matmul per
   iteration.
-* ``ViT.forward`` runs the blocks, each as two fused ops
-  (``ops/fused_block.py``: ``attn_half`` then ``mlp_half``, residuals fused
-  in), then the final LayerNorm.  Unlike the TPU kernels the CUDA kernels
-  mask their own ragged edges, so the sequence is not padded to 128.
+* ``ViT.forward`` runs the blocks, each as two fused ops, then the final
+  LayerNorm.  Without ``seeds`` the blocks are ``attn_half`` then ``mlp_half``
+  (``ops/fused_block.py``, residuals fused in): the deterministic forward of
+  the key encoder, the attacks and serving.  With ``seeds`` (layers, 2, B)
+  they are ``attn_half_train`` then ``mlp_half_train``
+  (``ops/fused_block_train.py``): dropout at rate ``p`` inside the kernels,
+  one seed per layer, half and sample, and gradients to every parameter.  The
+  JAX package takes its training kernels only when ``drop_rate > 0`` and the
+  deterministic kernels' full backward otherwise; the port's training ops at
+  p = 0 compute that same function, so training always runs them.  Unlike
+  the TPU kernels the CUDA kernels mask their own ragged edges, so the
+  sequence is not padded to 128.
 
 LayerNorm eps inside the ViT is 1e-6.
 """
@@ -28,6 +38,7 @@ from torch import nn
 
 from rmcl_tpu_torch.models.layers import LayerNorm, Linear, linear, trunc_normal_
 from rmcl_tpu_torch.ops.fused_block import attn_half, mlp_half
+from rmcl_tpu_torch.ops.fused_block_train import attn_half_train, mlp_half_train
 
 VIT_LN_EPS = 1e-6
 
@@ -146,7 +157,22 @@ class Block(nn.Module):
         return {k: w.detach().to(dtype).contiguous() for k, w in ws.items()}
 
     def forward(self, x: torch.Tensor, mask: torch.Tensor,
-                mats: Dict[str, torch.Tensor]) -> torch.Tensor:
+                mats: Dict[str, torch.Tensor],
+                seeds: Optional[torch.Tensor] = None, p: float = 0.0) -> torch.Tensor:
+        """``seeds`` (2, B) int32 selects the training ops (attention half,
+        MLP half); ``mats`` are then their operands and the parameters
+        receive the gradients."""
+        if seeds is not None:
+            x = attn_half_train(x, seeds[0], mask, self.norm1.weight, self.norm1.bias,
+                                self.attn["qkv"].weight, self.attn["qkv"].bias,
+                                self.attn["proj"].weight, self.attn["proj"].bias,
+                                self.num_heads, VIT_LN_EPS, p,
+                                wqkv_c=mats["wqkv"], wproj_c=mats["wproj"])
+            return mlp_half_train(x, seeds[1], self.norm2.weight, self.norm2.bias,
+                                  self.mlp["fc1"].weight, self.mlp["fc1"].bias,
+                                  self.mlp["fc2"].weight, self.mlp["fc2"].bias,
+                                  p, VIT_LN_EPS, tail=True,
+                                  w1_c=mats["w1"], w2_c=mats["w2"])
         x = attn_half(x, mask, self.norm1.weight, self.norm1.bias,
                       mats["wqkv"], self.attn["qkv"].bias,
                       mats["wproj"], self.attn["proj"].bias,
@@ -230,11 +256,12 @@ class ViT(nn.Module):
         return self.visual_embed_from_prep(prep, None, dtype)
 
     def forward(self, x: torch.Tensor, mask: torch.Tensor,
-                block_matrices: Optional[List[Dict[str, torch.Tensor]]] = None
-                ) -> torch.Tensor:
-        """(B, S, C) activations, (B, S) int32 mask -> final-normed (B, S, C)."""
+                block_matrices: Optional[List[Dict[str, torch.Tensor]]] = None,
+                seeds: Optional[torch.Tensor] = None, p: float = 0.0) -> torch.Tensor:
+        """(B, S, C) activations, (B, S) int32 mask -> final-normed (B, S, C).
+        ``seeds`` (layers, 2, B) int32: the training forward at dropout rate ``p``."""
         if block_matrices is None:
             block_matrices = self.block_matrices(x.dtype)
-        for blk, mats in zip(self.blocks, block_matrices):
-            x = blk(x, mask, mats)
+        for i, (blk, mats) in enumerate(zip(self.blocks, block_matrices)):
+            x = blk(x, mask, mats, None if seeds is None else seeds[i], p)
         return self.norm(x)

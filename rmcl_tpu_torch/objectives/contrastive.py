@@ -1,13 +1,64 @@
 """MoCo contrastive objective (port of ``rmcl_tpu/objectives/contrastive.py``:
-``infonce``; the momentum update and the queue come with the training step)."""
+``momentum_update``, ``dequeue_and_enqueue``, ``infonce`` and the unfused
+``compute_moco_contrastive``; ``fuse_moco_views`` and Barlow-Twins are not
+ported).
+
+Behavioural spec: reference vilt/modules/objectives.py
+compute_moco_contrastive:217-447.  Where the JAX package returns new
+parameter and state pytrees, the port updates the model's momentum twins and
+its queue buffers in place, under ``no_grad``: they are never differentiated.
+"""
 
 from __future__ import annotations
 
+from typing import Callable, Dict, List, Optional
+
 import torch
 
-from rmcl_tpu_torch.objectives.losses import cross_entropy
+from rmcl_tpu_torch.objectives.losses import cross_entropy, l2_normalize
+
+MOMENTUM_TWINS = ("text_embeddings", "token_type_embeddings", "transformer", "moco_head")
 
 
+# ----------------------------------------------------------- EMA update
+@torch.no_grad()
+def momentum_update(model: torch.nn.Module, m: float, twins=MOMENTUM_TWINS) -> None:
+    """k = m*k + (1-m)*q for the twin module groups, in place
+    (reference objectives.py:256-260)."""
+    ks: List[torch.Tensor] = []
+    qs: List[torch.Tensor] = []
+    for name in twins:
+        if hasattr(model, "k_" + name):
+            ks += list(getattr(model, "k_" + name).parameters())
+            qs += list(getattr(model, name).parameters())
+    if ks:
+        torch._foreach_mul_(ks, m)
+        torch._foreach_add_(ks, qs, alpha=1.0 - m)
+
+
+# ---------------------------------------------------------- queue update
+@torch.no_grad()
+def dequeue_and_enqueue(model: torch.nn.Module, keys: torch.Tensor,
+                        per_step_bs: int) -> None:
+    """Circular write of the key batch (B, 128) into the negatives queue
+    (128, K) at the pointer, in place (reference objectives.py:238-248).
+    A partial batch is skipped, as the reference does; K must be a multiple
+    of the batch, or the write would run past the end while the pointer
+    wraps."""
+    B = keys.shape[0]
+    if B != per_step_bs:
+        return
+    queue, ptr = model.proj_queue, model.proj_queue_ptr
+    K = queue.shape[1]
+    if K % B != 0:
+        raise ValueError(f"num_negative ({K}) must be divisible by the global batch "
+                         f"({B}) — reference queue invariant")
+    cols = (ptr.long() + torch.arange(B, device=ptr.device)) % K   # no host read
+    queue.index_copy_(1, cols, keys.t().to(queue.dtype))
+    ptr.copy_((ptr + B) % K)
+
+
+# -------------------------------------------------------------- InfoNCE
 def infonce(q: torch.Tensor, k: torch.Tensor, neg_queue: torch.Tensor,
             temperature: float):
     """logits = [q.k | q.queue] / tau in fp32, labels = 0 (reference
@@ -19,3 +70,123 @@ def infonce(q: torch.Tensor, k: torch.Tensor, neg_queue: torch.Tensor,
     logits = torch.cat([l_pos, l_neg], dim=1) / temperature
     labels = torch.zeros(logits.shape[0], dtype=torch.long, device=logits.device)
     return cross_entropy(logits, labels), logits
+
+
+def _infonce_rows(logits: torch.Tensor) -> torch.Tensor:
+    """Per-sample InfoNCE NLL (label 0): its mean is the infonce loss."""
+    return -torch.log_softmax(logits.float(), dim=-1)[:, 0]
+
+
+def _view_diagnostics(q, k, neg_queue, suffix: str) -> Dict[str, torch.Tensor]:
+    """Positive and negative L2 / cosine / dot panels (reference
+    objectives.py:300-312), batched; the three negative panels come from one
+    (B, K) product and the queue's column norms."""
+    q32, k32, n32 = q.float(), k.float(), neg_queue.float()
+    cos = (q32 * k32).sum(1) / (torch.linalg.vector_norm(q32, dim=1).clamp(min=1e-6)
+                                * torch.linalg.vector_norm(k32, dim=1).clamp(min=1e-6))
+    ret = {
+        f"pos_dist_attacked_{suffix}": torch.linalg.vector_norm(q32 - k32, dim=1).mean(),
+        f"pos_cosine_attacked_{suffix}": cos.mean(),
+        f"pos_dot_attacked_{suffix}": (q32 * k32).sum(1).mean(),
+    }
+    s = q32 @ n32                                         # (B, K) dots
+    qn2 = (q32 ** 2).sum(1)
+    nn2 = (n32 ** 2).sum(0)
+    d2 = qn2[:, None] - 2 * s + nn2[None, :]
+    ret[f"neg_dist_attacked_{suffix}"] = d2.clamp(min=0).sqrt().mean()
+    denom = qn2.sqrt().clamp(min=1e-6)[:, None] * nn2.sqrt().clamp(min=1e-6)[None, :]
+    ret[f"neg_cosine_attacked_{suffix}"] = (s / denom).mean()
+    ret[f"neg_dot_attacked_{suffix}"] = s.mean()
+    return ret
+
+
+# ------------------------------------------------------------- MoCo main
+def compute_moco_contrastive(
+    model, batch: Dict[str, torch.Tensor], *,
+    seeds: Optional[torch.Tensor] = None,
+    block_matrices=None,
+    k_block_matrices: Optional[Callable] = None,
+    train: bool = True,
+    text_view: bool = False,
+    image_view: bool = False,
+    attacked_text: Optional[Dict[str, torch.Tensor]] = None,
+    pgd_fn: Optional[Callable] = None,
+    temperature: float = 0.07,
+    momentum: float = 0.999,
+    per_step_bs: int = 0,
+    attacked_image: Optional[torch.Tensor] = None,
+    augmentation: bool = False,
+) -> Dict[str, torch.Tensor]:
+    """One MoCo step (reference objectives.py:217-447): momentum update, key
+    forward, the optional PGD image attack, the clean and attacked query
+    views, the enqueue.  The caller differentiates ``ret["moco_loss"]``.
+
+    ``seeds``: (4, layers + 1, 2, B) int32 (``models/vilt.py:draw_seeds``),
+    one set per view in the order clean, txt, img, both; needed when
+    ``train``.  ``block_matrices``: the query transformer's matrices cast to
+    the compute type; ``k_block_matrices()``: the same for the momentum
+    twins, called after the momentum update.  ``attacked_text``:
+    {"text_ids", "text_masks"} from the text attack or augmentation; None
+    disables the text view.  ``pgd_fn(batch, k, queue) -> img_delta``
+    (``attacks/pgd.py``).  ``augmentation=True`` (benign views, the image
+    view given as ``attacked_image``) disables the combined view, as the
+    reference does (objectives.py:356).  The momentum twins and the queue
+    are updated in place when ``train``.
+    """
+    ret: Dict[str, torch.Tensor] = {}
+    if train:
+        momentum_update(model, momentum)
+
+    # ---- key (momentum) forward, no grad ----
+    with torch.no_grad():
+        infer_k = model.infer_k(
+            batch, block_matrices=k_block_matrices() if k_block_matrices else None)
+        k = l2_normalize(model.k_moco_head(infer_k["cls_feats"]), dim=1)
+    neg_queue = model.proj_queue.detach().clone() if train else model.proj_queue.detach()
+
+    attacked_img_batch = None
+    if image_view and attacked_image is not None:
+        attacked_img_batch = dict(batch, image=attacked_image)
+    elif image_view and pgd_fn is not None:
+        img_delta = pgd_fn(batch, k, neg_queue).detach()
+        attacked_img_batch = dict(batch, image=batch["image"] + img_delta)
+        ret["pgd_delta"] = torch.linalg.vector_norm(img_delta.float(), dim=-1).mean()
+
+    def query(view_batch, view: int):
+        infer = model.infer(view_batch, block_matrices, deterministic=not train,
+                            seeds=seeds[view] if train else None)
+        q = l2_normalize(model.moco_head(infer["cls_feats"]), dim=1)
+        return (q, *infonce(q, k, neg_queue, temperature))
+
+    # ---- clean query: only its predictions are used, so no graph ----
+    with torch.no_grad():
+        pred_orig = query(batch, 0)[2].argmax(-1)
+
+    loss, loss_num = 0.0, 0
+    views = []
+    if text_view and attacked_text is not None:
+        views.append(("txt", "geom", 1, dict(batch, **attacked_text)))
+    if image_view and attacked_img_batch is not None:
+        views.append(("img", "pgd", 2, attacked_img_batch))
+    if (text_view and image_view and not augmentation
+            and attacked_text is not None and attacked_img_batch is not None):
+        views.append(("both", "both", 3, dict(attacked_img_batch, **attacked_text)))
+    for name, rate, view, view_batch in views:
+        q, l_view, logits = query(view_batch, view)
+        ret[f"{rate}_success_rate"] = (logits.argmax(-1) != pred_orig).float().mean()
+        with torch.no_grad():
+            ret.update(_view_diagnostics(q, k, neg_queue, name))
+            ret[f"attacked_{name}_loss_ps"] = _infonce_rows(logits)
+        ret[f"attacked_{name}_loss"] = l_view
+        loss = loss + l_view
+        loss_num += 1
+
+    if train:
+        dequeue_and_enqueue(model, k, per_step_bs or k.shape[0])
+
+    ret["moco_loss"] = torch.as_tensor(loss / max(loss_num, 1), dtype=torch.float32,
+                                       device=k.device)
+    if views:
+        ret["moco_loss_ps"] = sum(ret[f"attacked_{n}_loss_ps"]
+                                  for n, *_ in views) / max(loss_num, 1)
+    return ret

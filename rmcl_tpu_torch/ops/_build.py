@@ -25,14 +25,27 @@ BUILD_DIR = PKG / "_build"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
-_P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+_P, _I, _F, _U = ctypes.c_void_p, ctypes.c_int, ctypes.c_float, ctypes.c_uint
+# dropout arguments: seeds, rows per sample, draw, keep threshold, 1/(1-p), mask_out
+_DROP = [_P, _I, _U, _U, _F, _P]
 # entry point -> ctypes argtypes; every pointer and the stream as c_void_p
 SIGNATURES = {
     # dtype, a, ln_w, ln_b, eps, w, bias, residual, aux, out, M, N, K, gelu,
-    # epi, w_kn, stream
-    "rmcl_ln_gemm": [_I, _P, _P, _P, _F, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
-    # dtype, x, dy, ln_w, g, dx, M, C, eps, stream
-    "rmcl_ln_bwd_dx": [_I, _P, _P, _P, _P, _P, _I, _I, _F, _P],
+    # epi, w_kn, dropout, stream
+    "rmcl_ln_gemm": [_I, _P, _P, _P, _F, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
+                     *_DROP, _P],
+    # dtype, x, dy, ln_w, g, dx, M, C, eps, ln_b, y_out, stats_out, stream
+    "rmcl_ln_bwd_dx": [_I, _P, _P, _P, _P, _P, _I, _I, _F, _P, _P, _P, _P],
+    # dtype, g, out, M, N, dropout, stream
+    "rmcl_drop_scale": [_I, _P, _P, _I, _I, *_DROP, _P],
+    # dtype, a, b, out, M, Na, Nb, stream
+    "rmcl_gemm_tn": [_I, _P, _P, _P, _I, _I, _I, _P],
+    # M -> rows of the column sums' partial scratch (not an error code)
+    "rmcl_colsum_slabs": [_I],
+    # dtype, a, partial, out, M, N, stream
+    "rmcl_colsum": [_I, _P, _P, _P, _I, _I, _P],
+    # dtype, x, dy, stats, partial, out, M, C, stream
+    "rmcl_ln_colsum": [_I, _P, _P, _P, _P, _P, _I, _I, _P],
     # dtype, qkv, mask, dattn, dqkv, stats, B, S, H, D, scale, stream
     "rmcl_masked_attention_bwd": [_I, _P, _P, _P, _P, _P, _I, _I, _I, _I, _F, _P],
     # dtype, qkv, mask, out, B, S, H, D, scale, stream

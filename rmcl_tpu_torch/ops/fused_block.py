@@ -52,9 +52,13 @@ from torch.autograd.function import once_differentiable
 from rmcl_tpu_torch.models.layers import layer_norm
 from rmcl_tpu_torch.ops import _build
 from rmcl_tpu_torch.ops.attention import NEG_BIAS, mha
+from rmcl_tpu_torch.ops.philox import keep_threshold
 
 # kernel launches of each op on CUDA tensors (plain CPU calls do not count)
-launches = {"attn_half": 0, "mlp_half": 0, "attn_half_dx": 0, "mlp_half_dx": 0}
+launches = {"attn_half": 0, "mlp_half": 0, "attn_half_dx": 0, "mlp_half_dx": 0,
+            # the training ops of ops/fused_block_train.py
+            "attn_half_train": 0, "mlp_half_train": 0,
+            "attn_half_train_bwd": 0, "mlp_half_train_bwd": 0}
 
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 _MAX_HEAD_DIM = 128
@@ -73,14 +77,20 @@ def _dense(y, w, b):
     return out + b.to(y.dtype)
 
 
-def _attn_fwd_plain(x, mask, ln_w, ln_b, wqkv, bqkv, wproj, bproj, num_heads, eps,
-                    residual):
+def _attn_core_plain(x, mask, ln_w, ln_b, wqkv, bqkv, wproj, bproj, num_heads, eps):
+    """(proj(MHA(qkv(LN1 x))), qkv (B, S, 3C), attn (B, S, C) before proj)."""
     B, S, C = x.shape
     D = C // num_heads
     qkv = _dense(layer_norm(x, ln_w, ln_b, eps), wqkv, bqkv)
     q, k, v = qkv.reshape(B, S, 3, num_heads, D).permute(2, 0, 3, 1, 4)
-    attn = mha(q, k, v, mask, D ** -0.5)
-    out = _dense(attn.transpose(1, 2).reshape(B, S, C), wproj, bproj)
+    attn = mha(q, k, v, mask, D ** -0.5).transpose(1, 2).reshape(B, S, C)
+    return _dense(attn, wproj, bproj), qkv, attn
+
+
+def _attn_fwd_plain(x, mask, ln_w, ln_b, wqkv, bqkv, wproj, bproj, num_heads, eps,
+                    residual):
+    out, qkv, _ = _attn_core_plain(x, mask, ln_w, ln_b, wqkv, bqkv, wproj, bproj,
+                                   num_heads, eps)
     return (x + out if residual else out), qkv
 
 
@@ -122,18 +132,13 @@ def _ln_bwd_plain(dy, xhat, rstd, ln_w, g, residual, dtype):
     return dx.to(dtype)
 
 
-def attn_half_dx_plain(x, mask, ln_w, ln_b, wqkv, bqkv, wproj, g,
-                       num_heads: int, eps: float, residual: bool = True,
-                       qkv=None):
-    """Plain version of ``attn_half_dx``, step by step with the rounding
-    points of ``pallas_block.py:_attn_bwd_math``.  ``qkv`` (B, S, 3C) is the
-    forward's saved projection; without it LN1 and qkv are recomputed."""
-    B, S, C = x.shape
-    H, D, dt = num_heads, C // num_heads, x.dtype
+def _attn_dqkv_plain(qkv, mask, wproj, g, num_heads: int):
+    """dqkv (B, S, 3C) of ``proj(MHA(qkv))`` given the output gradient g, step
+    by step with the rounding points of ``pallas_block.py:_attn_bwd_math``."""
+    B, S, C3 = qkv.shape
+    C, H, dt = C3 // 3, num_heads, qkv.dtype
+    D = C // H
     scale = D ** -0.5
-    xhat, rstd = _ln_parts(x, eps)
-    if qkv is None:
-        qkv = _dense((xhat * ln_w + ln_b).to(dt), wqkv, bqkv)
     q, k, v = qkv.reshape(B, S, 3, H, D).permute(2, 0, 3, 1, 4).float()
     scores = (q @ k.transpose(-1, -2)) * scale
     scores = scores + torch.where(mask[:, None, None, :] > 0, 0.0, NEG_BIAS)
@@ -148,9 +153,28 @@ def attn_half_dx_plain(x, mask, ln_w, ln_b, wqkv, bqkv, wproj, g,
     dq = (ds @ k).to(dt)
     dk = (ds.transpose(-1, -2) @ q).to(dt)
     dv = (pb.transpose(-1, -2) @ datt).to(dt)
-    dqkv = torch.stack([dq, dk, dv]).permute(1, 3, 0, 2, 4).reshape(B, S, 3 * C)
+    return torch.stack([dq, dk, dv]).permute(1, 3, 0, 2, 4).reshape(B, S, 3 * C)
+
+
+def attn_half_dx_plain(x, mask, ln_w, ln_b, wqkv, bqkv, wproj, g,
+                       num_heads: int, eps: float, residual: bool = True,
+                       qkv=None):
+    """Plain version of ``attn_half_dx``.  ``qkv`` (B, S, 3C) is the forward's
+    saved projection; without it LN1 and qkv are recomputed."""
+    dt = x.dtype
+    xhat, rstd = _ln_parts(x, eps)
+    if qkv is None:
+        qkv = _dense((xhat * ln_w + ln_b).to(dt), wqkv, bqkv)
+    dqkv = _attn_dqkv_plain(qkv, mask, wproj, g, num_heads)
     dy = dqkv.float() @ wqkv.float()                      # fp32, not rounded
     return _ln_bwd_plain(dy, xhat, rstd, ln_w, g, residual, dt)
+
+
+def _gelu_grad(h32):
+    """exact-erf gelu'(h) = Phi(h) + h phi(h), in fp32."""
+    cdf = 0.5 * (1.0 + torch.erf(h32 * 2.0 ** -0.5))
+    pdf = torch.exp(-0.5 * h32 * h32) * (1.0 / math.sqrt(2.0 * math.pi))
+    return cdf + h32 * pdf
 
 
 def mlp_half_dx_plain(x, ln_w, ln_b, w1, b1, w2, g, eps: float,
@@ -164,16 +188,13 @@ def mlp_half_dx_plain(x, ln_w, ln_b, w1, b1, w2, g, eps: float,
     if h is None:
         h = _dense((xhat * ln_w + ln_b).to(dt), w1, b1)
     da = g.float() @ w2.float()                           # g . W2, fp32
-    h32 = h.float()
-    cdf = 0.5 * (1.0 + torch.erf(h32 * 2.0 ** -0.5))
-    pdf = torch.exp(-0.5 * h32 * h32) * (1.0 / math.sqrt(2.0 * math.pi))
-    dh = (da * (cdf + h32 * pdf)).to(dt)
+    dh = (da * _gelu_grad(h.float())).to(dt)
     dy = dh.float() @ w1.float()                          # fp32, not rounded
     return _ln_bwd_plain(dy, xhat, rstd, ln_w, g, residual, dt)
 
 
 # ------------------------------------------------------------------ checks
-_IN_X_TYPE = ("x", "g", "qkv", "h", "wqkv", "wproj", "w1", "w2")
+_IN_X_TYPE = ("x", "g", "qkv", "attn", "h", "a_d", "wqkv", "wproj", "w1", "w2")
 
 
 def _check(x, named, shapes):
@@ -186,7 +207,7 @@ def _check(x, named, shapes):
     if C % 8:
         raise ValueError(f"hidden size C={C} must be a multiple of 8")
     for name, t in named.items():
-        want_dtype = (torch.int32 if name == "mask" else
+        want_dtype = (torch.int32 if name in ("mask", "seeds") else
                       x.dtype if name in _IN_X_TYPE else torch.float32)
         if t.device != x.device:
             raise ValueError(f"{name} is on {t.device}, x on {x.device}")
@@ -195,7 +216,7 @@ def _check(x, named, shapes):
         if tuple(t.shape) != shapes[name]:
             raise ValueError(f"{name} has shape {tuple(t.shape)}, "
                              f"expected {shapes[name]}")
-        if not t.is_contiguous() or t.data_ptr() % 16:
+        if not t.is_contiguous() or (t.data_ptr() % 16 and name != "seeds"):
             raise ValueError(f"{name} must be contiguous and 16-byte aligned")
 
 
@@ -220,9 +241,20 @@ def _refuse_weight_grads(**params):
             "run under torch.no_grad() / inference_mode()")
 
 
+def _drop_args(drop):
+    """ctypes arguments of a kernel's dropout: ``drop`` is None or
+    (seeds (B,) int32, rows per sample, draw, p, mask_out or None)."""
+    if drop is None:
+        return None, 0, 0, 0, 1.0, None
+    seeds, rows, draw, p, mask_out = drop
+    return (seeds.data_ptr(), rows, draw, keep_threshold(p), 1.0 / (1.0 - p),
+            mask_out.data_ptr() if mask_out is not None else None)
+
+
 def _gemm(lib, a2d, w, bias, out, ln=None, eps=0.0, residual=None, gelu=False,
-          aux=None, epi=_EPI_BIAS, w_kn=False):
-    """out = epi(LN?(a2d) . w^T + bias), or . w when ``w_kn`` (w stored (K, N))."""
+          aux=None, epi=_EPI_BIAS, w_kn=False, drop=None):
+    """out = epi(LN?(a2d) . w^T + bias), or . w when ``w_kn`` (w stored (K, N));
+    ``drop``: the epilogue's dropout (``_drop_args``)."""
     M, K = a2d.shape
     N = w.shape[1] if w_kn else w.shape[0]
     if w.shape[0 if w_kn else 1] != K or N % 8 or K % 8:
@@ -235,17 +267,22 @@ def _gemm(lib, a2d, w, bias, out, ln=None, eps=0.0, residual=None, gelu=False,
     rc = lib.rmcl_ln_gemm(
         _DTYPE_CODE[a2d.dtype], a2d.data_ptr(), ptr(ln_w), ptr(ln_b), eps,
         w.data_ptr(), ptr(bias), ptr(residual), ptr(aux), out.data_ptr(),
-        M, N, K, int(gelu), epi, int(w_kn),
+        M, N, K, int(gelu), epi, int(w_kn), *_drop_args(drop),
         torch.cuda.current_stream(a2d.device).cuda_stream)
     _build.check(rc, "ln_gemm")
 
 
-def _ln_bwd_dx(lib, x2d, dy, ln_w, g2d, eps, residual):
+def _ln_bwd_dx(lib, x2d, dy, ln_w, g2d, eps, residual, ln_b=None, y_out=None,
+               stats_out=None):
+    """dx of LayerNorm [+ g]; the training backwards also take y = LN(x)
+    rounded (``y_out``, needs ``ln_b``) and the rows' (mean, rstd)."""
     dx = torch.empty_like(x2d)
+    ptr = lambda t: t.data_ptr() if t is not None else None  # noqa: E731
     rc = lib.rmcl_ln_bwd_dx(
         _DTYPE_CODE[x2d.dtype], x2d.data_ptr(), dy.data_ptr(), ln_w.data_ptr(),
         g2d.data_ptr() if residual else None, dx.data_ptr(), x2d.shape[0],
-        x2d.shape[1], eps, torch.cuda.current_stream(x2d.device).cuda_stream)
+        x2d.shape[1], eps, ptr(ln_b), ptr(y_out), ptr(stats_out),
+        torch.cuda.current_stream(x2d.device).cuda_stream)
     _build.check(rc, "ln_bwd_dx")
     return dx
 

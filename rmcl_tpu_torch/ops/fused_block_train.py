@@ -1,0 +1,446 @@
+"""The two training halves of a ViLT pre-norm block, dropout inside, and their
+full backwards: public ops, plain versions and the autograd functions.
+
+Ports of ``rmcl_tpu/ops/pallas_block.py``:
+  * ``attn_half_train`` <- ``fused_attn_half_train`` (``_attn_train_fwd_impl``,
+    ``_attn_train_kernel``): ``x + drop_p(proj(MHA(qkv(LN1 x))))``
+  * ``attn_half_train_bwd`` <- ``_attn_train_bwd_impl``
+    (``_attn_train_bwd_kernel``, math ``_attn_bwd_math``): dx (+ g) and the
+    gradients of LN1's weight and bias, Wqkv, bqkv, Wproj and bproj
+  * ``mlp_half_train`` <- ``fused_mlp_half_train`` (``_mlp_train_fwd_impl``,
+    ``_mlp_train_kernel``): ``x + drop_p(fc2(drop_p(gelu(fc1(LN2 x)))))`` with
+    ``tail=True``, ``fc2(drop_p(gelu(fc1(LN2 x))))`` without
+  * ``mlp_half_train_bwd`` <- ``_mlp_train_bwd_impl``
+    (``_mlp_train_bwd_kernel``): dx (+ g when ``tail``) and the gradients of
+    LN2's weight and bias, W1, b1, W2 and b2
+
+On a CUDA tensor each op launches the hand-written kernels of
+``csrc/block_kernels.cu`` (see the note there) or raises; on a CPU tensor it
+runs its plain version.  Launches are counted in ``fused_block.launches``.
+
+Dropout.  ``seeds`` is (B,) int32, one stream per sample; the keep mask of an
+element is a function of (seed, draw, row, column) only
+(``ops/philox.py``).  The attention half uses draw 0 for its (S, C) mask; the
+MLP half draw 0 for the (S, 4C) mask after GELU and draw 1 for the (S, C) mask
+after fc2.  The backward regenerates the masks from the seeds.  At p = 0 the
+ops compute ``attn_half`` / ``mlp_half`` and their full gradients: the JAX
+package then runs ``fused_attn_half`` / ``fused_mlp_half`` (the same
+function), the port these ops.  ``emit_mask=True`` makes an op also return
+the 0/1 masks it applied, for tests; it is then not differentiable.
+
+What the forward keeps for the backward.  The TPU kernels keep x alone and
+recompute, because every intermediate lives in on-chip memory there.  Here the
+intermediates pass through device memory anyway, so the forward keeps the
+ones the backward reads: qkv (B, S, 3C) and the attention output before proj
+(B, S, C); the pre-GELU h and the dropped activation a_d (both (B, S, 4C)).
+That saves the backward two GEMMs, the attention core and a mask pass per
+block, for 5C + 8C values per token.
+
+Layouts and types as in ``fused_block``: weight matrices in torch (out, in)
+layout and x's type.  Every parameter gradient comes back in float32, in the
+parameter's layout ((3C, C) for Wqkv).  ``attn_half_train`` and
+``mlp_half_train`` take the parameters that receive the gradients (``wqkv``,
+...: typically float32 masters) and, optionally, copies already cast to x's
+type as the kernels' operands (``wqkv_c``, ...), so that a training step
+casts once per optimizer step and not per call.
+
+Rounding points, beyond those of the deterministic ops: the proj / fc2 output
+is rounded, biased and rounded as before, then kept and scaled in fp32,
+rounded, then + x; GELU stays fp32 into the in-MLP dropout, whose product is
+rounded once; gm = keep g / (1 - p) and gf likewise are computed in fp32 and
+rounded; the in-MLP mask acts on the fp32 gf . W2 before the GELU derivative;
+y = LN(x), attn, a_d and dh enter the weight-gradient products as their rounded
+values; all parameter gradients accumulate and stay in fp32.
+"""
+
+from __future__ import annotations
+
+import torch
+from torch.autograd.function import once_differentiable
+
+from rmcl_tpu_torch.ops import _build
+from rmcl_tpu_torch.ops.fused_block import (
+    _DTYPE_CODE, _EPI_DGELU, _EPI_F32, _attn_core_plain, _attn_dqkv_plain, _check,
+    _dense, _drop_args, _gelu_grad, _gemm, _head_dim, _ln_bwd_dx, _ln_bwd_plain,
+    _ln_parts, launches)
+from rmcl_tpu_torch.models.layers import layer_norm
+from rmcl_tpu_torch.ops.philox import check_rate, keep_mask
+
+
+def _drop(v32, keep, p: float, dtype):
+    """Inverted dropout of fp32 values: keep ? v / (1 - p) : 0, rounded."""
+    return torch.where(keep, v32 * (1.0 / (1.0 - p)), 0.0).to(dtype)
+
+
+def _rows(t):
+    return t.reshape(-1, t.shape[-1])
+
+
+# ------------------------------------------------------------ plain versions
+def _attn_train_fwd_plain(x, seeds, mask, ln_w, ln_b, wqkv, bqkv, wproj, bproj,
+                          num_heads, eps, p):
+    """(out, qkv, attn, keep)."""
+    B, S, C = x.shape
+    out, qkv, attn = _attn_core_plain(x, mask, ln_w, ln_b, wqkv, bqkv, wproj, bproj,
+                                      num_heads, eps)
+    keep = keep_mask(seeds, 0, S, C, p)
+    return x + _drop(out.float(), keep, p, x.dtype), qkv, attn, keep
+
+
+def attn_half_train_plain(x, seeds, mask, ln_w, ln_b, wqkv, bqkv, wproj, bproj,
+                          num_heads: int, eps: float, p: float):
+    """Plain version of ``attn_half_train``."""
+    return _attn_train_fwd_plain(x, seeds, mask, ln_w, ln_b, wqkv, bqkv, wproj,
+                                 bproj, num_heads, eps, p)[0]
+
+
+def attn_half_train_bwd_plain(x, seeds, mask, ln_w, ln_b, wqkv, wproj, g, qkv, attn,
+                              num_heads: int, eps: float, p: float):
+    """Plain version of ``attn_half_train_bwd``, step by step with the rounding
+    points of ``pallas_block.py:_attn_train_bwd_kernel``."""
+    B, S, C = x.shape
+    dt = x.dtype
+    gm = _drop(g.float(), keep_mask(seeds, 0, S, C, p), p, dt)
+    xhat, rstd = _ln_parts(x, eps)
+    y = (xhat * ln_w + ln_b).to(dt)
+    dqkv = _attn_dqkv_plain(qkv, mask, wproj, gm, num_heads)
+    dy = dqkv.float() @ wqkv.float()                      # fp32, not rounded
+    dx = _ln_bwd_plain(dy, xhat, rstd, ln_w, g, True, dt)  # + the unmasked g
+    dqkv32, gm32 = _rows(dqkv).float(), _rows(gm).float()
+    return (dx, (dy * xhat).sum((0, 1)), dy.sum((0, 1)),
+            dqkv32.t() @ _rows(y).float(), dqkv32.sum(0),
+            gm32.t() @ _rows(attn).float(), gm32.sum(0))
+
+
+def _mlp_train_fwd_plain(x, seeds, ln_w, ln_b, w1, b1, w2, b2, eps, p, tail):
+    """(out, h, a_d, keep, keep2 or None)."""
+    B, S, C = x.shape
+    h = _dense(layer_norm(x, ln_w, ln_b, eps), w1, b1)
+    keep = keep_mask(seeds, 0, S, w1.shape[0], p)
+    a_d = _drop(torch.nn.functional.gelu(h.float()), keep, p, x.dtype)
+    out = _dense(a_d, w2, b2)
+    keep2 = None
+    if tail:
+        keep2 = keep_mask(seeds, 1, S, C, p)
+        out = x + _drop(out.float(), keep2, p, x.dtype)
+    return out, h, a_d, keep, keep2
+
+
+def mlp_half_train_plain(x, seeds, ln_w, ln_b, w1, b1, w2, b2, p: float, eps: float,
+                         tail: bool = True):
+    """Plain version of ``mlp_half_train``."""
+    return _mlp_train_fwd_plain(x, seeds, ln_w, ln_b, w1, b1, w2, b2, eps, p, tail)[0]
+
+
+def mlp_half_train_bwd_plain(x, seeds, ln_w, ln_b, w1, w2, g, h, a_d, p: float,
+                             eps: float, tail: bool = True):
+    """Plain version of ``mlp_half_train_bwd``, step by step with the rounding
+    points of ``pallas_block.py:_mlp_train_bwd_kernel``."""
+    B, S, C = x.shape
+    dt = x.dtype
+    gf = _drop(g.float(), keep_mask(seeds, 1, S, C, p), p, dt) if tail else g
+    xhat, rstd = _ln_parts(x, eps)
+    y = (xhat * ln_w + ln_b).to(dt)
+    keep = keep_mask(seeds, 0, S, w1.shape[0], p)
+    da = torch.where(keep, (gf.float() @ w2.float()) * (1.0 / (1.0 - p)), 0.0)
+    dh = (da * _gelu_grad(h.float())).to(dt)
+    dy = dh.float() @ w1.float()                          # fp32, not rounded
+    dx = _ln_bwd_plain(dy, xhat, rstd, ln_w, g, tail, dt)
+    dh32, gf32 = _rows(dh).float(), _rows(gf).float()
+    return (dx, (dy * xhat).sum((0, 1)), dy.sum((0, 1)),
+            dh32.t() @ _rows(y).float(), dh32.sum(0),
+            gf32.t() @ _rows(a_d).float(), gf32.sum(0))
+
+
+# ----------------------------------------------------------- kernel launchers
+def _stream(t):
+    return torch.cuda.current_stream(t.device).cuda_stream
+
+
+def _drop_scale(lib, g2d, drop):
+    """keep ? round(g / (1 - p)) : 0; ``drop`` as ``fused_block._drop_args`` takes it."""
+    out = torch.empty_like(g2d)
+    rc = lib.rmcl_drop_scale(
+        _DTYPE_CODE[g2d.dtype], g2d.data_ptr(), out.data_ptr(), g2d.shape[0],
+        g2d.shape[1], *_drop_args(drop), _stream(g2d))
+    _build.check(rc, "drop_scale")
+    return out
+
+
+def _gemm_tn(lib, a2d, b2d):
+    """a^T . b over the rows, fp32: the weight-gradient product."""
+    (M, Na), (Mb, Nb) = a2d.shape, b2d.shape
+    if M != Mb or Na % 8 or Nb % 8 or a2d.dtype != b2d.dtype:
+        raise ValueError(f"weight-gradient GEMM of {tuple(a2d.shape)} against "
+                         f"{tuple(b2d.shape)}: rows and types must match and "
+                         "widths be multiples of 8")
+    if M * max(Na, Nb) >= 2 ** 31:
+        raise ValueError(f"weight-gradient GEMM of {M}x{Na}x{Nb} exceeds 32-bit indexing")
+    out = torch.empty(Na, Nb, device=a2d.device, dtype=torch.float32)
+    rc = lib.rmcl_gemm_tn(_DTYPE_CODE[a2d.dtype], a2d.data_ptr(), b2d.data_ptr(),
+                          out.data_ptr(), M, Na, Nb, _stream(a2d))
+    _build.check(rc, "gemm_tn")
+    return out
+
+
+def _colsum(lib, a2d):
+    """Column sums of (M, N) in fp32, fixed order."""
+    M, N = a2d.shape
+    partial = torch.empty(lib.rmcl_colsum_slabs(M), N, device=a2d.device,
+                          dtype=torch.float32)
+    out = torch.empty(N, device=a2d.device, dtype=torch.float32)
+    rc = lib.rmcl_colsum(_DTYPE_CODE[a2d.dtype], a2d.data_ptr(), partial.data_ptr(),
+                         out.data_ptr(), M, N, _stream(a2d))
+    _build.check(rc, "colsum")
+    return out
+
+
+def _ln_colsum(lib, x2d, dy, stats):
+    """(sum_m dy xhat, sum_m dy): LayerNorm's weight and bias gradients."""
+    M, C = x2d.shape
+    partial = torch.empty(lib.rmcl_colsum_slabs(M), 2 * C, device=x2d.device,
+                          dtype=torch.float32)
+    out = torch.empty(2 * C, device=x2d.device, dtype=torch.float32)
+    rc = lib.rmcl_ln_colsum(_DTYPE_CODE[x2d.dtype], x2d.data_ptr(), dy.data_ptr(),
+                            stats.data_ptr(), partial.data_ptr(), out.data_ptr(), M, C,
+                            _stream(x2d))
+    _build.check(rc, "ln_colsum")
+    return out[:C], out[C:]
+
+
+def _ln_backward(lib, x2d, dy, ln_w, ln_b, g2d, eps, residual):
+    """(dx, y = LN(x) rounded, dln_w, dln_b) from the fp32 dy."""
+    M, C = x2d.shape
+    y = torch.empty_like(x2d)
+    stats = torch.empty(M, 2, device=x2d.device, dtype=torch.float32)
+    dx = _ln_bwd_dx(lib, x2d, dy, ln_w, g2d, eps, residual, ln_b=ln_b, y_out=y,
+                    stats_out=stats)
+    return (dx, y, *_ln_colsum(lib, x2d, dy, stats))
+
+
+# ------------------------------------------------------------ forward chains
+def _attn_train_fwd(x, seeds, mask, ln_w, ln_b, wqkv, bqkv, wproj, bproj, num_heads,
+                    eps, p, emit_mask=False):
+    """(out, qkv, attn, keep or None): plain on the CPU, the kernels on CUDA."""
+    check_rate(p)
+    if x.device.type == "cpu":
+        return _attn_train_fwd_plain(x, seeds, mask, ln_w, ln_b, wqkv, bqkv, wproj,
+                                     bproj, num_heads, eps, p)
+    B, S, C = x.shape
+    D = _head_dim(C, num_heads)
+    _check(x, dict(x=x, seeds=seeds, mask=mask, ln_w=ln_w, ln_b=ln_b, wqkv=wqkv,
+                   bqkv=bqkv, wproj=wproj, bproj=bproj),
+           dict(x=(B, S, C), seeds=(B,), mask=(B, S), ln_w=(C,), ln_b=(C,),
+                wqkv=(3 * C, C), bqkv=(3 * C,), wproj=(C, C), bproj=(C,)))
+    lib = _build.library()
+    x2d = x.view(B * S, C)
+    qkv = torch.empty(B * S, 3 * C, device=x.device, dtype=x.dtype)
+    attn = torch.empty(B * S, C, device=x.device, dtype=x.dtype)
+    out = torch.empty_like(x)
+    keep = torch.empty_like(x) if emit_mask else None
+    _gemm(lib, x2d, wqkv, bqkv, qkv, ln=(ln_w, ln_b), eps=eps)
+    rc = lib.rmcl_masked_attention_fwd(
+        _DTYPE_CODE[x.dtype], qkv.data_ptr(), mask.data_ptr(), attn.data_ptr(),
+        B, S, num_heads, D, D ** -0.5, _stream(x))
+    _build.check(rc, "masked_attention_fwd")
+    _gemm(lib, attn, wproj, bproj, out.view(B * S, C), residual=x2d,
+          drop=(seeds, S, 0, p, keep))
+    launches["attn_half_train"] += 1
+    return out, qkv.view(B, S, 3 * C), attn.view(B, S, C), keep
+
+
+def _mlp_train_fwd(x, seeds, ln_w, ln_b, w1, b1, w2, b2, eps, p, tail, emit_mask=False):
+    """(out, h, a_d, keep or None, keep2 or None)."""
+    check_rate(p)
+    if x.device.type == "cpu":
+        return _mlp_train_fwd_plain(x, seeds, ln_w, ln_b, w1, b1, w2, b2, eps, p, tail)
+    B, S, C = x.shape
+    C4 = w1.shape[0]
+    _check(x, dict(x=x, seeds=seeds, ln_w=ln_w, ln_b=ln_b, w1=w1, b1=b1, w2=w2, b2=b2),
+           dict(x=(B, S, C), seeds=(B,), ln_w=(C,), ln_b=(C,), w1=(C4, C), b1=(C4,),
+                w2=(C, C4), b2=(C,)))
+    lib = _build.library()
+    x2d = x.view(B * S, C)
+    h = torch.empty(B * S, C4, device=x.device, dtype=x.dtype)
+    a_d = torch.empty_like(h)
+    out = torch.empty_like(x)
+    keep = torch.empty_like(h) if emit_mask else None
+    keep2 = torch.empty_like(x) if emit_mask and tail else None
+    _gemm(lib, x2d, w1, b1, a_d, ln=(ln_w, ln_b), eps=eps, gelu=True, aux=h,
+          drop=(seeds, S, 0, p, keep))
+    _gemm(lib, a_d, w2, b2, out.view(B * S, C), residual=x2d if tail else None,
+          drop=(seeds, S, 1, p, keep2) if tail else None)
+    launches["mlp_half_train"] += 1
+    return (out, h.view(B, S, C4), a_d.view(B, S, C4),
+            keep.view(B, S, C4) if emit_mask else None, keep2)
+
+
+# ------------------------------------------------------------- backward ops
+def attn_half_train_bwd(x, seeds, mask, ln_w, ln_b, wqkv, wproj, g, qkv, attn,
+                        num_heads: int, eps: float, p: float, emit_mask: bool = False):
+    """Backward of ``attn_half_train`` given its output gradient g (B, S, C) and
+    the forward's ``qkv`` (B, S, 3C) and ``attn`` (B, S, C).  Returns
+    (dx, dln_w, dln_b, dwqkv (3C, C), dbqkv, dwproj (C, C), dbproj), dx in x's
+    type and the rest float32; with ``emit_mask`` also the regenerated mask."""
+    check_rate(p)
+    B, S, C = x.shape
+    if x.device.type == "cpu":
+        res = attn_half_train_bwd_plain(x, seeds, mask, ln_w, ln_b, wqkv, wproj, g, qkv,
+                                        attn, num_heads, eps, p)
+        return res + (keep_mask(seeds, 0, S, C, p),) if emit_mask else res
+    D = _head_dim(C, num_heads)
+    _check(x, dict(x=x, seeds=seeds, mask=mask, ln_w=ln_w, ln_b=ln_b, wqkv=wqkv,
+                   wproj=wproj, g=g, qkv=qkv, attn=attn),
+           dict(x=(B, S, C), seeds=(B,), mask=(B, S), ln_w=(C,), ln_b=(C,),
+                wqkv=(3 * C, C), wproj=(C, C), g=(B, S, C), qkv=(B, S, 3 * C),
+                attn=(B, S, C)))
+    lib = _build.library()
+    M = B * S
+    x2d, g2d = x.view(M, C), g.view(M, C)
+    new = lambda *shape, dtype=x.dtype: torch.empty(  # noqa: E731
+        *shape, device=x.device, dtype=dtype)
+    keep = new(M, C) if emit_mask else None
+    gm = _drop_scale(lib, g2d, (seeds, S, 0, p, keep))
+    dattn, dqkv = new(M, C), new(M, 3 * C)
+    stats = new(B, num_heads, S, 3, dtype=torch.float32)
+    dy = new(M, C, dtype=torch.float32)
+    _gemm(lib, gm, wproj, None, dattn, w_kn=True)
+    rc = lib.rmcl_masked_attention_bwd(
+        _DTYPE_CODE[x.dtype], qkv.data_ptr(), mask.data_ptr(), dattn.data_ptr(),
+        dqkv.data_ptr(), stats.data_ptr(), B, S, num_heads, D, D ** -0.5, _stream(x))
+    _build.check(rc, "masked_attention_bwd")
+    _gemm(lib, dqkv, wqkv, None, dy, epi=_EPI_F32, w_kn=True)
+    dx, y, dln_w, dln_b = _ln_backward(lib, x2d, dy, ln_w, ln_b, g2d, eps, True)
+    res = (dx.view(B, S, C), dln_w, dln_b,
+           _gemm_tn(lib, dqkv, y), _colsum(lib, dqkv),
+           _gemm_tn(lib, gm, attn.view(M, C)), _colsum(lib, gm))
+    launches["attn_half_train_bwd"] += 1
+    return res + (keep.view(B, S, C) > 0,) if emit_mask else res
+
+
+def mlp_half_train_bwd(x, seeds, ln_w, ln_b, w1, w2, g, h, a_d, p: float, eps: float,
+                       tail: bool = True, emit_mask: bool = False):
+    """Backward of ``mlp_half_train`` given its output gradient g (B, S, C) and
+    the forward's ``h`` and ``a_d`` (B, S, 4C).  Returns (dx, dln_w, dln_b,
+    dw1 (4C, C), db1, dw2 (C, 4C), db2), dx in x's type and the rest float32;
+    with ``emit_mask`` also the two regenerated masks (the second None unless
+    ``tail``)."""
+    check_rate(p)
+    B, S, C = x.shape
+    C4 = w1.shape[0]
+    if x.device.type == "cpu":
+        res = mlp_half_train_bwd_plain(x, seeds, ln_w, ln_b, w1, w2, g, h, a_d, p, eps,
+                                       tail)
+        if emit_mask:
+            res += (keep_mask(seeds, 0, S, C4, p),
+                    keep_mask(seeds, 1, S, C, p) if tail else None)
+        return res
+    _check(x, dict(x=x, seeds=seeds, ln_w=ln_w, ln_b=ln_b, w1=w1, w2=w2, g=g, h=h,
+                   a_d=a_d),
+           dict(x=(B, S, C), seeds=(B,), ln_w=(C,), ln_b=(C,), w1=(C4, C), w2=(C, C4),
+                g=(B, S, C), h=(B, S, C4), a_d=(B, S, C4)))
+    lib = _build.library()
+    M = B * S
+    x2d, g2d = x.view(M, C), g.view(M, C)
+    keep = torch.empty_like(h).view(M, C4) if emit_mask else None
+    keep2 = torch.empty_like(x2d) if emit_mask and tail else None
+    gf = _drop_scale(lib, g2d, (seeds, S, 1, p, keep2)) if tail else g2d
+    dh = torch.empty(M, C4, device=x.device, dtype=x.dtype)
+    dy = torch.empty(M, C, device=x.device, dtype=torch.float32)
+    _gemm(lib, gf, w2, None, dh, aux=h, epi=_EPI_DGELU, w_kn=True,
+          drop=(seeds, S, 0, p, keep))
+    _gemm(lib, dh, w1, None, dy, epi=_EPI_F32, w_kn=True)
+    dx, y, dln_w, dln_b = _ln_backward(lib, x2d, dy, ln_w, ln_b, g2d, eps, tail)
+    res = (dx.view(B, S, C), dln_w, dln_b,
+           _gemm_tn(lib, dh, y), _colsum(lib, dh),
+           _gemm_tn(lib, gf, a_d.view(M, C4)), _colsum(lib, gf))
+    launches["mlp_half_train_bwd"] += 1
+    if emit_mask:
+        res += (keep.view(B, S, C4) > 0, keep2.view(B, S, C) > 0 if tail else None)
+    return res
+
+
+# ------------------------------------------------------------------ autograd
+def _like(grads, dtypes):
+    """Parameter gradients in their parameters' types (float32 masters: as is)."""
+    return tuple(g.to(dt) for g, dt in zip(grads, dtypes))
+
+
+class _AttnHalfTrain(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, seeds, mask, ln_w, ln_b, wqkv, bqkv, wproj, bproj, wqkv_c,
+                wproj_c, num_heads, eps, p):
+        out, qkv, attn, _ = _attn_train_fwd(x, seeds, mask, ln_w, ln_b, wqkv_c, bqkv,
+                                            wproj_c, bproj, num_heads, eps, p)
+        ctx.save_for_backward(x, seeds, mask, ln_w, ln_b, wqkv_c, wproj_c, qkv, attn)
+        ctx.conf = (num_heads, eps, p)
+        ctx.dtypes = tuple(t.dtype for t in (ln_w, ln_b, wqkv, bqkv, wproj, bproj))
+        return out
+
+    @staticmethod
+    @once_differentiable
+    def backward(ctx, g):
+        x, seeds, mask, ln_w, ln_b, wqkv_c, wproj_c, qkv, attn = ctx.saved_tensors
+        dx, *dparams = attn_half_train_bwd(x, seeds, mask, ln_w, ln_b, wqkv_c, wproj_c,
+                                           g.contiguous(), qkv, attn, *ctx.conf)
+        return (dx, None, None, *_like(dparams, ctx.dtypes), None, None, None, None, None)
+
+
+class _MlpHalfTrain(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, seeds, ln_w, ln_b, w1, b1, w2, b2, w1_c, w2_c, p, eps, tail):
+        out, h, a_d, _, _ = _mlp_train_fwd(x, seeds, ln_w, ln_b, w1_c, b1, w2_c, b2, eps,
+                                           p, tail)
+        ctx.save_for_backward(x, seeds, ln_w, ln_b, w1_c, w2_c, h, a_d)
+        ctx.conf = (p, eps, tail)
+        ctx.dtypes = tuple(t.dtype for t in (ln_w, ln_b, w1, b1, w2, b2))
+        return out
+
+    @staticmethod
+    @once_differentiable
+    def backward(ctx, g):
+        x, seeds, ln_w, ln_b, w1_c, w2_c, h, a_d = ctx.saved_tensors
+        dx, *dparams = mlp_half_train_bwd(x, seeds, ln_w, ln_b, w1_c, w2_c,
+                                          g.contiguous(), h, a_d, *ctx.conf)
+        return (dx, None, *_like(dparams, ctx.dtypes), None, None, None, None, None)
+
+
+def _operand(w, w_c, dtype):
+    return w.detach().to(dtype).contiguous() if w_c is None else w_c
+
+
+# ------------------------------------------------------------------ public
+def attn_half_train(x, seeds, mask, ln_w, ln_b, wqkv, bqkv, wproj, bproj,
+                    num_heads: int, eps: float, p: float, wqkv_c=None, wproj_c=None,
+                    emit_mask: bool = False):
+    """``x + drop_p(proj(MHA(qkv(LN1 x))))``, differentiable with respect to x
+    and all six parameters.  x: (B, S, C); seeds: (B,) int32; mask: (B, S).
+    ``wqkv_c`` / ``wproj_c``: the matrices already in x's type (else cast here)."""
+    wqkv_c, wproj_c = _operand(wqkv, wqkv_c, x.dtype), _operand(wproj, wproj_c, x.dtype)
+    if emit_mask:
+        with torch.no_grad():
+            out, _, _, keep = _attn_train_fwd(x, seeds, mask, ln_w, ln_b, wqkv_c, bqkv,
+                                              wproj_c, bproj, num_heads, eps, p, True)
+        return out, keep > 0
+    if torch.is_grad_enabled():
+        return _AttnHalfTrain.apply(x, seeds, mask, ln_w, ln_b, wqkv, bqkv, wproj, bproj,
+                                    wqkv_c, wproj_c, num_heads, eps, p)
+    return _attn_train_fwd(x, seeds, mask, ln_w, ln_b, wqkv_c, bqkv, wproj_c, bproj,
+                           num_heads, eps, p)[0]
+
+
+def mlp_half_train(x, seeds, ln_w, ln_b, w1, b1, w2, b2, p: float, eps: float,
+                   tail: bool = True, w1_c=None, w2_c=None, emit_mask: bool = False):
+    """``x + drop_p(fc2(drop_p(gelu_erf(fc1(LN2 x)))))`` (``tail``), or
+    ``fc2(drop_p(gelu_erf(fc1(LN2 x))))``; differentiable with respect to x and
+    all six parameters.  x: (B, S, C); seeds: (B,) int32; w1: (C4, C); w2: (C, C4)."""
+    w1_c, w2_c = _operand(w1, w1_c, x.dtype), _operand(w2, w2_c, x.dtype)
+    if emit_mask:
+        with torch.no_grad():
+            out, _, _, keep, keep2 = _mlp_train_fwd(x, seeds, ln_w, ln_b, w1_c, b1, w2_c,
+                                                    b2, eps, p, tail, True)
+        return out, keep > 0, (keep2 > 0 if tail else None)
+    if torch.is_grad_enabled():
+        return _MlpHalfTrain.apply(x, seeds, ln_w, ln_b, w1, b1, w2, b2, w1_c, w2_c, p,
+                                   eps, tail)
+    return _mlp_train_fwd(x, seeds, ln_w, ln_b, w1_c, b1, w2_c, b2, eps, p, tail)[0]

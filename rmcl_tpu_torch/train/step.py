@@ -1,0 +1,189 @@
+"""The training step with task dispatch (port of ``rmcl_tpu/train/step.py``).
+
+The JAX package compiles ``(TrainState, batch, rng) -> (TrainState,
+metrics)`` as one program of pure functions.  The port runs eagerly and
+updates in place: ``TrainState`` holds the live model (whose buffers are the
+MoCo queue and its pointer), the optimizer and the scheduler, and
+``train_step(batch, generator) -> metrics`` advances them.  One step of
+``task_moco`` is, in order: the momentum update of the twins, the key
+forward, the PGD image attack against the post-update parameters, the clean
+and the attacked query views with dropout, the loss's backward, AdamW, the
+enqueue of the keys.  The text attack's output enters through
+``batch["attacked_text_ids"]`` / ``["attacked_text_masks"]``, as it does in
+the JAX package's ``make_train_step``.
+
+Every block of the key forward and of the attack runs through the
+deterministic kernels, every block of the four query views through the
+training kernels (``ops/fused_block.py``, ``ops/fused_block_train.py``).  The
+block matrices in the compute type are cast from the float32 master
+parameters once per optimizer step, after the update (the twins': after the
+momentum update), never per call or per view.
+
+Ported: the ``moco`` task.  Any other active task raises.  Not ported yet:
+``make_attacked_train_step`` (the greedy text attack inside the step),
+``make_eval_step``, gradient accumulation.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Callable, Dict, List, Optional
+
+import torch
+
+from rmcl_tpu_torch.attacks.pgd import make_pgd_moco
+from rmcl_tpu_torch.core.config import active_tasks
+from rmcl_tpu_torch.models.vilt import ViLT, draw_seeds
+from rmcl_tpu_torch.models.vit import normalize_u8
+from rmcl_tpu_torch.objectives import contrastive
+from rmcl_tpu_torch.train.schedule import make_lr_schedule, make_optimizer
+
+MOCO_VIEWS = 4   # clean, txt, img, both: one set of dropout seeds each
+
+
+@dataclasses.dataclass
+class TrainState:
+    model: ViLT
+    optimizer: torch.optim.Optimizer
+    scheduler: torch.optim.lr_scheduler.LambdaLR
+    step: int = 0
+    # the query transformer's matrices in the compute type, recast after
+    # every optimizer step
+    block_matrices: Optional[List[Dict[str, torch.Tensor]]] = None
+
+    def refresh_block_matrices(self) -> None:
+        tr = self.model.transformer
+        self.block_matrices = tr.block_matrices(self.model.compute_dtype)
+
+
+def resolve_max_steps(cfg, steps_per_epoch: int = 1000) -> int:
+    if cfg.max_steps:
+        return int(cfg.max_steps)
+    return int(cfg.max_epoch * steps_per_epoch)
+
+
+def training_device(device=None) -> torch.device:
+    """The first CUDA device, or what the caller asked for; without a card
+    only an explicit ``device="cpu"`` runs (the plain ops)."""
+    if device is not None:
+        device = torch.device(device)
+        if device.type != "cuda" or torch.cuda.is_available():
+            return device
+    elif torch.cuda.is_available():
+        return torch.device("cuda", 0)
+    raise RuntimeError("no CUDA device: the training step runs on a GPU; pass "
+                       "device='cpu' to run the plain ops on the CPU")
+
+
+def create_train_state(cfg, max_steps: Optional[int] = None,
+                       model: Optional[ViLT] = None, device=None) -> TrainState:
+    """A ``TrainState`` on the training device.  ``model`` defaults to a
+    ``ViLT`` initialised from ``cfg.seed``; the momentum twins are frozen
+    (the momentum update moves them, never the optimizer)."""
+    device = training_device(device)
+    if model is None:
+        model = ViLT(cfg).init(torch.Generator().manual_seed(cfg.seed))
+    model = model.to(device).train()
+    for name, p in model.named_parameters():
+        if name.startswith("k_"):
+            p.requires_grad_(False)
+    optimizer, scheduler, _ = make_optimizer(cfg, model,
+                                             max_steps or resolve_max_steps(cfg))
+    ts = TrainState(model, optimizer, scheduler)
+    ts.refresh_block_matrices()
+    return ts
+
+
+# ---------------------------------------------------------------- helpers
+def _attacked_text_of(batch) -> Optional[Dict[str, torch.Tensor]]:
+    if "attacked_text_ids" in batch:
+        return {"text_ids": batch["attacked_text_ids"],
+                "text_masks": batch["attacked_text_masks"]}
+    return None
+
+
+# canonical loss keys per task: the total loss is their sum (the reference
+# sums every key containing "loss", which counts diagnostics twice)
+_TASK_LOSS_KEYS = {
+    "moco": ("moco_loss",),
+}
+
+
+def compute_all_tasks(cfg, ts: TrainState, batch, seeds, *, train: bool):
+    """Run every active task (reference forward vilt_module.py:420-469).
+    Returns (total_loss, ret).  Twins and queue are updated in place."""
+    tasks = active_tasks(cfg)
+    other = [t for t in tasks if t not in _TASK_LOSS_KEYS]
+    if other:
+        raise NotImplementedError(
+            f"tasks {other} are not ported: the training step has the moco task "
+            "only (ROADMAP A11)")
+    model = ts.model
+    if batch["image"].dtype == torch.uint8:          # u8 wire format -> f32 once
+        batch = dict(batch, image=normalize_u8(batch["image"], batch.get("image_hw"),
+                                               model.grid_hw, model.patch_size))
+    ret: Dict[str, torch.Tensor] = {}
+    if "moco" in tasks:
+        pgd_fn = None
+        if cfg.image_view and not cfg.augmentation:
+            attack = make_pgd_moco(model, cfg.adv_steps_img, cfg.adv_lr_img,
+                                   cfg.adv_max_norm_img, cfg.temperature)
+            pgd_fn = lambda b, k, queue: attack(  # noqa: E731
+                b, k, queue, block_matrices=ts.block_matrices)
+        ret.update(contrastive.compute_moco_contrastive(
+            model, batch, seeds=seeds, block_matrices=ts.block_matrices,
+            k_block_matrices=lambda: model.k_transformer.block_matrices(
+                model.compute_dtype),
+            train=train, text_view=cfg.text_view, image_view=cfg.image_view,
+            attacked_text=_attacked_text_of(batch) if cfg.text_view else None,
+            pgd_fn=pgd_fn, temperature=cfg.temperature, momentum=cfg.momentum,
+            per_step_bs=batch["text_ids"].shape[0],
+            attacked_image=batch.get("augmented_image") if cfg.augmentation else None,
+            augmentation=cfg.augmentation))
+    total = sum(ret[k].float() for t in tasks for k in _TASK_LOSS_KEYS[t] if k in ret)
+    return total, ret
+
+
+def _scalar_metrics(ret: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
+    return {k: v.detach() for k, v in ret.items()
+            if isinstance(v, torch.Tensor) and v.dim() == 0}
+
+
+# ------------------------------------------------------------- train step
+def make_train_step(cfg, ts: TrainState, max_steps: Optional[int] = None) -> Callable:
+    """``train_step(batch, generator) -> metrics`` over ``ts``, on the device
+    its model lies on.  ``batch``: tensors on that device; ``generator``: a
+    CPU ``torch.Generator`` the step draws its dropout seeds from.  Metrics
+    are 0-d tensors on the device (no host read in the step), with
+    ``total_loss`` and ``lr``, the base rate this update was made with."""
+    if cfg.fuse_moco_views:
+        raise NotImplementedError("fuse_moco_views is not ported")
+    lr_sched = make_lr_schedule(cfg, max_steps or resolve_max_steps(cfg))
+    model = ts.model
+    device = next(model.parameters()).device
+    trainable = [p for p in model.parameters() if p.requires_grad]
+
+    def train_step(batch: Dict[str, torch.Tensor],
+                   generator: torch.Generator) -> Dict[str, torch.Tensor]:
+        seeds = draw_seeds(generator, MOCO_VIEWS, len(model.transformer.blocks),
+                           batch["text_ids"].shape[0], device)
+        ts.optimizer.zero_grad(set_to_none=True)
+        total, ret = compute_all_tasks(cfg, ts, batch, seeds, train=True)
+        if total.requires_grad:      # no attacked view configured: nothing to learn from
+            total.backward()
+        for p in trainable:
+            # a parameter the loss does not reach still decays, as its zero
+            # gradient makes it do in the JAX package
+            if p.grad is None:
+                p.grad = torch.zeros_like(p)
+        ts.optimizer.step()
+        ts.scheduler.step()
+        ts.refresh_block_matrices()
+
+        metrics = _scalar_metrics(ret)
+        metrics["total_loss"] = total.detach()
+        metrics["lr"] = torch.tensor(lr_sched(ts.step), device=device)
+        ts.step += 1
+        return metrics
+
+    return train_step

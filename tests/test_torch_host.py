@@ -146,6 +146,8 @@ def test_importing_every_module_pulls_in_neither_jax_nor_rmcl_tpu(tmp_path):
         "names = [m.name for m in pkgutil.walk_packages(rmcl_tpu_torch.__path__,\n"
         "                                               'rmcl_tpu_torch.')]\n"
         "assert len(names) > 15, names\n"
+        "assert {'rmcl_tpu_torch.ops.philox', 'rmcl_tpu_torch.ops.fused_block_train',\n"
+        "        'rmcl_tpu_torch.train.schedule', 'rmcl_tpu_torch.train.step'} <= set(names)\n"
         "for n in names:\n"
         "    importlib.import_module(n)\n"
         "bad = sorted(m for m in sys.modules\n"

@@ -21,7 +21,7 @@ ATOL = 3e-5      # as tests/test_pallas.py holds the Pallas kernels to their twi
 # in fp32 (summation order, and erff against the Pallas body's 1.5e-7 erf
 # approximation) and to max|ref| in bf16 (rounding points agree; ties do not)
 DX_RTOL = {"float32": 2e-5, "bfloat16": 2e-2}
-ZERO_LAUNCHES = {"attn_half": 0, "mlp_half": 0, "attn_half_dx": 0, "mlp_half_dx": 0}
+ZERO_LAUNCHES = dict.fromkeys(FB.launches, 0)
 
 
 def _inputs(seed):
