@@ -1,5 +1,9 @@
 """Smoke run of the PyTorch port on one NVIDIA GPU: the serving path, the PGD
-image attack and the task_moco training step.
+image attack and the task_moco training step under the three block
+configurations (``attention_impl`` / ``mlp_impl``, ``models/vilt.py:
+derive_block_impls``): the default ("fused", "fused_train"), P ("pallas": the
+unfused block around the attention-core kernels) and F ("fused", "fused":
+``attn_half_full`` with its full backward, the plain MLP).
 
     python3 chip_smoke.py
 
@@ -36,6 +40,15 @@ Phases, any failure exits non-zero:
                masks the kernels emit, forward and backward, equal
                philox.keep_mask bit for bit, keep rate within 0.002 of 0.9;
                two backward calls give identical bits.
+               The ops of configurations P and F at B=16, S=241, fp32 and
+               bf16: masked_attention (row 10) and its backward (row 11) on
+               the heads of the block's qkv projection, beside
+               F.scaled_dot_product_attention and its backward through
+               torch.autograd.grad; attn_half_full and its backward (row 2),
+               seven outputs bit-identical twice; the dropout op at (S, 4C),
+               the plain version's bits exactly; attn_half and mlp_half at a
+               two-way tensor-parallel shard's shapes (row 14: 6 heads, qkv
+               768 -> 3 x 384, proj 384 -> 768, fc1 768 -> 1536).
   4. serving   a batch-8 Session answers 20 synthetic wire-format requests
                (last chunk short: padded); every block of every forward must
                go through both kernels (launch counters); outputs finite
@@ -76,7 +89,9 @@ Phases, any failure exits non-zero:
                written columns equal the step's keys.  Step time (median of
                3, host clock + synchronize), pairs/s, the split by CUDA
                events into key forward / attack / views / optimizer, and
-               max_memory_allocated.
+               max_memory_allocated.  The launch counters also read 14 of the
+               dropout op (the embedding dropouts: text and image, four views
+               forward, three backward) and 0 of every other op.
   9. train slice  one step of 4 pairs in fp32 at full width and depth: the card's
                kernels against the CPU's plain ops from the same weights,
                batch and dropout seeds (so the same masks): loss within 1e-5
@@ -84,6 +99,14 @@ Phases, any failure exits non-zero:
                queue within 2e-4 * max(1, max|ref|); the pointer equal.  An
                AdamW step moves an element by at most the rate (1e-4), so the
                share of elements within 2% of the rate is printed beside it.
+ 10. train P, train F   phase 8 under configurations P and F.  Per step, P:
+               masked_attention 120 (12 key forward, 60 PGD, 48 views),
+               masked_attention_bwd 96, mlp_half 72, mlp_half_dx 60,
+               mlp_half_train 48, mlp_half_train_bwd 36, dropout 98, every
+               attn_half* op 0; F: attn_half 72, attn_half_dx 60,
+               attn_half_full 48, attn_half_full_bwd 36, mlp_half 72,
+               mlp_half_dx 60, dropout 266, every training op 0.
+ 11. train slice P, train slice F   phase 9 under P and F.
 
 The line before the last is the kernels' JSON record; the last line is
 ``{"ok": true, "device": {...}}``.  Without a card, or outside the
@@ -92,7 +115,8 @@ repository, it exits non-zero and prints no result.
     python3 chip_smoke.py --profile
 
 runs phases 1 and 2 and then, in place of the checks, traces five serving
-forwards, two attacks and two training steps with ``torch.profiler`` and
+forwards, two attacks and two training steps under each configuration with
+``torch.profiler`` and
 prints, for each, the
 device time by kernel name, the device-busy and wall time per call and the
 idle share (the breakdowns of PERF.md section 5).
@@ -127,13 +151,28 @@ KERNELS = {  # op -> the Pallas kernel body it replaces
     "attn_half_train_bwd": "rmcl_tpu/ops/pallas_block.py:1280",
     "mlp_half_train": "rmcl_tpu/ops/pallas_block.py:743",
     "mlp_half_train_bwd": "rmcl_tpu/ops/pallas_block.py:795",
+    # the other block configurations: F's attention half (row 1's forward
+    # without the residual, row 2's backward), P's attention core (rows 10, 11)
+    "attn_half_full": "rmcl_tpu/ops/pallas_block.py:112",
+    "attn_half_full_bwd": "rmcl_tpu/ops/pallas_block.py:317",
+    "masked_attention": "rmcl_tpu/ops/pallas_attention.py:53",
+    "masked_attention_bwd": "rmcl_tpu/ops/pallas_attention.py:119",
+    # the dropout outside the kernels (XLA in the JAX package)
+    "dropout": "rmcl_tpu/models/layers.py:68",
 }
 TRAIN_OPS = ("attn_half_train", "attn_half_train_bwd", "mlp_half_train", "mlp_half_train_bwd")
+CONFIG_OPS = ("attn_half_full", "attn_half_full_bwd", "masked_attention", "masked_attention_bwd",
+              "dropout")
+# the block configurations the training phases run (models/vilt.py:derive_block_impls)
+IMPLS = {"default": {}, "P": {"attention_impl": "pallas"},
+         "F": {"attention_impl": "fused", "mlp_impl": "fused"}}
 TRAIN_STEPS = 3
 DROP_P = 0.1
 SOURCE = "rmcl_tpu_torch/csrc/block_kernels.cu"
 PEAK_BYTES_S = 3.35e12      # H100 SXM device memory
 PEAK_BF16_FLOPS = 989e12    # H100 SXM tensor cores, dense bf16
+PEAK_CORE_OPS = 67e12       # H100 SXM CUDA cores, fp32 (the dropout's integer work)
+PHILOX_OPS = 100            # 32-bit operations of one Philox-4x32-10 word, mask and scale
 DELTA_TOL, DELTA_TIGHT, DELTA_TIGHT_SHARE = 2.5e-4, 1e-5, 0.99
 
 
@@ -228,12 +267,23 @@ def op_work(name: str, B: int, S: int, C: int, saved: bool = False) -> tuple:
     if name == "mlp_half_dx":             # [fc1], g.W2, dh.W1
         return ((4 if saved else 6) * M * C * C4,
                 3 * act + 2 * 2 * C * C4 + 4 * (2 * C + C4) + (2 * M * C4 if saved else 0))
+    if name == "masked_attention":        # q.k^T, p.v; reads q, k, v, mask, writes out
+        return 4 * B * S * S * C, 4 * act + 4 * M
+    if name == "masked_attention_bwd":    # s, dp, dq, dk, dv; reads q, k, v, g, mask
+        return 10 * B * S * S * C, 7 * act + 4 * M
     raise KeyError(name)
 
 
 def bound(name: str, B: int, S: int, C: int, saved: bool = False) -> tuple:
-    ops, nbytes = op_work(name, B, S, C, saved)
-    t_ops, t_bytes = ops / PEAK_BF16_FLOPS * 1e3, nbytes / PEAK_BYTES_S * 1e3
+    """(least ms, what bounds it) for one call at these shapes in bf16.  The
+    dropout (C = its width N) does Philox integer work on the CUDA cores."""
+    if name == "dropout":
+        ops, nbytes, peak = PHILOX_OPS * B * S * C, 2 * 2 * B * S * C + 4 * B, PEAK_CORE_OPS
+    else:
+        alias = {"attn_half_full": "attn_half", "attn_half_full_bwd": "attn_half_train_bwd"}
+        ops, nbytes = op_work(alias.get(name, name), B, S, C, saved)
+        peak = PEAK_BF16_FLOPS
+    t_ops, t_bytes = ops / peak * 1e3, nbytes / PEAK_BYTES_S * 1e3
     return max(t_ops, t_bytes), "operations" if t_ops >= t_bytes else "bytes"
 
 
@@ -308,11 +358,16 @@ def phase_kernels(dev) -> dict:
 
         _train_kernels(res, dev, x, mask, g, (lw, lb), (wq, bq, wp, bp), (w1, b1, w2, b2),
                        H, eps, shape)
+        _config_kernels(res, dev, x, mask, g, (lw, lb), (wq, bq, wp, bp), (w1, b1, w2, b2),
+                        H, eps, shape)
+        res["shard_shapes"] = _shard_kernels(x, mask, (lw, lb), (wq, bq, wp, bp),
+                                             (w1, b1, w2, b2), H, eps)
         res["sub_kernels"] = _library_yardsticks(dev, FB, x.to(torch.bfloat16), mask,
                                                  wq.to(torch.bfloat16), bq, H)
     for name in KERNELS:
         B, S = (BATCH, 269) if name in ("attn_half", "mlp_half") else (PGD_BATCH, 241)
-        res[name]["bound_ms"], res[name]["bound_by"] = bound(name, B, S, C, saved=True)
+        N = 4 * C if name == "dropout" else C
+        res[name]["bound_ms"], res[name]["bound_by"] = bound(name, B, S, N, saved=True)
         print(f"[kernels] {name} bf16 B={B} S={S}: bound_ms={res[name]['bound_ms']!r} "
               f"(bound by {res[name]['bound_by']})")
     for name in ("attn_half", "mlp_half"):
@@ -403,6 +458,115 @@ def _train_kernels(res, dev, x, mask, g, ln, attn_w, mlp_w, H, eps, shape) -> No
                 FT.mlp_half_train_bwd_plain, m_args, rtol, fp32, GRADS, timed)
         print(f"[kernels] p={p}: the masks of both directions equal philox.keep_mask bit "
               f"for bit; keep rates {rates}")
+
+
+def _config_kernels(res, dev, x, mask, g, ln, attn_w, mlp_w, H, eps, shape) -> None:
+    """The ops of configurations P and F against their plain versions at the
+    step's shape, fp32 and bf16: masked_attention and its backward (rows 10,
+    11) on the heads of the block's own qkv projection (views, as the unfused
+    block hands them over), timed in bf16 beside F.scaled_dot_product_attention
+    and its backward through torch.autograd.grad; attn_half_full and its
+    backward (row 2), seven outputs bit-identical twice; the dropout op at the
+    MLP's (S, 4C) width, bit for bit."""
+    from rmcl_tpu_torch.models.layers import dropout as dropout_plain
+    from rmcl_tpu_torch.ops import attention as A
+    from rmcl_tpu_torch.ops import fused_block as FB
+    from rmcl_tpu_torch.ops.dropout import dropout
+    from rmcl_tpu_torch.ops.philox import keep_mask
+    lw, lb = ln
+    wq, bq, wp, bp = attn_w
+    B, S, C = x.shape
+    D = C // H
+    gen = torch.Generator(device=dev).manual_seed(SEED + 9)
+    g_heads = torch.randn(B, H, S, D, generator=gen, device=dev)
+    seeds = torch.randint(-2 ** 31, 2 ** 31, (B,), generator=gen, device=dev).int()
+    wide = torch.randn(B, S, 4 * C, generator=gen, device=dev)
+    for dtype, rtol, tag in ((torch.float32, 2e-4, "fp32"), (torch.bfloat16, 2e-2, "bf16")):
+        fp32 = dtype == torch.float32
+        xd, gd, gh = x.to(dtype), g.to(dtype), g_heads.to(dtype)
+        a_w = (lw, lb, wq.to(dtype), bq, wp.to(dtype), bp)
+        qkv = FB._attn_fwd(xd, mask, *a_w, H, eps, True)[1]
+        q, k, v = qkv.view(B, S, 3, H, D).permute(2, 0, 3, 1, 4).unbind(0)
+        res.setdefault("masked_attention", {})[tag] = _compare(
+            "masked_attention", tag, shape, A.masked_attention, A.mha,
+            (q, k, v, mask, D ** -0.5), rtol, fp32)
+        res.setdefault("masked_attention_bwd", {})[tag] = _compare_all(
+            "masked_attention_bwd", tag, shape, A.masked_attention_bwd,
+            A.masked_attention_bwd_plain, (q, k, v, mask, gh, D ** -0.5), rtol, fp32,
+            ("dq", "dk", "dv"), True)
+        if not fp32:
+            _sdpa_yardsticks(res, q, k, v, mask, gh)
+        res.setdefault("attn_half_full", {})[tag] = _compare(
+            "attn_half_full", tag, shape, FB.attn_half_full,
+            lambda *a: FB.attn_half_plain(*a, residual=False), (xd, mask, *a_w, H, eps),
+            rtol, fp32)
+        _, qkv, att = FB._attn_fwd(xd, mask, *a_w, H, eps, False)
+        res.setdefault("attn_half_full_bwd", {})[tag] = _compare_all(
+            "attn_half_full_bwd", tag, shape, FB.attn_half_full_bwd,
+            FB.attn_half_full_bwd_plain, (xd, mask, lw, lb, a_w[2], a_w[4], gd, qkv, att, H,
+                                          eps), rtol, fp32, GRADS, True)
+        wd = wide.to(dtype)
+        plain = lambda: dropout_plain(wd, keep_mask(seeds, 0, S, 4 * C, DROP_P), DROP_P)  # noqa: E731
+        check(torch.equal(dropout(wd, seeds, 0, DROP_P), plain()),
+              f"dropout {tag}: the kernel's bits differ from philox.keep_mask")
+        ms, plain_ms = time_ms(lambda: dropout(wd, seeds, 0, DROP_P)), time_ms(plain)
+        res.setdefault("dropout", {})[tag] = dict(err=0.0, ms=ms, plain_ms=plain_ms)
+        print(f"[kernels] dropout {tag} (B={B} S={S} N={4 * C}, p={DROP_P}): the plain "
+              f"version's bits exactly; kernel_ms={ms!r} plain_ms={plain_ms!r}")
+
+
+def _sdpa_yardsticks(res, q, k, v, mask, g) -> None:
+    """F.scaled_dot_product_attention on the same heads and its backward
+    through torch.autograd.grad (the graph built once, only the backward
+    timed): the one-call yardsticks of rows 10 and 11."""
+    import torch.nn.functional as F
+    keep = (mask > 0)[:, None, None, :]
+    with torch.inference_mode(False), torch.enable_grad():
+        q, k, v, g = (t.clone() for t in (q, k, v, g))
+        for t in (q, k, v):
+            t.requires_grad_(True)
+        out = F.scaled_dot_product_attention(q, k, v, attn_mask=keep)
+        with torch.no_grad():
+            fwd_ms = time_ms(lambda: F.scaled_dot_product_attention(q, k, v, attn_mask=keep))
+        bwd_ms = time_ms(lambda: torch.autograd.grad(out, (q, k, v), g, retain_graph=True))
+    res["masked_attention"]["library_ms"] = fwd_ms
+    res["masked_attention_bwd"]["library_ms"] = bwd_ms
+    print(f"[kernels] F.scaled_dot_product_attention bf16 on the same heads: forward "
+          f"{fwd_ms!r} ms, backward through torch.autograd.grad {bwd_ms!r} ms")
+
+
+def _shard_kernels(x, mask, ln, attn_w, mlp_w, H, eps) -> list:
+    """attn_half and mlp_half at a two-way tensor-parallel shard's shapes
+    (scripts/bench_tp_kernel_shapes.py, Queue B row 14): 6 of 12 heads, qkv
+    C -> 3 x 384, proj 384 -> C without the residual, fc1 C -> 1536, fc2
+    1536 -> C; B=16 S=241, fp32 and bf16, each with its bound."""
+    from rmcl_tpu_torch.ops import fused_block as FB
+    lw, lb = ln
+    wq, bq, wp, bp = attn_w
+    w1, b1, w2, b2 = mlp_w
+    B, S, C = x.shape
+    Ci, Fi, M = C // 2, 2 * C, B * S
+    rows = torch.cat([torch.arange(i * C, i * C + Ci, device=x.device) for i in range(3)])
+    work = {"attn_half": (8 * M * C * Ci + 4 * B * S * S * Ci,
+                          4 * M * C + 4 * M + 2 * 4 * C * Ci + 4 * (3 * Ci + 3 * C)),
+            "mlp_half": (4 * M * C * Fi, 4 * M * C + 2 * 2 * C * Fi + 4 * (Fi + 3 * C))}
+    out = []
+    for dtype, rtol, tag in ((torch.float32, 2e-4, "fp32"), (torch.bfloat16, 2e-2, "bf16")):
+        xd = x.to(dtype)
+        calls = {"attn_half": (FB.attn_half, FB.attn_half_plain, (
+                     xd, mask, lw, lb, wq[rows].to(dtype), bq[rows],
+                     wp[:, :Ci].to(dtype).contiguous(), bp, H // 2, eps, False)),
+                 "mlp_half": (FB.mlp_half, FB.mlp_half_plain, (
+                     xd, lw, lb, w1[:Fi].to(dtype), b1[:Fi], w2[:, :Fi].to(dtype).contiguous(),
+                     b2, eps, False))}
+        for name, (op, plain, args) in calls.items():
+            r = _compare(name, tag, f"tp2 shard B={B} S={S}", op, plain, args, rtol,
+                         dtype == torch.float32)
+            ops, nbytes = work[name]
+            r.update(name=name, dtype=tag, shard="tp2", bound_ms=max(
+                ops / PEAK_BF16_FLOPS, nbytes / PEAK_BYTES_S) * 1e3)
+            out.append(r)
+    return out
 
 
 def _library_yardsticks(dev, FB, x, mask, wqkv, bqkv, H) -> list:
@@ -653,8 +817,8 @@ def phase_pgd(dev) -> tuple:
     counts = dict(FB.launches)
     want = cfg.num_layers * cfg.adv_steps_img
     print(f"[pgd] {cfg.adv_steps_img} steps, {PGD_BATCH} pairs, bf16: launches {counts}")
-    for name in KERNELS:
-        expect = 0 if name in TRAIN_OPS else want
+    for name in counts:
+        expect = want if name in ("attn_half", "mlp_half", "attn_half_dx", "mlp_half_dx") else 0
         check(counts[name] == expect, f"{name} launched {counts[name]} times in the attack, "
                                       f"expected {expect}")
 
@@ -748,10 +912,40 @@ def train_batch(cfg, n: int, seed: int, dev) -> dict:
     return batch
 
 
-def train_config():
+def train_config(config: str = "default"):
     from rmcl_tpu_torch import build_config
     return build_config(PGD_CONFIG, image_view=True, text_view=True, drop_rate=DROP_P,
-                        warmup_steps=0, max_steps=1000)
+                        warmup_steps=0, max_steps=1000, **IMPLS[config])
+
+
+def expected_launches(cfg) -> dict:
+    """Kernel launches of one training step of ``cfg`` (drop_rate > 0): the
+    key forward and the PGD's forwards and backwards run the deterministic
+    blocks, the four views forward and three backward the training blocks
+    (``models/vit.py:Block``); every embedding dropout runs the dropout op,
+    text and image, four views forward and three backward."""
+    from rmcl_tpu_torch.models.vilt import derive_block_impls
+    from rmcl_tpu_torch.ops import fused_block as FB
+    attn, mlp = derive_block_impls(cfg)
+    L, A = cfg.num_layers, cfg.adv_steps_img
+    det_f, det_b, view_f, view_b = L + L * A, L * A, 4 * L, 3 * L
+    want = dict.fromkeys(FB.launches, 0)
+    want.update(mlp_half=det_f, mlp_half_dx=det_b, dropout=2 * 4 + 2 * 3)
+    if attn == "fused":
+        want.update(attn_half=det_f, attn_half_dx=det_b)
+        if mlp == "fused_train":
+            want.update(attn_half_train=view_f, attn_half_train_bwd=view_b)
+        else:
+            want.update(attn_half_full=view_f, attn_half_full_bwd=view_b)
+            want["dropout"] += view_f + view_b
+    else:
+        want.update(masked_attention=det_f + view_f, masked_attention_bwd=det_b + view_b)
+        want["dropout"] += view_f + view_b
+    if mlp == "fused_train":
+        want.update(mlp_half_train=view_f, mlp_half_train_bwd=view_b)
+    else:
+        want["dropout"] += 2 * (view_f + view_b)
+    return want
 
 
 class _StepClock:
@@ -800,9 +994,9 @@ class _StepClock:
             h.remove()
 
 
-def train_setup(dev) -> tuple:
+def train_setup(dev, config: str = "default") -> tuple:
     from rmcl_tpu_torch.train.step import create_train_state, make_train_step
-    cfg = train_config()
+    cfg = train_config(config)
     ts = create_train_state(cfg, model=moco_model(cfg), device=dev)
     batch = train_batch(cfg, PGD_BATCH, SEED + 4, dev)
     return cfg, ts, batch, make_train_step(cfg, ts)
@@ -821,23 +1015,21 @@ def _expected_keys(model, batch, old_pooler) -> torch.Tensor:
     return k
 
 
-def phase_train(dev) -> dict:
+def phase_train(dev, config: str = "default") -> dict:
     from rmcl_tpu_torch.ops import fused_block as FB
     t0 = time.perf_counter()
-    cfg, ts, batch, step = train_setup(dev)
-    model, L = ts.model, cfg.num_layers
+    cfg, ts, batch, step = train_setup(dev, config)
+    model = ts.model
+    tag = f"[train {config}]" if config != "default" else "[train]"
     gen = torch.Generator().manual_seed(SEED + 7)
     n_train = sum(p.numel() for p in model.parameters() if p.requires_grad)
-    print(f"[train] {PGD_CONFIG}, image and text views, drop_rate {cfg.drop_rate}, "
-          f"{n_train / 1e6:.1f} M trainable parameters, {PGD_BATCH} pairs, state ready in "
-          f"{time.perf_counter() - t0:.1f} s")
+    print(f"{tag} {PGD_CONFIG}, blocks {model.block_impls}, image and text views, drop_rate "
+          f"{cfg.drop_rate}, {n_train / 1e6:.1f} M trainable parameters, {PGD_BATCH} pairs, "
+          f"state ready in {time.perf_counter() - t0:.1f} s")
     step(batch, gen)                                        # warm-up
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    want = {"attn_half_train": 4 * L, "mlp_half_train": 4 * L,
-            "attn_half_train_bwd": 3 * L, "mlp_half_train_bwd": 3 * L,
-            "attn_half": L + L * cfg.adv_steps_img, "mlp_half": L + L * cfg.adv_steps_img,
-            "attn_half_dx": L * cfg.adv_steps_img, "mlp_half_dx": L * cfg.adv_steps_img}
+    want = expected_launches(cfg)
     clock = _StepClock(ts)
     walls, splits, counts = [], [], None
     try:
@@ -876,7 +1068,7 @@ def phase_train(dev) -> dict:
             written = model.proj_queue[:, ptr0:ptr0 + PGD_BATCH].t().float()
             kdiff = (written - k.to(model.proj_queue.dtype).float()).abs().max().item()
             check(kdiff <= 1e-6, f"step {it}: queue columns differ from the keys by {kdiff}")
-            print(f"[train] step {it}: total_loss={vals['total_loss']!r} txt/img/both "
+            print(f"{tag} step {it}: total_loss={vals['total_loss']!r} txt/img/both "
                   f"{vals['attacked_txt_loss']:.4f}/{vals['attacked_img_loss']:.4f}/"
                   f"{vals['attacked_both_loss']:.4f} lr={vals['lr']!r} pgd_delta="
                   f"{vals['pgd_delta']:.5f}; pointer {ptr0} -> {ptr1}, keys written exactly; "
@@ -886,18 +1078,19 @@ def phase_train(dev) -> dict:
     ms = statistics.median(walls)
     mem = torch.cuda.max_memory_allocated() / 2 ** 30
     split = {k: statistics.median(s[k] for s in splits) for k in splits[0]}
-    print(f"[train] launches per step {counts}: every block through the kernels")
-    print(f"[train] step {ms!r} ms (median of {TRAIN_STEPS}, host clock + synchronize), "
+    print(f"{tag} launches per step {counts}: every block through the kernels")
+    print(f"{tag} step {ms!r} ms (median of {TRAIN_STEPS}, host clock + synchronize), "
           f"{PGD_BATCH / ms * 1e3!r} pairs/s; max_memory_allocated {mem:.2f} GiB")
-    print("[train] split of a step by CUDA events, ms (median): "
+    print(f"{tag} split of a step by CUDA events, ms (median): "
           + "; ".join(f"{k} {v:.2f}" for k, v in split.items()))
     return counts
 
 
-def phase_train_slice(dev) -> None:
+def phase_train_slice(dev, config: str = "default") -> None:
     from rmcl_tpu_torch.compat.from_jax import leaves_to_jax
     from rmcl_tpu_torch.train.step import create_train_state, make_train_step
-    cfg32 = train_config().replace(compute_dtype="float32", queue_dtype="float32")
+    tag = f"[train slice {config}]" if config != "default" else "[train slice]"
+    cfg32 = train_config(config).replace(compute_dtype="float32", queue_dtype="float32")
     base = moco_model(cfg32)
     batch = train_batch(cfg32, N_CPU, SEED + 4, "cpu")
     results = {}
@@ -911,7 +1104,7 @@ def phase_train_slice(dev) -> None:
                                leaves_to_jax(ts.model), time.perf_counter() - t0)
     (l_ref, g_ref, p_ref, cpu_s), (l_gpu, g_gpu, p_gpu, _) = results["cpu"], results[str(dev)]
     rel = abs(l_gpu - l_ref) / abs(l_ref)
-    print(f"[train slice] {N_CPU} pairs, fp32, one step: CPU plain ops ({cpu_s:.1f} s) loss "
+    print(f"{tag} {N_CPU} pairs, fp32, one step: CPU plain ops ({cpu_s:.1f} s) loss "
           f"{l_ref!r}, card kernels {l_gpu!r}, relative difference {rel!r} (tol 1e-5)")
     check(rel <= 1e-5, f"loss differs by {rel} relative")
 
@@ -931,7 +1124,7 @@ def phase_train_slice(dev) -> None:
     trained = [p for p in g_ref if not p.startswith("k_")]
     near = (sum(int((np.abs(p_gpu[p] - p_ref[p]) <= 0.02 * lr).sum()) for p in trained)
             / sum(p_ref[p].size for p in trained))
-    print(f"[train slice] {len(g_ref)} gradients within 2e-4 * max(1, max|ref|) (worst "
+    print(f"{tag} {len(g_ref)} gradients within 2e-4 * max(1, max|ref|) (worst "
           f"{wg[0]} at {wg[1]:.3f} of its bound); {len(p_ref)} updated leaves (parameters, "
           f"twins, queue) within the same bound (worst {wp[0]} at {wp[1]:.3f}); pointer "
           f"{N_CPU}; {near:.6f} of the trained elements within 2% of the rate {lr}")
@@ -987,11 +1180,14 @@ def phase_profile(dev) -> None:
     _trace(f"pgd, {PGD_CONFIG}, one {pcfg.adv_steps_img}-step attack on {PGD_BATCH} pairs, "
            f"bf16", lambda: attack(batch, k, model.proj_queue), 2)
     del model, batch, k, attack
-    _, _, tbatch, step = train_setup(dev)
-    gen = torch.Generator().manual_seed(SEED + 7)
-    step(tbatch, gen)
-    _trace(f"train, {PGD_CONFIG}, one training step of {PGD_BATCH} pairs (image and text "
-           f"views, drop_rate {DROP_P}), bf16", lambda: step(tbatch, gen), 2, top=24)
+    for config in IMPLS:
+        _, ts, tbatch, step = train_setup(dev, config)
+        gen = torch.Generator().manual_seed(SEED + 7)
+        step(tbatch, gen)
+        _trace(f"train {config} {ts.model.block_impls}, {PGD_CONFIG}, one training step of "
+               f"{PGD_BATCH} pairs (image and text views, drop_rate {DROP_P}), bf16",
+               lambda: step(tbatch, gen), 2, top=24)
+        del ts, tbatch, step
 
 
 def main() -> int:
@@ -1015,7 +1211,7 @@ def main() -> int:
     except ImportError as e:
         print(f"chip_smoke: run from the root of the repository ({e})", file=sys.stderr)
         return 1
-    phase = "device"
+    phase, t_start = "device", time.perf_counter()
     try:
         phase_device()
         dev = torch.device("cuda", 0)
@@ -1038,29 +1234,48 @@ def main() -> int:
         phase_pgd_slice(pgd_cfg, pgd_state, cfg, vqa_cpu32, vqa_gpu32, dev)
         del vqa_cpu32, vqa_gpu32
         phase = "train"
-        train_counts = phase_train(dev)
+        train_counts = {"default": phase_train(dev)}
         phase = "train slice"
         phase_train_slice(dev)
+        for config in ("P", "F"):
+            phase = f"train {config}"
+            train_counts[config] = phase_train(dev, config)
+        for config in ("P", "F"):
+            phase = f"train slice {config}"
+            phase_train_slice(dev, config)
     except Exception as e:  # noqa: BLE001  every phase failure ends the run
         traceback.print_exc()
         print(f"chip_smoke: FAILED in phase {phase}: {e}", file=sys.stderr)
         return 1
+    print(f"[done] every phase passed in {time.perf_counter() - t_start:.1f} s")
     records = []
     for name, replaces in KERNELS.items():
         r = kres[name]
-        dx, train = name.endswith("_dx"), name in TRAIN_OPS
-        main = r[f"bf16_p{DROP_P}"] if train else r["bf16_saved"] if dx else r["bf16"]
+        dx, train, new = name.endswith("_dx"), name in TRAIN_OPS, name in CONFIG_OPS
+        main = (r[f"bf16_p{DROP_P}"] if train else r["bf16_saved"] if dx else r["bf16"])
+        # the main path's launches: the run of the configuration that takes the op
+        path = ("F" if name.startswith("attn_half_full") or name == "dropout" else
+                "P" if name.startswith("masked_attention") else "default")
         rec = {"name": name, "route": "cuda", "source": SOURCE, "replaces": replaces,
-               "launches": (train_counts if train else pgd_counts if dx else counts)[name],
+               "launches": (train_counts[path] if train or new else
+                            pgd_counts if dx else counts)[name],
                "launches_by_path": {"serving": counts.get(name, 0), "pgd": pgd_counts[name],
-                                    "train": train_counts[name]},
+                                    **{f"train_{c}": n[name] for c, n in train_counts.items()}},
                "max_abs_err": main["err"], "ms": main["ms"], "plain_ms": main["plain_ms"],
-               "bound_ms": r["bound_ms"], "bound_by": r["bound_by"], "library_ms": None,
-               "shape": "B=8 S=269" if not (dx or train) else "B=16 S=241"}
+               "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
+               "library_ms": r.get("library_ms"),
+               "shape": "B=8 S=269" if not (dx or train or new) else "B=16 S=241"}
         if train:
             rec.update(p=DROP_P, fp32_ms=r[f"fp32_p{DROP_P}"]["ms"],
                        fp32_plain_ms=r[f"fp32_p{DROP_P}"]["plain_ms"],
                        worst_error_over_tolerance=main["worst"])
+        elif new:
+            rec.update(fp32_ms=r["fp32"]["ms"], fp32_plain_ms=r["fp32"]["plain_ms"],
+                       library=("F.scaled_dot_product_attention" if name == "masked_attention"
+                                else "torch.autograd.grad of F.scaled_dot_product_attention"
+                                if name == "masked_attention_bwd" else None))
+            if name == "dropout":
+                rec["shape"] = "B=16 S=241 N=3072"
         elif dx:   # the path's default keeps qkv / h; the recomputing variant beside it
             rec.update(variant="saved", recompute_ms=r["bf16_recompute"]["ms"],
                        recompute_plain_ms=r["bf16_recompute"]["plain_ms"],
@@ -1071,7 +1286,8 @@ def main() -> int:
                        pgd_shape_plain_ms=r["bf16_pgd_shape"]["plain_ms"],
                        pgd_shape_bound_ms=r["pgd_shape_bound_ms"])
         records.append(rec)
-    print(json.dumps({"kernels": records, "sub_kernels": kres["sub_kernels"]}))
+    print(json.dumps({"kernels": records, "shard_shapes": kres["shard_shapes"],
+                      "sub_kernels": kres["sub_kernels"]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

@@ -4,15 +4,20 @@ The JAX package ``rmcl_tpu`` is the reference; this package imports torch,
 never jax, and nothing of ``rmcl_tpu``: what it needs of that package's
 jax-free host modules it keeps as its own copies.  Ported so far: the
 serving path (``rmcl serve``), the PGD image attack and the task_moco
-training step.
+training step, under each of the JAX package's kernel block configurations
+(``attention_impl`` "fused" / "pallas" / "flash", ``mlp_impl`` "fused" /
+"fused_train").
 
   ops/         the two deterministic block halves and their dx-only
                backwards (attn_half, mlp_half, attn_half_dx, mlp_half_dx),
+               the attention half with its full backward (attn_half_full),
                the two training halves with dropout inside and their full
                backwards (attn_half_train, mlp_half_train, *_bwd), the
-               Philox stream of the masks (philox.py): hand-written CUDA
-               kernels on CUDA tensors, plain versions on CPU tensors; nvcc
-               build + ctypes binding (ops/_build.py)
+               attention core on (B, H, S, D) (attention.py:
+               masked_attention), the dropout outside the kernels
+               (dropout.py), the Philox stream of the masks (philox.py):
+               hand-written CUDA kernels on CUDA tensors, plain versions on
+               CPU tensors; nvcc build + ctypes binding (ops/_build.py)
   csrc/        the CUDA C++ sources, built at first use into _build/
   core/        the config dataclass and its named presets
   data/        tokenizer, serving image transform, patch-row relayout

@@ -167,8 +167,11 @@ class RMCLConfig:
     # normalises on the device, bit-identical to the float32 pipeline.
     # compute_dtype: activation type; queue_dtype: MoCo queue storage type
     # ("" = compute_dtype).
+    # attention_impl, mlp_impl: the block configuration
+    # (models/vilt.py:derive_block_impls): "" | "fused" | "pallas" | "flash",
+    # and "" | "fused" | "fused_train"; the XLA paths are not ported.
     # ----- JAX-package knobs: carried for field parity, not read by the port -----
-    # use_pallas_attention, attention_impl, mlp_impl, greedy_impl,
+    # use_pallas_attention, greedy_impl,
     # fuse_attack_step, greedy_compact_frac, greedy_score_max_rows, the
     # *_text_bucket family, graceful_preemption, preempt_sync_every,
     # dropout_impl, block_layout, mesh_shape, mesh_axis_names, zero1,

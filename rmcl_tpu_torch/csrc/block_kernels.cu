@@ -20,6 +20,11 @@
 //     (fused_mlp_half_train: x + drop_p(fc2(drop_p(gelu(fc1(LN2 x))))))
 //   rmcl_tpu/ops/pallas_block.py:_mlp_train_bwd_impl / _mlp_train_bwd_kernel
 //     (its backward: dx + g, dLN2, dW1, db1, dW2, db2)
+//   rmcl_tpu/ops/pallas_block.py:_bwd_impl / _half_block_bwd_kernel / _attn_bwd_math
+//     (fused_attn_half's backward: dx, dLN1, dWqkv, dbqkv, dWproj, dbproj)
+//   rmcl_tpu/ops/pallas_attention.py:_fwd_impl / _attn_kernel and
+//     _bwd_impl / _attn_bwd_kernel (flash_masked_attention: the attention
+//     core of the unfused block on (B, H, S, D) operands, and dq, dk, dv)
 //
 // The TPU kernels run one sample per grid step with every block weight
 // resident in VMEM.  That does not carry over: wqkv alone is 3.5 MB in
@@ -55,6 +60,13 @@
 //                    fp32) -> ln_bwd_dx (+ g, y, statistics)
 //                    -> gemm_tn(dW1 = dh^T . y) -> gemm_tn(dW2 = gf^T . a_d)
 //                    -> colsum(db1, db2) -> ln_colsum(dLN2 w, dLN2 b)
+//   fused_attn_half backward (ops/fused_block.py:attn_half_full_bwd)
+//                   = the attention train backward on g itself: no
+//                    drop_scale, and no + g (the residual is outside)
+//   attention core  = masked_attention_fwd, and masked_attention_bwd_dq ->
+//                    _dkv, on (B, H, S, D) operands through their strides
+//                    (ops/attention.py); the dropout outside the kernels is
+//                    drop_scale (ops/dropout.py)
 // The TPU training backwards accumulate the weight gradients in on-chip
 // memory across a sequential batch grid.  Blocks here run in no order, so
 // the weight gradients are GEMMs that contract over all M = B S rows at once
@@ -89,7 +101,9 @@
 //   * masked_attention_fwd reads q, k and v straight from the (B, S, 3C)
 //     qkv buffer (column order (3, H, D)), keeps K/V tiles in shared
 //     memory and runs an online softmax, so no S x S tensor reaches device
-//     memory.
+//     memory.  The attention kernels take explicit (batch, head, row)
+//     strides: the packed buffer and the (B, H, S, D) operands of the
+//     attention core are two stride sets of one body.
 //   * The attention backward recomputes P tile by tile from q, k and the
 //     key mask in two kernels, so no S x S tensor reaches device memory and
 //     no atomics are needed: masked_attention_bwd_dq owns a query tile
@@ -102,6 +116,12 @@
 //     output, the (S, 4C) MLP hidden and the backward's dattn, dqkv, dh and
 //     fp32 dy pass through device memory, which the TPU kernels kept on
 //     chip; no TMA, wgmma or pipelining.
+//
+// The attention core's backward (pallas_attention.py:_attn_bwd_kernel) has
+// other rounding points than the block halves' (_attn_bwd_math): ds stays
+// fp32 and unscaled, scale multiplies the fp32 products ds . k and ds^T . q,
+// and dv takes the fp32 p.  The backward kernels take which as a template
+// flag (kRound); in fp32 the two coincide.
 //
 // Numerics follow the Pallas kernels: LayerNorm, softmax and every
 // accumulation in fp32; activations rounded to the activation type at the
@@ -652,15 +672,30 @@ colsum_reduce_kernel(const float* __restrict__ partial, float* __restrict__ out,
 }
 
 // ------------------------------------------------------ masked attention
-// qkv: (B, S, 3C) with columns in (3, H, D) order; mask: (B, S) int32,
-// 1 = valid key; out: (B, S, C) with head h at columns h*D .. h*D+D-1.
-// One block per (query tile, head, sample); 8 warps, 8 query rows each.
-// K and V tiles are staged in shared memory as fp32; scores, the running
-// max and sum, and the output accumulators stay in registers.
+// q, k, v: (B, H, S, D), read through explicit element strides (b, h, s)
+// with d contiguous, so that one body serves both layouts of the port:
+//   packed  the (B, S, 3C) qkv buffer of the block halves, columns in
+//           (3, H, D) order: q = qkv, k = qkv + C, v = qkv + 2C with strides
+//           (3 S C, D, 3C); the attention output and dattn are (B, S, C),
+//           strides (S C, D, C)
+//   heads   the attention core of the unfused block (masked_attention):
+//           q, k, v as (B, H, S, D) tensors or views of one qkv buffer, any
+//           strides that q, k and v share
+// mask: (B, S) int32, 1 = valid key.  One block per (query tile, head,
+// sample); 8 warps, 8 query rows each.  K and V tiles are staged in shared
+// memory as fp32; scores, the running max and sum, and the output
+// accumulators stay in registers.
 
 constexpr int AQ = 64, AK = 64, ATT_THREADS = 256, ROWS_PER_WARP = AQ / (ATT_THREADS / 32);
 constexpr int MAX_D = 128;
 constexpr float NEG_BIAS = -1e30f;
+
+struct Strides {   // element strides of a (B, H, S, D) operand, d contiguous
+  long long b, h, s;
+  __device__ __forceinline__ size_t at(int bb, int hh, int ss) const {
+    return (size_t)(bb * b + hh * h + ss * s);
+  }
+};
 
 inline size_t attention_smem_bytes(int D) {
   // Qs [AQ][D], Ks [AK][D + 1], Vs [AK][D], Ps [AQ][AK], key bias [AK]
@@ -670,8 +705,10 @@ inline size_t attention_smem_bytes(int D) {
 
 template <typename T>
 __global__ void __launch_bounds__(ATT_THREADS)
-masked_attention_fwd_kernel(const T* __restrict__ qkv, const int32_t* __restrict__ mask,
-                            T* __restrict__ out, int S, int H, int D, float scale) {
+masked_attention_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
+                            const T* __restrict__ v, Strides in,
+                            const int32_t* __restrict__ mask, T* __restrict__ out,
+                            Strides os, int S, int D, float scale) {
   extern __shared__ __align__(16) float smem[];
   float* Qs = smem;
   float* Ks = Qs + AQ * D;
@@ -679,14 +716,15 @@ masked_attention_fwd_kernel(const T* __restrict__ qkv, const int32_t* __restrict
   float* Ps = Vs + AK * D;
   float* kbias = Ps + AQ * AK;
 
-  const int C = H * D;
   const int q0 = blockIdx.x * AQ, h = blockIdx.y, b = blockIdx.z;
   const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
-  const T* base = qkv + (size_t)b * S * 3 * C;
+  const T* qh = q + in.at(b, h, 0);
+  const T* kh = k + in.at(b, h, 0);
+  const T* vh = v + in.at(b, h, 0);
 
   for (int idx = tid; idx < AQ * D; idx += ATT_THREADS) {
     const int r = idx / D, d = idx % D, s = q0 + r;
-    Qs[idx] = s < S ? to_f<T>(base[(size_t)s * 3 * C + h * D + d]) : 0.f;
+    Qs[idx] = s < S ? to_f<T>(qh[(size_t)s * in.s + d]) : 0.f;
   }
 
   float m_run[ROWS_PER_WARP], l_run[ROWS_PER_WARP], o[ROWS_PER_WARP][MAX_D / 32];
@@ -704,9 +742,8 @@ masked_attention_fwd_kernel(const T* __restrict__ qkv, const int32_t* __restrict
       const int j = idx / D, d = idx % D, s = k0 + j;
       float kv = 0.f, vv = 0.f;
       if (s < S) {
-        const T* row = base + (size_t)s * 3 * C + h * D + d;
-        kv = to_f<T>(row[C]);
-        vv = to_f<T>(row[2 * C]);
+        kv = to_f<T>(kh[(size_t)s * in.s + d]);
+        vv = to_f<T>(vh[(size_t)s * in.s + d]);
       }
       Ks[j * (D + 1) + d] = kv;
       Vs[j * D + d] = vv;
@@ -725,9 +762,9 @@ masked_attention_fwd_kernel(const T* __restrict__ qkv, const int32_t* __restrict
       const float ka = Ks[lane * (D + 1) + d], kb = Ks[(lane + 32) * (D + 1) + d];
 #pragma unroll
       for (int r = 0; r < ROWS_PER_WARP; ++r) {
-        const float q = Qs[(warp * ROWS_PER_WARP + r) * D + d];
-        sc[r][0] = fmaf(q, ka, sc[r][0]);
-        sc[r][1] = fmaf(q, kb, sc[r][1]);
+        const float qv = Qs[(warp * ROWS_PER_WARP + r) * D + d];
+        sc[r][0] = fmaf(qv, ka, sc[r][0]);
+        sc[r][1] = fmaf(qv, kb, sc[r][1]);
       }
     }
 
@@ -752,17 +789,17 @@ masked_attention_fwd_kernel(const T* __restrict__ qkv, const int32_t* __restrict
 
     const int jn = min(AK, S - k0);
     for (int j = 0; j < jn; ++j) {
-      float v[MAX_D / 32];
+      float vr[MAX_D / 32];
 #pragma unroll
       for (int i = 0; i < MAX_D / 32; ++i) {
         const int d = lane + 32 * i;
-        v[i] = d < D ? Vs[j * D + d] : 0.f;
+        vr[i] = d < D ? Vs[j * D + d] : 0.f;
       }
 #pragma unroll
       for (int r = 0; r < ROWS_PER_WARP; ++r) {
         const float p = Ps[(warp * ROWS_PER_WARP + r) * AK + j];
 #pragma unroll
-        for (int i = 0; i < MAX_D / 32; ++i) o[r][i] = fmaf(p, v[i], o[r][i]);
+        for (int i = 0; i < MAX_D / 32; ++i) o[r][i] = fmaf(p, vr[i], o[r][i]);
       }
     }
   }
@@ -771,7 +808,7 @@ masked_attention_fwd_kernel(const T* __restrict__ qkv, const int32_t* __restrict
   for (int r = 0; r < ROWS_PER_WARP; ++r) {
     const int s = q0 + warp * ROWS_PER_WARP + r;
     if (s >= S) continue;
-    T* orow = out + ((size_t)b * S + s) * C + h * D;
+    T* orow = out + os.at(b, h, s);
 #pragma unroll
     for (int i = 0; i < MAX_D / 32; ++i) {
       const int d = lane + 32 * i;
@@ -781,13 +818,16 @@ masked_attention_fwd_kernel(const T* __restrict__ qkv, const int32_t* __restrict
 }
 
 // ---------------------------------------------- masked attention, backward
-// Given qkv (B, S, 3C), the key mask and dattn (B, S, C) (the gradient at
-// the attention output, head h at columns h*D ..), write dq, dk, dv into
-// dqkv (B, S, 3C) in qkv's column order.  With s = q.k^T scale + key bias,
-// p = softmax(s) in fp32 and pb = p rounded to T:
-//   dp = dattn . v^T (fp32)        delta = sum_t dp p (fp32 p)
-//   ds = round(p (dp - delta) scale)
-//   dq = round(ds . k)   dk = round(ds^T . q)   dv = round(pb^T . dattn)
+// Given q, k, v, the key mask and g (the gradient at the attention output),
+// write dq, dk and dv (strides shared by the three).  With s = q.k^T scale +
+// key bias, p = softmax(s) in fp32 and pb = p rounded to T:
+//   dp = g . v^T (fp32)        delta = sum_t dp p (fp32 p)
+//   kRound (the block halves, pallas_block.py:_attn_bwd_math):
+//     ds = round(p (dp - delta) scale)
+//     dq = round(ds . k)   dk = round(ds^T . q)   dv = round(pb^T . g)
+//   !kRound (the attention core, pallas_attention.py:_attn_bwd_kernel):
+//     ds = p (dp - delta), fp32 and unscaled
+//     dq = round(scale (ds . k))   dk = round(scale (ds^T . q))   dv = round(p^T . g)
 // Two kernels, so that every output element has one owner and nothing is
 // accumulated across blocks:
 //   bwd_dq  one block per (query tile, head, sample).  Pass 1 over the key
@@ -813,11 +853,13 @@ inline size_t attention_bwd_dkv_smem_bytes(int D) {
                           2 * (size_t)AK * AQ + 3 * AQ);
 }
 
-template <typename T>
+template <typename T, bool kRound>
 __global__ void __launch_bounds__(ATT_THREADS)
-masked_attention_bwd_dq_kernel(const T* __restrict__ qkv, const int32_t* __restrict__ mask,
-                               const T* __restrict__ dattn, T* __restrict__ dqkv,
-                               float* __restrict__ stats, int S, int H, int D, float scale) {
+masked_attention_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
+                               const T* __restrict__ v, Strides in,
+                               const int32_t* __restrict__ mask, const T* __restrict__ g,
+                               Strides gs, T* __restrict__ dq_out, Strides ds_,
+                               float* __restrict__ stats, int S, int D, float scale) {
   extern __shared__ __align__(16) float smem[];
   float* Qs = smem;
   float* dOs = Qs + AQ * D;
@@ -826,16 +868,17 @@ masked_attention_bwd_dq_kernel(const T* __restrict__ qkv, const int32_t* __restr
   float* dSs = Vs + AK * (D + 1);
   float* kbias = dSs + AQ * AK;
 
-  const int C = H * D;
   const int q0 = blockIdx.x * AQ, h = blockIdx.y, b = blockIdx.z;
   const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
-  const T* base = qkv + (size_t)b * S * 3 * C;
-  const T* dbase = dattn + (size_t)b * S * C;
+  const T* qh = q + in.at(b, h, 0);
+  const T* kh = k + in.at(b, h, 0);
+  const T* vh = v + in.at(b, h, 0);
+  const T* gh = g + gs.at(b, h, 0);
 
   for (int idx = tid; idx < AQ * D; idx += ATT_THREADS) {
     const int r = idx / D, d = idx % D, s = q0 + r;
-    Qs[idx] = s < S ? to_f<T>(base[(size_t)s * 3 * C + h * D + d]) : 0.f;
-    dOs[idx] = s < S ? to_f<T>(dbase[(size_t)s * C + h * D + d]) : 0.f;
+    Qs[idx] = s < S ? to_f<T>(qh[(size_t)s * in.s + d]) : 0.f;
+    dOs[idx] = s < S ? to_f<T>(gh[(size_t)s * gs.s + d]) : 0.f;
   }
 
   float m_run[ROWS_PER_WARP], l_run[ROWS_PER_WARP], a_run[ROWS_PER_WARP];
@@ -858,9 +901,8 @@ masked_attention_bwd_dq_kernel(const T* __restrict__ qkv, const int32_t* __restr
         const int j = idx / D, d = idx % D, s = k0 + j;
         float kv = 0.f, vv = 0.f;
         if (s < S) {
-          const T* row = base + (size_t)s * 3 * C + h * D + d;
-          kv = to_f<T>(row[C]);
-          vv = to_f<T>(row[2 * C]);
+          kv = to_f<T>(kh[(size_t)s * in.s + d]);
+          vv = to_f<T>(vh[(size_t)s * in.s + d]);
         }
         Ks[j * (D + 1) + d] = kv;
         Vs[j * (D + 1) + d] = vv;
@@ -879,12 +921,12 @@ masked_attention_bwd_dq_kernel(const T* __restrict__ qkv, const int32_t* __restr
         const float va = Vs[lane * (D + 1) + d], vb = Vs[(lane + 32) * (D + 1) + d];
 #pragma unroll
         for (int r = 0; r < ROWS_PER_WARP; ++r) {
-          const float q = Qs[(warp * ROWS_PER_WARP + r) * D + d];
-          const float g = dOs[(warp * ROWS_PER_WARP + r) * D + d];
-          sc[r][0] = fmaf(q, ka, sc[r][0]);
-          sc[r][1] = fmaf(q, kb, sc[r][1]);
-          dp[r][0] = fmaf(g, va, dp[r][0]);
-          dp[r][1] = fmaf(g, vb, dp[r][1]);
+          const float qv = Qs[(warp * ROWS_PER_WARP + r) * D + d];
+          const float gv = dOs[(warp * ROWS_PER_WARP + r) * D + d];
+          sc[r][0] = fmaf(qv, ka, sc[r][0]);
+          sc[r][1] = fmaf(qv, kb, sc[r][1]);
+          dp[r][0] = fmaf(gv, va, dp[r][0]);
+          dp[r][1] = fmaf(gv, vb, dp[r][1]);
         }
       }
 
@@ -908,9 +950,10 @@ masked_attention_bwd_dq_kernel(const T* __restrict__ qkv, const int32_t* __restr
           const float delta = a_run[r] / l_run[r];
           const float p0 = expf(s0 - m_run[r]) / l_run[r];
           const float p1 = expf(s1 - m_run[r]) / l_run[r];
+          const float ds0 = p0 * (dp[r][0] - delta), ds1 = p1 * (dp[r][1] - delta);
           float* drow = dSs + (warp * ROWS_PER_WARP + r) * AK;
-          drow[lane] = rnd<T>(p0 * (dp[r][0] - delta) * scale);
-          drow[lane + 32] = rnd<T>(p1 * (dp[r][1] - delta) * scale);
+          drow[lane] = kRound ? rnd<T>(ds0 * scale) : ds0;
+          drow[lane + 32] = kRound ? rnd<T>(ds1 * scale) : ds1;
         }
         __syncwarp();
 
@@ -938,26 +981,28 @@ masked_attention_bwd_dq_kernel(const T* __restrict__ qkv, const int32_t* __restr
     const int s = q0 + warp * ROWS_PER_WARP + r;
     if (s >= S) continue;
     if (lane == 0) {
-      float* st = stats + (((size_t)b * H + h) * S + s) * 3;
+      float* st = stats + (((size_t)b * gridDim.y + h) * S + s) * 3;
       st[0] = m_run[r];
       st[1] = l_run[r];
       st[2] = a_run[r] / l_run[r];
     }
-    T* orow = dqkv + ((size_t)b * S + s) * 3 * C + h * D;
+    T* orow = dq_out + ds_.at(b, h, s);
 #pragma unroll
     for (int i = 0; i < MAX_D / 32; ++i) {
       const int d = lane + 32 * i;
-      if (d < D) orow[d] = from_f<T>(dq[r][i]);
+      if (d < D) orow[d] = from_f<T>(kRound ? dq[r][i] : dq[r][i] * scale);
     }
   }
 }
 
-template <typename T>
+template <typename T, bool kRound>
 __global__ void __launch_bounds__(ATT_THREADS)
-masked_attention_bwd_dkv_kernel(const T* __restrict__ qkv, const int32_t* __restrict__ mask,
-                                const T* __restrict__ dattn,
-                                const float* __restrict__ stats, T* __restrict__ dqkv,
-                                int S, int H, int D, float scale) {
+masked_attention_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
+                                const T* __restrict__ v, Strides in,
+                                const int32_t* __restrict__ mask, const T* __restrict__ g,
+                                Strides gs, const float* __restrict__ stats,
+                                T* __restrict__ dk_out, T* __restrict__ dv_out, Strides ds_,
+                                int S, int D, float scale) {
   extern __shared__ __align__(16) float smem[];
   float* Ks = smem;
   float* Vs = Ks + AK * D;
@@ -967,20 +1012,20 @@ masked_attention_bwd_dkv_kernel(const T* __restrict__ qkv, const int32_t* __rest
   float* dSs = Ps + AK * AQ;
   float* st = dSs + AK * AQ;
 
-  const int C = H * D;
   const int t0 = blockIdx.x * AK, h = blockIdx.y, b = blockIdx.z;
   const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
-  const T* base = qkv + (size_t)b * S * 3 * C;
-  const T* dbase = dattn + (size_t)b * S * C;
-  const float* sbase = stats + ((size_t)b * H + h) * S * 3;
+  const T* qh = q + in.at(b, h, 0);
+  const T* kh = k + in.at(b, h, 0);
+  const T* vh = v + in.at(b, h, 0);
+  const T* gh = g + gs.at(b, h, 0);
+  const float* sbase = stats + ((size_t)b * gridDim.y + h) * S * 3;
 
   for (int idx = tid; idx < AK * D; idx += ATT_THREADS) {
     const int j = idx / D, d = idx % D, t = t0 + j;
     float kv = 0.f, vv = 0.f;
     if (t < S) {
-      const T* row = base + (size_t)t * 3 * C + h * D + d;
-      kv = to_f<T>(row[C]);
-      vv = to_f<T>(row[2 * C]);
+      kv = to_f<T>(kh[(size_t)t * in.s + d]);
+      vv = to_f<T>(vh[(size_t)t * in.s + d]);
     }
     Ks[idx] = kv;
     Vs[idx] = vv;
@@ -997,11 +1042,11 @@ masked_attention_bwd_dkv_kernel(const T* __restrict__ qkv, const int32_t* __rest
   }
 
   for (int q0 = 0; q0 < S; q0 += AQ) {
-    __syncthreads();  // the previous tile's Q, dattn and stats are consumed
+    __syncthreads();  // the previous tile's Q, g and stats are consumed
     for (int idx = tid; idx < AQ * D; idx += ATT_THREADS) {
       const int j = idx / D, d = idx % D, s = q0 + j;
-      Qs[j * (D + 1) + d] = s < S ? to_f<T>(base[(size_t)s * 3 * C + h * D + d]) : 0.f;
-      dOs[j * (D + 1) + d] = s < S ? to_f<T>(dbase[(size_t)s * C + h * D + d]) : 0.f;
+      Qs[j * (D + 1) + d] = s < S ? to_f<T>(qh[(size_t)s * in.s + d]) : 0.f;
+      dOs[j * (D + 1) + d] = s < S ? to_f<T>(gh[(size_t)s * gs.s + d]) : 0.f;
     }
     for (int idx = tid; idx < AQ * 3; idx += ATT_THREADS) {
       const int s = q0 + idx / 3;
@@ -1018,12 +1063,12 @@ masked_attention_bwd_dkv_kernel(const T* __restrict__ qkv, const int32_t* __rest
       const float ga = dOs[lane * (D + 1) + d], gb = dOs[(lane + 32) * (D + 1) + d];
 #pragma unroll
       for (int r = 0; r < ROWS_PER_WARP; ++r) {
-        const float k = Ks[(warp * ROWS_PER_WARP + r) * D + d];
-        const float v = Vs[(warp * ROWS_PER_WARP + r) * D + d];
-        sc[r][0] = fmaf(qa, k, sc[r][0]);
-        sc[r][1] = fmaf(qb, k, sc[r][1]);
-        dp[r][0] = fmaf(ga, v, dp[r][0]);
-        dp[r][1] = fmaf(gb, v, dp[r][1]);
+        const float kv = Ks[(warp * ROWS_PER_WARP + r) * D + d];
+        const float vv = Vs[(warp * ROWS_PER_WARP + r) * D + d];
+        sc[r][0] = fmaf(qa, kv, sc[r][0]);
+        sc[r][1] = fmaf(qb, kv, sc[r][1]);
+        dp[r][0] = fmaf(ga, vv, dp[r][0]);
+        dp[r][1] = fmaf(gb, vv, dp[r][1]);
       }
     }
 
@@ -1037,8 +1082,11 @@ masked_attention_bwd_dkv_kernel(const T* __restrict__ qkv, const int32_t* __rest
         float p = 0.f, ds = 0.f;
         if (q0 + sl < S) {
           p = expf(sc[r][c] * scale + kb[r] - st[sl * 3]) / st[sl * 3 + 1];
-          ds = rnd<T>(p * (dp[r][c] - st[sl * 3 + 2]) * scale);
-          p = rnd<T>(p);
+          ds = p * (dp[r][c] - st[sl * 3 + 2]);
+          if (kRound) {
+            ds = rnd<T>(ds * scale);
+            p = rnd<T>(p);
+          }
         }
         prow[sl] = p;
         drow[sl] = ds;
@@ -1072,21 +1120,23 @@ masked_attention_bwd_dkv_kernel(const T* __restrict__ qkv, const int32_t* __rest
   for (int r = 0; r < ROWS_PER_WARP; ++r) {
     const int t = t0 + warp * ROWS_PER_WARP + r;
     if (t >= S) continue;
-    T* orow = dqkv + ((size_t)b * S + t) * 3 * C + h * D;
+    T* krow = dk_out + ds_.at(b, h, t);
+    T* vrow = dv_out + ds_.at(b, h, t);
 #pragma unroll
     for (int i = 0; i < MAX_D / 32; ++i) {
       const int d = lane + 32 * i;
       if (d < D) {
-        orow[C + d] = from_f<T>(dk[r][i]);
-        orow[2 * C + d] = from_f<T>(dv[r][i]);
+        krow[d] = from_f<T>(kRound ? dk[r][i] : dk[r][i] * scale);
+        vrow[d] = from_f<T>(dv[r][i]);
       }
     }
   }
 }
 
 template <typename T>
-cudaError_t launch_attention(const void* qkv, const void* mask, void* out, int B, int S,
-                             int H, int D, float scale, cudaStream_t stream) {
+cudaError_t launch_attention(const T* q, const T* k, const T* v, Strides in, const void* mask,
+                             void* out, Strides os, int B, int S, int H, int D, float scale,
+                             cudaStream_t stream) {
   const size_t smem = attention_smem_bytes(D);
   cudaError_t err = cudaFuncSetAttribute(masked_attention_fwd_kernel<T>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize,
@@ -1094,36 +1144,57 @@ cudaError_t launch_attention(const void* qkv, const void* mask, void* out, int B
   if (err != cudaSuccess) return err;
   const dim3 grid((S + AQ - 1) / AQ, H, B);
   masked_attention_fwd_kernel<T><<<grid, ATT_THREADS, smem, stream>>>(
-      static_cast<const T*>(qkv), static_cast<const int32_t*>(mask), static_cast<T*>(out),
-      S, H, D, scale);
+      q, k, v, in, static_cast<const int32_t*>(mask), static_cast<T*>(out), os, S, D, scale);
   return cudaGetLastError();
 }
 
-template <typename T>
-cudaError_t launch_attention_bwd(const void* qkv, const void* mask, const void* dattn,
-                                 void* dqkv, void* stats, int B, int S, int H, int D,
+template <typename T, bool kRound>
+cudaError_t launch_attention_bwd(const T* q, const T* k, const T* v, Strides in,
+                                 const void* mask, const T* g, Strides gs, T* dq, T* dk, T* dv,
+                                 Strides ds_, void* stats, int B, int S, int H, int D,
                                  float scale, cudaStream_t stream) {
   const size_t smem_q = attention_bwd_dq_smem_bytes(D);
   const size_t smem_kv = attention_bwd_dkv_smem_bytes(D);
-  cudaError_t err = cudaFuncSetAttribute(masked_attention_bwd_dq_kernel<T>,
+  cudaError_t err = cudaFuncSetAttribute(masked_attention_bwd_dq_kernel<T, kRound>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize,
                                          (int)smem_q);
   if (err != cudaSuccess) return err;
-  err = cudaFuncSetAttribute(masked_attention_bwd_dkv_kernel<T>,
+  err = cudaFuncSetAttribute(masked_attention_bwd_dkv_kernel<T, kRound>,
                              cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem_kv);
   if (err != cudaSuccess) return err;
   const dim3 grid_q((S + AQ - 1) / AQ, H, B), grid_kv((S + AK - 1) / AK, H, B);
-  masked_attention_bwd_dq_kernel<T><<<grid_q, ATT_THREADS, smem_q, stream>>>(
-      static_cast<const T*>(qkv), static_cast<const int32_t*>(mask),
-      static_cast<const T*>(dattn), static_cast<T*>(dqkv), static_cast<float*>(stats),
-      S, H, D, scale);
+  const int32_t* m = static_cast<const int32_t*>(mask);
+  masked_attention_bwd_dq_kernel<T, kRound><<<grid_q, ATT_THREADS, smem_q, stream>>>(
+      q, k, v, in, m, g, gs, dq, ds_, static_cast<float*>(stats), S, D, scale);
   err = cudaGetLastError();
   if (err != cudaSuccess) return err;
-  masked_attention_bwd_dkv_kernel<T><<<grid_kv, ATT_THREADS, smem_kv, stream>>>(
-      static_cast<const T*>(qkv), static_cast<const int32_t*>(mask),
-      static_cast<const T*>(dattn), static_cast<const float*>(stats),
-      static_cast<T*>(dqkv), S, H, D, scale);
+  masked_attention_bwd_dkv_kernel<T, kRound><<<grid_kv, ATT_THREADS, smem_kv, stream>>>(
+      q, k, v, in, m, g, gs, static_cast<const float*>(stats), dk, dv, ds_, S, D, scale);
   return cudaGetLastError();
+}
+
+// the packed (B, S, 3C) layout of the block halves; row 3's rounding points
+template <typename T>
+cudaError_t launch_attention_packed(const void* qkv, const void* mask, void* out, int B,
+                                    int S, int H, int D, float scale, cudaStream_t stream) {
+  const long long C = (long long)H * D;
+  const T* q = static_cast<const T*>(qkv);
+  return launch_attention<T>(q, q + C, q + 2 * C, Strides{3 * S * C, D, 3 * C}, mask, out,
+                             Strides{S * C, D, C}, B, S, H, D, scale, stream);
+}
+
+template <typename T>
+cudaError_t launch_attention_packed_bwd(const void* qkv, const void* mask, const void* dattn,
+                                        void* dqkv, void* stats, int B, int S, int H, int D,
+                                        float scale, cudaStream_t stream) {
+  const long long C = (long long)H * D;
+  const T* q = static_cast<const T*>(qkv);
+  T* dq = static_cast<T*>(dqkv);
+  const Strides packed{3 * S * C, D, 3 * C};
+  return launch_attention_bwd<T, true>(q, q + C, q + 2 * C, packed, mask,
+                                       static_cast<const T*>(dattn), Strides{S * C, D, C}, dq,
+                                       dq + C, dq + 2 * C, packed, stats, B, S, H, D, scale,
+                                       stream);
 }
 
 template <typename T, bool WKN>
@@ -1301,11 +1372,11 @@ int rmcl_masked_attention_bwd(int dtype, const void* qkv, const void* mask,
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (D > MAX_D) return (int)cudaErrorInvalidValue;
   if (dtype == 0)
-    return (int)launch_attention_bwd<float>(qkv, mask, dattn, dqkv, stats, B, S, H, D, scale,
-                                            st);
+    return (int)launch_attention_packed_bwd<float>(qkv, mask, dattn, dqkv, stats, B, S, H, D,
+                                                   scale, st);
   if (dtype == 1)
-    return (int)launch_attention_bwd<bf16>(qkv, mask, dattn, dqkv, stats, B, S, H, D, scale,
-                                           st);
+    return (int)launch_attention_packed_bwd<bf16>(qkv, mask, dattn, dqkv, stats, B, S, H, D,
+                                                  scale, st);
   return (int)cudaErrorInvalidValue;
 }
 
@@ -1313,8 +1384,56 @@ int rmcl_masked_attention_fwd(int dtype, const void* qkv, const void* mask, void
                               int B, int S, int H, int D, float scale, void* stream) {
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (D > MAX_D) return (int)cudaErrorInvalidValue;
-  if (dtype == 0) return (int)launch_attention<float>(qkv, mask, out, B, S, H, D, scale, st);
-  if (dtype == 1) return (int)launch_attention<bf16>(qkv, mask, out, B, S, H, D, scale, st);
+  if (dtype == 0)
+    return (int)launch_attention_packed<float>(qkv, mask, out, B, S, H, D, scale, st);
+  if (dtype == 1)
+    return (int)launch_attention_packed<bf16>(qkv, mask, out, B, S, H, D, scale, st);
+  return (int)cudaErrorInvalidValue;
+}
+
+// The attention core on (B, H, S, D) operands (pallas_attention.py:_fwd_impl).
+// q, k and v share the element strides (qb, qh, qs); out has (ob, oh, os);
+// d is contiguous in every operand.
+int rmcl_attention_fwd(int dtype, const void* q, const void* k, const void* v, long long qb,
+                       long long qh, long long qs, const void* mask, void* out, long long ob,
+                       long long oh, long long os, int B, int S, int H, int D, float scale,
+                       void* stream) {
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (D > MAX_D) return (int)cudaErrorInvalidValue;
+  const Strides in{qb, qh, qs}, out_s{ob, oh, os};
+  if (dtype == 0)
+    return (int)launch_attention<float>(static_cast<const float*>(q),
+                                        static_cast<const float*>(k),
+                                        static_cast<const float*>(v), in, mask, out, out_s, B,
+                                        S, H, D, scale, st);
+  if (dtype == 1)
+    return (int)launch_attention<bf16>(static_cast<const bf16*>(q), static_cast<const bf16*>(k),
+                                       static_cast<const bf16*>(v), in, mask, out, out_s, B, S,
+                                       H, D, scale, st);
+  return (int)cudaErrorInvalidValue;
+}
+
+// Its backward (pallas_attention.py:_bwd_impl), with that kernel's rounding
+// points.  g has the strides (gb, gh, gs); dq, dk and dv share (db, dh, ds);
+// stats: (B, H, S, 3) fp32 scratch.
+int rmcl_attention_bwd(int dtype, const void* q, const void* k, const void* v, long long qb,
+                       long long qh, long long qs, const void* mask, const void* g,
+                       long long gb, long long gh, long long gs, void* dq, void* dk, void* dv,
+                       long long db, long long dh, long long ds, void* stats, int B, int S,
+                       int H, int D, float scale, void* stream) {
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (D > MAX_D) return (int)cudaErrorInvalidValue;
+  const Strides in{qb, qh, qs}, g_s{gb, gh, gs}, d_s{db, dh, ds};
+  if (dtype == 0)
+    return (int)launch_attention_bwd<float, false>(
+        static_cast<const float*>(q), static_cast<const float*>(k), static_cast<const float*>(v),
+        in, mask, static_cast<const float*>(g), g_s, static_cast<float*>(dq),
+        static_cast<float*>(dk), static_cast<float*>(dv), d_s, stats, B, S, H, D, scale, st);
+  if (dtype == 1)
+    return (int)launch_attention_bwd<bf16, false>(
+        static_cast<const bf16*>(q), static_cast<const bf16*>(k), static_cast<const bf16*>(v),
+        in, mask, static_cast<const bf16*>(g), g_s, static_cast<bf16*>(dq),
+        static_cast<bf16*>(dk), static_cast<bf16*>(dv), d_s, stats, B, S, H, D, scale, st);
   return (int)cudaErrorInvalidValue;
 }
 

@@ -17,21 +17,26 @@ site.  Here one int32 tensor of seeds per step (``draw_seeds``: views x
 (layers + 1) x 2 x B, from an explicit ``torch.Generator``, moved to the
 device once) feeds the one Philox stream of ``ops/philox.py``: rows 0 ..
 layers - 1 seed the blocks' two halves, the last row the dropout after the
-text embeddings and after the visual embeddings.
+text embeddings and after the visual embeddings (``ops/dropout.py``, draw 0).
+
+Block configuration.  ``derive_block_impls`` ports ``_derive_attn_impl`` /
+``_derive_mlp_impl`` (``rmcl_tpu/models/vilt.py:61-87``): the config's
+``attention_impl`` and ``mlp_impl`` pick the ops of every block of the query
+transformer and of its momentum twin (``models/vit.py:Block``).
 """
 
 from __future__ import annotations
 
-from typing import Dict, List, Optional
+from typing import Dict, List, Optional, Tuple
 
 import torch
 from torch import nn
 
 from rmcl_tpu_torch.models.heads import Classifier, ITMHead, MLMHead, MoCoHead, Pooler
-from rmcl_tpu_torch.models.layers import Embedding, Linear, dropout, reset_all
+from rmcl_tpu_torch.models.layers import Embedding, Linear, reset_all
 from rmcl_tpu_torch.models.text_embeddings import TextEmbeddings
 from rmcl_tpu_torch.models.vit import ViT, normalize_u8
-from rmcl_tpu_torch.ops.philox import keep_mask
+from rmcl_tpu_torch.ops.dropout import dropout
 
 MOCO_PROJ_DIM = 128
 
@@ -43,6 +48,27 @@ def draw_seeds(generator: torch.Generator, views: int, num_layers: int, batch: i
     s = torch.randint(-2 ** 31, 2 ** 31, (views, num_layers + 1, 2, batch),
                       generator=generator, dtype=torch.int64)
     return s.to(torch.int32).to(device)
+
+
+def derive_block_impls(cfg) -> Tuple[str, str]:
+    """(attn_impl, mlp_impl) of the blocks from ``cfg.attention_impl`` and
+    ``cfg.mlp_impl``.  "" derives what the JAX package derives on one chip
+    with its kernels on: "fused" attention, and "fused_train", which needs a
+    raised scoped-VMEM limit on the TPU and nothing here.  Explicit values are
+    kept: "pallas" and "flash" run the unfused block around the attention-core
+    op (``flash``'s library kernel computes the same function on every row
+    that is read).  The plain XLA paths ("xla", "xla_bf16", ``mlp_impl="xla"``)
+    are not ported: on the card every block runs hand-written kernels."""
+    attn, mlp = cfg.attention_impl or "fused", cfg.mlp_impl or "fused_train"
+    if attn in ("xla", "xla_bf16") or mlp == "xla":
+        raise NotImplementedError(
+            f"attention_impl={cfg.attention_impl!r}, mlp_impl={cfg.mlp_impl!r}: the plain "
+            "XLA block paths are not ported (ROADMAP, Queue A, 'Not ported'); use "
+            "'fused' / 'pallas' / 'flash' and 'fused' / 'fused_train'")
+    if attn not in ("fused", "pallas", "flash") or mlp not in ("fused", "fused_train"):
+        raise ValueError(f"unknown block configuration attention_impl="
+                         f"{cfg.attention_impl!r}, mlp_impl={cfg.mlp_impl!r}")
+    return attn, mlp
 
 
 def _needs(cfg, *names: str) -> bool:
@@ -58,12 +84,13 @@ class ViLT(nn.Module):
         self.patch_size = cfg.patch_size
         self.max_image_len = cfg.max_image_len
         self.drop_rate = cfg.drop_rate
+        self.block_impls = derive_block_impls(cfg)
 
         self.text_embeddings = TextEmbeddings(cfg.vocab_size, C, cfg.max_text_len)
         self.token_type_embeddings = Embedding(
             3 if _needs(cfg, "nlvr2", "nlvr2_attacked") else 2, C)
         self.transformer = ViT(C, cfg.num_heads, cfg.num_layers, cfg.mlp_ratio,
-                               cfg.patch_size, cfg.image_size)
+                               cfg.patch_size, cfg.image_size, *self.block_impls)
         self.pooler = Pooler(C)
         if _needs(cfg, "mlm"):
             self.mlm_score = MLMHead(C, cfg.vocab_size)
@@ -80,7 +107,7 @@ class ViLT(nn.Module):
             self.k_token_type_embeddings = Embedding(
                 self.token_type_embeddings.weight.shape[0], C)
             self.k_transformer = ViT(C, cfg.num_heads, cfg.num_layers, cfg.mlp_ratio,
-                                     cfg.patch_size, cfg.image_size)
+                                     cfg.patch_size, cfg.image_size, *self.block_impls)
             self.k_moco_head = MoCoHead(C, C, MOCO_PROJ_DIM)
             qdt = getattr(torch, cfg.queue_dtype or cfg.compute_dtype)
             self.register_buffer("proj_queue",
@@ -148,8 +175,8 @@ class ViLT(nn.Module):
         p = self.drop_rate
         transformer = getattr(self, prefix + "transformer")
         text = getattr(self, prefix + "text_embeddings")(batch["text_ids"], dtype)
-        if seeds is not None and p > 0:
-            text = dropout(text, keep_mask(seeds[-1, 0], 0, *text.shape[1:], p), p)
+        if seeds is not None:
+            text = dropout(text, seeds[-1, 0], 0, p)
         if image_embeds is None and image_masks is None:
             img = batch["image"]
             if img.dim() != 3:
@@ -160,9 +187,8 @@ class ViLT(nn.Module):
                                    self.patch_size)
             image_embeds, image_masks = transformer.visual_embed(
                 img, self.grid_hw, self.max_image_len, dtype)
-            if seeds is not None and p > 0:
-                image_embeds = dropout(
-                    image_embeds, keep_mask(seeds[-1, 1], 0, *image_embeds.shape[1:], p), p)
+            if seeds is not None:
+                image_embeds = dropout(image_embeds, seeds[-1, 1], 0, p)
         else:
             image_embeds = image_embeds.to(dtype)
         tte = getattr(self, prefix + "token_type_embeddings").weight

@@ -13,18 +13,38 @@ parameters too.
   does not depend on a pixel perturbation is in the ``VisualPrep``, so the
   PGD loop (``attacks/pgd.py``) prepares once and pays one matmul per
   iteration.
-* ``ViT.forward`` runs the blocks, each as two fused ops, then the final
-  LayerNorm.  Without ``seeds`` the blocks are ``attn_half`` then ``mlp_half``
-  (``ops/fused_block.py``, residuals fused in): the deterministic forward of
-  the key encoder, the attacks and serving.  With ``seeds`` (layers, 2, B)
-  they are ``attn_half_train`` then ``mlp_half_train``
-  (``ops/fused_block_train.py``): dropout at rate ``p`` inside the kernels,
-  one seed per layer, half and sample, and gradients to every parameter.  The
-  JAX package takes its training kernels only when ``drop_rate > 0`` and the
-  deterministic kernels' full backward otherwise; the port's training ops at
-  p = 0 compute that same function, so training always runs them.  Unlike
-  the TPU kernels the CUDA kernels mask their own ragged edges, so the
-  sequence is not padded to 128.
+* ``ViT.forward`` runs the blocks, then the final LayerNorm.  Without
+  ``seeds`` it is the deterministic forward (the key encoder, the attacks,
+  serving); with ``seeds`` (layers, 2, B) the training forward at dropout rate
+  ``p``, one seed per layer, half and sample, with gradients to every
+  parameter.  ``Block.forward`` follows ``block_forward``'s dispatch
+  (``rmcl_tpu/models/vit.py:444-553``) on the block configuration
+  (``attn_impl``, ``mlp_impl``, derived by ``models/vilt.py:derive_block_impls``):
+
+  attention half, ``attn_impl="fused"``:
+    deterministic        ``attn_half`` (residual fused in)
+    training, ``mlp_impl="fused_train"`` and p > 0
+                         ``attn_half_train`` (dropout and residual inside)
+    training otherwise   ``attn_half_full`` (``fused_attn_half``, row 2's
+                         backward), then ``dropout`` and ``+ x`` outside
+  attention half, ``attn_impl="pallas"`` or ``"flash"`` (the unfused block):
+    ``layer_norm`` -> qkv ``linear`` -> head split -> ``masked_attention``
+    (rows 10, 11) -> head merge -> proj ``linear`` [-> ``dropout``] -> ``+ x``
+  MLP half:
+    deterministic        ``mlp_half`` (residual fused in)
+    training, ``mlp_impl="fused_train"``, or ``"fused"`` at p = 0
+                         ``mlp_half_train(tail=True)``
+    training, ``mlp_impl="fused"`` at p > 0
+                         the plain block: LN2, fc1, GELU, ``dropout`` (draw 0),
+                         fc2, ``dropout`` (draw 1), ``+ x``
+
+  One kept deviation computes the same function another way: at p = 0 the
+  JAX package runs ``fused_mlp_half`` (weight gradients from an XLA twin)
+  where the port runs ``mlp_half_train`` (weight gradients from the
+  kernels), for ``"fused"`` and for ``"fused_train"`` alike.  Every dropout, inside a kernel or outside (``ops/dropout.py``), draws
+  from the one Philox convention, so the configurations compute the same
+  function from the same seeds.  Unlike the TPU kernels the CUDA kernels
+  mask their own ragged edges, so the sequence is not padded to 128.
 
 LayerNorm eps inside the ViT is 1e-6.
 """
@@ -36,8 +56,11 @@ from typing import Dict, List, NamedTuple, Optional, Tuple
 import torch
 from torch import nn
 
-from rmcl_tpu_torch.models.layers import LayerNorm, Linear, linear, trunc_normal_
-from rmcl_tpu_torch.ops.fused_block import attn_half, mlp_half
+from rmcl_tpu_torch.models.layers import (LayerNorm, Linear, gelu, layer_norm, linear,
+                                          trunc_normal_)
+from rmcl_tpu_torch.ops.attention import masked_attention
+from rmcl_tpu_torch.ops.dropout import dropout
+from rmcl_tpu_torch.ops.fused_block import attn_half, attn_half_full, mlp_half
 from rmcl_tpu_torch.ops.fused_block_train import attn_half_train, mlp_half_train
 
 VIT_LN_EPS = 1e-6
@@ -138,12 +161,16 @@ class PatchEmbed(nn.Module):
 
 
 class Block(nn.Module):
-    """Pre-norm transformer block; names follow the reference state_dict."""
+    """Pre-norm transformer block; names follow the reference state_dict.
+    ``attn_impl``: "fused" | "pallas" | "flash"; ``mlp_impl``: "fused" |
+    "fused_train" (``models/vilt.py:derive_block_impls``)."""
 
-    def __init__(self, hidden_size: int, num_heads: int, mlp_ratio: int):
+    def __init__(self, hidden_size: int, num_heads: int, mlp_ratio: int,
+                 attn_impl: str = "fused", mlp_impl: str = "fused_train"):
         super().__init__()
         C = hidden_size
         self.num_heads = num_heads
+        self.attn_impl, self.mlp_impl = attn_impl, mlp_impl
         self.norm1 = LayerNorm(C, VIT_LN_EPS)
         self.attn = nn.ModuleDict({"qkv": Linear(C, 3 * C), "proj": Linear(C, C)})
         self.norm2 = LayerNorm(C, VIT_LN_EPS)
@@ -156,36 +183,69 @@ class Block(nn.Module):
               "w1": self.mlp["fc1"].weight, "w2": self.mlp["fc2"].weight}
         return {k: w.detach().to(dtype).contiguous() for k, w in ws.items()}
 
+    def _unfused_attention(self, x, mask, mats, train: bool):
+        """proj(MHA(qkv(LN1 x))) of the unfused block, around the attention
+        core op.  Training takes the float32 masters (cast at use, so that
+        they receive the gradients), the deterministic forward the cast
+        matrices."""
+        B, S, C = x.shape
+        H = self.num_heads
+        qkv, proj = self.attn["qkv"], self.attn["proj"]
+        y = layer_norm(x, self.norm1.weight, self.norm1.bias, VIT_LN_EPS)
+        y = linear(y, qkv.weight if train else mats["wqkv"], qkv.bias)
+        q, k, v = y.view(B, S, 3, H, C // H).permute(2, 0, 3, 1, 4).unbind(0)
+        a = masked_attention(q, k, v, mask, (C // H) ** -0.5)
+        a = a.transpose(1, 2).reshape(B, S, C)
+        return linear(a, proj.weight if train else mats["wproj"], proj.bias)
+
+    def _plain_mlp(self, x, seeds, p: float):
+        """fc2(drop(gelu(fc1(LN2 x)))) dropped: the MLP of the JAX package's
+        plain block, on the kernels' mask convention."""
+        fc1, fc2 = self.mlp["fc1"], self.mlp["fc2"]
+        y = layer_norm(x, self.norm2.weight, self.norm2.bias, VIT_LN_EPS)
+        y = dropout(gelu(linear(y, fc1.weight, fc1.bias)), seeds, 0, p)
+        return dropout(linear(y, fc2.weight, fc2.bias), seeds, 1, p)
+
     def forward(self, x: torch.Tensor, mask: torch.Tensor,
                 mats: Dict[str, torch.Tensor],
                 seeds: Optional[torch.Tensor] = None, p: float = 0.0) -> torch.Tensor:
-        """``seeds`` (2, B) int32 selects the training ops (attention half,
-        MLP half); ``mats`` are then their operands and the parameters
-        receive the gradients."""
-        if seeds is not None:
-            x = attn_half_train(x, seeds[0], mask, self.norm1.weight, self.norm1.bias,
-                                self.attn["qkv"].weight, self.attn["qkv"].bias,
-                                self.attn["proj"].weight, self.attn["proj"].bias,
-                                self.num_heads, VIT_LN_EPS, p,
+        """``seeds`` (2, B) int32 selects the training forward (attention half,
+        MLP half); ``mats`` are the weight matrices in the compute type, the
+        training ops' operands, and the parameters receive the gradients."""
+        train = seeds is not None
+        n1, qkv, proj = self.norm1, self.attn["qkv"], self.attn["proj"]
+        if self.attn_impl != "fused":
+            a = self._unfused_attention(x, mask, mats, train)
+            x = x + (dropout(a, seeds[0], 0, p) if train else a)
+        elif not train:
+            x = attn_half(x, mask, n1.weight, n1.bias, mats["wqkv"], qkv.bias,
+                          mats["wproj"], proj.bias, self.num_heads, VIT_LN_EPS,
+                          residual=True)
+        elif self.mlp_impl == "fused_train" and p > 0:
+            x = attn_half_train(x, seeds[0], mask, n1.weight, n1.bias, qkv.weight, qkv.bias,
+                                proj.weight, proj.bias, self.num_heads, VIT_LN_EPS, p,
                                 wqkv_c=mats["wqkv"], wproj_c=mats["wproj"])
-            return mlp_half_train(x, seeds[1], self.norm2.weight, self.norm2.bias,
-                                  self.mlp["fc1"].weight, self.mlp["fc1"].bias,
-                                  self.mlp["fc2"].weight, self.mlp["fc2"].bias,
-                                  p, VIT_LN_EPS, tail=True,
-                                  w1_c=mats["w1"], w2_c=mats["w2"])
-        x = attn_half(x, mask, self.norm1.weight, self.norm1.bias,
-                      mats["wqkv"], self.attn["qkv"].bias,
-                      mats["wproj"], self.attn["proj"].bias,
-                      self.num_heads, VIT_LN_EPS, residual=True)
-        return mlp_half(x, self.norm2.weight, self.norm2.bias,
-                        mats["w1"], self.mlp["fc1"].bias,
-                        mats["w2"], self.mlp["fc2"].bias,
-                        VIT_LN_EPS, residual=True)
+        else:
+            a = attn_half_full(x, mask, n1.weight, n1.bias, qkv.weight, qkv.bias,
+                               proj.weight, proj.bias, self.num_heads, VIT_LN_EPS,
+                               wqkv_c=mats["wqkv"], wproj_c=mats["wproj"])
+            x = x + dropout(a, seeds[0], 0, p)
+
+        n2, fc1, fc2 = self.norm2, self.mlp["fc1"], self.mlp["fc2"]
+        if not train:
+            return mlp_half(x, n2.weight, n2.bias, mats["w1"], fc1.bias, mats["w2"],
+                            fc2.bias, VIT_LN_EPS, residual=True)
+        if self.mlp_impl == "fused" and p > 0:
+            return x + self._plain_mlp(x, seeds[1], p)
+        return mlp_half_train(x, seeds[1], n2.weight, n2.bias, fc1.weight, fc1.bias,
+                              fc2.weight, fc2.bias, p, VIT_LN_EPS, tail=True,
+                              w1_c=mats["w1"], w2_c=mats["w2"])
 
 
 class ViT(nn.Module):
     def __init__(self, hidden_size: int, num_heads: int, num_layers: int,
-                 mlp_ratio: int, patch_size: int, img_size: int):
+                 mlp_ratio: int, patch_size: int, img_size: int,
+                 attn_impl: str = "fused", mlp_impl: str = "fused_train"):
         super().__init__()
         C = hidden_size
         self.pos_grid = img_size // patch_size   # grid the pos-embed lives on
@@ -194,7 +254,7 @@ class ViT(nn.Module):
         self.pos_embed = nn.Parameter(torch.empty(1, self.pos_grid ** 2 + 1, C))
         self.mask_token = nn.Parameter(torch.empty(1, 1, C))   # MPP only; unused here
         self.blocks = nn.ModuleList(
-            Block(C, num_heads, mlp_ratio) for _ in range(num_layers))
+            Block(C, num_heads, mlp_ratio, attn_impl, mlp_impl) for _ in range(num_layers))
         self.norm = LayerNorm(C, VIT_LN_EPS)
 
     def reset_parameters(self, generator: torch.Generator) -> None:

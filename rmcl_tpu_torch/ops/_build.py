@@ -26,6 +26,7 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 _P, _I, _F, _U = ctypes.c_void_p, ctypes.c_int, ctypes.c_float, ctypes.c_uint
+_ST = [ctypes.c_longlong] * 3   # element strides (b, h, s) of a (B, H, S, D) operand
 # dropout arguments: seeds, rows per sample, draw, keep threshold, 1/(1-p), mask_out
 _DROP = [_P, _I, _U, _U, _F, _P]
 # entry point -> ctypes argtypes; every pointer and the stream as c_void_p
@@ -50,6 +51,12 @@ SIGNATURES = {
     "rmcl_masked_attention_bwd": [_I, _P, _P, _P, _P, _P, _I, _I, _I, _I, _F, _P],
     # dtype, qkv, mask, out, B, S, H, D, scale, stream
     "rmcl_masked_attention_fwd": [_I, _P, _P, _P, _I, _I, _I, _I, _F, _P],
+    # dtype, q, k, v, their strides, mask, out, its strides, B, S, H, D, scale, stream
+    "rmcl_attention_fwd": [_I, _P, _P, _P, *_ST, _P, _P, *_ST, _I, _I, _I, _I, _F, _P],
+    # dtype, q, k, v, their strides, mask, g, its strides, dq, dk, dv, their strides,
+    # stats, B, S, H, D, scale, stream
+    "rmcl_attention_bwd": [_I, _P, _P, _P, *_ST, _P, _P, *_ST, _P, _P, _P, *_ST, _P,
+                           _I, _I, _I, _I, _F, _P],
 }
 
 _lock = threading.Lock()

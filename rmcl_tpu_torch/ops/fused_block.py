@@ -1,5 +1,6 @@
 """The two deterministic halves of a ViLT pre-norm block and their dx-only
-backwards: public ops, launch counters and plain versions.
+backwards, and the attention half with its full backward: public ops, launch
+counters and plain versions.
 
 Ports of ``rmcl_tpu/ops/pallas_block.py``:
   * ``attn_half`` <- ``fused_attn_half_det`` (``_fwd_impl``/``_half_block_kernel``):
@@ -11,6 +12,15 @@ Ports of ``rmcl_tpu/ops/pallas_block.py``:
     ``attn_half`` given the output gradient g
   * ``mlp_half_dx``  <- ``_mlp_dx_impl`` (``_mlp_dx_kernel`` and
     ``_mlp_dx_saved_kernel``): dx of ``mlp_half`` given g
+  * ``attn_half_full`` <- ``fused_attn_half``: ``proj(MHA(qkv(LN1 x)))``
+    (``_fwd_impl`` without the residual), differentiable with respect to x
+    and all six parameters; its backward ``attn_half_full_bwd`` <-
+    ``_bwd_impl`` (``_half_block_bwd_kernel``, math ``_attn_bwd_math``, and
+    the weight products after the kernel): dx, dLN1, dWqkv, dbqkv, dWproj,
+    dbproj.  The training blocks run it where the JAX package runs
+    ``fused_attn_half`` (``models/vit.py:Block``); like the training ops it
+    takes the fp32 masters and cached operands in x's type, and its forward
+    keeps qkv and the attention output for the backward.
 
 On a CUDA tensor each op launches the hand-written kernels of
 ``csrc/block_kernels.cu`` (see the note there for the design) or raises; on
@@ -21,7 +31,8 @@ a CPU tensor it runs its plain version.  There is no other switch.
 input through frozen weights): when x requires grad they run as
 ``torch.autograd.Function``s whose backward is ``attn_half_dx`` /
 ``mlp_half_dx``.  A weight, bias or LayerNorm parameter that requires grad
-makes them raise: weight gradients belong to the training kernels.  By
+makes them raise: weight gradients belong to ``attn_half_full`` and the
+training kernels.  By
 default the forward keeps its qkv (attention) or pre-GELU fc1 output (MLP)
 for the backward, which then skips the recompute GEMM
 (``save_for_backward=True``, the JAX package's ``save_qkv``/``save_h``);
@@ -51,17 +62,18 @@ from torch.autograd.function import once_differentiable
 
 from rmcl_tpu_torch.models.layers import layer_norm
 from rmcl_tpu_torch.ops import _build
-from rmcl_tpu_torch.ops.attention import NEG_BIAS, mha
+from rmcl_tpu_torch.ops.attention import _DTYPE_CODE, _MAX_HEAD_DIM, NEG_BIAS, _stream, mha
 from rmcl_tpu_torch.ops.philox import keep_threshold
 
 # kernel launches of each op on CUDA tensors (plain CPU calls do not count)
 launches = {"attn_half": 0, "mlp_half": 0, "attn_half_dx": 0, "mlp_half_dx": 0,
+            "attn_half_full": 0, "attn_half_full_bwd": 0,
             # the training ops of ops/fused_block_train.py
             "attn_half_train": 0, "mlp_half_train": 0,
-            "attn_half_train_bwd": 0, "mlp_half_train_bwd": 0}
+            "attn_half_train_bwd": 0, "mlp_half_train_bwd": 0,
+            # ops/attention.py:masked_attention and ops/dropout.py:dropout
+            "masked_attention": 0, "masked_attention_bwd": 0, "dropout": 0}
 
-_DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
-_MAX_HEAD_DIM = 128
 _EPI_BIAS, _EPI_DGELU, _EPI_F32 = 0, 1, 2      # ln_gemm epilogues (block_kernels.cu)
 
 
@@ -78,20 +90,22 @@ def _dense(y, w, b):
 
 
 def _attn_core_plain(x, mask, ln_w, ln_b, wqkv, bqkv, wproj, bproj, num_heads, eps):
-    """(proj(MHA(qkv(LN1 x))), qkv (B, S, 3C), attn (B, S, C) before proj)."""
-    B, S, C = x.shape
-    D = C // num_heads
+    """(proj(MHA(qkv(LN1 x))), qkv (B, S, 3Ci), attn (B, S, Ci) before proj);
+    the attention's inner width Ci is wqkv's rows / 3 (C but for a shard)."""
+    B, S, _ = x.shape
+    Ci = wqkv.shape[0] // 3
+    D = Ci // num_heads
     qkv = _dense(layer_norm(x, ln_w, ln_b, eps), wqkv, bqkv)
     q, k, v = qkv.reshape(B, S, 3, num_heads, D).permute(2, 0, 3, 1, 4)
-    attn = mha(q, k, v, mask, D ** -0.5).transpose(1, 2).reshape(B, S, C)
+    attn = mha(q, k, v, mask, D ** -0.5).transpose(1, 2).reshape(B, S, Ci)
     return _dense(attn, wproj, bproj), qkv, attn
 
 
 def _attn_fwd_plain(x, mask, ln_w, ln_b, wqkv, bqkv, wproj, bproj, num_heads, eps,
                     residual):
-    out, qkv, _ = _attn_core_plain(x, mask, ln_w, ln_b, wqkv, bqkv, wproj, bproj,
-                                   num_heads, eps)
-    return (x + out if residual else out), qkv
+    out, qkv, attn = _attn_core_plain(x, mask, ln_w, ln_b, wqkv, bqkv, wproj, bproj,
+                                      num_heads, eps)
+    return (x + out if residual else out), qkv, attn
 
 
 def attn_half_plain(x, mask, ln_w, ln_b, wqkv, bqkv, wproj, bproj,
@@ -168,6 +182,36 @@ def attn_half_dx_plain(x, mask, ln_w, ln_b, wqkv, bqkv, wproj, g,
     dqkv = _attn_dqkv_plain(qkv, mask, wproj, g, num_heads)
     dy = dqkv.float() @ wqkv.float()                      # fp32, not rounded
     return _ln_bwd_plain(dy, xhat, rstd, ln_w, g, residual, dt)
+
+
+def _rows(t):
+    return t.reshape(-1, t.shape[-1])
+
+
+def _attn_param_bwd_plain(x, mask, ln_w, ln_b, wqkv, wproj, gm, qkv, attn, num_heads,
+                          eps, g_res):
+    """(dx [+ g_res], dln_w, dln_b, dwqkv, dbqkv, dwproj, dbproj) of
+    ``proj(MHA(qkv(LN1 x)))`` given its output gradient gm, the forward's qkv
+    and attn: ``pallas_block.py:_attn_bwd_math`` step by step, y = LN1 x,
+    attn and gm entering the weight-gradient products as their rounded values
+    (``_bwd_impl`` :431-441)."""
+    dt = x.dtype
+    xhat, rstd = _ln_parts(x, eps)
+    y = (xhat * ln_w + ln_b).to(dt)
+    dqkv = _attn_dqkv_plain(qkv, mask, wproj, gm, num_heads)
+    dy = dqkv.float() @ wqkv.float()                      # fp32, not rounded
+    dx = _ln_bwd_plain(dy, xhat, rstd, ln_w, g_res, g_res is not None, dt)
+    dqkv32, gm32 = _rows(dqkv).float(), _rows(gm).float()
+    return (dx, (dy * xhat).sum((0, 1)), dy.sum((0, 1)),
+            dqkv32.t() @ _rows(y).float(), dqkv32.sum(0),
+            gm32.t() @ _rows(attn).float(), gm32.sum(0))
+
+
+def attn_half_full_bwd_plain(x, mask, ln_w, ln_b, wqkv, wproj, g, qkv, attn,
+                             num_heads: int, eps: float):
+    """Plain version of ``attn_half_full_bwd``."""
+    return _attn_param_bwd_plain(x, mask, ln_w, ln_b, wqkv, wproj, g, qkv, attn,
+                                 num_heads, eps, None)
 
 
 def _gelu_grad(h32):
@@ -268,7 +312,7 @@ def _gemm(lib, a2d, w, bias, out, ln=None, eps=0.0, residual=None, gelu=False,
         _DTYPE_CODE[a2d.dtype], a2d.data_ptr(), ptr(ln_w), ptr(ln_b), eps,
         w.data_ptr(), ptr(bias), ptr(residual), ptr(aux), out.data_ptr(),
         M, N, K, int(gelu), epi, int(w_kn), *_drop_args(drop),
-        torch.cuda.current_stream(a2d.device).cuda_stream)
+        _stream(a2d))
     _build.check(rc, "ln_gemm")
 
 
@@ -282,39 +326,125 @@ def _ln_bwd_dx(lib, x2d, dy, ln_w, g2d, eps, residual, ln_b=None, y_out=None,
         _DTYPE_CODE[x2d.dtype], x2d.data_ptr(), dy.data_ptr(), ln_w.data_ptr(),
         g2d.data_ptr() if residual else None, dx.data_ptr(), x2d.shape[0],
         x2d.shape[1], eps, ptr(ln_b), ptr(y_out), ptr(stats_out),
-        torch.cuda.current_stream(x2d.device).cuda_stream)
+        _stream(x2d))
     _build.check(rc, "ln_bwd_dx")
     return dx
 
 
+def _gemm_tn(lib, a2d, b2d):
+    """a^T . b over the rows, fp32: the weight-gradient product."""
+    (M, Na), (Mb, Nb) = a2d.shape, b2d.shape
+    if M != Mb or Na % 8 or Nb % 8 or a2d.dtype != b2d.dtype:
+        raise ValueError(f"weight-gradient GEMM of {tuple(a2d.shape)} against "
+                         f"{tuple(b2d.shape)}: rows and types must match and "
+                         "widths be multiples of 8")
+    if M * max(Na, Nb) >= 2 ** 31:
+        raise ValueError(f"weight-gradient GEMM of {M}x{Na}x{Nb} exceeds 32-bit indexing")
+    out = torch.empty(Na, Nb, device=a2d.device, dtype=torch.float32)
+    rc = lib.rmcl_gemm_tn(_DTYPE_CODE[a2d.dtype], a2d.data_ptr(), b2d.data_ptr(),
+                          out.data_ptr(), M, Na, Nb, _stream(a2d))
+    _build.check(rc, "gemm_tn")
+    return out
+
+
+def _colsum(lib, a2d):
+    """Column sums of (M, N) in fp32, fixed order."""
+    M, N = a2d.shape
+    partial = torch.empty(lib.rmcl_colsum_slabs(M), N, device=a2d.device,
+                          dtype=torch.float32)
+    out = torch.empty(N, device=a2d.device, dtype=torch.float32)
+    rc = lib.rmcl_colsum(_DTYPE_CODE[a2d.dtype], a2d.data_ptr(), partial.data_ptr(),
+                         out.data_ptr(), M, N, _stream(a2d))
+    _build.check(rc, "colsum")
+    return out
+
+
+def _ln_colsum(lib, x2d, dy, stats):
+    """(sum_m dy xhat, sum_m dy): LayerNorm's weight and bias gradients."""
+    M, C = x2d.shape
+    partial = torch.empty(lib.rmcl_colsum_slabs(M), 2 * C, device=x2d.device,
+                          dtype=torch.float32)
+    out = torch.empty(2 * C, device=x2d.device, dtype=torch.float32)
+    rc = lib.rmcl_ln_colsum(_DTYPE_CODE[x2d.dtype], x2d.data_ptr(), dy.data_ptr(),
+                            stats.data_ptr(), partial.data_ptr(), out.data_ptr(), M, C,
+                            _stream(x2d))
+    _build.check(rc, "ln_colsum")
+    return out[:C], out[C:]
+
+
+def _ln_backward(lib, x2d, dy, ln_w, ln_b, g2d, eps, residual):
+    """(dx, y = LN(x) rounded, dln_w, dln_b) from the fp32 dy."""
+    M, C = x2d.shape
+    y = torch.empty_like(x2d)
+    stats = torch.empty(M, 2, device=x2d.device, dtype=torch.float32)
+    dx = _ln_bwd_dx(lib, x2d, dy, ln_w, g2d, eps, residual, ln_b=ln_b, y_out=y,
+                    stats_out=stats)
+    return (dx, y, *_ln_colsum(lib, x2d, dy, stats))
+
+
+def _attn_param_bwd(x, mask, ln_w, ln_b, wqkv, wproj, gm, qkv, attn, num_heads, eps,
+                    g_res):
+    """The kernels of ``_attn_param_bwd_plain``: gemm(dattn = gm . Wproj) ->
+    masked_attention_bwd_dq / _dkv -> gemm(dy = dqkv . Wqkv, fp32) ->
+    ln_bwd_dx [+ g_res] (also y and the row statistics) -> gemm_tn(dWqkv =
+    dqkv^T . y) -> colsum(dbqkv) -> gemm_tn(dWproj = gm^T . attn) ->
+    colsum(dbproj), with ln_colsum for dLN1.  Arguments as checked by the
+    callers."""
+    B, S, C = x.shape
+    D = C // num_heads
+    lib = _build.library()
+    M = B * S
+    x2d, gm2d = x.view(M, C), gm.view(M, C)
+    new = lambda *shape, dtype=x.dtype: torch.empty(  # noqa: E731
+        *shape, device=x.device, dtype=dtype)
+    dattn, dqkv = new(M, C), new(M, 3 * C)
+    stats = new(B, num_heads, S, 3, dtype=torch.float32)
+    dy = new(M, C, dtype=torch.float32)
+    _gemm(lib, gm2d, wproj, None, dattn, w_kn=True)
+    rc = lib.rmcl_masked_attention_bwd(
+        _DTYPE_CODE[x.dtype], qkv.data_ptr(), mask.data_ptr(), dattn.data_ptr(),
+        dqkv.data_ptr(), stats.data_ptr(), B, S, num_heads, D, D ** -0.5, _stream(x))
+    _build.check(rc, "masked_attention_bwd")
+    _gemm(lib, dqkv, wqkv, None, dy, epi=_EPI_F32, w_kn=True)
+    dx, y, dln_w, dln_b = _ln_backward(
+        lib, x2d, dy, ln_w, ln_b, None if g_res is None else g_res.view(M, C), eps,
+        g_res is not None)
+    return (dx.view(B, S, C), dln_w, dln_b, _gemm_tn(lib, dqkv, y), _colsum(lib, dqkv),
+            _gemm_tn(lib, gm2d, attn.view(M, C)), _colsum(lib, gm2d))
+
+
 # ------------------------------------------------------------ forward chains
 def _attn_fwd(x, mask, ln_w, ln_b, wqkv, bqkv, wproj, bproj, num_heads, eps,
-              residual):
-    """(out, qkv (B, S, 3C)): plain on the CPU, the kernels on CUDA."""
+              residual, counter="attn_half", drop=None):
+    """(out, qkv (B, S, 3Ci), attn (B, S, Ci)): plain on the CPU, the kernels
+    on CUDA, counted under ``counter``; ``drop``: the proj epilogue's dropout
+    (``_drop_args``; the training op, which runs its own plain version).  The
+    attention's inner width Ci is wqkv's rows / 3: C, or a tensor-parallel
+    shard's share of it."""
     if x.device.type == "cpu":
         return _attn_fwd_plain(x, mask, ln_w, ln_b, wqkv, bqkv, wproj, bproj,
                                num_heads, eps, residual)
     B, S, C = x.shape
-    D = _head_dim(C, num_heads)
+    Ci = wqkv.shape[0] // 3
+    D = _head_dim(Ci, num_heads)
     _check(x, dict(x=x, mask=mask, ln_w=ln_w, ln_b=ln_b, wqkv=wqkv, bqkv=bqkv,
                    wproj=wproj, bproj=bproj),
            dict(x=(B, S, C), mask=(B, S), ln_w=(C,), ln_b=(C,),
-                wqkv=(3 * C, C), bqkv=(3 * C,), wproj=(C, C), bproj=(C,)))
+                wqkv=(3 * Ci, C), bqkv=(3 * Ci,), wproj=(C, Ci), bproj=(C,)))
     lib = _build.library()
     x2d = x.view(B * S, C)
-    qkv = torch.empty(B * S, 3 * C, device=x.device, dtype=x.dtype)
-    attn = torch.empty(B * S, C, device=x.device, dtype=x.dtype)
+    qkv = torch.empty(B * S, 3 * Ci, device=x.device, dtype=x.dtype)
+    attn = torch.empty(B * S, Ci, device=x.device, dtype=x.dtype)
     out = torch.empty_like(x)
     _gemm(lib, x2d, wqkv, bqkv, qkv, ln=(ln_w, ln_b), eps=eps)
     rc = lib.rmcl_masked_attention_fwd(
         _DTYPE_CODE[x.dtype], qkv.data_ptr(), mask.data_ptr(), attn.data_ptr(),
-        B, S, num_heads, D, D ** -0.5,
-        torch.cuda.current_stream(x.device).cuda_stream)
+        B, S, num_heads, D, D ** -0.5, _stream(x))
     _build.check(rc, "masked_attention_fwd")
     _gemm(lib, attn, wproj, bproj, out.view(B * S, C),
-          residual=x2d if residual else None)
-    launches["attn_half"] += 1
-    return out, qkv.view(B, S, 3 * C)
+          residual=x2d if residual else None, drop=drop)
+    launches[counter] += 1
+    return out, qkv.view(B, S, 3 * Ci), attn.view(B, S, Ci)
 
 
 def _mlp_fwd(x, ln_w, ln_b, w1, b1, w2, b2, eps, residual, keep_h):
@@ -372,7 +502,7 @@ def attn_half_dx(x, mask, ln_w, ln_b, wqkv, bqkv, wproj, g,
     rc = lib.rmcl_masked_attention_bwd(
         _DTYPE_CODE[x.dtype], qkv.data_ptr(), mask.data_ptr(), dattn.data_ptr(),
         dqkv.data_ptr(), stats.data_ptr(), B, S, num_heads, D, D ** -0.5,
-        torch.cuda.current_stream(x.device).cuda_stream)
+        _stream(x))
     _build.check(rc, "masked_attention_bwd")
     _gemm(lib, dqkv, wqkv, None, dy, epi=_EPI_F32, w_kn=True)
     dx = _ln_bwd_dx(lib, x2d, dy, ln_w, g2d, eps, residual)
@@ -410,13 +540,43 @@ def mlp_half_dx(x, ln_w, ln_b, w1, b1, w2, g, eps: float,
     return dx.view(B, S, C)
 
 
+def attn_half_full_bwd(x, mask, ln_w, ln_b, wqkv, wproj, g, qkv, attn,
+                       num_heads: int, eps: float):
+    """Backward of ``attn_half_full`` given its output gradient g (B, S, C) and
+    the forward's ``qkv`` (B, S, 3C) and ``attn`` (B, S, C).  Returns (dx,
+    dln_w, dln_b, dwqkv (3C, C), dbqkv, dwproj (C, C), dbproj), dx in x's type
+    and the rest float32."""
+    if x.device.type == "cpu":
+        return attn_half_full_bwd_plain(x, mask, ln_w, ln_b, wqkv, wproj, g, qkv, attn,
+                                        num_heads, eps)
+    B, S, C = x.shape
+    _head_dim(C, num_heads)
+    _check(x, dict(x=x, mask=mask, ln_w=ln_w, ln_b=ln_b, wqkv=wqkv, wproj=wproj, g=g,
+                   qkv=qkv, attn=attn),
+           dict(x=(B, S, C), mask=(B, S), ln_w=(C,), ln_b=(C,), wqkv=(3 * C, C),
+                wproj=(C, C), g=(B, S, C), qkv=(B, S, 3 * C), attn=(B, S, C)))
+    res = _attn_param_bwd(x, mask, ln_w, ln_b, wqkv, wproj, g, qkv, attn, num_heads, eps,
+                          None)
+    launches["attn_half_full_bwd"] += 1
+    return res
+
+
 # ------------------------------------------------------------------ autograd
+def _like(grads, dtypes):
+    """Parameter gradients in their parameters' types (float32 masters: as is)."""
+    return tuple(g.to(dt) for g, dt in zip(grads, dtypes))
+
+
+def _operand(w, w_c, dtype):
+    return w.detach().to(dtype).contiguous() if w_c is None else w_c
+
+
 class _AttnHalf(torch.autograd.Function):
     @staticmethod
     def forward(ctx, x, mask, ln_w, ln_b, wqkv, bqkv, wproj, bproj, num_heads,
                 eps, residual, save):
-        out, qkv = _attn_fwd(x, mask, ln_w, ln_b, wqkv, bqkv, wproj, bproj,
-                             num_heads, eps, residual)
+        out, qkv, _ = _attn_fwd(x, mask, ln_w, ln_b, wqkv, bqkv, wproj, bproj,
+                                num_heads, eps, residual)
         ctx.save_for_backward(x, mask, ln_w, ln_b, wqkv, bqkv, wproj,
                               *([qkv] if save else []))
         ctx.conf = (num_heads, eps, residual)
@@ -450,6 +610,26 @@ class _MlpHalf(torch.autograd.Function):
         return (dx,) + (None,) * 9
 
 
+class _AttnHalfFull(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, mask, ln_w, ln_b, wqkv, bqkv, wproj, bproj, wqkv_c, wproj_c,
+                num_heads, eps):
+        out, qkv, attn = _attn_fwd(x, mask, ln_w, ln_b, wqkv_c, bqkv, wproj_c, bproj,
+                                   num_heads, eps, False, "attn_half_full")
+        ctx.save_for_backward(x, mask, ln_w, ln_b, wqkv_c, wproj_c, qkv, attn)
+        ctx.conf = (num_heads, eps)
+        ctx.dtypes = tuple(t.dtype for t in (ln_w, ln_b, wqkv, bqkv, wproj, bproj))
+        return out
+
+    @staticmethod
+    @once_differentiable
+    def backward(ctx, g):
+        x, mask, ln_w, ln_b, wqkv_c, wproj_c, qkv, attn = ctx.saved_tensors
+        dx, *dparams = attn_half_full_bwd(x, mask, ln_w, ln_b, wqkv_c, wproj_c,
+                                          g.contiguous(), qkv, attn, *ctx.conf)
+        return (dx, None, *_like(dparams, ctx.dtypes), None, None, None, None)
+
+
 # ------------------------------------------------------------------ public
 def attn_half(x, mask, ln_w, ln_b, wqkv, bqkv, wproj, bproj,
               num_heads: int, eps: float, residual: bool = True,
@@ -472,3 +652,18 @@ def mlp_half(x, ln_w, ln_b, w1, b1, w2, b2, eps: float, residual: bool = True,
         return _MlpHalf.apply(x, ln_w, ln_b, w1, b1, w2, b2, eps, residual,
                               save_for_backward)
     return _mlp_fwd(x, ln_w, ln_b, w1, b1, w2, b2, eps, residual, keep_h=False)[0]
+
+
+def attn_half_full(x, mask, ln_w, ln_b, wqkv, bqkv, wproj, bproj, num_heads: int,
+                   eps: float, wqkv_c=None, wproj_c=None):
+    """``proj(MHA(qkv(LN1 x)))`` with no residual (``fused_attn_half``),
+    differentiable with respect to x and all six parameters: the training
+    attention half of the block whose dropout and residual run outside.
+    ``wqkv_c`` / ``wproj_c``: the matrices already in x's type (else cast
+    here); every parameter gradient comes back in its parameter's type."""
+    wqkv_c, wproj_c = _operand(wqkv, wqkv_c, x.dtype), _operand(wproj, wproj_c, x.dtype)
+    if torch.is_grad_enabled():
+        return _AttnHalfFull.apply(x, mask, ln_w, ln_b, wqkv, bqkv, wproj, bproj, wqkv_c,
+                                   wproj_c, num_heads, eps)
+    return _attn_fwd(x, mask, ln_w, ln_b, wqkv_c, bqkv, wproj_c, bproj, num_heads, eps,
+                     False, "attn_half_full")[0]

@@ -23,10 +23,11 @@ element is a function of (seed, draw, row, column) only
 (``ops/philox.py``).  The attention half uses draw 0 for its (S, C) mask; the
 MLP half draw 0 for the (S, 4C) mask after GELU and draw 1 for the (S, C) mask
 after fc2.  The backward regenerates the masks from the seeds.  At p = 0 the
-ops compute ``attn_half`` / ``mlp_half`` and their full gradients: the JAX
-package then runs ``fused_attn_half`` / ``fused_mlp_half`` (the same
-function), the port these ops.  ``emit_mask=True`` makes an op also return
-the 0/1 masks it applied, for tests; it is then not differentiable.
+ops compute ``attn_half`` / ``mlp_half`` and their full gradients; where the
+JAX package then runs ``fused_mlp_half`` with its backward, the block runs
+``mlp_half_train`` (the same function; ``models/vit.py:Block``).
+``emit_mask=True`` makes an op also return the 0/1 masks it applied, for
+tests; it is then not differentiable.
 
 What the forward keeps for the backward.  The TPU kernels keep x alone and
 recompute, because every intermediate lives in on-chip memory there.  Here the
@@ -60,9 +61,10 @@ from torch.autograd.function import once_differentiable
 
 from rmcl_tpu_torch.ops import _build
 from rmcl_tpu_torch.ops.fused_block import (
-    _DTYPE_CODE, _EPI_DGELU, _EPI_F32, _attn_core_plain, _attn_dqkv_plain, _check,
-    _dense, _drop_args, _gelu_grad, _gemm, _head_dim, _ln_bwd_dx, _ln_bwd_plain,
-    _ln_parts, launches)
+    _DTYPE_CODE, _EPI_DGELU, _EPI_F32, _attn_core_plain, _attn_fwd, _attn_param_bwd,
+    _attn_param_bwd_plain, _check, _colsum, _dense, _drop_args, _gelu_grad, _gemm,
+    _gemm_tn, _head_dim, _like, _ln_backward, _ln_bwd_plain, _ln_parts, _operand,
+    _rows, _stream, launches)
 from rmcl_tpu_torch.models.layers import layer_norm
 from rmcl_tpu_torch.ops.philox import check_rate, keep_mask
 
@@ -70,10 +72,6 @@ from rmcl_tpu_torch.ops.philox import check_rate, keep_mask
 def _drop(v32, keep, p: float, dtype):
     """Inverted dropout of fp32 values: keep ? v / (1 - p) : 0, rounded."""
     return torch.where(keep, v32 * (1.0 / (1.0 - p)), 0.0).to(dtype)
-
-
-def _rows(t):
-    return t.reshape(-1, t.shape[-1])
 
 
 # ------------------------------------------------------------ plain versions
@@ -99,17 +97,10 @@ def attn_half_train_bwd_plain(x, seeds, mask, ln_w, ln_b, wqkv, wproj, g, qkv, a
     """Plain version of ``attn_half_train_bwd``, step by step with the rounding
     points of ``pallas_block.py:_attn_train_bwd_kernel``."""
     B, S, C = x.shape
-    dt = x.dtype
-    gm = _drop(g.float(), keep_mask(seeds, 0, S, C, p), p, dt)
-    xhat, rstd = _ln_parts(x, eps)
-    y = (xhat * ln_w + ln_b).to(dt)
-    dqkv = _attn_dqkv_plain(qkv, mask, wproj, gm, num_heads)
-    dy = dqkv.float() @ wqkv.float()                      # fp32, not rounded
-    dx = _ln_bwd_plain(dy, xhat, rstd, ln_w, g, True, dt)  # + the unmasked g
-    dqkv32, gm32 = _rows(dqkv).float(), _rows(gm).float()
-    return (dx, (dy * xhat).sum((0, 1)), dy.sum((0, 1)),
-            dqkv32.t() @ _rows(y).float(), dqkv32.sum(0),
-            gm32.t() @ _rows(attn).float(), gm32.sum(0))
+    gm = _drop(g.float(), keep_mask(seeds, 0, S, C, p), p, x.dtype)
+    # dx + the unmasked g
+    return _attn_param_bwd_plain(x, mask, ln_w, ln_b, wqkv, wproj, gm, qkv, attn,
+                                 num_heads, eps, g)
 
 
 def _mlp_train_fwd_plain(x, seeds, ln_w, ln_b, w1, b1, w2, b2, eps, p, tail):
@@ -153,10 +144,6 @@ def mlp_half_train_bwd_plain(x, seeds, ln_w, ln_b, w1, w2, g, h, a_d, p: float,
 
 
 # ----------------------------------------------------------- kernel launchers
-def _stream(t):
-    return torch.cuda.current_stream(t.device).cuda_stream
-
-
 def _drop_scale(lib, g2d, drop):
     """keep ? round(g / (1 - p)) : 0; ``drop`` as ``fused_block._drop_args`` takes it."""
     out = torch.empty_like(g2d)
@@ -165,57 +152,6 @@ def _drop_scale(lib, g2d, drop):
         g2d.shape[1], *_drop_args(drop), _stream(g2d))
     _build.check(rc, "drop_scale")
     return out
-
-
-def _gemm_tn(lib, a2d, b2d):
-    """a^T . b over the rows, fp32: the weight-gradient product."""
-    (M, Na), (Mb, Nb) = a2d.shape, b2d.shape
-    if M != Mb or Na % 8 or Nb % 8 or a2d.dtype != b2d.dtype:
-        raise ValueError(f"weight-gradient GEMM of {tuple(a2d.shape)} against "
-                         f"{tuple(b2d.shape)}: rows and types must match and "
-                         "widths be multiples of 8")
-    if M * max(Na, Nb) >= 2 ** 31:
-        raise ValueError(f"weight-gradient GEMM of {M}x{Na}x{Nb} exceeds 32-bit indexing")
-    out = torch.empty(Na, Nb, device=a2d.device, dtype=torch.float32)
-    rc = lib.rmcl_gemm_tn(_DTYPE_CODE[a2d.dtype], a2d.data_ptr(), b2d.data_ptr(),
-                          out.data_ptr(), M, Na, Nb, _stream(a2d))
-    _build.check(rc, "gemm_tn")
-    return out
-
-
-def _colsum(lib, a2d):
-    """Column sums of (M, N) in fp32, fixed order."""
-    M, N = a2d.shape
-    partial = torch.empty(lib.rmcl_colsum_slabs(M), N, device=a2d.device,
-                          dtype=torch.float32)
-    out = torch.empty(N, device=a2d.device, dtype=torch.float32)
-    rc = lib.rmcl_colsum(_DTYPE_CODE[a2d.dtype], a2d.data_ptr(), partial.data_ptr(),
-                         out.data_ptr(), M, N, _stream(a2d))
-    _build.check(rc, "colsum")
-    return out
-
-
-def _ln_colsum(lib, x2d, dy, stats):
-    """(sum_m dy xhat, sum_m dy): LayerNorm's weight and bias gradients."""
-    M, C = x2d.shape
-    partial = torch.empty(lib.rmcl_colsum_slabs(M), 2 * C, device=x2d.device,
-                          dtype=torch.float32)
-    out = torch.empty(2 * C, device=x2d.device, dtype=torch.float32)
-    rc = lib.rmcl_ln_colsum(_DTYPE_CODE[x2d.dtype], x2d.data_ptr(), dy.data_ptr(),
-                            stats.data_ptr(), partial.data_ptr(), out.data_ptr(), M, C,
-                            _stream(x2d))
-    _build.check(rc, "ln_colsum")
-    return out[:C], out[C:]
-
-
-def _ln_backward(lib, x2d, dy, ln_w, ln_b, g2d, eps, residual):
-    """(dx, y = LN(x) rounded, dln_w, dln_b) from the fp32 dy."""
-    M, C = x2d.shape
-    y = torch.empty_like(x2d)
-    stats = torch.empty(M, 2, device=x2d.device, dtype=torch.float32)
-    dx = _ln_bwd_dx(lib, x2d, dy, ln_w, g2d, eps, residual, ln_b=ln_b, y_out=y,
-                    stats_out=stats)
-    return (dx, y, *_ln_colsum(lib, x2d, dy, stats))
 
 
 # ------------------------------------------------------------ forward chains
@@ -227,26 +163,11 @@ def _attn_train_fwd(x, seeds, mask, ln_w, ln_b, wqkv, bqkv, wproj, bproj, num_he
         return _attn_train_fwd_plain(x, seeds, mask, ln_w, ln_b, wqkv, bqkv, wproj,
                                      bproj, num_heads, eps, p)
     B, S, C = x.shape
-    D = _head_dim(C, num_heads)
-    _check(x, dict(x=x, seeds=seeds, mask=mask, ln_w=ln_w, ln_b=ln_b, wqkv=wqkv,
-                   bqkv=bqkv, wproj=wproj, bproj=bproj),
-           dict(x=(B, S, C), seeds=(B,), mask=(B, S), ln_w=(C,), ln_b=(C,),
-                wqkv=(3 * C, C), bqkv=(3 * C,), wproj=(C, C), bproj=(C,)))
-    lib = _build.library()
-    x2d = x.view(B * S, C)
-    qkv = torch.empty(B * S, 3 * C, device=x.device, dtype=x.dtype)
-    attn = torch.empty(B * S, C, device=x.device, dtype=x.dtype)
-    out = torch.empty_like(x)
+    _check(x, dict(seeds=seeds), dict(seeds=(B,)))
     keep = torch.empty_like(x) if emit_mask else None
-    _gemm(lib, x2d, wqkv, bqkv, qkv, ln=(ln_w, ln_b), eps=eps)
-    rc = lib.rmcl_masked_attention_fwd(
-        _DTYPE_CODE[x.dtype], qkv.data_ptr(), mask.data_ptr(), attn.data_ptr(),
-        B, S, num_heads, D, D ** -0.5, _stream(x))
-    _build.check(rc, "masked_attention_fwd")
-    _gemm(lib, attn, wproj, bproj, out.view(B * S, C), residual=x2d,
-          drop=(seeds, S, 0, p, keep))
-    launches["attn_half_train"] += 1
-    return out, qkv.view(B, S, 3 * C), attn.view(B, S, C), keep
+    out, qkv, attn = _attn_fwd(x, mask, ln_w, ln_b, wqkv, bqkv, wproj, bproj, num_heads,
+                               eps, True, "attn_half_train", drop=(seeds, S, 0, p, keep))
+    return out, qkv, attn, keep
 
 
 def _mlp_train_fwd(x, seeds, ln_w, ln_b, w1, b1, w2, b2, eps, p, tail, emit_mask=False):
@@ -288,32 +209,16 @@ def attn_half_train_bwd(x, seeds, mask, ln_w, ln_b, wqkv, wproj, g, qkv, attn,
         res = attn_half_train_bwd_plain(x, seeds, mask, ln_w, ln_b, wqkv, wproj, g, qkv,
                                         attn, num_heads, eps, p)
         return res + (keep_mask(seeds, 0, S, C, p),) if emit_mask else res
-    D = _head_dim(C, num_heads)
+    _head_dim(C, num_heads)
     _check(x, dict(x=x, seeds=seeds, mask=mask, ln_w=ln_w, ln_b=ln_b, wqkv=wqkv,
                    wproj=wproj, g=g, qkv=qkv, attn=attn),
            dict(x=(B, S, C), seeds=(B,), mask=(B, S), ln_w=(C,), ln_b=(C,),
                 wqkv=(3 * C, C), wproj=(C, C), g=(B, S, C), qkv=(B, S, 3 * C),
                 attn=(B, S, C)))
-    lib = _build.library()
-    M = B * S
-    x2d, g2d = x.view(M, C), g.view(M, C)
-    new = lambda *shape, dtype=x.dtype: torch.empty(  # noqa: E731
-        *shape, device=x.device, dtype=dtype)
-    keep = new(M, C) if emit_mask else None
-    gm = _drop_scale(lib, g2d, (seeds, S, 0, p, keep))
-    dattn, dqkv = new(M, C), new(M, 3 * C)
-    stats = new(B, num_heads, S, 3, dtype=torch.float32)
-    dy = new(M, C, dtype=torch.float32)
-    _gemm(lib, gm, wproj, None, dattn, w_kn=True)
-    rc = lib.rmcl_masked_attention_bwd(
-        _DTYPE_CODE[x.dtype], qkv.data_ptr(), mask.data_ptr(), dattn.data_ptr(),
-        dqkv.data_ptr(), stats.data_ptr(), B, S, num_heads, D, D ** -0.5, _stream(x))
-    _build.check(rc, "masked_attention_bwd")
-    _gemm(lib, dqkv, wqkv, None, dy, epi=_EPI_F32, w_kn=True)
-    dx, y, dln_w, dln_b = _ln_backward(lib, x2d, dy, ln_w, ln_b, g2d, eps, True)
-    res = (dx.view(B, S, C), dln_w, dln_b,
-           _gemm_tn(lib, dqkv, y), _colsum(lib, dqkv),
-           _gemm_tn(lib, gm, attn.view(M, C)), _colsum(lib, gm))
+    keep = torch.empty_like(x).view(B * S, C) if emit_mask else None
+    gm = _drop_scale(_build.library(), g.view(B * S, C), (seeds, S, 0, p, keep))
+    res = _attn_param_bwd(x, mask, ln_w, ln_b, wqkv, wproj, gm.view(B, S, C), qkv, attn,
+                          num_heads, eps, g)
     launches["attn_half_train_bwd"] += 1
     return res + (keep.view(B, S, C) > 0,) if emit_mask else res
 
@@ -361,11 +266,6 @@ def mlp_half_train_bwd(x, seeds, ln_w, ln_b, w1, w2, g, h, a_d, p: float, eps: f
 
 
 # ------------------------------------------------------------------ autograd
-def _like(grads, dtypes):
-    """Parameter gradients in their parameters' types (float32 masters: as is)."""
-    return tuple(g.to(dt) for g, dt in zip(grads, dtypes))
-
-
 class _AttnHalfTrain(torch.autograd.Function):
     @staticmethod
     def forward(ctx, x, seeds, mask, ln_w, ln_b, wqkv, bqkv, wproj, bproj, wqkv_c,
@@ -403,10 +303,6 @@ class _MlpHalfTrain(torch.autograd.Function):
         dx, *dparams = mlp_half_train_bwd(x, seeds, ln_w, ln_b, w1_c, w2_c,
                                           g.contiguous(), h, a_d, *ctx.conf)
         return (dx, None, *_like(dparams, ctx.dtypes), None, None, None, None, None)
-
-
-def _operand(w, w_c, dtype):
-    return w.detach().to(dtype).contiguous() if w_c is None else w_c
 
 
 # ------------------------------------------------------------------ public

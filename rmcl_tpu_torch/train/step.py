@@ -12,12 +12,15 @@ enqueue of the keys.  The text attack's output enters through
 ``batch["attacked_text_ids"]`` / ``["attacked_text_masks"]``, as it does in
 the JAX package's ``make_train_step``.
 
-Every block of the key forward and of the attack runs through the
-deterministic kernels, every block of the four query views through the
-training kernels (``ops/fused_block.py``, ``ops/fused_block_train.py``).  The
-block matrices in the compute type are cast from the float32 master
-parameters once per optimizer step, after the update (the twins': after the
-momentum update), never per call or per view.
+Every block of the key forward and of the attack runs its deterministic
+forward and dx-only backward, every block of the four query views its
+training forward and full backward, with the ops the block configuration
+selects (``cfg.attention_impl`` / ``cfg.mlp_impl``, ``models/vit.py:Block``):
+by default the fused halves (``ops/fused_block.py``,
+``ops/fused_block_train.py``).  The block matrices in the compute type are
+cast from the float32 master parameters once per optimizer step, after the
+update (the twins': after the momentum update), never per call or per view;
+the unfused block's training products take the masters themselves.
 
 Ported: the ``moco`` task.  Any other active task raises.  Not ported yet:
 ``make_attacked_train_step`` (the greedy text attack inside the step),

@@ -351,3 +351,192 @@ def test_autograd_runs_the_training_kernels(cuda):
     for i, (a_, b_) in enumerate(zip(ours, ref)):
         assert a_.dtype == torch.float32
         _close(f"grad {i}", a_, b_, 2e-4)
+
+
+# ------------------------------------- the other block configurations' ops
+def _heads(B, S, C, H, kind, dev, dtype, packed, seed=3):
+    """q, k, v (B, H, S, D) on the card: contiguous, or views of one packed
+    (B, S, 3C) buffer as the unfused block hands them over; and the mask."""
+    attn, _ = _inputs(B, S, C, H, kind, dev, dtype, seed)
+    r = np.random.RandomState(seed + 1)
+    qkv = torch.from_numpy(r.randn(B, S, 3 * C).astype(np.float32)).to(dev, dtype)
+    q, k, v = qkv.view(B, S, 3, H, C // H).permute(2, 0, 3, 1, 4).unbind(0)
+    if not packed:
+        q, k, v = (t.contiguous() for t in (q, k, v))
+    return q, k, v, attn[1]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", SHAPES, ids=lambda s: f"S{s[1]}C{s[2]}H{s[3]}{s[4]}")
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 2e-4), (torch.bfloat16, 2e-2)],
+                         ids=["fp32", "bf16"])
+@pytest.mark.parametrize("packed", [True, False], ids=["views", "contiguous"])
+def test_masked_attention_kernels_match_plain(cuda, shape, dtype, tol, packed):
+    """The attention-core op (pallas_attention.py rows 10, 11) against its
+    plain versions on the same inputs: the forward against ``mha``, the
+    backward against ``masked_attention_bwd_plain`` (row 11's rounding
+    points); the backward bit-identical twice; one launch of each."""
+    from rmcl_tpu_torch.ops import attention as A
+    q, k, v, mask = _heads(*shape, cuda, dtype, packed)
+    scale = q.shape[-1] ** -0.5
+    g = torch.from_numpy(np.random.RandomState(9).randn(*q.shape).astype(np.float32)).to(
+        cuda, dtype)
+    with torch.no_grad():
+        before = dict(FB.launches)
+        out = A.masked_attention(q, k, v, mask, scale)
+        assert out.shape == q.shape
+        _close("out", out, A.mha(q, k, v, mask, scale), tol)
+        grads = A.masked_attention_bwd(q, k, v, mask, g, scale)
+        again = A.masked_attention_bwd(q, k, v, mask, g, scale)
+        torch.cuda.synchronize()
+        for name, a, b, c in zip(("dq", "dk", "dv"), grads, again,
+                                 A.masked_attention_bwd_plain(q, k, v, mask, g, scale)):
+            assert torch.equal(a, b), name
+            assert a.dtype == dtype and a.shape == q.shape
+            _close(name, a, c, tol)
+        assert FB.launches["masked_attention"] == before["masked_attention"] + 1
+        assert FB.launches["masked_attention_bwd"] == before["masked_attention_bwd"] + 2
+
+
+@pytest.mark.cuda
+def test_masked_attention_autograd_runs_the_kernels(cuda):
+    """autograd through the op on views of a qkv projection: the kernels in
+    both directions, the gradient of the projection as autograd through the
+    plain version gives it."""
+    from rmcl_tpu_torch.ops import attention as A
+    B, S, C, H = 2, 70, 256, 4
+    r = np.random.RandomState(5)
+    qkv0 = torch.from_numpy(r.randn(B, S, 3 * C).astype(np.float32)).to(cuda)
+    mask = torch.from_numpy((r.rand(B, S) > 0.3).astype(np.int32)).to(cuda)
+    mask[:, 0] = 1
+    g = torch.from_numpy(r.randn(B, H, S, C // H).astype(np.float32)).to(cuda)
+
+    def grad_of(fn):
+        qkv = qkv0.clone().requires_grad_(True)
+        q, k, v = qkv.view(B, S, 3, H, C // H).permute(2, 0, 3, 1, 4).unbind(0)
+        return torch.autograd.grad(fn(q, k, v, mask, (C // H) ** -0.5), qkv, g)[0]
+
+    FB.reset_launches()
+    ours = grad_of(A.masked_attention)
+    assert FB.launches == {**dict.fromkeys(FB.launches, 0), "masked_attention": 1,
+                           "masked_attention_bwd": 1}
+    _close("dqkv", ours, grad_of(A.mha), 2e-4)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", SHAPES, ids=lambda s: f"S{s[1]}C{s[2]}H{s[3]}{s[4]}")
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 2e-4), (torch.bfloat16, 2e-2)],
+                         ids=["fp32", "bf16"])
+def test_attn_half_full_kernels_match_plain(cuda, shape, dtype, tol):
+    """attn_half_full (row 1's chain, no residual) and attn_half_full_bwd
+    (pallas_block.py row 2) against their plain versions on the same kept
+    qkv / attn; the seven backward outputs bit-identical twice."""
+    attn, _ = _inputs(*shape, cuda, dtype)
+    x, mask, lw, lb, wqkv, bqkv, wproj, bproj, H, eps = attn
+    g = torch.from_numpy(np.random.RandomState(7).randn(*x.shape).astype(np.float32)).to(
+        cuda, dtype)
+    with torch.no_grad():
+        before = dict(FB.launches)
+        out = FB.attn_half_full(x, mask, lw, lb, wqkv, bqkv, wproj, bproj, H, eps)
+        _close("fwd", out, FB.attn_half_plain(*attn, residual=False), tol)
+        _, qkv, att = FB._attn_fwd(*attn, False)
+        args = (x, mask, lw, lb, wqkv, wproj, g, qkv, att, H, eps)
+        ours, again = FB.attn_half_full_bwd(*args), FB.attn_half_full_bwd(*args)
+        torch.cuda.synchronize()
+        for name, a, b, c in zip(GRAD_NAMES, ours, again, FB.attn_half_full_bwd_plain(*args)):
+            assert torch.equal(a, b), name
+            assert a.dtype == (dtype if name == "dx" else torch.float32)
+            _close(name, a, c, tol)
+        assert FB.launches["attn_half_full"] == before["attn_half_full"] + 1
+        assert FB.launches["attn_half_full_bwd"] == before["attn_half_full_bwd"] + 2
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["fp32", "bf16"])
+def test_dropout_op_matches_plain_bit_for_bit(cuda, dtype):
+    """ops/dropout.py: the drop_scale kernel in both directions gives the bits
+    of philox.keep_mask + layers.dropout."""
+    from rmcl_tpu_torch.models.layers import dropout as dropout_plain
+    from rmcl_tpu_torch.ops.dropout import dropout
+    B, S, N, p = 3, 37, 96, 0.1
+    seeds = _seeds(B, cuda)
+    x0 = torch.from_numpy(np.random.RandomState(2).randn(B, S, N).astype(np.float32)).to(
+        cuda, dtype)
+    g = torch.from_numpy(np.random.RandomState(3).randn(B, S, N).astype(np.float32)).to(
+        cuda, dtype)
+    keep = keep_mask(seeds, 1, S, N, p)
+    x = x0.clone().requires_grad_(True)
+    FB.reset_launches()
+    out = dropout(x, seeds, 1, p)
+    dx, = torch.autograd.grad(out, x, g)
+    assert FB.launches["dropout"] == 2
+    assert torch.equal(out, dropout_plain(x0, keep, p))
+    assert torch.equal(dx, dropout_plain(g, keep, p))
+    assert dropout(x0, seeds, 1, 0.0) is x0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 2e-4), (torch.bfloat16, 2e-2)],
+                         ids=["fp32", "bf16"])
+def test_halves_at_tensor_parallel_shard_shapes(cuda, dtype, tol):
+    """attn_half and mlp_half at a two-way shard's shapes
+    (scripts/bench_tp_kernel_shapes.py): half the heads, qkv C -> 3 C/2, proj
+    C/2 -> C without the residual, fc1 C -> 2C, fc2 2C -> C."""
+    attn, mlp = _inputs(2, 70, 256, 4, "random", cuda, dtype)
+    x, mask, lw, lb, wqkv, bqkv, wproj, bproj, H, eps = attn
+    Ci = 128
+    qs = torch.cat([wqkv[i * 256:i * 256 + Ci] for i in range(3)])
+    qb = torch.cat([bqkv[i * 256:i * 256 + Ci] for i in range(3)])
+    a_args = (x, mask, lw, lb, qs, qb, wproj[:, :Ci].contiguous(), bproj, H // 2, eps)
+    x, lw, lb, w1, b1, w2, b2, eps = mlp
+    m_args = (x, lw, lb, w1[:512].contiguous(), b1[:512], w2[:, :512].contiguous(), b2, eps)
+    with torch.inference_mode():
+        for op, plain, args in ((FB.attn_half, FB.attn_half_plain, a_args),
+                                (FB.mlp_half, FB.mlp_half_plain, m_args)):
+            out = op(*args, residual=False)
+            assert out.shape == x.shape
+            _close(op.__name__, out, plain(*args, residual=False), tol)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("impls", [("fused", "fused"), ("pallas", "fused_train")],
+                         ids=["F", "P"])
+def test_block_configurations_on_card_match_cpu(cuda, impls):
+    """A 2-layer ViT's training forward and backward at p = 0.1 under config F
+    (fused attention with row 2's backward, plain MLP) and config P (the
+    unfused block around rows 10 and 11): the card's kernels against the
+    CPU's plain ops from the same weights, input and seeds; every block op
+    of the configuration launched its kernel."""
+    import copy
+    from rmcl_tpu_torch.models.vit import ViT
+    gen = torch.Generator().manual_seed(0)
+    cpu = ViT(64, 2, 2, 4, 16, 32, *impls)
+    for prm in cpu.parameters():
+        with torch.no_grad():
+            prm.copy_(torch.randn(prm.shape, generator=gen) * 0.1 + (prm.dim() == 1))
+    r = np.random.RandomState(0)
+    x0 = torch.from_numpy(r.randn(3, 20, 64).astype(np.float32))
+    mask = torch.ones(3, 20, dtype=torch.int32)
+    mask[1, 14:] = 0
+    seeds = torch.from_numpy(r.randint(-2 ** 31, 2 ** 31, (2, 2, 3)).astype(np.int32))
+    g = torch.from_numpy(r.randn(3, 20, 64).astype(np.float32))
+
+    def run(model, dev):
+        x = x0.to(dev).requires_grad_(True)
+        out = model(x, mask.to(dev), None, seeds.to(dev), 0.1)
+        grads = torch.autograd.grad(out, [x, *model.parameters()], g.to(dev),
+                                    allow_unused=True)
+        return [out] + [t for t in grads if t is not None]
+
+    ref = run(cpu, "cpu")
+    FB.reset_launches()
+    ours = run(copy.deepcopy(cpu).to(cuda), cuda)
+    torch.cuda.synchronize()
+    want = ({"attn_half_full": 2, "attn_half_full_bwd": 2, "dropout": 12}
+            if impls[0] == "fused" else
+            {"masked_attention": 2, "masked_attention_bwd": 2, "mlp_half_train": 2,
+             "mlp_half_train_bwd": 2, "dropout": 4})
+    assert FB.launches == {**dict.fromkeys(FB.launches, 0), **want}
+    assert len(ours) == len(ref)
+    for i, (a, b) in enumerate(zip(ours, ref)):
+        _close(f"output {i}", a.cpu(), b, 2e-4)

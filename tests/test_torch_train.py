@@ -316,7 +316,12 @@ def test_vit_training_forward_matches_jax():
     """ViT.forward with seeds at p = 0 (the training ops) against
     ``transformer_apply(deterministic=False)`` with ``drop_rate=0``: output
     and the gradient of every transformer parameter and of the input."""
-    cfg = _cfg()
+    vit_training_matches_jax(_cfg())
+
+
+def vit_training_matches_jax(cfg):
+    """The body of ``test_vit_training_forward_matches_jax`` for a config; the
+    JAX package and the port read the same block configuration from it."""
     params, state = init_vilt(jax.random.PRNGKey(0), cfg)
     params = _perturbed(params)
     model = _port_of(cfg, params, state)
@@ -496,7 +501,12 @@ def test_two_moco_steps_match_jax():
     ``make_train_step`` on the same weights and batch: every scalar metric,
     total_loss and lr; the gradient of every parameter at step one; after each
     step every parameter, twin, the queue and the pointer."""
-    cfg = _cfg()
+    two_moco_steps_match_jax(_cfg())
+
+
+def two_moco_steps_match_jax(cfg):
+    """The body of ``test_two_moco_steps_match_jax`` for a config; the JAX
+    package and the port read the same block configuration from it."""
     params, state = init_vilt(jax.random.PRNGKey(0), cfg)
     params = {k: _perturbed(v, 3) if k.startswith("k_") else v for k, v in params.items()}
     b = _fake_batch(cfg, 4, seed=1, with_views=True)
