@@ -18,7 +18,10 @@ momentum 0.999, AdamW at 1e-4 with warmup 0 so that the first update moves).
 Phases, any failure exits non-zero:
 
   1. device    a CUDA device, its name and power limit (nvidia-smi)
-  2. build     nvcc builds rmcl_tpu_torch/csrc for sm_90a
+  2. build     nvcc builds rmcl_tpu_torch/csrc for sm_90a; ptxas' registers,
+               shared memory and spills per kernel; cuobjdump -sass must show
+               HGMMA (wgmma) and UTMALDG (TMA loads) and no HMMA in each of the
+               six bf16 GEMM kernels (ln_gemm, gemm_tn: csrc/hopper_gemm.cuh)
   3. kernels   each op against its plain version on the same inputs, random
                key mask: attn_half and mlp_half at B=8, S=269 (serving) and,
                in bf16, at B=16, S=241 (the attack); attn_half_dx and
@@ -28,11 +31,17 @@ Phases, any failure exits non-zero:
                Kernel and plain times are the median of 20 after warm-up,
                CUDA events.  Each op's bound is worked out from these shapes
                (bytes over 3.35 TB/s against operations over 989 TFLOP/s
-               bf16).  Beside the device sub-kernels the one PyTorch call
-               that computes the same function is timed (F.linear for a GEMM
-               without LayerNorm, F.scaled_dot_product_attention for the
-               attention core, torch.matmul(A.t(), B) for the weight-gradient
-               GEMM); the port never calls them.
+               bf16).  The GEMM sub-kernels as the step runs them (M = 16 x
+               241: qkv and fc1 with the LayerNorm, fc1 with GELU and
+               dropout, proj and fc2 with the residual, the (K, N) dx
+               products, the four weight gradients) against their plain
+               versions (_gemm_plain, _gemm_tn_plain: bf16 2e-2 of max|ref|,
+               masks bit for bit, gemm_tn bit-identical twice), each with its
+               bound, its time per call (time_ms) and its device time
+               (torch.profiler, no host share), beside the one PyTorch call
+               of its product (F.linear, torch.matmul(g, W),
+               torch.matmul(A.t(), B)); the packed attention core beside
+               F.scaled_dot_product_attention.  The port never calls them.
                The training ops at B=16, S=241, fp32 and bf16, p = 0.1 and
                p = 0: attn_half_train and mlp_half_train, and their backwards
                on the forward's kept tensors with a random g, every output
@@ -120,17 +129,28 @@ forwards, two attacks and two training steps under each configuration with
 prints, for each, the
 device time by kernel name, the device-busy and wall time per call and the
 idle share (the breakdowns of PERF.md section 5).
+
+    python3 chip_smoke.py --gemm-times [ROOT]
+
+times the GEMM sub-kernels of the package under ROOT (default: this
+checkout) at phase 3's shapes, per call, by device time and by host enqueue
+time, and the attack under the default configuration and P, through wrapper
+arguments every slice of the port shares: run it on two checkouts in one
+call to compare their kernels on one card.  Every phase also checks the
+GEMM sub-kernels' launch counters against the ops' (expected_gemm_launches).
 """
 
 from __future__ import annotations
 
 import copy
 import json
+import re
 import statistics
 import subprocess
 import sys
 import time
 import traceback
+from pathlib import Path
 
 import numpy as np
 import torch
@@ -169,6 +189,13 @@ IMPLS = {"default": {}, "P": {"attention_impl": "pallas"},
 TRAIN_STEPS = 3
 DROP_P = 0.1
 SOURCE = "rmcl_tpu_torch/csrc/block_kernels.cu"
+GEMM_SOURCE = "rmcl_tpu_torch/csrc/hopper_gemm.cuh"
+GEMM_KERNELS = {  # sub-kernel -> the Pallas body whose products it carries (rows 1-9, 2, 14)
+    "ln_gemm": "rmcl_tpu/ops/pallas_block.py:526",
+    "gemm_tn": "rmcl_tpu/ops/pallas_block.py:795",
+}
+# the bf16 GEMM kernels (4 ln_gemm and 2 gemm_tn instances) the SASS check reads
+GEMM_BF16_KERNELS = ("ln_gemm_bf16_kernel", "gemm_tn_bf16_kernel")
 PEAK_BYTES_S = 3.35e12      # H100 SXM device memory
 PEAK_BF16_FLOPS = 989e12    # H100 SXM tensor cores, dense bf16
 PEAK_CORE_OPS = 67e12       # H100 SXM CUDA cores, fp32 (the dropout's integer work)
@@ -216,6 +243,15 @@ def phase_device() -> str:
     return line
 
 
+def _demangle(names: list) -> list:
+    try:
+        out = subprocess.run(["c++filt"], input="\n".join(names), capture_output=True,
+                             text=True, timeout=60).stdout.splitlines()
+        return out if len(out) == len(names) else names
+    except OSError:
+        return names
+
+
 def phase_build() -> None:
     from rmcl_tpu_torch.ops import _build
     t0 = time.perf_counter()
@@ -224,9 +260,42 @@ def phase_build() -> None:
     secs = time.perf_counter() - t0
     log = path.with_suffix(".log").read_text() if path.with_suffix(".log").exists() else ""
     print(f"[build] {path.name} in {secs:.1f} s (nvcc {_build.nvcc()})")
-    for ln in log.splitlines():   # ptxas: registers, shared memory, spills per kernel
-        if "registers" in ln or "spill" in ln:
-            print(f"[build] {ln.strip()}")
+    # ptxas -v: registers, shared memory and spills of every kernel, by name
+    rows, name = [], None
+    for ln in log.splitlines():
+        m = re.search(r"(?:Compiling entry function|Function properties for) '?([\w$]+)'?", ln)
+        if m:
+            name = m.group(1)
+        elif name and ("registers" in ln or "spill" in ln):
+            rows.append((name, ln.split(":", 1)[-1].strip()))
+    for (_, info), pretty in zip(rows, _demangle([n for n, _ in rows])):
+        print(f"[build] {pretty[:110]}: {info}")
+    _sass_check(path)
+
+
+def _sass_check(path) -> None:
+    """The bf16 GEMM kernels as built must be wgmma (HGMMA) fed by TMA
+    (UTMALDG), with no legacy mma.sync (HMMA) left in them."""
+    import shutil
+    from rmcl_tpu_torch.ops import _build
+    tool = shutil.which("cuobjdump") or str(Path(_build.nvcc()).with_name("cuobjdump"))
+    proc = subprocess.run([tool, "-sass", str(path)], capture_output=True, text=True,
+                          timeout=600)
+    check(proc.returncode == 0, f"cuobjdump -sass failed: {proc.stderr.strip()[:500]}")
+    funcs = {}
+    for chunk in re.split(r"\n\s*Function : ", proc.stdout)[1:]:
+        fname, body = chunk.split("\n", 1)
+        funcs[fname.strip()] = body
+    gemm = sorted(n for n in funcs if any(k in n for k in GEMM_BF16_KERNELS))
+    check(len(gemm) == 6, f"expected 6 bf16 GEMM kernels in the SASS, found {gemm}")
+    for fname, pretty in zip(gemm, _demangle(gemm)):
+        body = funcs[fname]
+        n_hgmma, n_tma = body.count("HGMMA"), body.count("UTMALDG")
+        n_hmma = len(re.findall(r"\bHMMA\b", body))
+        print(f"[build] SASS {pretty[:100]}: HGMMA x{n_hgmma}, UTMALDG x{n_tma}, HMMA x{n_hmma}")
+        check(n_hgmma > 0 and n_tma > 0 and n_hmma == 0,
+              f"{pretty}: not a wgmma + TMA kernel (HGMMA {n_hgmma}, UTMALDG {n_tma}, "
+              f"HMMA {n_hmma})")
 
 
 def _block_inputs(dev, C=768, H=12, B=BATCH, S=269):
@@ -569,47 +638,184 @@ def _shard_kernels(x, mask, ln, attn_w, mlp_w, H, eps) -> list:
     return out
 
 
+# The GEMM sub-kernels as the step's main path runs them, at M = 16 x 241:
+# (label, N, K, options).  ln: the LayerNorm operand; gelu: GELU keeping the
+# pre-GELU value; drop: dropout (draw 0); res: + residual; kn: the weight
+# stored (K, N), the backward's g . W; dgelu: times gelu'(aux); f32: fp32 out.
+LN_GEMM_SUBS = (("qkv", 2304, 768, "ln"), ("fc1", 3072, 768, "ln gelu"),
+                ("fc1 train", 3072, 768, "ln gelu drop"), ("proj", 768, 768, "res"),
+                ("fc2", 768, 3072, "res"), ("g.Wproj", 768, 768, "kn"),
+                ("g.W2 gelu'", 3072, 768, "kn dgelu drop"), ("dh.W1", 768, 3072, "kn f32"),
+                ("dqkv.Wqkv", 768, 2304, "kn f32"))
+GEMM_TN_SUBS = (("dWqkv", 2304, 768), ("dWproj", 768, 768), ("dW1", 3072, 768),
+                ("dW2", 768, 3072))
+GEMM_HEADLINE = {"ln_gemm": "fc2", "gemm_tn": "dW1"}   # their rows of the kernels record
+
+
+def _sub_bound(flops: float, nbytes: float, core_ops: float = 0.0) -> tuple:
+    """(least ms, what bounds it): tensor-core FLOP, CUDA-core integer work
+    (the dropout's Philox) and bytes each at the card's peak."""
+    t_ops = max(flops / PEAK_BF16_FLOPS, core_ops / PEAK_CORE_OPS) * 1e3
+    t_bytes = nbytes / PEAK_BYTES_S * 1e3
+    return max(t_ops, t_bytes), "operations" if t_ops >= t_bytes else "bytes"
+
+
+def device_ms(fn, iters: int = 20, warmup: int = 3):
+    """Device time of one call: the time of the kernels it launches, summed
+    from torch.profiler's device events, over ``iters`` calls.  Unlike
+    ``time_ms`` it leaves out the host's share of a call (Python, ctypes,
+    the launch), which a call shorter than that share cannot hide.  A
+    profiler session now and then records no device event at all: it is
+    tried three times, then the reading is None (not measured)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    for _ in range(3):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(iters):
+                fn()
+            torch.cuda.synchronize()
+        us = sum(_device_us(e) for e in prof.key_averages()
+                 if e.device_type == DeviceType.CUDA)
+        if us > 0:
+            return us / iters / 1e3
+    return None
+
+
+def _rate(num: float, ms, unit: str) -> str:
+    """num / ms as "x.y unit", or "not measured" for a missing device time."""
+    return "not measured" if ms is None else f"{num / ms:.3f} {unit}"
+
+
+def _ln_gemm_case(dev, FB, gen, N, K, opts) -> dict:
+    """Inputs of one ln_gemm instance at M = 16 x 241 (see LN_GEMM_SUBS), with
+    the bytes it must move (each input read once, each output written once)."""
+    B, S = PGD_BATCH, 241
+    M, opts = B * S, opts.split()
+    rn = lambda *s, std=1.0, dt=torch.bfloat16: (  # noqa: E731
+        torch.randn(*s, generator=gen, device=dev) * std).to(dt)
+    kn = "kn" in opts
+    c = dict(a=rn(M, K), w=rn(*((K, N) if kn else (N, K)), std=0.02), kn=kn, opts=opts, M=M,
+             bias=None if kn else rn(N, std=0.02, dt=torch.float32), kw=dict(w_kn=kn))
+    kw, nbytes = c["kw"], 2 * M * K + 2 * N * K + (0 if kn else 4 * N)
+    if "ln" in opts:
+        kw.update(ln=(1.0 + rn(K, std=0.1, dt=torch.float32), rn(K, std=0.1, dt=torch.float32)),
+                  eps=1e-12)
+        nbytes += 8 * K
+    if "gelu" in opts:
+        kw.update(gelu=True, aux=torch.empty(M, N, device=dev, dtype=torch.bfloat16))
+    if "res" in opts:
+        kw["residual"] = rn(M, N)
+    if "dgelu" in opts:
+        kw.update(epi=FB._EPI_DGELU, aux=rn(M, N))
+    if "f32" in opts:
+        kw["epi"] = FB._EPI_F32
+    c["bytes"] = nbytes + M * N * (4 if "f32" in opts else 2) + 2 * M * N * (
+        ("res" in opts) + ("gelu" in opts) + ("dgelu" in opts))
+    c["plain_kw"], c["core_ops"] = {k: v for k, v in kw.items() if k != "aux" or
+                                    "dgelu" in opts}, 0.0
+    if "drop" in opts:
+        seeds = torch.randint(-2 ** 31, 2 ** 31, (B,), generator=gen, device=dev).int()
+        c["plain_kw"]["drop"] = (seeds, S, 0, DROP_P)
+        kw["drop"] = (seeds, S, 0, DROP_P, None)
+        c["core_ops"] = PHILOX_OPS * M * N
+    c["out"] = torch.empty(M, N, device=dev,
+                           dtype=torch.float32 if "f32" in opts else torch.bfloat16)
+    return c
+
+
+def _ln_gemm_sub(dev, FB, lib, gen, label, N, K, opts) -> dict:
+    """One ln_gemm instance against _gemm_plain (bf16, 2e-2 of max|ref|; the
+    pre-GELU value likewise; the emitted mask equal to keep_mask), timed
+    beside its plain version and the one PyTorch call of its product
+    (F.linear, or torch.matmul(g, W) for the (K, N) layout; neither has the
+    LayerNorm or the epilogue)."""
+    import torch.nn.functional as F
+    c = _ln_gemm_case(dev, FB, gen, N, K, opts)
+    a, w, bias, out, kw, kn, M = c["a"], c["w"], c["bias"], c["out"], c["kw"], c["kn"], c["M"]
+    run = lambda: FB._gemm(lib, a, w, bias, out, **kw)  # noqa: E731
+    plain = lambda: FB._gemm_plain(a, w, bias, **c["plain_kw"])  # noqa: E731
+    lib_call = ((lambda: torch.matmul(a, w)) if kn else  # noqa: E731
+                (lambda: F.linear(a, w, bias.bfloat16())))
+    ref, pre, keep = plain()
+    if keep is not None:   # once with the mask out, as the tests ask for it
+        mask = torch.empty(M, N, device=dev, dtype=torch.bfloat16)
+        FB._gemm(lib, a, w, bias, out, **dict(kw, drop=kw["drop"][:4] + (mask,)))
+        check(torch.equal(mask > 0, keep), f"ln_gemm[{label}]: mask differs from keep_mask")
+    run()
+    torch.cuda.synchronize()
+    err = (out.float() - ref.float()).abs().max().item()
+    tol = 2e-2 * ref.float().abs().max().item()
+    check(bool(torch.isfinite(out).all()) and err <= tol, f"ln_gemm[{label}]: error {err} > {tol}")
+    if pre is not None:
+        perr = (kw["aux"].float() - pre.float()).abs().max().item()
+        check(perr <= 2e-2 * pre.float().abs().max().item(), f"ln_gemm[{label}]: aux {perr}")
+    ms, plain_ms, lib_ms = time_ms(run), time_ms(plain), time_ms(lib_call)
+    dev_ms, lib_dev_ms = device_ms(run), device_ms(lib_call)
+    flops = 2 * M * N * K
+    bound_ms, bound_by = _sub_bound(flops, c["bytes"], c["core_ops"])
+    shape = f"M={M} N={N} K={K} {'+'.join(c['opts']) or 'bias'}"
+    lib_name = "torch.matmul" if kn else "F.linear"
+    print(f"[kernels] ln_gemm[{label}] ({shape}) bf16: kernel_ms={ms!r} "
+          f"({flops / ms / 1e9:.1f} TFLOP/s, {bound_ms / ms:.3f} of the bound) device_ms="
+          f"{dev_ms!r} ({_rate(bound_ms, dev_ms, 'of the bound')}) plain_ms={plain_ms!r} "
+          f"{lib_name}_ms={lib_ms!r} (device {lib_dev_ms!r}, "
+          f"{_rate(flops / 1e9, lib_dev_ms, 'TFLOP/s')}) bound_ms={bound_ms!r} ({bound_by}) "
+          f"max_abs_err={err!r} (tol {tol:.3g})")
+    return dict(name=f"ln_gemm[{label}]", shape=shape, ms=ms, device_ms=dev_ms,
+                plain_ms=plain_ms, library_ms=lib_ms, library_device_ms=lib_dev_ms,
+                library="torch.matmul(g, W)" if kn else "F.linear", bound_ms=bound_ms,
+                bound_by=bound_by, max_abs_err=err)
+
+
+def _gemm_tn_sub(dev, FB, lib, gen, label, Na, Nb) -> dict:
+    """One gemm_tn instance against a^T . b in fp32 (1e-3 of max|ref|: exact
+    products, summation order only), bit-identical across two calls, timed
+    beside its plain version and torch.matmul(A.t(), B)."""
+    M = PGD_BATCH * 241
+    a = torch.randn(M, Na, generator=gen, device=dev).bfloat16()
+    b = torch.randn(M, Nb, generator=gen, device=dev).bfloat16()
+    run = lambda: FB._gemm_tn(lib, a, b)  # noqa: E731
+    plain = lambda: FB._gemm_tn_plain(a, b)  # noqa: E731
+    out, again, ref = run(), run(), plain()
+    torch.cuda.synchronize()
+    err = (out - ref).abs().max().item()
+    tol = 1e-3 * ref.abs().max().item()
+    check(torch.equal(out, again), f"gemm_tn[{label}]: two calls differ")
+    check(err <= tol, f"gemm_tn[{label}]: error {err} > {tol}")
+    lib_call = lambda: torch.matmul(a.t(), b)  # noqa: E731
+    ms, plain_ms, lib_ms = time_ms(run), time_ms(plain), time_ms(lib_call)
+    dev_ms, lib_dev_ms = device_ms(run), device_ms(lib_call)
+    flops = 2 * M * Na * Nb
+    bound_ms, bound_by = _sub_bound(flops, 2 * M * (Na + Nb) + 4 * Na * Nb)
+    slabs = lib.rmcl_gemm_tn_slabs(1, M, Na, Nb)
+    print(f"[kernels] gemm_tn[{label}] (M={M} -> {Na}x{Nb}, {slabs} slab(s)) bf16 in, fp32 "
+          f"out: kernel_ms={ms!r} ({flops / ms / 1e9:.1f} TFLOP/s, {bound_ms / ms:.3f} of the "
+          f"bound) device_ms={dev_ms!r} ({_rate(bound_ms, dev_ms, 'of the bound')}) plain_ms="
+          f"{plain_ms!r} torch.matmul(A.t(),B)_ms={lib_ms!r} (device {lib_dev_ms!r}, "
+          f"{_rate(flops / 1e9, lib_dev_ms, 'TFLOP/s')}) bound_ms={bound_ms!r} ({bound_by}) "
+          f"max_abs_err={err!r} (tol {tol:.3g}); bit-identical twice")
+    return dict(name=f"gemm_tn[{label}]", shape=f"M={M} -> {Na}x{Nb}", ms=ms,
+                device_ms=dev_ms, plain_ms=plain_ms, library_ms=lib_ms,
+                library_device_ms=lib_dev_ms, library="torch.matmul(A.t(), B)",
+                bound_ms=bound_ms, bound_by=bound_by, max_abs_err=err, slabs=slabs)
+
+
 def _library_yardsticks(dev, FB, x, mask, wqkv, bqkv, H) -> list:
-    """The device sub-kernels beside the one PyTorch call that computes the
-    same function, bf16 at the attack's shapes.  Timed and printed only."""
+    """The device sub-kernels at the attack's and the step's shapes, bf16:
+    every GEMM instance of the main path against its plain version, with its
+    bound, beside the one PyTorch call of its product; the packed attention
+    forward beside F.scaled_dot_product_attention."""
     import torch.nn.functional as F
     from rmcl_tpu_torch.ops import _build
     lib = _build.library()
     B, S, C = x.shape
     M, D = B * S, C // H
     gen = torch.Generator(device=dev).manual_seed(SEED + 2)
-    out = []
-    for label, K, N in (("qkv", C, 3 * C), ("proj", C, C), ("fc1", C, 4 * C),
-                        ("fc2", 4 * C, C)):
-        a = torch.randn(M, K, generator=gen, device=dev).bfloat16()
-        w = (torch.randn(N, K, generator=gen, device=dev) * 0.02).bfloat16()
-        bias = torch.randn(N, generator=gen, device=dev) * 0.02
-        bias16 = bias.bfloat16()
-        o = torch.empty(M, N, device=dev, dtype=torch.bfloat16)
-        ms = time_ms(lambda: FB._gemm(lib, a, w, bias, o))
-        lib_ms = time_ms(lambda: F.linear(a, w, bias16))
-        err = (o.float() - F.linear(a, w, bias16).float()).abs().max().item()
-        flops = 2 * M * N * K
-        print(f"[kernels] ln_gemm without LN ({label}: M={M} N={N} K={K}) bf16: "
-              f"kernel_ms={ms!r} ({flops / ms / 1e9:.1f} TFLOP/s) F.linear_ms={lib_ms!r} "
-              f"({flops / lib_ms / 1e9:.1f} TFLOP/s) max_abs_diff={err!r}")
-        out.append(dict(name=f"ln_gemm[{label}]", ms=ms, library_ms=lib_ms,
-                        library="F.linear"))
-    from rmcl_tpu_torch.ops.fused_block_train import _gemm_tn
-    for label, Na, Nb in (("dWqkv", 3 * C, C), ("dWproj", C, C), ("dW1", 4 * C, C),
-                          ("dW2", C, 4 * C)):
-        a = torch.randn(M, Na, generator=gen, device=dev).bfloat16()
-        b = torch.randn(M, Nb, generator=gen, device=dev).bfloat16()
-        ms = time_ms(lambda: _gemm_tn(lib, a, b))
-        lib_ms = time_ms(lambda: torch.matmul(a.t(), b))
-        ref = torch.matmul(a.float().t(), b.float())
-        err = ((_gemm_tn(lib, a, b) - ref).abs().max() / ref.abs().max()).item()
-        flops = 2 * M * Na * Nb
-        print(f"[kernels] gemm_tn ({label}: M={M} -> {Na}x{Nb}) bf16 in, fp32 out: "
-              f"kernel_ms={ms!r} ({flops / ms / 1e9:.1f} TFLOP/s) torch.matmul(A.t(),B)_ms="
-              f"{lib_ms!r} ({flops / lib_ms / 1e9:.1f} TFLOP/s) max_rel_diff={err!r}")
-        out.append(dict(name=f"gemm_tn[{label}]", ms=ms, library_ms=lib_ms,
-                        library="torch.matmul(A.t(), B)"))
+    out = [_ln_gemm_sub(dev, FB, lib, gen, *sub) for sub in LN_GEMM_SUBS]
+    out += [_gemm_tn_sub(dev, FB, lib, gen, *sub) for sub in GEMM_TN_SUBS]
     qkv = torch.empty(M, 3 * C, device=dev, dtype=torch.bfloat16)
     FB._gemm(lib, x.view(M, C), wqkv, bqkv, qkv)
     att = torch.empty(M, C, device=dev, dtype=torch.bfloat16)
@@ -670,11 +876,12 @@ def phase_serving(cfg, model, reqs, dev) -> tuple:
     counts = dict(FB.launches)
     passes = -(-N_REQUESTS // BATCH)
     print(f"[serving] {N_REQUESTS} requests, batch {BATCH}: {passes} forward passes, "
-          f"launches {counts}")
+          f"launches {counts}, GEMM sub-kernels {FB.gemm_launches}")
     for name in ("attn_half", "mlp_half"):
         check(counts[name] == cfg.num_layers * passes,
               f"{name} launched {counts[name]} times, expected "
               f"{cfg.num_layers} x {passes}")
+    counts = check_gemm_launches("serving", counts, FB)
     check(out.shape == (N_REQUESTS, cfg.vqav2_label_size), f"output shape {out.shape}")
     check(bool(np.isfinite(out).all()), "non-finite VQA logits")
     recs = postprocess("vqa", out)
@@ -821,6 +1028,8 @@ def phase_pgd(dev) -> tuple:
         expect = want if name in ("attn_half", "mlp_half", "attn_half_dx", "mlp_half_dx") else 0
         check(counts[name] == expect, f"{name} launched {counts[name]} times in the attack, "
                                       f"expected {expect}")
+    print(f"[pgd] GEMM sub-kernels {FB.gemm_launches}")
+    counts = check_gemm_launches("pgd", counts, FB)
 
     check(delta.shape == batch["image"].shape, f"delta shape {tuple(delta.shape)}")
     check(bool(torch.isfinite(delta).all()), "non-finite delta")
@@ -948,6 +1157,25 @@ def expected_launches(cfg) -> dict:
     return want
 
 
+def expected_gemm_launches(ops: dict) -> dict:
+    """ln_gemm and gemm_tn launches under block ops launched ``ops`` times:
+    two ln_gemm in every block op (the two products of a forward; the two
+    g . W products of a dx op, whose forward kept qkv / h; those of a full
+    backward), two gemm_tn (the weight gradients) in every full backward, and
+    none in the attention core or the dropout op."""
+    full_bwd = ("attn_half_train_bwd", "mlp_half_train_bwd", "attn_half_full_bwd")
+    other = ("masked_attention", "masked_attention_bwd", "dropout")
+    return {"ln_gemm": 2 * sum(n for op, n in ops.items() if op not in other),
+            "gemm_tn": 2 * sum(ops.get(op, 0) for op in full_bwd)}
+
+
+def check_gemm_launches(where: str, ops: dict, FB) -> dict:
+    """The GEMM sub-kernels' counters against the ops' counters; both merged."""
+    gemm, want = dict(FB.gemm_launches), expected_gemm_launches(ops)
+    check(gemm == want, f"{where}: GEMM sub-kernel launches {gemm}, expected {want}")
+    return {**ops, **gemm}
+
+
 class _StepClock:
     """CUDA events at the attack's and the optimizer's boundaries inside a
     training step, so that one step splits into key forward / attack / views
@@ -1048,6 +1276,7 @@ def phase_train(dev, config: str = "default") -> dict:
             splits.append(clock.split())
             counts = dict(FB.launches)
             check(counts == want, f"step {it}: launches {counts}, expected {want}")
+            counts = check_gemm_launches(f"{tag} step {it}", counts, FB)
             vals = {k: v.item() for k, v in metrics.items()}
             bad = [k for k, v in vals.items() if not np.isfinite(v)]
             check(not bad, f"step {it}: non-finite metrics {bad}")
@@ -1190,7 +1419,99 @@ def phase_profile(dev) -> None:
         del ts, tbatch, step
 
 
+def host_us(fn, calls: int = 100) -> float:
+    """Host time of one call, enqueue only: the card is first held busy by a
+    spin kernel, so the host never waits for it (median of 3 runs)."""
+    fn()
+    torch.cuda.synchronize()
+    runs = []
+    for _ in range(3):
+        torch.cuda._sleep(2_000_000_000)
+        t = time.perf_counter()
+        for _ in range(calls):
+            fn()
+        runs.append((time.perf_counter() - t) / calls * 1e6)
+        torch.cuda.synchronize()
+    return statistics.median(runs)
+
+
+def attack_times(dev, config: str) -> tuple:
+    """(wall ms, median of 3, host clock + synchronize; device busy ms) of
+    the 5-step attack of phase 6 under a block configuration."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    from rmcl_tpu_torch import build_config
+    from rmcl_tpu_torch.attacks.pgd import make_pgd_moco
+    cfg = build_config(PGD_CONFIG, **IMPLS[config])
+    model = moco_model(cfg).to(dev)
+    batch = pgd_batch(cfg, PGD_BATCH, SEED + 4, dev)
+    k = moco_keys(model, batch)
+    attack = make_pgd_moco(model, cfg.adv_steps_img, cfg.adv_lr_img, cfg.adv_max_norm_img,
+                           cfg.temperature, fast=True)
+    run = lambda: attack(batch, k, model.proj_queue)  # noqa: E731
+    run()
+    walls = []
+    for _ in range(3):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        run()
+        torch.cuda.synchronize()
+        walls.append((time.perf_counter() - t) * 1e3)
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        run()
+        torch.cuda.synchronize()
+    busy = sum(_device_us(e) for e in prof.key_averages() if e.device_type == DeviceType.CUDA)
+    return statistics.median(walls), busy / 1e3
+
+
+def gemm_times(root: str) -> None:
+    """Times of the GEMM sub-kernels of the package under ``root`` at the
+    step's shapes (LN_GEMM_SUBS, GEMM_TN_SUBS): per call as phase 3 times
+    them (time_ms), by device time and by host enqueue time, through the
+    wrappers' arguments every slice of the port has had, so that two
+    versions compare in one run; then the attack's wall and device time
+    under the default configuration and P."""
+    sys.path.insert(0, root)
+    from rmcl_tpu_torch.ops import _build
+    from rmcl_tpu_torch.ops import fused_block as FB
+    dev = torch.device("cuda", 0)
+    lib = _build.library()
+    gen = torch.Generator(device=dev).manual_seed(SEED + 2)
+    res = {}
+    with torch.inference_mode():
+        for label, N, K, opts in LN_GEMM_SUBS:
+            c = _ln_gemm_case(dev, FB, gen, N, K, opts)
+            def run(c=c):
+                FB._gemm(lib, c["a"], c["w"], c["bias"], c["out"], **c["kw"])
+            res[f"ln_gemm[{label}]"] = (time_ms(run), device_ms(run), host_us(run))
+        M = PGD_BATCH * 241
+        for label, Na, Nb in GEMM_TN_SUBS:
+            a = torch.randn(M, Na, generator=gen, device=dev).bfloat16()
+            b = torch.randn(M, Nb, generator=gen, device=dev).bfloat16()
+            def run(a=a, b=b):
+                return FB._gemm_tn(lib, a, b)
+            res[f"gemm_tn[{label}]"] = (time_ms(run), device_ms(run), host_us(run))
+    for name, (ms, dms, hus) in res.items():
+        print(f"[gemm-times] {root} {name}: kernel_ms={ms!r} device_ms={dms!r} "
+              f"host_us={hus!r}")
+    attacks = {}
+    for config in ("default", "P"):
+        attacks[config] = attack_times(dev, config)
+        print(f"[gemm-times] {root} attack {config}: wall_ms={attacks[config][0]!r} "
+              f"device_busy_ms={attacks[config][1]!r}")
+    print(json.dumps({"root": root, "times": res, "attacks": attacks}))
+
+
 def main() -> int:
+    if sys.argv[1:2] == ["--gemm-times"] and len(sys.argv) <= 3:
+        try:
+            phase_device()
+            gemm_times(sys.argv[2] if len(sys.argv) == 3 else ".")
+        except Exception as e:  # noqa: BLE001  any failure ends the run
+            traceback.print_exc()
+            print(f"chip_smoke --gemm-times: FAILED: {e}", file=sys.stderr)
+            return 1
+        return 0
     if sys.argv[1:] == ["--profile"]:
         try:
             from rmcl_tpu_torch import build_config  # noqa: F401
@@ -1203,7 +1524,8 @@ def main() -> int:
             return 1
         return 0
     if sys.argv[1:]:
-        print("usage: python3 chip_smoke.py [--profile]", file=sys.stderr)
+        print("usage: python3 chip_smoke.py [--profile | --gemm-times [ROOT]]",
+              file=sys.stderr)
         return 2
     try:
         from rmcl_tpu_torch import build_config
@@ -1286,6 +1608,18 @@ def main() -> int:
                        pgd_shape_plain_ms=r["bf16_pgd_shape"]["plain_ms"],
                        pgd_shape_bound_ms=r["pgd_shape_bound_ms"])
         records.append(rec)
+    subs = {r["name"]: r for r in kres["sub_kernels"]}
+    for name, replaces in GEMM_KERNELS.items():   # the GEMMs under every op above
+        r = subs[f"{name}[{GEMM_HEADLINE[name]}]"]
+        records.append({
+            "name": name, "route": "cuda", "source": GEMM_SOURCE, "replaces": replaces,
+            "launches": train_counts["default"][name],
+            "launches_by_path": {"serving": counts[name], "pgd": pgd_counts[name],
+                                 **{f"train_{c}": n[name] for c, n in train_counts.items()}},
+            "max_abs_err": r["max_abs_err"], "ms": r["ms"], "plain_ms": r["plain_ms"],
+            "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
+            "library_ms": r["library_ms"], "library": r["library"], "shape": r["shape"],
+            "instances": {k: v["ms"] for k, v in subs.items() if k.startswith(name + "[")}})
     print(json.dumps({"kernels": records, "shard_shapes": kres["shard_shapes"],
                       "sub_kernels": kres["sub_kernels"]}))
     print(json.dumps({"ok": True, "device": {

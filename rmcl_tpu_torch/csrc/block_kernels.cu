@@ -70,9 +70,9 @@
 // The TPU training backwards accumulate the weight gradients in on-chip
 // memory across a sequential batch grid.  Blocks here run in no order, so
 // the weight gradients are GEMMs that contract over all M = B S rows at once
-// (gemm_tn: one 64x64 output tile per block, a loop over M, no split of the
-// contraction and no atomics), and the column sums take two passes with a
-// fixed summation order: every gradient is reproducible bit for bit.
+// (gemm_tn: each output tile and contraction slice has one owner, slices are
+// added in a fixed order, no atomics), and the column sums take two passes
+// with a fixed summation order: every gradient is reproducible bit for bit.
 // The dropout bits are Philox-4x32-10 words that depend only on (per-sample
 // seed, draw, row within the sample, column): rmcl_tpu_torch/ops/philox.py is
 // the same function in plain torch.  The backward regenerates the masks from
@@ -82,22 +82,41 @@
 // tensors per sample on chip; no SM can, so the backward is the same kind
 // of chain.  The weights are stored (out, in), so a backward product
 // g . W contracts over W's rows: the GEMM takes that operand layout as a
-// template flag and no weight is ever transposed.
+// layout flag and no weight is ever transposed.
 //
-// What bounds them on an H100.  A layer's bf16 weights are 14 MB.  At
-// serving batch 8 and S = 269 the GEMMs have M = 2,152 rows, about 1,500
-// FLOP per weight byte: bound by the tensor cores.  At batch 1 (M = 269)
-// they sit near the card's 295 FLOP/byte line and are bound by bytes.  The
-// attention core is bound by bytes at every batch (D = 64 contractions).
+// What bounds them on an H100.  A layer's bf16 weights are 14 MB.  At the
+// step's M = B S = 3,856 rows (16 pairs, S = 241; serving: 2,152) the GEMMs
+// do about 1,500 FLOP per weight byte, five times the card's 295 FLOP/byte
+// line: ln_gemm and gemm_tn are bound by the tensor cores.  At batch 1
+// (M = 269) they sit near the line.  The attention core is bound by bytes at
+// every batch (D = 64 contractions).
 //
-// What the design does about it, in this first version:
-//   * ln_gemm is a tiled shared-memory GEMM, one 64x64 output tile per
-//     block and a K loop, bf16 through WMMA (fp32 accumulate), fp32 through
-//     FMA.  LayerNorm is a prologue applied while the A tile is staged, so
-//     the normalised activation never reaches device memory; bias, exact-erf
-//     GELU and the residual are an epilogue.  Each M tile reads its weight
-//     column panel once per K step: weights stream from L2, not once per
-//     sample as a per-sample design would.
+// What the design does about it:
+//   * ln_gemm and gemm_tn carry every product of the block halves: the qkv,
+//     proj, fc1 and fc2 forwards (Queue B rows 1, 4, 8, 6 and row 2's
+//     forward), the g . W products of the dx and training backwards (rows 3,
+//     5, 9, 7, 2) and the weight gradients (rows 9, 7, 2); row 14's shard
+//     shapes run rows 1 and 4 at half width.  In bf16 both run one mainloop
+//     (hopper_gemm.cuh): TMA brings 128 x 64 and BN x 64 tiles (BN = 128 or
+//     192, whichever fills the 132 SMs better) into a ring of 5-6 shared-memory
+//     stages with mbarriers, one producer warp keeps the loads in flight, and
+//     two consumer warpgroups run wgmma.mma_async with the fp32 accumulators
+//     in registers.  The CTAs are persistent (one per SM, a loop over output
+//     tiles), so a tile's loads overlap the previous tile's epilogue.  The
+//     (K, N) weight of the backward products is read MN-major through the
+//     wgmma transpose bit, as are both row-major operands of gemm_tn.
+//   * ln_gemm's epilogue (bias, exact-erf GELU keeping the pre-GELU value,
+//     Philox dropout, residual; gelu'; fp32 dy) works on the accumulator
+//     registers, two columns per access.  Its LayerNorm runs as a separate
+//     pass in bf16 (ln_rows_kernel: the statistics once per row, the rounded
+//     y into a scratch the wrapper passes, the A operand the GEMM then loads
+//     by TMA); in fp32 it stays a prologue of the FMA kernel.
+//   * gemm_tn cuts the contraction into a few fixed slices where its output
+//     tiles fill less than half the SMs (dWproj: 768 x 768), each slice into
+//     its own fp32 slab, added in order by a second pass.
+//   * fp32 stays on FMA kernels (64x64 tiles, a K loop): wgmma's fp32 input
+//     would be TF32 (about 3 digits), and the fp32 slices are held to the
+//     CPU within 1e-3 to 2e-4 of their largest value.
 //   * masked_attention_fwd reads q, k and v straight from the (B, S, 3C)
 //     qkv buffer (column order (3, H, D)), keeps K/V tiles in shared
 //     memory and runs an online softmax, so no S x S tensor reaches device
@@ -115,7 +134,7 @@
 //   * Not yet done (left for later work): the qkv buffer, the attention
 //     output, the (S, 4C) MLP hidden and the backward's dattn, dqkv, dh and
 //     fp32 dy pass through device memory, which the TPU kernels kept on
-//     chip; no TMA, wgmma or pipelining.
+//     chip; the attention kernels have no TMA, wgmma or pipelining.
 //
 // The attention core's backward (pallas_attention.py:_attn_bwd_kernel) has
 // other rounding points than the block halves' (_attn_bwd_math): ds stays
@@ -143,10 +162,9 @@
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
-#include <mma.h>
 #include <stdint.h>
 
-#include <type_traits>
+#include "hopper_gemm.cuh"
 
 namespace {
 
@@ -232,32 +250,62 @@ __device__ __forceinline__ bool drop_keep(const Drop& d, int m, int n) {
 // A, W, residual and aux are T; ln_w, ln_b and bias are fp32.
 // Needs K % 8 == 0, for WKN also N % 8 == 0, and 16-byte aligned A and W
 // (the wrapper checks).
+// Two kernels by type: float runs ln_gemm_f32_kernel (FMA, LayerNorm as a
+// prologue while the A tile is staged); bf16 runs ln_rows_kernel when there
+// is a LayerNorm (the rounded LN(A) into a scratch the wrapper passes) and
+// then ln_gemm_bf16_kernel (TMA + wgmma, hopper_gemm.cuh).  Both apply the
+// epilogue below element by element.
 
 constexpr int BM = 64, BN = 64, BK = 32, GEMM_THREADS = 256;
 constexpr int LDC = BN + 4;
 constexpr int EPI_BIAS = 0, EPI_DGELU = 1, EPI_F32 = 2;
 
-template <typename T, bool WKN>
+// EPI_DGELU of one element: exact-erf gelu'(h) = Phi(h) + h phi(h), in fp32
+__device__ __forceinline__ float epi_dgelu(float acc, float h, bool dropping, bool keep,
+                                           float inv_keep) {
+  const float cdf = 0.5f * (1.f + erff(h * 0.70710678118654752f));
+  const float pdf = expf(-0.5f * h * h) * 0.3989422804014327f;
+  const float da = dropping ? (keep ? acc * inv_keep : 0.f) : acc;
+  return da * (cdf + h * pdf);
+}
+
+// EPI_BIAS of one element up to the residual, b its column's bias if
+// has_bias; pre gets the pre-GELU value
+template <typename T>
+__device__ __forceinline__ float epi_bias(float acc, bool has_bias, float b, int gelu,
+                                          bool dropping, bool keep, float inv_keep,
+                                          float& pre) {
+  float v = rnd<T>(acc);
+  if (has_bias) v = rnd<T>(v + rnd<T>(b));
+  pre = v;
+  if (gelu) {
+    const float a = 0.5f * v * (1.f + erff(v * 0.70710678118654752f));
+    v = dropping ? (keep ? rnd<T>(a * inv_keep) : 0.f) : rnd<T>(a);
+  } else if (dropping) {
+    v = keep ? rnd<T>(v * inv_keep) : 0.f;
+  }
+  return v;
+}
+
+template <bool WKN>
 __global__ void __launch_bounds__(GEMM_THREADS)
-ln_gemm_kernel(const T* __restrict__ A, const float* __restrict__ ln_w,
-               const float* __restrict__ ln_b, float eps,
-               const T* __restrict__ W, const float* __restrict__ bias,
-               const T* __restrict__ residual, T* __restrict__ aux,
-               void* __restrict__ out_v, int M, int N, int K, int gelu, int epi,
-               Drop drop) {
-  constexpr bool kBf16 = std::is_same<T, bf16>::value;
-  // row stride of the staged tiles: WMMA needs a multiple of 16 bytes;
-  // the FMA path reads columns across threads, so an odd stride keeps
-  // those reads on distinct banks
-  constexpr int LDS = kBf16 ? BK + 8 : BK + 1;
+ln_gemm_f32_kernel(const float* __restrict__ A, const float* __restrict__ ln_w,
+                   const float* __restrict__ ln_b, float eps,
+                   const float* __restrict__ W, const float* __restrict__ bias,
+                   const float* __restrict__ residual, float* __restrict__ aux,
+                   void* __restrict__ out_v, int M, int N, int K, int gelu, int epi,
+                   Drop drop) {
+  // the threads read columns of the staged tiles: an odd stride keeps those
+  // reads on distinct banks
+  constexpr int LDS = BK + 1;
   // a (K, N) weight tile is staged as [BK][LDW]; its reads run along n
   constexpr int LDW = BN + 8;
-  constexpr int VEC = 16 / sizeof(T);
+  constexpr int VEC = 4;
   constexpr int CHUNKS = BK / VEC;
   constexpr int NCHUNKS = BN / VEC;
 
-  __shared__ __align__(128) T As[BM * LDS];
-  __shared__ __align__(128) T Ws[WKN ? BK * LDW : BN * LDS];
+  __shared__ __align__(128) float As[BM * LDS];
+  __shared__ __align__(128) float Ws[WKN ? BK * LDW : BN * LDS];
   __shared__ __align__(128) float Cs[BM * LDC];
   __shared__ float s_mean[BM], s_rstd[BM];
 
@@ -270,13 +318,13 @@ ln_gemm_kernel(const T* __restrict__ A, const float* __restrict__ ln_w,
       const int m = bm + r;
       float mean = 0.f, rstd = 0.f;
       if (m < M) {
-        const T* row = A + (size_t)m * K;
+        const float* row = A + (size_t)m * K;
         float s = 0.f;
-        for (int k = lane; k < K; k += 32) s += to_f<T>(row[k]);
+        for (int k = lane; k < K; k += 32) s += row[k];
         mean = warp_sum(s) / (float)K;
         float ss = 0.f;
         for (int k = lane; k < K; k += 32) {
-          const float d = to_f<T>(row[k]) - mean;
+          const float d = row[k] - mean;
           ss += d * d;
         }
         rstd = 1.f / sqrtf(warp_sum(ss) / (float)K + eps);
@@ -289,20 +337,13 @@ ln_gemm_kernel(const T* __restrict__ A, const float* __restrict__ ln_w,
     __syncthreads();
   }
 
-  // FMA path: thread (ty, tx) owns rows ty + 16 i and columns tx + 16 j
+  // thread (ty, tx) owns rows ty + 16 i and columns tx + 16 j
   const int ty = tid / 16, tx = tid % 16;
   float acc[4][4];
 #pragma unroll
   for (int i = 0; i < 4; ++i)
 #pragma unroll
     for (int j = 0; j < 4; ++j) acc[i][j] = 0.f;
-  // WMMA path: warp (wm, wn) owns a 16 x 32 strip of the tile
-  const int wm = warp / 2, wn = warp % 2;
-  nvcuda::wmma::fragment<nvcuda::wmma::accumulator, 16, 16, 16, float> cfrag[2];
-  if constexpr (kBf16) {
-    nvcuda::wmma::fill_fragment(cfrag[0], 0.f);
-    nvcuda::wmma::fill_fragment(cfrag[1], 0.f);
-  }
 
   for (int k0 = 0; k0 < K; k0 += BK) {
     for (int c = tid; c < BM * CHUNKS; c += GEMM_THREADS) {
@@ -310,10 +351,8 @@ ln_gemm_kernel(const T* __restrict__ A, const float* __restrict__ ln_w,
       const int m = bm + r, k = k0 + kc;
       float v[VEC];
       if (m < M && k < K) {
-        const uint4 raw = *reinterpret_cast<const uint4*>(A + (size_t)m * K + k);
-        const T* e = reinterpret_cast<const T*>(&raw);
-#pragma unroll
-        for (int q = 0; q < VEC; ++q) v[q] = to_f<T>(e[q]);
+        const float4 raw = *reinterpret_cast<const float4*>(A + (size_t)m * K + k);
+        v[0] = raw.x, v[1] = raw.y, v[2] = raw.z, v[3] = raw.w;
         if (ln) {
 #pragma unroll
           for (int q = 0; q < VEC; ++q)
@@ -324,83 +363,49 @@ ln_gemm_kernel(const T* __restrict__ A, const float* __restrict__ ln_w,
         for (int q = 0; q < VEC; ++q) v[q] = 0.f;
       }
 #pragma unroll
-      for (int q = 0; q < VEC; ++q) As[r * LDS + kc + q] = from_f<T>(v[q]);
+      for (int q = 0; q < VEC; ++q) As[r * LDS + kc + q] = v[q];
     }
     if constexpr (WKN) {
       for (int c = tid; c < BK * NCHUNKS; c += GEMM_THREADS) {
         const int r = c / NCHUNKS, nc = (c % NCHUNKS) * VEC;
         const int k = k0 + r, n = bn + nc;
-        uint4 raw = make_uint4(0u, 0u, 0u, 0u);
-        if (k < K && n < N) raw = *reinterpret_cast<const uint4*>(W + (size_t)k * N + n);
-        const T* e = reinterpret_cast<const T*>(&raw);
-#pragma unroll
-        for (int q = 0; q < VEC; ++q) Ws[r * LDW + nc + q] = e[q];
+        float4 raw = make_float4(0.f, 0.f, 0.f, 0.f);
+        if (k < K && n < N) raw = *reinterpret_cast<const float4*>(W + (size_t)k * N + n);
+        Ws[r * LDW + nc] = raw.x, Ws[r * LDW + nc + 1] = raw.y;
+        Ws[r * LDW + nc + 2] = raw.z, Ws[r * LDW + nc + 3] = raw.w;
       }
     } else {
       for (int c = tid; c < BN * CHUNKS; c += GEMM_THREADS) {
         const int r = c / CHUNKS, kc = (c % CHUNKS) * VEC;
         const int n = bn + r, k = k0 + kc;
-        uint4 raw = make_uint4(0u, 0u, 0u, 0u);
-        if (n < N && k < K) raw = *reinterpret_cast<const uint4*>(W + (size_t)n * K + k);
-        const T* e = reinterpret_cast<const T*>(&raw);
-#pragma unroll
-        for (int q = 0; q < VEC; ++q) Ws[r * LDS + kc + q] = e[q];
+        float4 raw = make_float4(0.f, 0.f, 0.f, 0.f);
+        if (n < N && k < K) raw = *reinterpret_cast<const float4*>(W + (size_t)n * K + k);
+        Ws[r * LDS + kc] = raw.x, Ws[r * LDS + kc + 1] = raw.y;
+        Ws[r * LDS + kc + 2] = raw.z, Ws[r * LDS + kc + 3] = raw.w;
       }
     }
     __syncthreads();
 
-    if constexpr (kBf16) {
-#pragma unroll
-      for (int kk = 0; kk < BK; kk += 16) {
-        nvcuda::wmma::fragment<nvcuda::wmma::matrix_a, 16, 16, 16, bf16,
-                               nvcuda::wmma::row_major> afrag;
-        nvcuda::wmma::load_matrix_sync(afrag, As + (wm * 16) * LDS + kk, LDS);
-#pragma unroll
-        for (int j = 0; j < 2; ++j) {
-          if constexpr (WKN) {
-            // B[k][n] = W[k][n]: the staged [BK][LDW] tile read row-major
-            nvcuda::wmma::fragment<nvcuda::wmma::matrix_b, 16, 16, 16, bf16,
-                                   nvcuda::wmma::row_major> bfrag;
-            nvcuda::wmma::load_matrix_sync(bfrag, Ws + kk * LDW + wn * 32 + j * 16, LDW);
-            nvcuda::wmma::mma_sync(cfrag[j], afrag, bfrag, cfrag[j]);
-          } else {
-            // B[k][n] = W[n][k]: the staged W tile read column-major
-            nvcuda::wmma::fragment<nvcuda::wmma::matrix_b, 16, 16, 16, bf16,
-                                   nvcuda::wmma::col_major> bfrag;
-            nvcuda::wmma::load_matrix_sync(bfrag, Ws + (wn * 32 + j * 16) * LDS + kk, LDS);
-            nvcuda::wmma::mma_sync(cfrag[j], afrag, bfrag, cfrag[j]);
-          }
-        }
-      }
-    } else {
 #pragma unroll 8
-      for (int kk = 0; kk < BK; ++kk) {
-        float a[4], b[4];
+    for (int kk = 0; kk < BK; ++kk) {
+      float a[4], b[4];
 #pragma unroll
-        for (int i = 0; i < 4; ++i) a[i] = to_f<T>(As[(ty + 16 * i) * LDS + kk]);
+      for (int i = 0; i < 4; ++i) a[i] = As[(ty + 16 * i) * LDS + kk];
 #pragma unroll
-        for (int j = 0; j < 4; ++j)
-          b[j] = to_f<T>(WKN ? Ws[kk * LDW + tx + 16 * j] : Ws[(tx + 16 * j) * LDS + kk]);
+      for (int j = 0; j < 4; ++j)
+        b[j] = WKN ? Ws[kk * LDW + tx + 16 * j] : Ws[(tx + 16 * j) * LDS + kk];
 #pragma unroll
-        for (int i = 0; i < 4; ++i)
+      for (int i = 0; i < 4; ++i)
 #pragma unroll
-          for (int j = 0; j < 4; ++j) acc[i][j] = fmaf(a[i], b[j], acc[i][j]);
-      }
+        for (int j = 0; j < 4; ++j) acc[i][j] = fmaf(a[i], b[j], acc[i][j]);
     }
     __syncthreads();
   }
 
-  if constexpr (kBf16) {
 #pragma unroll
-    for (int j = 0; j < 2; ++j)
-      nvcuda::wmma::store_matrix_sync(Cs + (wm * 16) * LDC + wn * 32 + j * 16, cfrag[j],
-                                      LDC, nvcuda::wmma::mem_row_major);
-  } else {
+  for (int i = 0; i < 4; ++i)
 #pragma unroll
-    for (int i = 0; i < 4; ++i)
-#pragma unroll
-      for (int j = 0; j < 4; ++j) Cs[(ty + 16 * i) * LDC + tx + 16 * j] = acc[i][j];
-  }
+    for (int j = 0; j < 4; ++j) Cs[(ty + 16 * i) * LDC + tx + 16 * j] = acc[i][j];
   __syncthreads();
 
   for (int idx = tid; idx < BM * BN; idx += GEMM_THREADS) {
@@ -413,35 +418,139 @@ ln_gemm_kernel(const T* __restrict__ A, const float* __restrict__ ln_w,
       static_cast<float*>(out_v)[o] = acc1;
       continue;
     }
-    T* out = static_cast<T*>(out_v);
+    float* out = static_cast<float*>(out_v);
     const bool dropping = drop.seeds != nullptr;
     bool keep = true;
     if (dropping) {
       keep = drop_keep(drop, m, n);
-      if (drop.mask_out != nullptr)
-        static_cast<T*>(drop.mask_out)[o] = from_f<T>(keep ? 1.f : 0.f);
+      if (drop.mask_out != nullptr) static_cast<float*>(drop.mask_out)[o] = keep ? 1.f : 0.f;
     }
     if (epi == EPI_DGELU) {
-      // exact-erf gelu'(h) = Phi(h) + h phi(h), in fp32
-      const float h = to_f<T>(aux[o]);
-      const float cdf = 0.5f * (1.f + erff(h * 0.70710678118654752f));
-      const float pdf = expf(-0.5f * h * h) * 0.3989422804014327f;
-      const float da = dropping ? (keep ? acc1 * drop.inv_keep : 0.f) : acc1;
-      out[o] = from_f<T>(da * (cdf + h * pdf));
+      out[o] = epi_dgelu(acc1, aux[o], dropping, keep, drop.inv_keep);
       continue;
     }
-    float v = rnd<T>(acc1);
-    if (bias != nullptr) v = rnd<T>(v + rnd<T>(bias[n]));
-    if (gelu) {
-      if (aux != nullptr) aux[o] = from_f<T>(v);   // pre-GELU h, kept for the backward
-      const float a = 0.5f * v * (1.f + erff(v * 0.70710678118654752f));
-      v = dropping ? (keep ? rnd<T>(a * drop.inv_keep) : 0.f) : rnd<T>(a);
-    } else if (dropping) {
-      v = keep ? rnd<T>(v * drop.inv_keep) : 0.f;
-    }
-    if (residual != nullptr) v = rnd<T>(v + to_f<T>(residual[o]));
-    out[o] = from_f<T>(v);
+    float pre;
+    float v = epi_bias<float>(acc1, bias != nullptr, bias != nullptr ? bias[n] : 0.f, gelu,
+                              dropping, keep, drop.inv_keep, pre);
+    if (gelu && aux != nullptr) aux[o] = pre;   // pre-GELU h, kept for the backward
+    if (residual != nullptr) v = v + residual[o];
+    out[o] = v;
   }
+}
+
+// The LayerNorm of the bf16 path: y[m] = round((x[m] - mean) rstd ln_w + ln_b),
+// the same arithmetic as the fp32 kernel's prologue; one warp per row.
+constexpr int LNR_THREADS = 256;
+
+__global__ void __launch_bounds__(LNR_THREADS)
+ln_rows_kernel(const bf16* __restrict__ x, const float* __restrict__ ln_w,
+               const float* __restrict__ ln_b, float eps, bf16* __restrict__ y, int M, int K) {
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int m = blockIdx.x * (LNR_THREADS / 32) + warp;
+  if (m >= M) return;
+  const bf16* row = x + (size_t)m * K;
+  float s = 0.f;
+  for (int k = lane; k < K; k += 32) s += to_f<bf16>(row[k]);
+  const float mean = warp_sum(s) / (float)K;
+  float ss = 0.f;
+  for (int k = lane; k < K; k += 32) {
+    const float d = to_f<bf16>(row[k]) - mean;
+    ss += d * d;
+  }
+  const float rstd = 1.f / sqrtf(warp_sum(ss) / (float)K + eps);
+  for (int k = lane; k < K; k += 32)
+    y[(size_t)m * K + k] = from_f<bf16>(((to_f<bf16>(row[k]) - mean) * rstd) * ln_w[k] + ln_b[k]);
+}
+
+// The bf16 epilogue, through hg::staged_epilogue: rows(m0, n, v) takes the
+// column pair (n, n + 1) of rows m0 + 2 i, i < 8 (both columns in range
+// since N is even), loads the column's bias once and the rows' operands
+// together, and stores each pair as one 4-byte (8-byte for EPI_F32) access.
+template <int TBN>
+struct LnGemmEpi {
+  const float* bias;
+  const bf16* residual;
+  bf16* aux;
+  void* out;
+  int M, N, gelu, epi;
+  Drop drop;
+
+  __device__ __forceinline__ void operator()(const float (&acc)[TBN / 2], int m0, int n0, int,
+                                             float* buf) const {
+    hg::staged_epilogue<TBN>(acc, m0, n0, buf, *this);
+  }
+
+  __device__ __forceinline__ void rows(int m0, int n, const float2 (&v)[8]) const {
+    if (n >= N) return;
+    const int rows_in = min(8, (M - m0 + 1) / 2);   // rows m0 + 2 i < M
+    if (rows_in <= 0) return;
+    const size_t o0 = (size_t)m0 * N + n, step = 2 * (size_t)N;
+    if (epi == EPI_F32) {
+      float* o = static_cast<float*>(out) + o0;
+#pragma unroll
+      for (int i = 0; i < 8; ++i)
+        if (i < rows_in) *reinterpret_cast<float2*>(o + i * step) = v[i];
+      return;
+    }
+    const bool dropping = drop.seeds != nullptr;
+    bool k0[8], k1[8];
+#pragma unroll
+    for (int i = 0; i < 8; ++i) {
+      k0[i] = k1[i] = true;
+      if (dropping && i < rows_in) {
+        k0[i] = drop_keep(drop, m0 + 2 * i, n);
+        k1[i] = drop_keep(drop, m0 + 2 * i, n + 1);
+        if (drop.mask_out != nullptr)
+          *reinterpret_cast<__nv_bfloat162*>(static_cast<bf16*>(drop.mask_out) + o0 + i * step) =
+              __floats2bfloat162_rn(k0[i] ? 1.f : 0.f, k1[i] ? 1.f : 0.f);
+      }
+    }
+    bf16* outp = static_cast<bf16*>(out) + o0;
+    if (epi == EPI_DGELU) {
+      __nv_bfloat162 h[8];
+#pragma unroll
+      for (int i = 0; i < 8; ++i)
+        if (i < rows_in) h[i] = *reinterpret_cast<const __nv_bfloat162*>(aux + o0 + i * step);
+#pragma unroll
+      for (int i = 0; i < 8; ++i)
+        if (i < rows_in)
+          *reinterpret_cast<__nv_bfloat162*>(outp + i * step) = __floats2bfloat162_rn(
+              epi_dgelu(v[i].x, __low2float(h[i]), dropping, k0[i], drop.inv_keep),
+              epi_dgelu(v[i].y, __high2float(h[i]), dropping, k1[i], drop.inv_keep));
+      return;
+    }
+    __nv_bfloat162 res[8];
+    if (residual != nullptr) {
+#pragma unroll
+      for (int i = 0; i < 8; ++i)
+        if (i < rows_in)
+          res[i] = *reinterpret_cast<const __nv_bfloat162*>(residual + o0 + i * step);
+    }
+    const bool has_bias = bias != nullptr;
+    const float b0 = has_bias ? bias[n] : 0.f, b1 = has_bias ? bias[n + 1] : 0.f;
+#pragma unroll
+    for (int i = 0; i < 8; ++i) {
+      if (i >= rows_in) break;
+      float p0, p1;
+      float v0 = epi_bias<bf16>(v[i].x, has_bias, b0, gelu, dropping, k0[i], drop.inv_keep, p0);
+      float v1 = epi_bias<bf16>(v[i].y, has_bias, b1, gelu, dropping, k1[i], drop.inv_keep, p1);
+      if (gelu && aux != nullptr)   // pre-GELU h, kept for the backward
+        *reinterpret_cast<__nv_bfloat162*>(aux + o0 + i * step) = __floats2bfloat162_rn(p0, p1);
+      if (residual != nullptr) {
+        v0 = rnd<bf16>(v0 + __low2float(res[i]));
+        v1 = rnd<bf16>(v1 + __high2float(res[i]));
+      }
+      *reinterpret_cast<__nv_bfloat162*>(outp + i * step) = __floats2bfloat162_rn(v0, v1);
+    }
+  }
+};
+
+template <bool WKN, int TBN>
+__global__ void __launch_bounds__(hg::THREADS, 1)
+ln_gemm_bf16_kernel(__grid_constant__ const CUtensorMap tm_a,
+                    __grid_constant__ const CUtensorMap tm_w, const LnGemmEpi<TBN> epi,
+                    int tiles_m, int tiles_n, int nkb) {
+  hg::persistent_gemm<TBN, false, WKN>(tm_a, tm_w, tiles_m, tiles_n, nkb, 1, epi);
 }
 
 // ------------------------------------------------------------------ ln_bwd_dx
@@ -519,26 +628,31 @@ drop_scale_kernel(const T* __restrict__ g, T* __restrict__ out, int M, int N, Dr
 
 // ------------------------------------------------------------------ gemm_tn
 // out[Na, Nb] = A^T . B in fp32 for A (M, Na) and B (M, Nb) in T: the
-// weight-gradient product, contracting over the M = B S rows.  One 64x64
-// output tile per block and a loop over M in steps of BK: each output element
-// has one owner and one summation order, so the result is reproducible.
-// Needs Na % 8 == 0 and Nb % 8 == 0 (the wrapper checks).
+// weight-gradient product, contracting over the M = B S rows.  Needs
+// Na % 8 == 0 and Nb % 8 == 0 (the wrapper checks).  Each output element has
+// one owner and one summation order, so the result is reproducible:
+//   float: gemm_tn_f32_kernel, one 64x64 output tile per block (FMA) and a
+//          loop over M in steps of BK;
+//   bf16:  gemm_tn_bf16_kernel (hopper_gemm.cuh, both operands MN-major);
+//          where the output tiles fill less than half the SMs the rows are
+//          cut into a fixed number of slices, each slice's product goes to
+//          its own fp32 slab of a scratch the wrapper allocates
+//          (rmcl_gemm_tn_slabs), and split_sum_kernel adds the slabs in
+//          order.
 
-template <typename T>
 __global__ void __launch_bounds__(GEMM_THREADS)
-gemm_tn_kernel(const T* __restrict__ A, const T* __restrict__ B, float* __restrict__ out,
-               int M, int Na, int Nb) {
-  constexpr bool kBf16 = std::is_same<T, bf16>::value;
+gemm_tn_f32_kernel(const float* __restrict__ A, const float* __restrict__ B,
+                   float* __restrict__ out, int M, int Na, int Nb) {
   constexpr int LDT = BM + 8;   // staged [BK][LDT]: rows are contraction steps
-  constexpr int VEC = 16 / sizeof(T);
+  constexpr int VEC = 4;
   constexpr int NCHUNKS = BM / VEC;
   static_assert(BM == BN, "both operands are staged with one tile shape");
 
-  __shared__ __align__(128) T As[BK * LDT];
-  __shared__ __align__(128) T Bs[BK * LDT];
+  __shared__ __align__(128) float As[BK * LDT];
+  __shared__ __align__(128) float Bs[BK * LDT];
   __shared__ __align__(128) float Cs[BM * LDC];
 
-  const int tid = threadIdx.x, warp = tid / 32;
+  const int tid = threadIdx.x;
   const int bi = blockIdx.y * BM, bj = blockIdx.x * BN;
 
   const int ty = tid / 16, tx = tid % 16;
@@ -547,75 +661,89 @@ gemm_tn_kernel(const T* __restrict__ A, const T* __restrict__ B, float* __restri
   for (int i = 0; i < 4; ++i)
 #pragma unroll
     for (int j = 0; j < 4; ++j) acc[i][j] = 0.f;
-  const int wm = warp / 2, wn = warp % 2;
-  nvcuda::wmma::fragment<nvcuda::wmma::accumulator, 16, 16, 16, float> cfrag[2];
-  if constexpr (kBf16) {
-    nvcuda::wmma::fill_fragment(cfrag[0], 0.f);
-    nvcuda::wmma::fill_fragment(cfrag[1], 0.f);
-  }
 
   for (int m0 = 0; m0 < M; m0 += BK) {
     for (int c = tid; c < BK * NCHUNKS; c += GEMM_THREADS) {
       const int r = c / NCHUNKS, cc = (c % NCHUNKS) * VEC;
       const int m = m0 + r;
-      uint4 ra = make_uint4(0u, 0u, 0u, 0u), rb = make_uint4(0u, 0u, 0u, 0u);
+      float4 ra = make_float4(0.f, 0.f, 0.f, 0.f), rb = make_float4(0.f, 0.f, 0.f, 0.f);
       if (m < M && bi + cc < Na)
-        ra = *reinterpret_cast<const uint4*>(A + (size_t)m * Na + bi + cc);
+        ra = *reinterpret_cast<const float4*>(A + (size_t)m * Na + bi + cc);
       if (m < M && bj + cc < Nb)
-        rb = *reinterpret_cast<const uint4*>(B + (size_t)m * Nb + bj + cc);
-      *reinterpret_cast<uint4*>(As + r * LDT + cc) = ra;
-      *reinterpret_cast<uint4*>(Bs + r * LDT + cc) = rb;
+        rb = *reinterpret_cast<const float4*>(B + (size_t)m * Nb + bj + cc);
+      *reinterpret_cast<float4*>(As + r * LDT + cc) = ra;
+      *reinterpret_cast<float4*>(Bs + r * LDT + cc) = rb;
     }
     __syncthreads();
 
-    if constexpr (kBf16) {
-#pragma unroll
-      for (int kk = 0; kk < BK; kk += 16) {
-        // A^T[i][k] = As[k][i]: the staged tile read column-major
-        nvcuda::wmma::fragment<nvcuda::wmma::matrix_a, 16, 16, 16, bf16,
-                               nvcuda::wmma::col_major> afrag;
-        nvcuda::wmma::load_matrix_sync(afrag, As + kk * LDT + wm * 16, LDT);
-#pragma unroll
-        for (int j = 0; j < 2; ++j) {
-          nvcuda::wmma::fragment<nvcuda::wmma::matrix_b, 16, 16, 16, bf16,
-                                 nvcuda::wmma::row_major> bfrag;
-          nvcuda::wmma::load_matrix_sync(bfrag, Bs + kk * LDT + wn * 32 + j * 16, LDT);
-          nvcuda::wmma::mma_sync(cfrag[j], afrag, bfrag, cfrag[j]);
-        }
-      }
-    } else {
 #pragma unroll 8
-      for (int kk = 0; kk < BK; ++kk) {
-        float a[4], b[4];
+    for (int kk = 0; kk < BK; ++kk) {
+      float a[4], b[4];
 #pragma unroll
-        for (int i = 0; i < 4; ++i) a[i] = to_f<T>(As[kk * LDT + ty + 16 * i]);
+      for (int i = 0; i < 4; ++i) a[i] = As[kk * LDT + ty + 16 * i];
 #pragma unroll
-        for (int j = 0; j < 4; ++j) b[j] = to_f<T>(Bs[kk * LDT + tx + 16 * j]);
+      for (int j = 0; j < 4; ++j) b[j] = Bs[kk * LDT + tx + 16 * j];
 #pragma unroll
-        for (int i = 0; i < 4; ++i)
+      for (int i = 0; i < 4; ++i)
 #pragma unroll
-          for (int j = 0; j < 4; ++j) acc[i][j] = fmaf(a[i], b[j], acc[i][j]);
-      }
+        for (int j = 0; j < 4; ++j) acc[i][j] = fmaf(a[i], b[j], acc[i][j]);
     }
     __syncthreads();
   }
 
-  if constexpr (kBf16) {
 #pragma unroll
-    for (int j = 0; j < 2; ++j)
-      nvcuda::wmma::store_matrix_sync(Cs + (wm * 16) * LDC + wn * 32 + j * 16, cfrag[j],
-                                      LDC, nvcuda::wmma::mem_row_major);
-  } else {
+  for (int i = 0; i < 4; ++i)
 #pragma unroll
-    for (int i = 0; i < 4; ++i)
-#pragma unroll
-      for (int j = 0; j < 4; ++j) Cs[(ty + 16 * i) * LDC + tx + 16 * j] = acc[i][j];
-  }
+    for (int j = 0; j < 4; ++j) Cs[(ty + 16 * i) * LDC + tx + 16 * j] = acc[i][j];
   __syncthreads();
 
   for (int idx = tid; idx < BM * BN; idx += GEMM_THREADS) {
     const int r = idx / BN, c = idx % BN;
     if (bi + r < Na && bj + c < Nb) out[(size_t)(bi + r) * Nb + bj + c] = Cs[r * LDC + c];
+  }
+}
+
+// fp32 stores of the accumulators: slice s into slab s of out
+template <int TBN>
+struct TnEpi {
+  float* out;
+  int Na, Nb;
+
+  __device__ __forceinline__ void operator()(const float (&acc)[TBN / 2], int m0, int n0,
+                                             int slice, float* buf) const {
+    hg::staged_epilogue<TBN>(acc, m0, n0, buf, Rows{out + (size_t)slice * Na * Nb, Na, Nb});
+  }
+
+  struct Rows {   // staged_epilogue's callback on one slab
+    float* o;
+    int Na, Nb;
+    __device__ __forceinline__ void rows(int m0, int n, const float2 (&v)[8]) const {
+      if (n >= Nb) return;
+#pragma unroll
+      for (int i = 0; i < 8; ++i)
+        if (m0 + 2 * i < Na)
+          *reinterpret_cast<float2*>(o + (size_t)(m0 + 2 * i) * Nb + n) = v[i];
+    }
+  };
+};
+
+template <int TBN>
+__global__ void __launch_bounds__(hg::THREADS, 1)
+gemm_tn_bf16_kernel(__grid_constant__ const CUtensorMap tm_a,
+                    __grid_constant__ const CUtensorMap tm_b, const TnEpi<TBN> epi,
+                    int tiles_m, int tiles_n, int nkb, int splits) {
+  hg::persistent_gemm<TBN, true, true>(tm_a, tm_b, tiles_m, tiles_n, nkb, splits, epi);
+}
+
+// out[i] = sum over s in order of partial[s][i]
+__global__ void __launch_bounds__(EW_THREADS)
+split_sum_kernel(const float* __restrict__ partial, float* __restrict__ out, int splits,
+                 size_t n) {
+  for (size_t i = (size_t)blockIdx.x * EW_THREADS + threadIdx.x; i < n;
+       i += (size_t)gridDim.x * EW_THREADS) {
+    float s = partial[i];
+    for (int k = 1; k < splits; ++k) s += partial[(size_t)k * n + i];
+    out[i] = s;
   }
 }
 
@@ -1197,18 +1325,64 @@ cudaError_t launch_attention_packed_bwd(const void* qkv, const void* mask, const
                                        stream);
 }
 
-template <typename T, bool WKN>
-cudaError_t launch_gemm(const void* a, const void* ln_w, const void* ln_b, float eps,
-                        const void* w, const void* bias, const void* residual, void* aux,
-                        void* out, int M, int N, int K, int gelu, int epi, Drop drop,
-                        cudaStream_t stream) {
+template <bool WKN>
+cudaError_t launch_gemm_f32(const void* a, const void* ln_w, const void* ln_b, float eps,
+                            const void* w, const void* bias, const void* residual, void* aux,
+                            void* out, int M, int N, int K, int gelu, int epi, Drop drop,
+                            cudaStream_t stream) {
   const dim3 grid((N + BN - 1) / BN, (M + BM - 1) / BM);
-  ln_gemm_kernel<T, WKN><<<grid, GEMM_THREADS, 0, stream>>>(
-      static_cast<const T*>(a), static_cast<const float*>(ln_w),
-      static_cast<const float*>(ln_b), eps, static_cast<const T*>(w),
-      static_cast<const float*>(bias), static_cast<const T*>(residual),
-      static_cast<T*>(aux), out, M, N, K, gelu, epi, drop);
+  ln_gemm_f32_kernel<WKN><<<grid, GEMM_THREADS, 0, stream>>>(
+      static_cast<const float*>(a), static_cast<const float*>(ln_w),
+      static_cast<const float*>(ln_b), eps, static_cast<const float*>(w),
+      static_cast<const float*>(bias), static_cast<const float*>(residual),
+      static_cast<float*>(aux), out, M, N, K, gelu, epi, drop);
   return cudaGetLastError();
+}
+
+template <bool WKN, int TBN>
+cudaError_t launch_ln_gemm_bf16_tiles(const CUtensorMap& ta, const void* w,
+                                      const LnGemmEpi<TBN>& epi, int K, const hg::Plan& p,
+                                      cudaStream_t stream) {
+  CUtensorMap tw;
+  // W (N, K): K-major boxes of (BN rows, 64 k); W (K, N): MN-major boxes of (64 k, 64 n)
+  cudaError_t err = WKN ? hg::tensor_map(&tw, w, K, epi.N, hg::BK)
+                        : hg::tensor_map(&tw, w, epi.N, K, TBN);
+  if (err != cudaSuccess) return err;
+  constexpr int smem = hg::Tile<TBN>::SMEM;
+  err = hg::allow_smem<ln_gemm_bf16_kernel<WKN, TBN>>(smem);
+  if (err != cudaSuccess) return err;
+  ln_gemm_bf16_kernel<WKN, TBN><<<p.grid, hg::THREADS, smem, stream>>>(ta, tw, epi, p.tiles_m,
+                                                                     p.tiles_n, p.nkb);
+  return cudaGetLastError();
+}
+
+template <bool WKN>
+cudaError_t launch_gemm_bf16(const void* a, const void* ln_w, const void* ln_b, float eps,
+                             void* ln_y, const void* w, const void* bias, const void* residual,
+                             void* aux, void* out, int M, int N, int K, int gelu, int epi,
+                             Drop drop, cudaStream_t stream) {
+  if (ln_w != nullptr) {   // the rounded LayerNorm output becomes the A operand
+    if (ln_y == nullptr || ln_b == nullptr) return cudaErrorInvalidValue;
+    const int rows = LNR_THREADS / 32;
+    ln_rows_kernel<<<(M + rows - 1) / rows, LNR_THREADS, 0, stream>>>(
+        static_cast<const bf16*>(a), static_cast<const float*>(ln_w),
+        static_cast<const float*>(ln_b), eps, static_cast<bf16*>(ln_y), M, K);
+    const cudaError_t err = cudaGetLastError();
+    if (err != cudaSuccess) return err;
+    a = ln_y;
+  }
+  CUtensorMap ta;
+  const cudaError_t err = hg::tensor_map(&ta, a, M, K, hg::BM);
+  if (err != cudaSuccess) return err;
+  const hg::Plan p = hg::plan(M, N, K, false);
+  const auto* bias_f = static_cast<const float*>(bias);
+  const auto* res = static_cast<const bf16*>(residual);
+  auto* aux_b = static_cast<bf16*>(aux);
+  if (p.bn == 192)
+    return launch_ln_gemm_bf16_tiles<WKN, 192>(
+        ta, w, LnGemmEpi<192>{bias_f, res, aux_b, out, M, N, gelu, epi, drop}, K, p, stream);
+  return launch_ln_gemm_bf16_tiles<WKN, 128>(
+      ta, w, LnGemmEpi<128>{bias_f, res, aux_b, out, M, N, gelu, epi, drop}, K, p, stream);
 }
 
 template <typename T>
@@ -1234,13 +1408,43 @@ cudaError_t launch_drop_scale(const void* g, void* out, int M, int N, Drop drop,
   return cudaGetLastError();
 }
 
-template <typename T>
-cudaError_t launch_gemm_tn(const void* a, const void* b, void* out, int M, int Na, int Nb,
-                           cudaStream_t stream) {
+cudaError_t launch_gemm_tn_f32(const void* a, const void* b, void* out, int M, int Na, int Nb,
+                               cudaStream_t stream) {
   const dim3 grid((Nb + BN - 1) / BN, (Na + BM - 1) / BM);
-  gemm_tn_kernel<T><<<grid, GEMM_THREADS, 0, stream>>>(
-      static_cast<const T*>(a), static_cast<const T*>(b), static_cast<float*>(out), M, Na,
-      Nb);
+  gemm_tn_f32_kernel<<<grid, GEMM_THREADS, 0, stream>>>(
+      static_cast<const float*>(a), static_cast<const float*>(b), static_cast<float*>(out), M,
+      Na, Nb);
+  return cudaGetLastError();
+}
+
+template <int TBN>
+cudaError_t launch_gemm_tn_bf16_tiles(const void* a, const void* b, float* dst, int M, int Na,
+                                      int Nb, const hg::Plan& p, cudaStream_t stream) {
+  CUtensorMap ta, tb;   // both (M, width) row-major: MN-major boxes of (64 rows, 64 columns)
+  cudaError_t err = hg::tensor_map(&ta, a, M, Na, hg::BK);
+  if (err == cudaSuccess) err = hg::tensor_map(&tb, b, M, Nb, hg::BK);
+  if (err != cudaSuccess) return err;
+  constexpr int smem = hg::Tile<TBN>::SMEM;
+  err = hg::allow_smem<gemm_tn_bf16_kernel<TBN>>(smem);
+  if (err != cudaSuccess) return err;
+  gemm_tn_bf16_kernel<TBN><<<p.grid, hg::THREADS, smem, stream>>>(
+      ta, tb, TnEpi<TBN>{dst, Na, Nb}, p.tiles_m, p.tiles_n, p.nkb, p.splits);
+  return cudaGetLastError();
+}
+
+// partial: (plan.splits, Na, Nb) fp32 scratch when plan.splits > 1, else unused
+cudaError_t launch_gemm_tn_bf16(const void* a, const void* b, void* out, void* partial, int M,
+                                int Na, int Nb, cudaStream_t stream) {
+  const hg::Plan p = hg::plan(Na, Nb, M, true);
+  if (p.splits > 1 && partial == nullptr) return cudaErrorInvalidValue;
+  float* dst = static_cast<float*>(p.splits > 1 ? partial : out);
+  cudaError_t err = p.bn == 192 ? launch_gemm_tn_bf16_tiles<192>(a, b, dst, M, Na, Nb, p, stream)
+                                : launch_gemm_tn_bf16_tiles<128>(a, b, dst, M, Na, Nb, p, stream);
+  if (err != cudaSuccess || p.splits == 1) return err;
+  const size_t n = (size_t)Na * Nb;
+  const int blocks = (int)std::min<size_t>((n + EW_THREADS - 1) / EW_THREADS, 4096);
+  split_sum_kernel<<<blocks, EW_THREADS, 0, stream>>>(dst, static_cast<float*>(out), p.splits,
+                                                      n);
   return cudaGetLastError();
 }
 
@@ -1280,11 +1484,13 @@ extern "C" {
 const char* rmcl_error_string(int err) { return cudaGetErrorString((cudaError_t)err); }
 
 // aux: with gelu, where the pre-GELU value is kept (or null); epi and w_kn
-// as described at ln_gemm_kernel (w_kn = 1: W is stored (K, N)).  Dropout
-// (see Drop) when seeds is not null: rows per sample, draw, keep threshold,
-// 1 / (1 - p) and an optional (M, N) mask output.
+// as described at ln_gemm (w_kn = 1: W is stored (K, N)).  Dropout (see
+// Drop) when seeds is not null: rows per sample, draw, keep threshold,
+// 1 / (1 - p) and an optional (M, N) mask output.  ln_y: (M, K) bf16
+// scratch for the LayerNorm output, needed by dtype 1 with ln_w, else unused.
+// dtype 0 runs the FMA kernel, dtype 1 the LayerNorm pass and the wgmma one.
 int rmcl_ln_gemm(int dtype, const void* a, const void* ln_w, const void* ln_b, float eps,
-                 const void* w, const void* bias, const void* residual, void* aux,
+                 void* ln_y, const void* w, const void* bias, const void* residual, void* aux,
                  void* out, int M, int N, int K, int gelu, int epi, int w_kn,
                  const void* seeds, int rows, unsigned draw, unsigned threshold,
                  float inv_keep, void* mask_out, void* stream) {
@@ -1295,15 +1501,15 @@ int rmcl_ln_gemm(int dtype, const void* a, const void* ln_w, const void* ln_b, f
   const Drop drop{static_cast<const int32_t*>(seeds), rows, draw, threshold, inv_keep,
                   mask_out};
   if (dtype == 0)
-    return (int)(w_kn ? launch_gemm<float, true>(a, ln_w, ln_b, eps, w, bias, residual, aux,
-                                                 out, M, N, K, gelu, epi, drop, st)
-                      : launch_gemm<float, false>(a, ln_w, ln_b, eps, w, bias, residual,
-                                                  aux, out, M, N, K, gelu, epi, drop, st));
+    return (int)(w_kn ? launch_gemm_f32<true>(a, ln_w, ln_b, eps, w, bias, residual, aux, out,
+                                              M, N, K, gelu, epi, drop, st)
+                      : launch_gemm_f32<false>(a, ln_w, ln_b, eps, w, bias, residual, aux,
+                                               out, M, N, K, gelu, epi, drop, st));
   if (dtype == 1)
-    return (int)(w_kn ? launch_gemm<bf16, true>(a, ln_w, ln_b, eps, w, bias, residual, aux,
-                                                out, M, N, K, gelu, epi, drop, st)
-                      : launch_gemm<bf16, false>(a, ln_w, ln_b, eps, w, bias, residual, aux,
-                                                 out, M, N, K, gelu, epi, drop, st));
+    return (int)(w_kn ? launch_gemm_bf16<true>(a, ln_w, ln_b, eps, ln_y, w, bias, residual,
+                                               aux, out, M, N, K, gelu, epi, drop, st)
+                      : launch_gemm_bf16<false>(a, ln_w, ln_b, eps, ln_y, w, bias, residual,
+                                                aux, out, M, N, K, gelu, epi, drop, st));
   return (int)cudaErrorInvalidValue;
 }
 
@@ -1334,12 +1540,21 @@ int rmcl_drop_scale(int dtype, const void* g, void* out, int M, int N, const voi
   return (int)cudaErrorInvalidValue;
 }
 
-// out (Na, Nb) fp32 = a^T . b, a (M, Na), b (M, Nb)
-int rmcl_gemm_tn(int dtype, const void* a, const void* b, void* out, int M, int Na, int Nb,
-                 void* stream) {
+// slabs of the (slabs, Na, Nb) fp32 scratch rmcl_gemm_tn needs: 1 = none
+// (dtype 0 never splits; dtype 1 splits where its tiles fill less than half
+// the current device's SMs)
+int rmcl_gemm_tn_slabs(int dtype, int M, int Na, int Nb) {
+  return dtype == 1 ? hg::plan(Na, Nb, M, true).splits : 1;
+}
+
+// out (Na, Nb) fp32 = a^T . b, a (M, Na), b (M, Nb); partial: the scratch
+// rmcl_gemm_tn_slabs asks for, or null when it asks for none.  dtype 0 runs
+// the FMA kernel, dtype 1 the wgmma one.
+int rmcl_gemm_tn(int dtype, const void* a, const void* b, void* out, void* partial, int M,
+                 int Na, int Nb, void* stream) {
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (dtype == 0) return (int)launch_gemm_tn<float>(a, b, out, M, Na, Nb, st);
-  if (dtype == 1) return (int)launch_gemm_tn<bf16>(a, b, out, M, Na, Nb, st);
+  if (dtype == 0) return (int)launch_gemm_tn_f32(a, b, out, M, Na, Nb, st);
+  if (dtype == 1) return (int)launch_gemm_tn_bf16(a, b, out, partial, M, Na, Nb, st);
   return (int)cudaErrorInvalidValue;
 }
 

@@ -31,16 +31,18 @@ _ST = [ctypes.c_longlong] * 3   # element strides (b, h, s) of a (B, H, S, D) op
 _DROP = [_P, _I, _U, _U, _F, _P]
 # entry point -> ctypes argtypes; every pointer and the stream as c_void_p
 SIGNATURES = {
-    # dtype, a, ln_w, ln_b, eps, w, bias, residual, aux, out, M, N, K, gelu,
-    # epi, w_kn, dropout, stream
-    "rmcl_ln_gemm": [_I, _P, _P, _P, _F, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
+    # dtype, a, ln_w, ln_b, eps, ln_y (bf16 LayerNorm scratch), w, bias, residual,
+    # aux, out, M, N, K, gelu, epi, w_kn, dropout, stream
+    "rmcl_ln_gemm": [_I, _P, _P, _P, _F, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
                      *_DROP, _P],
     # dtype, x, dy, ln_w, g, dx, M, C, eps, ln_b, y_out, stats_out, stream
     "rmcl_ln_bwd_dx": [_I, _P, _P, _P, _P, _P, _I, _I, _F, _P, _P, _P, _P],
     # dtype, g, out, M, N, dropout, stream
     "rmcl_drop_scale": [_I, _P, _P, _I, _I, *_DROP, _P],
-    # dtype, a, b, out, M, Na, Nb, stream
-    "rmcl_gemm_tn": [_I, _P, _P, _P, _I, _I, _I, _P],
+    # dtype, M, Na, Nb -> slabs of gemm_tn's split scratch, 1 = none (not an error code)
+    "rmcl_gemm_tn_slabs": [_I, _I, _I, _I],
+    # dtype, a, b, out, partial (the slabs' scratch or null), M, Na, Nb, stream
+    "rmcl_gemm_tn": [_I, _P, _P, _P, _P, _I, _I, _I, _P],
     # M -> rows of the column sums' partial scratch (not an error code)
     "rmcl_colsum_slabs": [_I],
     # dtype, a, partial, out, M, N, stream

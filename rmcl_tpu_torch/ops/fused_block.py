@@ -63,7 +63,7 @@ from torch.autograd.function import once_differentiable
 from rmcl_tpu_torch.models.layers import layer_norm
 from rmcl_tpu_torch.ops import _build
 from rmcl_tpu_torch.ops.attention import _DTYPE_CODE, _MAX_HEAD_DIM, NEG_BIAS, _stream, mha
-from rmcl_tpu_torch.ops.philox import keep_threshold
+from rmcl_tpu_torch.ops.philox import keep_mask, keep_threshold
 
 # kernel launches of each op on CUDA tensors (plain CPU calls do not count)
 launches = {"attn_half": 0, "mlp_half": 0, "attn_half_dx": 0, "mlp_half_dx": 0,
@@ -73,13 +73,16 @@ launches = {"attn_half": 0, "mlp_half": 0, "attn_half_dx": 0, "mlp_half_dx": 0,
             "attn_half_train_bwd": 0, "mlp_half_train_bwd": 0,
             # ops/attention.py:masked_attention and ops/dropout.py:dropout
             "masked_attention": 0, "masked_attention_bwd": 0, "dropout": 0}
+# launches of the two GEMM sub-kernels under those ops (``_gemm``, ``_gemm_tn``)
+gemm_launches = {"ln_gemm": 0, "gemm_tn": 0}
 
 _EPI_BIAS, _EPI_DGELU, _EPI_F32 = 0, 1, 2      # ln_gemm epilogues (block_kernels.cu)
 
 
 def reset_launches() -> None:
-    for k in launches:
-        launches[k] = 0
+    for counts in (launches, gemm_launches):
+        for k in counts:
+            counts[k] = 0
 
 
 # ------------------------------------------------------------ plain versions
@@ -297,8 +300,13 @@ def _drop_args(drop):
 
 def _gemm(lib, a2d, w, bias, out, ln=None, eps=0.0, residual=None, gelu=False,
           aux=None, epi=_EPI_BIAS, w_kn=False, drop=None):
-    """out = epi(LN?(a2d) . w^T + bias), or . w when ``w_kn`` (w stored (K, N));
-    ``drop``: the epilogue's dropout (``_drop_args``)."""
+    """The ``ln_gemm`` kernel: out = epi(LN?(a2d) . w^T + bias), or . w when
+    ``w_kn`` (w stored (K, N), read in place); ``drop``: the epilogue's
+    dropout (``_drop_args``).  ``_gemm_plain`` is the same function in torch.
+    By type: float32 runs an FMA kernel (64x64 tiles, LayerNorm as its
+    prologue); bfloat16 a LayerNorm pass into a scratch allocated here, then
+    a persistent TMA + wgmma kernel (``csrc/hopper_gemm.cuh``) whose
+    epilogue reads the fp32 accumulators back through shared memory."""
     M, K = a2d.shape
     N = w.shape[1] if w_kn else w.shape[0]
     if w.shape[0 if w_kn else 1] != K or N % 8 or K % 8:
@@ -306,14 +314,59 @@ def _gemm(lib, a2d, w, bias, out, ln=None, eps=0.0, residual=None, gelu=False,
                          f"(w_kn={w_kn}): sizes must match and be multiples of 8")
     if M * max(N, K) >= 2 ** 31:
         raise ValueError(f"GEMM of {M}x{N}x{K} exceeds 32-bit indexing")
+    _aligned(a2d, w, out)
     ln_w, ln_b = ln if ln is not None else (None, None)
+    ln_y = torch.empty_like(a2d) if ln is not None and a2d.dtype == torch.bfloat16 else None
     ptr = lambda t: t.data_ptr() if t is not None else None  # noqa: E731
     rc = lib.rmcl_ln_gemm(
-        _DTYPE_CODE[a2d.dtype], a2d.data_ptr(), ptr(ln_w), ptr(ln_b), eps,
+        _DTYPE_CODE[a2d.dtype], a2d.data_ptr(), ptr(ln_w), ptr(ln_b), eps, ptr(ln_y),
         w.data_ptr(), ptr(bias), ptr(residual), ptr(aux), out.data_ptr(),
         M, N, K, int(gelu), epi, int(w_kn), *_drop_args(drop),
         _stream(a2d))
     _build.check(rc, "ln_gemm")
+    gemm_launches["ln_gemm"] += 1
+
+
+def _aligned(*tensors):
+    """The GEMM kernels read their operands by 16-byte vectors or TMA."""
+    for t in tensors:
+        if not t.is_contiguous() or t.data_ptr() % 16:
+            raise ValueError("GEMM operands must be contiguous and 16-byte aligned")
+
+
+def _gemm_plain(a2d, w, bias=None, ln=None, eps=0.0, residual=None, gelu=False, aux=None,
+                epi=_EPI_BIAS, w_kn=False, drop=None):
+    """Plain version of ``_gemm`` with the kernel's rounding points (see
+    ``ln_gemm`` in ``csrc/block_kernels.cu``).  ``drop``: None or (seeds,
+    rows per sample, draw, p).  Returns (out, the pre-GELU value when
+    ``gelu``, else None, the keep mask (M, N) when ``drop``, else None); out
+    is fp32 for ``_EPI_F32``, else a2d's type."""
+    dt = a2d.dtype
+    if ln is not None:
+        a2d = layer_norm(a2d, ln[0], ln[1], eps)
+    acc = a2d.float() @ (w.float() if w_kn else w.float().t())
+    if epi == _EPI_F32:
+        return acc, None, None
+    keep = None
+    if drop is not None:
+        seeds, rows, draw, p = drop
+        keep = keep_mask(seeds, draw, rows, acc.shape[1], p).reshape(acc.shape)
+    scale = lambda v32: torch.where(keep, v32 * (1.0 / (1.0 - drop[3])), 0.0)  # noqa: E731
+    if epi == _EPI_DGELU:
+        da = acc if keep is None else scale(acc)
+        return (da * _gelu_grad(aux.float())).to(dt), None, keep
+    v = acc.to(dt)
+    if bias is not None:
+        v = v + bias.to(dt)
+    pre = v if gelu else None
+    if gelu:
+        a32 = torch.nn.functional.gelu(v.float())
+        v = (a32 if keep is None else scale(a32)).to(dt)
+    elif keep is not None:
+        v = scale(v.float()).to(dt)
+    if residual is not None:
+        v = v + residual
+    return v, pre, keep
 
 
 def _ln_bwd_dx(lib, x2d, dy, ln_w, g2d, eps, residual, ln_b=None, y_out=None,
@@ -332,7 +385,15 @@ def _ln_bwd_dx(lib, x2d, dy, ln_w, g2d, eps, residual, ln_b=None, y_out=None,
 
 
 def _gemm_tn(lib, a2d, b2d):
-    """a^T . b over the rows, fp32: the weight-gradient product."""
+    """The ``gemm_tn`` kernel: a^T . b over the rows, fp32, the weight-gradient
+    product; ``_gemm_tn_plain`` is the same function in torch.  By type:
+    float32 runs an FMA kernel (one 64x64 tile per block, a loop over the
+    rows); bfloat16 the persistent TMA + wgmma kernel of
+    ``csrc/hopper_gemm.cuh`` with both row-major operands read MN-major.
+    Where its tiles fill less than half the SMs it cuts the rows into fixed
+    slices: ``rmcl_gemm_tn_slabs`` says how many, the (slabs, Na, Nb) fp32
+    scratch is allocated here and the slabs are added in order, so the
+    result is the same bits on every call."""
     (M, Na), (Mb, Nb) = a2d.shape, b2d.shape
     if M != Mb or Na % 8 or Nb % 8 or a2d.dtype != b2d.dtype:
         raise ValueError(f"weight-gradient GEMM of {tuple(a2d.shape)} against "
@@ -340,11 +401,23 @@ def _gemm_tn(lib, a2d, b2d):
                          "widths be multiples of 8")
     if M * max(Na, Nb) >= 2 ** 31:
         raise ValueError(f"weight-gradient GEMM of {M}x{Na}x{Nb} exceeds 32-bit indexing")
+    _aligned(a2d, b2d)
+    code = _DTYPE_CODE[a2d.dtype]
     out = torch.empty(Na, Nb, device=a2d.device, dtype=torch.float32)
-    rc = lib.rmcl_gemm_tn(_DTYPE_CODE[a2d.dtype], a2d.data_ptr(), b2d.data_ptr(),
-                          out.data_ptr(), M, Na, Nb, _stream(a2d))
+    slabs = lib.rmcl_gemm_tn_slabs(code, M, Na, Nb)
+    partial = (torch.empty(slabs, Na, Nb, device=a2d.device, dtype=torch.float32)
+               if slabs > 1 else None)
+    rc = lib.rmcl_gemm_tn(code, a2d.data_ptr(), b2d.data_ptr(), out.data_ptr(),
+                          partial.data_ptr() if partial is not None else None, M, Na, Nb,
+                          _stream(a2d))
     _build.check(rc, "gemm_tn")
+    gemm_launches["gemm_tn"] += 1
     return out
+
+
+def _gemm_tn_plain(a2d, b2d):
+    """Plain version of ``_gemm_tn``: a^T . b in fp32."""
+    return a2d.float().t() @ b2d.float()
 
 
 def _colsum(lib, a2d):

@@ -540,3 +540,117 @@ def test_block_configurations_on_card_match_cpu(cuda, impls):
     assert len(ours) == len(ref)
     for i, (a, b) in enumerate(zip(ours, ref)):
         _close(f"output {i}", a.cpu(), b, 2e-4)
+
+
+# ----------------------------------------------------- the GEMM sub-kernels
+# ln_gemm and gemm_tn (hopper_gemm.cuh in bf16) against _gemm_plain /
+# _gemm_tn_plain.  (mode, N, K): the main path's products at C = 768 (qkv,
+# fc1 with GELU and dropout, proj and fc2 with the residual, the (K, N) dx
+# products g . Wproj, g . W2 with gelu' and dropout, dh . W1 and dqkv . Wqkv
+# in fp32), then the op tests' tiny widths (C = 32, 256).  M: the step's
+# B S = 16 x 241, serving's 8 x 269, one sample of 269 and 37 rows; rows per
+# sample S for the dropout's (row within the sample, column).
+GEMM_CASES = [("ln_bias", 2304, 768), ("ln_gelu_aux", 3072, 768),
+              ("ln_gelu_aux_drop", 3072, 768), ("bias_res", 768, 768),
+              ("bias_res", 768, 3072), ("bias_drop_res", 768, 768),
+              ("bias_drop_res", 768, 3072), ("kn", 768, 768), ("kn_dgelu", 3072, 768),
+              ("kn_dgelu_drop", 3072, 768), ("kn_f32", 768, 3072), ("kn_f32", 768, 2304),
+              ("ln_bias", 96, 32), ("ln_gelu_aux_drop", 128, 32), ("bias_drop_res", 32, 128),
+              ("kn_dgelu_drop", 128, 32), ("kn_f32", 32, 96), ("ln_bias", 768, 256),
+              ("ln_gelu_aux_drop", 1024, 256), ("bias_drop_res", 256, 1024),
+              ("kn_dgelu_drop", 1024, 256), ("kn_f32", 256, 768)]
+GEMM_ROWS = [(3856, 241), (2152, 269), (269, 269), (37, 37)]
+TN_CASES = [(2304, 768), (768, 768), (3072, 768), (768, 3072), (96, 32), (32, 32),
+            (1024, 256), (256, 1024)]
+
+
+def _gemm_case(mode, M, S, N, K, dev, dtype, seed=0):
+    """(kernel kwargs, plain kwargs, a, w, out) for one mode of ln_gemm."""
+    r = np.random.RandomState(seed)
+    t = lambda *s, dt=dtype, sd=1.0: torch.from_numpy(  # noqa: E731
+        (sd * r.randn(*s)).astype(np.float32)).to(dev, dt)
+    kn = mode.startswith("kn")
+    a, w = t(M, K), t(*((K, N) if kn else (N, K)), sd=0.05)
+    kw = dict(w_kn=kn)
+    if mode.startswith("ln"):
+        kw.update(ln=(t(K, dt=torch.float32, sd=0.1) + 1.0, t(K, dt=torch.float32, sd=0.1)),
+                  eps=EPS)
+    if not kn:
+        kw["bias"] = t(N, dt=torch.float32, sd=0.1)
+    if "gelu_aux" in mode:
+        kw["gelu"] = True
+    if mode.endswith("res"):
+        kw["residual"] = t(M, N)
+    if "dgelu" in mode:
+        kw.update(epi=FB._EPI_DGELU, aux=t(M, N))
+    if mode == "kn_f32":
+        kw["epi"] = FB._EPI_F32
+    plain_kw = dict(kw)
+    if "drop" in mode:
+        seeds = torch.from_numpy(r.randint(-2 ** 31, 2 ** 31, M // S).astype(np.int32)).to(dev)
+        draw = 1 if mode == "bias_drop_res" else 0
+        plain_kw["drop"] = (seeds, S, draw, 0.1)
+        kw["drop"] = (seeds, S, draw, 0.1, torch.empty(M, N, device=dev, dtype=dtype))
+    if "gelu_aux" in mode:
+        kw["aux"] = torch.empty(M, N, device=dev, dtype=dtype)
+    out = torch.empty(M, N, device=dev, dtype=torch.float32 if mode == "kn_f32" else dtype)
+    return kw, plain_kw, a, w, out
+
+
+def _check_gemm(mode, M, S, N, K, dev, dtype, tol):
+    from rmcl_tpu_torch.ops import _build
+    kw, plain_kw, a, w, out = _gemm_case(mode, M, S, N, K, dev, dtype)
+    bias = kw.pop("bias", None)
+    plain_kw.pop("bias", None)
+    FB._gemm(_build.library(), a, w, bias, out, **kw)
+    ref, pre, keep = FB._gemm_plain(a, w, bias, **plain_kw)
+    torch.cuda.synchronize()
+    assert out.dtype == ref.dtype and bool(torch.isfinite(out).all())
+    _close("out", out, ref, tol)
+    if pre is not None:
+        _close("pre-GELU aux", kw["aux"], pre, tol)
+    if keep is not None:
+        assert torch.equal(kw["drop"][4] > 0, keep), "dropout mask differs from keep_mask"
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("rows", GEMM_ROWS, ids=lambda r: f"M{r[0]}")
+@pytest.mark.parametrize("mode,N,K", GEMM_CASES, ids=lambda v: str(v))
+def test_ln_gemm_kernel_matches_plain(cuda, rows, mode, N, K):
+    """The bf16 ln_gemm (LayerNorm pass, TMA + wgmma, epilogue on the
+    registers) against _gemm_plain, error relative to max(1, max|ref|) at
+    2e-2 as the op tests; the pre-GELU value it keeps likewise; the dropout
+    mask it emits equal to philox.keep_mask bit for bit."""
+    _check_gemm(mode, *rows, N, K, cuda, torch.bfloat16, 2e-2)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mode,N,K", [c for c in GEMM_CASES if c[1] <= 1024 and c[2] <= 1024],
+                         ids=lambda v: str(v))
+def test_ln_gemm_fp32_kernel_matches_plain(cuda, mode, N, K):
+    """The fp32 dispatch (the FMA kernel) at one sample's 269 rows: summation
+    order only, 2e-4 of max(1, max|ref|)."""
+    _check_gemm(mode, 269, 269, N, K, cuda, torch.float32, 2e-4)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("M", [r[0] for r in GEMM_ROWS], ids=lambda m: f"M{m}")
+@pytest.mark.parametrize("Na,Nb", TN_CASES, ids=lambda v: str(v))
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32], ids=["bf16", "fp32"])
+def test_gemm_tn_kernel_matches_plain(cuda, M, Na, Nb, dtype):
+    """gemm_tn against a^T . b in fp32: exact products, so only the summation
+    order differs (1e-3 of max|ref|); two calls give the same bits, the
+    contraction's slices (bf16, where the tiles fill less than half the
+    SMs) being added in a fixed order."""
+    from rmcl_tpu_torch.ops import _build
+    r = np.random.RandomState(M + Na + Nb)
+    a = torch.from_numpy(r.randn(M, Na).astype(np.float32)).to(cuda, dtype)
+    b = torch.from_numpy(r.randn(M, Nb).astype(np.float32)).to(cuda, dtype)
+    lib = _build.library()
+    out, again = FB._gemm_tn(lib, a, b), FB._gemm_tn(lib, a, b)
+    ref = FB._gemm_tn_plain(a, b)
+    torch.cuda.synchronize()
+    assert out.dtype == torch.float32 and out.shape == (Na, Nb)
+    assert torch.equal(out, again)
+    err = (out - ref).abs().max().item()
+    assert err <= 1e-3 * ref.abs().max().item(), err
