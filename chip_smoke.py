@@ -21,7 +21,11 @@ Phases, any failure exits non-zero:
   2. build     nvcc builds rmcl_tpu_torch/csrc for sm_90a; ptxas' registers,
                shared memory and spills per kernel; cuobjdump -sass must show
                HGMMA (wgmma) and UTMALDG (TMA loads) and no HMMA in each of the
-               six bf16 GEMM kernels (ln_gemm, gemm_tn: csrc/hopper_gemm.cuh)
+               six bf16 GEMM kernels (ln_gemm, gemm_tn: csrc/hopper_gemm.cuh),
+               and HGMMA in each of the eight bf16 attention-backward kernels
+               (csrc/hopper_attention.cuh: dq and dkv, kRound or not, D
+               padded to 64 or 128), with no spills at D = 64; the SIMT
+               attention-backward kernels are listed and exist for fp32 only
   3. kernels   each op against its plain version on the same inputs, random
                key mask: attn_half and mlp_half at B=8, S=269 (serving) and,
                in bf16, at B=16, S=241 (the attack); attn_half_dx and
@@ -41,6 +45,10 @@ Phases, any failure exits non-zero:
                (torch.profiler, no host share), beside the one PyTorch call
                of its product (F.linear, torch.matmul(g, W),
                torch.matmul(A.t(), B)); the packed attention core beside
+               F.scaled_dot_product_attention; the bf16 attention backward
+               pair on the packed layout (rows 3, 9, 2) against
+               _attn_dqkv_plain with Wproj = I, bit-identical twice, with its
+               bound, time per call and device time beside the backward of
                F.scaled_dot_product_attention.  The port never calls them.
                The training ops at B=16, S=241, fp32 and bf16, p = 0.1 and
                p = 0: attn_half_train and mlp_half_train, and their backwards
@@ -53,8 +61,9 @@ Phases, any failure exits non-zero:
                bf16: masked_attention (row 10) and its backward (row 11) on
                the heads of the block's qkv projection, beside
                F.scaled_dot_product_attention and its backward through
-               torch.autograd.grad; attn_half_full and its backward (row 2),
-               seven outputs bit-identical twice; the dropout op at (S, 4C),
+               torch.autograd.grad (the backwards also by device time);
+               attn_half_full and its backward (row 2), seven outputs
+               bit-identical twice; the dropout op at (S, 4C),
                the plain version's bits exactly; attn_half and mlp_half at a
                two-way tensor-parallel shard's shapes (row 14: 6 heads, qkv
                768 -> 3 x 384, proj 384 -> 768, fc1 768 -> 1536).
@@ -133,11 +142,14 @@ idle share (the breakdowns of PERF.md section 5).
     python3 chip_smoke.py --gemm-times [ROOT]
 
 times the GEMM sub-kernels of the package under ROOT (default: this
-checkout) at phase 3's shapes, per call, by device time and by host enqueue
-time, and the attack under the default configuration and P, through wrapper
-arguments every slice of the port shares: run it on two checkouts in one
-call to compare their kernels on one card.  Every phase also checks the
-GEMM sub-kernels' launch counters against the ops' (expected_gemm_launches).
+checkout) at phase 3's shapes and the bf16 attention backward through its
+two C entry points (rmcl_masked_attention_bwd, rmcl_attention_bwd) at B=16,
+S=241, H=12, D=64, per call, by device time and by host enqueue time, and
+the attack under the default configuration and P, through arguments every
+slice of the port shares: run it on two checkouts in one call to compare
+their kernels on one card.  Every phase also checks the
+sub-kernels' launch counters (the GEMMs and the bf16 attention backward)
+against the ops' (expected_sub_launches).
 """
 
 from __future__ import annotations
@@ -196,6 +208,9 @@ GEMM_KERNELS = {  # sub-kernel -> the Pallas body whose products it carries (row
 }
 # the bf16 GEMM kernels (4 ln_gemm and 2 gemm_tn instances) the SASS check reads
 GEMM_BF16_KERNELS = ("ln_gemm_bf16_kernel", "gemm_tn_bf16_kernel")
+# the bf16 attention backward (8 instances: dq, dkv x kRound x D padded to 64, 128)
+ATTN_SOURCE = "rmcl_tpu_torch/csrc/hopper_attention.cuh"
+ATTN_BWD_PREFIX = "_ZN5hattn"
 PEAK_BYTES_S = 3.35e12      # H100 SXM device memory
 PEAK_BF16_FLOPS = 989e12    # H100 SXM tensor cores, dense bf16
 PEAK_CORE_OPS = 67e12       # H100 SXM CUDA cores, fp32 (the dropout's integer work)
@@ -270,12 +285,16 @@ def phase_build() -> None:
             rows.append((name, ln.split(":", 1)[-1].strip()))
     for (_, info), pretty in zip(rows, _demangle([n for n, _ in rows])):
         print(f"[build] {pretty[:110]}: {info}")
-    _sass_check(path)
+    _sass_check(path, rows)
 
 
-def _sass_check(path) -> None:
+def _sass_check(path, ptxas_rows) -> None:
     """The bf16 GEMM kernels as built must be wgmma (HGMMA) fed by TMA
-    (UTMALDG), with no legacy mma.sync (HMMA) left in them."""
+    (UTMALDG), with no legacy mma.sync (HMMA) left in them.  The bf16
+    attention-backward kernels (hopper_attention.cuh: dq and dkv, kRound or
+    not, D padded to 64 or 128) must contain HGMMA, and those at D = 64 spill
+    nothing (ptxas -v); the SIMT attention-backward kernels are listed and
+    must exist for fp32 only."""
     import shutil
     from rmcl_tpu_torch.ops import _build
     tool = shutil.which("cuobjdump") or str(Path(_build.nvcc()).with_name("cuobjdump"))
@@ -296,6 +315,26 @@ def _sass_check(path) -> None:
         check(n_hgmma > 0 and n_tma > 0 and n_hmma == 0,
               f"{pretty}: not a wgmma + TMA kernel (HGMMA {n_hgmma}, UTMALDG {n_tma}, "
               f"HMMA {n_hmma})")
+    attn = sorted(n for n in funcs if n.startswith(ATTN_BWD_PREFIX))
+    check(len(attn) == 8, f"expected 8 bf16 attention-backward kernels in the SASS, "
+                          f"found {attn}")
+    spills = {}
+    for name, info in ptxas_rows:
+        if "spill" in info:
+            spills[name] = re.findall(r"(\d+) bytes spill (?:stores|loads)", info)
+    for fname, pretty in zip(attn, _demangle(attn)):
+        n_hgmma = funcs[fname].count("HGMMA")
+        spill = spills.get(fname)
+        print(f"[build] SASS {pretty[:100]}: HGMMA x{n_hgmma}, spill bytes {spill}")
+        check(n_hgmma > 0, f"{pretty}: no HGMMA in the bf16 attention backward")
+        if "ILi64E" in fname:
+            check(spill is not None and all(b == "0" for b in spill),
+                  f"{pretty}: ptxas reports spills {spill} at D = 64")
+    simt = sorted(n for n in funcs if "masked_attention_bwd_d" in n)
+    for fname, pretty in zip(simt, _demangle(simt)):
+        print(f"[build] SASS {pretty[:100]} (SIMT)")
+    check(len(simt) == 4 and all("IfLb" in n for n in simt),
+          f"the SIMT attention backward must exist for fp32 only, found {simt}")
 
 
 def _block_inputs(dev, C=768, H=12, B=BATCH, S=269):
@@ -563,7 +602,10 @@ def _config_kernels(res, dev, x, mask, g, ln, attn_w, mlp_w, H, eps, shape) -> N
             "masked_attention_bwd", tag, shape, A.masked_attention_bwd,
             A.masked_attention_bwd_plain, (q, k, v, mask, gh, D ** -0.5), rtol, fp32,
             ("dq", "dk", "dv"), True)
-        if not fp32:
+        if not fp32:   # the pair's device time, without the host's share of a call
+            res["masked_attention_bwd"][tag]["device_ms"] = dms = device_ms(
+                lambda: A.masked_attention_bwd(q, k, v, mask, gh, D ** -0.5))
+            print(f"[kernels] masked_attention_bwd bf16 {shape}: device_ms={dms!r}")
             _sdpa_yardsticks(res, q, k, v, mask, gh)
         res.setdefault("attn_half_full", {})[tag] = _compare(
             "attn_half_full", tag, shape, FB.attn_half_full,
@@ -584,24 +626,32 @@ def _config_kernels(res, dev, x, mask, g, ln, attn_w, mlp_w, H, eps, shape) -> N
               f"version's bits exactly; kernel_ms={ms!r} plain_ms={plain_ms!r}")
 
 
-def _sdpa_yardsticks(res, q, k, v, mask, g) -> None:
-    """F.scaled_dot_product_attention on the same heads and its backward
-    through torch.autograd.grad (the graph built once, only the backward
-    timed): the one-call yardsticks of rows 10 and 11."""
+def _sdpa_backward_times(q, k, v, keep, g) -> tuple:
+    """(ms per call, device ms) of F.scaled_dot_product_attention's backward
+    on these heads through torch.autograd.grad, the graph built once."""
     import torch.nn.functional as F
-    keep = (mask > 0)[:, None, None, :]
     with torch.inference_mode(False), torch.enable_grad():
-        q, k, v, g = (t.clone() for t in (q, k, v, g))
+        q, k, v, keep, g = (t.clone() for t in (q, k, v, keep, g))
         for t in (q, k, v):
             t.requires_grad_(True)
         out = F.scaled_dot_product_attention(q, k, v, attn_mask=keep)
-        with torch.no_grad():
-            fwd_ms = time_ms(lambda: F.scaled_dot_product_attention(q, k, v, attn_mask=keep))
-        bwd_ms = time_ms(lambda: torch.autograd.grad(out, (q, k, v), g, retain_graph=True))
+        bwd = lambda: torch.autograd.grad(out, (q, k, v), g, retain_graph=True)  # noqa: E731
+        return time_ms(bwd), device_ms(bwd)
+
+
+def _sdpa_yardsticks(res, q, k, v, mask, g) -> None:
+    """F.scaled_dot_product_attention on the same heads and its backward
+    (_sdpa_backward_times): the one-call yardsticks of rows 10 and 11."""
+    import torch.nn.functional as F
+    keep = (mask > 0)[:, None, None, :]
+    fwd_ms = time_ms(lambda: F.scaled_dot_product_attention(q, k, v, attn_mask=keep))
+    bwd_ms, bwd_dev_ms = _sdpa_backward_times(q, k, v, keep, g)
     res["masked_attention"]["library_ms"] = fwd_ms
     res["masked_attention_bwd"]["library_ms"] = bwd_ms
+    res["masked_attention_bwd"]["library_device_ms"] = bwd_dev_ms
     print(f"[kernels] F.scaled_dot_product_attention bf16 on the same heads: forward "
-          f"{fwd_ms!r} ms, backward through torch.autograd.grad {bwd_ms!r} ms")
+          f"{fwd_ms!r} ms, backward through torch.autograd.grad {bwd_ms!r} ms "
+          f"(device {bwd_dev_ms!r} ms)")
 
 
 def _shard_kernels(x, mask, ln, attn_w, mlp_w, H, eps) -> list:
@@ -835,7 +885,53 @@ def _library_yardsticks(dev, FB, x, mask, wqkv, bqkv, H) -> list:
           f"scaled_dot_product_attention_ms={lib_ms!r} max_abs_diff={err!r}")
     out.append(dict(name="masked_attention_fwd", ms=ms, library_ms=lib_ms,
                     library="F.scaled_dot_product_attention"))
+    out.append(_attention_bwd_sub(dev, FB, lib, gen, qkv.view(B, S, 3 * C), mask, H))
     return out
+
+
+def _attention_bwd_sub(dev, FB, lib, gen, qkv, mask, H) -> dict:
+    """The bf16 attention backward pair on the packed layout, as the dx and
+    training backwards launch it (rows 3, 9, 2), against _attn_dqkv_plain
+    with Wproj the identity (so that dattn = g exactly), bf16 2e-2 of
+    max|ref|, bit-identical twice; timed per call and by device time beside
+    its plain version and the backward of F.scaled_dot_product_attention on
+    the same heads (through torch.autograd.grad)."""
+    B, S, C3 = qkv.shape
+    C, M = C3 // 3, B * S
+    D = C // H
+    dattn = torch.randn(B, S, C, generator=gen, device=dev).bfloat16()
+    dqkv = torch.empty(M, C3, device=dev, dtype=torch.bfloat16)
+    stats = torch.empty(B, H, S, 3, device=dev, dtype=torch.float32)
+    eye = torch.eye(C, device=dev, dtype=torch.bfloat16)
+    run = lambda: FB._attn_bwd_packed(lib, qkv, mask, dattn, dqkv, stats, H)  # noqa: E731
+    plain = lambda: FB._attn_dqkv_plain(qkv, mask, eye, dattn, H)  # noqa: E731
+    run()
+    first = dqkv.clone()
+    run()
+    ref = plain()
+    torch.cuda.synchronize()
+    check(torch.equal(first, dqkv), "attention_bwd: two calls differ")
+    diff = (dqkv.float().view(B, S, C3) - ref.float()).abs()
+    err = diff.max().item()
+    tol = 2e-2 * ref.float().abs().max().item()
+    check(bool(torch.isfinite(dqkv).all()) and err <= tol, f"attention_bwd: error {err} > {tol}")
+    # dq comes from bwd_dq, dk and dv from bwd_dkv, each from its own s = q.k^T
+    parts = {n: diff[..., i * C:(i + 1) * C].max().item() for i, n in enumerate(("dq", "dk", "dv"))}
+    q, k, v = qkv.view(B, S, 3, H, D).permute(2, 0, 3, 1, 4)
+    lib_ms, lib_dev_ms = _sdpa_backward_times(q, k, v, (mask > 0)[:, None, None, :],
+                                              dattn.view(B, S, H, D).transpose(1, 2))
+    ms, dev_ms, plain_ms = time_ms(run), device_ms(run), time_ms(plain)
+    bound_ms, bound_by = bound("masked_attention_bwd", B, S, C)
+    shape = f"B={B} S={S} H={H} D={D}"
+    print(f"[kernels] attention_bwd (packed, {shape}) bf16: kernel_ms={ms!r} device_ms="
+          f"{dev_ms!r} ({_rate(bound_ms, dev_ms, 'of the bound')}) plain_ms={plain_ms!r} "
+          f"sdpa_backward_ms={lib_ms!r} (device {lib_dev_ms!r}) bound_ms={bound_ms!r} "
+          f"({bound_by}) max_abs_err={err!r} (tol {tol:.3g}; by output {parts}); "
+          f"bit-identical twice")
+    return dict(name="attention_bwd", shape=shape, ms=ms, device_ms=dev_ms, plain_ms=plain_ms,
+                library_ms=lib_ms, library_device_ms=lib_dev_ms,
+                library="torch.autograd.grad of F.scaled_dot_product_attention",
+                bound_ms=bound_ms, bound_by=bound_by, max_abs_err=err)
 
 
 def synthetic_requests(cfg, n: int, seed: int) -> dict:
@@ -876,12 +972,12 @@ def phase_serving(cfg, model, reqs, dev) -> tuple:
     counts = dict(FB.launches)
     passes = -(-N_REQUESTS // BATCH)
     print(f"[serving] {N_REQUESTS} requests, batch {BATCH}: {passes} forward passes, "
-          f"launches {counts}, GEMM sub-kernels {FB.gemm_launches}")
+          f"launches {counts}, sub-kernels {FB.sub_launches}")
     for name in ("attn_half", "mlp_half"):
         check(counts[name] == cfg.num_layers * passes,
               f"{name} launched {counts[name]} times, expected "
               f"{cfg.num_layers} x {passes}")
-    counts = check_gemm_launches("serving", counts, FB)
+    counts = check_sub_launches("serving", counts, FB)
     check(out.shape == (N_REQUESTS, cfg.vqav2_label_size), f"output shape {out.shape}")
     check(bool(np.isfinite(out).all()), "non-finite VQA logits")
     recs = postprocess("vqa", out)
@@ -1028,8 +1124,8 @@ def phase_pgd(dev) -> tuple:
         expect = want if name in ("attn_half", "mlp_half", "attn_half_dx", "mlp_half_dx") else 0
         check(counts[name] == expect, f"{name} launched {counts[name]} times in the attack, "
                                       f"expected {expect}")
-    print(f"[pgd] GEMM sub-kernels {FB.gemm_launches}")
-    counts = check_gemm_launches("pgd", counts, FB)
+    print(f"[pgd] sub-kernels {FB.sub_launches}")
+    counts = check_sub_launches("pgd", counts, FB)
 
     check(delta.shape == batch["image"].shape, f"delta shape {tuple(delta.shape)}")
     check(bool(torch.isfinite(delta).all()), "non-finite delta")
@@ -1157,23 +1253,27 @@ def expected_launches(cfg) -> dict:
     return want
 
 
-def expected_gemm_launches(ops: dict) -> dict:
-    """ln_gemm and gemm_tn launches under block ops launched ``ops`` times:
+def expected_sub_launches(ops: dict) -> dict:
+    """Sub-kernel launches under block ops launched ``ops`` times, in bf16:
     two ln_gemm in every block op (the two products of a forward; the two
     g . W products of a dx op, whose forward kept qkv / h; those of a full
     backward), two gemm_tn (the weight gradients) in every full backward, and
-    none in the attention core or the dropout op."""
+    none in the attention core or the dropout op; the attention backward pair
+    in every op that differentiates through attention."""
     full_bwd = ("attn_half_train_bwd", "mlp_half_train_bwd", "attn_half_full_bwd")
     other = ("masked_attention", "masked_attention_bwd", "dropout")
+    attn_bwd = ("attn_half_dx", "attn_half_train_bwd", "attn_half_full_bwd",
+                "masked_attention_bwd")
     return {"ln_gemm": 2 * sum(n for op, n in ops.items() if op not in other),
-            "gemm_tn": 2 * sum(ops.get(op, 0) for op in full_bwd)}
+            "gemm_tn": 2 * sum(ops.get(op, 0) for op in full_bwd),
+            "attention_bwd": sum(ops.get(op, 0) for op in attn_bwd)}
 
 
-def check_gemm_launches(where: str, ops: dict, FB) -> dict:
-    """The GEMM sub-kernels' counters against the ops' counters; both merged."""
-    gemm, want = dict(FB.gemm_launches), expected_gemm_launches(ops)
-    check(gemm == want, f"{where}: GEMM sub-kernel launches {gemm}, expected {want}")
-    return {**ops, **gemm}
+def check_sub_launches(where: str, ops: dict, FB) -> dict:
+    """The sub-kernels' counters against the ops' counters; both merged."""
+    subs, want = dict(FB.sub_launches), expected_sub_launches(ops)
+    check(subs == want, f"{where}: sub-kernel launches {subs}, expected {want}")
+    return {**ops, **subs}
 
 
 class _StepClock:
@@ -1276,7 +1376,7 @@ def phase_train(dev, config: str = "default") -> dict:
             splits.append(clock.split())
             counts = dict(FB.launches)
             check(counts == want, f"step {it}: launches {counts}, expected {want}")
-            counts = check_gemm_launches(f"{tag} step {it}", counts, FB)
+            counts = check_sub_launches(f"{tag} step {it}", counts, FB)
             vals = {k: v.item() for k, v in metrics.items()}
             bad = [k for k, v in vals.items() if not np.isfinite(v)]
             check(not bad, f"step {it}: non-finite metrics {bad}")
@@ -1464,11 +1564,48 @@ def attack_times(dev, config: str) -> tuple:
     return statistics.median(walls), busy / 1e3
 
 
+def _attention_bwd_calls(dev, lib, gen) -> dict:
+    """The two C entry points of the bf16 attention backward at B=16, S=241,
+    H=12, D=64, called as they have been since they exist: the packed layout
+    (rmcl_masked_attention_bwd, rows 3, 9, 2) and the heads layout on views of
+    one qkv buffer (rmcl_attention_bwd, row 11)."""
+    B, S, H, D = PGD_BATCH, 241, 12, 64
+    C = H * D
+    qkv = torch.randn(B, S, 3 * C, generator=gen, device=dev).bfloat16()
+    mask = (torch.rand(B, S, generator=gen, device=dev) > 0.3).int()
+    mask[:, 0] = 1
+    dattn = torch.randn(B, S, C, generator=gen, device=dev).bfloat16()
+    dqkv = torch.empty_like(qkv)
+    stats = torch.empty(B, H, S, 3, device=dev, dtype=torch.float32)
+    q, k, v = qkv.view(B, S, 3, H, D).permute(2, 0, 3, 1, 4)
+    g = torch.randn(B, H, S, D, generator=gen, device=dev).bfloat16()
+    dq, dk, dv = dqkv.view(B, S, 3, H, D).permute(2, 0, 3, 1, 4)
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    scale = D ** -0.5
+
+    def packed():
+        rc = lib.rmcl_masked_attention_bwd(1, qkv.data_ptr(), mask.data_ptr(), dattn.data_ptr(),
+                                           dqkv.data_ptr(), stats.data_ptr(), B, S, H, D, scale,
+                                           stream)
+        check(rc == 0, f"rmcl_masked_attention_bwd returned {rc}")
+
+    def heads():
+        rc = lib.rmcl_attention_bwd(1, q.data_ptr(), k.data_ptr(), v.data_ptr(), *q.stride()[:3],
+                                    mask.data_ptr(), g.data_ptr(), *g.stride()[:3],
+                                    dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
+                                    *dq.stride()[:3], stats.data_ptr(), B, S, H, D, scale,
+                                    stream)
+        check(rc == 0, f"rmcl_attention_bwd returned {rc}")
+
+    return {"rmcl_masked_attention_bwd": packed, "rmcl_attention_bwd": heads}
+
+
 def gemm_times(root: str) -> None:
     """Times of the GEMM sub-kernels of the package under ``root`` at the
-    step's shapes (LN_GEMM_SUBS, GEMM_TN_SUBS): per call as phase 3 times
-    them (time_ms), by device time and by host enqueue time, through the
-    wrappers' arguments every slice of the port has had, so that two
+    step's shapes (LN_GEMM_SUBS, GEMM_TN_SUBS) and of the bf16 attention
+    backward through both its C entry points at B=16, S=241, H=12, D=64: per
+    call as phase 3 times them (time_ms), by device time and by host enqueue
+    time, through the arguments every slice of the port has had, so that two
     versions compare in one run; then the attack's wall and device time
     under the default configuration and P."""
     sys.path.insert(0, root)
@@ -1491,6 +1628,8 @@ def gemm_times(root: str) -> None:
             def run(a=a, b=b):
                 return FB._gemm_tn(lib, a, b)
             res[f"gemm_tn[{label}]"] = (time_ms(run), device_ms(run), host_us(run))
+        for name, run in _attention_bwd_calls(dev, lib, gen).items():
+            res[name] = (time_ms(run), device_ms(run), host_us(run))
     for name, (ms, dms, hus) in res.items():
         print(f"[gemm-times] {root} {name}: kernel_ms={ms!r} device_ms={dms!r} "
               f"host_us={hus!r}")
@@ -1620,6 +1759,17 @@ def main() -> int:
             "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
             "library_ms": r["library_ms"], "library": r["library"], "shape": r["shape"],
             "instances": {k: v["ms"] for k, v in subs.items() if k.startswith(name + "[")}})
+    r = subs["attention_bwd"]   # the bf16 pair under rows 3, 9, 2 and 11
+    records.append({
+        "name": "attention_bwd", "route": "cuda", "source": ATTN_SOURCE,
+        "replaces": KERNELS["attn_half_dx"], "launches": train_counts["default"]["attention_bwd"],
+        "launches_by_path": {"serving": counts["attention_bwd"],
+                             "pgd": pgd_counts["attention_bwd"],
+                             **{f"train_{c}": n["attention_bwd"] for c, n in train_counts.items()}},
+        "max_abs_err": r["max_abs_err"], "ms": r["ms"], "device_ms": r["device_ms"],
+        "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
+        "library_ms": r["library_ms"], "library_device_ms": r["library_device_ms"],
+        "library": r["library"], "shape": r["shape"]})
     print(json.dumps({"kernels": records, "shard_shapes": kres["shard_shapes"],
                       "sub_kernels": kres["sub_kernels"]}))
     print(json.dumps({"ok": True, "device": {

@@ -128,13 +128,13 @@
 //     no atomics are needed: masked_attention_bwd_dq owns a query tile
 //     (pass 1 over the keys: row max, row sum and sum_t dp.p; pass 2: ds
 //     and dq), masked_attention_bwd_dkv owns a key tile and walks the
-//     queries with the row statistics the first kernel left.  Both are fp32
-//     SIMT loops like the forward core: bound by operations, far from the
-//     tensor cores' rate.
+//     queries with the row statistics the first kernel left.  In bf16 both
+//     run on wgmma with cp.async double buffering (hopper_attention.cuh);
+//     in fp32 they are SIMT loops like the forward core.
 //   * Not yet done (left for later work): the qkv buffer, the attention
 //     output, the (S, 4C) MLP hidden and the backward's dattn, dqkv, dh and
 //     fp32 dy pass through device memory, which the TPU kernels kept on
-//     chip; the attention kernels have no TMA, wgmma or pipelining.
+//     chip; the attention forward has no TMA, wgmma or pipelining.
 //
 // The attention core's backward (pallas_attention.py:_attn_bwd_kernel) has
 // other rounding points than the block halves' (_attn_bwd_math): ds stays
@@ -164,6 +164,9 @@
 #include <math.h>
 #include <stdint.h>
 
+#include <type_traits>
+
+#include "hopper_attention.cuh"
 #include "hopper_gemm.cuh"
 
 namespace {
@@ -965,8 +968,12 @@ masked_attention_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
 //   bwd_dkv one block per (key tile, head, sample), launched after bwd_dq:
 //           walks the query tiles, rebuilds p and ds from stats, and
 //           accumulates dk and dv.
-// Scores are summed over d in the same order in all three attention
-// kernels, so each sees the same s, bit for bit.
+// These SIMT kernels run fp32 only; bf16 runs the same two-kernel scheme on
+// wgmma (hopper_attention.cuh).  In fp32 the scores are summed over d in the
+// same order in all three attention kernels, so each sees the same s, bit
+// for bit.  In bf16 the backward's s come from the tensor cores, summed in
+// their order: not the SIMT forward's bits, and bwd_dq's Q.K^T and bwd_dkv's
+// K.Q^T need not be each other's either.
 
 inline size_t attention_bwd_dq_smem_bytes(int D) {
   // Qs [AQ][D], dOs [AQ][D], Ks [AK][D + 1], Vs [AK][D + 1], dSs [AQ][AK], key bias [AK]
@@ -1276,29 +1283,38 @@ cudaError_t launch_attention(const T* q, const T* k, const T* v, Strides in, con
   return cudaGetLastError();
 }
 
+// bf16 runs the wgmma kernels of hopper_attention.cuh; fp32 the SIMT kernels
+// above (wgmma's fp32 input would be TF32)
 template <typename T, bool kRound>
 cudaError_t launch_attention_bwd(const T* q, const T* k, const T* v, Strides in,
                                  const void* mask, const T* g, Strides gs, T* dq, T* dk, T* dv,
                                  Strides ds_, void* stats, int B, int S, int H, int D,
                                  float scale, cudaStream_t stream) {
-  const size_t smem_q = attention_bwd_dq_smem_bytes(D);
-  const size_t smem_kv = attention_bwd_dkv_smem_bytes(D);
-  cudaError_t err = cudaFuncSetAttribute(masked_attention_bwd_dq_kernel<T, kRound>,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                         (int)smem_q);
-  if (err != cudaSuccess) return err;
-  err = cudaFuncSetAttribute(masked_attention_bwd_dkv_kernel<T, kRound>,
-                             cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem_kv);
-  if (err != cudaSuccess) return err;
-  const dim3 grid_q((S + AQ - 1) / AQ, H, B), grid_kv((S + AK - 1) / AK, H, B);
-  const int32_t* m = static_cast<const int32_t*>(mask);
-  masked_attention_bwd_dq_kernel<T, kRound><<<grid_q, ATT_THREADS, smem_q, stream>>>(
-      q, k, v, in, m, g, gs, dq, ds_, static_cast<float*>(stats), S, D, scale);
-  err = cudaGetLastError();
-  if (err != cudaSuccess) return err;
-  masked_attention_bwd_dkv_kernel<T, kRound><<<grid_kv, ATT_THREADS, smem_kv, stream>>>(
-      q, k, v, in, m, g, gs, static_cast<const float*>(stats), dk, dv, ds_, S, D, scale);
-  return cudaGetLastError();
+  if constexpr (std::is_same<T, bf16>::value) {
+    return hattn::launch_bwd<kRound>(q, k, v, {in.b, in.h, in.s},
+                                     static_cast<const int32_t*>(mask), g, {gs.b, gs.h, gs.s},
+                                     dq, dk, dv, {ds_.b, ds_.h, ds_.s},
+                                     static_cast<float*>(stats), B, S, H, D, scale, stream);
+  } else {
+    const size_t smem_q = attention_bwd_dq_smem_bytes(D);
+    const size_t smem_kv = attention_bwd_dkv_smem_bytes(D);
+    cudaError_t err = cudaFuncSetAttribute(masked_attention_bwd_dq_kernel<T, kRound>,
+                                           cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                           (int)smem_q);
+    if (err != cudaSuccess) return err;
+    err = cudaFuncSetAttribute(masked_attention_bwd_dkv_kernel<T, kRound>,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem_kv);
+    if (err != cudaSuccess) return err;
+    const dim3 grid_q((S + AQ - 1) / AQ, H, B), grid_kv((S + AK - 1) / AK, H, B);
+    const int32_t* m = static_cast<const int32_t*>(mask);
+    masked_attention_bwd_dq_kernel<T, kRound><<<grid_q, ATT_THREADS, smem_q, stream>>>(
+        q, k, v, in, m, g, gs, dq, ds_, static_cast<float*>(stats), S, D, scale);
+    err = cudaGetLastError();
+    if (err != cudaSuccess) return err;
+    masked_attention_bwd_dkv_kernel<T, kRound><<<grid_kv, ATT_THREADS, smem_kv, stream>>>(
+        q, k, v, in, m, g, gs, static_cast<const float*>(stats), dk, dv, ds_, S, D, scale);
+    return cudaGetLastError();
+  }
 }
 
 // the packed (B, S, 3C) layout of the block halves; row 3's rounding points
@@ -1580,7 +1596,9 @@ int rmcl_ln_colsum(int dtype, const void* x, const void* dy, const void* stats, 
   return (int)cudaErrorInvalidValue;
 }
 
-// stats: (B, H, S, 3) fp32 scratch; dqkv: (B, S, 3C), every element written
+// stats: (B, H, S, 3) fp32 scratch; dqkv: (B, S, 3C), every element written.
+// dtype 1 (the wgmma kernels) needs D a multiple of 8 and 16-byte aligned
+// buffers, else returns cudaErrorInvalidValue.
 int rmcl_masked_attention_bwd(int dtype, const void* qkv, const void* mask,
                               const void* dattn, void* dqkv, void* stats, int B, int S,
                               int H, int D, float scale, void* stream) {
@@ -1630,7 +1648,9 @@ int rmcl_attention_fwd(int dtype, const void* q, const void* k, const void* v, l
 
 // Its backward (pallas_attention.py:_bwd_impl), with that kernel's rounding
 // points.  g has the strides (gb, gh, gs); dq, dk and dv share (db, dh, ds);
-// stats: (B, H, S, 3) fp32 scratch.
+// stats: (B, H, S, 3) fp32 scratch.  dtype 1 (the wgmma kernels) needs D a
+// multiple of 8, 16-byte aligned bases and every stride a multiple of 8
+// elements, else returns cudaErrorInvalidValue.
 int rmcl_attention_bwd(int dtype, const void* q, const void* k, const void* v, long long qb,
                        long long qh, long long qs, const void* mask, const void* g,
                        long long gb, long long gh, long long gs, void* dq, void* dk, void* dv,

@@ -25,7 +25,11 @@ raise; on a CPU tensor it is ``mha`` under autograd.  The kernels read q, k
 and v through their strides (views of one qkv buffer need no copy) and write
 the output as (B, S, H, D) memory, so that merging the heads back to
 (B, S, C) is a view.  Launches count in ``fused_block.launches`` under
-``masked_attention`` and ``masked_attention_bwd``.
+``masked_attention`` and ``masked_attention_bwd``.  In bfloat16 the backward
+runs the wgmma kernels of ``csrc/hopper_attention.cuh``, which read q, k, v
+and g by cp.async: their head dim a multiple of 8, their bases 16-byte
+aligned and their (b, h, s) strides multiples of 8 elements, or it raises;
+in float32 SIMT kernels that take any strides.
 """
 
 from __future__ import annotations
@@ -111,11 +115,28 @@ def _attention_fwd(q, k, v, mask, scale):
     return out
 
 
+def _wgmma_layout(**tensors):
+    """What the bf16 backward kernels read by cp.async: a head dim that is a
+    multiple of 8, 16-byte aligned bases and (b, h, s) strides that are
+    multiples of 8 elements.  Raises on anything else."""
+    D = tensors["q"].shape[-1]
+    if D % 8:
+        raise ValueError(f"head dim {D} must be a multiple of 8 for the bf16 backward")
+    for name, t in tensors.items():
+        if t.data_ptr() % 16 or any(st % 8 for st in t.stride()[:3]):
+            raise ValueError(f"{name}: the bf16 backward needs a 16-byte aligned base and "
+                             f"(b, h, s) strides that are multiples of 8, got strides "
+                             f"{tuple(t.stride())}")
+
+
 def _attention_bwd(q, k, v, mask, g, scale):
-    from rmcl_tpu_torch.ops.fused_block import launches   # that module imports this one
+    from rmcl_tpu_torch.ops.fused_block import launches, sub_launches  # imports this one
     B, H, S, D = q.shape
     if g.shape != q.shape or g.dtype != q.dtype or g.stride(3) != 1:
         g = g.to(q.dtype).contiguous()
+    bf16 = q.dtype == torch.bfloat16
+    if bf16:
+        _wgmma_layout(q=q, k=k, v=v, g=g)
     # dq, dk, dv as views of one (B, S, 3, H, D) buffer: the layout of the qkv
     # projection they flow back into
     d = torch.empty(B, S, 3, H, D, device=q.device, dtype=q.dtype).permute(2, 0, 3, 1, 4)
@@ -127,6 +148,8 @@ def _attention_bwd(q, k, v, mask, g, scale):
         dv.data_ptr(), *_strides(dq), stats.data_ptr(), B, S, H, D, scale, _stream(q))
     _build.check(rc, "attention_bwd")
     launches["masked_attention_bwd"] += 1
+    if bf16:
+        sub_launches["attention_bwd"] += 1
     return dq, dk, dv
 
 

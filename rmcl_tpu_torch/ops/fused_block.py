@@ -73,14 +73,16 @@ launches = {"attn_half": 0, "mlp_half": 0, "attn_half_dx": 0, "mlp_half_dx": 0,
             "attn_half_train_bwd": 0, "mlp_half_train_bwd": 0,
             # ops/attention.py:masked_attention and ops/dropout.py:dropout
             "masked_attention": 0, "masked_attention_bwd": 0, "dropout": 0}
-# launches of the two GEMM sub-kernels under those ops (``_gemm``, ``_gemm_tn``)
-gemm_launches = {"ln_gemm": 0, "gemm_tn": 0}
+# launches of the sub-kernels under those ops: the two GEMMs (``_gemm``,
+# ``_gemm_tn``) and the bf16 attention backward pair (``_attn_bwd_packed``,
+# ``attention._attention_bwd``: csrc/hopper_attention.cuh)
+sub_launches = {"ln_gemm": 0, "gemm_tn": 0, "attention_bwd": 0}
 
 _EPI_BIAS, _EPI_DGELU, _EPI_F32 = 0, 1, 2      # ln_gemm epilogues (block_kernels.cu)
 
 
 def reset_launches() -> None:
-    for counts in (launches, gemm_launches):
+    for counts in (launches, sub_launches):
         for k in counts:
             counts[k] = 0
 
@@ -324,7 +326,26 @@ def _gemm(lib, a2d, w, bias, out, ln=None, eps=0.0, residual=None, gelu=False,
         M, N, K, int(gelu), epi, int(w_kn), *_drop_args(drop),
         _stream(a2d))
     _build.check(rc, "ln_gemm")
-    gemm_launches["ln_gemm"] += 1
+    sub_launches["ln_gemm"] += 1
+
+
+def _attn_bwd_packed(lib, qkv, mask, dattn, dqkv, stats, num_heads):
+    """masked_attention_bwd_dq -> _dkv on the packed layout: dqkv (B, S, 3C)
+    from qkv (B, S, 3C) and dattn (B, S, C), with the block halves' rounding
+    points; stats (B, H, S, 3) fp32 scratch.  bfloat16 runs the wgmma kernels
+    (``csrc/hopper_attention.cuh``: head dim a multiple of 8), float32 the
+    SIMT ones."""
+    B, S = mask.shape
+    D = qkv.shape[-1] // 3 // num_heads
+    bf16 = qkv.dtype == torch.bfloat16
+    if bf16 and D % 8:
+        raise ValueError(f"head dim {D} must be a multiple of 8 for the bf16 attention backward")
+    rc = lib.rmcl_masked_attention_bwd(
+        _DTYPE_CODE[qkv.dtype], qkv.data_ptr(), mask.data_ptr(), dattn.data_ptr(),
+        dqkv.data_ptr(), stats.data_ptr(), B, S, num_heads, D, D ** -0.5, _stream(qkv))
+    _build.check(rc, "masked_attention_bwd")
+    if bf16:
+        sub_launches["attention_bwd"] += 1
 
 
 def _aligned(*tensors):
@@ -411,7 +432,7 @@ def _gemm_tn(lib, a2d, b2d):
                           partial.data_ptr() if partial is not None else None, M, Na, Nb,
                           _stream(a2d))
     _build.check(rc, "gemm_tn")
-    gemm_launches["gemm_tn"] += 1
+    sub_launches["gemm_tn"] += 1
     return out
 
 
@@ -464,7 +485,6 @@ def _attn_param_bwd(x, mask, ln_w, ln_b, wqkv, wproj, gm, qkv, attn, num_heads, 
     colsum(dbproj), with ln_colsum for dLN1.  Arguments as checked by the
     callers."""
     B, S, C = x.shape
-    D = C // num_heads
     lib = _build.library()
     M = B * S
     x2d, gm2d = x.view(M, C), gm.view(M, C)
@@ -474,10 +494,7 @@ def _attn_param_bwd(x, mask, ln_w, ln_b, wqkv, wproj, gm, qkv, attn, num_heads, 
     stats = new(B, num_heads, S, 3, dtype=torch.float32)
     dy = new(M, C, dtype=torch.float32)
     _gemm(lib, gm2d, wproj, None, dattn, w_kn=True)
-    rc = lib.rmcl_masked_attention_bwd(
-        _DTYPE_CODE[x.dtype], qkv.data_ptr(), mask.data_ptr(), dattn.data_ptr(),
-        dqkv.data_ptr(), stats.data_ptr(), B, S, num_heads, D, D ** -0.5, _stream(x))
-    _build.check(rc, "masked_attention_bwd")
+    _attn_bwd_packed(lib, qkv, mask, dattn, dqkv, stats, num_heads)
     _gemm(lib, dqkv, wqkv, None, dy, epi=_EPI_F32, w_kn=True)
     dx, y, dln_w, dln_b = _ln_backward(
         lib, x2d, dy, ln_w, ln_b, None if g_res is None else g_res.view(M, C), eps,
@@ -551,7 +568,7 @@ def attn_half_dx(x, mask, ln_w, ln_b, wqkv, bqkv, wproj, g,
         return attn_half_dx_plain(x, mask, ln_w, ln_b, wqkv, bqkv, wproj, g,
                                   num_heads, eps, residual, qkv)
     B, S, C = x.shape
-    D = _head_dim(C, num_heads)
+    _head_dim(C, num_heads)
     named = dict(x=x, mask=mask, ln_w=ln_w, ln_b=ln_b, wqkv=wqkv, bqkv=bqkv,
                  wproj=wproj, g=g)
     shapes = dict(x=(B, S, C), mask=(B, S), ln_w=(C,), ln_b=(C,),
@@ -572,11 +589,7 @@ def attn_half_dx(x, mask, ln_w, ln_b, wqkv, bqkv, wproj, g,
     stats = new(B, num_heads, S, 3, dtype=torch.float32)
     dy = new(M, C, dtype=torch.float32)
     _gemm(lib, g2d, wproj, None, dattn, w_kn=True)
-    rc = lib.rmcl_masked_attention_bwd(
-        _DTYPE_CODE[x.dtype], qkv.data_ptr(), mask.data_ptr(), dattn.data_ptr(),
-        dqkv.data_ptr(), stats.data_ptr(), B, S, num_heads, D, D ** -0.5,
-        _stream(x))
-    _build.check(rc, "masked_attention_bwd")
+    _attn_bwd_packed(lib, qkv, mask, dattn, dqkv, stats, num_heads)
     _gemm(lib, dqkv, wqkv, None, dy, epi=_EPI_F32, w_kn=True)
     dx = _ln_bwd_dx(lib, x2d, dy, ln_w, g2d, eps, residual)
     launches["attn_half_dx"] += 1

@@ -654,3 +654,121 @@ def test_gemm_tn_kernel_matches_plain(cuda, M, Na, Nb, dtype):
     assert torch.equal(out, again)
     err = (out - ref).abs().max().item()
     assert err <= 1e-3 * ref.abs().max().item(), err
+
+
+# ------------------------- the bf16 attention backward (csrc/hopper_attention.cuh)
+def _packed_case(B, S, H, D, dev, seed, masked_sample=False):
+    """qkv (B, S, 3C) and dattn (B, S, C) in bf16 and a key mask: numpy from
+    a seed, the operands of the packed attention backward."""
+    r = np.random.RandomState(seed)
+    C = H * D
+    mask = (r.rand(B, S) > 0.3).astype(np.int32)
+    mask[:, 0] = 1
+    if masked_sample:
+        mask[-1] = 0
+    t = lambda a: torch.from_numpy(a.astype(np.float32)).to(dev, torch.bfloat16)  # noqa: E731
+    return (t(r.randn(B, S, 3 * C)), torch.from_numpy(mask).to(dev), t(r.randn(B, S, C)))
+
+
+def _packed_bwd(qkv, mask, dattn, H):
+    from rmcl_tpu_torch.ops import _build
+    B, S, C3 = qkv.shape
+    dqkv = torch.empty_like(qkv)
+    stats = torch.empty(B, H, S, 3, device=qkv.device, dtype=torch.float32)
+    before = FB.sub_launches["attention_bwd"]
+    FB._attn_bwd_packed(_build.library(), qkv, mask, dattn, dqkv, stats, H)
+    assert FB.sub_launches["attention_bwd"] == before + 1
+    return dqkv
+
+
+def _check_packed(B, S, H, D, dev, seed, masked_sample=False):
+    """The packed core (rows 3, 9, 2: the block halves' rounding points)
+    against _attn_dqkv_plain with Wproj the identity, so that dattn = g
+    exactly; two calls give the same bits."""
+    qkv, mask, dattn = _packed_case(B, S, H, D, dev, seed, masked_sample)
+    ours, again = _packed_bwd(qkv, mask, dattn, H), _packed_bwd(qkv, mask, dattn, H)
+    eye = torch.eye(H * D, device=dev, dtype=torch.bfloat16)
+    ref = FB._attn_dqkv_plain(qkv, mask, eye, dattn, H)
+    torch.cuda.synchronize()
+    assert torch.equal(ours, again)
+    _close("dqkv", ours, ref, 2e-2)
+
+
+def _check_heads(B, S, H, D, dev, seed, packed, masked_sample=False):
+    """The heads path (row 11: the attention core's rounding points) against
+    masked_attention_bwd_plain, on views of one qkv buffer or contiguous
+    copies; two calls give the same bits."""
+    from rmcl_tpu_torch.ops import attention as A
+    qkv, mask, _ = _packed_case(B, S, H, D, dev, seed, masked_sample)
+    q, k, v = qkv.view(B, S, 3, H, D).permute(2, 0, 3, 1, 4).unbind(0)
+    if not packed:
+        q, k, v = (t.contiguous() for t in (q, k, v))
+    g = torch.from_numpy(np.random.RandomState(seed + 1).randn(B, H, S, D).astype(
+        np.float32)).to(dev, torch.bfloat16)
+    before = FB.sub_launches["attention_bwd"]
+    ours = A.masked_attention_bwd(q, k, v, mask, g, D ** -0.5)
+    again = A.masked_attention_bwd(q, k, v, mask, g, D ** -0.5)
+    assert FB.sub_launches["attention_bwd"] == before + 2
+    ref = A.masked_attention_bwd_plain(q, k, v, mask, g, D ** -0.5)
+    torch.cuda.synchronize()
+    for name, a, b, c in zip(("dq", "dk", "dv"), ours, again, ref):
+        assert torch.equal(a, b), name
+        _close(name, a, c, 2e-2)
+
+
+@pytest.mark.cuda
+def test_attention_bwd_packed_at_vilt_shape(cuda):
+    """ViLT's own shape, B=16 S=241 H=12 D=64, in bf16."""
+    with torch.no_grad():
+        _check_packed(16, 241, 12, 64, cuda, 11)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("packed", [True, False], ids=["views", "contiguous"])
+def test_attention_bwd_heads_at_vilt_shape(cuda, packed):
+    with torch.no_grad():
+        _check_heads(16, 241, 12, 64, cuda, 12, packed)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("S", [1, 63, 64, 65, 128])
+@pytest.mark.parametrize("layout", ["packed", "views", "contiguous"])
+def test_attention_bwd_edge_lengths(cuda, S, layout):
+    """Sequence lengths around the 64-row tiles, D = 64."""
+    with torch.no_grad():
+        if layout == "packed":
+            _check_packed(3, S, 2, 64, cuda, S)
+        else:
+            _check_heads(3, S, 2, 64, cuda, S, layout == "views")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("layout", ["packed", "views"])
+def test_attention_bwd_fully_masked_sample(cuda, layout):
+    """Every key of one sample masked: p is uniform over its S keys, as the
+    plain version's finite -1e30 bias gives it, in bf16."""
+    with torch.no_grad():
+        if layout == "packed":
+            _check_packed(2, 70, 4, 64, cuda, 21, masked_sample=True)
+        else:
+            _check_heads(2, 70, 4, 64, cuda, 21, True, masked_sample=True)
+
+
+@pytest.mark.cuda
+def test_attention_bwd_refuses_unaligned_layouts(cuda):
+    """The bf16 backward reads its operands by 16-byte cp.async: a row stride
+    that is not a multiple of 8 elements, or a base off 16 bytes, raises
+    instead of launching."""
+    from rmcl_tpu_torch.ops import attention as A
+    B, S, H, D = 2, 70, 4, 64
+    C = H * D
+    mask = torch.ones(B, S, device=cuda, dtype=torch.int32)
+    g = torch.zeros(B, H, S, D, device=cuda, dtype=torch.bfloat16)
+    odd = torch.zeros(B, S, 3 * C + 1, device=cuda, dtype=torch.bfloat16)
+    q, k, v = odd[..., :3 * C].view(B, S, 3, H, D).permute(2, 0, 3, 1, 4).unbind(0)
+    with torch.no_grad(), pytest.raises(ValueError, match="strides"):
+        A.masked_attention_bwd(q, k, v, mask, g, D ** -0.5)
+    flat = torch.zeros(B * H * S * D + 1, device=cuda, dtype=torch.bfloat16)
+    q = flat[1:].view(B, H, S, D)
+    with torch.no_grad(), pytest.raises(ValueError, match="aligned"):
+        A.masked_attention_bwd(q, q, q, mask, g, D ** -0.5)
