@@ -22,10 +22,12 @@ Phases, any failure exits non-zero:
                shared memory and spills per kernel; cuobjdump -sass must show
                HGMMA (wgmma) and UTMALDG (TMA loads) and no HMMA in each of the
                six bf16 GEMM kernels (ln_gemm, gemm_tn: csrc/hopper_gemm.cuh),
-               and HGMMA in each of the eight bf16 attention-backward kernels
-               (csrc/hopper_attention.cuh: dq and dkv, kRound or not, D
-               padded to 64 or 128), with no spills at D = 64; the SIMT
-               attention-backward kernels are listed and exist for fp32 only
+               and HGMMA in each of the two bf16 attention-forward kernels
+               and the eight bf16 attention-backward kernels
+               (csrc/hopper_attention.cuh: fwd with D padded to 64 or 128;
+               dq and dkv, kRound or not, D padded to 64 or 128), with no
+               spills at D = 64; the SIMT attention kernels are listed and
+               exist for fp32 only
   3. kernels   each op against its plain version on the same inputs, random
                key mask: attn_half and mlp_half at B=8, S=269 (serving) and,
                in bf16, at B=16, S=241 (the attack); attn_half_dx and
@@ -44,9 +46,11 @@ Phases, any failure exits non-zero:
                bound, its time per call (time_ms) and its device time
                (torch.profiler, no host share), beside the one PyTorch call
                of its product (F.linear, torch.matmul(g, W),
-               torch.matmul(A.t(), B)); the packed attention core beside
-               F.scaled_dot_product_attention; the bf16 attention backward
-               pair on the packed layout (rows 3, 9, 2) against
+               torch.matmul(A.t(), B)); the bf16 attention forward on the
+               packed layout (rows 1, 8, 2) against mha on the same heads,
+               bit-identical twice, with its bound, time per call and device
+               time beside F.scaled_dot_product_attention's; the bf16
+               attention backward pair on the packed layout (rows 3, 9, 2) against
                _attn_dqkv_plain with Wproj = I, bit-identical twice, with its
                bound, time per call and device time beside the backward of
                F.scaled_dot_product_attention.  The port never calls them.
@@ -142,14 +146,16 @@ idle share (the breakdowns of PERF.md section 5).
     python3 chip_smoke.py --gemm-times [ROOT]
 
 times the GEMM sub-kernels of the package under ROOT (default: this
-checkout) at phase 3's shapes and the bf16 attention backward through its
-two C entry points (rmcl_masked_attention_bwd, rmcl_attention_bwd) at B=16,
-S=241, H=12, D=64, per call, by device time and by host enqueue time, and
-the attack under the default configuration and P, through arguments every
-slice of the port shares: run it on two checkouts in one call to compare
-their kernels on one card.  Every phase also checks the
-sub-kernels' launch counters (the GEMMs and the bf16 attention backward)
-against the ops' (expected_sub_launches).
+checkout) at phase 3's shapes and the bf16 attention forward and backward
+through their four C entry points (rmcl_masked_attention_fwd,
+rmcl_attention_fwd, rmcl_masked_attention_bwd, rmcl_attention_bwd) at B=16,
+S=241, H=12, D=64, beside F.scaled_dot_product_attention's forward, per
+call, by device time and by host enqueue time, and the attack under the
+default configuration and P, through arguments every slice of the port
+shares: run it on two checkouts in one call to compare their kernels on one
+card.  Every phase also checks the sub-kernels' launch counters (the GEMMs
+and the bf16 attention forward and backward) against the ops'
+(expected_sub_launches).
 """
 
 from __future__ import annotations
@@ -208,9 +214,10 @@ GEMM_KERNELS = {  # sub-kernel -> the Pallas body whose products it carries (row
 }
 # the bf16 GEMM kernels (4 ln_gemm and 2 gemm_tn instances) the SASS check reads
 GEMM_BF16_KERNELS = ("ln_gemm_bf16_kernel", "gemm_tn_bf16_kernel")
-# the bf16 attention backward (8 instances: dq, dkv x kRound x D padded to 64, 128)
+# the bf16 attention kernels: the forward (2 instances: D padded to 64, 128)
+# and the backward (8 instances: dq, dkv x kRound x D padded to 64, 128)
 ATTN_SOURCE = "rmcl_tpu_torch/csrc/hopper_attention.cuh"
-ATTN_BWD_PREFIX = "_ZN5hattn"
+ATTN_PREFIX, ATTN_FWD = "_ZN5hattn", "fwd_kernel"
 PEAK_BYTES_S = 3.35e12      # H100 SXM device memory
 PEAK_BF16_FLOPS = 989e12    # H100 SXM tensor cores, dense bf16
 PEAK_CORE_OPS = 67e12       # H100 SXM CUDA cores, fp32 (the dropout's integer work)
@@ -291,10 +298,10 @@ def phase_build() -> None:
 def _sass_check(path, ptxas_rows) -> None:
     """The bf16 GEMM kernels as built must be wgmma (HGMMA) fed by TMA
     (UTMALDG), with no legacy mma.sync (HMMA) left in them.  The bf16
-    attention-backward kernels (hopper_attention.cuh: dq and dkv, kRound or
-    not, D padded to 64 or 128) must contain HGMMA, and those at D = 64 spill
-    nothing (ptxas -v); the SIMT attention-backward kernels are listed and
-    must exist for fp32 only."""
+    attention kernels (hopper_attention.cuh: the forward, and the backward's
+    dq and dkv, kRound or not; D padded to 64 or 128) must contain HGMMA, and
+    those at D = 64 spill nothing (ptxas -v); the SIMT attention kernels,
+    forward and backward, are listed and must exist for fp32 only."""
     import shutil
     from rmcl_tpu_torch.ops import _build
     tool = shutil.which("cuobjdump") or str(Path(_build.nvcc()).with_name("cuobjdump"))
@@ -315,9 +322,11 @@ def _sass_check(path, ptxas_rows) -> None:
         check(n_hgmma > 0 and n_tma > 0 and n_hmma == 0,
               f"{pretty}: not a wgmma + TMA kernel (HGMMA {n_hgmma}, UTMALDG {n_tma}, "
               f"HMMA {n_hmma})")
-    attn = sorted(n for n in funcs if n.startswith(ATTN_BWD_PREFIX))
-    check(len(attn) == 8, f"expected 8 bf16 attention-backward kernels in the SASS, "
-                          f"found {attn}")
+    attn = sorted(n for n in funcs if n.startswith(ATTN_PREFIX))
+    fwd = [n for n in attn if ATTN_FWD in n]
+    check(len(fwd) == 2, f"expected 2 bf16 attention-forward kernels in the SASS, found {fwd}")
+    check(len(attn) - len(fwd) == 8, f"expected 8 bf16 attention-backward kernels in the "
+                                     f"SASS, found {sorted(set(attn) - set(fwd))}")
     spills = {}
     for name, info in ptxas_rows:
         if "spill" in info:
@@ -326,15 +335,18 @@ def _sass_check(path, ptxas_rows) -> None:
         n_hgmma = funcs[fname].count("HGMMA")
         spill = spills.get(fname)
         print(f"[build] SASS {pretty[:100]}: HGMMA x{n_hgmma}, spill bytes {spill}")
-        check(n_hgmma > 0, f"{pretty}: no HGMMA in the bf16 attention backward")
+        check(n_hgmma > 0, f"{pretty}: no HGMMA in the bf16 attention kernel")
         if "ILi64E" in fname:
             check(spill is not None and all(b == "0" for b in spill),
                   f"{pretty}: ptxas reports spills {spill} at D = 64")
     simt = sorted(n for n in funcs if "masked_attention_bwd_d" in n)
-    for fname, pretty in zip(simt, _demangle(simt)):
+    simt_fwd = sorted(n for n in funcs if "masked_attention_fwd_kernel" in n)
+    for fname, pretty in zip(simt_fwd + simt, _demangle(simt_fwd + simt)):
         print(f"[build] SASS {pretty[:100]} (SIMT)")
     check(len(simt) == 4 and all("IfLb" in n for n in simt),
           f"the SIMT attention backward must exist for fp32 only, found {simt}")
+    check(len(simt_fwd) == 1 and "masked_attention_fwd_kernelIfE" in simt_fwd[0],
+          f"the SIMT attention forward must exist for fp32 only, found {simt_fwd}")
 
 
 def _block_inputs(dev, C=768, H=12, B=BATCH, S=269):
@@ -857,8 +869,7 @@ def _library_yardsticks(dev, FB, x, mask, wqkv, bqkv, H) -> list:
     """The device sub-kernels at the attack's and the step's shapes, bf16:
     every GEMM instance of the main path against its plain version, with its
     bound, beside the one PyTorch call of its product; the packed attention
-    forward beside F.scaled_dot_product_attention."""
-    import torch.nn.functional as F
+    forward and backward beside F.scaled_dot_product_attention's."""
     from rmcl_tpu_torch.ops import _build
     lib = _build.library()
     B, S, C = x.shape
@@ -868,25 +879,51 @@ def _library_yardsticks(dev, FB, x, mask, wqkv, bqkv, H) -> list:
     out += [_gemm_tn_sub(dev, FB, lib, gen, *sub) for sub in GEMM_TN_SUBS]
     qkv = torch.empty(M, 3 * C, device=dev, dtype=torch.bfloat16)
     FB._gemm(lib, x.view(M, C), wqkv, bqkv, qkv)
-    att = torch.empty(M, C, device=dev, dtype=torch.bfloat16)
-    stream = torch.cuda.current_stream(dev).cuda_stream
-
-    def ours():
-        _build.check(lib.rmcl_masked_attention_fwd(
-            1, qkv.data_ptr(), mask.data_ptr(), att.data_ptr(), B, S, H, D, D ** -0.5,
-            stream), "masked_attention_fwd")
-
-    q, k, v = qkv.view(B, S, 3, H, D).permute(2, 0, 3, 1, 4)
-    keep = (mask > 0)[:, None, None, :]
-    sdpa = lambda: F.scaled_dot_product_attention(q, k, v, attn_mask=keep)  # noqa: E731
-    ms, lib_ms = time_ms(ours), time_ms(sdpa)
-    err = (att.view(B, S, H, D).float() - sdpa().transpose(1, 2).float()).abs().max().item()
-    print(f"[kernels] masked_attention_fwd (B={B} S={S} H={H} D={D}) bf16: kernel_ms={ms!r} "
-          f"scaled_dot_product_attention_ms={lib_ms!r} max_abs_diff={err!r}")
-    out.append(dict(name="masked_attention_fwd", ms=ms, library_ms=lib_ms,
-                    library="F.scaled_dot_product_attention"))
+    out.append(_attention_fwd_sub(dev, FB, lib, qkv.view(B, S, 3 * C), mask, H))
     out.append(_attention_bwd_sub(dev, FB, lib, gen, qkv.view(B, S, 3 * C), mask, H))
     return out
+
+
+def _attention_fwd_sub(dev, FB, lib, qkv, mask, H) -> dict:
+    """The bf16 attention forward on the packed layout, as the block halves
+    launch it (rows 1, 8, 2), against mha on the same heads merged back to
+    (B, S, C) (bf16 2e-2 of max|ref|), bit-identical twice; timed per call
+    and by device time beside its plain version and
+    F.scaled_dot_product_attention on the same heads (row 10's yardstick)."""
+    import torch.nn.functional as F
+    from rmcl_tpu_torch.ops import attention as A
+    B, S, C3 = qkv.shape
+    C = C3 // 3
+    D = C // H
+    att = torch.empty(B, S, C, device=dev, dtype=torch.bfloat16)
+    run = lambda: FB._attn_fwd_packed(lib, qkv, mask, att, H)  # noqa: E731
+    q, k, v = qkv.view(B, S, 3, H, D).permute(2, 0, 3, 1, 4)
+    plain = lambda: A.mha(q, k, v, mask, D ** -0.5).transpose(1, 2).reshape(B, S, C)  # noqa: E731
+    keep = (mask > 0)[:, None, None, :]
+    sdpa = lambda: F.scaled_dot_product_attention(q, k, v, attn_mask=keep)  # noqa: E731
+    run()
+    first = att.clone()
+    run()
+    ref = plain()
+    torch.cuda.synchronize()
+    check(torch.equal(first, att), "attention_fwd: two calls differ")
+    err = (att.float() - ref.float()).abs().max().item()
+    tol = 2e-2 * ref.float().abs().max().item()
+    check(bool(torch.isfinite(att).all()) and err <= tol, f"attention_fwd: error {err} > {tol}")
+    sdpa_err = (att.view(B, S, H, D).float() - sdpa().transpose(1, 2).float()).abs().max().item()
+    ms, dev_ms, plain_ms = time_ms(run), device_ms(run), time_ms(plain)
+    lib_ms, lib_dev_ms = time_ms(sdpa), device_ms(sdpa)
+    bound_ms, bound_by = bound("masked_attention", B, S, C)
+    shape = f"B={B} S={S} H={H} D={D}"
+    print(f"[kernels] attention_fwd (packed, {shape}) bf16: kernel_ms={ms!r} device_ms="
+          f"{dev_ms!r} ({_rate(bound_ms, dev_ms, 'of the bound')}) plain_ms={plain_ms!r} "
+          f"sdpa_ms={lib_ms!r} (device {lib_dev_ms!r}) bound_ms={bound_ms!r} ({bound_by}) "
+          f"max_abs_err={err!r} (tol {tol:.3g}; against SDPA {sdpa_err!r}); "
+          f"bit-identical twice")
+    return dict(name="attention_fwd", shape=shape, ms=ms, device_ms=dev_ms, plain_ms=plain_ms,
+                library_ms=lib_ms, library_device_ms=lib_dev_ms,
+                library="F.scaled_dot_product_attention", bound_ms=bound_ms,
+                bound_by=bound_by, max_abs_err=err)
 
 
 def _attention_bwd_sub(dev, FB, lib, gen, qkv, mask, H) -> dict:
@@ -1258,14 +1295,17 @@ def expected_sub_launches(ops: dict) -> dict:
     two ln_gemm in every block op (the two products of a forward; the two
     g . W products of a dx op, whose forward kept qkv / h; those of a full
     backward), two gemm_tn (the weight gradients) in every full backward, and
-    none in the attention core or the dropout op; the attention backward pair
-    in every op that differentiates through attention."""
+    none in the attention core or the dropout op; the attention forward in
+    every op whose forward runs attention, the attention backward pair in
+    every op that differentiates through it."""
     full_bwd = ("attn_half_train_bwd", "mlp_half_train_bwd", "attn_half_full_bwd")
     other = ("masked_attention", "masked_attention_bwd", "dropout")
+    attn_fwd = ("attn_half", "attn_half_train", "attn_half_full", "masked_attention")
     attn_bwd = ("attn_half_dx", "attn_half_train_bwd", "attn_half_full_bwd",
                 "masked_attention_bwd")
     return {"ln_gemm": 2 * sum(n for op, n in ops.items() if op not in other),
             "gemm_tn": 2 * sum(ops.get(op, 0) for op in full_bwd),
+            "attention_fwd": sum(ops.get(op, 0) for op in attn_fwd),
             "attention_bwd": sum(ops.get(op, 0) for op in attn_bwd)}
 
 
@@ -1564,11 +1604,14 @@ def attack_times(dev, config: str) -> tuple:
     return statistics.median(walls), busy / 1e3
 
 
-def _attention_bwd_calls(dev, lib, gen) -> dict:
-    """The two C entry points of the bf16 attention backward at B=16, S=241,
-    H=12, D=64, called as they have been since they exist: the packed layout
-    (rmcl_masked_attention_bwd, rows 3, 9, 2) and the heads layout on views of
-    one qkv buffer (rmcl_attention_bwd, row 11)."""
+def _attention_calls(dev, lib, gen) -> dict:
+    """The four C entry points of the bf16 attention forward and backward at
+    B=16, S=241, H=12, D=64, called as they have been since they exist: the
+    packed layout (rmcl_masked_attention_fwd, rows 1, 8, 2;
+    rmcl_masked_attention_bwd, rows 3, 9, 2) and the heads layout on views
+    of one qkv buffer (rmcl_attention_fwd, row 10; rmcl_attention_bwd, row
+    11); and F.scaled_dot_product_attention on the same heads."""
+    import torch.nn.functional as F
     B, S, H, D = PGD_BATCH, 241, 12, 64
     C = H * D
     qkv = torch.randn(B, S, 3 * C, generator=gen, device=dev).bfloat16()
@@ -1580,8 +1623,22 @@ def _attention_bwd_calls(dev, lib, gen) -> dict:
     q, k, v = qkv.view(B, S, 3, H, D).permute(2, 0, 3, 1, 4)
     g = torch.randn(B, H, S, D, generator=gen, device=dev).bfloat16()
     dq, dk, dv = dqkv.view(B, S, 3, H, D).permute(2, 0, 3, 1, 4)
+    att = torch.empty(B, S, C, device=dev, dtype=torch.bfloat16)
+    o = torch.empty(B, S, H, D, device=dev, dtype=torch.bfloat16).transpose(1, 2)
+    keep = (mask > 0)[:, None, None, :]
     stream = torch.cuda.current_stream(dev).cuda_stream
     scale = D ** -0.5
+
+    def packed_fwd():
+        rc = lib.rmcl_masked_attention_fwd(1, qkv.data_ptr(), mask.data_ptr(), att.data_ptr(),
+                                           B, S, H, D, scale, stream)
+        check(rc == 0, f"rmcl_masked_attention_fwd returned {rc}")
+
+    def heads_fwd():
+        rc = lib.rmcl_attention_fwd(1, q.data_ptr(), k.data_ptr(), v.data_ptr(), *q.stride()[:3],
+                                    mask.data_ptr(), o.data_ptr(), *o.stride()[:3], B, S, H, D,
+                                    scale, stream)
+        check(rc == 0, f"rmcl_attention_fwd returned {rc}")
 
     def packed():
         rc = lib.rmcl_masked_attention_bwd(1, qkv.data_ptr(), mask.data_ptr(), dattn.data_ptr(),
@@ -1597,13 +1654,17 @@ def _attention_bwd_calls(dev, lib, gen) -> dict:
                                     stream)
         check(rc == 0, f"rmcl_attention_bwd returned {rc}")
 
-    return {"rmcl_masked_attention_bwd": packed, "rmcl_attention_bwd": heads}
+    return {"rmcl_masked_attention_fwd": packed_fwd, "rmcl_attention_fwd": heads_fwd,
+            "F.scaled_dot_product_attention": lambda: F.scaled_dot_product_attention(
+                q, k, v, attn_mask=keep),
+            "rmcl_masked_attention_bwd": packed, "rmcl_attention_bwd": heads}
 
 
 def gemm_times(root: str) -> None:
     """Times of the GEMM sub-kernels of the package under ``root`` at the
     step's shapes (LN_GEMM_SUBS, GEMM_TN_SUBS) and of the bf16 attention
-    backward through both its C entry points at B=16, S=241, H=12, D=64: per
+    forward and backward through their C entry points at B=16, S=241, H=12,
+    D=64: per
     call as phase 3 times them (time_ms), by device time and by host enqueue
     time, through the arguments every slice of the port has had, so that two
     versions compare in one run; then the attack's wall and device time
@@ -1628,7 +1689,7 @@ def gemm_times(root: str) -> None:
             def run(a=a, b=b):
                 return FB._gemm_tn(lib, a, b)
             res[f"gemm_tn[{label}]"] = (time_ms(run), device_ms(run), host_us(run))
-        for name, run in _attention_bwd_calls(dev, lib, gen).items():
+        for name, run in _attention_calls(dev, lib, gen).items():
             res[name] = (time_ms(run), device_ms(run), host_us(run))
     for name, (ms, dms, hus) in res.items():
         print(f"[gemm-times] {root} {name}: kernel_ms={ms!r} device_ms={dms!r} "
@@ -1759,6 +1820,17 @@ def main() -> int:
             "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
             "library_ms": r["library_ms"], "library": r["library"], "shape": r["shape"],
             "instances": {k: v["ms"] for k, v in subs.items() if k.startswith(name + "[")}})
+    r = subs["attention_fwd"]   # the bf16 forward under rows 1, 8, 2 and 10
+    records.append({
+        "name": "attention_fwd", "route": "cuda", "source": ATTN_SOURCE,
+        "replaces": KERNELS["attn_half"], "launches": train_counts["default"]["attention_fwd"],
+        "launches_by_path": {"serving": counts["attention_fwd"],
+                             "pgd": pgd_counts["attention_fwd"],
+                             **{f"train_{c}": n["attention_fwd"] for c, n in train_counts.items()}},
+        "max_abs_err": r["max_abs_err"], "ms": r["ms"], "device_ms": r["device_ms"],
+        "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
+        "library_ms": r["library_ms"], "library_device_ms": r["library_device_ms"],
+        "library": r["library"], "shape": r["shape"]})
     r = subs["attention_bwd"]   # the bf16 pair under rows 3, 9, 2 and 11
     records.append({
         "name": "attention_bwd", "route": "cuda", "source": ATTN_SOURCE,

@@ -122,7 +122,9 @@
 //     memory and runs an online softmax, so no S x S tensor reaches device
 //     memory.  The attention kernels take explicit (batch, head, row)
 //     strides: the packed buffer and the (B, H, S, D) operands of the
-//     attention core are two stride sets of one body.
+//     attention core are two stride sets of one body.  In bf16 it runs on
+//     wgmma with cp.async double buffering (hopper_attention.cuh:
+//     fwd_kernel); in fp32 it is a SIMT loop.
 //   * The attention backward recomputes P tile by tile from q, k and the
 //     key mask in two kernels, so no S x S tensor reaches device memory and
 //     no atomics are needed: masked_attention_bwd_dq owns a query tile
@@ -134,7 +136,7 @@
 //   * Not yet done (left for later work): the qkv buffer, the attention
 //     output, the (S, 4C) MLP hidden and the backward's dattn, dqkv, dh and
 //     fp32 dy pass through device memory, which the TPU kernels kept on
-//     chip; the attention forward has no TMA, wgmma or pipelining.
+//     chip.
 //
 // The attention core's backward (pallas_attention.py:_attn_bwd_kernel) has
 // other rounding points than the block halves' (_attn_bwd_math): ds stays
@@ -815,7 +817,10 @@ colsum_reduce_kernel(const float* __restrict__ partial, float* __restrict__ out,
 // mask: (B, S) int32, 1 = valid key.  One block per (query tile, head,
 // sample); 8 warps, 8 query rows each.  K and V tiles are staged in shared
 // memory as fp32; scores, the running max and sum, and the output
-// accumulators stay in registers.
+// accumulators stay in registers.  This SIMT kernel runs fp32 only (wgmma's
+// fp32 input would be TF32); bf16 runs hopper_attention.cuh's fwd_kernel
+// with the same numerics: e = exp(s - m) rounded before P.V, l summed from
+// the fp32 e, o divided by l at the store.
 
 constexpr int AQ = 64, AK = 64, ATT_THREADS = 256, ROWS_PER_WARP = AQ / (ATT_THREADS / 32);
 constexpr int MAX_D = 128;
@@ -1268,19 +1273,27 @@ masked_attention_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k
   }
 }
 
+// bf16 runs the wgmma kernel of hopper_attention.cuh; fp32 the SIMT kernel
+// above (wgmma's fp32 input would be TF32)
 template <typename T>
 cudaError_t launch_attention(const T* q, const T* k, const T* v, Strides in, const void* mask,
                              void* out, Strides os, int B, int S, int H, int D, float scale,
                              cudaStream_t stream) {
-  const size_t smem = attention_smem_bytes(D);
-  cudaError_t err = cudaFuncSetAttribute(masked_attention_fwd_kernel<T>,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                         (int)smem);
-  if (err != cudaSuccess) return err;
-  const dim3 grid((S + AQ - 1) / AQ, H, B);
-  masked_attention_fwd_kernel<T><<<grid, ATT_THREADS, smem, stream>>>(
-      q, k, v, in, static_cast<const int32_t*>(mask), static_cast<T*>(out), os, S, D, scale);
-  return cudaGetLastError();
+  if constexpr (std::is_same<T, bf16>::value) {
+    return hattn::launch_fwd(q, k, v, {in.b, in.h, in.s}, static_cast<const int32_t*>(mask),
+                             static_cast<bf16*>(out), {os.b, os.h, os.s}, B, S, H, D, scale,
+                             stream);
+  } else {
+    const size_t smem = attention_smem_bytes(D);
+    cudaError_t err = cudaFuncSetAttribute(masked_attention_fwd_kernel<T>,
+                                           cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                           (int)smem);
+    if (err != cudaSuccess) return err;
+    const dim3 grid((S + AQ - 1) / AQ, H, B);
+    masked_attention_fwd_kernel<T><<<grid, ATT_THREADS, smem, stream>>>(
+        q, k, v, in, static_cast<const int32_t*>(mask), static_cast<T*>(out), os, S, D, scale);
+    return cudaGetLastError();
+  }
 }
 
 // bf16 runs the wgmma kernels of hopper_attention.cuh; fp32 the SIMT kernels
@@ -1613,6 +1626,8 @@ int rmcl_masked_attention_bwd(int dtype, const void* qkv, const void* mask,
   return (int)cudaErrorInvalidValue;
 }
 
+// out: (B, S, C).  dtype 1 (the wgmma kernel) needs D a multiple of 8 and
+// 16-byte aligned buffers, else returns cudaErrorInvalidValue.
 int rmcl_masked_attention_fwd(int dtype, const void* qkv, const void* mask, void* out,
                               int B, int S, int H, int D, float scale, void* stream) {
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
@@ -1626,7 +1641,9 @@ int rmcl_masked_attention_fwd(int dtype, const void* qkv, const void* mask, void
 
 // The attention core on (B, H, S, D) operands (pallas_attention.py:_fwd_impl).
 // q, k and v share the element strides (qb, qh, qs); out has (ob, oh, os);
-// d is contiguous in every operand.
+// d is contiguous in every operand.  dtype 1 (the wgmma kernel) needs D a
+// multiple of 8, 16-byte aligned bases and every stride a multiple of 8
+// elements, else returns cudaErrorInvalidValue.
 int rmcl_attention_fwd(int dtype, const void* q, const void* k, const void* v, long long qb,
                        long long qh, long long qs, const void* mask, void* out, long long ob,
                        long long oh, long long os, int B, int S, int H, int D, float scale,

@@ -1,38 +1,58 @@
-// The bf16 masked-attention backward on Hopper (sm_90a): masked_attention_bwd_dq
-// and masked_attention_bwd_dkv on wgmma.mma_async, bf16 operands and fp32
-// accumulators in registers.
+// The bf16 masked attention on Hopper (sm_90a): the forward (fwd_kernel) and
+// the backward (bwd_dq_kernel, bwd_dkv_kernel) on wgmma.mma_async, bf16
+// operands and fp32 accumulators in registers.
 //
-// Replaces (JAX package, Pallas on the TPU) the backward attention math of
-//   rmcl_tpu/ops/pallas_block.py:_attn_bwd_math, inside _half_block_dx_kernel,
-//     _bwd_impl and _attn_train_bwd_impl (kRound = true: the block halves)
-//   rmcl_tpu/ops/pallas_attention.py:_attn_bwd_kernel (kRound = false: the
-//     attention core of the unfused block)
+// Replaces (JAX package, Pallas on the TPU) the attention math of
+//   rmcl_tpu/ops/pallas_block.py:_attn_fwd_math, inside _half_block_kernel and
+//     _attn_train_kernel (forward), and _attn_bwd_math, inside
+//     _half_block_dx_kernel, _bwd_impl and _attn_train_bwd_impl (kRound =
+//     true: the block halves)
+//   rmcl_tpu/ops/pallas_attention.py:_attn_kernel (forward) and
+//     _attn_bwd_kernel (kRound = false: the attention core of the unfused
+//     block)
 // Given q, k, v (B, H, S, D) through (b, h, s) element strides shared by the
-// three, the key mask (B, S) and g (the gradient at the attention output),
-// with s = q.k^T scale + key bias (0, -1e30 for a masked key, -inf past S)
-// and p = softmax(s) in fp32:
+// three, the key mask (B, S) and, for the backward, g (the gradient at the
+// attention output), with s = q.k^T scale + key bias (0, -1e30 for a masked
+// key, -inf past S) and p = softmax(s) in fp32:
+//   forward  o = bf16(bf16(p) . v), P.V summed in fp32 (both layouts round P
+//            at the same point)
 //   dp = g . v^T (fp32)     delta = sum_t dp p
 //   kRound   ds = bf16(p (dp - delta) scale)   pb = bf16(p)
 //            dq = bf16(ds . k)   dk = bf16(ds^T . q)   dv = bf16(pb^T . g)
 //   !kRound  ds = p (dp - delta), fp32 and unscaled
 //            dq = bf16(scale (ds . k))   dk = bf16(scale (ds^T . q))   dv = bf16(p^T . g)
 //
-// What bounds it on an H100.  At the step's B=16, S=241, H=12, D=64 the
-// function moves q, k, v, g, dq, dk, dv (5.9 MB each in bf16): 12.4 us at
-// 3.35 TB/s, against 1.9 us for its 5 S x S x D products at 989 TFLOP/s, so
-// the bound is bytes.  This design recomputes: 9 products (s and dp three
-// times, dq, dk, dv), about 14.5 GFLOP on 64-padded tiles, and some 38 M
-// exponentials, so it sits on the tensor cores and the MUFU, not on the bytes.
+// What bounds them on an H100.  At the step's B=16, S=241, H=12, D=64 every
+// (B, H, S, D) bf16 operand is 5.9 MB.  The forward moves q, k, v and o:
+// 7.1 us at 3.35 TB/s, against 1.9 us for its two S x S x D products (3.2
+// GFLOP on 64-padded tiles) at 989 TFLOP/s, and it takes some 12.6 M
+// exponentials.  The backward moves q, k, v, g, dq, dk, dv: 12.4 us, against
+// 1.9 us for its 5 products; this design recomputes (9 products, about 14.5
+// GFLOP, some 38 M exponentials), so it sits on the tensor cores and the
+// MUFU, not on the bytes.  Both are bound by bytes at their least.
 //
-// Two kernels, so that every output element has one owner and nothing is
-// accumulated across blocks (no atomics; every sum in a fixed order, so two
-// calls give the same bits):
+// The forward, one warpgroup per (64-query tile, head, sample): the Q tile is
+// loaded once; the kernel walks the key tiles with K, V and the key bias
+// double-buffered.  Per tile: S = Q.K^T, the online row max m and sum l on
+// the accumulator rows, e = exp(s - m) rounded to bf16 as the A fragments of
+// O = alpha O + E.V; the store multiplies each row by 1 / l.  These are the
+// SIMT forward's numerics (e rounded before P.V, l summed from the fp32 e,
+// division by l at the end), where the Pallas kernels round the normalised
+// p: both sit within one bf16 rounding of the plain version.
+//
+// The backward, two kernels, so that every output element has one owner and
+// nothing is accumulated across blocks (no atomics; every sum in a fixed
+// order, so two calls give the same bits):
 //   bwd_dq   one warpgroup per (64-query tile, head, sample).  The Q and g
 //            tiles are loaded once; the kernel walks the key tiles twice.
 //            Pass 0: S = Q.K^T and dP = g.V^T, the online row statistics
 //            m, l and sum_t e^(s - m) dp (rescaled as in the forward).
 //            Pass 1: S and dP again, ds in registers, dQ += dS.K.  m, l and
-//            delta go to the (B, H, S, 3) fp32 stats scratch.
+//            delta go to the (B, H, S, 3) fp32 stats scratch.  The forward
+//            cannot hand over m and l to save pass 0: delta needs g, and
+//            FlashAttention's delta = rowsum(g o) would take the forward's
+//            bf16-rounded o in place of sum p v in fp32, moving the Pallas
+//            kernels' rounding points.
 //   bwd_dkv  one warpgroup per (64-key tile, head, sample), launched after
 //            it: K and V loaded once; for each query tile S^T = K.Q^T and
 //            dP^T = V.g^T, p and ds from stats, dV += P^T.g and dK += dS^T.Q.
@@ -44,13 +64,14 @@
 // same shared tile read MN-major through the transpose bit: no operand is
 // transposed in memory and no S x S tile passes through shared memory.
 //
-// Rounding.  kRound's products take bf16 operands only (ds and pb are
-// rounded where the Pallas kernel rounds them), so wgmma with fp32
-// accumulation meets its rounding points exactly; only the order of the fp32
-// sums differs.  !kRound's A operands (ds and p) are fp32: each is fed as a
-// pair hi = bf16(x), lo = bf16(x - hi), two wgmma into one fp32 accumulator.
-// The pair carries 16 significant bits (relative error about 2^-17), far
-// below the bf16 rounding of the outputs (2^-9); TF32 (10 bits) would not be.
+// Rounding.  The forward's and kRound's products take bf16 operands only (e,
+// ds and pb are rounded where the kernels they replace round them), so wgmma
+// with fp32 accumulation meets those rounding points exactly; only the order
+// of the fp32 sums differs.  !kRound's A operands (ds and p) are fp32: each
+// is fed as a pair hi = bf16(x), lo = bf16(x - hi), two wgmma into one fp32
+// accumulator.  The pair carries 16 significant bits (relative error about
+// 2^-17), far below the bf16 rounding of the outputs (2^-9); TF32 (10 bits)
+// would not be.
 //
 // Tiles.  Every operand tile is 64 rows by D, padded with zeros to DP = 64 or
 // 128 columns, stored as boxes of 64 columns: 128-byte rows with the 128-byte
@@ -61,7 +82,7 @@
 // tile's products.  cp.async rather than TMA: any strides that q, k and v
 // share, D = 8, ragged S, and no host-side tensor maps on a host-bound path.
 // It needs 16-byte aligned bases and strides, and D a multiple of 8: the
-// launcher refuses anything else.
+// launchers refuse anything else.
 
 #pragma once
 
@@ -88,9 +109,11 @@ struct Strides {   // element strides (b, h, s) of a (B, H, S, D) operand, d con
 template <int DP>
 struct Smem {
   static constexpr int TILE_BYTES = DP / 64 * BOX_BYTES;
-  // 1024 bytes of slack to align to the swizzle's period; six operand tiles
-  // (dq: Q, g, then K and V twice; dkv: K, V, then Q and g twice); the key
-  // bias (dq) or the query statistics (dkv) of both buffers
+  // 1024 bytes of slack to align to the swizzle's period; the operand tiles
+  // (fwd: Q, then K and V twice; dq: Q, g, then K and V twice; dkv: K, V,
+  // then Q and g twice); the key bias (fwd, dq) or the query statistics
+  // (dkv) of both buffers
+  static constexpr int FWD = 1024 + 5 * TILE_BYTES + 2 * TILE * 4;
   static constexpr int DQ = 1024 + 6 * TILE_BYTES + 2 * TILE * 4;
   static constexpr int DKV = 1024 + 6 * TILE_BYTES + 2 * TILE * 3 * 4;
 };
@@ -213,10 +236,11 @@ __device__ __forceinline__ float quad_sum(float v) {
 
 // Rows 16 warp + lane / 4 + 8 hh (hh < 2) of an m64 accumulator belong to a
 // thread, with columns 8 j + 2 (lane % 4) + e of n8 block j at element
-// 4 j + 2 hh + e.  Writes those rows (< S) and columns (< D) of out, times mul.
+// 4 j + 2 hh + e.  Writes those rows (< S) and columns (< D) of out, row hh
+// times mul[hh].
 template <int N>
 __device__ __forceinline__ void store_rows(const float (&acc)[N], bf16* out, long long ld,
-                                           int row0, int S, int D, float mul) {
+                                           int row0, int S, int D, const float (&mul)[2]) {
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
 #pragma unroll
   for (int hh = 0; hh < 2; ++hh) {
@@ -228,12 +252,128 @@ __device__ __forceinline__ void store_rows(const float (&acc)[N], bf16* out, lon
       const int c = 8 * j + 2 * (lane % 4);
       if (c < D)
         *reinterpret_cast<uint32_t*>(row + c) =
-            pack_bf16(acc[4 * j + 2 * hh] * mul, acc[4 * j + 2 * hh + 1] * mul);
+            pack_bf16(acc[4 * j + 2 * hh] * mul[hh], acc[4 * j + 2 * hh + 1] * mul[hh]);
     }
   }
 }
+template <int N>
+__device__ __forceinline__ void store_rows(const float (&acc)[N], bf16* out, long long ld,
+                                           int row0, int S, int D, float mul) {
+  const float both[2] = {mul, mul};
+  store_rows(acc, out, ld, row0, S, D, both);
+}
 
 // ------------------------------------------------------------- kernels
+template <int DP>
+__global__ void __launch_bounds__(THREADS)
+fwd_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k, const bf16* __restrict__ v,
+           Strides in, const int32_t* __restrict__ mask, bf16* __restrict__ out, Strides os,
+           int S, int D, float scale) {
+  using L = Smem<DP>;
+  extern __shared__ uint8_t smem_raw[];
+  const uint32_t raw = hg::smem_u32(smem_raw);
+  const uint32_t sQ = (raw + 1023u) & ~1023u;
+  const uint32_t sKV = sQ + L::TILE_BYTES;   // K then V of buffer i at sKV + 2 i TILE_BYTES
+  float* kbias = reinterpret_cast<float*>(smem_raw + (sQ - raw) + 5 * L::TILE_BYTES);
+
+  const int q0 = blockIdx.x * TILE, h = blockIdx.y, b = blockIdx.z;
+  const int tid = threadIdx.x, lane = tid % 32;
+  const bf16* kh = k + b * in.b + h * in.h;
+  const bf16* vh = v + b * in.b + h * in.h;
+  const int nk = (S + TILE - 1) / TILE;
+
+  auto load_keys = [&](int t, int buf) {
+    const uint32_t kt = sKV + 2 * buf * L::TILE_BYTES;
+    load_tile<DP>(kt, kh, in.s, t * TILE, S, D);
+    load_tile<DP>(kt + L::TILE_BYTES, vh, in.s, t * TILE, S, D);
+    if (tid < TILE) {   // keys past S take no weight at all; masked keys the -1e30 bias
+      const int s = t * TILE + tid;
+      kbias[buf * TILE + tid] =
+          s < S ? (mask[(long long)b * S + s] > 0 ? 0.f : NEG_BIAS) : -INFINITY;
+    }
+  };
+  load_tile<DP>(sQ, q + b * in.b + h * in.h, in.s, q0, S, D);
+  load_keys(0, 0);
+  cp_async_commit();
+
+  // per row hh of this thread: running max and sum of e^(s - m)
+  float m_run[2] = {-INFINITY, -INFINITY}, l_run[2] = {0.f, 0.f};
+  float acc[DP / 2];
+#pragma unroll
+  for (int i = 0; i < DP / 2; ++i) acc[i] = 0.f;
+
+#pragma unroll 1
+  for (int it = 0; it < nk; ++it) {
+    const int buf = it & 1;
+    if (it + 1 < nk) {
+      load_keys(it + 1, buf ^ 1);
+      cp_async_commit();
+      cp_async_wait<1>();
+    } else {
+      cp_async_wait<0>();
+    }
+    fence_async_smem();
+    __syncthreads();
+    const uint32_t sK = sKV + 2 * buf * L::TILE_BYTES, sV = sK + L::TILE_BYTES;
+    const float* kb = kbias + buf * TILE;
+
+    float s[32];
+    hg::wgmma_fence();
+    mma_nt<DP>(s, sQ, sK);
+    hg::wgmma_commit();
+    hg::wgmma_wait<0>();
+    hg::fence_acc(s);
+
+#pragma unroll
+    for (int hh = 0; hh < 2; ++hh) {
+      float mx = m_run[hh];
+#pragma unroll
+      for (int j = 0; j < 8; ++j)
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          float& x = s[4 * j + 2 * hh + e];
+          x = x * scale + kb[8 * j + 2 * (lane % 4) + e];
+          mx = fmaxf(mx, x);
+        }
+      // a tile whose keys are all masked gives a max near -1e30; a later
+      // valid key rescales everything gathered so far by exp(-1e30) = 0
+      mx = quad_max(mx);
+      const float alpha = expf(m_run[hh] - mx);
+      float ls = 0.f;
+#pragma unroll
+      for (int j = 0; j < 8; ++j)
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          float& x = s[4 * j + 2 * hh + e];
+          x = expf(x - mx);
+          ls += x;
+        }
+      l_run[hh] = l_run[hh] * alpha + quad_sum(ls);
+      m_run[hh] = mx;
+#pragma unroll
+      for (int j = 0; j < DP / 8; ++j) {
+        acc[4 * j + 2 * hh] *= alpha;
+        acc[4 * j + 2 * hh + 1] *= alpha;
+      }
+    }
+    // O += bf16(e) . V: the e of this tile as A fragments, V read MN-major
+    uint32_t pe[4][4], unused[4][4];
+    to_frags<false>(s, pe, unused);
+    fence_frag(pe);
+    hg::fence_acc(acc);
+    hg::wgmma_fence();
+    mma_rn<DP>(acc, pe, sV);
+    hg::wgmma_commit();
+    hg::wgmma_wait<0>();
+    hg::fence_acc(acc);
+    fence_frag(pe);
+    __syncthreads();   // this buffer is consumed: the next step's copy may overwrite it
+  }
+
+  const float inv_l[2] = {1.f / l_run[0], 1.f / l_run[1]};
+  store_rows(acc, out + b * os.b + h * os.h, os.s, q0, S, D, inv_l);
+}
+
 template <int DP, bool kRound>
 __global__ void __launch_bounds__(THREADS)
 bwd_dq_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
@@ -501,6 +641,18 @@ bwd_dkv_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
 }
 
 // ------------------------------------------------------------------ host
+template <int DP>
+cudaError_t launch_fwd_tiles(const bf16* q, const bf16* k, const bf16* v, Strides in,
+                             const int32_t* mask, bf16* out, Strides os, int B, int S, int H,
+                             int D, float scale, cudaStream_t stream) {
+  using L = Smem<DP>;
+  const cudaError_t err = hg::allow_smem<fwd_kernel<DP>>(L::FWD);
+  if (err != cudaSuccess) return err;
+  const dim3 grid((S + TILE - 1) / TILE, H, B);
+  fwd_kernel<DP><<<grid, THREADS, L::FWD, stream>>>(q, k, v, in, mask, out, os, S, D, scale);
+  return cudaGetLastError();
+}
+
 template <int DP, bool kRound>
 cudaError_t launch_tiles(const bf16* q, const bf16* k, const bf16* v, Strides in,
                          const int32_t* mask, const bf16* g, Strides gs, bf16* dq, bf16* dk,
@@ -530,6 +682,19 @@ inline bool layout_ok(const void* const* ptrs, int n, const Strides* strides, in
   for (int i = 0; i < ns; ++i)
     if (strides[i].b % 8 != 0 || strides[i].h % 8 != 0 || strides[i].s % 8 != 0) return false;
   return true;
+}
+
+// out (strides os) from q, k, v (strides in) and the (B, S) int32 key mask.
+// Returns cudaErrorInvalidValue for a layout the kernel does not take.
+inline cudaError_t launch_fwd(const bf16* q, const bf16* k, const bf16* v, Strides in,
+                              const int32_t* mask, bf16* out, Strides os, int B, int S, int H,
+                              int D, float scale, cudaStream_t stream) {
+  const void* ptrs[] = {q, k, v, out};
+  const Strides strides[] = {in, os};
+  if (!layout_ok(ptrs, 4, strides, 2, D)) return cudaErrorInvalidValue;
+  if (B <= 0 || S <= 0 || H <= 0) return cudaSuccess;
+  return D <= 64 ? launch_fwd_tiles<64>(q, k, v, in, mask, out, os, B, S, H, D, scale, stream)
+                 : launch_fwd_tiles<128>(q, k, v, in, mask, out, os, B, S, H, D, scale, stream);
 }
 
 // dq, dk, dv (strides os) and the (B, H, S, 3) fp32 stats scratch from q, k,

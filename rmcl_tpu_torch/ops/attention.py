@@ -25,11 +25,13 @@ raise; on a CPU tensor it is ``mha`` under autograd.  The kernels read q, k
 and v through their strides (views of one qkv buffer need no copy) and write
 the output as (B, S, H, D) memory, so that merging the heads back to
 (B, S, C) is a view.  Launches count in ``fused_block.launches`` under
-``masked_attention`` and ``masked_attention_bwd``.  In bfloat16 the backward
-runs the wgmma kernels of ``csrc/hopper_attention.cuh``, which read q, k, v
-and g by cp.async: their head dim a multiple of 8, their bases 16-byte
-aligned and their (b, h, s) strides multiples of 8 elements, or it raises;
-in float32 SIMT kernels that take any strides.
+``masked_attention`` and ``masked_attention_bwd``.  In bfloat16 the forward
+and the backward run the wgmma kernels of ``csrc/hopper_attention.cuh``
+(counted in ``fused_block.sub_launches`` under ``attention_fwd`` and
+``attention_bwd``), which read q, k, v and g by cp.async: their head dim a
+multiple of 8, their bases 16-byte aligned and their (b, h, s) strides
+multiples of 8 elements, or it raises; in float32 SIMT kernels that take
+any strides.
 """
 
 from __future__ import annotations
@@ -104,29 +106,36 @@ def _stream(t):
 
 
 def _attention_fwd(q, k, v, mask, scale):
-    from rmcl_tpu_torch.ops.fused_block import launches   # that module imports this one
+    from rmcl_tpu_torch.ops.fused_block import launches, sub_launches  # imports this one
     B, H, S, D = q.shape
+    bf16 = q.dtype == torch.bfloat16
+    if bf16:
+        _wgmma_layout(q=q, k=k, v=v)
     out = torch.empty(B, S, H, D, device=q.device, dtype=q.dtype).transpose(1, 2)
     rc = _build.library().rmcl_attention_fwd(
         _DTYPE_CODE[q.dtype], q.data_ptr(), k.data_ptr(), v.data_ptr(), *_strides(q),
         mask.data_ptr(), out.data_ptr(), *_strides(out), B, S, H, D, scale, _stream(q))
     _build.check(rc, "attention_fwd")
     launches["masked_attention"] += 1
+    if bf16:
+        sub_launches["attention_fwd"] += 1
     return out
 
 
 def _wgmma_layout(**tensors):
-    """What the bf16 backward kernels read by cp.async: a head dim that is a
-    multiple of 8, 16-byte aligned bases and (b, h, s) strides that are
-    multiples of 8 elements.  Raises on anything else."""
+    """What the bf16 attention kernels read and write by cp.async and paired
+    stores: a head dim that is a multiple of 8, 16-byte aligned bases and
+    (b, h, s) strides that are multiples of 8 elements.  Raises on anything
+    else."""
     D = tensors["q"].shape[-1]
     if D % 8:
-        raise ValueError(f"head dim {D} must be a multiple of 8 for the bf16 backward")
+        raise ValueError(f"head dim {D} must be a multiple of 8 for the bf16 attention "
+                         f"kernels")
     for name, t in tensors.items():
         if t.data_ptr() % 16 or any(st % 8 for st in t.stride()[:3]):
-            raise ValueError(f"{name}: the bf16 backward needs a 16-byte aligned base and "
-                             f"(b, h, s) strides that are multiples of 8, got strides "
-                             f"{tuple(t.stride())}")
+            raise ValueError(f"{name}: the bf16 attention kernels need a 16-byte aligned "
+                             f"base and (b, h, s) strides that are multiples of 8, got "
+                             f"strides {tuple(t.stride())}")
 
 
 def _attention_bwd(q, k, v, mask, g, scale):

@@ -74,9 +74,11 @@ launches = {"attn_half": 0, "mlp_half": 0, "attn_half_dx": 0, "mlp_half_dx": 0,
             # ops/attention.py:masked_attention and ops/dropout.py:dropout
             "masked_attention": 0, "masked_attention_bwd": 0, "dropout": 0}
 # launches of the sub-kernels under those ops: the two GEMMs (``_gemm``,
-# ``_gemm_tn``) and the bf16 attention backward pair (``_attn_bwd_packed``,
-# ``attention._attention_bwd``: csrc/hopper_attention.cuh)
-sub_launches = {"ln_gemm": 0, "gemm_tn": 0, "attention_bwd": 0}
+# ``_gemm_tn``), the bf16 attention forward (``_attn_fwd_packed``,
+# ``attention._attention_fwd``) and the bf16 attention backward pair
+# (``_attn_bwd_packed``, ``attention._attention_bwd``), the last two in
+# csrc/hopper_attention.cuh
+sub_launches = {"ln_gemm": 0, "gemm_tn": 0, "attention_fwd": 0, "attention_bwd": 0}
 
 _EPI_BIAS, _EPI_DGELU, _EPI_F32 = 0, 1, 2      # ln_gemm epilogues (block_kernels.cu)
 
@@ -329,6 +331,23 @@ def _gemm(lib, a2d, w, bias, out, ln=None, eps=0.0, residual=None, gelu=False,
     sub_launches["ln_gemm"] += 1
 
 
+def _attn_fwd_packed(lib, qkv, mask, attn, num_heads):
+    """masked_attention_fwd on the packed layout: attn (B, S, C) from qkv
+    (B, S, 3C).  bfloat16 runs the wgmma kernel (``csrc/hopper_attention.cuh``:
+    head dim a multiple of 8), float32 the SIMT one."""
+    B, S = mask.shape
+    D = qkv.shape[-1] // 3 // num_heads
+    bf16 = qkv.dtype == torch.bfloat16
+    if bf16 and D % 8:
+        raise ValueError(f"head dim {D} must be a multiple of 8 for the bf16 attention forward")
+    rc = lib.rmcl_masked_attention_fwd(
+        _DTYPE_CODE[qkv.dtype], qkv.data_ptr(), mask.data_ptr(), attn.data_ptr(),
+        B, S, num_heads, D, D ** -0.5, _stream(qkv))
+    _build.check(rc, "masked_attention_fwd")
+    if bf16:
+        sub_launches["attention_fwd"] += 1
+
+
 def _attn_bwd_packed(lib, qkv, mask, dattn, dqkv, stats, num_heads):
     """masked_attention_bwd_dq -> _dkv on the packed layout: dqkv (B, S, 3C)
     from qkv (B, S, 3C) and dattn (B, S, C), with the block halves' rounding
@@ -527,10 +546,7 @@ def _attn_fwd(x, mask, ln_w, ln_b, wqkv, bqkv, wproj, bproj, num_heads, eps,
     attn = torch.empty(B * S, Ci, device=x.device, dtype=x.dtype)
     out = torch.empty_like(x)
     _gemm(lib, x2d, wqkv, bqkv, qkv, ln=(ln_w, ln_b), eps=eps)
-    rc = lib.rmcl_masked_attention_fwd(
-        _DTYPE_CODE[x.dtype], qkv.data_ptr(), mask.data_ptr(), attn.data_ptr(),
-        B, S, num_heads, D, D ** -0.5, _stream(x))
-    _build.check(rc, "masked_attention_fwd")
+    _attn_fwd_packed(lib, qkv, mask, attn, num_heads)
     _gemm(lib, attn, wproj, bproj, out.view(B * S, C),
           residual=x2d if residual else None, drop=drop)
     launches[counter] += 1

@@ -657,15 +657,18 @@ def test_gemm_tn_kernel_matches_plain(cuda, M, Na, Nb, dtype):
 
 
 # ------------------------- the bf16 attention backward (csrc/hopper_attention.cuh)
-def _packed_case(B, S, H, D, dev, seed, masked_sample=False):
+def _packed_case(B, S, H, D, dev, seed, masked_sample=False, first_tile=False):
     """qkv (B, S, 3C) and dattn (B, S, C) in bf16 and a key mask: numpy from
-    a seed, the operands of the packed attention backward."""
+    a seed, the operands of the packed attention backward.  ``first_tile``
+    masks every key of the first 64-key tile, a valid key coming later."""
     r = np.random.RandomState(seed)
     C = H * D
     mask = (r.rand(B, S) > 0.3).astype(np.int32)
     mask[:, 0] = 1
     if masked_sample:
         mask[-1] = 0
+    if first_tile:
+        mask[:, :64], mask[:, S - 3] = 0, 1
     t = lambda a: torch.from_numpy(a.astype(np.float32)).to(dev, torch.bfloat16)  # noqa: E731
     return (t(r.randn(B, S, 3 * C)), torch.from_numpy(mask).to(dev), t(r.randn(B, S, C)))
 
@@ -772,3 +775,161 @@ def test_attention_bwd_refuses_unaligned_layouts(cuda):
     q = flat[1:].view(B, H, S, D)
     with torch.no_grad(), pytest.raises(ValueError, match="aligned"):
         A.masked_attention_bwd(q, q, q, mask, g, D ** -0.5)
+
+
+# --------------------------- the bf16 attention forward (csrc/hopper_attention.cuh)
+def _close_to_max(name, out, ref, tol):
+    """Error relative to max|ref| of that output."""
+    out, ref = out.float(), ref.float()
+    assert bool(torch.isfinite(out).all()), name
+    err = (out - ref).abs().max().item()
+    assert err <= tol * ref.abs().max().item(), (name, err)
+
+
+def _packed_fwd(qkv, mask, H):
+    from rmcl_tpu_torch.ops import _build
+    B, S, C3 = qkv.shape
+    attn = torch.empty(B, S, C3 // 3, device=qkv.device, dtype=qkv.dtype)
+    before = FB.sub_launches["attention_fwd"]
+    FB._attn_fwd_packed(_build.library(), qkv, mask, attn, H)
+    assert FB.sub_launches["attention_fwd"] == before + 1
+    return attn
+
+
+def _fwd_plain(qkv, mask, H):
+    """The plain packed forward: mha on the heads of qkv, merged to (B, S, C)."""
+    from rmcl_tpu_torch.ops import attention as A
+    B, S, C3 = qkv.shape
+    D = C3 // 3 // H
+    q, k, v = qkv.view(B, S, 3, H, D).permute(2, 0, 3, 1, 4)
+    return A.mha(q, k, v, mask, D ** -0.5).transpose(1, 2).reshape(B, S, C3 // 3)
+
+
+def _check_fwd_packed(B, S, H, D, dev, seed, **mask_kind):
+    """The packed forward (rows 1, 8, 2: the block halves' attention) against
+    mha on the same heads, 2e-2 of max|ref|; two calls give the same bits."""
+    qkv, mask, _ = _packed_case(B, S, H, D, dev, seed, **mask_kind)
+    ours, again = _packed_fwd(qkv, mask, H), _packed_fwd(qkv, mask, H)
+    ref = _fwd_plain(qkv, mask, H)
+    torch.cuda.synchronize()
+    assert torch.equal(ours, again)
+    _close_to_max("attn", ours, ref, 2e-2)
+
+
+def _check_fwd_heads(B, S, H, D, dev, seed, packed, **mask_kind):
+    """The heads path (row 10) against mha, on views of one qkv buffer or
+    contiguous copies; two calls give the same bits."""
+    from rmcl_tpu_torch.ops import attention as A
+    qkv, mask, _ = _packed_case(B, S, H, D, dev, seed, **mask_kind)
+    q, k, v = qkv.view(B, S, 3, H, D).permute(2, 0, 3, 1, 4).unbind(0)
+    if not packed:
+        q, k, v = (t.contiguous() for t in (q, k, v))
+    before = FB.sub_launches["attention_fwd"]
+    ours = A.masked_attention(q, k, v, mask, D ** -0.5)
+    again = A.masked_attention(q, k, v, mask, D ** -0.5)
+    assert FB.sub_launches["attention_fwd"] == before + 2
+    ref = A.mha(q, k, v, mask, D ** -0.5)
+    torch.cuda.synchronize()
+    assert ours.shape == q.shape and ours.dtype == torch.bfloat16
+    assert torch.equal(ours, again)
+    _close_to_max("out", ours, ref, 2e-2)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,S", [(16, 241), (8, 269)], ids=["step", "serving"])
+@pytest.mark.parametrize("layout", ["packed", "views", "contiguous"])
+def test_attention_fwd_at_vilt_shapes(cuda, B, S, layout):
+    """ViLT's own shapes, H=12 D=64, in bf16: the step's and serving's."""
+    with torch.no_grad():
+        if layout == "packed":
+            _check_fwd_packed(B, S, 12, 64, cuda, 31)
+        else:
+            _check_fwd_heads(B, S, 12, 64, cuda, 32, layout == "views")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("S", [1, 63, 64, 65, 128, 241, 269])
+@pytest.mark.parametrize("layout", ["packed", "views", "contiguous"])
+def test_attention_fwd_edge_lengths(cuda, S, layout):
+    """Sequence lengths around the 64-row tiles and ViLT's ragged ones, D = 64."""
+    with torch.no_grad():
+        if layout == "packed":
+            _check_fwd_packed(3, S, 2, 64, cuda, S)
+        else:
+            _check_fwd_heads(3, S, 2, 64, cuda, S, layout == "views")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", SHAPES, ids=lambda s: f"S{s[1]}C{s[2]}H{s[3]}{s[4]}")
+@pytest.mark.parametrize("layout", ["packed", "views", "contiguous"])
+def test_attention_fwd_head_dims(cuda, shape, layout):
+    """D = 8, 64 and 128 (padded to 64 or 128 columns) at SHAPES' sizes."""
+    B, S, C, H, kind = shape
+    with torch.no_grad():
+        if layout == "packed":
+            _check_fwd_packed(B, S, H, C // H, cuda, 41, first_tile=kind == "first_tile")
+        else:
+            _check_fwd_heads(B, S, H, C // H, cuda, 42, layout == "views",
+                             first_tile=kind == "first_tile")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", ["first_tile", "masked_sample"])
+@pytest.mark.parametrize("layout", ["packed", "views"])
+def test_attention_fwd_masked_tiles(cuda, kind, layout):
+    """Every key of the first tile masked, a valid key later (the running
+    sums rescale to 0); every key of one sample masked (p uniform over its S
+    keys, as the plain version's finite -1e30 bias gives it)."""
+    mask_kind = {kind: True}
+    with torch.no_grad():
+        if layout == "packed":
+            _check_fwd_packed(2, 241, 4, 64, cuda, 51, **mask_kind)
+        else:
+            _check_fwd_heads(2, 241, 4, 64, cuda, 52, True, **mask_kind)
+
+
+@pytest.mark.cuda
+def test_attention_fwd_fp32_stays_simt(cuda):
+    """fp32 runs the SIMT forward (wgmma would read TF32): any strides, and
+    no bf16 sub-launch counted."""
+    from rmcl_tpu_torch.ops import attention as A
+    B, S, H, D = 2, 70, 4, 64
+    r = np.random.RandomState(61)
+    odd = torch.from_numpy(r.randn(B, S, 3 * H * D + 1).astype(np.float32)).to(cuda)
+    q, k, v = odd[..., :3 * H * D].view(B, S, 3, H, D).permute(2, 0, 3, 1, 4).unbind(0)
+    mask = torch.ones(B, S, device=cuda, dtype=torch.int32)
+    before = dict(FB.sub_launches)
+    with torch.no_grad():
+        out = A.masked_attention(q, k, v, mask, D ** -0.5)
+    torch.cuda.synchronize()
+    assert FB.sub_launches == before
+    _close("out", out, A.mha(q, k, v, mask, D ** -0.5), 2e-4)
+
+
+@pytest.mark.cuda
+def test_attention_fwd_refuses_unaligned_layouts(cuda):
+    """The bf16 forward reads its operands by 16-byte cp.async: a row stride
+    that is not a multiple of 8 elements, a base off 16 bytes or a head dim
+    that is not a multiple of 8 raises instead of launching."""
+    from rmcl_tpu_torch.ops import _build
+    from rmcl_tpu_torch.ops import attention as A
+    B, S, H, D = 2, 70, 4, 64
+    C = H * D
+    mask = torch.ones(B, S, device=cuda, dtype=torch.int32)
+    odd = torch.zeros(B, S, 3 * C + 1, device=cuda, dtype=torch.bfloat16)
+    q, k, v = odd[..., :3 * C].view(B, S, 3, H, D).permute(2, 0, 3, 1, 4).unbind(0)
+    before = FB.sub_launches["attention_fwd"]
+    with torch.no_grad(), pytest.raises(ValueError, match="strides"):
+        A.masked_attention(q, k, v, mask, D ** -0.5)
+    flat = torch.zeros(B * H * S * D + 1, device=cuda, dtype=torch.bfloat16)
+    q = flat[1:].view(B, H, S, D)
+    with torch.no_grad(), pytest.raises(ValueError, match="aligned"):
+        A.masked_attention(q, q, q, mask, D ** -0.5)
+    q = torch.zeros(B, H, S, 12, device=cuda, dtype=torch.bfloat16)
+    with torch.no_grad(), pytest.raises(ValueError, match="multiple of 8"):
+        A.masked_attention(q, q, q, mask, 12 ** -0.5)
+    qkv = torch.zeros(B, S, 3 * H * 12, device=cuda, dtype=torch.bfloat16)
+    attn = torch.empty(B, S, H * 12, device=cuda, dtype=torch.bfloat16)
+    with pytest.raises(ValueError, match="multiple of 8"):
+        FB._attn_fwd_packed(_build.library(), qkv, mask, attn, H)
+    assert FB.sub_launches["attention_fwd"] == before
