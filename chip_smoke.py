@@ -53,7 +53,16 @@ Phases, any failure exits non-zero:
                attention backward pair on the packed layout (rows 3, 9, 2) against
                _attn_dqkv_plain with Wproj = I, bit-identical twice, with its
                bound, time per call and device time beside the backward of
-               F.scaled_dot_product_attention.  The port never calls them.
+               F.scaled_dot_product_attention; the LayerNorm backward ln_bwd
+               in its dx-only and training forms at M = 16 x 241, C = 768 with
+               + g against _ln_backward_plain, and the column sums colsum at
+               N = 768, 2304 and 3072 against _colsum_plain, bf16 and fp32
+               (fp32 outputs within 1e-5 of max(1, max|ref|), bf16 dx and y
+               within one bf16 ulp of max|ref|), bit-identical twice, each
+               with its byte bound, time per call and device time beside
+               torch.ops.aten.native_layer_norm_backward on fp32 copies (the
+               nearest call: no + g, no y) and a.sum(0, dtype=float32).  The
+               port never calls them.
                The training ops at B=16, S=241, fp32 and bf16, p = 0.1 and
                p = 0: attn_half_train and mlp_half_train, and their backwards
                on the forward's kept tensors with a random g, every output
@@ -146,16 +155,18 @@ idle share (the breakdowns of PERF.md section 5).
     python3 chip_smoke.py --gemm-times [ROOT]
 
 times the GEMM sub-kernels of the package under ROOT (default: this
-checkout) at phase 3's shapes and the bf16 attention forward and backward
+checkout) at phase 3's shapes, the bf16 attention forward and backward
 through their four C entry points (rmcl_masked_attention_fwd,
 rmcl_attention_fwd, rmcl_masked_attention_bwd, rmcl_attention_bwd) at B=16,
-S=241, H=12, D=64, beside F.scaled_dot_product_attention's forward, per
+S=241, H=12, D=64, beside F.scaled_dot_product_attention's forward, and the
+LayerNorm backward (_ln_bwd_dx, _ln_backward) and column sums (_colsum) at
+M = 16 x 241 in bf16, per
 call, by device time and by host enqueue time, and the attack under the
 default configuration and P, through arguments every slice of the port
 shares: run it on two checkouts in one call to compare their kernels on one
-card.  Every phase also checks the sub-kernels' launch counters (the GEMMs
-and the bf16 attention forward and backward) against the ops'
-(expected_sub_launches).
+card.  Every phase also checks the sub-kernels' launch counters (the GEMMs,
+the bf16 attention forward and backward, the LayerNorm backward and the
+column sums) against the ops' (expected_sub_launches).
 """
 
 from __future__ import annotations
@@ -212,6 +223,17 @@ GEMM_KERNELS = {  # sub-kernel -> the Pallas body whose products it carries (row
     "ln_gemm": "rmcl_tpu/ops/pallas_block.py:526",
     "gemm_tn": "rmcl_tpu/ops/pallas_block.py:795",
 }
+# the LayerNorm backward and the bias-gradient column sums of block_kernels.cu:
+# (the Pallas body of the kernels record, every body whose sums they carry)
+LN_COLSUM_KERNELS = {
+    "ln_bwd": ("rmcl_tpu/ops/pallas_block.py:795",
+               "the LayerNorm backward (dx, and dLN in training) of pallas_block.py "
+               ":336 (row 3), :626 (row 5), :1280 (row 9), :795 (row 7, :864-889), "
+               ":221 (row 2, :305-313)"),
+    "colsum": ("rmcl_tpu/ops/pallas_block.py:795",
+               "the bias-gradient sums of pallas_block.py :795 (row 7: db1, db2), "
+               ":1280 (row 9: dbqkv, dbproj), :369 (row 2)"),
+}
 # the bf16 GEMM kernels (4 ln_gemm and 2 gemm_tn instances) the SASS check reads
 GEMM_BF16_KERNELS = ("ln_gemm_bf16_kernel", "gemm_tn_bf16_kernel")
 # the bf16 attention kernels: the forward (2 instances: D padded to 64, 128)
@@ -220,7 +242,11 @@ ATTN_SOURCE = "rmcl_tpu_torch/csrc/hopper_attention.cuh"
 ATTN_PREFIX, ATTN_FWD = "_ZN5hattn", "fwd_kernel"
 PEAK_BYTES_S = 3.35e12      # H100 SXM device memory
 PEAK_BF16_FLOPS = 989e12    # H100 SXM tensor cores, dense bf16
-PEAK_CORE_OPS = 67e12       # H100 SXM CUDA cores, fp32 (the dropout's integer work)
+# H100 SXM 32-bit integer rate, the dropout's Philox work: 64 INT32 lanes per
+# SM (NVIDIA's Hopper architecture white paper: 16 per SM sub-partition) x
+# 132 SMs x the 1.98 GHz boost clock.  67e12, the fp32 rate with an FMA
+# counted as two operations, is not the rate of integer instructions.
+PEAK_INT32_OPS = 64 * 132 * 1.98e9
 PHILOX_OPS = 100            # 32-bit operations of one Philox-4x32-10 word, mask and scale
 DELTA_TOL, DELTA_TIGHT, DELTA_TIGHT_SHARE = 2.5e-4, 1e-5, 0.99
 
@@ -398,7 +424,7 @@ def bound(name: str, B: int, S: int, C: int, saved: bool = False) -> tuple:
     """(least ms, what bounds it) for one call at these shapes in bf16.  The
     dropout (C = its width N) does Philox integer work on the CUDA cores."""
     if name == "dropout":
-        ops, nbytes, peak = PHILOX_OPS * B * S * C, 2 * 2 * B * S * C + 4 * B, PEAK_CORE_OPS
+        ops, nbytes, peak = PHILOX_OPS * B * S * C, 2 * 2 * B * S * C + 4 * B, PEAK_INT32_OPS
     else:
         alias = {"attn_half_full": "attn_half", "attn_half_full_bwd": "attn_half_train_bwd"}
         ops, nbytes = op_work(alias.get(name, name), B, S, C, saved)
@@ -715,16 +741,17 @@ GEMM_HEADLINE = {"ln_gemm": "fc2", "gemm_tn": "dW1"}   # their rows of the kerne
 
 
 def _sub_bound(flops: float, nbytes: float, core_ops: float = 0.0) -> tuple:
-    """(least ms, what bounds it): tensor-core FLOP, CUDA-core integer work
-    (the dropout's Philox) and bytes each at the card's peak."""
-    t_ops = max(flops / PEAK_BF16_FLOPS, core_ops / PEAK_CORE_OPS) * 1e3
+    """(least ms, what bounds it): tensor-core FLOP, 32-bit integer work on
+    the CUDA cores (the dropout's Philox) and bytes each at the card's peak."""
+    t_ops = max(flops / PEAK_BF16_FLOPS, core_ops / PEAK_INT32_OPS) * 1e3
     t_bytes = nbytes / PEAK_BYTES_S * 1e3
     return max(t_ops, t_bytes), "operations" if t_ops >= t_bytes else "bytes"
 
 
-def device_ms(fn, iters: int = 20, warmup: int = 3):
-    """Device time of one call: the time of the kernels it launches, summed
-    from torch.profiler's device events, over ``iters`` calls.  Unlike
+def device_ms(fn, iters: int = 20, warmup: int = 3, kernel: str = ""):
+    """Device time of one call: the time of the kernels it launches (of those
+    whose name holds ``kernel``), summed from torch.profiler's device
+    events, over ``iters`` calls.  Unlike
     ``time_ms`` it leaves out the host's share of a call (Python, ctypes,
     the launch), which a call shorter than that share cannot hide.  A
     profiler session now and then records no device event at all: it is
@@ -740,7 +767,7 @@ def device_ms(fn, iters: int = 20, warmup: int = 3):
                 fn()
             torch.cuda.synchronize()
         us = sum(_device_us(e) for e in prof.key_averages()
-                 if e.device_type == DeviceType.CUDA)
+                 if e.device_type == DeviceType.CUDA and kernel in e.key)
         if us > 0:
             return us / iters / 1e3
     return None
@@ -865,11 +892,149 @@ def _gemm_tn_sub(dev, FB, lib, gen, label, Na, Nb) -> dict:
                 bound_ms=bound_ms, bound_by=bound_by, max_abs_err=err, slabs=slabs)
 
 
+# The LayerNorm backward's two forms, as the main path runs them with + g:
+# dx only (rows 3, 5: attn_half_dx, mlp_half_dx) and training (rows 9, 7:
+# dx, y and dLN in one launch), at M = 16 x 241, C = 768; the bias gradients'
+# widths (dbproj and db2 768, dbqkv 2304, db1 3072).
+LN_BWD_FORMS = ("dx", "train")
+COLSUM_WIDTHS = (768, 2304, 3072)
+BIAS_GRADS = (768, 2304, 768, 3072)   # dbproj, dbqkv, db2, db1: one training step's four
+
+
+def _sum_tol(ref, bf16_out: bool) -> float:
+    """Tolerance of an output against its plain version, which differs in
+    summation order only: fp32, 1e-5 of max(1, max|ref|); an output rounded
+    to bf16 from such fp32 values, one bf16 ulp of max|ref|."""
+    ref_max = ref.float().abs().max().item()
+    if bf16_out:
+        return 2.0 ** (np.floor(np.log2(ref_max)) - 7)
+    return 1e-5 * max(1.0, ref_max)
+
+
+def _ln_bwd_case(dev, gen, dtype, M=PGD_BATCH * 241, C=768) -> dict:
+    """Inputs of ln_bwd at the step's shape: x, g in dtype, dy, ln_w, ln_b fp32."""
+    rn = lambda *s, std=1.0, mu=0.0: (  # noqa: E731
+        torch.randn(*s, generator=gen, device=dev) * std + mu)
+    return dict(x=rn(M, C, std=2.0, mu=0.5).to(dtype), dy=rn(M, C), g=rn(M, C).to(dtype),
+                ln_w=rn(C, std=0.1, mu=1.0), ln_b=rn(C, std=0.1))
+
+
+def _ln_bwd_calls(FB, lib, c, form: str, eps: float) -> tuple:
+    """(kernel call, plain call) of one form through the wrappers every slice
+    of the port has had (_ln_bwd_dx, _ln_backward)."""
+    x, dy, g, w, b = c["x"], c["dy"], c["g"], c["ln_w"], c["ln_b"]
+    if form == "train":
+        run = lambda: FB._ln_backward(lib, x, dy, w, b, g, eps, True)  # noqa: E731
+    else:
+        run = lambda: (FB._ln_bwd_dx(lib, x, dy, w, g, eps, True),)  # noqa: E731
+    return run, lambda: FB._ln_backward_plain(x, dy, w, b, g, eps, True)
+
+
+def _ln_bwd_bytes(M: int, C: int, es: int, form: str) -> int:
+    """x, dy (fp32), g and ln_w read once, dx written; training: ln_b read,
+    y and dln (2C fp32) written too."""
+    nbytes = M * C * (3 * es + 4) + 4 * C
+    return nbytes + (M * C * es + 4 * C + 8 * C if form == "train" else 0)
+
+
+def _ln_bwd_sub(dev, FB, lib, gen, form: str, dtype) -> dict:
+    """ln_bwd in one form at M = 16 x 241, C = 768 with + g against
+    _ln_backward_plain (_sum_tol: fp32 outputs 1e-5 of max(1, max|ref|),
+    bf16 dx and y one bf16 ulp of max|ref|), bit-identical twice; timed per
+    call and by device time beside its plain version and
+    torch.ops.aten.native_layer_norm_backward on fp32 copies with the
+    forward's mean and rstd: the nearest library call, not the same function
+    (no + g, no y)."""
+    from rmcl_tpu_torch.models.vit import VIT_LN_EPS as eps
+    c = _ln_bwd_case(dev, gen, dtype)
+    x, dy, w, b = c["x"], c["dy"], c["ln_w"], c["ln_b"]
+    M, C = x.shape
+    tag = "bf16" if dtype == torch.bfloat16 else "fp32"
+    run, plain = _ln_bwd_calls(FB, lib, c, form, eps)
+    out, again, ref = run(), run(), plain()
+    torch.cuda.synchronize()
+    errs = {}
+    for n, o, o2, r in zip(("dx", "y", "dln_w", "dln_b"), out, again, ref):
+        check(bool(torch.isfinite(o).all()), f"ln_bwd[{form}] {tag}: non-finite {n}")
+        check(torch.equal(o, o2), f"ln_bwd[{form}] {tag}: {n} differs between two calls")
+        errs[n] = (o.float() - r.float()).abs().max().item()
+        tol = _sum_tol(r, o.dtype == torch.bfloat16)
+        check(errs[n] <= tol, f"ln_bwd[{form}] {tag}: {n} error {errs[n]} > {tol}")
+    x32 = x.float()
+    _, mean, rstd = torch.ops.aten.native_layer_norm(x32, [C], w, b, eps)
+    want = [True, form == "train", form == "train"]
+    lib_call = lambda: torch.ops.aten.native_layer_norm_backward(  # noqa: E731
+        dy, x32, [C], mean, rstd, w, b, want)
+    ms, dev_ms, plain_ms = time_ms(run), device_ms(run), time_ms(plain)
+    lib_ms, lib_dev_ms = time_ms(lib_call), device_ms(lib_call)
+    bound_ms, bound_by = _sub_bound(0.0, _ln_bwd_bytes(M, C, x.element_size(), form))
+    shape = f"M={M} C={C} + g"
+    if form == "train":   # the CTAs this device runs it on, which fix its summation order
+        shape += f", {lib.rmcl_ln_bwd_grid(1 if tag == 'bf16' else 0, M, C)} CTAs"
+    print(f"[kernels] ln_bwd[{form}] ({shape}) {tag}: kernel_ms={ms!r} device_ms={dev_ms!r} "
+          f"({_rate(bound_ms, dev_ms, 'of the bound')}) plain_ms={plain_ms!r} "
+          f"native_layer_norm_backward_ms={lib_ms!r} (device {lib_dev_ms!r}; fp32, no + g, "
+          f"no y) bound_ms={bound_ms!r} ({bound_by}) max_abs_err={errs}; bit-identical twice")
+    return dict(name=f"ln_bwd[{form}]", dtype=tag, shape=shape, ms=ms, device_ms=dev_ms,
+                plain_ms=plain_ms, library_ms=lib_ms, library_device_ms=lib_dev_ms,
+                library="torch.ops.aten.native_layer_norm_backward (fp32; the nearest call: "
+                        "no + g, no y)",
+                bound_ms=bound_ms, bound_by=bound_by, max_abs_err=errs["dx"], errors=errs)
+
+
+def _colsum_sub(dev, FB, lib, gen, N: int, dtype) -> dict:
+    """colsum at M = 16 x 241 rows of width N against _colsum_plain (fp32
+    sums, 1e-5 of max(1, max|ref|)), bit-identical twice; timed per call and
+    by device time beside its plain version and a.sum(0, dtype=float32)."""
+    M = PGD_BATCH * 241
+    a = (torch.randn(M, N, generator=gen, device=dev) + 0.5).to(dtype)
+    tag = "bf16" if dtype == torch.bfloat16 else "fp32"
+    run = lambda: FB._colsum(lib, a)  # noqa: E731
+    plain = lambda: FB._colsum_plain(a)  # noqa: E731
+    lib_call = lambda: a.sum(0, dtype=torch.float32)  # noqa: E731
+    out, again, ref = run(), run(), plain()
+    torch.cuda.synchronize()
+    err, tol = (out - ref).abs().max().item(), _sum_tol(ref, False)
+    check(bool(torch.isfinite(out).all()) and torch.equal(out, again),
+          f"colsum[{N}] {tag}: non-finite, or two calls differ")
+    check(err <= tol, f"colsum[{N}] {tag}: error {err} > {tol}")
+    ms, dev_ms, plain_ms = time_ms(run), device_ms(run), time_ms(plain)
+    lib_ms, lib_dev_ms = time_ms(lib_call), device_ms(lib_call)
+    bound_ms, bound_by = _sub_bound(0.0, M * N * a.element_size() + 4 * N)
+    shape = f"M={M} N={N}"
+    print(f"[kernels] colsum[{N}] ({shape}) {tag}: kernel_ms={ms!r} device_ms={dev_ms!r} "
+          f"({_rate(bound_ms, dev_ms, 'of the bound')}) plain_ms={plain_ms!r} "
+          f"sum_ms={lib_ms!r} (device {lib_dev_ms!r}) bound_ms={bound_ms!r} ({bound_by}) "
+          f"max_abs_err={err!r} (tol {tol:.3g}); bit-identical twice")
+    return dict(name=f"colsum[{N}]", dtype=tag, shape=shape, ms=ms, device_ms=dev_ms,
+                plain_ms=plain_ms, library_ms=lib_ms, library_device_ms=lib_dev_ms,
+                library="a.sum(0, dtype=torch.float32)", bound_ms=bound_ms,
+                bound_by=bound_by, max_abs_err=err)
+
+
+def _ln_colsum_kernels(dev, FB, lib) -> list:
+    """ln_bwd in both forms and colsum at the bias gradients' widths, bf16 and
+    fp32, with the four bias gradients of a step summed (bf16)."""
+    gen = torch.Generator(device=dev).manual_seed(SEED + 5)
+    out = []
+    for dtype in (torch.bfloat16, torch.float32):
+        out += [_ln_bwd_sub(dev, FB, lib, gen, form, dtype) for form in LN_BWD_FORMS]
+        out += [_colsum_sub(dev, FB, lib, gen, N, dtype) for N in COLSUM_WIDTHS]
+    by = {r["name"]: r for r in out if r["dtype"] == "bf16"}
+    four = {k: sum(by[f"colsum[{N}]"][k] for N in BIAS_GRADS)
+            for k in ("device_ms", "bound_ms", "library_device_ms")
+            if all(by[f"colsum[{N}]"][k] is not None for N in BIAS_GRADS)}
+    print(f"[kernels] colsum, the four bias gradients of a step (N = {BIAS_GRADS}), bf16: "
+          f"{four}")
+    return out
+
+
 def _library_yardsticks(dev, FB, x, mask, wqkv, bqkv, H) -> list:
     """The device sub-kernels at the attack's and the step's shapes, bf16:
     every GEMM instance of the main path against its plain version, with its
     bound, beside the one PyTorch call of its product; the packed attention
-    forward and backward beside F.scaled_dot_product_attention's."""
+    forward and backward beside F.scaled_dot_product_attention's; the
+    LayerNorm backward and the column sums (_ln_colsum_kernels)."""
     from rmcl_tpu_torch.ops import _build
     lib = _build.library()
     B, S, C = x.shape
@@ -881,7 +1046,7 @@ def _library_yardsticks(dev, FB, x, mask, wqkv, bqkv, H) -> list:
     FB._gemm(lib, x.view(M, C), wqkv, bqkv, qkv)
     out.append(_attention_fwd_sub(dev, FB, lib, qkv.view(B, S, 3 * C), mask, H))
     out.append(_attention_bwd_sub(dev, FB, lib, gen, qkv.view(B, S, 3 * C), mask, H))
-    return out
+    return out + _ln_colsum_kernels(dev, FB, lib)
 
 
 def _attention_fwd_sub(dev, FB, lib, qkv, mask, H) -> dict:
@@ -1297,8 +1462,11 @@ def expected_sub_launches(ops: dict) -> dict:
     backward), two gemm_tn (the weight gradients) in every full backward, and
     none in the attention core or the dropout op; the attention forward in
     every op whose forward runs attention, the attention backward pair in
-    every op that differentiates through it."""
+    every op that differentiates through it; one ln_bwd (the LayerNorm
+    backward) in every dx op and full backward, and two colsum (the bias
+    gradients) in every full backward."""
     full_bwd = ("attn_half_train_bwd", "mlp_half_train_bwd", "attn_half_full_bwd")
+    dx = ("attn_half_dx", "mlp_half_dx")
     other = ("masked_attention", "masked_attention_bwd", "dropout")
     attn_fwd = ("attn_half", "attn_half_train", "attn_half_full", "masked_attention")
     attn_bwd = ("attn_half_dx", "attn_half_train_bwd", "attn_half_full_bwd",
@@ -1306,7 +1474,9 @@ def expected_sub_launches(ops: dict) -> dict:
     return {"ln_gemm": 2 * sum(n for op, n in ops.items() if op not in other),
             "gemm_tn": 2 * sum(ops.get(op, 0) for op in full_bwd),
             "attention_fwd": sum(ops.get(op, 0) for op in attn_fwd),
-            "attention_bwd": sum(ops.get(op, 0) for op in attn_bwd)}
+            "attention_bwd": sum(ops.get(op, 0) for op in attn_bwd),
+            "ln_bwd": sum(ops.get(op, 0) for op in dx + full_bwd),
+            "colsum": 2 * sum(ops.get(op, 0) for op in full_bwd)}
 
 
 def check_sub_launches(where: str, ops: dict, FB) -> dict:
@@ -1662,9 +1832,10 @@ def _attention_calls(dev, lib, gen) -> dict:
 
 def gemm_times(root: str) -> None:
     """Times of the GEMM sub-kernels of the package under ``root`` at the
-    step's shapes (LN_GEMM_SUBS, GEMM_TN_SUBS) and of the bf16 attention
+    step's shapes (LN_GEMM_SUBS, GEMM_TN_SUBS), of the bf16 attention
     forward and backward through their C entry points at B=16, S=241, H=12,
-    D=64: per
+    D=64, and of the LayerNorm backward (_ln_bwd_dx, _ln_backward) and the
+    column sums (_colsum) at M = 16 x 241, bf16: per
     call as phase 3 times them (time_ms), by device time and by host enqueue
     time, through the arguments every slice of the port has had, so that two
     versions compare in one run; then the attack's wall and device time
@@ -1682,6 +1853,8 @@ def gemm_times(root: str) -> None:
             def run(c=c):
                 FB._gemm(lib, c["a"], c["w"], c["bias"], c["out"], **c["kw"])
             res[f"ln_gemm[{label}]"] = (time_ms(run), device_ms(run), host_us(run))
+            if label == "qkv":   # its LayerNorm pass alone, by kernel name
+                res["ln_rows_kernel"] = (None, device_ms(run, kernel="ln_rows_kernel"), None)
         M = PGD_BATCH * 241
         for label, Na, Nb in GEMM_TN_SUBS:
             a = torch.randn(M, Na, generator=gen, device=dev).bfloat16()
@@ -1689,11 +1862,45 @@ def gemm_times(root: str) -> None:
             def run(a=a, b=b):
                 return FB._gemm_tn(lib, a, b)
             res[f"gemm_tn[{label}]"] = (time_ms(run), device_ms(run), host_us(run))
+            slabs = lib.rmcl_gemm_tn_slabs(1, M, Na, Nb)
+            if slabs > 1:   # its slab sum alone, by kernel name, and torch's sum of the slabs
+                res[f"split_sum_kernel[{label}, {slabs} slabs]"] = (
+                    None, device_ms(run, kernel="split_sum_kernel"), None)
+                part = torch.randn(slabs, Na, Nb, generator=gen, device=dev)
+                def run(part=part):
+                    return part.sum(0)
+                res[f"partial.sum(0)[{label}]"] = (time_ms(run), device_ms(run), host_us(run))
         for name, run in _attention_calls(dev, lib, gen).items():
             res[name] = (time_ms(run), device_ms(run), host_us(run))
+        from rmcl_tpu_torch.models.vit import VIT_LN_EPS
+        c = _ln_bwd_case(dev, gen, torch.bfloat16)
+        for form in LN_BWD_FORMS:
+            run = _ln_bwd_calls(FB, lib, c, form, VIT_LN_EPS)[0]
+            res[f"ln_bwd[{form}]"] = (time_ms(run), device_ms(run), host_us(run))
+        for N in COLSUM_WIDTHS:
+            a = (torch.randn(M, N, generator=gen, device=dev) + 0.5).bfloat16()
+            def run(a=a):
+                return FB._colsum(lib, a)
+            res[f"colsum[{N}]"] = (time_ms(run), device_ms(run), host_us(run))
+        # the yardstick of ln_rows_kernel (the bf16 LayerNorm pass of ln_gemm[qkv]):
+        # F.layer_norm on (M, 768) rows, bf16 parameters
+        x, lw, lb = c["x"], c["ln_w"].bfloat16(), c["ln_b"].bfloat16()
+        def run():
+            return torch.nn.functional.layer_norm(x, (x.shape[1],), lw, lb, VIT_LN_EPS)
+        res["F.layer_norm"] = (time_ms(run), device_ms(run), host_us(run))
+        from rmcl_tpu_torch.ops import fused_block_train as FT
+        seeds = torch.randint(-2 ** 31, 2 ** 31, (PGD_BATCH,), generator=gen, device=dev).int()
+        for N in (768, 3072):   # drop_scale at the residual's and the MLP hidden's widths
+            g2d = torch.randn(M, N, generator=gen, device=dev).bfloat16()
+            def run(g2d=g2d):
+                return FT._drop_scale(lib, g2d, (seeds, 241, 0, DROP_P, None))
+            res[f"drop_scale[{N}]"] = (time_ms(run), device_ms(run), host_us(run))
     for name, (ms, dms, hus) in res.items():
         print(f"[gemm-times] {root} {name}: kernel_ms={ms!r} device_ms={dms!r} "
               f"host_us={hus!r}")
+    dms = [res[f"colsum[{N}]"][1] for N in BIAS_GRADS]
+    print(f"[gemm-times] {root} colsum, the four bias gradients of a step: device_ms="
+          f"{sum(dms) if None not in dms else None!r}")
     attacks = {}
     for config in ("default", "P"):
         attacks[config] = attack_times(dev, config)
@@ -1842,6 +2049,23 @@ def main() -> int:
         "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
         "library_ms": r["library_ms"], "library_device_ms": r["library_device_ms"],
         "library": r["library"], "shape": r["shape"]})
+    small = {f"{r['name']} {r['dtype']}": r for r in kres["sub_kernels"]
+             if r["name"].startswith(("ln_bwd", "colsum"))}
+    for name, head in (("ln_bwd", "ln_bwd[train] bf16"), ("colsum", "colsum[3072] bf16")):
+        r = small[head]   # LN_COLSUM_KERNELS: the Pallas bodies whose sums they carry
+        records.append({
+            "name": name, "route": "cuda", "source": SOURCE,
+            "replaces": LN_COLSUM_KERNELS[name][0], "replaces_parts": LN_COLSUM_KERNELS[name][1],
+            "launches": train_counts["default"][name],
+            "launches_by_path": {"serving": counts[name], "pgd": pgd_counts[name],
+                                 **{f"train_{c}": n[name] for c, n in train_counts.items()}},
+            "max_abs_err": r["max_abs_err"], "ms": r["ms"], "device_ms": r["device_ms"],
+            "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
+            "library_ms": r["library_ms"], "library_device_ms": r["library_device_ms"],
+            "library": r["library"], "shape": r["shape"],
+            "instances": {k: {f: v[f] for f in ("ms", "device_ms", "plain_ms", "bound_ms",
+                                                "library_ms", "max_abs_err")}
+                          for k, v in small.items() if k.startswith(name + "[")}})
     print(json.dumps({"kernels": records, "shard_shapes": kres["shard_shapes"],
                       "sub_kernels": kres["sub_kernels"]}))
     print(json.dumps({"ok": True, "device": {

@@ -35,20 +35,20 @@ SIGNATURES = {
     # aux, out, M, N, K, gelu, epi, w_kn, dropout, stream
     "rmcl_ln_gemm": [_I, _P, _P, _P, _F, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
                      *_DROP, _P],
-    # dtype, x, dy, ln_w, g, dx, M, C, eps, ln_b, y_out, stats_out, stream
-    "rmcl_ln_bwd_dx": [_I, _P, _P, _P, _P, _P, _I, _I, _F, _P, _P, _P, _P],
+    # dtype, x, dy, ln_w, ln_b, g, dx, y, dln, M, C, eps, stream
+    "rmcl_ln_bwd": [_I, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _F, _P],
+    # -> the widest row rmcl_ln_bwd takes (not an error code)
+    "rmcl_ln_bwd_max_width": [],
+    # dtype, M, C -> CTAs of rmcl_ln_bwd's training form, which fix its summation order
+    "rmcl_ln_bwd_grid": [_I, _I, _I],
     # dtype, g, out, M, N, dropout, stream
     "rmcl_drop_scale": [_I, _P, _P, _I, _I, *_DROP, _P],
     # dtype, M, Na, Nb -> slabs of gemm_tn's split scratch, 1 = none (not an error code)
     "rmcl_gemm_tn_slabs": [_I, _I, _I, _I],
     # dtype, a, b, out, partial (the slabs' scratch or null), M, Na, Nb, stream
     "rmcl_gemm_tn": [_I, _P, _P, _P, _P, _I, _I, _I, _P],
-    # M -> rows of the column sums' partial scratch (not an error code)
-    "rmcl_colsum_slabs": [_I],
-    # dtype, a, partial, out, M, N, stream
-    "rmcl_colsum": [_I, _P, _P, _P, _I, _I, _P],
-    # dtype, x, dy, stats, partial, out, M, C, stream
-    "rmcl_ln_colsum": [_I, _P, _P, _P, _P, _P, _I, _I, _P],
+    # dtype, a, out, M, N, stream
+    "rmcl_colsum": [_I, _P, _P, _I, _I, _P],
     # dtype, qkv, mask, dattn, dqkv, stats, B, S, H, D, scale, stream
     "rmcl_masked_attention_bwd": [_I, _P, _P, _P, _P, _P, _I, _I, _I, _I, _F, _P],
     # dtype, qkv, mask, out, B, S, H, D, scale, stream

@@ -77,8 +77,10 @@ launches = {"attn_half": 0, "mlp_half": 0, "attn_half_dx": 0, "mlp_half_dx": 0,
 # ``_gemm_tn``), the bf16 attention forward (``_attn_fwd_packed``,
 # ``attention._attention_fwd``) and the bf16 attention backward pair
 # (``_attn_bwd_packed``, ``attention._attention_bwd``), the last two in
-# csrc/hopper_attention.cuh
-sub_launches = {"ln_gemm": 0, "gemm_tn": 0, "attention_fwd": 0, "attention_bwd": 0}
+# csrc/hopper_attention.cuh; the LayerNorm backward (``_ln_bwd_dx``,
+# ``_ln_backward``) and the bias-gradient column sums (``_colsum``)
+sub_launches = {"ln_gemm": 0, "gemm_tn": 0, "attention_fwd": 0, "attention_bwd": 0,
+                "ln_bwd": 0, "colsum": 0}
 
 _EPI_BIAS, _EPI_DGELU, _EPI_F32 = 0, 1, 2      # ln_gemm epilogues (block_kernels.cu)
 
@@ -153,6 +155,21 @@ def _ln_bwd_plain(dy, xhat, rstd, ln_w, g, residual, dtype):
     return dx.to(dtype)
 
 
+def _ln_backward_plain(x2d, dy, ln_w, ln_b, g2d, eps, residual):
+    """Plain version of ``_ln_backward`` (and, its first output, of
+    ``_ln_bwd_dx``): (dx [+ g], y = LN(x) rounded, dln_w, dln_b) of (M, C)
+    rows from the fp32 dy, as ``pallas_block.py:_attn_bwd_math`` :305-313
+    computes them: LayerNorm and its sums in fp32, dx and y cast once."""
+    xhat, rstd = _ln_parts(x2d, eps)
+    dx = _ln_bwd_plain(dy, xhat, rstd, ln_w, g2d, residual, x2d.dtype)
+    return (dx, (xhat * ln_w + ln_b).to(x2d.dtype), (dy * xhat).sum(0), dy.sum(0))
+
+
+def _colsum_plain(a2d):
+    """Plain version of ``_colsum``: the column sums of (M, N) in fp32."""
+    return a2d.float().sum(0)
+
+
 def _attn_dqkv_plain(qkv, mask, wproj, g, num_heads: int):
     """dqkv (B, S, 3C) of ``proj(MHA(qkv))`` given the output gradient g, step
     by step with the rounding points of ``pallas_block.py:_attn_bwd_math``."""
@@ -182,13 +199,12 @@ def attn_half_dx_plain(x, mask, ln_w, ln_b, wqkv, bqkv, wproj, g,
                        qkv=None):
     """Plain version of ``attn_half_dx``.  ``qkv`` (B, S, 3C) is the forward's
     saved projection; without it LN1 and qkv are recomputed."""
-    dt = x.dtype
-    xhat, rstd = _ln_parts(x, eps)
     if qkv is None:
-        qkv = _dense((xhat * ln_w + ln_b).to(dt), wqkv, bqkv)
+        qkv = _dense(layer_norm(x, ln_w, ln_b, eps), wqkv, bqkv)
     dqkv = _attn_dqkv_plain(qkv, mask, wproj, g, num_heads)
     dy = dqkv.float() @ wqkv.float()                      # fp32, not rounded
-    return _ln_bwd_plain(dy, xhat, rstd, ln_w, g, residual, dt)
+    return _ln_backward_plain(_rows(x), _rows(dy), ln_w, ln_b, _rows(g), eps,
+                              residual)[0].view(x.shape)
 
 
 def _rows(t):
@@ -202,16 +218,14 @@ def _attn_param_bwd_plain(x, mask, ln_w, ln_b, wqkv, wproj, gm, qkv, attn, num_h
     and attn: ``pallas_block.py:_attn_bwd_math`` step by step, y = LN1 x,
     attn and gm entering the weight-gradient products as their rounded values
     (``_bwd_impl`` :431-441)."""
-    dt = x.dtype
-    xhat, rstd = _ln_parts(x, eps)
-    y = (xhat * ln_w + ln_b).to(dt)
     dqkv = _attn_dqkv_plain(qkv, mask, wproj, gm, num_heads)
     dy = dqkv.float() @ wqkv.float()                      # fp32, not rounded
-    dx = _ln_bwd_plain(dy, xhat, rstd, ln_w, g_res, g_res is not None, dt)
-    dqkv32, gm32 = _rows(dqkv).float(), _rows(gm).float()
-    return (dx, (dy * xhat).sum((0, 1)), dy.sum((0, 1)),
-            dqkv32.t() @ _rows(y).float(), dqkv32.sum(0),
-            gm32.t() @ _rows(attn).float(), gm32.sum(0))
+    dx, y, dln_w, dln_b = _ln_backward_plain(
+        _rows(x), _rows(dy), ln_w, ln_b, None if g_res is None else _rows(g_res), eps,
+        g_res is not None)
+    dqkv2d, gm2d = _rows(dqkv), _rows(gm)
+    return (dx.view(x.shape), dln_w, dln_b, _gemm_tn_plain(dqkv2d, y), _colsum_plain(dqkv2d),
+            _gemm_tn_plain(gm2d, _rows(attn)), _colsum_plain(gm2d))
 
 
 def attn_half_full_bwd_plain(x, mask, ln_w, ln_b, wqkv, wproj, g, qkv, attn,
@@ -234,14 +248,13 @@ def mlp_half_dx_plain(x, ln_w, ln_b, w1, b1, w2, g, eps: float,
     points of ``pallas_block.py:_mlp_dx_kernel``.  ``h`` (B, S, 4C) is the
     forward's saved pre-GELU fc1 output; without it LN2 and fc1 are
     recomputed."""
-    dt = x.dtype
-    xhat, rstd = _ln_parts(x, eps)
     if h is None:
-        h = _dense((xhat * ln_w + ln_b).to(dt), w1, b1)
+        h = _dense(layer_norm(x, ln_w, ln_b, eps), w1, b1)
     da = g.float() @ w2.float()                           # g . W2, fp32
-    dh = (da * _gelu_grad(h.float())).to(dt)
+    dh = (da * _gelu_grad(h.float())).to(x.dtype)
     dy = dh.float() @ w1.float()                          # fp32, not rounded
-    return _ln_bwd_plain(dy, xhat, rstd, ln_w, g, residual, dt)
+    return _ln_backward_plain(_rows(x), _rows(dy), ln_w, ln_b, _rows(g), eps,
+                              residual)[0].view(x.shape)
 
 
 # ------------------------------------------------------------------ checks
@@ -409,18 +422,30 @@ def _gemm_plain(a2d, w, bias=None, ln=None, eps=0.0, residual=None, gelu=False, 
     return v, pre, keep
 
 
-def _ln_bwd_dx(lib, x2d, dy, ln_w, g2d, eps, residual, ln_b=None, y_out=None,
-               stats_out=None):
-    """dx of LayerNorm [+ g]; the training backwards also take y = LN(x)
-    rounded (``y_out``, needs ``ln_b``) and the rows' (mean, rstd)."""
-    dx = torch.empty_like(x2d)
+def _ln_bwd(lib, x2d, dy, ln_w, ln_b, g2d, dx, y, dln, eps):
+    """One launch of the ``ln_bwd`` kernel (``csrc/block_kernels.cu``): dx
+    [+ g2d]; with y and dln (then ln_b) its training form.  One warp per row,
+    the row in registers, so C (a multiple of 8) is at most
+    ``rmcl_ln_bwd_max_width``."""
+    M, C = x2d.shape
+    if C % 8 or C > lib.rmcl_ln_bwd_max_width():
+        raise ValueError(f"LayerNorm backward of width {C}: must be a multiple of 8 "
+                         f"and at most {lib.rmcl_ln_bwd_max_width()}")
+    _aligned(*(t for t in (x2d, dy, g2d, dx, y) if t is not None))
     ptr = lambda t: t.data_ptr() if t is not None else None  # noqa: E731
-    rc = lib.rmcl_ln_bwd_dx(
-        _DTYPE_CODE[x2d.dtype], x2d.data_ptr(), dy.data_ptr(), ln_w.data_ptr(),
-        g2d.data_ptr() if residual else None, dx.data_ptr(), x2d.shape[0],
-        x2d.shape[1], eps, ptr(ln_b), ptr(y_out), ptr(stats_out),
-        _stream(x2d))
-    _build.check(rc, "ln_bwd_dx")
+    rc = lib.rmcl_ln_bwd(_DTYPE_CODE[x2d.dtype], x2d.data_ptr(), dy.data_ptr(),
+                         ln_w.data_ptr(), ptr(ln_b), ptr(g2d), dx.data_ptr(), ptr(y), ptr(dln),
+                         M, C, eps, _stream(x2d))
+    _build.check(rc, "ln_bwd")
+    sub_launches["ln_bwd"] += 1
+
+
+def _ln_bwd_dx(lib, x2d, dy, ln_w, g2d, eps, residual):
+    """dx of LayerNorm [+ g] from the fp32 dy: the ``ln_bwd`` kernel's dx-only
+    form (rows 3, 5); ``_ln_backward_plain(...)[0]`` is the same function in
+    torch."""
+    dx = torch.empty_like(x2d)
+    _ln_bwd(lib, x2d, dy, ln_w, None, g2d if residual else None, dx, None, None, eps)
     return dx
 
 
@@ -461,48 +486,39 @@ def _gemm_tn_plain(a2d, b2d):
 
 
 def _colsum(lib, a2d):
-    """Column sums of (M, N) in fp32, fixed order."""
+    """The ``colsum`` kernel: the column sums of (M, N) in fp32, one launch
+    with a fixed summation order (clusters of 8 CTAs along the rows);
+    ``_colsum_plain`` is the same function in torch."""
     M, N = a2d.shape
-    partial = torch.empty(lib.rmcl_colsum_slabs(M), N, device=a2d.device,
-                          dtype=torch.float32)
+    if N % 8:
+        raise ValueError(f"column sums of width {N}: must be a multiple of 8")
+    _aligned(a2d)
     out = torch.empty(N, device=a2d.device, dtype=torch.float32)
-    rc = lib.rmcl_colsum(_DTYPE_CODE[a2d.dtype], a2d.data_ptr(), partial.data_ptr(),
-                         out.data_ptr(), M, N, _stream(a2d))
+    rc = lib.rmcl_colsum(_DTYPE_CODE[a2d.dtype], a2d.data_ptr(), out.data_ptr(), M, N,
+                         _stream(a2d))
     _build.check(rc, "colsum")
+    sub_launches["colsum"] += 1
     return out
 
 
-def _ln_colsum(lib, x2d, dy, stats):
-    """(sum_m dy xhat, sum_m dy): LayerNorm's weight and bias gradients."""
-    M, C = x2d.shape
-    partial = torch.empty(lib.rmcl_colsum_slabs(M), 2 * C, device=x2d.device,
-                          dtype=torch.float32)
-    out = torch.empty(2 * C, device=x2d.device, dtype=torch.float32)
-    rc = lib.rmcl_ln_colsum(_DTYPE_CODE[x2d.dtype], x2d.data_ptr(), dy.data_ptr(),
-                            stats.data_ptr(), partial.data_ptr(), out.data_ptr(), M, C,
-                            _stream(x2d))
-    _build.check(rc, "ln_colsum")
-    return out[:C], out[C:]
-
-
 def _ln_backward(lib, x2d, dy, ln_w, ln_b, g2d, eps, residual):
-    """(dx, y = LN(x) rounded, dln_w, dln_b) from the fp32 dy."""
+    """(dx [+ g], y = LN(x) rounded, dln_w, dln_b) from the fp32 dy: the
+    ``ln_bwd`` kernel's training form (rows 9, 7, 2), one launch;
+    ``_ln_backward_plain`` is the same function in torch."""
     M, C = x2d.shape
-    y = torch.empty_like(x2d)
-    stats = torch.empty(M, 2, device=x2d.device, dtype=torch.float32)
-    dx = _ln_bwd_dx(lib, x2d, dy, ln_w, g2d, eps, residual, ln_b=ln_b, y_out=y,
-                    stats_out=stats)
-    return (dx, y, *_ln_colsum(lib, x2d, dy, stats))
+    dx, y = torch.empty_like(x2d), torch.empty_like(x2d)
+    dln = torch.empty(2 * C, device=x2d.device, dtype=torch.float32)
+    _ln_bwd(lib, x2d, dy, ln_w, ln_b, g2d if residual else None, dx, y, dln, eps)
+    return dx, y, dln[:C], dln[C:]
 
 
 def _attn_param_bwd(x, mask, ln_w, ln_b, wqkv, wproj, gm, qkv, attn, num_heads, eps,
                     g_res):
     """The kernels of ``_attn_param_bwd_plain``: gemm(dattn = gm . Wproj) ->
     masked_attention_bwd_dq / _dkv -> gemm(dy = dqkv . Wqkv, fp32) ->
-    ln_bwd_dx [+ g_res] (also y and the row statistics) -> gemm_tn(dWqkv =
+    ln_bwd [+ g_res] (also y and dLN1, one launch) -> gemm_tn(dWqkv =
     dqkv^T . y) -> colsum(dbqkv) -> gemm_tn(dWproj = gm^T . attn) ->
-    colsum(dbproj), with ln_colsum for dLN1.  Arguments as checked by the
-    callers."""
+    colsum(dbproj).  Arguments as checked by the callers."""
     B, S, C = x.shape
     lib = _build.library()
     M = B * S

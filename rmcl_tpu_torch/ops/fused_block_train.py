@@ -62,9 +62,9 @@ from torch.autograd.function import once_differentiable
 from rmcl_tpu_torch.ops import _build
 from rmcl_tpu_torch.ops.fused_block import (
     _DTYPE_CODE, _EPI_DGELU, _EPI_F32, _attn_core_plain, _attn_fwd, _attn_param_bwd,
-    _attn_param_bwd_plain, _check, _colsum, _dense, _drop_args, _gelu_grad, _gemm,
-    _gemm_tn, _head_dim, _like, _ln_backward, _ln_bwd_plain, _ln_parts, _operand,
-    _rows, _stream, launches)
+    _attn_param_bwd_plain, _check, _colsum, _colsum_plain, _dense, _drop_args, _gelu_grad,
+    _gemm, _gemm_tn, _gemm_tn_plain, _head_dim, _like, _ln_backward, _ln_backward_plain,
+    _operand, _rows, _stream, launches)
 from rmcl_tpu_torch.models.layers import layer_norm
 from rmcl_tpu_torch.ops.philox import check_rate, keep_mask
 
@@ -130,17 +130,15 @@ def mlp_half_train_bwd_plain(x, seeds, ln_w, ln_b, w1, w2, g, h, a_d, p: float,
     B, S, C = x.shape
     dt = x.dtype
     gf = _drop(g.float(), keep_mask(seeds, 1, S, C, p), p, dt) if tail else g
-    xhat, rstd = _ln_parts(x, eps)
-    y = (xhat * ln_w + ln_b).to(dt)
     keep = keep_mask(seeds, 0, S, w1.shape[0], p)
     da = torch.where(keep, (gf.float() @ w2.float()) * (1.0 / (1.0 - p)), 0.0)
     dh = (da * _gelu_grad(h.float())).to(dt)
     dy = dh.float() @ w1.float()                          # fp32, not rounded
-    dx = _ln_bwd_plain(dy, xhat, rstd, ln_w, g, tail, dt)
-    dh32, gf32 = _rows(dh).float(), _rows(gf).float()
-    return (dx, (dy * xhat).sum((0, 1)), dy.sum((0, 1)),
-            dh32.t() @ _rows(y).float(), dh32.sum(0),
-            gf32.t() @ _rows(a_d).float(), gf32.sum(0))
+    dx, y, dln_w, dln_b = _ln_backward_plain(_rows(x), _rows(dy), ln_w, ln_b, _rows(g), eps,
+                                             tail)
+    dh2d, gf2d = _rows(dh), _rows(gf)
+    return (dx.view(B, S, C), dln_w, dln_b, _gemm_tn_plain(dh2d, y), _colsum_plain(dh2d),
+            _gemm_tn_plain(gf2d, _rows(a_d)), _colsum_plain(gf2d))
 
 
 # ----------------------------------------------------------- kernel launchers

@@ -7,6 +7,8 @@ machine without it:
     python -m pytest --noconftest -q -m cuda tests/test_torch_cuda.py
 """
 
+import math
+
 import numpy as np
 import pytest
 import torch
@@ -933,3 +935,137 @@ def test_attention_fwd_refuses_unaligned_layouts(cuda):
     with pytest.raises(ValueError, match="multiple of 8"):
         FB._attn_fwd_packed(_build.library(), qkv, mask, attn, H)
     assert FB.sub_launches["attention_fwd"] == before
+
+
+# ------------- the LayerNorm backward and the bias-gradient column sums
+# ln_bwd (one warp per row, dx-only and training forms) and colsum (clusters
+# of 8 CTAs along the rows) against _ln_backward_plain / _colsum_plain.
+# Widths: C = 768, a narrow one and one with a ragged 256-column chunk; rows:
+# 74 (one cluster, idle CTAs), the step's 3,856, and 5,000 (more row blocks
+# than the training form's 256 CTAs, so CTAs walk several).
+LN_WIDTHS = [32, 264, 768]
+LN_ROWS = [74, 3856, 5000]
+
+
+def _bf16_ulp(v):
+    """One bf16 ulp of the value v > 0: 2^(exponent - 7)."""
+    return 2.0 ** (math.floor(math.log2(v)) - 7)
+
+
+def _close_out(name, out, ref, dtype):
+    """fp32: summation order only, 1e-5 of max(1, max|ref|); bf16 outputs
+    rounded from fp32 values that differ in summation order: one bf16 ulp of
+    max|ref|."""
+    err = (out.float() - ref.float()).abs().max().item()
+    ref_max = ref.float().abs().max().item()
+    tol = 1e-5 * max(1.0, ref_max) if dtype == torch.float32 else _bf16_ulp(ref_max)
+    assert err <= tol, (name, err, tol)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("M", LN_ROWS, ids=lambda m: f"M{m}")
+@pytest.mark.parametrize("C", LN_WIDTHS, ids=lambda c: f"C{c}")
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["fp32", "bf16"])
+@pytest.mark.parametrize("train", [False, True], ids=["dx", "train"])
+@pytest.mark.parametrize("residual", [True, False], ids=["g", "nog"])
+def test_ln_bwd_kernel_matches_plain(cuda, M, C, dtype, train, residual):
+    """ln_bwd against _ln_backward_plain: dx (and in the training form y in
+    x's type, dln_w and dln_b in fp32, 1e-5 of max(1, max|ref|)); two calls
+    give the same bits; one launch each, counted under ``ln_bwd``."""
+    from rmcl_tpu_torch.ops import _build
+    r = np.random.RandomState(M + C)
+    t = lambda *s, dt=torch.float32, sd=1.0, mu=0.0: torch.from_numpy(  # noqa: E731
+        (mu + sd * r.randn(*s)).astype(np.float32)).to(cuda, dt)
+    x, dy, g = t(M, C, dt=dtype, sd=2.0, mu=0.5), t(M, C), t(M, C, dt=dtype)
+    ln_w, ln_b = t(C, sd=0.1, mu=1.0), t(C, sd=0.1)
+    lib = _build.library()
+    ref = FB._ln_backward_plain(x, dy, ln_w, ln_b, g, EPS, residual)
+    before = FB.sub_launches["ln_bwd"]
+    if train:
+        out = FB._ln_backward(lib, x, dy, ln_w, ln_b, g, EPS, residual)
+        again = FB._ln_backward(lib, x, dy, ln_w, ln_b, g, EPS, residual)
+    else:
+        out = (FB._ln_bwd_dx(lib, x, dy, ln_w, g, EPS, residual),)
+        again = (FB._ln_bwd_dx(lib, x, dy, ln_w, g, EPS, residual),)
+    torch.cuda.synchronize()
+    assert FB.sub_launches["ln_bwd"] == before + 2
+    for name, o, o2, want in zip(("dx", "y", "dln_w", "dln_b"), out, again, ref):
+        assert o.dtype == want.dtype and o.shape == want.shape, name
+        assert bool(torch.isfinite(o).all()), name
+        assert torch.equal(o, o2), f"{name} differs between two calls"
+        _close_out(name, o, want, dtype if name in ("dx", "y") else torch.float32)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("M", [5, 74, 3856], ids=lambda m: f"M{m}")
+@pytest.mark.parametrize("N", [8, 768, 776, 2304, 3072], ids=lambda n: f"N{n}")
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["fp32", "bf16"])
+def test_colsum_kernel_matches_plain(cuda, M, N, dtype):
+    """colsum against a.float().sum(0): the summation order only, 1e-5 of
+    max(1, max|ref|); N = 776 leaves a ragged 64-column strip, M = 5 ranks
+    with no rows; two calls give the same bits; one launch each."""
+    from rmcl_tpu_torch.ops import _build
+    r = np.random.RandomState(M + N)
+    a = torch.from_numpy((0.5 + r.randn(M, N)).astype(np.float32)).to(cuda, dtype)
+    lib = _build.library()
+    before = FB.sub_launches["colsum"]
+    out, again = FB._colsum(lib, a), FB._colsum(lib, a)
+    ref = FB._colsum_plain(a)
+    torch.cuda.synchronize()
+    assert FB.sub_launches["colsum"] == before + 2
+    assert out.dtype == torch.float32 and out.shape == (N,)
+    assert torch.equal(out, again)
+    _close_out("colsum", out, ref, torch.float32)
+
+
+@pytest.mark.cuda
+def test_ln_bwd_and_colsum_refuse_what_they_do_not_take(cuda):
+    """A row wider than the kernel's registers hold, or widths that are not
+    multiples of 8, raise instead of launching."""
+    from rmcl_tpu_torch.ops import _build
+    lib = _build.library()
+    wide = lib.rmcl_ln_bwd_max_width() + 8
+    x = torch.zeros(4, wide, device=cuda, dtype=torch.bfloat16)
+    dy = torch.zeros(4, wide, device=cuda)
+    ln = torch.ones(wide, device=cuda)
+    before = dict(FB.sub_launches)
+    with pytest.raises(ValueError, match="at most"):
+        FB._ln_bwd_dx(lib, x, dy, ln, x, EPS, True)
+    with pytest.raises(ValueError, match="at most"):
+        FB._ln_backward(lib, x, dy, ln, ln, x, EPS, True)
+    with pytest.raises(ValueError, match="multiple of 8"):
+        FB._colsum(lib, torch.zeros(4, 12, device=cuda, dtype=torch.bfloat16))
+    assert FB.sub_launches == before
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["fp32", "bf16"])
+def test_backward_ops_launch_ln_bwd_and_colsum(cuda, dtype):
+    """Every dx and full backward runs one ln_bwd; every full backward two
+    colsum (its two bias gradients)."""
+    B, S, C, H, kind = SHAPES[1]
+    attn, mlp = _inputs(B, S, C, H, kind, cuda, dtype)
+    x, mask, lw, lb, wq, bq, wp, bp = attn[:8]
+    w1, b1, w2, b2 = mlp[3:7]
+    g = torch.randn(B, S, C, device=cuda).to(dtype)
+    seeds = _seeds(B, cuda)
+    with torch.no_grad():
+        _, qkv, att = FB._attn_fwd(x, mask, lw, lb, wq, bq, wp, bp, H, EPS, True)
+        h, a_d = FT._mlp_train_fwd(x, seeds, lw, lb, w1, b1, w2, b2, EPS, 0.1, True)[1:3]
+        calls = {
+            "attn_half_dx": lambda: FB.attn_half_dx(x, mask, lw, lb, wq, bq, wp, g, H, EPS),
+            "mlp_half_dx": lambda: FB.mlp_half_dx(x, lw, lb, w1, b1, w2, g, EPS),
+            "attn_half_full_bwd": lambda: FB.attn_half_full_bwd(x, mask, lw, lb, wq, wp, g,
+                                                                qkv, att, H, EPS),
+            "attn_half_train_bwd": lambda: FT.attn_half_train_bwd(
+                x, seeds, mask, lw, lb, wq, wp, g, qkv, att, H, EPS, 0.1),
+            "mlp_half_train_bwd": lambda: FT.mlp_half_train_bwd(
+                x, seeds, lw, lb, w1, w2, g, h, a_d, 0.1, EPS),
+        }
+        for name, call in calls.items():
+            before = dict(FB.sub_launches)
+            call()
+            torch.cuda.synchronize()
+            full = not name.endswith("_dx")
+            assert FB.sub_launches["ln_bwd"] == before["ln_bwd"] + 1, name
+            assert FB.sub_launches["colsum"] == before["colsum"] + (2 if full else 0), name
