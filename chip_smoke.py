@@ -3,7 +3,8 @@ image attack and the task_moco training step under the three block
 configurations (``attention_impl`` / ``mlp_impl``, ``models/vilt.py:
 derive_block_impls``): the default ("fused", "fused_train"), P ("pallas": the
 unfused block around the attention-core kernels) and F ("fused", "fused":
-``attn_half_full`` with its full backward, the plain MLP).
+``attn_half_full`` with its full backward, the plain MLP); then the greedy
+text attack and the attacked task_moco step, the main path.
 
     python3 chip_smoke.py
 
@@ -32,7 +33,9 @@ Phases, any failure exits non-zero:
                key mask: attn_half and mlp_half at B=8, S=269 (serving) and,
                in bf16, at B=16, S=241 (the attack); attn_half_dx and
                mlp_half_dx, recomputing and from the saved qkv / h, at
-               B=16, S=241 with a random g.  fp32 (TF32 off) error
+               B=16, S=241 with a random g; in bf16 the four at B=80,
+               S=217, the greedy attack's scoring batch (16 pairs x 5
+               candidates, text bucket 16).  fp32 (TF32 off) error
                <= 2e-4 * max(1, max|ref|), bf16 error <= 2e-2 * max|ref|.
                Kernel and plain times are the median of 20 after warm-up,
                CUDA events.  Each op's bound is worked out from these shapes
@@ -138,6 +141,39 @@ Phases, any failure exits non-zero:
                attn_half_full 48, attn_half_full_bwd 36, mlp_half 72,
                mlp_half_dx 60, dropout 266, every training op 0.
  11. train slice P, train slice F   phase 9 under P and F.
+ 12. greedy    the fused greedy word-substitution attack
+               (attacks/greedy_fused.py on GreedyAttackMoco), bf16, 16 pairs,
+               n_candidates 5, max_loops 10, against the post-EMA keys
+               (train/loop.py:greedy_attack_extras) and the seeded queue of
+               65,536, on two caption mixes copied from bench.py:
+               _greedy_setup (its synthetic vocabulary and 32-dimensional
+               vectors; the real counter-fitted vectors are not in the
+               repository): "worst", ten attackable words, and "realistic",
+               content words alternating with function words.  Checks: every
+               changed word a synonym candidate of the word it replaced, the
+               changed words a sample's commits, none over min(int(0.2 *
+               (sub-tokens + 1)), max_loops); some change in the worst mix;
+               the launch counters equal the attack's own count (12 of
+               attn_half, mlp_half, attn_half_dx and mlp_half_dx per gradient
+               pass, 12 of attn_half and mlp_half per scoring forward) and
+               the sub-kernels follow (expected_sub_launches).  Prints the
+               loops, gradient passes, scoring forwards, host reads and the
+               attack's time (median of 3, host clock + synchronize).
+ 13. train attacked worst, train attacked realistic   make_attacked_train_step
+               with the default configuration, bf16, 16 pairs, the mix's
+               captions and tables: phase 8's checks, the launch counters
+               adding the attack's own count, num_changes and change_rate
+               finite; step ms, pairs/s, the split (key forward, greedy
+               attack, PGD, views, AdamW) by CUDA events, memory.
+ 14. train attacked slice   one fp32 attacked step of 4 pairs on the
+               realistic captions, the card's kernels against the CPU's plain
+               ops from the same weights, batch and dropout seeds: the
+               attacked token ids equal; where they differ, the first decision
+               that parts (the pick, the best candidate or the commit) and its
+               margin are printed, and it must be a tie within 2e-4 *
+               max(1, |value|) (the rest of the step then runs on the CPU's
+               ids); then phase 9's tolerances for the loss, gradients,
+               updated leaves, twins and queue.
 
 The line before the last is the kernels' JSON record; the last line is
 ``{"ok": true, "device": {...}}``.  Without a card, or outside the
@@ -146,11 +182,11 @@ repository, it exits non-zero and prints no result.
     python3 chip_smoke.py --profile
 
 runs phases 1 and 2 and then, in place of the checks, traces five serving
-forwards, two attacks and two training steps under each configuration with
-``torch.profiler`` and
-prints, for each, the
-device time by kernel name, the device-busy and wall time per call and the
-idle share (the breakdowns of PERF.md section 5).
+forwards, two attacks, two training steps under each configuration and two
+attacked steps per caption mix with ``torch.profiler`` and prints, for
+each, the device time by kernel name, the device-busy and wall time per
+call, the idle share and the kernel count, and for the attacked steps the
+greedy attack's loops and host reads (the breakdowns of PERF.md section 5).
 
     python3 chip_smoke.py --gemm-times [ROOT]
 
@@ -191,6 +227,7 @@ N_CPU = 4
 SEED = 0
 PGD_CONFIG = "task_moco"
 PGD_BATCH = 16
+GREEDY_ROWS, GREEDY_S = 16 * 5, 16 + 201    # the greedy attack's scoring forward
 KERNELS = {  # op -> the Pallas kernel body it replaces
     "attn_half": "rmcl_tpu/ops/pallas_block.py:112",
     "mlp_half": "rmcl_tpu/ops/pallas_block.py:526",
@@ -502,6 +539,24 @@ def phase_kernels(dev) -> dict:
                         f"{name}[{variant}]", tag, shape, op, plain, args, rtol,
                         dtype == torch.float32)
 
+        # the greedy attack's scoring batch: 16 pairs x 5 candidates at the text
+        # bucket of ten-word captions, S = 16 + 201 (the forwards; its gradient
+        # pass runs the dx ops at B = 16); bf16
+        xg, maskg, lng, attng, mlpg, _ = _block_inputs(dev, B=GREEDY_ROWS, S=GREEDY_S)
+        gg = torch.randn(xg.shape, generator=gen, device=dev).to(torch.bfloat16)
+        xg = xg.to(torch.bfloat16)
+        a_g = (xg, maskg, *lng, attng[0].to(torch.bfloat16), attng[1],
+               attng[2].to(torch.bfloat16))
+        m_g = (xg, *lng, mlpg[0].to(torch.bfloat16), mlpg[1], mlpg[2].to(torch.bfloat16))
+        gshape = f"B={GREEDY_ROWS} S={GREEDY_S} C=768 H=12"
+        for name, op, plain, args in (
+                ("attn_half", FB.attn_half, FB.attn_half_plain, (*a_g, attng[3], H, eps)),
+                ("mlp_half", FB.mlp_half, FB.mlp_half_plain, (*m_g, mlpg[3], eps)),
+                ("attn_half_dx", FB.attn_half_dx, FB.attn_half_dx_plain, (*a_g, gg, H, eps)),
+                ("mlp_half_dx", FB.mlp_half_dx, FB.mlp_half_dx_plain, (*m_g, gg, eps))):
+            res[name]["bf16_greedy_shape"] = _compare(name, "bf16", gshape, op, plain, args,
+                                                      2e-2, False)
+        del xg, maskg, gg, a_g, m_g
         _train_kernels(res, dev, x, mask, g, (lw, lb), (wq, bq, wp, bp), (w1, b1, w2, b2),
                        H, eps, shape)
         _config_kernels(res, dev, x, mask, g, (lw, lb), (wq, bq, wp, bp), (w1, b1, w2, b2),
@@ -520,6 +575,9 @@ def phase_kernels(dev) -> dict:
         res[name]["pgd_shape_bound_ms"] = bound(name, PGD_BATCH, 241, C)[0]
     for name in ("attn_half_dx", "mlp_half_dx"):
         res[name]["recompute_bound_ms"] = bound(name, PGD_BATCH, 241, C, saved=False)[0]
+    for name in ("attn_half", "mlp_half", "attn_half_dx", "mlp_half_dx"):
+        # the dx ops at this shape recompute (no forward kept its qkv / h)
+        res[name]["greedy_shape_bound_ms"] = bound(name, GREEDY_ROWS, GREEDY_S, C)[0]
     return res
 
 
@@ -1487,13 +1545,12 @@ def check_sub_launches(where: str, ops: dict, FB) -> dict:
 
 
 class _StepClock:
-    """CUDA events at the attack's and the optimizer's boundaries inside a
-    training step, so that one step splits into key forward / attack / views
-    / optimizer without a timing hook in the package."""
+    """CUDA events at the attacks' and the optimizer's boundaries inside a
+    training step, so that one step splits into key forward / greedy attack /
+    PGD / views / optimizer without a timing hook in the package.  Install
+    it before the step is made: ``greedy``'s attack body is wrapped in place."""
 
-    MARKS = ("start", "attack0", "attack1", "opt0", "opt1", "end")
-
-    def __init__(self, ts):
+    def __init__(self, ts, greedy=None):
         import rmcl_tpu_torch.train.step as step_mod
         self.ev = {}
         make = step_mod.make_pgd_moco
@@ -1508,8 +1565,18 @@ class _StepClock:
                 return out
             return timed_attack
 
-        self._restore = lambda: setattr(step_mod, "make_pgd_moco", make)
+        self._restore = [lambda: setattr(step_mod, "make_pgd_moco", make)]
         step_mod.make_pgd_moco = timed_make
+        if greedy is not None:
+            body = greedy._attack
+
+            def timed_greedy(*a, **kw):
+                self.mark("greedy0")
+                out = body(*a, **kw)
+                self.mark("greedy1")
+                return out
+            greedy._attack = timed_greedy
+            self._restore.append(lambda: delattr(greedy, "_attack"))
         self._hooks = [
             ts.optimizer.register_step_pre_hook(lambda *_: self.mark("opt0")),
             ts.optimizer.register_step_post_hook(lambda *_: self.mark("opt1"))]
@@ -1520,24 +1587,40 @@ class _StepClock:
 
     def split(self) -> dict:
         t = lambda a, b: self.ev[a].elapsed_time(self.ev[b])  # noqa: E731
-        return {"momentum update + key forward": t("start", "attack0"),
-                "attack": t("attack0", "attack1"),
+        if "greedy0" in self.ev:
+            head = {"momentum update + key forward": t("start", "greedy0"),
+                    "greedy text attack": t("greedy0", "greedy1"),
+                    "PGD attack": t("greedy1", "attack1")}
+        else:
+            head = {"momentum update + key forward": t("start", "attack0"),
+                    "attack": t("attack0", "attack1")}
+        return {**head,
                 "four views forward, three backward": t("attack1", "opt0"),
                 "AdamW": t("opt0", "opt1"),
                 "recast of the block matrices, metrics": t("opt1", "end")}
 
     def close(self):
-        self._restore()
+        for restore in self._restore:
+            restore()
         for h in self._hooks:
             h.remove()
 
 
-def train_setup(dev, config: str = "default") -> tuple:
-    from rmcl_tpu_torch.train.step import create_train_state, make_train_step
+def train_setup(dev, config: str = "default", mix=None) -> tuple:
+    """(cfg, ts, batch, greedy, make_step) of the training phases.  With a
+    caption ``mix`` the batch carries the mix's captions and the greedy
+    attack's tables, ``greedy`` is the fused attacker and ``make_step()``
+    makes the attacked step; else the batch carries seeded attacked ids and
+    ``make_step()`` makes ``make_train_step``'s step."""
+    from rmcl_tpu_torch.train.step import (create_train_state, make_attacked_train_step,
+                                           make_train_step)
     cfg = train_config(config)
     ts = create_train_state(cfg, model=moco_model(cfg), device=dev)
     batch = train_batch(cfg, PGD_BATCH, SEED + 4, dev)
-    return cfg, ts, batch, make_train_step(cfg, ts)
+    if mix is None:
+        return cfg, ts, batch, None, lambda: make_train_step(cfg, ts)
+    greedy, batch, _ = attacked_batch(cfg, ts.model, batch, mix)
+    return cfg, ts, batch, greedy, lambda: make_attacked_train_step(cfg, ts, greedy)
 
 
 def _expected_keys(model, batch, old_pooler) -> torch.Tensor:
@@ -1553,24 +1636,27 @@ def _expected_keys(model, batch, old_pooler) -> torch.Tensor:
     return k
 
 
-def phase_train(dev, config: str = "default") -> dict:
+def phase_train(dev, config: str = "default", mix=None) -> dict:
     from rmcl_tpu_torch.ops import fused_block as FB
     t0 = time.perf_counter()
-    cfg, ts, batch, step = train_setup(dev, config)
+    cfg, ts, batch, greedy, make_step = train_setup(dev, config, mix)
     model = ts.model
-    tag = f"[train {config}]" if config != "default" else "[train]"
+    tag = (f"[train attacked {mix}]" if mix else
+           f"[train {config}]" if config != "default" else "[train]")
     gen = torch.Generator().manual_seed(SEED + 7)
     n_train = sum(p.numel() for p in model.parameters() if p.requires_grad)
     print(f"{tag} {PGD_CONFIG}, blocks {model.block_impls}, image and text views, drop_rate "
           f"{cfg.drop_rate}, {n_train / 1e6:.1f} M trainable parameters, {PGD_BATCH} pairs, "
-          f"state ready in {time.perf_counter() - t0:.1f} s")
-    step(batch, gen)                                        # warm-up
-    torch.cuda.synchronize()
-    torch.cuda.reset_peak_memory_stats()
-    want = expected_launches(cfg)
-    clock = _StepClock(ts)
-    walls, splits, counts = [], [], None
+          f"state ready in {time.perf_counter() - t0:.1f} s"
+          + (f"; the greedy attack inside the step, {mix} captions, text bucket "
+             f"{batch['gw_tbucket'].shape[1]} of {cfg.max_text_len}" if mix else ""))
+    clock = _StepClock(ts, greedy)
+    walls, splits, counts, stats = [], [], None, []
     try:
+        step = make_step()
+        step(batch, gen)                                        # warm-up
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
         for it in range(TRAIN_STEPS):
             before = {n: p.detach().clone() for n, p in model.named_parameters()}
             old_pooler = copy.deepcopy(model.pooler.state_dict())
@@ -1585,6 +1671,11 @@ def phase_train(dev, config: str = "default") -> dict:
             walls.append((time.perf_counter() - t) * 1e3)
             splits.append(clock.split())
             counts = dict(FB.launches)
+            want = expected_launches(cfg)
+            if greedy is not None:     # the attack's own count of its passes
+                stats.append(dict(greedy.last_stats))
+                attack = attack_launches(stats[-1], cfg.num_layers)
+                want = {k: want[k] + attack[k] for k in want}
             check(counts == want, f"step {it}: launches {counts}, expected {want}")
             counts = check_sub_launches(f"{tag} step {it}", counts, FB)
             vals = {k: v.item() for k, v in metrics.items()}
@@ -1607,11 +1698,15 @@ def phase_train(dev, config: str = "default") -> dict:
             written = model.proj_queue[:, ptr0:ptr0 + PGD_BATCH].t().float()
             kdiff = (written - k.to(model.proj_queue.dtype).float()).abs().max().item()
             check(kdiff <= 1e-6, f"step {it}: queue columns differ from the keys by {kdiff}")
+            greedy_note = ""
+            if greedy is not None:
+                greedy_note = (f" num_changes={vals['num_changes']!r} change_rate="
+                               f"{vals['change_rate']!r}; attack {stats[-1]};")
             print(f"{tag} step {it}: total_loss={vals['total_loss']!r} txt/img/both "
                   f"{vals['attacked_txt_loss']:.4f}/{vals['attacked_img_loss']:.4f}/"
                   f"{vals['attacked_both_loss']:.4f} lr={vals['lr']!r} pgd_delta="
-                  f"{vals['pgd_delta']:.5f}; pointer {ptr0} -> {ptr1}, keys written exactly; "
-                  f"{walls[-1]:.1f} ms")
+                  f"{vals['pgd_delta']:.5f};{greedy_note} pointer {ptr0} -> {ptr1}, keys "
+                  f"written exactly; {walls[-1]:.1f} ms")
     finally:
         clock.close()
     ms = statistics.median(walls)
@@ -1625,22 +1720,9 @@ def phase_train(dev, config: str = "default") -> dict:
     return counts
 
 
-def phase_train_slice(dev, config: str = "default") -> None:
-    from rmcl_tpu_torch.compat.from_jax import leaves_to_jax
-    from rmcl_tpu_torch.train.step import create_train_state, make_train_step
-    tag = f"[train slice {config}]" if config != "default" else "[train slice]"
-    cfg32 = train_config(config).replace(compute_dtype="float32", queue_dtype="float32")
-    base = moco_model(cfg32)
-    batch = train_batch(cfg32, N_CPU, SEED + 4, "cpu")
-    results = {}
-    for where in ("cpu", dev):
-        ts = create_train_state(cfg32, model=copy.deepcopy(base), device=where)
-        t0 = time.perf_counter()
-        metrics = make_train_step(cfg32, ts)({k: v.to(where) for k, v in batch.items()},
-                                             torch.Generator().manual_seed(SEED + 8))
-        loss = metrics["total_loss"].item()
-        results[str(where)] = (loss, leaves_to_jax(ts.model, grads=True),
-                               leaves_to_jax(ts.model), time.perf_counter() - t0)
+def _train_results(tag, results: dict, dev, lr: float) -> None:
+    """Phase 9's comparison of one step on the CPU and on the card: results
+    maps "cpu" and str(dev) to (loss, gradients, updated leaves, seconds)."""
     (l_ref, g_ref, p_ref, cpu_s), (l_gpu, g_gpu, p_gpu, _) = results["cpu"], results[str(dev)]
     rel = abs(l_gpu - l_ref) / abs(l_ref)
     print(f"{tag} {N_CPU} pairs, fp32, one step: CPU plain ops ({cpu_s:.1f} s) loss "
@@ -1659,7 +1741,6 @@ def phase_train_slice(dev, config: str = "default") -> None:
 
     wg, wp = worst(g_gpu, g_ref, "gradient"), worst(p_gpu, p_ref, "updated leaf")
     check(int(p_gpu["proj_queue_ptr"]) == int(p_ref["proj_queue_ptr"]) == N_CPU, "pointer")
-    lr = train_config().learning_rate
     trained = [p for p in g_ref if not p.startswith("k_")]
     near = (sum(int((np.abs(p_gpu[p] - p_ref[p]) <= 0.02 * lr).sum()) for p in trained)
             / sum(p_ref[p].size for p in trained))
@@ -1667,6 +1748,277 @@ def phase_train_slice(dev, config: str = "default") -> None:
           f"{wg[0]} at {wg[1]:.3f} of its bound); {len(p_ref)} updated leaves (parameters, "
           f"twins, queue) within the same bound (worst {wp[0]} at {wp[1]:.3f}); pointer "
           f"{N_CPU}; {near:.6f} of the trained elements within 2% of the rate {lr}")
+
+
+def _step_result(ts, metrics, t0) -> tuple:
+    from rmcl_tpu_torch.compat.from_jax import leaves_to_jax
+    return (metrics["total_loss"].item(), leaves_to_jax(ts.model, grads=True),
+            leaves_to_jax(ts.model), time.perf_counter() - t0)
+
+
+def phase_train_slice(dev, config: str = "default") -> None:
+    from rmcl_tpu_torch.train.step import create_train_state, make_train_step
+    tag = f"[train slice {config}]" if config != "default" else "[train slice]"
+    cfg32 = train_config(config).replace(compute_dtype="float32", queue_dtype="float32")
+    base = moco_model(cfg32)
+    batch = train_batch(cfg32, N_CPU, SEED + 4, "cpu")
+    results = {}
+    for where in ("cpu", dev):
+        ts = create_train_state(cfg32, model=copy.deepcopy(base), device=where)
+        t0 = time.perf_counter()
+        metrics = make_train_step(cfg32, ts)({k: v.to(where) for k, v in batch.items()},
+                                             torch.Generator().manual_seed(SEED + 8))
+        results[str(where)] = _step_result(ts, metrics, t0)
+    _train_results(tag, results, dev, train_config().learning_rate)
+
+
+# ------------------------------------------------------- greedy attack
+# the synthetic counter-fitted vocabulary of bench.py:_greedy_setup :150
+# (its word lists :132 and :140): the real vectors and BERT vocabulary are
+# not in the repository; the attack's device cost is set by B, n_candidates,
+# max_loops and the model, not by the size of the vocabulary
+GREEDY_WORDS = [
+    "dog", "cat", "puppy", "kitten", "car", "auto", "red", "crimson",
+    "blue", "azure", "big", "large", "small", "tiny", "runs", "sprints",
+    "sits", "rests", "park", "garden", "street", "road", "man", "guy",
+    "woman", "lady", "child", "kid", "house", "home", "tree", "plant",
+    "fast", "quick", "slow", "sluggish", "happy", "glad", "sad", "gloomy",
+    "in", "the", "a", "on", "with", "near",
+]
+GREEDY_GROUPS = [
+    ["dog", "puppy"], ["cat", "kitten"], ["car", "auto"],
+    ["red", "crimson"], ["blue", "azure"], ["big", "large"],
+    ["small", "tiny"], ["runs", "sprints"], ["sits", "rests"],
+    ["park", "garden"], ["street", "road"], ["man", "guy"],
+    ["woman", "lady"], ["child", "kid"], ["house", "home"],
+    ["tree", "plant"], ["fast", "quick"], ["slow", "sluggish"],
+    ["happy", "glad"], ["sad", "gloomy"],
+]
+GREEDY_STOP = ["in", "the", "a", "on", "with", "near"]
+# worst: every word attackable; realistic: content words alternating with
+# function words, so that the budgets run out after one or two commits
+GREEDY_MIXES = ("worst", "realistic")
+GREEDY_SLICE_MIX = "realistic"
+
+
+def greedy_setup(cfg, n: int, mix: str) -> tuple:
+    """(tokenizer, synonym table, n captions) as bench.py:_greedy_setup makes
+    them: the vocabulary, 32-dimensional vectors (synonym groups share a
+    direction) and captions from one RandomState(0)."""
+    import tempfile
+    from rmcl_tpu_torch.attacks.greedy import SynonymTable
+    from rmcl_tpu_torch.data.tokenizer import WordPieceTokenizer, make_tiny_vocab
+    rng = np.random.RandomState(0)
+    with tempfile.TemporaryDirectory(prefix="greedy_vocab_") as d:
+        tok = WordPieceTokenizer(make_tiny_vocab(f"{d}/vocab.txt", GREEDY_WORDS))
+        vecs = {}
+        for group in GREEDY_GROUPS:
+            base = rng.randn(32)
+            for w in group:
+                vecs[w] = base + 0.05 * rng.randn(32)
+        for w in GREEDY_WORDS:
+            vecs.setdefault(w, rng.randn(32))
+        with open(f"{d}/vectors.txt", "w") as f:
+            for w, v in vecs.items():
+                f.write(w + " " + " ".join(f"{x:.5f}" for x in v) + "\n")
+        syn = SynonymTable(f"{d}/vectors.txt", cfg.n_candidates, cfg.sim_thred)
+    content = [w for w in GREEDY_WORDS if w not in GREEDY_STOP]
+    L = min(cfg.max_text_len - 2, 10)
+    if mix == "realistic":
+        sents = [" ".join(str(rng.choice(content if i % 2 == 0 else GREEDY_STOP))
+                          for i in range(L)) for _ in range(n)]
+    else:
+        sents = [" ".join(rng.choice(content, size=L)) for _ in range(n)]
+    return tok, syn, sents
+
+
+def attacked_batch(cfg, model, batch, mix: str) -> tuple:
+    """(the fused attacker on ``model``, ``batch`` with the mix's captions
+    and the attack's host tables under TABLE_KEYS in place of attacked ids,
+    the captions)."""
+    from rmcl_tpu_torch.attacks.greedy import GreedyAttackMoco
+    from rmcl_tpu_torch.attacks.greedy_fused import FusedGreedyAttack
+    tok, syn, sents = greedy_setup(cfg, batch["text_ids"].shape[0], mix)
+    greedy = FusedGreedyAttack(GreedyAttackMoco(cfg, model, tok, syn))
+    ids, masks = tok.batch_encode(sents, cfg.max_text_len)
+    dev = batch["text_ids"].device
+    out = {k: v for k, v in batch.items() if not k.startswith("attacked_")}
+    out.update(text_ids=torch.from_numpy(ids).to(dev), text_masks=torch.from_numpy(masks).to(dev),
+               **greedy.prep_tables(ids))
+    return greedy, out, sents
+
+
+def attack_launches(stats: dict, num_layers: int) -> dict:
+    """Block-op launches of one greedy attack from its own count: every
+    gradient pass runs the deterministic forward and the dx backward of each
+    block, every scoring forward the deterministic forward."""
+    from rmcl_tpu_torch.ops import fused_block as FB
+    g, s = stats["grad_passes"], stats["score_forwards"]
+    return {**dict.fromkeys(FB.launches, 0), "attn_half": num_layers * (g + s),
+            "mlp_half": num_layers * (g + s), "attn_half_dx": num_layers * g,
+            "mlp_half_dx": num_layers * g}
+
+
+def check_substitutions(tag, syn, sents, texts, n_changed, n_tokens, max_loops) -> int:
+    """Every changed word is a synonym candidate of the word it replaced, a
+    sample's changed words are its commits, and no sample exceeds the budget
+    min(int(0.2 * (sub-tokens + 1)), max_loops).  Returns the changed words."""
+    total = 0
+    for i, (orig, new, n, L) in enumerate(zip(sents, texts, n_changed, n_tokens)):
+        ow, nw = orig.split(), new.split()
+        check(len(ow) == len(nw), f"{tag} sample {i}: {orig!r} -> {new!r}")
+        changed = [(a, b) for a, b in zip(ow, nw) if a != b]
+        bad = [(a, b) for a, b in changed if b not in syn.candidates(a)]
+        check(not bad, f"{tag} sample {i}: {bad} are not synonym candidates")
+        check(len(changed) == n, f"{tag} sample {i}: {len(changed)} words changed, "
+                                 f"{n} commits")
+        check(n <= min(int(0.2 * (L + 1)), max_loops),
+              f"{tag} sample {i}: {n} changes over the budget of {L} sub-tokens")
+        total += n
+    return total
+
+
+def phase_greedy(dev) -> dict:
+    """Phase 12: the fused greedy attack alone, per caption mix."""
+    from rmcl_tpu_torch import build_config
+    from rmcl_tpu_torch.ops import fused_block as FB
+    from rmcl_tpu_torch.train.loop import greedy_attack_extras
+    cfg = build_config(PGD_CONFIG)
+    model = moco_model(cfg).to(dev)
+    out = {}
+    for mix in GREEDY_MIXES:
+        tag = f"[greedy {mix}]"
+        greedy, batch, sents = attacked_batch(
+            cfg, model, pgd_batch(cfg, PGD_BATCH, SEED + 4, dev), mix)
+        tok, syn = greedy.base.tokenizer, greedy.base.synonyms
+        extras = greedy_attack_extras(cfg, model, "moco", batch)   # the post-EMA keys
+        tables = [torch.as_tensor(batch[k], device=dev) for k in
+                  ("gw_tok", "gw_len", "gw_attackable", "gw_cand_tok", "gw_cand_len",
+                   "gw_cand_valid")]
+        Ts = batch["gw_tbucket"].shape[1]
+        attack = greedy.build_attack_body()
+
+        def run():
+            return attack(batch, extras, *tables, batch["gw_tbucket"])
+
+        run()                                                   # warm-up
+        torch.cuda.synchronize()
+        FB.reset_launches()
+        ids, masks, n_changed = run()
+        torch.cuda.synchronize()
+        counts, stats = dict(FB.launches), dict(greedy.last_stats)
+        want = attack_launches(stats, cfg.num_layers)
+        check(counts == want, f"{tag} launches {counts}, expected {want} from {stats}")
+        counts = check_sub_launches(tag, counts, FB)
+        n_changed = n_changed.cpu().tolist()
+        texts = [tok.decode(row) for row in ids.cpu().numpy()]
+        n_tokens = (batch["text_masks"].sum(1) - 2).cpu().tolist()
+        total = check_substitutions(tag, syn, sents, texts, n_changed, n_tokens,
+                                    cfg.max_loops)
+        check(mix != "worst" or total > 0, f"{tag} no word changed")
+        check(bool((masks.sum(1).cpu() == batch["text_masks"].sum(1).cpu()).all()),
+              f"{tag} caption lengths changed")
+        walls = []
+        for _ in range(3):
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            run()
+            torch.cuda.synchronize()
+            walls.append((time.perf_counter() - t) * 1e3)
+        ms = statistics.median(walls)
+        print(f"{tag} {PGD_BATCH} pairs, bf16, n_candidates {cfg.n_candidates}, max_loops "
+              f"{cfg.max_loops}, queue {tuple(model.proj_queue.shape)}, text bucket Ts = {Ts} "
+              f"(S = {Ts + cfg.image_seq_len}); loops {stats['loops']}, gradient passes "
+              f"{stats['grad_passes']}, scoring forwards {stats['score_forwards']}, host reads "
+              f"{stats['host_reads']}; {total} words changed (num_changes "
+              f"{total / PGD_BATCH!r}), each a synonym candidate, within the budgets")
+        print(f"{tag} e.g. {sents[0]!r} -> {texts[0]!r}")
+        print(f"{tag} launches {counts}")
+        print(f"{tag} attack {ms!r} ms (median of 3, host clock + synchronize; the host "
+              f"tables made before)")
+        out[mix] = counts
+    return out
+
+
+def _first_split(rec_a: list, rec_b: list) -> tuple:
+    """(loop, sample, decision, margin, value) where two records of one attack
+    first part: the pick (margin: the first record's saliency gap between the
+    two picks), the best candidate (the score gap) or the commit (the best
+    score against the per-sample loss); None when they do not part."""
+    for li, (a, b) in enumerate(zip(rec_a, rec_b)):
+        if not torch.equal(a["rows"], b["rows"]):
+            return li, None, "rows", float("inf"), 0.0
+        for j, row in enumerate(a["rows"].tolist()):
+            pa, pb = int(a["pick"][j]), int(b["pick"][j])
+            if pa != pb:
+                sal = a["sal"][j].double()
+                return li, row, "pick", abs(float(sal[pa] - sal[pb])), float(sal[pa])
+            ba, bb = int(a["best"][j]), int(b["best"][j])
+            sc = a["scores"][j].double()
+            if ba != bb:
+                return li, row, "best candidate", abs(float(sc[ba] - sc[bb])), float(sc[ba])
+            if bool(a["improved"][j]) != bool(b["improved"][j]):
+                per = float(a["per_loss"][j])
+                return li, row, "commit", abs(float(sc[ba]) - per), per
+    if len(rec_a) != len(rec_b):
+        return min(len(rec_a), len(rec_b)), None, "loops", float("inf"), 0.0
+    return None
+
+
+def phase_train_attacked_slice(dev) -> None:
+    """Phase 14: one fp32 attacked step of 4 pairs, the card's kernels against
+    the CPU's plain ops from the same weights, batch and dropout seeds."""
+    from rmcl_tpu_torch.train.step import (create_train_state, make_attacked_train_step,
+                                           make_train_step)
+    tag = "[train attacked slice]"
+    cfg32 = train_config().replace(compute_dtype="float32", queue_dtype="float32")
+    base = moco_model(cfg32)
+    batch0 = train_batch(cfg32, N_CPU, SEED + 4, "cpu")
+    results, attacked, records = {}, {}, {}
+    for where in ("cpu", dev):
+        ts = create_train_state(cfg32, model=copy.deepcopy(base), device=where)
+        greedy, batch, _ = attacked_batch(cfg32, ts.model, batch0, GREEDY_SLICE_MIX)
+        greedy.record = []
+        body = greedy._attack
+
+        def keep(*a, body=body, where=where, **kw):
+            out = body(*a, **kw)
+            attacked[str(where)] = [t.cpu() for t in out]
+            return out
+        greedy._attack = keep
+        t0 = time.perf_counter()
+        metrics = make_attacked_train_step(cfg32, ts, greedy)(
+            {k: v.to(where) if isinstance(v, torch.Tensor) else v for k, v in batch.items()},
+            torch.Generator().manual_seed(SEED + 8))
+        results[str(where)] = _step_result(ts, metrics, t0)
+        records[str(where)] = greedy.record
+        print(f"{tag} {where}: {GREEDY_SLICE_MIX} captions, attack {greedy.last_stats}, "
+              f"num_changes {metrics['num_changes'].item()!r}")
+    (ids_c, _, n_c), (ids_g, _, n_g) = attacked["cpu"], attacked[str(dev)]
+    if torch.equal(ids_c, ids_g):
+        print(f"{tag} attacked token ids equal on the card and the CPU "
+              f"({int(n_c.sum())} commits, {len(records['cpu'])} loops)")
+    else:
+        split = _first_split(records["cpu"], records[str(dev)])
+        check(split is not None, f"{tag} ids differ but no decision parted")
+        loop, row, what, margin, value = split
+        tol = 2e-4 * max(1.0, abs(value))
+        print(f"{tag} attacked ids differ: first at loop {loop}, sample {row}, the "
+              f"{what}: margin {margin!r} against {tol!r} (2e-4 * max(1, |{value!r}|))")
+        check(margin <= tol, f"{tag} the {what} of sample {row} in loop {loop} parts by "
+                             f"{margin}, more than the tie tolerance {tol}")
+        # a true tie: the rest of the step is held on the CPU's attacked ids
+        for where in ("cpu", dev):
+            ts = create_train_state(cfg32, model=copy.deepcopy(base), device=where)
+            b = {k: v.to(where) for k, v in batch0.items()}
+            b.update(text_ids=torch.as_tensor(batch["text_ids"]).to(where),
+                     text_masks=torch.as_tensor(batch["text_masks"]).to(where),
+                     attacked_text_ids=ids_c.to(where),
+                     attacked_text_masks=attacked["cpu"][1].to(where))
+            t0 = time.perf_counter()
+            metrics = make_train_step(cfg32, ts)(b, torch.Generator().manual_seed(SEED + 8))
+            results[str(where)] = _step_result(ts, metrics, t0)
+    _train_results(tag, results, dev, train_config().learning_rate)
 
 
 # --------------------------------------------------------------- profile
@@ -1720,13 +2072,25 @@ def phase_profile(dev) -> None:
            f"bf16", lambda: attack(batch, k, model.proj_queue), 2)
     del model, batch, k, attack
     for config in IMPLS:
-        _, ts, tbatch, step = train_setup(dev, config)
+        _, ts, tbatch, _, make_step = train_setup(dev, config)
+        step = make_step()
         gen = torch.Generator().manual_seed(SEED + 7)
         step(tbatch, gen)
         _trace(f"train {config} {ts.model.block_impls}, {PGD_CONFIG}, one training step of "
                f"{PGD_BATCH} pairs (image and text views, drop_rate {DROP_P}), bf16",
                lambda: step(tbatch, gen), 2, top=24)
         del ts, tbatch, step
+    for mix in GREEDY_MIXES:
+        _, ts, tbatch, greedy, make_step = train_setup(dev, "default", mix)
+        step = make_step()
+        gen = torch.Generator().manual_seed(SEED + 7)
+        step(tbatch, gen)
+        _trace(f"train attacked {mix}, {PGD_CONFIG}, one attacked training step of "
+               f"{PGD_BATCH} pairs (the greedy attack on {mix} captions, then as above), bf16",
+               lambda: step(tbatch, gen), 2, top=24)
+        print(f"[profile]   the greedy attack of the last step: {greedy.last_stats} "
+              f"(host_reads: the packed reads of the live count and the commit flag)")
+        del ts, tbatch, step, greedy
 
 
 def host_us(fn, calls: int = 100) -> float:
@@ -1972,24 +2336,41 @@ def main() -> int:
         for config in ("P", "F"):
             phase = f"train slice {config}"
             phase_train_slice(dev, config)
+        phase = "greedy"
+        greedy_counts = phase_greedy(dev)
+        attacked_counts = {}
+        for mix in GREEDY_MIXES:
+            phase = f"train attacked {mix}"
+            attacked_counts[mix] = phase_train(dev, mix=mix)
+        phase = "train attacked slice"
+        phase_train_attacked_slice(dev)
     except Exception as e:  # noqa: BLE001  every phase failure ends the run
         traceback.print_exc()
         print(f"chip_smoke: FAILED in phase {phase}: {e}", file=sys.stderr)
         return 1
     print(f"[done] every phase passed in {time.perf_counter() - t_start:.1f} s")
+    main_path = attacked_counts["worst"]    # the attacked task_moco step, default blocks
+
+    def by_path(name):
+        return {"serving": counts.get(name, 0), "pgd": pgd_counts[name],
+                **{f"train_{c}": n[name] for c, n in train_counts.items()},
+                "greedy": greedy_counts["worst"][name],
+                "greedy_realistic": greedy_counts["realistic"][name],
+                "train_attacked": attacked_counts["worst"][name],
+                "train_attacked_realistic": attacked_counts["realistic"][name]}
+
     records = []
     for name, replaces in KERNELS.items():
         r = kres[name]
         dx, train, new = name.endswith("_dx"), name in TRAIN_OPS, name in CONFIG_OPS
         main = (r[f"bf16_p{DROP_P}"] if train else r["bf16_saved"] if dx else r["bf16"])
-        # the main path's launches: the run of the configuration that takes the op
+        # the main path's launches: the attacked step, or for an op of another
+        # block configuration the step of the configuration that takes it
         path = ("F" if name.startswith("attn_half_full") or name == "dropout" else
-                "P" if name.startswith("masked_attention") else "default")
+                "P" if name.startswith("masked_attention") else None)
         rec = {"name": name, "route": "cuda", "source": SOURCE, "replaces": replaces,
-               "launches": (train_counts[path] if train or new else
-                            pgd_counts if dx else counts)[name],
-               "launches_by_path": {"serving": counts.get(name, 0), "pgd": pgd_counts[name],
-                                    **{f"train_{c}": n[name] for c, n in train_counts.items()}},
+               "launches": (train_counts[path] if path else main_path)[name],
+               "launches_by_path": by_path(name),
                "max_abs_err": main["err"], "ms": main["ms"], "plain_ms": main["plain_ms"],
                "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
                "library_ms": r.get("library_ms"),
@@ -2014,15 +2395,19 @@ def main() -> int:
             rec.update(pgd_shape_ms=r["bf16_pgd_shape"]["ms"],
                        pgd_shape_plain_ms=r["bf16_pgd_shape"]["plain_ms"],
                        pgd_shape_bound_ms=r["pgd_shape_bound_ms"])
+        if "bf16_greedy_shape" in r:
+            rec.update(greedy_shape=f"B={GREEDY_ROWS} S={GREEDY_S}",
+                       greedy_shape_ms=r["bf16_greedy_shape"]["ms"],
+                       greedy_shape_plain_ms=r["bf16_greedy_shape"]["plain_ms"],
+                       greedy_shape_max_abs_err=r["bf16_greedy_shape"]["err"],
+                       greedy_shape_bound_ms=r["greedy_shape_bound_ms"])
         records.append(rec)
     subs = {r["name"]: r for r in kres["sub_kernels"]}
     for name, replaces in GEMM_KERNELS.items():   # the GEMMs under every op above
         r = subs[f"{name}[{GEMM_HEADLINE[name]}]"]
         records.append({
             "name": name, "route": "cuda", "source": GEMM_SOURCE, "replaces": replaces,
-            "launches": train_counts["default"][name],
-            "launches_by_path": {"serving": counts[name], "pgd": pgd_counts[name],
-                                 **{f"train_{c}": n[name] for c, n in train_counts.items()}},
+            "launches": main_path[name], "launches_by_path": by_path(name),
             "max_abs_err": r["max_abs_err"], "ms": r["ms"], "plain_ms": r["plain_ms"],
             "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
             "library_ms": r["library_ms"], "library": r["library"], "shape": r["shape"],
@@ -2030,10 +2415,8 @@ def main() -> int:
     r = subs["attention_fwd"]   # the bf16 forward under rows 1, 8, 2 and 10
     records.append({
         "name": "attention_fwd", "route": "cuda", "source": ATTN_SOURCE,
-        "replaces": KERNELS["attn_half"], "launches": train_counts["default"]["attention_fwd"],
-        "launches_by_path": {"serving": counts["attention_fwd"],
-                             "pgd": pgd_counts["attention_fwd"],
-                             **{f"train_{c}": n["attention_fwd"] for c, n in train_counts.items()}},
+        "replaces": KERNELS["attn_half"], "launches": main_path["attention_fwd"],
+        "launches_by_path": by_path("attention_fwd"),
         "max_abs_err": r["max_abs_err"], "ms": r["ms"], "device_ms": r["device_ms"],
         "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
         "library_ms": r["library_ms"], "library_device_ms": r["library_device_ms"],
@@ -2041,10 +2424,8 @@ def main() -> int:
     r = subs["attention_bwd"]   # the bf16 pair under rows 3, 9, 2 and 11
     records.append({
         "name": "attention_bwd", "route": "cuda", "source": ATTN_SOURCE,
-        "replaces": KERNELS["attn_half_dx"], "launches": train_counts["default"]["attention_bwd"],
-        "launches_by_path": {"serving": counts["attention_bwd"],
-                             "pgd": pgd_counts["attention_bwd"],
-                             **{f"train_{c}": n["attention_bwd"] for c, n in train_counts.items()}},
+        "replaces": KERNELS["attn_half_dx"], "launches": main_path["attention_bwd"],
+        "launches_by_path": by_path("attention_bwd"),
         "max_abs_err": r["max_abs_err"], "ms": r["ms"], "device_ms": r["device_ms"],
         "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
         "library_ms": r["library_ms"], "library_device_ms": r["library_device_ms"],
@@ -2056,9 +2437,7 @@ def main() -> int:
         records.append({
             "name": name, "route": "cuda", "source": SOURCE,
             "replaces": LN_COLSUM_KERNELS[name][0], "replaces_parts": LN_COLSUM_KERNELS[name][1],
-            "launches": train_counts["default"][name],
-            "launches_by_path": {"serving": counts[name], "pgd": pgd_counts[name],
-                                 **{f"train_{c}": n[name] for c, n in train_counts.items()}},
+            "launches": main_path[name], "launches_by_path": by_path(name),
             "max_abs_err": r["max_abs_err"], "ms": r["ms"], "device_ms": r["device_ms"],
             "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
             "library_ms": r["library_ms"], "library_device_ms": r["library_device_ms"],

@@ -170,10 +170,13 @@ class RMCLConfig:
     # attention_impl, mlp_impl: the block configuration
     # (models/vilt.py:derive_block_impls): "" | "fused" | "pallas" | "flash",
     # and "" | "fused" | "fused_train"; the XLA paths are not ported.
+    # greedy_impl ("fused" | "host": train/loop.py:build_greedy_attacker),
+    # greedy_compact_frac, greedy_score_max_rows and attack_text_bucket
+    # (attacks/greedy_fused.py; the deprecated greedy_text_bucket umbrella
+    # only through core/buckets.py:bucket_enabled): the greedy attack.
     # ----- JAX-package knobs: carried for field parity, not read by the port -----
-    # use_pallas_attention, greedy_impl,
-    # fuse_attack_step, greedy_compact_frac, greedy_score_max_rows, the
-    # *_text_bucket family, graceful_preemption, preempt_sync_every,
+    # use_pallas_attention, fuse_attack_step, eval_text_bucket,
+    # train_text_bucket, graceful_preemption, preempt_sync_every,
     # dropout_impl, block_layout, mesh_shape, mesh_axis_names, zero1,
     # remat_blocks, remat_policy, pgd_remat, pgd_kernel_impl,
     # fuse_moco_views, host_prefetch.

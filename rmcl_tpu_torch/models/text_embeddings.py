@@ -4,6 +4,8 @@ activation type, then LayerNorm with eps 1e-12."""
 
 from __future__ import annotations
 
+from typing import Optional
+
 import torch
 from torch import nn
 
@@ -20,10 +22,13 @@ class TextEmbeddings(nn.Module):
         self.token_type_embeddings = Embedding(2, hidden_size)
         self.LayerNorm = LayerNorm(hidden_size, BERT_LN_EPS)
 
-    def forward(self, input_ids: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
-        """(B, T) int ids -> (B, T, C) in ``dtype``."""
+    def forward(self, input_ids: torch.Tensor, dtype: torch.dtype,
+                word_embeds: Optional[torch.Tensor] = None) -> torch.Tensor:
+        """(B, T) int ids -> (B, T, C) in ``dtype``.  ``word_embeds`` (B, T, C)
+        replaces the word lookup: the greedy attack differentiates with
+        respect to it (``attacks/greedy.py``)."""
         T = input_ids.shape[-1]
-        x = self.word_embeddings(input_ids)
+        x = self.word_embeddings(input_ids) if word_embeds is None else word_embeds
         x = (x + self.position_embeddings.weight[:T][None]
              + self.token_type_embeddings.weight[0][None, None])
         return self.LayerNorm(x.to(dtype))

@@ -156,7 +156,8 @@ class ViLT(nn.Module):
               image_embeds: Optional[torch.Tensor] = None,
               image_masks: Optional[torch.Tensor] = None,
               prefix: str = "", deterministic: bool = True,
-              seeds: Optional[torch.Tensor] = None) -> Dict[str, torch.Tensor]:
+              seeds: Optional[torch.Tensor] = None,
+              word_embeds: Optional[torch.Tensor] = None) -> Dict[str, torch.Tensor]:
         """Forward of a wire-format batch: ``image`` patch rows
         (B, N, P*P*3) as uint8 with ``image_hw`` (B, 2), or normalised fp32;
         ``text_ids`` and ``text_masks`` (B, T).  ``block_matrices`` are the
@@ -166,7 +167,9 @@ class ViLT(nn.Module):
         twins (with the shared pooler).  ``deterministic=False`` is the
         training forward: dropout at ``drop_rate`` after both embeddings and
         inside every block, from ``seeds`` (layers + 1, 2, B) int32, and
-        gradients to the parameters."""
+        gradients to the parameters.  ``word_embeds`` (B, T, C) replaces the
+        word-embedding lookup of ``text_ids`` (the greedy attack's saliency
+        gradient is taken with respect to it)."""
         dtype = self.compute_dtype
         if deterministic:
             seeds = None
@@ -174,7 +177,8 @@ class ViLT(nn.Module):
             raise ValueError("the training forward needs seeds (draw_seeds)")
         p = self.drop_rate
         transformer = getattr(self, prefix + "transformer")
-        text = getattr(self, prefix + "text_embeddings")(batch["text_ids"], dtype)
+        text = getattr(self, prefix + "text_embeddings")(batch["text_ids"], dtype,
+                                                         word_embeds)
         if seeds is not None:
             text = dropout(text, seeds[-1, 0], 0, p)
         if image_embeds is None and image_masks is None:

@@ -111,6 +111,7 @@ def compute_moco_contrastive(
     image_view: bool = False,
     attacked_text: Optional[Dict[str, torch.Tensor]] = None,
     pgd_fn: Optional[Callable] = None,
+    greedy_fn: Optional[Callable] = None,
     temperature: float = 0.07,
     momentum: float = 0.999,
     per_step_bs: int = 0,
@@ -128,7 +129,12 @@ def compute_moco_contrastive(
     twins, called after the momentum update.  ``attacked_text``:
     {"text_ids", "text_masks"} from the text attack or augmentation; None
     disables the text view.  ``pgd_fn(batch, k, queue) -> img_delta``
-    (``attacks/pgd.py``).  ``augmentation=True`` (benign views, the image
+    (``attacks/pgd.py``).  ``greedy_fn(batch, k, queue) -> (ids, masks,
+    n_changed)``, the greedy text attack (``attacks/greedy_fused.py``), runs
+    after the key forward on the step's own post-update keys and the queue
+    before the enqueue (the JAX package's attacker extras): its ids take the
+    place of ``attacked_text`` and ``ret["n_changed"]`` holds its (B,)
+    per-sample change counts.  ``augmentation=True`` (benign views, the image
     view given as ``attacked_image``) disables the combined view, as the
     reference does (objectives.py:356).  The momentum twins and the queue
     are updated in place when ``train``.
@@ -143,6 +149,10 @@ def compute_moco_contrastive(
             batch, block_matrices=k_block_matrices() if k_block_matrices else None)
         k = l2_normalize(model.k_moco_head(infer_k["cls_feats"]), dim=1)
     neg_queue = model.proj_queue.detach().clone() if train else model.proj_queue.detach()
+
+    if greedy_fn is not None:
+        ids, masks, ret["n_changed"] = greedy_fn(batch, k, neg_queue)
+        attacked_text = {"text_ids": ids, "text_masks": masks}
 
     attacked_img_batch = None
     if image_view and attacked_image is not None:

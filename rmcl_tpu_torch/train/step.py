@@ -10,7 +10,8 @@ forward, the PGD image attack against the post-update parameters, the clean
 and the attacked query views with dropout, the loss's backward, AdamW, the
 enqueue of the keys.  The text attack's output enters through
 ``batch["attacked_text_ids"]`` / ``["attacked_text_masks"]``, as it does in
-the JAX package's ``make_train_step``.
+the JAX package's ``make_train_step``; ``make_attacked_train_step`` runs the
+greedy text attack inside the step instead, after the key forward.
 
 Every block of the key forward and of the attack runs its deterministic
 forward and dx-only backward, every block of the four query views its
@@ -23,7 +24,6 @@ update (the twins': after the momentum update), never per call or per view;
 the unfused block's training products take the masters themselves.
 
 Ported: the ``moco`` task.  Any other active task raises.  Not ported yet:
-``make_attacked_train_step`` (the greedy text attack inside the step),
 ``make_eval_step``, gradient accumulation.
 """
 
@@ -34,11 +34,13 @@ from typing import Callable, Dict, List, Optional
 
 import torch
 
+from rmcl_tpu_torch.attacks.greedy_fused import TABLE_KEYS, FusedGreedyAttack
 from rmcl_tpu_torch.attacks.pgd import make_pgd_moco
 from rmcl_tpu_torch.core.config import active_tasks
 from rmcl_tpu_torch.models.vilt import ViLT, draw_seeds
 from rmcl_tpu_torch.models.vit import normalize_u8
 from rmcl_tpu_torch.objectives import contrastive
+from rmcl_tpu_torch.train.loop import greedy_attack_framework
 from rmcl_tpu_torch.train.schedule import make_lr_schedule, make_optimizer
 
 MOCO_VIEWS = 4   # clean, txt, img, both: one set of dropout seeds each
@@ -112,9 +114,12 @@ _TASK_LOSS_KEYS = {
 }
 
 
-def compute_all_tasks(cfg, ts: TrainState, batch, seeds, *, train: bool):
+def compute_all_tasks(cfg, ts: TrainState, batch, seeds, *, train: bool,
+                      greedy_fn: Optional[Callable] = None):
     """Run every active task (reference forward vilt_module.py:420-469).
-    Returns (total_loss, ret).  Twins and queue are updated in place."""
+    Returns (total_loss, ret).  Twins and queue are updated in place.
+    ``greedy_fn``: the text attack inside the step
+    (``objectives/contrastive.py:compute_moco_contrastive``)."""
     tasks = active_tasks(cfg)
     other = [t for t in tasks if t not in _TASK_LOSS_KEYS]
     if other:
@@ -139,7 +144,8 @@ def compute_all_tasks(cfg, ts: TrainState, batch, seeds, *, train: bool):
                 model.compute_dtype),
             train=train, text_view=cfg.text_view, image_view=cfg.image_view,
             attacked_text=_attacked_text_of(batch) if cfg.text_view else None,
-            pgd_fn=pgd_fn, temperature=cfg.temperature, momentum=cfg.momentum,
+            pgd_fn=pgd_fn, greedy_fn=greedy_fn, temperature=cfg.temperature,
+            momentum=cfg.momentum,
             per_step_bs=batch["text_ids"].shape[0],
             attacked_image=batch.get("augmented_image") if cfg.augmentation else None,
             augmentation=cfg.augmentation))
@@ -159,6 +165,18 @@ def make_train_step(cfg, ts: TrainState, max_steps: Optional[int] = None) -> Cal
     CPU ``torch.Generator`` the step draws its dropout seeds from.  Metrics
     are 0-d tensors on the device (no host read in the step), with
     ``total_loss`` and ``lr``, the base rate this update was made with."""
+    body = _train_step_body(cfg, ts, max_steps)
+
+    def train_step(batch: Dict[str, torch.Tensor],
+                   generator: torch.Generator) -> Dict[str, torch.Tensor]:
+        return body(batch, generator)[0]
+
+    return train_step
+
+
+def _train_step_body(cfg, ts: TrainState, max_steps: Optional[int]) -> Callable:
+    """``body(batch, generator, greedy_fn=None) -> (metrics, ret)``: one
+    step, shared by ``make_train_step`` and ``make_attacked_train_step``."""
     if cfg.fuse_moco_views:
         raise NotImplementedError("fuse_moco_views is not ported")
     lr_sched = make_lr_schedule(cfg, max_steps or resolve_max_steps(cfg))
@@ -166,12 +184,13 @@ def make_train_step(cfg, ts: TrainState, max_steps: Optional[int] = None) -> Cal
     device = next(model.parameters()).device
     trainable = [p for p in model.parameters() if p.requires_grad]
 
-    def train_step(batch: Dict[str, torch.Tensor],
-                   generator: torch.Generator) -> Dict[str, torch.Tensor]:
+    def body(batch: Dict[str, torch.Tensor], generator: torch.Generator,
+             greedy_fn: Optional[Callable] = None):
         seeds = draw_seeds(generator, MOCO_VIEWS, len(model.transformer.blocks),
                            batch["text_ids"].shape[0], device)
         ts.optimizer.zero_grad(set_to_none=True)
-        total, ret = compute_all_tasks(cfg, ts, batch, seeds, train=True)
+        total, ret = compute_all_tasks(cfg, ts, batch, seeds, train=True,
+                                       greedy_fn=greedy_fn)
         if total.requires_grad:      # no attacked view configured: nothing to learn from
             total.backward()
         for p in trainable:
@@ -187,6 +206,49 @@ def make_train_step(cfg, ts: TrainState, max_steps: Optional[int] = None) -> Cal
         metrics["total_loss"] = total.detach()
         metrics["lr"] = torch.tensor(lr_sched(ts.step), device=device)
         ts.step += 1
+        return metrics, ret
+
+    return body
+
+
+# ------------------------------------------- the attacked train step
+def make_attacked_train_step(cfg, ts: TrainState, greedy,
+                             max_steps: Optional[int] = None) -> Callable:
+    """``attacked_step(batch, generator) -> metrics``: the step of
+    ``make_train_step`` with the greedy text attack inside it (port of the
+    JAX package's ``make_attacked_train_step``, which compiles the attacker
+    extras, the attack and the step as one program).  The attack runs after
+    the momentum update and the key forward, against the step's own keys and
+    the queue before the enqueue, so the twins move once per step; its ids
+    become the text view's.
+
+    ``greedy``: a ``FusedGreedyAttack``.  ``batch``: the step's batch plus
+    the host tables under ``TABLE_KEYS`` (``greedy.prep_tables(text_ids)``,
+    numpy arrays or tensors).  The metrics add ``num_changes`` and
+    ``change_rate`` (0-d device tensors; no host read in the metrics)."""
+    if not isinstance(greedy, FusedGreedyAttack):
+        raise TypeError("make_attacked_train_step needs the fused greedy attacker")
+    if greedy_attack_framework(cfg) != "moco":
+        raise NotImplementedError(
+            "the attacked step has the moco framework only (ROADMAP A11)")
+    body = _train_step_body(cfg, ts, max_steps)
+    attack = greedy.build_attack_body()
+    device = next(ts.model.parameters()).device
+
+    def attacked_step(batch, generator: torch.Generator) -> Dict[str, torch.Tensor]:
+        tables = [torch.as_tensor(batch[k], device=device) for k in TABLE_KEYS[:-2]]
+        tbucket = batch["gw_tbucket"]               # its shape carries the text bucket
+        nw = torch.as_tensor(batch["gw_nw"], device=device)
+        clean = {k: v for k, v in batch.items() if k not in TABLE_KEYS}
+
+        def greedy_fn(b, k, neg_queue):
+            return attack(b, (k, neg_queue, cfg.temperature), *tables, tbucket,
+                          block_matrices=ts.block_matrices)
+
+        metrics, ret = body(clean, generator, greedy_fn)
+        nch = ret["n_changed"].float()
+        metrics["num_changes"] = nch.mean()
+        metrics["change_rate"] = (nch / nw.float().clamp(min=1.0)).mean()
         return metrics
 
-    return train_step
+    return attacked_step

@@ -1,6 +1,7 @@
 """The CUDA block kernels (rmcl_tpu_torch/csrc/block_kernels.cu), forward
 and dx-only backward, and the training forward and full backward, against
-their plain versions; one PGD step and one training step, on the card.  Every case is marked ``cuda`` and skips
+their plain versions; one PGD step, one training step and the fused greedy
+text attack, on the card.  Every case is marked ``cuda`` and skips
 where there is no CUDA device.  This file imports no jax, so it runs on a
 machine without it:
 
@@ -1069,3 +1070,118 @@ def test_backward_ops_launch_ln_bwd_and_colsum(cuda, dtype):
             full = not name.endswith("_dx")
             assert FB.sub_launches["ln_bwd"] == before["ln_bwd"] + 1, name
             assert FB.sub_launches["colsum"] == before["colsum"] + (2 if full else 0), name
+
+
+# -------------------------------------------------- the greedy text attack
+GREEDY_WORDS = ["dog", "cat", "puppy", "kitten", "car", "auto", "red", "crimson", "blue",
+                "big", "large", "small", "tiny", "runs", "sprints", "sits", "park",
+                "garden", "street", "road", "in", "the", "a", "on"]
+GREEDY_GROUPS = [["dog", "puppy"], ["cat", "kitten"], ["car", "auto"], ["red", "crimson"],
+                 ["big", "large"], ["small", "tiny"], ["runs", "sprints"],
+                 ["park", "garden"], ["street", "road"]]
+GREEDY_SENTENCES = ["dog runs in park", "cat sits in street", "big red car on road",
+                    "the a on in", "small puppy sits on the big road"]
+
+
+def _greedy_case(tmp_path, dtype):
+    """A seeded 3-layer moco model (C = 64) on the CPU, the tiny vocabulary
+    and synonym table of tests/test_attacks.py, five captions and keys."""
+    from rmcl_tpu_torch.attacks.greedy import SynonymTable
+    from rmcl_tpu_torch.core.config import build_config, loss_names
+    from rmcl_tpu_torch.data.tokenizer import WordPieceTokenizer, make_tiny_vocab
+    from rmcl_tpu_torch.objectives.losses import l2_normalize
+    from rmcl_tpu_torch.serve import seeded_model
+    tok = WordPieceTokenizer(make_tiny_vocab(str(tmp_path / "vocab.txt"), GREEDY_WORDS))
+    r = np.random.RandomState(0)
+    vecs = {w: base + 0.05 * r.randn(16) for group in GREEDY_GROUPS
+            for base in [r.randn(16)] for w in group}
+    vecs.update({w: r.randn(16) for w in GREEDY_WORDS if w not in vecs})
+    with open(tmp_path / "vectors.txt", "w") as f:
+        for w, v in vecs.items():
+            f.write(w + " " + " ".join(f"{x:.5f}" for x in v) + "\n")
+    cfg = build_config(hidden_size=64, num_heads=2, num_layers=3, patch_size=16,
+                       image_size=32, image_bucket_hw=(32, 48), max_text_len=16,
+                       vocab_size=tok.vocab_size, loss_names=loss_names({"moco": 1}),
+                       num_negative=32, temperature=0.07, n_candidates=3, max_loops=3,
+                       compute_dtype=str(dtype).split(".")[1], max_image_len=4)
+    syn = SynonymTable(str(tmp_path / "vectors.txt"), cfg.n_candidates, cfg.sim_thred)
+    model = seeded_model(cfg, 0).eval()
+    ids, masks = tok.batch_encode(GREEDY_SENTENCES, cfg.max_text_len)
+    img = np.zeros((len(ids), 6, 768), np.float32)
+    img[:, :5] = r.uniform(-1, 1, (len(ids), 5, 768))
+    batch = {"image": torch.from_numpy(img), "text_ids": torch.from_numpy(ids),
+             "text_masks": torch.from_numpy(masks)}
+    with torch.no_grad():
+        k = l2_normalize(model.k_moco_head(model.infer_k(batch)["cls_feats"]), 1)
+    return cfg, tok, syn, model, batch, k
+
+
+def _attack_launches(stats, num_layers):
+    """Block-op launches of an attack that ran ``stats`` (last_stats)."""
+    g, s = stats["grad_passes"], stats["score_forwards"]
+    return {**dict.fromkeys(FB.launches, 0), "attn_half": num_layers * (g + s),
+            "mlp_half": num_layers * (g + s), "attn_half_dx": num_layers * g,
+            "mlp_half_dx": num_layers * g}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["fp32", "bf16"])
+def test_fused_greedy_attack_on_card(cuda, tmp_path, dtype):
+    """The fused greedy attack on the card (kernels) against the CPU (plain
+    ops) from the same weights, captions and keys: in fp32 the same ids and
+    change counts; in bf16 every substitution a candidate of its word and
+    within the budget.  The block ops' launch counters equal what the attack
+    reports (loops, gradient passes, scoring forwards), and the sub-kernel
+    counters follow the ops'."""
+    import copy
+    from rmcl_tpu_torch.attacks.greedy import GreedyAttackMoco
+    from rmcl_tpu_torch.attacks.greedy_fused import FusedGreedyAttack
+    cfg, tok, syn, cpu, batch, k = _greedy_case(tmp_path, dtype)
+    extras = (k, cpu.proj_queue, cfg.temperature)
+    ref = FusedGreedyAttack(GreedyAttackMoco(cfg, cpu, tok, syn)).adv_attack_samples(
+        batch, extras)
+    gpu = copy.deepcopy(cpu).to(cuda)
+    att = FusedGreedyAttack(GreedyAttackMoco(cfg, gpu, tok, syn))
+    FB.reset_launches()
+    ours = att.adv_attack_samples({n: v.to(cuda) for n, v in batch.items()},
+                                  (k.to(cuda), gpu.proj_queue, cfg.temperature))
+    torch.cuda.synchronize()
+    assert FB.launches == _attack_launches(att.last_stats, cfg.num_layers)
+    s = att.last_stats
+    assert s["host_reads"] == s["loops"] + 1 and s["grad_passes"] >= 1
+    if dtype == torch.bfloat16:
+        ops = dict(FB.launches)
+        assert FB.sub_launches["ln_gemm"] == 2 * sum(ops.values())
+        assert FB.sub_launches["attention_fwd"] == ops["attn_half"]
+        assert FB.sub_launches["attention_bwd"] == ops["attn_half_dx"]
+        assert FB.sub_launches["ln_bwd"] == ops["attn_half_dx"] + ops["mlp_half_dx"]
+    if dtype == torch.float32:
+        np.testing.assert_array_equal(ours["txt_input_ids"], ref["txt_input_ids"])
+        assert ours["changes_verification"] == ref["changes_verification"]
+    assert ours["num_changes"] > 0
+    lens = batch["text_masks"].sum(1).tolist()
+    for orig, new, n, L in zip(GREEDY_SENTENCES, ours["text"], ours["changes_verification"],
+                               lens):
+        changed = [(o, w) for o, w in zip(orig.split(), new.split()) if o != w]
+        assert all(w in syn.candidates(o) for o, w in changed), (orig, new)
+        assert len(changed) == n <= min(int(0.2 * (L - 1)), cfg.max_loops)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 2e-4), (torch.bfloat16, 2e-2)],
+                         ids=["fp32", "bf16"])
+def test_halves_at_the_greedy_scoring_shape(cuda, dtype, tol):
+    """attn_half and mlp_half, and their dx ops, at the greedy attack's
+    scoring batch of the main path: B = 16 pairs x 5 candidates = 80 rows,
+    S = 16 + 201 = 217 (text bucket 16), C = 768, H = 12."""
+    attn, mlp = _inputs(80, 217, 768, 12, "random", cuda, dtype, seed=4)
+    g = torch.randn(80, 217, 768, device=cuda).to(dtype)
+    with torch.inference_mode():
+        for op, plain, args in ((FB.attn_half, FB.attn_half_plain, attn),
+                                (FB.mlp_half, FB.mlp_half_plain, mlp)):
+            _close(op.__name__, op(*args), plain(*args), tol)
+        dx_attn = (*attn[:7], g, *attn[8:])
+        dx_mlp = (*mlp[:6], g, mlp[7])
+        for op, plain, args in ((FB.attn_half_dx, FB.attn_half_dx_plain, dx_attn),
+                                (FB.mlp_half_dx, FB.mlp_half_dx_plain, dx_mlp)):
+            _close(op.__name__, op(*args), plain(*args), tol)

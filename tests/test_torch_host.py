@@ -1,6 +1,7 @@
 """The port's own copies of the JAX package's jax-free host modules
-(config, postprocess, parse_with, tokenizer, image transform, patch rows),
-each held against its original on the CPU, and the port's independence:
+(config, postprocess, parse_with, tokenizer, image transform, patch rows,
+text buckets, the greedy attack's word filter), each held against its
+original on the CPU, and the port's independence:
 importing every module of rmcl_tpu_torch pulls in neither jax nor rmcl_tpu."""
 
 import dataclasses
@@ -11,13 +12,17 @@ import sys
 import numpy as np
 import pytest
 
+from rmcl_tpu.attacks import greedy as ref_greedy
 from rmcl_tpu.cli.run import parse_with as ref_parse_with
+from rmcl_tpu.core import buckets as ref_buckets
 from rmcl_tpu.core import config as ref_config
 from rmcl_tpu.data import tokenizer as ref_tokenizer
 from rmcl_tpu.data import transforms as ref_transforms
 from rmcl_tpu.data.arrow_dataset import _images_to_patch_rows, hwc_to_patch_rows
 from rmcl_tpu.serve import postprocess as ref_postprocess
+from rmcl_tpu_torch.attacks import greedy as port_greedy
 from rmcl_tpu_torch.cli.run import parse_with
+from rmcl_tpu_torch.core import buckets as port_buckets
 from rmcl_tpu_torch.core import config as port_config
 from rmcl_tpu_torch.data import patch_rows as port_rows
 from rmcl_tpu_torch.data import tokenizer as port_tokenizer
@@ -64,6 +69,33 @@ def test_parse_with_matches():
     argv = ["task_moco", "per_gpu_batchsize=16", "num_gpus=1", "image_bucket_hw=(384,608)",
             "load_path=/some/where.ckpt", "loss_names={'vqa': 1}", "text_view=True"]
     assert parse_with(argv) == ref_parse_with(argv)
+
+
+# ------------------------------------------------------------------ buckets
+def test_text_bucket_matches():
+    assert port_buckets.TEXT_BUCKET_ALIGN == ref_buckets.TEXT_BUCKET_ALIGN
+    for n in range(0, 50):
+        for T in (8, 12, 24, 40):
+            assert port_buckets.text_bucket(n, T) == ref_buckets.text_bucket(n, T)
+    assert port_buckets.text_bucket(9, 40, align=4) == ref_buckets.text_bucket(9, 40, align=4)
+    for over in ({}, {"greedy_text_bucket": False},
+                 {"greedy_text_bucket": False, "attack_text_bucket": True},
+                 {"attack_text_bucket": False}, {"eval_text_bucket": False}):
+        c = port_config.build_config("task_moco", **over)
+        for which in ("attack", "eval", "train"):
+            assert (port_buckets.bucket_enabled(c, which)
+                    == ref_buckets.bucket_enabled(ref_config.build_config("task_moco", **over),
+                                                  which)), (over, which)
+
+
+# ------------------------------------------------------ greedy word filter
+def test_greedy_word_filter_matches():
+    assert port_greedy.STOPWORDS == ref_greedy.STOPWORDS
+    assert port_greedy.SPECIAL == ref_greedy.SPECIAL
+    words = ["the", "The ", ",", "...", "", " ", "[CLS]", "[sep]", "dog", "Dog", "running",
+             "a", "o", "!", "'", "unaffable", "ain", "CAT"]
+    assert [port_greedy.check_word(w) for w in words] == [ref_greedy.check_word(w)
+                                                          for w in words]
 
 
 # ------------------------------------------------------------- postprocess
@@ -147,7 +179,10 @@ def test_importing_every_module_pulls_in_neither_jax_nor_rmcl_tpu(tmp_path):
         "                                               'rmcl_tpu_torch.')]\n"
         "assert len(names) > 15, names\n"
         "assert {'rmcl_tpu_torch.ops.philox', 'rmcl_tpu_torch.ops.fused_block_train',\n"
-        "        'rmcl_tpu_torch.train.schedule', 'rmcl_tpu_torch.train.step'} <= set(names)\n"
+        "        'rmcl_tpu_torch.train.schedule', 'rmcl_tpu_torch.train.step',\n"
+        "        'rmcl_tpu_torch.train.loop', 'rmcl_tpu_torch.core.buckets',\n"
+        "        'rmcl_tpu_torch.attacks.greedy',\n"
+        "        'rmcl_tpu_torch.attacks.greedy_fused'} <= set(names)\n"
         "for n in names:\n"
         "    importlib.import_module(n)\n"
         "bad = sorted(m for m in sys.modules\n"
