@@ -4,7 +4,8 @@ configurations (``attention_impl`` / ``mlp_impl``, ``models/vilt.py:
 derive_block_impls``): the default ("fused", "fused_train"), P ("pallas": the
 unfused block around the attention-core kernels) and F ("fused", "fused":
 ``attn_half_full`` with its full backward, the plain MLP); then the greedy
-text attack and the attacked task_moco step, the main path.
+text attack and the attacked task_moco step; then the training entry point
+around it, the Trainer (phase 15), the main path.
 
     python3 chip_smoke.py
 
@@ -174,6 +175,34 @@ Phases, any failure exits non-zero:
                max(1, |value|) (the rest of the step then runs on the CPU's
                ids); then phase 9's tolerances for the loss, gradients,
                updated leaves, twins and queue.
+ 15. trainer   the training entry point, the main path: Trainer.setup() /
+               fit() / validate() (train/loop.py) as ``python -m
+               rmcl_tpu_torch.cli.run with task_moco`` runs it, on the
+               card: phase 13's configuration, batch_size 32 at
+               per_device_batchsize 16 (accum 2), max_steps 3 optimizer
+               steps (6 micro-steps), one validation batch of 16.  The data:
+               a MultitaskDataModule whose datasets are in memory in the
+               arrow dataset's sample format (the card's machine has no
+               pyarrow or PIL): seeded ragged u8 images, phase 12's worst-mix
+               captions, its vocabulary and vectors as files; the port's
+               loader, collate, MLM collator, prefetch thread, attacked step,
+               eval step, logger and CheckpointManager run as they are.  The
+               timed run: its launches equal each micro-step's
+               expected_launches and its attack's, plus the validation
+               batch's expected_eval_launches and its attack's (the counts
+               set to 0 just before, read just after: the kernels record's
+               ``launches``); ms per micro-step (median after the first
+               cycle), pairs/s, max_memory_allocated and host reads per
+               micro-step beside phase 13's bare step; 'last' loads into a
+               fresh ViLT with every tensor equal.  Then a run preempted
+               (request_preemption) after micro-step 3, mid-cycle, and a new
+               Trainer resuming it (resume_from): each micro-step's launches,
+               the parameters unchanged mid-cycle and all moved at a cycle's
+               end, the k_transformer twins moved every micro-step; the
+               per-step losses and the final parameters and buffers equal
+               the timed run's within 1e-6 relative (the largest difference
+               printed).  Checkpoints go to chip_smoke_trainer.tmp/, removed
+               at the end.
 
 The line before the last is the kernels' JSON record; the last line is
 ``{"ok": true, "device": {...}}``.  Without a card, or outside the
@@ -182,9 +211,10 @@ repository, it exits non-zero and prints no result.
     python3 chip_smoke.py --profile
 
 runs phases 1 and 2 and then, in place of the checks, traces five serving
-forwards, two attacks, two training steps under each configuration and two
-attacked steps per caption mix with ``torch.profiler`` and prints, for
-each, the device time by kernel name, the device-busy and wall time per
+forwards, two attacks, two training steps under each configuration, two
+attacked steps per caption mix and phase 15's Trainer over its second
+accumulation cycle (micro-steps 2 and 3, the host loop between them
+included) with ``torch.profiler`` and prints, for each, the device time by kernel name, the device-busy and wall time per
 call, the idle share and the kernel count, and for the attacked steps the
 greedy attack's loops and host reads (the breakdowns of PERF.md section 5).
 
@@ -1712,12 +1742,16 @@ def phase_train(dev, config: str = "default", mix=None) -> dict:
     ms = statistics.median(walls)
     mem = torch.cuda.max_memory_allocated() / 2 ** 30
     split = {k: statistics.median(s[k] for s in splits) for k in splits[0]}
+    # device -> host reads per step: none in the step itself, the greedy
+    # attack's own (one per loop and one at its start)
+    reads = statistics.median(st["host_reads"] for st in stats) if stats else 0
     print(f"{tag} launches per step {counts}: every block through the kernels")
     print(f"{tag} step {ms!r} ms (median of {TRAIN_STEPS}, host clock + synchronize), "
-          f"{PGD_BATCH / ms * 1e3!r} pairs/s; max_memory_allocated {mem:.2f} GiB")
+          f"{PGD_BATCH / ms * 1e3!r} pairs/s; max_memory_allocated {mem:.2f} GiB; host "
+          f"reads per step {reads}")
     print(f"{tag} split of a step by CUDA events, ms (median): "
           + "; ".join(f"{k} {v:.2f}" for k, v in split.items()))
-    return counts
+    return counts, {"ms": ms, "mem_gib": mem, "host_reads": reads}
 
 
 def _train_results(tag, results: dict, dev, lr: float) -> None:
@@ -1801,15 +1835,18 @@ GREEDY_MIXES = ("worst", "realistic")
 GREEDY_SLICE_MIX = "realistic"
 
 
-def greedy_setup(cfg, n: int, mix: str) -> tuple:
+def greedy_setup(cfg, n: int, mix: str, keep_dir=None) -> tuple:
     """(tokenizer, synonym table, n captions) as bench.py:_greedy_setup makes
     them: the vocabulary, 32-dimensional vectors (synonym groups share a
-    direction) and captions from one RandomState(0)."""
+    direction) and captions from one RandomState(0).  The files (vocab.txt,
+    vectors.txt) are written into ``keep_dir`` and kept, or into a
+    temporary directory."""
     import tempfile
     from rmcl_tpu_torch.attacks.greedy import SynonymTable
     from rmcl_tpu_torch.data.tokenizer import WordPieceTokenizer, make_tiny_vocab
     rng = np.random.RandomState(0)
-    with tempfile.TemporaryDirectory(prefix="greedy_vocab_") as d:
+    with tempfile.TemporaryDirectory(prefix="greedy_vocab_") as tmp:
+        d = keep_dir or tmp
         tok = WordPieceTokenizer(make_tiny_vocab(f"{d}/vocab.txt", GREEDY_WORDS))
         vecs = {}
         for group in GREEDY_GROUPS:
@@ -2021,6 +2058,253 @@ def phase_train_attacked_slice(dev) -> None:
     _train_results(tag, results, dev, train_config().learning_rate)
 
 
+# --------------------------------------------------------------- trainer
+TRAINER_MIX = "worst"
+TRAINER_OPT_STEPS, TRAINER_ACCUM = 3, 2   # batch_size 32 at 16 pairs per step
+TRAINER_PREEMPT = 3                       # micro-steps before the preemption
+TRAINER_VAL = PGD_BATCH                   # validation pairs: one batch
+TRAINER_DIR = "chip_smoke_trainer.tmp"    # checkpoints, removed at the end
+
+
+class MemoryCaptions:
+    """Captions and u8 images in memory, in ``ArrowDataset.__getitem__``'s
+    sample format (the card's machine has no pyarrow or PIL): each image
+    already resized to a /32 size within the bucket."""
+
+    def __init__(self, tokenizer, captions, images, max_text_len):
+        self.tok, self.captions, self.images, self.T = tokenizer, captions, images, max_text_len
+
+    def __len__(self):
+        return len(self.captions)
+
+    def __getitem__(self, i):
+        text = self.captions[i]
+        enc = self.tok(text, padding="max_length", truncation=True, max_length=self.T,
+                       return_special_tokens_mask=True)
+        return {"image": [self.images[i]], "text": (text, enc), "img_index": i,
+                "cap_index": 0, "raw_index": i, "replica": False}
+
+
+def trainer_setup(dev, d: str) -> tuple:
+    """(cfg, make_datamodule, model) of phase 15: task_moco at full width and
+    depth as phase 13 runs it, 32 pairs per optimizer step at 16 per step, 3
+    optimizer steps; the greedy vocabulary and vectors of greedy_setup written
+    under ``d``, its worst-mix captions, seeded ragged u8 images."""
+    from rmcl_tpu_torch.data.datamodule import MultitaskDataModule
+    n_train = PGD_BATCH * TRAINER_ACCUM * TRAINER_OPT_STEPS
+    base = train_config()
+    _, _, sents = greedy_setup(base, n_train + TRAINER_VAL, TRAINER_MIX, keep_dir=d)
+    cfg = base.replace(
+        tokenizer=f"{d}/vocab.txt", embedding_path=f"{d}/vectors.txt", sim_path="",
+        batch_size=PGD_BATCH * TRAINER_ACCUM, per_device_batchsize=PGD_BATCH,
+        max_steps=TRAINER_OPT_STEPS, max_epoch=1)
+    r = np.random.RandomState(SEED + 9)
+    H, W = cfg.image_bucket_hw
+    images = [r.randint(0, 256, (32 * r.randint(H // 64, H // 32 + 1),
+                                 32 * r.randint(W // 64, W // 32 + 1), 3), np.uint8)
+              for _ in sents]
+    split = {"train": slice(0, n_train), "val": slice(n_train, None),
+             "test": slice(n_train, None)}
+
+    class MemoryDataModule(MultitaskDataModule):
+        def _make_dataset(self, name, split_, no_false=False):
+            s = split[split_]
+            return MemoryCaptions(self.tokenizer, sents[s], images[s], cfg.max_text_len)
+
+    return cfg, MemoryDataModule, moco_model(cfg)
+
+
+def expected_eval_launches(cfg) -> dict:
+    """Block-op launches of one validation batch of the default blocks, the
+    greedy attack's aside: the attacker's key forward (its extras) and the
+    eval step's, the PGD's forwards and backwards, four deterministic views."""
+    from rmcl_tpu_torch.ops import fused_block as FB
+    L, A = cfg.num_layers, cfg.adv_steps_img
+    want = dict.fromkeys(FB.launches, 0)
+    want.update(attn_half=(6 + A) * L, mlp_half=(6 + A) * L, attn_half_dx=A * L,
+                mlp_half_dx=A * L)
+    return want
+
+
+def _trainer_run(dev, cfg, dm_cls, model, workdir, watch=False, preempt_at=None,
+                 resume=False) -> tuple:
+    """One Trainer.setup() / fit() on the card.  Every micro-step's loss stays
+    on the device until the end and its greedy attack's stats are kept; with
+    ``watch`` each micro-step's launches and which parameters it moved are
+    recorded too (a copy of every parameter per micro-step: not in the timed
+    run).  Returns (trainer, losses, per-micro-step records, end time)."""
+    from rmcl_tpu_torch.ops import fused_block as FB
+    from rmcl_tpu_torch.train.loop import Trainer
+    cfg = cfg.replace(log_dir=workdir, resume_from="last" if resume else None)
+    tr = Trainer(cfg, workdir=workdir, datamodule=dm_cls(cfg), device=dev)
+    tr.setup(model=copy.deepcopy(model))
+    inner, losses, recs = tr.step_fn, [], []
+    named = dict(tr.ts.model.named_parameters())
+
+    def step_fn(db, gen):
+        rec = {"t": time.perf_counter(), "micro": tr.ts.step % tr.accum_steps}
+        if watch:
+            ops0 = dict(FB.launches)
+            before = {n: p.detach().clone() for n, p in named.items()}
+        metrics = inner(db, gen)
+        rec["t_out"] = time.perf_counter()
+        losses.append(metrics["total_loss"])
+        rec["stats"] = dict(tr.greedy.last_stats)
+        if watch:
+            rec.update(ops={k: FB.launches[k] - ops0[k] for k in ops0},
+                       moved={n: not torch.equal(p, before[n]) for n, p in named.items()})
+        recs.append(rec)
+        if preempt_at is not None and len(losses) == preempt_at:
+            tr.request_preemption()
+        return metrics
+
+    tr.step_fn = step_fn
+    tr.fit()
+    torch.cuda.synchronize()
+    return tr, losses, recs, time.perf_counter()
+
+
+def _trainer_expected(cfg, recs, val_stats) -> dict:
+    """Launches of a Trainer run: each micro-step's (expected_launches and
+    its greedy attack's), and the validation batch's when ``val_stats``."""
+    L = cfg.num_layers
+    parts = [expected_launches(cfg)] * len(recs) + [attack_launches(r["stats"], L) for r in recs]
+    if val_stats is not None:
+        parts += [expected_eval_launches(cfg), attack_launches(val_stats, L)]
+    return {k: sum(p[k] for p in parts) for k in parts[0]}
+
+
+def _check_micro_steps(tag, cfg, recs) -> None:
+    """Per micro-step: the launches, the parameters still mid-cycle and all
+    moved at a cycle's end, every k_transformer twin moved."""
+    for i, rec in enumerate(recs):
+        want = _trainer_expected(cfg, [rec], None)
+        check(rec["ops"] == want, f"{tag} micro-step {i}: launches {rec['ops']}, "
+                                  f"expected {want}")
+        trained = [p for p in rec["moved"]
+                   if not p.startswith("k_") and not p.endswith("mask_token")]
+        moved = sum(rec["moved"][p] for p in trained)
+        if rec["micro"] < TRAINER_ACCUM - 1:
+            check(moved == 0, f"{tag} micro-step {i}: {moved} parameters moved mid-cycle")
+        else:
+            check(moved == len(trained), f"{tag} micro-step {i}: {len(trained) - moved} "
+                                         "parameters did not move at the cycle's end")
+        still = [p for p, m in rec["moved"].items() if p.startswith("k_transformer") and not m]
+        check(not still, f"{tag} micro-step {i}: twins {still[:3]} did not move")
+
+
+def phase_trainer(dev, bare: dict) -> dict:
+    """Phase 15: the training entry point, Trainer.setup() / fit() /
+    validate() around the attacked step, on the card.  Returns the launches
+    of its main run."""
+    import shutil
+    from rmcl_tpu_torch.models.vilt import ViLT
+    from rmcl_tpu_torch.ops import fused_block as FB
+    from rmcl_tpu_torch.serve import load_state_dict_file
+    from rmcl_tpu_torch.train.checkpoint import MODEL_FILE
+    tag = "[trainer]"
+    root = Path(TRAINER_DIR).resolve()
+    shutil.rmtree(root, ignore_errors=True)
+    try:
+        root.mkdir()
+        t0 = time.perf_counter()
+        cfg, dm_cls, model = trainer_setup(dev, str(root))
+        n = TRAINER_ACCUM * TRAINER_OPT_STEPS
+        print(f"{tag} {PGD_CONFIG} through Trainer.setup() / fit() / validate(): image and "
+              f"text views (the fused greedy attack on {TRAINER_MIX} captions), drop_rate "
+              f"{cfg.drop_rate}, batch_size {cfg.batch_size} at per_device_batchsize "
+              f"{cfg.per_device_batchsize} (accum {TRAINER_ACCUM}), max_steps {cfg.max_steps} "
+              f"optimizer steps ({n} micro-steps), {TRAINER_VAL} validation pairs; data ready "
+              f"in {time.perf_counter() - t0:.1f} s")
+        # the main path, timed: counts set to 0 just before it, read just after
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        FB.reset_launches()
+        tr, losses, recs, t_end = _trainer_run(dev, cfg, dm_cls, model, str(root / "a"))
+        counts = dict(FB.launches)
+        mem = torch.cuda.max_memory_allocated() / 2 ** 30
+        check(tr.steps_done == n == len(recs), f"{tag} {tr.steps_done} micro-steps, want {n}")
+        want = _trainer_expected(cfg, recs, tr.greedy.last_stats)
+        check(counts == want, f"{tag} launches {counts}, expected {want}")
+        counts = check_sub_launches(tag, counts, FB)
+        loss_a = torch.stack(losses).cpu().numpy()
+        check(bool(np.isfinite(loss_a).all()), f"{tag} non-finite losses {loss_a}")
+        # from one micro-step's start to the next, after the first cycle: the
+        # step's own call (it returns once its last kernels are queued) and
+        # the Trainer's loop between two calls
+        steady = list(zip(recs, recs[1:]))[TRAINER_ACCUM:]
+        ms = statistics.median(b["t"] - a["t"] for a, b in steady) * 1e3
+        call_ms = statistics.median(a["t_out"] - a["t"] for a, _ in steady) * 1e3
+        loop_ms = statistics.median(b["t"] - a["t_out"] for a, b in steady) * 1e3
+        attack_reads = sum(r["stats"]["host_reads"] for r in recs)
+        reads = (tr.host_reads + attack_reads) / n
+        print(f"{tag} launches of the run: each micro-step's expected_launches and its "
+              f"attack's own, the validation batch's expected_eval_launches and its attack's: "
+              f"{counts}")
+        print(f"{tag} losses {[float(x) for x in loss_a]}")
+        print(f"{tag} Trainer {ms!r} ms per micro-step (median of {len(steady)} after the "
+              f"first cycle, host clock from one micro-step's start to the next: the step's "
+              f"call {call_ms!r}, the loop between calls {loop_ms!r}), "
+              f"{PGD_BATCH / ms * 1e3!r} pairs/s; max_memory_allocated {mem:.2f} GiB; host "
+              f"reads per micro-step {reads!r} ({tr.host_reads} metric reads over {n} "
+              f"micro-steps, {attack_reads} in the greedy attacks); the run with its "
+              f"validation and two checkpoint saves {t_end - recs[0]['t']:.1f} s")
+        print(f"{tag} bare attacked step (phase 13, {TRAINER_MIX} captions): {bare['ms']!r} ms, "
+              f"{PGD_BATCH / bare['ms'] * 1e3!r} pairs/s, {bare['mem_gib']:.2f} GiB, host reads "
+              f"per step {bare['host_reads']}; Trainer overhead {ms - bare['ms']!r} ms per "
+              f"micro-step ({ms / bare['ms']:.3f}x)")
+
+        # last: its state_dict loads into a fresh ViLT with every tensor equal
+        path = Path(tr.ckpt.checkpoint_dir("last")) / MODEL_FILE
+        fresh = ViLT(cfg)
+        check(fresh.load_reference_state_dict(load_state_dict_file(str(path))) == [],
+              f"{tag} {path}: entries not loaded")
+        live, back = tr.ts.model.state_dict(), fresh.state_dict()
+        same = [k for k in live if torch.equal(live[k].cpu(), back[k])]
+        check(len(same) == len(live) == len(back), f"{tag} {len(live) - len(same)} tensors of "
+                                                   "'last' differ from the trained model")
+        check(tr.ckpt.has("best"), f"{tag} no 'best' checkpoint")
+        print(f"{tag} 'last' ({path.parent.name}) loads into a fresh ViLT: {len(same)} "
+              "tensors equal; 'best' saved")
+        del fresh, back
+
+        # preempted after micro-step 3 (mid-cycle), then resumed by a new
+        # Trainer; both watched micro-step by micro-step
+        t1 = time.perf_counter()
+        first, loss_b, recs_b, _ = _trainer_run(dev, cfg, dm_cls, model, str(root / "b"),
+                                                watch=True, preempt_at=TRAINER_PREEMPT)
+        check(first.steps_done == TRAINER_PREEMPT and first.ckpt.has("last"),
+              f"{tag} the preempted run stopped at {first.steps_done}")
+        del first
+        FB.reset_launches()
+        second, loss_c, recs_c, _ = _trainer_run(dev, cfg, dm_cls, model, str(root / "b"),
+                                                 watch=True, resume=True)
+        check(second.steps_done == n, f"{tag} the resumed run ended at {second.steps_done}")
+        _check_micro_steps(tag, cfg, recs_b + recs_c)
+        want = _trainer_expected(cfg, recs_c, second.greedy.last_stats)
+        check(dict(FB.launches) == want, f"{tag} resumed run: launches {dict(FB.launches)}, "
+                                         f"expected {want}")
+        loss_bc = torch.stack(loss_b + loss_c).cpu().numpy()
+        rel_loss = float(np.max(np.abs(loss_bc - loss_a) / np.abs(loss_a)))
+        a_sd, c_sd = tr.ts.model.state_dict(), second.ts.model.state_dict()
+        rel_par = max(float((a_sd[k].double() - c_sd[k].double()).abs().max()
+                            / a_sd[k].double().abs().max().clamp(min=1e-30))
+                      for k in a_sd)
+        print(f"{tag} {n} micro-steps watched: the launches of each, the parameters still "
+              f"mid-cycle and all moved at each cycle's end, the k_transformer twins moved "
+              f"every micro-step")
+        print(f"{tag} preempted after micro-step {TRAINER_PREEMPT} (mid-cycle) and resumed by "
+              f"a new Trainer: per-step total_loss largest relative difference {rel_loss!r}, "
+              f"parameters and buffers {rel_par!r} (tol 1e-6; "
+              f"{'bit for bit' if rel_loss == rel_par == 0 else 'not bit for bit'}); "
+              f"{time.perf_counter() - t1:.1f} s")
+        check(rel_loss <= 1e-6 and rel_par <= 1e-6,
+              f"{tag} the resumed run differs: loss {rel_loss}, parameters {rel_par}")
+        return counts
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+
+
 # --------------------------------------------------------------- profile
 def _device_us(evt) -> float:
     for attr in ("self_device_time_total", "self_cuda_time_total"):
@@ -2038,6 +2322,12 @@ def _trace(what: str, fn, calls: int, top: int = 12) -> None:
             fn()
         torch.cuda.synchronize()
         wall = (time.perf_counter() - t0) * 1e3 / calls
+    _trace_report(what, prof, wall, calls, top)
+
+
+def _trace_report(what: str, prof, wall: float, calls: int, top: int) -> None:
+    """Device time by kernel of a finished profile over ``calls`` calls of
+    ``wall`` ms each."""
     from torch.autograd import DeviceType
     # device-side events only: a host op's device time is its kernels' again, and so
     # is that of an annotation the optimizer puts on the device's timeline
@@ -2091,6 +2381,47 @@ def phase_profile(dev) -> None:
         print(f"[profile]   the greedy attack of the last step: {greedy.last_stats} "
               f"(host_reads: the packed reads of the live count and the commit flag)")
         del ts, tbatch, step, greedy
+    _trace_trainer(dev)
+
+
+def _trace_trainer(dev) -> None:
+    """Phase 15's Trainer run with the profiler on over its second
+    accumulation cycle: from the start of micro-step 2 to the start of
+    micro-step 4, the host loop between the steps included."""
+    import shutil
+    from torch.profiler import ProfilerActivity, profile
+    from rmcl_tpu_torch.train.loop import Trainer
+    root = Path(TRAINER_DIR).resolve()
+    shutil.rmtree(root, ignore_errors=True)
+    try:
+        root.mkdir()
+        cfg, dm_cls, model = trainer_setup(dev, str(root))
+        cfg = cfg.replace(log_dir=str(root / "p"))
+        tr = Trainer(cfg, workdir=cfg.log_dir, datamodule=dm_cls(cfg), device=dev)
+        tr.setup(model=model)
+        prof = profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA])
+        inner, window = tr.step_fn, {}
+
+        def step_fn(db, gen):
+            if tr.steps_done in (TRAINER_ACCUM, 2 * TRAINER_ACCUM):
+                torch.cuda.synchronize()
+                if tr.steps_done == TRAINER_ACCUM:
+                    prof.start()
+                    window["t0"] = time.perf_counter()
+                else:
+                    window["wall"] = (time.perf_counter() - window["t0"]) * 1e3
+                    prof.stop()
+            return inner(db, gen)
+
+        tr.step_fn = step_fn
+        tr.fit()
+        check("wall" in window, "trainer profile: the window did not close")
+        _trace_report(f"trainer, {PGD_CONFIG}, micro-steps {TRAINER_ACCUM} and "
+                      f"{TRAINER_ACCUM + 1} of Trainer.fit (one optimizer step, accum "
+                      f"{TRAINER_ACCUM}, {PGD_BATCH} pairs each, {TRAINER_MIX} captions), bf16",
+                      prof, window["wall"] / TRAINER_ACCUM, TRAINER_ACCUM, 24)
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
 
 
 def host_us(fn, calls: int = 100) -> float:
@@ -2327,29 +2658,33 @@ def main() -> int:
         phase_pgd_slice(pgd_cfg, pgd_state, cfg, vqa_cpu32, vqa_gpu32, dev)
         del vqa_cpu32, vqa_gpu32
         phase = "train"
-        train_counts = {"default": phase_train(dev)}
+        train_counts = {"default": phase_train(dev)[0]}
         phase = "train slice"
         phase_train_slice(dev)
         for config in ("P", "F"):
             phase = f"train {config}"
-            train_counts[config] = phase_train(dev, config)
+            train_counts[config] = phase_train(dev, config)[0]
         for config in ("P", "F"):
             phase = f"train slice {config}"
             phase_train_slice(dev, config)
         phase = "greedy"
         greedy_counts = phase_greedy(dev)
-        attacked_counts = {}
+        attacked_counts, bare = {}, {}
         for mix in GREEDY_MIXES:
             phase = f"train attacked {mix}"
-            attacked_counts[mix] = phase_train(dev, mix=mix)
+            attacked_counts[mix], bare[mix] = phase_train(dev, mix=mix)
         phase = "train attacked slice"
         phase_train_attacked_slice(dev)
+        phase = "trainer"
+        trainer_counts = phase_trainer(dev, bare[TRAINER_MIX])
     except Exception as e:  # noqa: BLE001  every phase failure ends the run
         traceback.print_exc()
         print(f"chip_smoke: FAILED in phase {phase}: {e}", file=sys.stderr)
         return 1
     print(f"[done] every phase passed in {time.perf_counter() - t_start:.1f} s")
-    main_path = attacked_counts["worst"]    # the attacked task_moco step, default blocks
+    # the main path: python -m rmcl_tpu_torch.cli.run with task_moco, the
+    # Trainer around the attacked step (default blocks), validation included
+    main_path = trainer_counts
 
     def by_path(name):
         return {"serving": counts.get(name, 0), "pgd": pgd_counts[name],
@@ -2357,7 +2692,8 @@ def main() -> int:
                 "greedy": greedy_counts["worst"][name],
                 "greedy_realistic": greedy_counts["realistic"][name],
                 "train_attacked": attacked_counts["worst"][name],
-                "train_attacked_realistic": attacked_counts["realistic"][name]}
+                "train_attacked_realistic": attacked_counts["realistic"][name],
+                "trainer": trainer_counts[name]}
 
     records = []
     for name, replaces in KERNELS.items():

@@ -3,10 +3,11 @@
 The JAX package ``rmcl_tpu`` is the reference; this package imports torch,
 never jax, and nothing of ``rmcl_tpu``: what it needs of that package's
 jax-free host modules it keeps as its own copies.  Ported so far: the
-serving path (``rmcl serve``), the PGD image attack and the task_moco
-training step, under each of the JAX package's kernel block configurations
-(``attention_impl`` "fused" / "pallas" / "flash", ``mlp_impl`` "fused" /
-"fused_train").
+serving path (``rmcl serve``), the PGD image attack, the greedy text attack,
+the task_moco training step and the training entry point around it (the
+loader, the Trainer, checkpoints, ``cli.run with``), under each of the JAX
+package's kernel block configurations (``attention_impl`` "fused" /
+"pallas" / "flash", ``mlp_impl`` "fused" / "fused_train").
 
   ops/         the two deterministic block halves and their dx-only
                backwards (attn_half, mlp_half, attn_half_dx, mlp_half_dx),
@@ -20,17 +21,23 @@ training step, under each of the JAX package's kernel block configurations
                CPU tensors; nvcc build + ctypes binding (ops/_build.py)
   csrc/        the CUDA C++ sources, built at first use into _build/
   core/        the config dataclass and its named presets
-  data/        tokenizer, serving image transform, patch-row relayout
+  data/        tokenizer, image transforms (pixelbert, RandAugment), patch-row
+               relayout, arrow datasets, collate, MLM collator, the sharded
+               loader, MultitaskDataModule
+  eval/        the metric bag (MetricBag)
   models/      layers, text embeddings, ViT, heads, ViLT with its momentum
                twins and MoCo queue (reference state_dict names)
   objectives/  the loss primitives, InfoNCE, the momentum update, the
                queue and the MoCo objective with its four views
-  train/       parameter groups, schedule and AdamW (schedule.py); TrainState
-               and make_train_step (step.py)
-  attacks/     PGD on the pixels (moco, vqa, irtr)
+  train/       parameter groups, schedule and AdamW / Adam / SGD (schedule.py);
+               TrainState, make_train_step with accumulation,
+               make_attacked_train_step, make_eval_step (step.py); the Trainer
+               (loop.py), CheckpointManager (checkpoint.py), MetricLogger
+               (logging.py)
+  attacks/     PGD on the pixels (moco, vqa, irtr), the greedy word attack
   compat/      the JAX package's parameters as the port's state dict
   serve.py     build_infer_fn, batch_spec, Session, postprocess
-  cli/run.py   python -m rmcl_tpu_torch.cli.run serve ...
+  cli/run.py   python -m rmcl_tpu_torch.cli.run with <config> ... | configs | serve ...
 """
 
 from rmcl_tpu_torch.core.config import build_config  # noqa: F401

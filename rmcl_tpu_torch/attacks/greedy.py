@@ -40,6 +40,7 @@ import numpy as np
 import torch
 
 from rmcl_tpu_torch.attacks.pgd import _frozen
+from rmcl_tpu_torch.core.config import active_tasks
 from rmcl_tpu_torch.objectives.contrastive import _infonce_rows
 from rmcl_tpu_torch.objectives.losses import l2_normalize
 
@@ -73,6 +74,15 @@ SPECIAL = {"[PAD]", "[UNK]", "[CLS]", "[SEP]", "[MASK]"}
 
 # the batch entries of the image side that the candidate rows repeat
 IMAGE_KEYS = ("image_embeds", "image_masks")
+
+GREEDY_FRAMEWORKS = ("moco", "barlowtwins", "nlvr2_attacked",
+                     "vqa_attacked", "irtr_attacked")
+
+
+def greedy_attack_framework(cfg) -> Optional[str]:
+    """The first active task that has a greedy attack framework, or None."""
+    tasks = active_tasks(cfg)
+    return next((t for t in GREEDY_FRAMEWORKS if t in tasks), None)
 
 
 def check_word(word: str) -> bool:

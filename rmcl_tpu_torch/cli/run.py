@@ -1,20 +1,32 @@
 """Command line of the PyTorch port.
 
+    python -m rmcl_tpu_torch.cli.run with <named_config> [key=value ...] [device=cpu]
+    python -m rmcl_tpu_torch.cli.run configs
     python -m rmcl_tpu_torch.cli.run serve <task> input=reqs.jsonl [output=out.jsonl]
         [batch_size=N] [device=cuda|cpu] with <named_config> [key=value ...]
         [load_path=state_dict.pt]
 
-Requests are one JSON object per line, ``{"image": path, "text": str}``;
-each output line is the ``rmcl serve`` record of its request.  ``load_path``
-is a ``torch.save``d reference-named state dict, plain or under
-``"state_dict"`` as in a Lightning checkpoint; without it the weights are
-drawn from the config's seed.  Serves on the first CUDA device and fails
-when there is none; ``device=cpu`` asks for the CPU and the plain ops.
+(``rmcl-torch`` is the same command.)
 
-``serve`` is the only subcommand.  Training has no command yet: the
-``task_moco`` training step is reached from Python through
-``rmcl_tpu_torch.train.step`` (``create_train_state``, ``make_train_step``)
-until the Trainer is ported.
+``with``: train, as the reference's ``python run.py with task_moco
+text_view=True image_view=True data_root=/data`` does: the port's
+``Trainer`` (``train/loop.py``) over the arrow tables under ``data_root``,
+with validation and the ``last`` / ``best`` checkpoints under
+``log_dir/exp_name``; ``test_only=True`` validates on the test split
+instead; ``resume_from=last`` continues a run.  ``configs`` lists the named
+configs.
+
+``serve``: requests are one JSON object per line, ``{"image": path, "text":
+str}``; each output line is the ``rmcl serve`` record of its request.
+
+``load_path`` is a checkpoint directory of this package, or a
+``torch.save``d reference-named state dict, plain or under ``"state_dict"``
+as in a Lightning checkpoint; without it the weights are drawn from the
+config's seed.  Both subcommands run on the first CUDA device and fail when
+there is none; ``device=cpu`` asks for the CPU and the plain ops.
+
+Not ported: ``prepare`` (the arrow writers, ROADMAP A9) and ``export``
+(ROADMAP "Not ported").
 """
 
 from __future__ import annotations
@@ -26,7 +38,7 @@ from typing import Any, Dict, List, Optional, Tuple
 
 import torch
 
-from rmcl_tpu_torch.core.config import build_config
+from rmcl_tpu_torch.core.config import build_config, named_configs
 
 # reference key spellings accepted verbatim: the GPU wording maps onto the
 # device-count/per-device fields 1:1
@@ -65,8 +77,8 @@ def serve(argv: List[str]) -> int:
     from PIL import Image
 
     from rmcl_tpu_torch.data.tokenizer import get_tokenizer
-    from rmcl_tpu_torch.serve import (TASKS, Session, load_state_dict_file,
-                                      postprocess, seeded_model)
+    from rmcl_tpu_torch.serve import TASKS, Session, postprocess, seeded_model
+    from rmcl_tpu_torch.train.checkpoint import load_initial_params
     if not argv or argv[0] not in TASKS:
         return _usage(TASKS)
     task, rest = argv[0], argv[1:]
@@ -82,12 +94,7 @@ def serve(argv: List[str]) -> int:
     names, overrides = parse_with(rest)
     cfg = build_config(*names, **overrides)
 
-    model = seeded_model(cfg)
-    if cfg.load_path:
-        skipped = model.load_reference_state_dict(load_state_dict_file(cfg.load_path))
-        if skipped:
-            print(f"[rmcl_tpu_torch] {len(skipped)} checkpoint entries not used "
-                  f"for serving (e.g. {skipped[0]})", file=sys.stderr)
+    model = load_initial_params(cfg, seeded_model(cfg))
     device = torch.device(opts["device"])
     if device.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError("no CUDA device: serve on a GPU, or pass device=cpu "
@@ -119,17 +126,53 @@ def serve(argv: List[str]) -> int:
     return 0
 
 
+def train(argv: List[str]) -> int:
+    from rmcl_tpu_torch.train.loop import Trainer
+    names, overrides = parse_with(argv)
+    device = overrides.pop("device", None)
+    try:
+        cfg = build_config(*names, **overrides)
+    except (KeyError, TypeError) as e:
+        print(f"error: {e}\n  named configs: python -m rmcl_tpu_torch.cli.run configs\n"
+              "  overrides must be valid RMCLConfig fields", file=sys.stderr)
+        return 2
+    trainer = Trainer(cfg, workdir=cfg.log_dir, device=device)
+    trainer.setup()
+    print(f"[rmcl_tpu_torch] exp={cfg.exp_name} tasks="
+          f"{[k for k, v in cfg.loss_names.items() if v >= 1]} device={trainer.device} "
+          f"max_steps={trainer.max_steps} accum={trainer.accum_steps}")
+    if cfg.test_only:
+        metrics = trainer.validate(split="test")
+    else:
+        trainer.fit()
+        metrics = trainer.validate(split="val")
+    for k, v in sorted(metrics.items()):
+        print(f"{k}: {v}")
+    return 0
+
+
+NOT_PORTED = {
+    "prepare": "the arrow writers (data/writers.py) are not ported (ROADMAP A9)",
+    "export": "the StableHLO export is not ported (ROADMAP, Not ported)",
+}
+
+
 def main(argv: Optional[List[str]] = None) -> int:
     argv = list(sys.argv[1:] if argv is None else argv)
-    if argv and argv[0] == "serve":
-        return serve(argv[1:])
-    print(__doc__)
     if not argv or argv[0] in ("-h", "--help"):
+        print(__doc__)
         return 0
-    print(f"unknown subcommand {argv[0]!r}: serve is the only one; training runs through "
-          "rmcl_tpu_torch/train/step.py:make_train_step until the Trainer (ROADMAP A9) "
-          "is ported", file=sys.stderr)
-    return 2
+    if argv[0] == "configs":
+        for n in named_configs():
+            print(n)
+        return 0
+    if argv[0] == "serve":
+        return serve(argv[1:])
+    if argv[0] in NOT_PORTED:
+        raise NotImplementedError(f"{argv[0]}: {NOT_PORTED[argv[0]]}")
+    if argv[0] == "with":
+        argv = argv[1:]
+    return train(argv)
 
 
 if __name__ == "__main__":

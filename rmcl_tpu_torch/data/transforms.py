@@ -1,10 +1,10 @@
-"""Host-side image transform of the serving path: the pixelbert resize.
+"""Host-side image transforms: the pixelbert resize and RandAugment.
 
-The port's own copy of what serving uses from the JAX package's
-``data/transforms.py`` (behavioural spec: reference
-vilt/transforms/{utils.py,pixelbert.py}); pure PIL + numpy.  RandAugment is
-a training-time transform and comes with the training data pipeline; that
-package's optional C++ resize gives the same bytes as the PIL path kept here.
+The port's own copy of the JAX package's ``data/transforms.py`` (behavioural
+spec: reference vilt/transforms/{utils.py,pixelbert.py,randaug.py}); pure
+PIL + numpy.  That package's optional C++ resize gives the same bytes as the
+PIL path kept here.  PIL is imported where an image is touched, never at
+import, so the modules that import this one import without it.
 
 Output convention: channels-LAST (H, W, 3), float32 normalised
 ``(x/255 - 0.5)/0.5`` or raw uint8 for the u8 wire format.
@@ -17,12 +17,19 @@ on either side it is rescaled to fit (same /32-rounding rules).
 
 from __future__ import annotations
 
-from typing import Callable, Optional, Tuple
+from typing import Callable, List, Optional, Sequence, Tuple
 
 import numpy as np
-from PIL import Image
+
+from rmcl_tpu_torch.data.rng import srandom
 
 
+def _pil():
+    from PIL import Image, ImageEnhance, ImageOps
+    return Image, ImageEnhance, ImageOps
+
+
+# ------------------------------------------------------------ resize math
 def min_max_size(w: int, h: int, shorter: int, longer: int) -> Tuple[int, int]:
     """(new_w, new_h) after MinMaxResize rules (reference
     vilt/transforms/utils.py:5-27): scale shorter side to `shorter`, cap
@@ -39,14 +46,13 @@ def min_max_size(w: int, h: int, shorter: int, longer: int) -> Tuple[int, int]:
     return (neww // 32 * 32, newh // 32 * 32)
 
 
-def min_max_resize(img: Image.Image, shorter: int = 800,
-                   longer: int = 1333) -> Image.Image:
+def min_max_resize(img, shorter: int = 800, longer: int = 1333):
     w, h = img.size
     neww, newh = min_max_size(w, h, shorter, longer)
-    return img.resize((neww, newh), resample=Image.BICUBIC)
+    return img.resize((neww, newh), resample=_pil()[0].BICUBIC)
 
 
-def fit_bucket(img: Image.Image, bucket_hw: Tuple[int, int]) -> Image.Image:
+def fit_bucket(img, bucket_hw: Tuple[int, int]):
     """If the resized image exceeds the static bucket, rescale to fit
     (keep aspect, /32 floor)."""
     bh, bw = bucket_hw
@@ -56,10 +62,10 @@ def fit_bucket(img: Image.Image, bucket_hw: Tuple[int, int]) -> Image.Image:
     s = min(bw / w, bh / h)
     neww = max(int(w * s) // 32 * 32, 32)
     newh = max(int(h * s) // 32 * 32, 32)
-    return img.resize((neww, newh), resample=Image.BICUBIC)
+    return img.resize((neww, newh), resample=_pil()[0].BICUBIC)
 
 
-def to_normalized_array(img: Image.Image) -> np.ndarray:
+def to_normalized_array(img) -> np.ndarray:
     """(H, W, 3) float32 in [-1, 1]: ToTensor + inception_normalize
     (reference transforms/utils.py:46-49)."""
     return normalize_u8_array(np.asarray(img.convert("RGB"), np.uint8))
@@ -72,14 +78,126 @@ def normalize_u8_array(arr: np.ndarray) -> np.ndarray:
     return (arr.astype(np.float32) / 255.0 - 0.5) / 0.5
 
 
+# ------------------------------------------------------------- randaug ops
+def _autocontrast(img, _):
+    return _pil()[2].autocontrast(img)
+
+
+def _equalize(img, _):
+    return _pil()[2].equalize(img)
+
+
+def _rotate(img, v):
+    if srandom.random() > 0.5:
+        v = -v
+    return img.rotate(v)
+
+
+def _posterize(img, v):
+    return _pil()[2].posterize(img, max(1, int(v)))
+
+
+def _solarize(img, v):
+    return _pil()[2].solarize(img, int(v))
+
+
+def _solarize_add(img, v, thresh=128):
+    arr = np.asarray(img).astype(np.int64)
+    out = np.where(arr < thresh, np.clip(arr + int(v), 0, 255), arr)
+    return _pil()[0].fromarray(out.astype(np.uint8))
+
+
+def _color(img, v):
+    return _pil()[1].Color(img).enhance(v)
+
+
+def _contrast(img, v):
+    return _pil()[1].Contrast(img).enhance(v)
+
+
+def _brightness(img, v):
+    return _pil()[1].Brightness(img).enhance(v)
+
+
+def _sharpness(img, v):
+    return _pil()[1].Sharpness(img).enhance(v)
+
+
+def _affine(img, coeffs):
+    return img.transform(img.size, _pil()[0].AFFINE, coeffs)
+
+
+def _shear_x(img, v):
+    if srandom.random() > 0.5:
+        v = -v
+    return _affine(img, (1, v, 0, 0, 1, 0))
+
+
+def _shear_y(img, v):
+    if srandom.random() > 0.5:
+        v = -v
+    return _affine(img, (1, 0, 0, v, 1, 0))
+
+
+def _translate_x_abs(img, v):
+    if srandom.random() > 0.5:
+        v = -v
+    return _affine(img, (1, 0, v, 0, 1, 0))
+
+
+def _translate_y_abs(img, v):
+    if srandom.random() > 0.5:
+        v = -v
+    return _affine(img, (1, 0, 0, 0, 1, v))
+
+
+# active 14-op policy (reference randaug.py:181-201, TPU autoaugment list)
+RANDAUG_OPS = [
+    (_autocontrast, 0, 1),
+    (_equalize, 0, 1),
+    (_rotate, 0, 30),
+    (_posterize, 0, 4),
+    (_solarize, 0, 256),
+    (_solarize_add, 0, 110),
+    (_color, 0.1, 1.9),
+    (_contrast, 0.1, 1.9),
+    (_brightness, 0.1, 1.9),
+    (_sharpness, 0.1, 1.9),
+    (_shear_x, 0.0, 0.3),
+    (_shear_y, 0.0, 0.3),
+    (_translate_x_abs, 0.0, 100),
+    (_translate_y_abs, 0.0, 100),
+]
+
+
+class RandAugment:
+    """n ops at magnitude m/30 of each range (reference randaug.py:258-274),
+    drawn from ``srandom`` (the loader's per-sample stream)."""
+
+    def __init__(self, n: int = 2, m: int = 9):
+        self.n, self.m = n, m
+
+    def __call__(self, img):
+        for op, lo, hi in srandom.choices(RANDAUG_OPS, k=self.n):
+            v = (self.m / 30.0) * (hi - lo) + lo
+            img = op(img, v)
+        return img
+
+
+# ------------------------------------------------------------- pipelines
 def pixelbert_transform(size: int = 800,
                         bucket_hw: Optional[Tuple[int, int]] = None,
+                        randaug: bool = False,
                         out_dtype: str = "float32") -> Callable:
     """PIL -> (H, W, 3) float32 in [-1, 1] (reference pixelbert.py:8-30),
-    or raw uint8 when out_dtype="uint8" (normalised on the device)."""
+    or raw uint8 when out_dtype="uint8" (normalised on the device);
+    RandAugment(2, 9) first when ``randaug``."""
     longer = int((1333 / 800) * size)
+    ra = RandAugment(2, 9) if randaug else None
 
-    def tr(img: Image.Image) -> np.ndarray:
+    def tr(img) -> np.ndarray:
+        if ra is not None:
+            img = ra(img)
         img = min_max_resize(img, shorter=size, longer=longer)
         if bucket_hw is not None:
             img = fit_bucket(img, bucket_hw)
@@ -89,3 +207,18 @@ def pixelbert_transform(size: int = 800,
         return to_normalized_array(img)
 
     return tr
+
+
+_TRANSFORMS = {
+    "pixelbert": lambda size, bucket, dt: pixelbert_transform(
+        size, bucket, False, dt),
+    "pixelbert_randaug": lambda size, bucket, dt: pixelbert_transform(
+        size, bucket, True, dt),
+}
+
+
+def keys_to_transforms(keys: Sequence[str], size: int,
+                       bucket_hw: Optional[Tuple[int, int]] = None,
+                       out_dtype: str = "float32") -> List[Callable]:
+    """Registry (reference vilt/transforms/__init__.py:6-13)."""
+    return [_TRANSFORMS[k](size, bucket_hw, out_dtype) for k in keys]

@@ -1,1 +1,2 @@
-"""The training step (port of ``rmcl_tpu/train``: ``schedule`` and ``step``)."""
+"""Training (port of ``rmcl_tpu/train``: ``schedule``, ``step``, ``loop`` with
+the ``Trainer``, ``checkpoint`` and ``logging``)."""

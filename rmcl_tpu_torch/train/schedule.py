@@ -13,13 +13,22 @@ here and never reach the optimizer).
 Schedules follow HuggingFace ``get_polynomial_decay_schedule_with_warmup`` /
 ``get_cosine_schedule_with_warmup``: the rate is 0 at step 0 under warmup.
 
-The optimizer is ``torch.optim.AdamW`` (the JAX package uses optax's, a
-library optimizer too).  optax's ``adamw`` adds ``weight_decay * p`` to the
-Adam direction and scales the sum by the rate; torch's shrinks ``p`` by
-``lr * weight_decay`` and then takes the Adam step: the same update.  Both
-index the schedule by the number of updates already made.  Gradient
-accumulation (``accum`` > 1) and the ``adam`` / ``sgd`` optimizers are not
-ported yet.
+The optimizer follows ``cfg.optim_type`` as the JAX package's optax
+transforms do, per group:
+
+  * ``adamw``: ``torch.optim.AdamW`` (betas 0.9 / 0.98, eps 1e-8).  optax's
+    ``adamw`` adds ``weight_decay * p`` to the Adam direction and scales the
+    sum by the rate; torch's shrinks ``p`` by ``lr * weight_decay`` and then
+    takes the Adam step: the same update.
+  * ``adam``: ``torch.optim.Adam`` with optax's defaults (betas 0.9 /
+    0.999, eps 1e-8) and no weight decay, as ``optax.adam``.
+  * ``sgd``: ``torch.optim.SGD`` with momentum 0.9 and no weight decay, as
+    ``optax.sgd(momentum=0.9)``: the trace ``g + 0.9 * trace`` times the
+    rate.
+
+All index the schedule by the number of updates already made.  Gradient
+accumulation (optax ``MultiSteps``) is the training step's
+(``train/step.py``): it hands the optimizer the mean gradient once per cycle.
 """
 
 from __future__ import annotations
@@ -90,16 +99,14 @@ def make_lr_schedule(cfg, max_steps: int, lr: float = None) -> Callable[[int], f
 def make_optimizer(cfg, model: torch.nn.Module, max_steps: int
                    ) -> Tuple[torch.optim.Optimizer, torch.optim.lr_scheduler.LambdaLR,
                               Dict[str, str]]:
-    """(optimizer, scheduler, labels).  One AdamW group per non-empty label;
+    """(optimizer, scheduler, labels).  One group per non-empty label;
     frozen parameters are in none.  Call ``scheduler.step()`` after every
     ``optimizer.step()``."""
-    if cfg.optim_type != "adamw":
-        raise NotImplementedError(
-            f"optim_type {cfg.optim_type!r}: the port has adamw only; adam and sgd "
-            "come with the Trainer (ROADMAP A9)")
+    if cfg.optim_type not in ("adamw", "adam", "sgd"):
+        raise ValueError(f"unknown optim_type {cfg.optim_type!r}")
     labels = param_group_labels(model)
     params = dict(model.named_parameters())
-    wd = cfg.weight_decay
+    wd = cfg.weight_decay if cfg.optim_type == "adamw" else 0.0
     groups, lambdas = [], []
     for label, lr_scale, decay in ((BASE_DECAY, 1.0, wd), (BASE_NO_DECAY, 1.0, 0.0),
                                    (HEAD_DECAY, cfg.lr_mult, wd),
@@ -110,6 +117,11 @@ def make_optimizer(cfg, model: torch.nn.Module, max_steps: int
             groups.append({"params": members, "lr": 1.0, "weight_decay": decay})
             lambdas.append(make_lr_schedule(cfg, max_steps,
                                             lr=cfg.learning_rate * lr_scale))
-    optimizer = torch.optim.AdamW(groups, betas=(0.9, 0.98), eps=1e-8)
+    if cfg.optim_type == "adamw":
+        optimizer = torch.optim.AdamW(groups, betas=(0.9, 0.98), eps=1e-8)
+    elif cfg.optim_type == "adam":
+        optimizer = torch.optim.Adam(groups, betas=(0.9, 0.999), eps=1e-8)
+    else:
+        optimizer = torch.optim.SGD(groups, momentum=0.9)
     scheduler = torch.optim.lr_scheduler.LambdaLR(optimizer, lambdas)
     return optimizer, scheduler, labels

@@ -23,8 +23,17 @@ cast from the float32 master parameters once per optimizer step, after the
 update (the twins': after the momentum update), never per call or per view;
 the unfused block's training products take the masters themselves.
 
-Ported: the ``moco`` task.  Any other active task raises.  Not ported yet:
-``make_eval_step``, gradient accumulation.
+Gradient accumulation (``accum`` > 1, the reference's
+``accumulate_grad_batches``; optax ``MultiSteps`` in the JAX package): the
+step body runs per micro-batch, so the momentum update, the key forward, the
+attacks and the enqueue advance on every call; the gradients are averaged as
+``MultiSteps`` averages them (``acc + (g - acc) / (k + 1)`` at micro-step k)
+and the optimizer applies the mean once per cycle.  ``ts.step`` counts
+micro-batches; the ``lr`` metric is the rate of optimizer step
+``ts.step // accum``.  ``make_eval_step`` is the deterministic forward of
+every active task, with its attacks.
+
+Ported: the ``moco`` task.  Any other active task raises.
 """
 
 from __future__ import annotations
@@ -34,13 +43,13 @@ from typing import Callable, Dict, List, Optional
 
 import torch
 
+from rmcl_tpu_torch.attacks.greedy import greedy_attack_framework
 from rmcl_tpu_torch.attacks.greedy_fused import TABLE_KEYS, FusedGreedyAttack
 from rmcl_tpu_torch.attacks.pgd import make_pgd_moco
 from rmcl_tpu_torch.core.config import active_tasks
 from rmcl_tpu_torch.models.vilt import ViLT, draw_seeds
 from rmcl_tpu_torch.models.vit import normalize_u8
 from rmcl_tpu_torch.objectives import contrastive
-from rmcl_tpu_torch.train.loop import greedy_attack_framework
 from rmcl_tpu_torch.train.schedule import make_lr_schedule, make_optimizer
 
 MOCO_VIEWS = 4   # clean, txt, img, both: one set of dropout seeds each
@@ -55,6 +64,11 @@ class TrainState:
     # the query transformer's matrices in the compute type, recast after
     # every optimizer step
     block_matrices: Optional[List[Dict[str, torch.Tensor]]] = None
+    # micro-batches per optimizer step; when > 1, acc_grads holds the running
+    # mean of this cycle's micro-gradients, one per trainable parameter (zero
+    # between cycles)
+    accum: int = 1
+    acc_grads: Optional[List[torch.Tensor]] = None
 
     def refresh_block_matrices(self) -> None:
         tr = self.model.transformer
@@ -81,10 +95,12 @@ def training_device(device=None) -> torch.device:
 
 
 def create_train_state(cfg, max_steps: Optional[int] = None,
-                       model: Optional[ViLT] = None, device=None) -> TrainState:
+                       model: Optional[ViLT] = None, device=None,
+                       accum: int = 1) -> TrainState:
     """A ``TrainState`` on the training device.  ``model`` defaults to a
     ``ViLT`` initialised from ``cfg.seed``; the momentum twins are frozen
-    (the momentum update moves them, never the optimizer)."""
+    (the momentum update moves them, never the optimizer).  ``max_steps``
+    counts optimizer steps; ``accum`` > 1 keeps the accumulated gradients."""
     device = training_device(device)
     if model is None:
         model = ViLT(cfg).init(torch.Generator().manual_seed(cfg.seed))
@@ -94,7 +110,9 @@ def create_train_state(cfg, max_steps: Optional[int] = None,
             p.requires_grad_(False)
     optimizer, scheduler, _ = make_optimizer(cfg, model,
                                              max_steps or resolve_max_steps(cfg))
-    ts = TrainState(model, optimizer, scheduler)
+    ts = TrainState(model, optimizer, scheduler, accum=accum)
+    if accum > 1:
+        ts.acc_grads = [torch.zeros_like(p) for p in model.parameters() if p.requires_grad]
     ts.refresh_block_matrices()
     return ts
 
@@ -164,7 +182,8 @@ def make_train_step(cfg, ts: TrainState, max_steps: Optional[int] = None) -> Cal
     its model lies on.  ``batch``: tensors on that device; ``generator``: a
     CPU ``torch.Generator`` the step draws its dropout seeds from.  Metrics
     are 0-d tensors on the device (no host read in the step), with
-    ``total_loss`` and ``lr``, the base rate this update was made with."""
+    ``total_loss`` and ``lr``, the base rate of this micro-batch's optimizer
+    step (``ts.accum`` micro-batches per optimizer step)."""
     body = _train_step_body(cfg, ts, max_steps)
 
     def train_step(batch: Dict[str, torch.Tensor],
@@ -183,6 +202,7 @@ def _train_step_body(cfg, ts: TrainState, max_steps: Optional[int]) -> Callable:
     model = ts.model
     device = next(model.parameters()).device
     trainable = [p for p in model.parameters() if p.requires_grad]
+    accum = ts.accum
 
     def body(batch: Dict[str, torch.Tensor], generator: torch.Generator,
              greedy_fn: Optional[Callable] = None):
@@ -198,13 +218,25 @@ def _train_step_body(cfg, ts: TrainState, max_steps: Optional[int]) -> Callable:
             # gradient makes it do in the JAX package
             if p.grad is None:
                 p.grad = torch.zeros_like(p)
-        ts.optimizer.step()
-        ts.scheduler.step()
-        ts.refresh_block_matrices()
+        micro = ts.step % accum
+        if accum > 1:                # one multi-tensor launch per elementwise op
+            grads = [p.grad for p in trainable]
+            with torch.no_grad():
+                delta = torch._foreach_sub(grads, ts.acc_grads)
+                torch._foreach_div_(delta, micro + 1)
+                torch._foreach_add_(ts.acc_grads, delta)
+                if micro == accum - 1:
+                    torch._foreach_copy_(grads, ts.acc_grads)
+        if micro == accum - 1:
+            ts.optimizer.step()
+            ts.scheduler.step()
+            ts.refresh_block_matrices()
+            if accum > 1:
+                torch._foreach_zero_(ts.acc_grads)
 
         metrics = _scalar_metrics(ret)
         metrics["total_loss"] = total.detach()
-        metrics["lr"] = torch.tensor(lr_sched(ts.step), device=device)
+        metrics["lr"] = torch.tensor(lr_sched(ts.step // accum), device=device)
         ts.step += 1
         return metrics, ret
 
@@ -252,3 +284,20 @@ def make_attacked_train_step(cfg, ts: TrainState, greedy,
         return metrics
 
     return attacked_step
+
+
+# -------------------------------------------------------------- eval step
+def make_eval_step(cfg, ts: TrainState) -> Callable:
+    """``eval_step(batch) -> ret``: every active task's deterministic forward
+    with its attacks (the reference validates on the adversarial views),
+    the momentum twins and the queue untouched, no gradient but the attacks'
+    own; ``ret`` holds every output (per-sample ``_ps`` rows included) and
+    ``total_loss``, on the device."""
+
+    @torch.no_grad()
+    def eval_step(batch: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
+        total, ret = compute_all_tasks(cfg, ts, batch, None, train=False)
+        ret["total_loss"] = torch.as_tensor(total, dtype=torch.float32)
+        return ret
+
+    return eval_step

@@ -415,8 +415,11 @@ def test_adamw_steps_match_optax():
 
 
 def test_make_optimizer_refuses_other_optimizers():
-    cfg = _cfg(optim_type="sgd")
-    with pytest.raises(NotImplementedError, match="adamw"):
+    """adamw, adam and sgd are the JAX package's optimizers
+    (tests/test_torch_accum.py holds adam and sgd to optax); any other name
+    raises as its make_optimizer does."""
+    cfg = _cfg(optim_type="lamb")
+    with pytest.raises(ValueError, match="unknown optim_type"):
         TS.make_optimizer(cfg, ViLT(cfg), 10)
 
 
@@ -588,6 +591,11 @@ def test_train_step_refuses_what_is_not_ported():
 
 
 def test_cli_points_training_at_make_train_step(capsys):
+    """Training is the ``with`` form (tests/test_torch_trainer.py runs it);
+    a name that is not a named config is refused with a pointer to
+    ``configs``, and the usage text names the ``with`` form."""
     from rmcl_tpu_torch.cli.run import main
     assert main(["train", "with", "task_moco"]) == 2
-    assert "make_train_step" in capsys.readouterr().err
+    assert "rmcl_tpu_torch.cli.run configs" in capsys.readouterr().err
+    assert main(["--help"]) == 0
+    assert "cli.run with <named_config>" in capsys.readouterr().out
