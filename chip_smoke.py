@@ -5,7 +5,9 @@ derive_block_impls``): the default ("fused", "fused_train"), P ("pallas": the
 unfused block around the attention-core kernels) and F ("fused", "fused":
 ``attn_half_full`` with its full backward, the plain MLP); then the greedy
 text attack and the attacked task_moco step; then the training entry point
-around it, the Trainer (phase 15), the main path.
+around it, the Trainer (phase 15), the main path; then the same for
+task_barlowtwins (phase 16): its attacked step, its fp32 check against the
+CPU and its Trainer.
 
     python3 chip_smoke.py
 
@@ -66,7 +68,12 @@ Phases, any failure exits non-zero:
                with its byte bound, time per call and device time beside
                torch.ops.aten.native_layer_norm_backward on fp32 copies (the
                nearest call: no + g, no y) and a.sum(0, dtype=float32).  The
-               port never calls them.
+               port never calls them.  Every fp32 reading (the ops above, and
+               the fp32 FMA GEMMs ln_gemm_f32 at fc2 with the residual and
+               gemm_tn_f32 at dW1 against their plain versions, 2e-4 of
+               max(1, max|ref|)) beside its fp32 bound: bytes at 4 B per
+               element over 3.35 TB/s against FLOPs over the CUDA cores'
+               fp32 FMA rate (67 TFLOP/s).
                The training ops at B=16, S=241, fp32 and bf16, p = 0.1 and
                p = 0: attn_half_train and mlp_half_train, and their backwards
                on the forward's kept tensors with a random g, every output
@@ -127,7 +134,8 @@ Phases, any failure exits non-zero:
                max_memory_allocated.  The launch counters also read 14 of the
                dropout op (the embedding dropouts: text and image, four views
                forward, three backward) and 0 of every other op.
-  9. train slice  one step of 4 pairs in fp32 at full width and depth: the card's
+  9. train slice  one step of 4 pairs in fp32 at full width, 6 of the 12
+               layers (SLICE_LAYERS; phase 16 holds all 12): the card's
                kernels against the CPU's plain ops from the same weights,
                batch and dropout seeds (so the same masks): loss within 1e-5
                relative; every gradient, updated parameter, twin and the
@@ -167,8 +175,9 @@ Phases, any failure exits non-zero:
                finite; step ms, pairs/s, the split (key forward, greedy
                attack, PGD, views, AdamW) by CUDA events, memory.
  14. train attacked slice   one fp32 attacked step of 4 pairs on the
-               realistic captions, the card's kernels against the CPU's plain
-               ops from the same weights, batch and dropout seeds: the
+               realistic captions at 6 layers (SLICE_LAYERS), the card's
+               kernels against the CPU's plain ops from the same weights,
+               batch and dropout seeds: the
                attacked token ids equal; where they differ, the first decision
                that parts (the pick, the best candidate or the commit) and its
                margin are printed, and it must be a tie within 2e-4 *
@@ -203,6 +212,34 @@ Phases, any failure exits non-zero:
                the timed run's within 1e-6 relative (the largest difference
                printed).  Checkpoints go to chip_smoke_trainer.tmp/, removed
                at the end.
+ 16. bt attacked worst, bt attacked realistic, bt attacked slice, bt trainer
+               task_barlowtwins at full width and depth (phase 13's model
+               and mixes, bt_proj_dims (8192, 8192, 8192), lambda = adv_lr
+               0.0051, 5-step PGD, the fused greedy attack on
+               GreedyAttackBarlowTwins, drop_rate 0.1, AdamW 1e-4), bf16, 16
+               pairs: make_attacked_train_step, one warm-up and three timed
+               steps per mix; per step the launch counters equal
+               expected_launches (three training views forward and
+               backward) plus the attack's own, each loop's scoring forward
+               all 80 rows (no compaction, no chunks); every parameter and
+               every BatchNorm running statistic moved, finite, variances
+               positive; step ms, pairs/s, the split by CUDA events (key
+               forward, greedy attack, PGD, views, AdamW), the attack's
+               loops, passes, scoring forwards and host reads, memory.  PGD
+               alone and the greedy attack alone leave the running
+               statistics as they were.  One fp32 attacked step of 4 pairs
+               on the card and on the CPU: the token ids as phase 14 holds
+               them and the loss within 1e-5 relative; then the card's step
+               again on the CPU's ids, cut at the head's input (HeadSeam:
+               the head fed the CPU's class features, the encoder below it
+               the CPU's gradient, call by call): the card's class features
+               at every head call, the gradients, parameters and running
+               statistics within 2e-4 * max(1, max|ref|) of the CPU's; the
+               first projection's spread over the rows printed beside it.  The
+               Trainer for task_barlowtwins, one optimizer step (accum 2) on
+               phase 15's in-memory data: launches, every parameter and
+               statistic moved, micro-step 0's ms beside the bare step,
+               'last' loads back equal, running statistics included.
 
 The line before the last is the kernels' JSON record; the last line is
 ``{"ok": true, "device": {...}}``.  Without a card, or outside the
@@ -212,11 +249,13 @@ repository, it exits non-zero and prints no result.
 
 runs phases 1 and 2 and then, in place of the checks, traces five serving
 forwards, two attacks, two training steps under each configuration, two
-attacked steps per caption mix and phase 15's Trainer over its second
+attacked steps per caption mix, phase 15's Trainer over its second
 accumulation cycle (micro-steps 2 and 3, the host loop between them
-included) with ``torch.profiler`` and prints, for each, the device time by kernel name, the device-busy and wall time per
-call, the idle share and the kernel count, and for the attacked steps the
-greedy attack's loops and host reads (the breakdowns of PERF.md section 5).
+included) and two attacked task_barlowtwins steps per caption mix with
+``torch.profiler`` and prints, for each, the device time by kernel name,
+the device-busy and wall time per call, the idle share and the kernel
+count, and for the attacked steps the greedy attack's loops and host reads
+(the breakdowns of PERF.md section 5).
 
     python3 chip_smoke.py --gemm-times [ROOT]
 
@@ -238,6 +277,7 @@ column sums) against the ops' (expected_sub_launches).
 from __future__ import annotations
 
 import copy
+import gc
 import json
 import re
 import statistics
@@ -256,6 +296,7 @@ N_REQUESTS = 20
 N_CPU = 4
 SEED = 0
 PGD_CONFIG = "task_moco"
+BT_CONFIG = "task_barlowtwins"
 PGD_BATCH = 16
 GREEDY_ROWS, GREEDY_S = 16 * 5, 16 + 201    # the greedy attack's scoring forward
 KERNELS = {  # op -> the Pallas kernel body it replaces
@@ -309,6 +350,9 @@ ATTN_SOURCE = "rmcl_tpu_torch/csrc/hopper_attention.cuh"
 ATTN_PREFIX, ATTN_FWD = "_ZN5hattn", "fwd_kernel"
 PEAK_BYTES_S = 3.35e12      # H100 SXM device memory
 PEAK_BF16_FLOPS = 989e12    # H100 SXM tensor cores, dense bf16
+# H100 SXM fp32 on the CUDA cores (the FMA kernels compute_dtype="float32"
+# reaches): 128 FP32 lanes per SM x 132 SMs x 2 operations per FMA x 1.98 GHz
+PEAK_FP32_FLOPS = 128 * 132 * 2 * 1.98e9
 # H100 SXM 32-bit integer rate, the dropout's Philox work: 64 INT32 lanes per
 # SM (NVIDIA's Hopper architecture white paper: 16 per SM sub-partition) x
 # 132 SMs x the 1.98 GHz boost clock.  67e12, the fp32 rate with an FMA
@@ -454,32 +498,33 @@ def _block_inputs(dev, C=768, H=12, B=BATCH, S=269):
     return x, mask, ln, attn, mlp, H
 
 
-def op_work(name: str, B: int, S: int, C: int, saved: bool = False) -> tuple:
-    """(operations, bytes) one call of an op needs at these shapes in bf16:
-    each input read once, each output written once (weights 2 bytes, biases
-    and LayerNorm parameters 4); 2 operations per multiply-add of every
+def op_work(name: str, B: int, S: int, C: int, saved: bool = False, es: int = 2) -> tuple:
+    """(operations, bytes) one call of an op needs at these shapes, with
+    activations and weights of ``es`` bytes (2: bf16, 4: fp32): each input
+    read once, each output written once (biases, LayerNorm parameters and
+    parameter gradients 4 bytes); 2 operations per multiply-add of every
     product the op is defined by."""
     M, C4 = B * S, 4 * C
-    act = 2 * M * C                       # one (B, S, C) bf16 tensor
+    act = es * M * C                      # one (B, S, C) activation
     if name in ("attn_half", "attn_half_train"):   # qkv, proj; q.k^T, p.v
         return (8 * M * C * C + 4 * B * S * S * C,
-                2 * act + 4 * M + 2 * 4 * C * C + 4 * 6 * C)
+                2 * act + 4 * M + es * 4 * C * C + 4 * 6 * C)
     if name in ("mlp_half", "mlp_half_train"):     # fc1, fc2
-        return 4 * M * C * C4, 2 * act + 2 * 2 * C * C4 + 4 * (3 * C + C4)
+        return 4 * M * C * C4, 2 * act + es * 2 * C * C4 + 4 * (3 * C + C4)
     if name == "attn_half_train_bwd":     # the dx work from the kept qkv, + dWqkv, dWproj;
         # reads x, g, qkv, attn; writes dx and the fp32 parameter gradients
         return (16 * M * C * C + 10 * B * S * S * C,
-                7 * act + 4 * M + 2 * 4 * C * C + 4 * 2 * C + 4 * (4 * C * C + 6 * C))
+                7 * act + 4 * M + es * 4 * C * C + 4 * 2 * C + 4 * (4 * C * C + 6 * C))
     if name == "mlp_half_train_bwd":      # g.W2, dh.W1, dW1, dW2; reads x, g, h, a_d
         return (8 * M * C * C4,
-                3 * act + 2 * 2 * M * C4 + 2 * 2 * C * C4 + 4 * 2 * C
+                3 * act + es * 2 * M * C4 + es * 2 * C * C4 + 4 * 2 * C
                 + 4 * (2 * C * C4 + 3 * C + C4))
     if name == "attn_half_dx":            # [qkv], g.Wproj, dqkv.Wqkv; s, dp, dq, dk, dv
         return ((8 if saved else 14) * M * C * C + 10 * B * S * S * C,
-                3 * act + 4 * M + 2 * 4 * C * C + 4 * 5 * C + (3 * act if saved else 0))
+                3 * act + 4 * M + es * 4 * C * C + 4 * 5 * C + (3 * act if saved else 0))
     if name == "mlp_half_dx":             # [fc1], g.W2, dh.W1
         return ((4 if saved else 6) * M * C * C4,
-                3 * act + 2 * 2 * C * C4 + 4 * (2 * C + C4) + (2 * M * C4 if saved else 0))
+                3 * act + es * 2 * C * C4 + 4 * (2 * C + C4) + (es * M * C4 if saved else 0))
     if name == "masked_attention":        # q.k^T, p.v; reads q, k, v, mask, writes out
         return 4 * B * S * S * C, 4 * act + 4 * M
     if name == "masked_attention_bwd":    # s, dp, dq, dk, dv; reads q, k, v, g, mask
@@ -487,15 +532,17 @@ def op_work(name: str, B: int, S: int, C: int, saved: bool = False) -> tuple:
     raise KeyError(name)
 
 
-def bound(name: str, B: int, S: int, C: int, saved: bool = False) -> tuple:
-    """(least ms, what bounds it) for one call at these shapes in bf16.  The
-    dropout (C = its width N) does Philox integer work on the CUDA cores."""
+def bound(name: str, B: int, S: int, C: int, saved: bool = False, es: int = 2) -> tuple:
+    """(least ms, what bounds it) for one call at these shapes: bf16 (``es``
+    2) against the tensor cores' dense bf16 rate, fp32 (``es`` 4) against the
+    CUDA cores' fp32 FMA rate.  The dropout (C = its width N) does Philox
+    integer work on the CUDA cores."""
     if name == "dropout":
-        ops, nbytes, peak = PHILOX_OPS * B * S * C, 2 * 2 * B * S * C + 4 * B, PEAK_INT32_OPS
+        ops, nbytes, peak = PHILOX_OPS * B * S * C, 2 * es * B * S * C + 4 * B, PEAK_INT32_OPS
     else:
         alias = {"attn_half_full": "attn_half", "attn_half_full_bwd": "attn_half_train_bwd"}
-        ops, nbytes = op_work(alias.get(name, name), B, S, C, saved)
-        peak = PEAK_BF16_FLOPS
+        ops, nbytes = op_work(alias.get(name, name), B, S, C, saved, es)
+        peak = PEAK_BF16_FLOPS if es == 2 else PEAK_FP32_FLOPS
     t_ops, t_bytes = ops / peak * 1e3, nbytes / PEAK_BYTES_S * 1e3
     return max(t_ops, t_bytes), "operations" if t_ops >= t_bytes else "bytes"
 
@@ -608,6 +655,15 @@ def phase_kernels(dev) -> dict:
     for name in ("attn_half", "mlp_half", "attn_half_dx", "mlp_half_dx"):
         # the dx ops at this shape recompute (no forward kept its qkv / h)
         res[name]["greedy_shape_bound_ms"] = bound(name, GREEDY_ROWS, GREEDY_S, C)[0]
+    for name in KERNELS:   # the fp32 readings, each against its fp32 bound
+        B, S = (BATCH, 269) if name in ("attn_half", "mlp_half") else (PGD_BATCH, 241)
+        N = 4 * C if name == "dropout" else C
+        key = next(k for k in ("fp32", f"fp32_p{DROP_P}", "fp32_saved") if k in res[name])
+        b_ms, b_by = bound(name, B, S, N, saved=True, es=4)
+        res[name]["fp32_bound_ms"], res[name]["fp32_bound_by"] = b_ms, b_by
+        ms = res[name][key]["ms"]
+        print(f"[kernels] {name} fp32 B={B} S={S}: kernel_ms={ms!r} fp32_bound_ms={b_ms!r} "
+              f"(bound by {b_by}; {b_ms / ms:.3f} of it)")
     return res
 
 
@@ -980,6 +1036,46 @@ def _gemm_tn_sub(dev, FB, lib, gen, label, Na, Nb) -> dict:
                 bound_ms=bound_ms, bound_by=bound_by, max_abs_err=err, slabs=slabs)
 
 
+def _f32_gemm_subs(dev, FB, lib, gen) -> list:
+    """The fp32 FMA kernels that compute_dtype="float32" reaches,
+    ln_gemm_f32_kernel and gemm_tn_f32_kernel, at the headline instances of
+    their bf16 rows: fc2 with the residual (M = 16 x 241, N = 768, K = 3072)
+    and dW1 (3072 x 768 over the rows), against their plain versions (fp32,
+    TF32 off: 2e-4 of max(1, max|ref|)), per call and by device time, each
+    with its fp32 bound: bytes at 4 B per element over 3.35 TB/s against
+    FLOPs over the fp32 FMA rate."""
+    M = PGD_BATCH * 241
+    rn = lambda *s, std=1.0: torch.randn(*s, generator=gen, device=dev) * std  # noqa: E731
+    a, w, bias, res = rn(M, 3072), rn(768, 3072, std=0.02), rn(768, std=0.02), rn(M, 768)
+    y = torch.empty(M, 768, device=dev)
+    a1, b1 = rn(M, 3072), rn(M, 768)
+    cases = (
+        ("ln_gemm[fc2] fp32", f"M={M} N=768 K=3072 res",
+         lambda: FB._gemm(lib, a, w, bias, y, residual=res) or y,
+         lambda: FB._gemm_plain(a, w, bias, residual=res)[0],
+         2 * M * 768 * 3072, 4 * (M * 3072 + 768 * 3072 + 768 + 2 * M * 768)),
+        ("gemm_tn[dW1] fp32", f"M={M} -> 3072x768", lambda: FB._gemm_tn(lib, a1, b1),
+         lambda: FB._gemm_tn_plain(a1, b1), 2 * M * 3072 * 768,
+         4 * (M * (3072 + 768) + 3072 * 768)))
+    out = []
+    for name, shape, run, plain, flops, nbytes in cases:
+        got, ref = run().clone(), plain()
+        torch.cuda.synchronize()
+        err = (got - ref).abs().max().item()
+        tol = 2e-4 * max(1.0, ref.abs().max().item())
+        check(bool(torch.isfinite(got).all()) and err <= tol, f"{name}: error {err} > {tol}")
+        ms, dev_ms, plain_ms = time_ms(run), device_ms(run), time_ms(plain)
+        t_ops, t_bytes = flops / PEAK_FP32_FLOPS * 1e3, nbytes / PEAK_BYTES_S * 1e3
+        bound_ms, bound_by = max(t_ops, t_bytes), "operations" if t_ops >= t_bytes else "bytes"
+        print(f"[kernels] {name} ({shape}): kernel_ms={ms!r} device_ms={dev_ms!r} "
+              f"({_rate(bound_ms, dev_ms, 'of the bound')}) plain_ms={plain_ms!r} "
+              f"fp32_bound_ms={bound_ms!r} ({bound_by}) max_abs_err={err!r} (tol {tol:.3g})")
+        out.append(dict(name=name, dtype="fp32", shape=shape, ms=ms, device_ms=dev_ms,
+                        plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by,
+                        max_abs_err=err))
+    return out
+
+
 # The LayerNorm backward's two forms, as the main path runs them with + g:
 # dx only (rows 3, 5: attn_half_dx, mlp_half_dx) and training (rows 9, 7:
 # dx, y and dLN in one launch), at M = 16 x 241, C = 768; the bias gradients'
@@ -1134,6 +1230,8 @@ def _library_yardsticks(dev, FB, x, mask, wqkv, bqkv, H) -> list:
     FB._gemm(lib, x.view(M, C), wqkv, bqkv, qkv)
     out.append(_attention_fwd_sub(dev, FB, lib, qkv.view(B, S, 3 * C), mask, H))
     out.append(_attention_bwd_sub(dev, FB, lib, gen, qkv.view(B, S, 3 * C), mask, H))
+    torch.backends.cuda.matmul.allow_tf32 = False      # the plain fp32 products
+    out += _f32_gemm_subs(dev, FB, lib, gen)
     return out + _ln_colsum_kernels(dev, FB, lib)
 
 
@@ -1516,16 +1614,19 @@ def train_config(config: str = "default"):
 def expected_launches(cfg) -> dict:
     """Kernel launches of one training step of ``cfg`` (drop_rate > 0): the
     key forward and the PGD's forwards and backwards run the deterministic
-    blocks, the four views forward and three backward the training blocks
-    (``models/vit.py:Block``); every embedding dropout runs the dropout op,
-    text and image, four views forward and three backward."""
+    blocks, the views the training blocks (``models/vit.py:Block``): task_moco
+    four forward (the clean view without a backward) and three backward,
+    task_barlowtwins three and three; every embedding dropout runs the
+    dropout op, text and image, each view forward and backward."""
+    from rmcl_tpu_torch.core.config import active_tasks
     from rmcl_tpu_torch.models.vilt import derive_block_impls
     from rmcl_tpu_torch.ops import fused_block as FB
     attn, mlp = derive_block_impls(cfg)
     L, A = cfg.num_layers, cfg.adv_steps_img
-    det_f, det_b, view_f, view_b = L + L * A, L * A, 4 * L, 3 * L
+    n_f = 4 if "moco" in active_tasks(cfg) else 3
+    det_f, det_b, view_f, view_b = L + L * A, L * A, n_f * L, 3 * L
     want = dict.fromkeys(FB.launches, 0)
-    want.update(mlp_half=det_f, mlp_half_dx=det_b, dropout=2 * 4 + 2 * 3)
+    want.update(mlp_half=det_f, mlp_half_dx=det_b, dropout=2 * n_f + 2 * 3)
     if attn == "fused":
         want.update(attn_half=det_f, attn_half_dx=det_b)
         if mlp == "fused_train":
@@ -1583,20 +1684,24 @@ class _StepClock:
     def __init__(self, ts, greedy=None):
         import rmcl_tpu_torch.train.step as step_mod
         self.ev = {}
-        make = step_mod.make_pgd_moco
+        self.key = ("momentum update + key forward" if hasattr(ts.model, "k_transformer")
+                    else "key forward")
+        self._restore = []
+        for name in ("make_pgd_moco", "make_pgd_barlowtwins"):
+            make = getattr(step_mod, name)
 
-        def timed_make(*a, **kw):
-            attack = make(*a, **kw)
+            def timed_make(*a, make=make, **kw):
+                attack = make(*a, **kw)
 
-            def timed_attack(*aa, **kk):
-                self.mark("attack0")
-                out = attack(*aa, **kk)
-                self.mark("attack1")
-                return out
-            return timed_attack
+                def timed_attack(*aa, **kk):
+                    self.mark("attack0")
+                    out = attack(*aa, **kk)
+                    self.mark("attack1")
+                    return out
+                return timed_attack
 
-        self._restore = [lambda: setattr(step_mod, "make_pgd_moco", make)]
-        step_mod.make_pgd_moco = timed_make
+            self._restore.append(lambda name=name, make=make: setattr(step_mod, name, make))
+            setattr(step_mod, name, timed_make)
         if greedy is not None:
             body = greedy._attack
 
@@ -1618,14 +1723,16 @@ class _StepClock:
     def split(self) -> dict:
         t = lambda a, b: self.ev[a].elapsed_time(self.ev[b])  # noqa: E731
         if "greedy0" in self.ev:
-            head = {"momentum update + key forward": t("start", "greedy0"),
+            head = {self.key: t("start", "greedy0"),
                     "greedy text attack": t("greedy0", "greedy1"),
                     "PGD attack": t("greedy1", "attack1")}
         else:
-            head = {"momentum update + key forward": t("start", "attack0"),
+            head = {self.key: t("start", "attack0"),
                     "attack": t("attack0", "attack1")}
+        views = ("four views forward, three backward" if self.key != "key forward"
+                 else "three views forward and backward")
         return {**head,
-                "four views forward, three backward": t("attack1", "opt0"),
+                views: t("attack1", "opt0"),
                 "AdamW": t("opt0", "opt1"),
                 "recast of the block matrices, metrics": t("opt1", "end")}
 
@@ -1754,16 +1861,26 @@ def phase_train(dev, config: str = "default", mix=None) -> dict:
     return counts, {"ms": ms, "mem_gib": mem, "host_reads": reads}
 
 
-def _train_results(tag, results: dict, dev, lr: float) -> None:
-    """Phase 9's comparison of one step on the CPU and on the card: results
-    maps "cpu" and str(dev) to (loss, gradients, updated leaves, seconds)."""
-    (l_ref, g_ref, p_ref, cpu_s), (l_gpu, g_gpu, p_gpu, _) = results["cpu"], results[str(dev)]
+def _loss_result(tag, results: dict, dev) -> None:
+    """The loss of one step on the CPU and on the card within 1e-5 relative:
+    results maps "cpu" and str(dev) to (loss, gradients, updated leaves,
+    seconds)."""
+    (l_ref, _, _, cpu_s), (l_gpu, _, _, _) = results["cpu"], results[str(dev)]
     rel = abs(l_gpu - l_ref) / abs(l_ref)
     print(f"{tag} {N_CPU} pairs, fp32, one step: CPU plain ops ({cpu_s:.1f} s) loss "
           f"{l_ref!r}, card kernels {l_gpu!r}, relative difference {rel!r} (tol 1e-5)")
     check(rel <= 1e-5, f"loss differs by {rel} relative")
 
+
+def _train_results(tag, results: dict, dev, lr: float) -> None:
+    """Phase 9's comparison of one step on the CPU and on the card: the loss
+    (_loss_result), then every gradient and updated leaf within 2e-4 *
+    max(1, max|ref|)."""
+    _loss_result(tag, results, dev)
+    (_, g_ref, p_ref, _), (_, g_gpu, p_gpu, _) = results["cpu"], results[str(dev)]
+
     def worst(ours, ref, what):
+        """(path, error / 2e-4 * max(1, max|ref|)) of the worst leaf."""
         check(set(ours) == set(ref), f"{what}: leaves differ")
         w = ("", 0.0)
         for path, r in ref.items():
@@ -1774,14 +1891,18 @@ def _train_results(tag, results: dict, dev, lr: float) -> None:
         return w
 
     wg, wp = worst(g_gpu, g_ref, "gradient"), worst(p_gpu, p_ref, "updated leaf")
-    check(int(p_gpu["proj_queue_ptr"]) == int(p_ref["proj_queue_ptr"]) == N_CPU, "pointer")
+    if "proj_queue_ptr" in p_ref:
+        check(int(p_gpu["proj_queue_ptr"]) == int(p_ref["proj_queue_ptr"]) == N_CPU, "pointer")
     trained = [p for p in g_ref if not p.startswith("k_")]
     near = (sum(int((np.abs(p_gpu[p] - p_ref[p]) <= 0.02 * lr).sum()) for p in trained)
             / sum(p_ref[p].size for p in trained))
-    print(f"{tag} {len(g_ref)} gradients within 2e-4 * max(1, max|ref|) (worst "
-          f"{wg[0]} at {wg[1]:.3f} of its bound); {len(p_ref)} updated leaves (parameters, "
-          f"twins, queue) within the same bound (worst {wp[0]} at {wp[1]:.3f}); pointer "
-          f"{N_CPU}; {near:.6f} of the trained elements within 2% of the rate {lr}")
+    leaves = ("parameters, twins, queue; pointer " + str(N_CPU) if "proj_queue_ptr" in p_ref
+              else "parameters, BatchNorm running statistics"
+              if any(p.endswith("running_var") for p in p_ref) else "parameters")
+    print(f"{tag} {len(g_ref)} gradients and {len(p_ref)} updated leaves ({leaves}) within "
+          f"2e-4 * max(1, max|ref|): worst gradient {wg[0]} at {wg[1]:.4g} of its bound, "
+          f"worst leaf {wp[0]} at {wp[1]:.6f}; {near:.6f} of the trained elements within "
+          f"2% of the rate {lr}")
 
 
 def _step_result(ts, metrics, t0) -> tuple:
@@ -1790,10 +1911,18 @@ def _step_result(ts, metrics, t0) -> tuple:
             leaves_to_jax(ts.model), time.perf_counter() - t0)
 
 
+# the depth of the task_moco fp32 steps against the CPU (phases 9, 11, 14):
+# their CPU steps are most of those phases' time, every op runs at full
+# width at any depth, and phase 16's fp32 step runs the default blocks at
+# all 12 layers
+SLICE_LAYERS = 6
+
+
 def phase_train_slice(dev, config: str = "default") -> None:
     from rmcl_tpu_torch.train.step import create_train_state, make_train_step
     tag = f"[train slice {config}]" if config != "default" else "[train slice]"
-    cfg32 = train_config(config).replace(compute_dtype="float32", queue_dtype="float32")
+    cfg32 = train_config(config).replace(compute_dtype="float32", queue_dtype="float32",
+                                          num_layers=SLICE_LAYERS)
     base = moco_model(cfg32)
     batch = train_batch(cfg32, N_CPU, SEED + 4, "cpu")
     results = {}
@@ -1873,10 +2002,11 @@ def attacked_batch(cfg, model, batch, mix: str) -> tuple:
     """(the fused attacker on ``model``, ``batch`` with the mix's captions
     and the attack's host tables under TABLE_KEYS in place of attacked ids,
     the captions)."""
-    from rmcl_tpu_torch.attacks.greedy import GreedyAttackMoco
+    from rmcl_tpu_torch.attacks.greedy import GREEDY_ATTACKERS, greedy_attack_framework
     from rmcl_tpu_torch.attacks.greedy_fused import FusedGreedyAttack
     tok, syn, sents = greedy_setup(cfg, batch["text_ids"].shape[0], mix)
-    greedy = FusedGreedyAttack(GreedyAttackMoco(cfg, model, tok, syn))
+    attacker = GREEDY_ATTACKERS[greedy_attack_framework(cfg)]
+    greedy = FusedGreedyAttack(attacker(cfg, model, tok, syn))
     ids, masks = tok.batch_encode(sents, cfg.max_text_len)
     dev = batch["text_ids"].device
     out = {k: v for k, v in batch.items() if not k.startswith("attacked_")}
@@ -2005,21 +2135,39 @@ def _first_split(rec_a: list, rec_b: list) -> tuple:
 def phase_train_attacked_slice(dev) -> None:
     """Phase 14: one fp32 attacked step of 4 pairs, the card's kernels against
     the CPU's plain ops from the same weights, batch and dropout seeds."""
+    cfg32 = train_config().replace(compute_dtype="float32", queue_dtype="float32",
+                                   num_layers=SLICE_LAYERS)
+    attacked_slice(dev, "[train attacked slice]", cfg32, moco_model(cfg32))
+
+
+def attacked_slice(dev, tag, cfg32, base, seam: bool = False) -> None:
+    """One fp32 attacked step of ``cfg32`` on 4 pairs from the weights of
+    ``base``, on the CPU and on the card, the same batch and dropout seeds:
+    the attacked token ids (or, where they part, a tie within 2e-4 *
+    max(1, |value|)), then _train_results' tolerances.  With ``seam``
+    (task_barlowtwins) the loss and ids are the attacked step's, and the
+    gradients, updated leaves and running statistics held to
+    _train_results' tolerances are those of a second card step on the CPU's
+    ids, cut at the head's input (HeadSeam)."""
     from rmcl_tpu_torch.train.step import (create_train_state, make_attacked_train_step,
                                            make_train_step)
-    tag = "[train attacked slice]"
-    cfg32 = train_config().replace(compute_dtype="float32", queue_dtype="float32")
-    base = moco_model(cfg32)
     batch0 = train_batch(cfg32, N_CPU, SEED + 4, "cpu")
-    results, attacked, records = {}, {}, {}
+    results, attacked, records, seams = {}, {}, {}, {}
     for where in ("cpu", dev):
         ts = create_train_state(cfg32, model=copy.deepcopy(base), device=where)
         greedy, batch, _ = attacked_batch(cfg32, ts.model, batch0, GREEDY_SLICE_MIX)
         greedy.record = []
         body = greedy._attack
+        if seam and where == "cpu":
+            seams["cpu"] = HeadSeam(ts.model.barlowtwins_head)
 
         def keep(*a, body=body, where=where, **kw):
+            rec = seams.get(str(where))
+            if rec is not None:           # the attack's own head calls are not the step's
+                rec.paused = True
             out = body(*a, **kw)
+            if rec is not None:
+                rec.paused = False
             attacked[str(where)] = [t.cpu() for t in out]
             return out
         greedy._attack = keep
@@ -2029,10 +2177,13 @@ def phase_train_attacked_slice(dev) -> None:
             torch.Generator().manual_seed(SEED + 8))
         results[str(where)] = _step_result(ts, metrics, t0)
         records[str(where)] = greedy.record
+        if str(where) in seams:
+            seams[str(where)].stop()
         print(f"{tag} {where}: {GREEDY_SLICE_MIX} captions, attack {greedy.last_stats}, "
               f"num_changes {metrics['num_changes'].item()!r}")
     (ids_c, _, n_c), (ids_g, _, n_g) = attacked["cpu"], attacked[str(dev)]
-    if torch.equal(ids_c, ids_g):
+    tied = not torch.equal(ids_c, ids_g)
+    if not tied:
         print(f"{tag} attacked token ids equal on the card and the CPU "
               f"({int(n_c.sum())} commits, {len(records['cpu'])} loops)")
     else:
@@ -2044,18 +2195,124 @@ def phase_train_attacked_slice(dev) -> None:
               f"{what}: margin {margin!r} against {tol!r} (2e-4 * max(1, |{value!r}|))")
         check(margin <= tol, f"{tag} the {what} of sample {row} in loop {loop} parts by "
                              f"{margin}, more than the tie tolerance {tol}")
+
+    def on_cpu_ids(where):
+        """The step's batch on ``where`` with the CPU's attacked ids in it."""
+        b = {k: v.to(where) for k, v in batch0.items()}
+        b.update(text_ids=torch.as_tensor(batch["text_ids"]).to(where),
+                 text_masks=torch.as_tensor(batch["text_masks"]).to(where),
+                 attacked_text_ids=ids_c.to(where),
+                 attacked_text_masks=attacked["cpu"][1].to(where))
+        return b
+
+    if seam:
+        _loss_result(tag, results, dev)
+        (_, g_ref, _, _), (_, g_gpu, _, _) = results["cpu"], results[str(dev)]
+        whole = max(float(np.abs(g_gpu[p] - r).max()) / (2e-4 * max(1.0, float(np.abs(r).max())))
+                    for p, r in g_ref.items())
+        print(f"{tag} the attacked step's own gradients, not cut: the card's differ from the "
+              f"CPU's by up to {whole:.4g} x 2e-4 * max(1, max|ref|) (not held; HeadSeam says why)")
+        ts = create_train_state(cfg32, model=copy.deepcopy(base), device=dev)
+        rec = seams["cpu"]
+        handle = rec.replay(ts.model.barlowtwins_head, dev)
+        t0 = time.perf_counter()
+        metrics = make_train_step(cfg32, ts)(on_cpu_ids(dev),
+                                             torch.Generator().manual_seed(SEED + 8))
+        handle.remove()
+        results[str(dev)] = _step_result(ts, metrics, t0)
+        rec.check_forward(tag)
+        _train_results(f"{tag} at the seam:", results, dev, cfg32.learning_rate)
+        return
+    if tied:
         # a true tie: the rest of the step is held on the CPU's attacked ids
         for where in ("cpu", dev):
             ts = create_train_state(cfg32, model=copy.deepcopy(base), device=where)
-            b = {k: v.to(where) for k, v in batch0.items()}
-            b.update(text_ids=torch.as_tensor(batch["text_ids"]).to(where),
-                     text_masks=torch.as_tensor(batch["text_masks"]).to(where),
-                     attacked_text_ids=ids_c.to(where),
-                     attacked_text_masks=attacked["cpu"][1].to(where))
             t0 = time.perf_counter()
-            metrics = make_train_step(cfg32, ts)(b, torch.Generator().manual_seed(SEED + 8))
+            metrics = make_train_step(cfg32, ts)(on_cpu_ids(where),
+                                                 torch.Generator().manual_seed(SEED + 8))
             results[str(where)] = _step_result(ts, metrics, t0)
-    _train_results(tag, results, dev, train_config().learning_rate)
+    _train_results(tag, results, dev, cfg32.learning_rate)
+
+
+class _Seam(torch.autograd.Function):
+    """``x_ref`` forward in place of ``x``, and ``g_ref`` backward in place of
+    the gradient that reaches ``x``."""
+
+    @staticmethod
+    def forward(ctx, x, x_ref, g_ref):
+        ctx.save_for_backward(g_ref)
+        return x_ref.clone()
+
+    @staticmethod
+    def backward(ctx, _):
+        return ctx.saved_tensors[0], None, None
+
+
+class HeadSeam:
+    """Phase 16's fp32 step cut at the BarlowTwins head's input.
+
+    The head's gradients move far more than its input: its three BatchNorms
+    normalise each feature over the 4 rows, and the correlation loss's
+    gradient is mostly along the normalised features, which the last
+    BatchNorm's backward takes out again, so what remains is a small part of
+    large terms.  An fp32 rounding difference of the class features then
+    moves the head's gradients by a large part of their largest, and through
+    PGD's step (delta follows the sign of its gradient) every view's input:
+    two fp32 implementations of the same step part by thousands of times
+    the tolerance (printed beside the check).  Fed the same input and
+    gradient at the seam, each part agrees.
+
+    Made on the CPU's model, it keeps the head's input at every call of the
+    step (the class features) and the gradient that reached it; the greedy
+    attack's calls are skipped (``paused``).  ``replay(head, dev)`` on the
+    card's model feeds the head, call by call, the CPU's input and hands the
+    encoder below it the CPU's gradient, keeping the card's own input for
+    ``check_forward``.  The card's encoder gradients (every kernel of the
+    step, PGD's among them) then differ from the CPU's by the encoder's own
+    rounding, and the head's gradients and statistics by the head's."""
+
+    def __init__(self, head):
+        self.x, self.g, self.seen, self.paused = [], {}, [], False
+        self.handle = head.register_forward_pre_hook(self._record)
+
+    def _record(self, _, args):
+        if self.paused:
+            return None
+        x, i = args[0], len(self.x)
+        self.x.append(x.detach().clone())
+        if x.requires_grad:
+            x.register_hook(lambda g, i=i: self.g.__setitem__(i, g.detach().clone()))
+        return None
+
+    def stop(self) -> None:
+        self.handle.remove()
+
+    def replay(self, head, dev):
+        def seam(_, args):
+            x, i = args[0], len(self.seen)
+            check(i < len(self.x), f"the card's step calls the head more than the CPU's "
+                                   f"{len(self.x)} times")
+            self.seen.append(x.detach().cpu())
+            x_ref = self.x[i].to(dev)
+            if not x.requires_grad:
+                return (x_ref, *args[1:])
+            check(i in self.g, f"head call {i}: the CPU's step has no gradient there")
+            return (_Seam.apply(x, x_ref, self.g[i].to(dev)), *args[1:])
+        return head.register_forward_pre_hook(seam)
+
+    def check_forward(self, tag) -> None:
+        """The card's class features at every head call against the CPU's."""
+        check(len(self.seen) == len(self.x), f"{tag}: the card's step called the head "
+                                             f"{len(self.seen)} times, the CPU's {len(self.x)}")
+        w = 0.0
+        for ours, ref in zip(self.seen, self.x):
+            err = float((ours - ref).abs().max())
+            tol = 2e-4 * max(1.0, float(ref.abs().max()))
+            check(err <= tol, f"{tag}: class features differ by {err} > {tol}")
+            w = max(w, err / tol)
+        print(f"{tag} the card's class features at the head's {len(self.x)} calls of the "
+              f"step ({len(self.g)} with a gradient: PGD's and the views') within 2e-4 * "
+              f"max(1, max|ref|) of the CPU's: worst at {w:.4f} of the bound")
 
 
 # --------------------------------------------------------------- trainer
@@ -2085,19 +2342,22 @@ class MemoryCaptions:
                 "cap_index": 0, "raw_index": i, "replica": False}
 
 
-def trainer_setup(dev, d: str) -> tuple:
+def trainer_setup(dev, d: str, bt: bool = False) -> tuple:
     """(cfg, make_datamodule, model) of phase 15: task_moco at full width and
     depth as phase 13 runs it, 32 pairs per optimizer step at 16 per step, 3
     optimizer steps; the greedy vocabulary and vectors of greedy_setup written
-    under ``d``, its worst-mix captions, seeded ragged u8 images."""
+    under ``d``, its worst-mix captions, seeded ragged u8 images.  ``bt``:
+    phase 16's, task_barlowtwins as its attacked step runs it, one optimizer
+    step."""
     from rmcl_tpu_torch.data.datamodule import MultitaskDataModule
-    n_train = PGD_BATCH * TRAINER_ACCUM * TRAINER_OPT_STEPS
-    base = train_config()
+    opt_steps = BT_TRAINER_OPT_STEPS if bt else TRAINER_OPT_STEPS
+    n_train = PGD_BATCH * TRAINER_ACCUM * opt_steps
+    base = bt_config() if bt else train_config()
     _, _, sents = greedy_setup(base, n_train + TRAINER_VAL, TRAINER_MIX, keep_dir=d)
     cfg = base.replace(
         tokenizer=f"{d}/vocab.txt", embedding_path=f"{d}/vectors.txt", sim_path="",
         batch_size=PGD_BATCH * TRAINER_ACCUM, per_device_batchsize=PGD_BATCH,
-        max_steps=TRAINER_OPT_STEPS, max_epoch=1)
+        max_steps=opt_steps, max_epoch=1)
     r = np.random.RandomState(SEED + 9)
     H, W = cfg.image_bucket_hw
     images = [r.randint(0, 256, (32 * r.randint(H // 64, H // 32 + 1),
@@ -2111,18 +2371,20 @@ def trainer_setup(dev, d: str) -> tuple:
             s = split[split_]
             return MemoryCaptions(self.tokenizer, sents[s], images[s], cfg.max_text_len)
 
-    return cfg, MemoryDataModule, moco_model(cfg)
+    return cfg, MemoryDataModule, (bt_model(cfg) if bt else moco_model(cfg))
 
 
 def expected_eval_launches(cfg) -> dict:
     """Block-op launches of one validation batch of the default blocks, the
     greedy attack's aside: the attacker's key forward (its extras) and the
-    eval step's, the PGD's forwards and backwards, four deterministic views."""
+    eval step's, the PGD's forwards and backwards, the deterministic views
+    (task_moco four, task_barlowtwins three)."""
+    from rmcl_tpu_torch.core.config import active_tasks
     from rmcl_tpu_torch.ops import fused_block as FB
     L, A = cfg.num_layers, cfg.adv_steps_img
+    n = (6 if "moco" in active_tasks(cfg) else 5) + A
     want = dict.fromkeys(FB.launches, 0)
-    want.update(attn_half=(6 + A) * L, mlp_half=(6 + A) * L, attn_half_dx=A * L,
-                mlp_half_dx=A * L)
+    want.update(attn_half=n * L, mlp_half=n * L, attn_half_dx=A * L, mlp_half_dx=A * L)
     return want
 
 
@@ -2305,6 +2567,249 @@ def phase_trainer(dev, bare: dict) -> dict:
         shutil.rmtree(root, ignore_errors=True)
 
 
+# ----------------------------------------------------------- BarlowTwins
+BT_TRAINER_OPT_STEPS = 1                  # phase 16's Trainer: one optimizer step
+BT_STATS = ("running_mean", "running_var")
+
+
+def bt_config():
+    """task_barlowtwins as phase 16 trains it: the ViLT-B/32 of task_moco's
+    phases (max_image_len 200, S = 241), bt_proj_dims (8192, 8192, 8192),
+    lambda = adv_lr 0.0051, 5-step PGD, the greedy attack (n_candidates 5,
+    max_loops 10), the image and text views, drop_rate 0.1, AdamW at 1e-4
+    with warmup 0 so that the first update moves, bf16."""
+    from rmcl_tpu_torch import build_config
+    return build_config(BT_CONFIG, image_view=True, text_view=True, drop_rate=DROP_P,
+                        warmup_steps=0, max_steps=1000)
+
+
+def bt_model(cfg):
+    """A seeded task_barlowtwins model on the CPU."""
+    from rmcl_tpu_torch.serve import seeded_model
+    return seeded_model(cfg, SEED).eval()
+
+
+def bt_stats(model) -> dict:
+    """A copy of the BarlowTwins head's six BatchNorm running statistics."""
+    return {n: b.detach().clone() for n, b in model.named_buffers() if n.endswith(BT_STATS)}
+
+
+def check_stats_moved(tag, model, before: dict) -> None:
+    """Every running statistic moved from ``before``, is finite, and every
+    running variance is positive."""
+    after = bt_stats(model)
+    check(len(after) == len(before) == 6, f"{tag}: {len(after)} running statistics")
+    for n, b in after.items():
+        check(bool(torch.isfinite(b).all()), f"{tag}: {n} not finite")
+        check(not torch.equal(b, before[n].to(b.device)), f"{tag}: {n} did not move")
+        check(not n.endswith("running_var") or bool((b > 0).all()), f"{tag}: {n} <= 0")
+
+
+def check_stats_kept(tag, model, before: dict) -> None:
+    after = bt_stats(model)
+    moved = [n for n, b in after.items() if not torch.equal(b, before[n])]
+    check(not moved, f"{tag}: running statistics {moved} moved")
+
+
+def phase_bt(dev, mix: str) -> tuple:
+    """Phase 16: the attacked task_barlowtwins step on one caption mix.
+    Returns (launches of a step, its readings)."""
+    from rmcl_tpu_torch.attacks.greedy_fused import TABLE_KEYS
+    from rmcl_tpu_torch.attacks.pgd import make_pgd_barlowtwins
+    from rmcl_tpu_torch.ops import fused_block as FB
+    from rmcl_tpu_torch.train.step import create_train_state, make_attacked_train_step
+    t0 = time.perf_counter()
+    cfg = bt_config()
+    ts = create_train_state(cfg, model=bt_model(cfg), device=dev)
+    model = ts.model
+    greedy, batch, _ = attacked_batch(cfg, model, train_batch(cfg, PGD_BATCH, SEED + 4, dev),
+                                      mix)
+    tag = f"[bt attacked {mix}]"
+    gen = torch.Generator().manual_seed(SEED + 7)
+    n_train = sum(p.numel() for p in model.parameters() if p.requires_grad)
+    n_head = sum(p.numel() for p in model.barlowtwins_head.parameters())
+    print(f"{tag} {BT_CONFIG}, blocks {model.block_impls}, bt_proj_dims {cfg.bt_proj_dims}, "
+          f"lambda {cfg.adv_lr}, image and text views, drop_rate {cfg.drop_rate}, "
+          f"{n_train / 1e6:.1f} M trainable parameters ({n_head / 1e6:.1f} M in the head), "
+          f"{PGD_BATCH} pairs, the greedy attack inside the step on {mix} captions, text "
+          f"bucket {batch['gw_tbucket'].shape[1]} of {cfg.max_text_len}; state ready in "
+          f"{time.perf_counter() - t0:.1f} s")
+    clock = _StepClock(ts, greedy)
+    walls, splits, stats = [], [], []
+    try:
+        step = make_attacked_train_step(cfg, ts, greedy)
+        step(batch, gen)                                        # warm-up
+        # earlier phases' tensors held in reference cycles would count in
+        # the peak: collect them first
+        gc.collect()
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        for it in range(TRAIN_STEPS):
+            before = {n: p.detach().clone() for n, p in model.named_parameters()}
+            stats0 = bt_stats(model)
+            FB.reset_launches()
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            clock.mark("start")
+            metrics = step(batch, gen)
+            clock.mark("end")
+            torch.cuda.synchronize()
+            walls.append((time.perf_counter() - t) * 1e3)
+            splits.append(clock.split())
+            counts, st = dict(FB.launches), dict(greedy.last_stats)
+            stats.append(st)
+            attack = attack_launches(st, cfg.num_layers)
+            want = {k: v + attack[k] for k, v in expected_launches(cfg).items()}
+            check(counts == want, f"{tag} step {it}: launches {counts}, expected {want}")
+            # the correlation couples the batch: no compaction, no chunks
+            check(st["score_forwards"] == st["loops"],
+                  f"{tag} step {it}: {st['score_forwards']} scoring forwards in "
+                  f"{st['loops']} loops")
+            counts = check_sub_launches(f"{tag} step {it}", counts, FB)
+            vals = {k: v.item() for k, v in metrics.items()}
+            bad = [k for k, v in vals.items() if not np.isfinite(v)]
+            check(not bad, f"{tag} step {it}: non-finite metrics {bad}")
+            for n, p in model.named_parameters():
+                if not n.endswith("mask_token"):       # mask_token: MPP only, zero, unused
+                    check(not torch.equal(p.detach(), before[n]),
+                          f"{tag} step {it}: {n} did not move")
+            check_stats_moved(f"{tag} step {it}", model, stats0)
+            print(f"{tag} step {it}: barlowtwins_loss={vals['barlowtwins_loss']!r} "
+                  "invariance/redundancy text "
+                  f"{vals['barlowtwins_loss_invariance_text']:.4f}/"
+                  f"{vals['barlowtwins_loss_redundancy_text']:.4f} img "
+                  f"{vals['barlowtwins_loss_invariance_img']:.4f}/"
+                  f"{vals['barlowtwins_loss_redundancy_img']:.4f} both "
+                  f"{vals['barlowtwins_loss_invariance_both']:.4f}/"
+                  f"{vals['barlowtwins_loss_redundancy_both']:.4f} lr={vals['lr']!r} "
+                  f"num_changes={vals['num_changes']!r} change_rate={vals['change_rate']!r}; "
+                  f"attack {st}; every parameter and running statistic moved; "
+                  f"{walls[-1]:.1f} ms")
+    finally:
+        clock.close()
+    ms = statistics.median(walls)
+    mem = torch.cuda.max_memory_allocated() / 2 ** 30
+    split = {k: statistics.median(s_[k] for s_ in splits) for k in splits[0]}
+    reads = statistics.median(st["host_reads"] for st in stats)
+    print(f"{tag} launches per step {counts}: every block through the kernels, each loop's "
+          f"scoring forward all {PGD_BATCH * cfg.n_candidates} rows")
+    print(f"{tag} step {ms!r} ms (median of {TRAIN_STEPS}, host clock + synchronize), "
+          f"{PGD_BATCH / ms * 1e3!r} pairs/s; max_memory_allocated {mem:.2f} GiB; host "
+          f"reads per step {reads}")
+    print(f"{tag} split of a step by CUDA events, ms (median): "
+          + "; ".join(f"{k} {v:.2f}" for k, v in split.items()))
+
+    # PGD alone and the greedy attack alone keep the running statistics
+    clean = {k: v for k, v in batch.items() if k not in TABLE_KEYS}
+    with torch.no_grad():
+        k = model.barlowtwins_head(model.infer(clean, ts.block_matrices)["cls_feats"])
+    stats0 = bt_stats(model)
+    pgd = make_pgd_barlowtwins(model, cfg.adv_steps_img, cfg.adv_lr_img, cfg.adv_max_norm_img,
+                               cfg.adv_lr)
+    delta = pgd(clean, k, block_matrices=ts.block_matrices)
+    check(bool(torch.isfinite(delta).all()) and 0 < delta.abs().max().item()
+          <= cfg.adv_max_norm_img + 1e-6, f"{tag} PGD delta out of its bound")
+    check_stats_kept(f"{tag} PGD alone", model, stats0)
+    tables = [torch.as_tensor(batch[k_], device=dev) for k_ in TABLE_KEYS[:-2]]
+    greedy.build_attack_body()(clean, (k, PGD_BATCH, cfg.adv_lr), *tables,
+                               batch["gw_tbucket"], block_matrices=ts.block_matrices)
+    torch.cuda.synchronize()
+    check_stats_kept(f"{tag} greedy attack alone", model, stats0)
+    print(f"{tag} the running statistics did not move in the PGD alone (max|delta| "
+          f"{delta.abs().max().item():.5f}) nor in the greedy attack alone "
+          f"({greedy.last_stats})")
+    return counts, {"ms": ms, "mem_gib": mem, "host_reads": reads}
+
+
+def phase_bt_slice(dev) -> None:
+    """Phase 16's fp32 check: one attacked task_barlowtwins step of 4 pairs,
+    the card's kernels against the CPU's plain ops (attacked_slice, cut at
+    the head's input: HeadSeam).  The head's BatchNorms divide each feature
+    by its spread over the 4 rows, so the spread of the first projection is
+    printed beside the result."""
+    tag = "[bt attacked slice]"
+    cfg32 = bt_config().replace(compute_dtype="float32")
+    base = bt_model(cfg32)
+    with torch.no_grad():
+        b = train_batch(cfg32, N_CPU, SEED + 4, "cpu")
+        h = base.barlowtwins_head.projector["0"](base.infer(b)["cls_feats"])
+        spread = (h.std(0) / h.abs().mean(0).clamp(min=1e-30)).sort().values
+    print(f"{tag} the first projection's spread over the {N_CPU} rows (std / mean|h| per "
+          f"feature): min {spread[0].item():.4g}, median "
+          f"{spread[spread.numel() // 2].item():.4g}")
+    attacked_slice(dev, tag, cfg32, base, seam=True)
+
+
+def phase_trainer_bt(dev, bare: dict) -> dict:
+    """Phase 16's Trainer: Trainer.setup() / fit() / validate() for
+    task_barlowtwins, one optimizer step (accum 2) on phase 15's in-memory
+    data.  Returns the launches of the run."""
+    import shutil
+    from rmcl_tpu_torch.models.vilt import ViLT
+    from rmcl_tpu_torch.ops import fused_block as FB
+    from rmcl_tpu_torch.serve import load_state_dict_file
+    from rmcl_tpu_torch.train.checkpoint import MODEL_FILE
+    tag = "[trainer bt]"
+    root = Path(TRAINER_DIR).resolve()
+    shutil.rmtree(root, ignore_errors=True)
+    try:
+        root.mkdir()
+        t0 = time.perf_counter()
+        cfg, dm_cls, model = trainer_setup(dev, str(root), bt=True)
+        n = TRAINER_ACCUM * BT_TRAINER_OPT_STEPS
+        print(f"{tag} {BT_CONFIG} through Trainer.setup() / fit() / validate(): the fused "
+              f"greedy attack on {TRAINER_MIX} captions, batch_size {cfg.batch_size} at "
+              f"per_device_batchsize {cfg.per_device_batchsize} (accum {TRAINER_ACCUM}), "
+              f"max_steps {cfg.max_steps} ({n} micro-steps), {TRAINER_VAL} validation pairs; "
+              f"data ready in {time.perf_counter() - t0:.1f} s")
+        stats0 = bt_stats(model)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        FB.reset_launches()
+        tr, losses, recs, t_end = _trainer_run(dev, cfg, dm_cls, model, str(root / "bt"))
+        counts = dict(FB.launches)
+        mem = torch.cuda.max_memory_allocated() / 2 ** 30
+        check(tr.steps_done == n == len(recs), f"{tag} {tr.steps_done} micro-steps, want {n}")
+        want = _trainer_expected(cfg, recs, tr.greedy.last_stats)
+        check(counts == want, f"{tag} launches {counts}, expected {want}")
+        counts = check_sub_launches(tag, counts, FB)
+        loss = torch.stack(losses).cpu().numpy()
+        check(bool(np.isfinite(loss).all()), f"{tag} non-finite losses {loss}")
+        check_stats_moved(tag, tr.ts.model, stats0)
+        moved = [n_ for n_, p in tr.ts.model.named_parameters() if not n_.endswith("mask_token")
+                 and torch.equal(p.detach().cpu(), dict(model.named_parameters())[n_])]
+        check(not moved, f"{tag} parameters {moved[:3]} did not move")
+        # micro-step 0's start to micro-step 1's: one micro-step with the loop
+        ms = (recs[1]["t"] - recs[0]["t"]) * 1e3
+        call_ms = (recs[0]["t_out"] - recs[0]["t"]) * 1e3
+        print(f"{tag} launches of the run: each micro-step's expected_launches and its "
+              f"attack's own, the validation batch's expected_eval_launches and its attack's: "
+              f"{counts}")
+        print(f"{tag} losses {[float(x) for x in loss]}; every parameter and running "
+              "statistic moved")
+        print(f"{tag} Trainer {ms!r} ms for micro-step 0 (host clock from its start to "
+              f"micro-step 1's: the step's call {call_ms!r}, the loop {ms - call_ms!r}), "
+              f"{PGD_BATCH / ms * 1e3!r} pairs/s; max_memory_allocated {mem:.2f} GiB; the run "
+              f"with its validation and two checkpoint saves {t_end - recs[0]['t']:.1f} s")
+        print(f"{tag} bare attacked step ({TRAINER_MIX} captions): {bare['ms']!r} ms, "
+              f"{PGD_BATCH / bare['ms'] * 1e3!r} pairs/s, {bare['mem_gib']:.2f} GiB; "
+              f"{ms / bare['ms']:.3f}x")
+        path = Path(tr.ckpt.checkpoint_dir("last")) / MODEL_FILE
+        fresh = ViLT(cfg)
+        check(fresh.load_reference_state_dict(load_state_dict_file(str(path))) == [],
+              f"{tag} {path}: entries not loaded")
+        live, back = tr.ts.model.state_dict(), fresh.state_dict()
+        same = [k for k in live if torch.equal(live[k].cpu(), back[k])]
+        check(len(same) == len(live) == len(back), f"{tag} {len(live) - len(same)} tensors of "
+                                                   "'last' differ from the trained model")
+        print(f"{tag} 'last' loads into a fresh ViLT: {len(same)} tensors equal, the six "
+              "running statistics among them")
+        return counts
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+
+
 # --------------------------------------------------------------- profile
 def _device_us(evt) -> float:
     for attr in ("self_device_time_total", "self_cuda_time_total"):
@@ -2382,6 +2887,20 @@ def phase_profile(dev) -> None:
               f"(host_reads: the packed reads of the live count and the commit flag)")
         del ts, tbatch, step, greedy
     _trace_trainer(dev)
+    from rmcl_tpu_torch.train.step import create_train_state, make_attacked_train_step
+    for mix in GREEDY_MIXES:
+        cfg = bt_config()
+        ts = create_train_state(cfg, model=bt_model(cfg), device=dev)
+        greedy, tbatch, _ = attacked_batch(cfg, ts.model, train_batch(cfg, PGD_BATCH, SEED + 4,
+                                                                      dev), mix)
+        step = make_attacked_train_step(cfg, ts, greedy)
+        gen = torch.Generator().manual_seed(SEED + 7)
+        step(tbatch, gen)
+        _trace(f"bt attacked {mix}, {BT_CONFIG}, one attacked training step of {PGD_BATCH} "
+               f"pairs (the greedy attack on {mix} captions, PGD, three views; bt_proj_dims "
+               f"{cfg.bt_proj_dims}), bf16", lambda: step(tbatch, gen), 2, top=24)
+        print(f"[profile]   the greedy attack of the last step: {greedy.last_stats}")
+        del ts, tbatch, step, greedy
 
 
 def _trace_trainer(dev) -> None:
@@ -2677,6 +3196,14 @@ def main() -> int:
         phase_train_attacked_slice(dev)
         phase = "trainer"
         trainer_counts = phase_trainer(dev, bare[TRAINER_MIX])
+        bt_counts, bt_bare = {}, {}
+        for mix in GREEDY_MIXES:
+            phase = f"bt attacked {mix}"
+            bt_counts[mix], bt_bare[mix] = phase_bt(dev, mix)
+        phase = "bt attacked slice"
+        phase_bt_slice(dev)
+        phase = "bt trainer"
+        bt_trainer_counts = phase_trainer_bt(dev, bt_bare[TRAINER_MIX])
     except Exception as e:  # noqa: BLE001  every phase failure ends the run
         traceback.print_exc()
         print(f"chip_smoke: FAILED in phase {phase}: {e}", file=sys.stderr)
@@ -2693,7 +3220,10 @@ def main() -> int:
                 "greedy_realistic": greedy_counts["realistic"][name],
                 "train_attacked": attacked_counts["worst"][name],
                 "train_attacked_realistic": attacked_counts["realistic"][name],
-                "trainer": trainer_counts[name]}
+                "trainer": trainer_counts[name],
+                "bt_attacked": bt_counts["worst"][name],
+                "bt_attacked_realistic": bt_counts["realistic"][name],
+                "bt_trainer": bt_trainer_counts[name]}
 
     records = []
     for name, replaces in KERNELS.items():
@@ -2711,6 +3241,7 @@ def main() -> int:
                "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
                "library_ms": r.get("library_ms"),
                "shape": "B=8 S=269" if not (dx or train or new) else "B=16 S=241"}
+        rec.update(fp32_bound_ms=r["fp32_bound_ms"], fp32_bound_by=r["fp32_bound_by"])
         if train:
             rec.update(p=DROP_P, fp32_ms=r[f"fp32_p{DROP_P}"]["ms"],
                        fp32_plain_ms=r[f"fp32_p{DROP_P}"]["plain_ms"],
@@ -2747,7 +3278,10 @@ def main() -> int:
             "max_abs_err": r["max_abs_err"], "ms": r["ms"], "plain_ms": r["plain_ms"],
             "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
             "library_ms": r["library_ms"], "library": r["library"], "shape": r["shape"],
-            "instances": {k: v["ms"] for k, v in subs.items() if k.startswith(name + "[")}})
+            "instances": {k: v["ms"] for k, v in subs.items()
+                          if k.startswith(name + "[") and not k.endswith(" fp32")},
+            **{f"fp32_{f}": f32[f] for f32 in [subs[f"{name}[{GEMM_HEADLINE[name]}] fp32"]]
+               for f in ("ms", "device_ms", "plain_ms", "bound_ms", "bound_by")}})
     r = subs["attention_fwd"]   # the bf16 forward under rows 1, 8, 2 and 10
     records.append({
         "name": "attention_fwd", "route": "cuda", "source": ATTN_SOURCE,

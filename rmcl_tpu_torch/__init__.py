@@ -4,8 +4,9 @@ The JAX package ``rmcl_tpu`` is the reference; this package imports torch,
 never jax, and nothing of ``rmcl_tpu``: what it needs of that package's
 jax-free host modules it keeps as its own copies.  Ported so far: the
 serving path (``rmcl serve``), the PGD image attack, the greedy text attack,
-the task_moco training step and the training entry point around it (the
-loader, the Trainer, checkpoints, ``cli.run with``), under each of the JAX
+the task_moco and task_barlowtwins training steps and the training entry
+point around them (the loader, the Trainer, checkpoints, ``cli.run with``),
+under each of the JAX
 package's kernel block configurations (``attention_impl`` "fused" /
 "pallas" / "flash", ``mlp_impl`` "fused" / "fused_train").
 
@@ -25,16 +26,20 @@ package's kernel block configurations (``attention_impl`` "fused" /
                relayout, arrow datasets, collate, MLM collator, the sharded
                loader, MultitaskDataModule
   eval/        the metric bag (MetricBag)
-  models/      layers, text embeddings, ViT, heads, ViLT with its momentum
-               twins and MoCo queue (reference state_dict names)
+  models/      layers, text embeddings, ViT, heads (the BarlowTwins projector's
+               BatchNorm statistics as buffers), ViLT with its momentum twins
+               and MoCo queue (reference state_dict names)
   objectives/  the loss primitives, InfoNCE, the momentum update, the
-               queue and the MoCo objective with its four views
+               queue and the MoCo objective with its four views; the
+               BarlowTwins correlation loss and objective with its three
+               views
   train/       parameter groups, schedule and AdamW / Adam / SGD (schedule.py);
                TrainState, make_train_step with accumulation,
                make_attacked_train_step, make_eval_step (step.py); the Trainer
                (loop.py), CheckpointManager (checkpoint.py), MetricLogger
                (logging.py)
-  attacks/     PGD on the pixels (moco, vqa, irtr), the greedy word attack
+  attacks/     PGD on the pixels (moco, barlowtwins, vqa, irtr), the greedy
+               word attack (moco, barlowtwins)
   compat/      the JAX package's parameters as the port's state dict
   serve.py     build_infer_fn, batch_spec, Session, postprocess
   cli/run.py   python -m rmcl_tpu_torch.cli.run with <config> ... | configs | serve ...

@@ -1,7 +1,8 @@
 """Gradient-guided greedy word-substitution attack, host orchestrator (port of
 ``rmcl_tpu/attacks/greedy.py``: ``check_word``, ``SynonymTable``,
-``WordnetSynonyms``, ``GreedyAttack`` and ``GreedyAttackMoco``; the other
-frameworks' attackers are not ported yet).
+``WordnetSynonyms``, ``GreedyAttack``, ``GreedyAttackMoco`` and
+``GreedyAttackBarlowTwins``; the downstream tasks' attackers are not ported
+yet).
 
 Behavioural spec: reference attack/greedy_attack_vilt.py.  Per batch, per
 loop (<= max_loops):
@@ -41,7 +42,7 @@ import torch
 
 from rmcl_tpu_torch.attacks.pgd import _frozen
 from rmcl_tpu_torch.core.config import active_tasks
-from rmcl_tpu_torch.objectives.contrastive import _infonce_rows
+from rmcl_tpu_torch.objectives.contrastive import _infonce_rows, bt_correlation_loss
 from rmcl_tpu_torch.objectives.losses import l2_normalize
 
 # English function words that are never substitution targets — same role
@@ -484,3 +485,63 @@ class GreedyAttackMoco(GreedyAttack):
     def compact_extras(self, extras, idx):
         k_modality, neg_queue, temperature = extras
         return (k_modality[idx], neg_queue, temperature)
+
+
+class GreedyAttackBarlowTwins(GreedyAttack):
+    """BarlowTwins scoring by an exact rank-1 update of the correlation
+    matrix (the reference, GreedyAttack_barlowtwins :602-832, substitutes
+    each candidate's projection into the batch and recomputes the 8192 x 8192
+    correlation).  Substituting row i changes c = q^T k / psb by
+    outer(q_new_i - q_old_i, k_i) / psb, so each candidate's loss follows in
+    O(D) from terms of the batch.  The head's BatchNorms run in training mode
+    (batch statistics: the gradient pass's over B rows, the scoring
+    forward's over B * nc) and their running statistics stay as they are.
+    extras = (k (B, D), per_step_bs, lam)."""
+
+    per_sample_independent = False  # the correlation loss couples the batch
+
+    def loss_per_sample(self, batch, extras, mats, word_embeds=None):
+        k, psb, lam = extras
+        infer = self.infer(batch, mats, word_embeds)
+        q = self.model.barlowtwins_head(infer["cls_feats"], training=True)
+        loss, _, _ = bt_correlation_loss(q, k, psb, lam)
+        # the batch loss for every sample: the word-embedding gradient still
+        # tells the words of each sentence apart, which is all the pick needs
+        return loss.expand(q.shape[0]), q.detach()
+
+    def score_candidates(self, flat_batch, B: int, nc: int, extras, aux, mats):
+        k, psb, lam = extras
+        infer = self.infer(flat_batch, mats)
+        q_cand = self.model.barlowtwins_head(infer["cls_feats"], training=True)
+        D = aux.shape[1]
+        q_cand = q_cand.reshape(B, nc, D).float()
+        q32, k32 = aux.float(), k.float()               # aux: q of the gradient pass
+        # the batch terms: diag(c), ||c||^2 and c v_i, from (B, B) Grams when
+        # B < D (bt_correlation_loss's algebra), from c itself when B >= D
+        if B >= D:
+            c = q32.t() @ k32 / psb                      # (D, D)
+            diag_c = torch.diagonal(c)
+            sum_sq = (c ** 2).sum()
+        else:
+            diag_c = (q32 * k32).sum(0) / psb            # (D,)
+            sum_sq = ((q32 @ q32.t()) * (k32 @ k32.t())).sum() / (psb * psb)
+        sum_diag_sq = (diag_c ** 2).sum()
+        on_base = ((diag_c - 1.0) ** 2).sum()
+        # candidate (i, j): c' = c + u v^T with u = (q_cand - q_i) / psb, v = k_i
+        u = (q_cand - q32[:, None, :]) / psb             # (B, nc, D)
+        v = k32
+        # ||c'||^2 = ||c||^2 + 2 u.(c v) + ||u||^2 ||v||^2
+        cvi = v @ c.t() if B >= D else ((v @ k32.t()) @ q32) / psb   # (B, D) = c v_i
+        dot_ucv = torch.einsum("bnd,bd->bn", u, cvi)
+        norm2 = (u ** 2).sum(-1) * (v ** 2).sum(-1)[:, None]
+        sum_sq_new = sum_sq + 2 * dot_ucv + norm2
+        # diag(c') = diag(c) + u * v elementwise
+        uv = u * v[:, None, :]                           # (B, nc, D)
+        uv_sq = (uv ** 2).sum(-1)
+        diag_new_sq = sum_diag_sq + 2 * torch.einsum("bnd,d->bn", uv, diag_c) + uv_sq
+        on_new = on_base + 2 * torch.einsum("bnd,d->bn", uv, diag_c - 1.0) + uv_sq
+        return on_new + lam * (sum_sq_new - diag_new_sq)
+
+
+# the frameworks whose attacker is ported, and the attacker of each
+GREEDY_ATTACKERS = {"moco": GreedyAttackMoco, "barlowtwins": GreedyAttackBarlowTwins}

@@ -1,4 +1,5 @@
-"""PGD image attacks (port of ``rmcl_tpu/attacks/pgd.py``: moco, vqa, irtr).
+"""PGD image attacks (port of ``rmcl_tpu/attacks/pgd.py``: moco, barlowtwins,
+vqa, irtr).
 
 Behavioural spec: reference attack/pgd_attack_vilt.py.  The attack
 differentiates a deterministic forward with respect to a pixel perturbation
@@ -39,7 +40,7 @@ from typing import Callable, Dict
 import torch
 
 from rmcl_tpu_torch.models.vit import scatter_delta
-from rmcl_tpu_torch.objectives.contrastive import infonce
+from rmcl_tpu_torch.objectives.contrastive import bt_correlation_loss, infonce
 from rmcl_tpu_torch.objectives.losses import bce_with_logits, l2_normalize
 
 
@@ -102,9 +103,9 @@ def _pgd_single_image(model, batch, head_loss: Callable,
                       adv_steps: int, adv_lr: float, max_norm: float, fast: bool,
                       block_matrices=None):
     """Shared fast/slow scaffold of the single-image PGD variants
-    (moco, vqa and irtr differ only in ``head_loss``).  ``block_matrices``:
-    the transformer's matrices already cast to the compute type (a training
-    step keeps them), else cast here."""
+    (moco, barlowtwins, vqa and irtr differ only in ``head_loss``).
+    ``block_matrices``: the transformer's matrices already cast to the
+    compute type (a training step keeps them), else cast here."""
     img = batch["image"]
     with _frozen(model):
         mats = block_matrices or model.transformer.block_matrices(model.compute_dtype)
@@ -134,6 +135,29 @@ def make_pgd_moco(model, adv_steps: int, adv_lr: float, max_norm: float,
         def head_loss(infer):
             q = l2_normalize(model.moco_head(infer["cls_feats"]), dim=1)
             loss, _ = infonce(q, k_modality, neg_queue, temperature)
+            return loss / adv_steps
+
+        return _pgd_single_image(model, batch, head_loss,
+                                 adv_steps, adv_lr, max_norm, fast, block_matrices)
+
+    return attack
+
+
+# ----------------------------------------------------------- BarlowTwins
+def make_pgd_barlowtwins(model, adv_steps: int, adv_lr: float, max_norm: float,
+                         bt_lambda: float, fast: bool = True):
+    """Cross-correlation-ascent PGD (reference PGDAttack_bartlowtwins
+    .pgd_attack :198-238).  The head's BatchNorms run in training mode and
+    their running statistics stay as they are; the correlation divides by
+    the attacked batch's own size (the reference's local batch, :219).
+    ``k_modality`` (B, D): the detached key projections."""
+
+    def attack(batch: Dict[str, torch.Tensor], k_modality, block_matrices=None):
+        k_modality = k_modality.detach()
+
+        def head_loss(infer):
+            q = model.barlowtwins_head(infer["cls_feats"], training=True)
+            loss, _, _ = bt_correlation_loss(q, k_modality, q.shape[0], bt_lambda)
             return loss / adv_steps
 
         return _pgd_single_image(model, batch, head_loss,

@@ -12,7 +12,10 @@ written over numpy only:
   * every other leaf keeps its dotted path and its value; the momentum
     twins (``k_*`` trees) go through the same rules;
   * the model state's ``proj_queue`` keeps its (128, K) value and
-    ``proj_queue_ptr`` () becomes (1,).
+    ``proj_queue_ptr`` () becomes (1,);
+  * BatchNorm running statistics (``running_mean``, ``running_var``), which
+    the JAX package keeps among the parameters, keep their paths and become
+    the port's buffers.
 
 ``leaves_to_jax`` is the inverse, from a live model: it tells a linear weight
 from a LayerNorm or embedding weight by the module that owns it.
@@ -69,9 +72,10 @@ def leaves_to_jax(model, grads: bool = False) -> Dict[str, np.ndarray]:
     """The model's parameters (or, with ``grads``, their gradients; a
     parameter without one is left out) as {"/"-joined JAX path: numpy array in
     the JAX package's layout}: the inverse of ``state_dict_from_jax``, so that
-    a test can compare leaf by leaf with the JAX pytree.  The queue buffers
-    come as ``proj_queue`` and ``proj_queue_ptr`` (a scalar) when the model
-    has them and ``grads`` is off."""
+    a test can compare leaf by leaf with the JAX pytree.  When ``grads`` is
+    off, the BatchNorm running statistics come under their parameter paths,
+    as the JAX package keeps them, and the queue buffers as ``proj_queue`` and
+    ``proj_queue_ptr`` (a scalar) when the model has them."""
     from rmcl_tpu_torch.models.layers import Linear   # torch only from here on
     from rmcl_tpu_torch.models.vit import PatchEmbed
 
@@ -79,11 +83,13 @@ def leaves_to_jax(model, grads: bool = False) -> Dict[str, np.ndarray]:
     patch = {name + ".proj" for name, m in model.named_modules()
              if isinstance(m, PatchEmbed)}
     flat: Dict[str, np.ndarray] = {}
-    for name, p in model.named_parameters():
+    stats = [] if grads else [(n, b) for n, b in model.named_buffers()
+                              if n.endswith((".running_mean", ".running_var"))]
+    for name, p in list(model.named_parameters()) + stats:
         t = p.grad if grads else p
         if t is None:
             continue
-        a = t.detach().float().cpu().numpy()
+        a = t.detach().float().cpu().numpy().copy()   # never a view of the live tensor
         owner, leaf = name.rsplit(".", 1) if "." in name else ("", name)
         if owner in patch and leaf == "weight":
             leaf, a = "kernel", a.transpose(2, 3, 1, 0).reshape(-1, a.shape[0])
@@ -105,6 +111,6 @@ def leaves_to_jax(model, grads: bool = False) -> Dict[str, np.ndarray]:
     for key, layers in stacked.items():
         out[key] = np.stack([layers[i] for i in range(len(layers))])
     if not grads and hasattr(model, "proj_queue"):
-        out["proj_queue"] = model.proj_queue.detach().float().cpu().numpy()
-        out["proj_queue_ptr"] = model.proj_queue_ptr.detach().cpu().numpy().reshape(())
+        out["proj_queue"] = model.proj_queue.detach().float().cpu().numpy().copy()
+        out["proj_queue_ptr"] = model.proj_queue_ptr.detach().cpu().numpy().reshape(()).copy()
     return out

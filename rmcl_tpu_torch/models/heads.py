@@ -1,13 +1,13 @@
 """Task heads served by the port (port of ``rmcl_tpu/models/heads.py``):
-pooler, ITM, MLM, VQA classifier, rank output and the MoCo projector.
-Module names follow the reference state_dict."""
+pooler, ITM, MLM, VQA classifier, rank output, the MoCo projector and the
+BarlowTwins projector.  Module names follow the reference state_dict."""
 
 from __future__ import annotations
 
 import torch
 from torch import nn
 
-from rmcl_tpu_torch.models.layers import LayerNorm, Linear, gelu
+from rmcl_tpu_torch.models.layers import BatchNorm1d, LayerNorm, Linear, gelu
 from rmcl_tpu_torch.models.text_embeddings import BERT_LN_EPS
 
 TORCH_LN_EPS = 1e-5    # nn.LayerNorm's default, used by the moco and vqa heads
@@ -77,3 +77,27 @@ class MoCoHead(nn.Module):
     def forward(self, cls_feats: torch.Tensor) -> torch.Tensor:
         y = self.projector["1"](self.projector["0"](cls_feats))
         return self.projector["3"](torch.relu(y))
+
+
+class BarlowTwinsHead(nn.Module):
+    """Linear (no bias) -> BatchNorm -> ReLU -> Linear (no bias) -> BatchNorm
+    -> ReLU -> Linear (no bias) under ``projector`` keys 0, 1, 3, 4, 6, then
+    ``norm``, a BatchNorm without affine parameters (reference heads.py:88-106).
+    ``forward(cls_feats, training, update)``: the three BatchNorms in
+    training mode (batch statistics) or not (running statistics); their
+    running statistics move only when ``training`` and ``update``."""
+
+    def __init__(self, in_dim: int, inner, out_dim: int):
+        super().__init__()
+        d0, d1, d2, d3 = in_dim, *inner, out_dim
+        self.projector = nn.ModuleDict({"0": Linear(d0, d1, bias=False), "1": BatchNorm1d(d1),
+                                        "3": Linear(d1, d2, bias=False), "4": BatchNorm1d(d2),
+                                        "6": Linear(d2, d3, bias=False)})
+        self.norm = BatchNorm1d(d3, affine=False)
+
+    def forward(self, cls_feats: torch.Tensor, training: bool = True,
+                update: bool = False) -> torch.Tensor:
+        p = self.projector
+        y = torch.relu(p["1"](p["0"](cls_feats), training, update))
+        y = torch.relu(p["4"](p["3"](y), training, update))
+        return self.norm(p["6"](y), training, update)

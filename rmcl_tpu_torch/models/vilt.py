@@ -6,7 +6,9 @@ The module tree carries the reference state_dict names
 JAX package's parameters and state through ``compat/from_jax.py``, load
 with ``load_reference_state_dict``.  Heads are built per active loss as
 ``init_vilt`` builds them, for the heads ported so far: pooler, ITM, MLM,
-VQA, rank output and the MoCo projector.  With the ``moco`` loss active the
+VQA, rank output, the MoCo projector and, with the ``barlowtwins`` loss, the
+BarlowTwins projector (``cfg.bt_proj_dims``; its BatchNorm running
+statistics are buffers).  With the ``moco`` loss active the
 model also carries the momentum twins (``k_text_embeddings``,
 ``k_token_type_embeddings``, ``k_transformer``, ``k_moco_head``; the key
 path shares ``pooler``) and the negatives queue (``proj_queue``,
@@ -32,7 +34,8 @@ from typing import Dict, List, Optional, Tuple
 import torch
 from torch import nn
 
-from rmcl_tpu_torch.models.heads import Classifier, ITMHead, MLMHead, MoCoHead, Pooler
+from rmcl_tpu_torch.models.heads import (BarlowTwinsHead, Classifier, ITMHead, MLMHead,
+                                         MoCoHead, Pooler)
 from rmcl_tpu_torch.models.layers import Embedding, Linear, reset_all
 from rmcl_tpu_torch.models.text_embeddings import TextEmbeddings
 from rmcl_tpu_torch.models.vit import ViT, normalize_u8
@@ -113,6 +116,9 @@ class ViLT(nn.Module):
             self.register_buffer("proj_queue",
                                  torch.zeros(MOCO_PROJ_DIM, cfg.num_negative, dtype=qdt))
             self.register_buffer("proj_queue_ptr", torch.zeros(1, dtype=torch.int32))
+        if _needs(cfg, "barlowtwins"):     # no momentum twins and no queue
+            d1, d2, dout = cfg.bt_proj_dims
+            self.barlowtwins_head = BarlowTwinsHead(C, (d1, d2), dout)
 
     @torch.no_grad()
     def init(self, generator: torch.Generator) -> "ViLT":
@@ -140,11 +146,13 @@ class ViLT(nn.Module):
     def load_reference_state_dict(self, sd: Dict[str, torch.Tensor]) -> List[str]:
         """Load a reference-named state dict.  Entries of parts this model
         does not build (heads of losses that are not active or not ported)
-        are skipped and returned; a missing or misshapen entry of a part it
-        builds raises, except the queue state, which a checkpoint may lack
-        (the model then keeps its own)."""
+        are skipped and returned, and so are torch BatchNorm's
+        ``num_batches_tracked`` counters, which nothing here reads; a missing
+        or misshapen entry of a part it builds raises, except the queue
+        state, which a checkpoint may lack (the model then keeps its own)."""
         own = {name for name, _ in self.named_children()}
-        keep = {k: v for k, v in sd.items() if k.split(".", 1)[0] in own}
+        keep = {k: v for k, v in sd.items() if k.split(".", 1)[0] in own
+                and not k.endswith(".num_batches_tracked")}
         for name, buf in self.named_buffers(recurse=False):
             keep[name] = sd.get(name, buf)
         self.load_state_dict(keep, strict=True)

@@ -1,12 +1,14 @@
-"""MoCo contrastive objective (port of ``rmcl_tpu/objectives/contrastive.py``:
-``momentum_update``, ``dequeue_and_enqueue``, ``infonce`` and the unfused
-``compute_moco_contrastive``; ``fuse_moco_views`` and Barlow-Twins are not
-ported).
+"""The two contrastive objectives (port of ``rmcl_tpu/objectives/contrastive.py``):
+MoCo (``momentum_update``, ``dequeue_and_enqueue``, ``infonce`` and the
+unfused ``compute_moco_contrastive``; ``fuse_moco_views`` is not ported) and
+BarlowTwins (``bt_correlation_loss`` and ``compute_barlowtwins_contrastive``).
 
 Behavioural spec: reference vilt/modules/objectives.py
-compute_moco_contrastive:217-447.  Where the JAX package returns new
-parameter and state pytrees, the port updates the model's momentum twins and
-its queue buffers in place, under ``no_grad``: they are never differentiated.
+compute_moco_contrastive:217-447 and compute_barlowtwins:449-602.  Where the
+JAX package returns new parameter and state pytrees, the port updates the
+model's momentum twins, its queue buffers and the BarlowTwins head's
+BatchNorm running statistics in place, under ``no_grad``: they are never
+differentiated.
 """
 
 from __future__ import annotations
@@ -15,7 +17,7 @@ from typing import Callable, Dict, List, Optional
 
 import torch
 
-from rmcl_tpu_torch.objectives.losses import cross_entropy, l2_normalize
+from rmcl_tpu_torch.objectives.losses import cosine_similarity, cross_entropy, l2_normalize
 
 MOMENTUM_TWINS = ("text_embeddings", "token_type_embeddings", "transformer", "moco_head")
 
@@ -132,9 +134,10 @@ def compute_moco_contrastive(
     (``attacks/pgd.py``).  ``greedy_fn(batch, k, queue) -> (ids, masks,
     n_changed)``, the greedy text attack (``attacks/greedy_fused.py``), runs
     after the key forward on the step's own post-update keys and the queue
-    before the enqueue (the JAX package's attacker extras): its ids take the
-    place of ``attacked_text`` and ``ret["n_changed"]`` holds its (B,)
-    per-sample change counts.  ``augmentation=True`` (benign views, the image
+    before the enqueue (the JAX package's attacker extras, handed over as
+    ``greedy_fn(batch, (k, queue, temperature))``): its ids take the place of
+    ``attacked_text`` and ``ret["n_changed"]`` holds its (B,) per-sample
+    change counts.  ``augmentation=True`` (benign views, the image
     view given as ``attacked_image``) disables the combined view, as the
     reference does (objectives.py:356).  The momentum twins and the queue
     are updated in place when ``train``.
@@ -151,7 +154,7 @@ def compute_moco_contrastive(
     neg_queue = model.proj_queue.detach().clone() if train else model.proj_queue.detach()
 
     if greedy_fn is not None:
-        ids, masks, ret["n_changed"] = greedy_fn(batch, k, neg_queue)
+        ids, masks, ret["n_changed"] = greedy_fn(batch, (k, neg_queue, temperature))
         attacked_text = {"text_ids": ids, "text_masks": masks}
 
     attacked_img_batch = None
@@ -199,4 +202,121 @@ def compute_moco_contrastive(
     if views:
         ret["moco_loss_ps"] = sum(ret[f"attacked_{n}_loss_ps"]
                                   for n, *_ in views) / max(loss_num, 1)
+    return ret
+
+
+# ---------------------------------------------------------- Barlow-Twins
+def _off_diagonal_sumsq(c: torch.Tensor) -> torch.Tensor:
+    mask = 1.0 - torch.eye(c.shape[0], dtype=c.dtype, device=c.device)
+    return ((c * mask) ** 2).sum()
+
+
+def bt_correlation_loss(q: torch.Tensor, k: torch.Tensor, per_step_bs: int, lam: float):
+    """sum_d (1 - c_dd)^2 + lam * sum_{d != e} c_de^2 with c = q^T k /
+    per_step_bs, in fp32 (reference objectives.py:476-482).  Returns (loss,
+    on-diagonal, lam * off-diagonal).
+
+    With B < D, c (D x D) has rank <= B and is never formed: its diagonal is
+    sum_n q_nd k_nd / psb and ||c||_F^2 = sum_ij (q q^T)_ij (k k^T)_ij / psb^2,
+    two (B, B) Gram matrices, so the off-diagonal sum is ||c||^2 - sum_d
+    c_dd^2.  With B >= D the (D, D) matrix is the cheap side and is formed.
+    Both give the same value up to summation order, as in the JAX package."""
+    q32, k32 = q.float(), k.float()
+    B, D = q32.shape
+    if B >= D:
+        c = (q32.t() @ k32) / per_step_bs
+        on_diag = ((torch.diagonal(c) - 1.0) ** 2).sum()
+        off_diag = _off_diagonal_sumsq(c)
+        return on_diag + lam * off_diag, on_diag, lam * off_diag
+    diag = (q32 * k32).sum(0) / per_step_bs                      # (D,)
+    gq = q32 @ q32.t()                                           # (B, B)
+    gk = k32 @ k32.t()
+    sum_sq = (gq * gk).sum() / (per_step_bs * per_step_bs)
+    on_diag = ((diag - 1.0) ** 2).sum()
+    off_diag = sum_sq - (diag ** 2).sum()
+    return on_diag + lam * off_diag, on_diag, lam * off_diag
+
+
+def _bt_diagnostics(q, k, suffix: str) -> Dict[str, torch.Tensor]:
+    """L2 distance, cosine and dot of each view projection with its key,
+    batch means, in fp32 (reference objectives.py:487-491)."""
+    q32, k32 = q.float(), k.float()
+    return {f"pos_dist_attacked_{suffix}": torch.linalg.vector_norm(q32 - k32, dim=1).mean(),
+            f"pos_cosine_attacked_{suffix}": cosine_similarity(q32, k32).mean(),
+            f"pos_dot_attacked_{suffix}": (q32 * k32).sum(1).mean()}
+
+
+def compute_barlowtwins_contrastive(
+    model, batch: Dict[str, torch.Tensor], *,
+    seeds: Optional[torch.Tensor] = None,
+    block_matrices=None,
+    train: bool = True,
+    text_view: bool = False,
+    image_view: bool = False,
+    attacked_text: Optional[Dict[str, torch.Tensor]] = None,
+    pgd_fn: Optional[Callable] = None,
+    greedy_fn: Optional[Callable] = None,
+    adv_lr: float = 0.0051,
+    per_step_bs: int = 0,
+    attacked_image: Optional[torch.Tensor] = None,
+    augmentation: bool = False,
+) -> Dict[str, torch.Tensor]:
+    """One BarlowTwins step (reference objectives.py:449-602): the key
+    forward, the optional greedy and PGD attacks, the text, image and
+    combined views, each scored by ``bt_correlation_loss`` against the key
+    with lambda ``adv_lr``.  The caller differentiates
+    ``ret["barlowtwins_loss"]``, the mean of the view losses.
+
+    The key is the deterministic query forward and the head, detached.  The
+    head's BatchNorms run in training mode when ``train``, and their running
+    statistics then move in place at every head call, chained in the order
+    key, text, image, both (the JAX package merges each call's new
+    statistics before the next); ``train=False`` normalises with the running
+    statistics and moves nothing.  ``seeds``, ``block_matrices``,
+    ``attacked_text``, ``attacked_image`` and ``augmentation`` as in
+    ``compute_moco_contrastive``: ``seeds[1]``, ``[2]``, ``[3]`` drop out the
+    text, image and combined views.  ``pgd_fn(batch, k) -> img_delta``;
+    ``greedy_fn(batch, (k, per_step_bs, adv_lr)) -> (ids, masks,
+    n_changed)``, run after the key forward (its ids take the place of
+    ``attacked_text``; ``ret["n_changed"]`` holds the change counts).  There
+    is no clean query view, no momentum encoder and no queue."""
+    ret: Dict[str, torch.Tensor] = {}
+    head = model.barlowtwins_head
+    psb = per_step_bs or batch["text_ids"].shape[0]
+
+    with torch.no_grad():
+        k = head(model.infer(batch, block_matrices)["cls_feats"], training=train,
+                 update=train)
+
+    if greedy_fn is not None:
+        ids, masks, ret["n_changed"] = greedy_fn(batch, (k, psb, adv_lr))
+        attacked_text = {"text_ids": ids, "text_masks": masks}
+
+    attacked_img_batch = None
+    if image_view and attacked_image is not None:
+        attacked_img_batch = dict(batch, image=attacked_image)
+    elif image_view and pgd_fn is not None:
+        attacked_img_batch = dict(batch, image=batch["image"] + pgd_fn(batch, k).detach())
+
+    views = []
+    if text_view and attacked_text is not None:
+        views.append(("text", "txt", 1, dict(batch, **attacked_text)))
+    if image_view and attacked_img_batch is not None:
+        views.append(("img", "img", 2, attacked_img_batch))
+    if (text_view and image_view and not augmentation
+            and attacked_text is not None and attacked_img_batch is not None):
+        views.append(("both", "both", 3, dict(attacked_img_batch, **attacked_text)))
+    loss = 0.0
+    for name, suffix, view, view_batch in views:
+        infer = model.infer(view_batch, block_matrices, deterministic=not train,
+                            seeds=seeds[view] if train else None)
+        q = head(infer["cls_feats"], training=train, update=train)
+        l_view, on, off = bt_correlation_loss(q, k, psb, adv_lr)
+        ret[f"barlowtwins_loss_invariance_{name}"] = on
+        ret[f"barlowtwins_loss_redundancy_{name}"] = off
+        with torch.no_grad():
+            ret.update(_bt_diagnostics(q, k, suffix))
+        loss = loss + l_view
+    ret["barlowtwins_loss"] = torch.as_tensor(loss / max(len(views), 1), dtype=torch.float32,
+                                              device=k.device)
     return ret

@@ -1,5 +1,6 @@
 """Shared loss primitives in fp32 (port of ``rmcl_tpu/objectives/losses.py``:
-the three that the PGD attacks use)."""
+the three that the PGD attacks use, and the cosine similarity of the
+BarlowTwins views' diagnostics)."""
 
 from __future__ import annotations
 
@@ -29,3 +30,13 @@ def l2_normalize(x: torch.Tensor, dim: int = -1, eps: float = 1e-12) -> torch.Te
     x32 = x.float()
     n = torch.linalg.vector_norm(x32, dim=dim, keepdim=True)
     return (x32 / n.clamp(min=eps)).to(x.dtype)
+
+
+def cosine_similarity(a: torch.Tensor, b: torch.Tensor, dim: int = -1,
+                      eps: float = 1e-6) -> torch.Tensor:
+    """``nn.CosineSimilarity`` semantics in fp32: each norm clamped below at
+    eps."""
+    a32, b32 = a.float(), b.float()
+    na = torch.linalg.vector_norm(a32, dim=dim).clamp(min=eps)
+    nb = torch.linalg.vector_norm(b32, dim=dim).clamp(min=eps)
+    return (a32 * b32).sum(dim) / (na * nb)

@@ -7,9 +7,11 @@ Per micro-step:
   2. host: the greedy attack's word/candidate tables for the attacked step
      (``FusedGreedyAttack.prep_tables``), or the whole attack for the host
      attacker, on a worker thread one batch ahead (``host_prefetch``);
-  3. device: the step (``train/step.py``): momentum update, key forward,
-     greedy attack, PGD, the four views, the backward, the optimizer once
-     per accumulation cycle, the enqueue;
+  3. device: the step (``train/step.py``): for ``task_moco`` the momentum
+     update, key forward, greedy attack, PGD, the four views, the backward,
+     the optimizer once per accumulation cycle, the enqueue; for
+     ``task_barlowtwins`` the key forward, greedy attack, PGD, three views,
+     the backward and the optimizer;
   4. host: the step's scalar metrics, read from the device once per log
      interval (``Trainer.host_reads``), into the epoch's ``MetricBag``.
 
@@ -21,7 +23,8 @@ commits a mid-epoch ``last`` and leaves ``fit``; a Trainer with
 seeds as the run it continues.
 
 One process and one device (multi-process consensus and DDP: ROADMAP A10).
-The greedy attack has the ``moco`` framework only; the benign augmentation
+The greedy attack has the ``moco`` and ``barlowtwins`` frameworks (the
+downstream tasks' attackers come with ROADMAP A11b); the benign augmentation
 views (``cfg.augmentation``), the recall metric and the VQA submission
 writer raise (ROADMAP A9, A12).
 """
@@ -43,7 +46,6 @@ import torch
 from rmcl_tpu_torch.attacks import greedy as G
 from rmcl_tpu_torch.attacks.greedy_fused import FusedGreedyAttack
 from rmcl_tpu_torch.core.buckets import bucket_enabled, text_bucket
-from rmcl_tpu_torch.core.config import active_tasks
 from rmcl_tpu_torch.data.datamodule import MultitaskDataModule
 from rmcl_tpu_torch.eval.metrics import MetricBag, Scalar
 from rmcl_tpu_torch.models.vilt import ViLT
@@ -55,11 +57,12 @@ from rmcl_tpu_torch.train.step import (
     create_train_state, make_attacked_train_step, make_eval_step, make_train_step,
     resolve_max_steps, training_device)
 
+
 def _refuse_other(framework: str) -> None:
-    if framework != "moco":
+    if framework not in G.GREEDY_ATTACKERS:
         raise NotImplementedError(
             f"the greedy attack of the {framework!r} framework is not ported: the port "
-            "has the moco framework only (ROADMAP A11)")
+            f"has the {' and '.join(G.GREEDY_ATTACKERS)} frameworks (ROADMAP A11b)")
 
 
 def build_greedy_attacker(cfg, model, tokenizer):
@@ -81,7 +84,7 @@ def build_greedy_attacker(cfg, model, tokenizer):
                              device=next(model.parameters()).device)
     else:
         syn = G.WordnetSynonyms(cfg.n_candidates)
-    attacker = G.GreedyAttackMoco(cfg, model, tokenizer, syn)
+    attacker = G.GREEDY_ATTACKERS[framework](cfg, model, tokenizer, syn)
     if cfg.greedy_impl == "fused":
         attacker = FusedGreedyAttack(attacker)
     return attacker
@@ -95,9 +98,14 @@ def greedy_attack_extras(cfg, model, framework: str, batch):
     temperature).  The reference runs the attack after the momentum update
     (objectives.py:256-265, then :277-285), so the keys come from the
     updated twins; the twins are updated in place for the key forward and
-    restored after it.  The attacked step (``train/step.py``) takes the
+    restored after it.  barlowtwins: (k, B, adv_lr), k the head's training-mode
+    projection of the deterministic forward, its BatchNorm running statistics
+    left as they are.  The attacked step (``train/step.py``) takes the
     step's own keys instead and runs no second key forward."""
     _refuse_other(framework)
+    if framework == "barlowtwins":
+        k = model.barlowtwins_head(model.infer(batch)["cls_feats"], training=True)
+        return (k, batch["text_ids"].shape[0], cfg.adv_lr)
     twins = [p for name, p in model.named_parameters() if name.startswith("k_")]
     saved = [p.detach().clone() for p in twins]
     try:
@@ -234,9 +242,9 @@ class Trainer:
         # (B, max_text_len) attacked ids that a sliced batch would mismatch
         self._text_bucket = bucket_enabled(cfg, "train") and not cfg.text_view
         # the attack inside the step whenever the attacker is the fused one
-        # (the port has no fuse_attack_step=False path)
-        self._fused_step = (isinstance(self.greedy, FusedGreedyAttack)
-                            and "moco" in active_tasks(cfg))
+        # (the port has no fuse_attack_step=False path; build_greedy_attacker
+        # refuses the frameworks that are not ported)
+        self._fused_step = isinstance(self.greedy, FusedGreedyAttack)
         if self._fused_step:
             self.step_fn = make_attacked_train_step(cfg, self.ts, self.greedy,
                                                     max_steps=self.max_steps)

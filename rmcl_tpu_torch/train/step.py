@@ -33,7 +33,14 @@ micro-batches; the ``lr`` metric is the rate of optimizer step
 ``ts.step // accum``.  ``make_eval_step`` is the deterministic forward of
 every active task, with its attacks.
 
-Ported: the ``moco`` task.  Any other active task raises.
+``task_barlowtwins`` runs the same way without the momentum update, the clean
+view and the enqueue: the key forward through the query encoder, the PGD
+against the correlation loss, the text, image and combined views.  Its head's
+BatchNorm running statistics move in place at every head call of the step
+(on every micro-step under accumulation), as the JAX step grafts them on
+every call; the optimizer never sees them (they are buffers).
+
+Ported: the ``moco`` and ``barlowtwins`` tasks.  Any other active task raises.
 """
 
 from __future__ import annotations
@@ -43,16 +50,17 @@ from typing import Callable, Dict, List, Optional
 
 import torch
 
-from rmcl_tpu_torch.attacks.greedy import greedy_attack_framework
+from rmcl_tpu_torch.attacks.greedy import GREEDY_ATTACKERS, greedy_attack_framework
 from rmcl_tpu_torch.attacks.greedy_fused import TABLE_KEYS, FusedGreedyAttack
-from rmcl_tpu_torch.attacks.pgd import make_pgd_moco
+from rmcl_tpu_torch.attacks.pgd import make_pgd_barlowtwins, make_pgd_moco
 from rmcl_tpu_torch.core.config import active_tasks
 from rmcl_tpu_torch.models.vilt import ViLT, draw_seeds
 from rmcl_tpu_torch.models.vit import normalize_u8
 from rmcl_tpu_torch.objectives import contrastive
 from rmcl_tpu_torch.train.schedule import make_lr_schedule, make_optimizer
 
-MOCO_VIEWS = 4   # clean, txt, img, both: one set of dropout seeds each
+VIEWS = 4   # clean, txt, img, both: one set of dropout seeds each, per contrastive task
+CONTRASTIVE = ("moco", "barlowtwins")
 
 
 @dataclasses.dataclass
@@ -129,44 +137,60 @@ def _attacked_text_of(batch) -> Optional[Dict[str, torch.Tensor]]:
 # sums every key containing "loss", which counts diagnostics twice)
 _TASK_LOSS_KEYS = {
     "moco": ("moco_loss",),
+    "barlowtwins": ("barlowtwins_loss",),
 }
 
 
 def compute_all_tasks(cfg, ts: TrainState, batch, seeds, *, train: bool,
                       greedy_fn: Optional[Callable] = None):
     """Run every active task (reference forward vilt_module.py:420-469).
-    Returns (total_loss, ret).  Twins and queue are updated in place.
-    ``greedy_fn``: the text attack inside the step
-    (``objectives/contrastive.py:compute_moco_contrastive``)."""
+    Returns (total_loss, ret).  Twins, queue and BatchNorm running statistics
+    are updated in place.  ``seeds``: ``VIEWS`` sets per contrastive task, in
+    ``CONTRASTIVE``'s order.  ``greedy_fn``: the text attack inside the step
+    (``objectives/contrastive.py``)."""
     tasks = active_tasks(cfg)
     other = [t for t in tasks if t not in _TASK_LOSS_KEYS]
     if other:
         raise NotImplementedError(
-            f"tasks {other} are not ported: the training step has the moco task "
-            "only (ROADMAP A11)")
+            f"tasks {other} are not ported: the training step has the moco and "
+            "barlowtwins tasks (ROADMAP A11b, A11c)")
     model = ts.model
     if batch["image"].dtype == torch.uint8:          # u8 wire format -> f32 once
         batch = dict(batch, image=normalize_u8(batch["image"], batch.get("image_hw"),
                                                model.grid_hw, model.patch_size))
     ret: Dict[str, torch.Tensor] = {}
+    common = dict(
+        block_matrices=ts.block_matrices, train=train, text_view=cfg.text_view,
+        image_view=cfg.image_view,
+        attacked_text=_attacked_text_of(batch) if cfg.text_view else None,
+        greedy_fn=greedy_fn, per_step_bs=batch["text_ids"].shape[0],
+        attacked_image=batch.get("augmented_image") if cfg.augmentation else None,
+        augmentation=cfg.augmentation)
+    pgd = cfg.image_view and not cfg.augmentation
+    view_seeds = {t: None if seeds is None else seeds[VIEWS * i:VIEWS * (i + 1)]
+                  for i, t in enumerate(t for t in CONTRASTIVE if t in tasks)}
     if "moco" in tasks:
         pgd_fn = None
-        if cfg.image_view and not cfg.augmentation:
+        if pgd:
             attack = make_pgd_moco(model, cfg.adv_steps_img, cfg.adv_lr_img,
                                    cfg.adv_max_norm_img, cfg.temperature)
             pgd_fn = lambda b, k, queue: attack(  # noqa: E731
                 b, k, queue, block_matrices=ts.block_matrices)
         ret.update(contrastive.compute_moco_contrastive(
-            model, batch, seeds=seeds, block_matrices=ts.block_matrices,
+            model, batch, seeds=view_seeds["moco"],
             k_block_matrices=lambda: model.k_transformer.block_matrices(
                 model.compute_dtype),
-            train=train, text_view=cfg.text_view, image_view=cfg.image_view,
-            attacked_text=_attacked_text_of(batch) if cfg.text_view else None,
-            pgd_fn=pgd_fn, greedy_fn=greedy_fn, temperature=cfg.temperature,
-            momentum=cfg.momentum,
-            per_step_bs=batch["text_ids"].shape[0],
-            attacked_image=batch.get("augmented_image") if cfg.augmentation else None,
-            augmentation=cfg.augmentation))
+            pgd_fn=pgd_fn, temperature=cfg.temperature, momentum=cfg.momentum, **common))
+    if "barlowtwins" in tasks:
+        pgd_fn = None
+        if pgd:
+            attack = make_pgd_barlowtwins(model, cfg.adv_steps_img, cfg.adv_lr_img,
+                                          cfg.adv_max_norm_img, cfg.adv_lr)
+            pgd_fn = lambda b, k: attack(  # noqa: E731
+                b, k, block_matrices=ts.block_matrices)
+        ret.update(contrastive.compute_barlowtwins_contrastive(
+            model, batch, seeds=view_seeds["barlowtwins"], pgd_fn=pgd_fn,
+            adv_lr=cfg.adv_lr, **common))
     total = sum(ret[k].float() for t in tasks for k in _TASK_LOSS_KEYS[t] if k in ret)
     return total, ret
 
@@ -204,9 +228,11 @@ def _train_step_body(cfg, ts: TrainState, max_steps: Optional[int]) -> Callable:
     trainable = [p for p in model.parameters() if p.requires_grad]
     accum = ts.accum
 
+    n_views = VIEWS * sum(t in active_tasks(cfg) for t in CONTRASTIVE)
+
     def body(batch: Dict[str, torch.Tensor], generator: torch.Generator,
              greedy_fn: Optional[Callable] = None):
-        seeds = draw_seeds(generator, MOCO_VIEWS, len(model.transformer.blocks),
+        seeds = draw_seeds(generator, n_views, len(model.transformer.blocks),
                            batch["text_ids"].shape[0], device)
         ts.optimizer.zero_grad(set_to_none=True)
         total, ret = compute_all_tasks(cfg, ts, batch, seeds, train=True,
@@ -250,9 +276,11 @@ def make_attacked_train_step(cfg, ts: TrainState, greedy,
     ``make_train_step`` with the greedy text attack inside it (port of the
     JAX package's ``make_attacked_train_step``, which compiles the attacker
     extras, the attack and the step as one program).  The attack runs after
-    the momentum update and the key forward, against the step's own keys and
-    the queue before the enqueue, so the twins move once per step; its ids
-    become the text view's.
+    the key forward, against the step's own keys: for moco after the momentum
+    update and with the queue before the enqueue, so the twins move once per
+    step; for barlowtwins with (k, B, adv_lr), k the key projection the
+    step's head made in training mode (the JAX package's extras compute the
+    same function of the same weights).  Its ids become the text view's.
 
     ``greedy``: a ``FusedGreedyAttack``.  ``batch``: the step's batch plus
     the host tables under ``TABLE_KEYS`` (``greedy.prep_tables(text_ids)``,
@@ -260,9 +288,11 @@ def make_attacked_train_step(cfg, ts: TrainState, greedy,
     ``change_rate`` (0-d device tensors; no host read in the metrics)."""
     if not isinstance(greedy, FusedGreedyAttack):
         raise TypeError("make_attacked_train_step needs the fused greedy attacker")
-    if greedy_attack_framework(cfg) != "moco":
+    framework = greedy_attack_framework(cfg)
+    if framework not in GREEDY_ATTACKERS:
         raise NotImplementedError(
-            "the attacked step has the moco framework only (ROADMAP A11)")
+            f"the attacked step of the {framework!r} framework is not ported: it has the "
+            f"{' and '.join(GREEDY_ATTACKERS)} frameworks (ROADMAP A11b)")
     body = _train_step_body(cfg, ts, max_steps)
     attack = greedy.build_attack_body()
     device = next(ts.model.parameters()).device
@@ -273,9 +303,8 @@ def make_attacked_train_step(cfg, ts: TrainState, greedy,
         nw = torch.as_tensor(batch["gw_nw"], device=device)
         clean = {k: v for k, v in batch.items() if k not in TABLE_KEYS}
 
-        def greedy_fn(b, k, neg_queue):
-            return attack(b, (k, neg_queue, cfg.temperature), *tables, tbucket,
-                          block_matrices=ts.block_matrices)
+        def greedy_fn(b, extras):
+            return attack(b, extras, *tables, tbucket, block_matrices=ts.block_matrices)
 
         metrics, ret = body(clean, generator, greedy_fn)
         nch = ret["n_changed"].float()
@@ -290,7 +319,8 @@ def make_attacked_train_step(cfg, ts: TrainState, greedy,
 def make_eval_step(cfg, ts: TrainState) -> Callable:
     """``eval_step(batch) -> ret``: every active task's deterministic forward
     with its attacks (the reference validates on the adversarial views),
-    the momentum twins and the queue untouched, no gradient but the attacks'
+    the momentum twins, the queue and the BatchNorm running statistics
+    untouched (BarlowTwins normalises with the latter), no gradient but the attacks'
     own; ``ret`` holds every output (per-sample ``_ps`` rows included) and
     ``total_loss``, on the device."""
 
