@@ -7,7 +7,9 @@ unfused block around the attention-core kernels) and F ("fused", "fused":
 text attack and the attacked task_moco step; then the training entry point
 around it, the Trainer (phase 15), the main path; then the same for
 task_barlowtwins (phase 16): its attacked step, its fp32 check against the
-CPU and its Trainer.
+CPU and its Trainer; then the downstream tasks (phase 17): the attacked VQA
+and NLVR2 steps, the IRTR step, their fp32 checks, the VQA submission
+writer and the recall.
 
     python3 chip_smoke.py
 
@@ -134,7 +136,7 @@ Phases, any failure exits non-zero:
                max_memory_allocated.  The launch counters also read 14 of the
                dropout op (the embedding dropouts: text and image, four views
                forward, three backward) and 0 of every other op.
-  9. train slice  one step of 4 pairs in fp32 at full width, 6 of the 12
+  9. train slice  one step of 4 pairs in fp32 at full width, 3 of the 12
                layers (SLICE_LAYERS; phase 16 holds all 12): the card's
                kernels against the CPU's plain ops from the same weights,
                batch and dropout seeds (so the same masks): loss within 1e-5
@@ -175,7 +177,7 @@ Phases, any failure exits non-zero:
                finite; step ms, pairs/s, the split (key forward, greedy
                attack, PGD, views, AdamW) by CUDA events, memory.
  14. train attacked slice   one fp32 attacked step of 4 pairs on the
-               realistic captions at 6 layers (SLICE_LAYERS), the card's
+               realistic captions at 3 layers (SLICE_LAYERS), the card's
                kernels against the CPU's plain ops from the same weights,
                batch and dropout seeds: the
                attacked token ids equal; where they differ, the first decision
@@ -240,6 +242,31 @@ Phases, any failure exits non-zero:
                phase 15's in-memory data: launches, every parameter and
                statistic moved, micro-step 0's ms beside the bare step,
                'last' loads back equal, running statistics included.
+ 17. downstream   the downstream tasks at full width and depth, bf16, every
+               patch (S = 40 + 229), image and text views, drop_rate 0.1,
+               seeded weights: make_attacked_train_step for
+               task_finetune_vqa_randaug_attacked and
+               task_finetune_nlvr2_randaug_attacked on 16 pairs, both caption
+               mixes (the fused greedy attack on GreedyAttackVqa /
+               GreedyAttackNlvr2 with compaction, 5-step PGD, NLVR2 on two
+               images), and make_train_step for task_finetune_irtr_coco on
+               8 images x 16 texts: one warm-up and two timed steps each,
+               per step the launch counters equal downstream_launches (the
+               attack's own count, two forwards a pass for NLVR2) and the
+               sub-kernels follow, every metric finite, every parameter the
+               loss reaches moved; step ms (host clock), device busy ms
+               (torch.profiler, one step), memory, the attack's loops and
+               host reads, NLVR2's flip rate.  One fp32 step of each at
+               SLICE_LAYERS on the card and on the CPU (4 pairs; IRTR one
+               image x 16 texts): attacked_slice's token ids, then
+               _train_results' tolerances.  Trainer.validate("test") of the
+               attacked VQA config on 16 questions in memory writes the
+               submission file (one answer per question).  The clean and the
+               attacked IR/TR recall (compute_irtr_recall,
+               compute_attacked_irtr_recall with the fused greedy IRTR
+               attack and PGD) on 8 images x 5 captions in memory, irtr
+               beside irtr_attacked: finite scores, recalls in [0, 1],
+               seconds per image, launches.
 
 The line before the last is the kernels' JSON record; the last line is
 ``{"ok": true, "device": {...}}``.  Without a card, or outside the
@@ -256,6 +283,10 @@ included) and two attacked task_barlowtwins steps per caption mix with
 the device-busy and wall time per call, the idle share and the kernel
 count, and for the attacked steps the greedy attack's loops and host reads
 (the breakdowns of PERF.md section 5).
+
+    python3 chip_smoke.py --downstream
+
+runs phases 1, 2 and 17 only.
 
     python3 chip_smoke.py --gemm-times [ROOT]
 
@@ -1872,10 +1903,16 @@ def _loss_result(tag, results: dict, dev) -> None:
     check(rel <= 1e-5, f"loss differs by {rel} relative")
 
 
-def _train_results(tag, results: dict, dev, lr: float) -> None:
+def _train_results(tag, results: dict, dev, lr: float, rate=None) -> None:
     """Phase 9's comparison of one step on the CPU and on the card: the loss
     (_loss_result), then every gradient and updated leaf within 2e-4 *
-    max(1, max|ref|)."""
+    max(1, max|ref|).  With ``rate`` (path -> the leaf's learning rate;
+    phase 17, whose heads train at lr x lr_mult = 1e-3) the updated leaves
+    are held as AdamW's first step moves them, each element by about its
+    rate times the sign of its gradient: within 2% of the rate where the
+    gradient is firm (above 1e-4 of its tensor's largest and of the model's
+    largest), within 2.5 x the rate where a rounding-level gradient may
+    take either sign (tests/test_torch_downstream.py's rule)."""
     _loss_result(tag, results, dev)
     (_, g_ref, p_ref, _), (_, g_gpu, p_gpu, _) = results["cpu"], results[str(dev)]
 
@@ -1890,7 +1927,24 @@ def _train_results(tag, results: dict, dev, lr: float) -> None:
             w = max(w, (path, err / tol), key=lambda t: t[1])
         return w
 
-    wg, wp = worst(g_gpu, g_ref, "gradient"), worst(p_gpu, p_ref, "updated leaf")
+    def worst_adamw(ours, ref):
+        """(path, error / bound) of the worst leaf under AdamW's bounds."""
+        check(set(ours) == set(ref), "updated leaf: leaves differ")
+        top = max(float(np.abs(g).max()) for g in g_ref.values())
+        w = ("", 0.0)
+        for path, r in ref.items():
+            err = np.abs(ours[path] - r)
+            g = np.abs(g_ref[path]) if path in g_ref else np.zeros_like(r)
+            firm = (g > 1e-4 * max(float(g.max()), 1e-30)) & (g > 1e-4 * top)
+            ratio = max(float(err[firm].max(initial=0.0)) / (0.02 * rate(path)),
+                        float(err.max()) / (2.5 * rate(path)))
+            check(ratio <= 1.0, f"updated leaf {path}: {float(err.max())} beyond AdamW's "
+                                f"bounds at rate {rate(path)}")
+            w = max(w, (path, ratio), key=lambda t: t[1])
+        return w
+
+    wg = worst(g_gpu, g_ref, "gradient")
+    wp = worst(p_gpu, p_ref, "updated leaf") if rate is None else worst_adamw(p_gpu, p_ref)
     if "proj_queue_ptr" in p_ref:
         check(int(p_gpu["proj_queue_ptr"]) == int(p_ref["proj_queue_ptr"]) == N_CPU, "pointer")
     trained = [p for p in g_ref if not p.startswith("k_")]
@@ -1899,8 +1953,10 @@ def _train_results(tag, results: dict, dev, lr: float) -> None:
     leaves = ("parameters, twins, queue; pointer " + str(N_CPU) if "proj_queue_ptr" in p_ref
               else "parameters, BatchNorm running statistics"
               if any(p.endswith("running_var") for p in p_ref) else "parameters")
+    bounds = ("2e-4 * max(1, max|ref|)" if rate is None
+              else "2e-4 * max(1, max|ref|) (gradients) and AdamW's bounds (leaves)")
     print(f"{tag} {len(g_ref)} gradients and {len(p_ref)} updated leaves ({leaves}) within "
-          f"2e-4 * max(1, max|ref|): worst gradient {wg[0]} at {wg[1]:.4g} of its bound, "
+          f"{bounds}: worst gradient {wg[0]} at {wg[1]:.4g} of its bound, "
           f"worst leaf {wp[0]} at {wp[1]:.6f}; {near:.6f} of the trained elements within "
           f"2% of the rate {lr}")
 
@@ -1911,11 +1967,11 @@ def _step_result(ts, metrics, t0) -> tuple:
             leaves_to_jax(ts.model), time.perf_counter() - t0)
 
 
-# the depth of the task_moco fp32 steps against the CPU (phases 9, 11, 14):
+# the depth of the fp32 steps against the CPU (phases 9, 11, 14 and 17):
 # their CPU steps are most of those phases' time, every op runs at full
 # width at any depth, and phase 16's fp32 step runs the default blocks at
-# all 12 layers
-SLICE_LAYERS = 6
+# all 12 layers (6 until phase 17 added three such steps)
+SLICE_LAYERS = 3
 
 
 def phase_train_slice(dev, config: str = "default") -> None:
@@ -2015,12 +2071,13 @@ def attacked_batch(cfg, model, batch, mix: str) -> tuple:
     return greedy, out, sents
 
 
-def attack_launches(stats: dict, num_layers: int) -> dict:
+def attack_launches(stats: dict, num_layers: int, passes: int = 1) -> dict:
     """Block-op launches of one greedy attack from its own count: every
     gradient pass runs the deterministic forward and the dx backward of each
-    block, every scoring forward the deterministic forward."""
+    block, every scoring forward the deterministic forward; ``passes``
+    forwards each (NLVR2: one per image)."""
     from rmcl_tpu_torch.ops import fused_block as FB
-    g, s = stats["grad_passes"], stats["score_forwards"]
+    g, s = stats["grad_passes"] * passes, stats["score_forwards"] * passes
     return {**dict.fromkeys(FB.launches, 0), "attn_half": num_layers * (g + s),
             "mlp_half": num_layers * (g + s), "attn_half_dx": num_layers * g,
             "mlp_half_dx": num_layers * g}
@@ -2140,7 +2197,8 @@ def phase_train_attacked_slice(dev) -> None:
     attacked_slice(dev, "[train attacked slice]", cfg32, moco_model(cfg32))
 
 
-def attacked_slice(dev, tag, cfg32, base, seam: bool = False) -> None:
+def attacked_slice(dev, tag, cfg32, base, seam: bool = False, batch_fn=None,
+                   rate=None) -> None:
     """One fp32 attacked step of ``cfg32`` on 4 pairs from the weights of
     ``base``, on the CPU and on the card, the same batch and dropout seeds:
     the attacked token ids (or, where they part, a tie within 2e-4 *
@@ -2148,10 +2206,12 @@ def attacked_slice(dev, tag, cfg32, base, seam: bool = False) -> None:
     (task_barlowtwins) the loss and ids are the attacked step's, and the
     gradients, updated leaves and running statistics held to
     _train_results' tolerances are those of a second card step on the CPU's
-    ids, cut at the head's input (HeadSeam)."""
+    ids, cut at the head's input (HeadSeam).  ``batch_fn`` makes the batch
+    (default ``train_batch``; phase 17: ``downstream_batch``); ``rate`` as
+    _train_results takes it."""
     from rmcl_tpu_torch.train.step import (create_train_state, make_attacked_train_step,
                                            make_train_step)
-    batch0 = train_batch(cfg32, N_CPU, SEED + 4, "cpu")
+    batch0 = (batch_fn or train_batch)(cfg32, N_CPU, SEED + 4, "cpu")
     results, attacked, records, seams = {}, {}, {}, {}
     for where in ("cpu", dev):
         ts = create_train_state(cfg32, model=copy.deepcopy(base), device=where)
@@ -2231,7 +2291,7 @@ def attacked_slice(dev, tag, cfg32, base, seam: bool = False) -> None:
             metrics = make_train_step(cfg32, ts)(on_cpu_ids(where),
                                                  torch.Generator().manual_seed(SEED + 8))
             results[str(where)] = _step_result(ts, metrics, t0)
-    _train_results(tag, results, dev, cfg32.learning_rate)
+    _train_results(tag, results, dev, cfg32.learning_rate, rate)
 
 
 class _Seam(torch.autograd.Function):
@@ -2323,23 +2383,59 @@ TRAINER_VAL = PGD_BATCH                   # validation pairs: one batch
 TRAINER_DIR = "chip_smoke_trainer.tmp"    # checkpoints, removed at the end
 
 
-class MemoryCaptions:
-    """Captions and u8 images in memory, in ``ArrowDataset.__getitem__``'s
-    sample format (the card's machine has no pyarrow or PIL): each image
-    already resized to a /32 size within the bucket."""
+class MemoryDataset:
+    """Samples in memory in the arrow datasets' format (the card's machine
+    has no pyarrow or PIL): caption i with image i // captions_per_image,
+    each image already resized to a /32 size within the bucket;
+    ``extra(i)`` adds sample i's task keys.  ``get_text``, ``get_image`` and
+    ``index_mapper`` serve the recall."""
 
-    def __init__(self, tokenizer, captions, images, max_text_len):
-        self.tok, self.captions, self.images, self.T = tokenizer, captions, images, max_text_len
+    def __init__(self, tokenizer, texts, images, max_text_len, captions_per_image=1,
+                 extra=None):
+        self.tok, self.texts, self.images, self.T = tokenizer, texts, images, max_text_len
+        self.k, self.extra = captions_per_image, extra or (lambda i: {})
+        self.index_mapper = {i: (i // self.k, i % self.k) for i in range(len(texts))}
 
     def __len__(self):
-        return len(self.captions)
+        return len(self.texts)
 
-    def __getitem__(self, i):
-        text = self.captions[i]
+    def get_text(self, i):
+        text = self.texts[i]
         enc = self.tok(text, padding="max_length", truncation=True, max_length=self.T,
                        return_special_tokens_mask=True)
-        return {"image": [self.images[i]], "text": (text, enc), "img_index": i,
-                "cap_index": 0, "raw_index": i, "replica": False}
+        return {"text": (text, enc), "img_index": i // self.k, "cap_index": i % self.k,
+                "raw_index": i}
+
+    def get_image(self, i):
+        return {"image": [self.images[i // self.k]], "img_index": i // self.k}
+
+    def __getitem__(self, i):
+        return {**self.get_image(i), **self.get_text(i), "replica": False, **self.extra(i)}
+
+
+def memory_datamodule(make_dataset, answers=None):
+    """A MultitaskDataModule class whose datasets are ``make_dataset(tokenizer,
+    split)``; ``answers`` is the VQA answer table, when there is one."""
+    from rmcl_tpu_torch.data.datamodule import MultitaskDataModule
+
+    class MemoryDataModule(MultitaskDataModule):
+        def _make_dataset(self, name, split, no_false=False):
+            return make_dataset(self.tokenizer, split)
+
+        def _build_answer_vocab(self):
+            self.answer2id = {a: i for i, a in enumerate(answers or [])}
+            self.id2answer = dict(enumerate(answers or []))
+
+    return MemoryDataModule
+
+
+def memory_images(cfg, n: int, seed: int) -> list:
+    """n seeded u8 images of /32 sizes from a half to all of the bucket."""
+    r = np.random.RandomState(seed)
+    H, W = cfg.image_bucket_hw
+    return [r.randint(0, 256, (32 * r.randint(H // 64, H // 32 + 1),
+                               32 * r.randint(W // 64, W // 32 + 1), 3), np.uint8)
+            for _ in range(n)]
 
 
 def trainer_setup(dev, d: str, bt: bool = False) -> tuple:
@@ -2349,7 +2445,6 @@ def trainer_setup(dev, d: str, bt: bool = False) -> tuple:
     under ``d``, its worst-mix captions, seeded ragged u8 images.  ``bt``:
     phase 16's, task_barlowtwins as its attacked step runs it, one optimizer
     step."""
-    from rmcl_tpu_torch.data.datamodule import MultitaskDataModule
     opt_steps = BT_TRAINER_OPT_STEPS if bt else TRAINER_OPT_STEPS
     n_train = PGD_BATCH * TRAINER_ACCUM * opt_steps
     base = bt_config() if bt else train_config()
@@ -2358,20 +2453,12 @@ def trainer_setup(dev, d: str, bt: bool = False) -> tuple:
         tokenizer=f"{d}/vocab.txt", embedding_path=f"{d}/vectors.txt", sim_path="",
         batch_size=PGD_BATCH * TRAINER_ACCUM, per_device_batchsize=PGD_BATCH,
         max_steps=opt_steps, max_epoch=1)
-    r = np.random.RandomState(SEED + 9)
-    H, W = cfg.image_bucket_hw
-    images = [r.randint(0, 256, (32 * r.randint(H // 64, H // 32 + 1),
-                                 32 * r.randint(W // 64, W // 32 + 1), 3), np.uint8)
-              for _ in sents]
+    images = memory_images(cfg, len(sents), SEED + 9)
     split = {"train": slice(0, n_train), "val": slice(n_train, None),
              "test": slice(n_train, None)}
-
-    class MemoryDataModule(MultitaskDataModule):
-        def _make_dataset(self, name, split_, no_false=False):
-            s = split[split_]
-            return MemoryCaptions(self.tokenizer, sents[s], images[s], cfg.max_text_len)
-
-    return cfg, MemoryDataModule, (bt_model(cfg) if bt else moco_model(cfg))
+    dm_cls = memory_datamodule(lambda tok, s: MemoryDataset(
+        tok, sents[split[s]], images[split[s]], cfg.max_text_len))
+    return cfg, dm_cls, (bt_model(cfg) if bt else moco_model(cfg))
 
 
 def expected_eval_launches(cfg) -> dict:
@@ -2810,6 +2897,336 @@ def phase_trainer_bt(dev, bare: dict) -> dict:
         shutil.rmtree(root, ignore_errors=True)
 
 
+# ------------------------------------------------------------ downstream
+DOWNSTREAM = {  # task -> the named configuration phase 17 trains it under
+    "vqa_attacked": "task_finetune_vqa_randaug_attacked",
+    "nlvr2_attacked": "task_finetune_nlvr2_randaug_attacked",
+    "irtr": "task_finetune_irtr_coco",
+}
+DOWNSTREAM_STEPS = 2                    # timed steps per path, after one warm-up
+IRTR_IMAGES = 8                         # x (1 + draw_false_text 15) texts: 128 rows
+IRTR_CPU_IMAGES = 1                     # the fp32 check's: 16 rows
+RECALL_IMAGES, RECALL_CAPTIONS = 8, 5   # 40 texts
+WRITER_QUESTIONS = PGD_BATCH
+DOWNSTREAM_DIR = "chip_smoke_downstream.tmp"   # the writer's file and vocabulary, removed
+
+
+def downstream_config(task: str, **kw):
+    """``task``'s named configuration as phase 17 runs it: ViLT-B/32 at full
+    width and depth, every patch (max_image_len -1: S = 40 + 229), image and
+    text views on, drop_rate 0.1, warmup 0, bf16."""
+    from rmcl_tpu_torch import build_config
+    return build_config(DOWNSTREAM[task], image_view=True, text_view=True, drop_rate=DROP_P,
+                        warmup_steps=0, max_steps=1000, **kw)
+
+
+def _has(cfg, prefix: str) -> bool:
+    from rmcl_tpu_torch.core.config import active_tasks
+    return any(t.startswith(prefix) for t in active_tasks(cfg))
+
+
+def downstream_batch(cfg, n: int, seed: int, dev) -> dict:
+    """``train_batch`` plus the keys of cfg's downstream task: seeded VQA
+    soft targets (three answers per question), NLVR2's two images and its
+    labels, IRTR's ``draw_false_text`` false texts."""
+    batch = train_batch(cfg, n, seed, dev)
+    r = np.random.RandomState(seed + 200)
+    if _has(cfg, "vqa"):
+        t = np.zeros((n, cfg.vqav2_label_size), np.float32)
+        for i in range(n):
+            t[i, r.choice(cfg.vqav2_label_size, 3, replace=False)] = (1.0, 0.6, 0.3)
+        batch["vqa_targets"] = torch.from_numpy(t).to(dev)
+    if _has(cfg, "nlvr2"):
+        batch["image_0"] = batch.pop("image")
+        batch["image_1"] = pgd_batch(cfg, n, seed + 1, dev)["image"]
+        batch["answers"] = torch.from_numpy(r.randint(0, 2, n).astype(np.int32)).to(dev)
+    if _has(cfg, "irtr"):
+        for i in range(cfg.draw_false_text):
+            other = pgd_batch(cfg, n, seed + 10 + i, dev)
+            batch[f"false_text_{i}_ids"] = other["text_ids"]
+            batch[f"false_text_{i}_masks"] = other["text_masks"]
+    return batch
+
+
+def downstream_launches(cfg, task: str, stats=None) -> dict:
+    """Block-op launches of one step of a downstream task (default blocks,
+    drop_rate > 0): PGD's forwards and dx backwards per image, the training
+    forwards and backwards (VQA one, NLVR2 two per pass and two passes,
+    IRTR one over B x 16 rows) and their embedding dropouts (text and image
+    each way; IRTR's image embedding takes none), plus the greedy attack's
+    own count (``stats``), two forwards a pass for NLVR2."""
+    from rmcl_tpu_torch.ops import fused_block as FB
+    L, A = cfg.num_layers, cfg.adv_steps_img
+    images = 2 if task.startswith("nlvr2") else 1
+    pgd = A * images * L if task.endswith("_attacked") and cfg.image_view else 0
+    n_t = {"vqa_attacked": 1, "nlvr2_attacked": 4, "irtr": 1}[task]
+    want = dict.fromkeys(FB.launches, 0)
+    want.update(attn_half=pgd, mlp_half=pgd, attn_half_dx=pgd, mlp_half_dx=pgd,
+                attn_half_train=n_t * L, attn_half_train_bwd=n_t * L,
+                mlp_half_train=n_t * L, mlp_half_train_bwd=n_t * L,
+                dropout=n_t * (2 if task == "irtr" else 4))
+    if stats is not None:
+        attack = attack_launches(stats, L, images)
+        want = {k: v + attack[k] for k, v in want.items()}
+    return want
+
+
+def _device_busy_ms(fn) -> float:
+    """Device busy time of one call of ``fn``: the CUDA kernels' own time
+    under torch.profiler."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    return sum(_device_us(e) for e in prof.key_averages()
+               if e.device_type == DeviceType.CUDA) / 1e3
+
+
+def phase_downstream_step(dev, task: str, mix=None) -> tuple:
+    """Phase 17: one downstream task's step at full width, bf16: the attacked
+    step (the fused greedy attack on ``mix``'s captions, PGD, the training
+    forwards) for vqa_attacked and nlvr2_attacked on 16 pairs, the clean
+    step for irtr on 8 images x 16 texts.  Returns (launches of a step, its
+    readings)."""
+    from rmcl_tpu_torch.ops import fused_block as FB
+    from rmcl_tpu_torch.serve import seeded_model
+    from rmcl_tpu_torch.train.step import (create_train_state, make_attacked_train_step,
+                                           make_train_step)
+    t0 = time.perf_counter()
+    cfg = downstream_config(task)
+    n = IRTR_IMAGES if task == "irtr" else PGD_BATCH
+    ts = create_train_state(cfg, model=seeded_model(cfg, SEED), device=dev)
+    model = ts.model
+    batch = downstream_batch(cfg, n, SEED + 4, dev)
+    greedy = None
+    if mix is not None:
+        greedy, batch, _ = attacked_batch(cfg, model, batch, mix)
+        step = make_attacked_train_step(cfg, ts, greedy)
+    else:
+        step = make_train_step(cfg, ts)
+    tag = f"[downstream {task}{' ' + mix if mix else ''}]"
+    rows = n * (cfg.draw_false_text + 1) if task == "irtr" else n
+    print(f"{tag} {DOWNSTREAM[task]}, blocks {model.block_impls}, S = {cfg.max_text_len} + "
+          f"{cfg.grid_hw[0] * cfg.grid_hw[1] + 1}, {n} {'images' if task == 'irtr' else 'pairs'}"
+          f" ({rows} rows), drop_rate {cfg.drop_rate}, "
+          + (f"PGD {cfg.adv_steps_img} steps, the greedy attack inside the step on {mix} "
+             f"captions (n_candidates {cfg.n_candidates}, max_loops {cfg.max_loops}, "
+             f"greedy_compact_frac {cfg.greedy_compact_frac}), text bucket "
+             f"{batch['gw_tbucket'].shape[1]}" if mix else "the clean step")
+          + f"; state ready in {time.perf_counter() - t0:.1f} s")
+    gen = torch.Generator().manual_seed(SEED + 7)
+    step(batch, gen)                                        # warm-up
+    gc.collect()
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    walls, events, stats = [], [], []
+    for it in range(DOWNSTREAM_STEPS):
+        before = {n_: p.detach().clone() for n_, p in model.named_parameters()}
+        FB.reset_launches()
+        e0, e1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        e0.record()
+        metrics = step(batch, gen)
+        e1.record()
+        torch.cuda.synchronize()
+        walls.append((time.perf_counter() - t) * 1e3)
+        events.append(e0.elapsed_time(e1))
+        counts = dict(FB.launches)
+        st = dict(greedy.last_stats) if greedy is not None else None
+        stats.append(st)
+        want = downstream_launches(cfg, task, st)
+        check(counts == want, f"{tag} step {it}: launches {counts}, expected {want}")
+        counts = check_sub_launches(f"{tag} step {it}", counts, FB)
+        vals = {k: v.item() for k, v in metrics.items()}
+        bad = [k for k, v in vals.items() if not np.isfinite(v)]
+        check(not bad, f"{tag} step {it}: non-finite metrics {bad}")
+        # the loss reaches every parameter but MPP's mask_token and, for IRTR,
+        # the ITM head of the inactive itm loss
+        learnt = [n_ for n_, p in model.named_parameters()
+                  if p.grad is not None and bool(p.grad.abs().max() > 0)]
+        still = [n_ for n_ in learnt
+                 if torch.equal(dict(model.named_parameters())[n_].detach(), before[n_])]
+        check(learnt and not still, f"{tag} step {it}: {still[:3]} did not move")
+        print(f"{tag} step {it}: " + " ".join(f"{k}={v!r}" for k, v in sorted(vals.items()))
+              + (f"; attack {st}" if st else "") + f"; the {len(learnt)} parameters the loss "
+              f"reaches moved; {walls[-1]:.1f} ms")
+    busy = _device_busy_ms(lambda: step(batch, gen))
+    ms, ev = statistics.median(walls), statistics.median(events)
+    mem = torch.cuda.max_memory_allocated() / 2 ** 30
+    print(f"{tag} launches per step {counts}: every block through the kernels")
+    print(f"{tag} step {ms!r} ms (median of {DOWNSTREAM_STEPS}, host clock + synchronize; "
+          f"{ev!r} ms between CUDA events), device busy {busy!r} ms (torch.profiler, one "
+          f"step), {n / ms * 1e3!r} {'images' if task == 'irtr' else 'pairs'}/s; "
+          f"max_memory_allocated {mem:.2f} GiB")
+    out = {"ms": ms, "device_ms": busy, "mem_gib": mem}
+    if stats[0] is not None:
+        out.update(loops=statistics.median(s_["loops"] for s_ in stats),
+                   host_reads=statistics.median(s_["host_reads"] for s_ in stats),
+                   num_changes=vals["num_changes"], change_rate=vals["change_rate"])
+    if "nlvr2_flip_rate" in vals:
+        out["flip_rate"] = vals["nlvr2_flip_rate"]
+    return counts, out
+
+
+def phase_downstream_slice(dev, task: str) -> None:
+    """Phase 17's fp32 check of ``task``: one step of 4 pairs (IRTR: one
+    image x 16 texts) at SLICE_LAYERS, the card's kernels against the CPU's
+    plain ops from the same weights, batch and dropout seeds: the attacked
+    token ids equal (attacked_slice), the loss within 1e-5 relative, every
+    gradient within 2e-4 * max(1, max|ref|), every updated parameter within
+    AdamW's bounds at its rate (the heads at lr x lr_mult)."""
+    from rmcl_tpu_torch.serve import seeded_model
+    from rmcl_tpu_torch.train.step import create_train_state, make_train_step
+    tag = f"[downstream slice {task}]"
+    from rmcl_tpu_torch.train.schedule import HEAD_NAMES
+    cfg32 = downstream_config(task).replace(compute_dtype="float32", num_layers=SLICE_LAYERS)
+    base = seeded_model(cfg32, SEED)
+
+    def rate(path):
+        head = any(h in path for h in HEAD_NAMES)
+        return cfg32.learning_rate * (cfg32.lr_mult if head else 1)
+
+    if task.endswith("_attacked"):
+        attacked_slice(dev, tag, cfg32, base, batch_fn=downstream_batch, rate=rate)
+        return
+    # one image and its 16 texts: as many rows as task_moco's fp32 step runs
+    batch = downstream_batch(cfg32, IRTR_CPU_IMAGES, SEED + 4, "cpu")
+    results = {}
+    for where in ("cpu", dev):
+        ts = create_train_state(cfg32, model=copy.deepcopy(base), device=where)
+        t0 = time.perf_counter()
+        metrics = make_train_step(cfg32, ts)({k: v.to(where) for k, v in batch.items()},
+                                             torch.Generator().manual_seed(SEED + 8))
+        results[str(where)] = _step_result(ts, metrics, t0)
+    _train_results(tag, results, dev, cfg32.learning_rate, rate)
+
+
+def _memory_trainer(dev, cfg, make_dataset, model, answers=None):
+    """A Trainer on the card, set up, over ``memory_datamodule``."""
+    from rmcl_tpu_torch.train.loop import Trainer
+    tr = Trainer(cfg, workdir=cfg.log_dir,
+                 datamodule=memory_datamodule(make_dataset, answers)(cfg), device=dev)
+    tr.setup(model=model)
+    return tr
+
+
+def phase_downstream_writer(dev, root: Path) -> dict:
+    """Phase 17: Trainer.validate("test") for task_finetune_vqa_randaug_attacked
+    on 16 questions in memory: the greedy attack and PGD of the eval step,
+    the submission file in log_dir with one answer per question, each one of
+    the answer table's.  Returns its launches."""
+    from rmcl_tpu_torch.ops import fused_block as FB
+    from rmcl_tpu_torch.serve import seeded_model
+    tag = "[downstream vqa writer]"
+    base = downstream_config("vqa_attacked")
+    _, _, sents = greedy_setup(base, WRITER_QUESTIONS, GREEDY_SLICE_MIX, keep_dir=str(root))
+    cfg = base.replace(tokenizer=f"{root}/vocab.txt", embedding_path=f"{root}/vectors.txt",
+                       sim_path="", batch_size=PGD_BATCH, log_dir=str(root / "log"))
+    images = memory_images(cfg, WRITER_QUESTIONS, SEED + 11)
+    answers = [f"answer{i}" for i in range(cfg.vqav2_label_size)]
+
+    def vqa_keys(i):
+        return {"vqa_answer": [], "vqa_labels": [], "vqa_scores": [], "qid": 1000 + i}
+
+    def make(tok, split):
+        return MemoryDataset(tok, sents, images, cfg.max_text_len, extra=vqa_keys)
+
+    t0 = time.perf_counter()
+    tr = _memory_trainer(dev, cfg, make, seeded_model(cfg, SEED), answers)
+    torch.cuda.synchronize()
+    FB.reset_launches()
+    t = time.perf_counter()
+    tr.validate("test")
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t
+    counts = dict(FB.launches)
+    path = Path(cfg.log_dir) / f"vqa_submit_{cfg.exp_name}.json"
+    check(path.is_file(), f"{tag} no submission at {path}")
+    rows = json.loads(path.read_text())
+    check(sorted(r["question_id"] for r in rows) == [1000 + i for i in range(WRITER_QUESTIONS)]
+          and all(r["answer"] in answers for r in rows), f"{tag} the submission {rows[:3]}")
+    check(counts["attn_half"] > 0 and counts["attn_half_dx"] > 0,
+          f"{tag} launches {counts}: the eval step's attacks ran no kernel")
+    counts = check_sub_launches(tag, counts, FB)
+    print(f"{tag} validate('test') on {WRITER_QUESTIONS} questions ({GREEDY_SLICE_MIX} "
+          f"captions; the greedy attack {tr.greedy.last_stats}, PGD, the eval forward) wrote "
+          f"{path.name}: {len(rows)} answers, e.g. {rows[0]}; {wall:.2f} s (setup "
+          f"{t - t0:.1f} s); launches {counts}")
+    return counts
+
+
+def phase_downstream_recall(dev, root: Path) -> tuple:
+    """Phase 17: the IR/TR recall on 8 images x 5 captions in memory: clean
+    (compute_irtr_recall) and attacked (compute_attacked_irtr_recall: the
+    fused greedy IRTR attack on the captions, the IRTR PGD on each image),
+    irtr beside irtr_attacked (rank_output and the MoCo head).  Returns
+    (clean launches, attacked launches, readings)."""
+    from rmcl_tpu_torch.core.config import loss_names
+    from rmcl_tpu_torch.eval import retrieval
+    from rmcl_tpu_torch.ops import fused_block as FB
+    from rmcl_tpu_torch.serve import seeded_model
+    tag = "[downstream recall]"
+    n_txt = RECALL_IMAGES * RECALL_CAPTIONS
+    base = downstream_config("irtr", loss_names=loss_names({"irtr": 1, "irtr_attacked": 1}))
+    _, _, sents = greedy_setup(base, n_txt, TRAINER_MIX, keep_dir=str(root))
+    cfg = base.replace(tokenizer=f"{root}/vocab.txt", embedding_path=f"{root}/vectors.txt",
+                       sim_path="", batch_size=PGD_BATCH, log_dir=str(root / "log"))
+    images = memory_images(cfg, RECALL_IMAGES, SEED + 12)
+
+    def make(tok, split):
+        return MemoryDataset(tok, sents, images, cfg.max_text_len, RECALL_CAPTIONS)
+
+    tr = _memory_trainer(dev, cfg, make, seeded_model(cfg, SEED))
+    out, counts = {}, {}
+    for name, fn in (("clean", lambda: retrieval.compute_irtr_recall(tr, return_scores=True)),
+                     ("attacked", lambda: retrieval.compute_attacked_irtr_recall(
+                         tr, max_texts=n_txt, return_scores=True))):
+        fn()                                              # warm-up
+        torch.cuda.synchronize()
+        FB.reset_launches()
+        t = time.perf_counter()
+        recall, scores, _, _ = fn()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t
+        counts[name] = check_sub_launches(f"{tag} {name}", dict(FB.launches), FB)
+        check(scores.shape == (RECALL_IMAGES, n_txt) and np.isfinite(scores).all()
+              and all(0.0 <= r <= 1.0 for r in recall), f"{tag} {name}: {recall}")
+        check(counts[name]["attn_half"] >= RECALL_IMAGES * cfg.num_layers,
+              f"{tag} {name}: launches {counts[name]}")
+        out[name] = {"s": wall, "s_per_image": wall / RECALL_IMAGES, "recall": recall}
+        print(f"{tag} {name}: {RECALL_IMAGES} images x {n_txt} texts, (ir_r1, ir_r5, ir_r10, "
+              f"tr_r1, tr_r5, tr_r10) = {recall}; {wall!r} s ({wall / RECALL_IMAGES!r} s per "
+              f"image); launches {counts[name]}")
+    check(counts["attacked"]["attn_half_dx"] > 0, f"{tag} the attacks ran no dx kernel")
+    return counts["clean"], counts["attacked"], out
+
+
+def phase_downstream(dev) -> dict:
+    """Phase 17 whole: the attacked VQA and NLVR2 steps on both caption mixes,
+    the IRTR step, the fp32 checks, the VQA writer and the two recalls.
+    Returns the launches by path."""
+    import shutil
+    counts = {}
+    for task in ("vqa_attacked", "nlvr2_attacked"):
+        for mix in GREEDY_MIXES:
+            counts[f"{task}_{mix}"] = phase_downstream_step(dev, task, mix)[0]
+    counts["irtr"] = phase_downstream_step(dev, "irtr")[0]
+    for task in DOWNSTREAM:
+        phase_downstream_slice(dev, task)
+    root = Path(DOWNSTREAM_DIR).resolve()
+    shutil.rmtree(root, ignore_errors=True)
+    try:
+        root.mkdir()
+        counts["vqa_writer"] = phase_downstream_writer(dev, root)
+        counts["recall"], counts["recall_attacked"], _ = phase_downstream_recall(dev, root)
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    return counts
+
+
 # --------------------------------------------------------------- profile
 def _device_us(evt) -> float:
     for attr in ("self_device_time_total", "self_cuda_time_total"):
@@ -3144,8 +3561,20 @@ def main() -> int:
             print(f"chip_smoke --profile: FAILED: {e}", file=sys.stderr)
             return 1
         return 0
+    if sys.argv[1:] == ["--downstream"]:
+        try:
+            from rmcl_tpu_torch import build_config  # noqa: F401
+            card = phase_device()
+            phase_build()
+            counts = phase_downstream(torch.device("cuda", 0))
+        except Exception as e:  # noqa: BLE001  any failure ends the run
+            traceback.print_exc()
+            print(f"chip_smoke --downstream: FAILED: {e}", file=sys.stderr)
+            return 1
+        print(json.dumps({"card": card, "launches_by_path": counts}))
+        return 0
     if sys.argv[1:]:
-        print("usage: python3 chip_smoke.py [--profile | --gemm-times [ROOT]]",
+        print("usage: python3 chip_smoke.py [--profile | --gemm-times [ROOT] | --downstream]",
               file=sys.stderr)
         return 2
     try:
@@ -3204,6 +3633,8 @@ def main() -> int:
         phase_bt_slice(dev)
         phase = "bt trainer"
         bt_trainer_counts = phase_trainer_bt(dev, bt_bare[TRAINER_MIX])
+        phase = "downstream"
+        ds_counts = phase_downstream(dev)
     except Exception as e:  # noqa: BLE001  every phase failure ends the run
         traceback.print_exc()
         print(f"chip_smoke: FAILED in phase {phase}: {e}", file=sys.stderr)
@@ -3223,7 +3654,8 @@ def main() -> int:
                 "trainer": trainer_counts[name],
                 "bt_attacked": bt_counts["worst"][name],
                 "bt_attacked_realistic": bt_counts["realistic"][name],
-                "bt_trainer": bt_trainer_counts[name]}
+                "bt_trainer": bt_trainer_counts[name],
+                **{f"downstream_{k}": v[name] for k, v in ds_counts.items()}}
 
     records = []
     for name, replaces in KERNELS.items():

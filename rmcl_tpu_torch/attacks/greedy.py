@@ -1,8 +1,8 @@
 """Gradient-guided greedy word-substitution attack, host orchestrator (port of
 ``rmcl_tpu/attacks/greedy.py``: ``check_word``, ``SynonymTable``,
-``WordnetSynonyms``, ``GreedyAttack``, ``GreedyAttackMoco`` and
-``GreedyAttackBarlowTwins``; the downstream tasks' attackers are not ported
-yet).
+``WordnetSynonyms``, ``GreedyAttack`` and the attackers of the five
+frameworks: ``GreedyAttackMoco``, ``GreedyAttackBarlowTwins``,
+``GreedyAttackNlvr2``, ``GreedyAttackVqa`` and ``GreedyAttackIrtr``).
 
 Behavioural spec: reference attack/greedy_attack_vilt.py.  Per batch, per
 loop (<= max_loops):
@@ -26,8 +26,8 @@ saliency pass differentiates a deterministic forward through the block ops'
 dx-only backwards (``attn_half_dx`` / ``mlp_half_dx`` on the card); the
 scoring forward runs under ``no_grad``, so the ops keep nothing for a
 backward.  The image side does not change during an attack: its embedding
-is computed once per attack (``image_side``) and repeated for the candidate
-rows.  ``attacks/greedy_fused.py`` runs the whole loop on the device.
+is computed once per attack (``image_side``; NLVR2's two images each) and
+repeated for the candidate rows.  ``attacks/greedy_fused.py`` runs the whole loop on the device.
 """
 
 from __future__ import annotations
@@ -72,9 +72,6 @@ yourself yourselves
 """.split())
 
 SPECIAL = {"[PAD]", "[UNK]", "[CLS]", "[SEP]", "[MASK]"}
-
-# the batch entries of the image side that the candidate rows repeat
-IMAGE_KEYS = ("image_embeds", "image_masks")
 
 GREEDY_FRAMEWORKS = ("moco", "barlowtwins", "nlvr2_attacked",
                      "vqa_attacked", "irtr_attacked")
@@ -232,6 +229,8 @@ class GreedyAttack:
     # the candidates in chunks.  Subclasses whose loss couples the batch
     # must set this False.
     per_sample_independent = True
+    # the batch's images the attack embeds once (``image_side``)
+    image_keys = ("image",)
 
     def __init__(self, cfg, model, tokenizer, synonyms):
         self.cfg = cfg
@@ -264,10 +263,15 @@ class GreedyAttack:
         return per.reshape(B, nc)
 
     # --------------------------------------------------------- device fns
-    def infer(self, batch, mats, word_embeds=None):
-        """The deterministic query forward of an attack batch."""
-        return self.model.infer(batch, mats, image_embeds=batch["image_embeds"],
-                                image_masks=batch["image_masks"],
+    def infer(self, batch, mats, word_embeds=None, image_token_type_idx: int = 1):
+        """The deterministic query forward of an attack batch, on the image
+        side of ``image_{idx - 1}`` when the batch has it, else of ``image``
+        (``ViLT.infer``'s rule)."""
+        key = f"image_{image_token_type_idx - 1}"
+        key = key if f"{key}_embeds" in batch else "image"
+        return self.model.infer(batch, mats, image_embeds=batch[f"{key}_embeds"],
+                                image_masks=batch[f"{key}_masks"],
+                                image_token_type_idx=image_token_type_idx,
                                 word_embeds=word_embeds)
 
     def matrices(self, block_matrices=None):
@@ -276,16 +280,18 @@ class GreedyAttack:
 
     @torch.no_grad()
     def image_side(self, batch) -> Dict[str, torch.Tensor]:
-        """The image embedding of a wire-format batch, computed once per
-        attack: {"image_embeds", "image_masks"}."""
+        """The image embeddings of a wire-format batch, computed once per
+        attack: {"<key>_embeds", "<key>_masks"} for each of ``image_keys``."""
         from rmcl_tpu_torch.models.vit import normalize_u8
         m = self.model
-        img = batch["image"]
-        if img.dtype == torch.uint8:
-            img = normalize_u8(img, batch.get("image_hw"), m.grid_hw, m.patch_size)
-        emb, masks = m.transformer.visual_embed(img, m.grid_hw, m.max_image_len,
-                                                m.compute_dtype)
-        return {"image_embeds": emb, "image_masks": masks}
+        side = {}
+        for key in self.image_keys:
+            img = batch[key]
+            if img.dtype == torch.uint8:
+                img = normalize_u8(img, batch.get(f"{key}_hw"), m.grid_hw, m.patch_size)
+            side[f"{key}_embeds"], side[f"{key}_masks"] = m.transformer.visual_embed(
+                img, m.grid_hw, m.max_image_len, m.compute_dtype)
+        return side
 
     def grad_pass(self, batch, extras, mats):
         """(per-sample loss (B,), d mean-loss / d word embeddings (B, T, C) in
@@ -316,7 +322,8 @@ class GreedyAttack:
         scores = []
         for j in range(0, nc, ncg):
             n = min(ncg, nc - j)
-            flat = {k: batch[k].repeat_interleave(n, dim=0) for k in IMAGE_KEYS}
+            flat = {k: batch[k].repeat_interleave(n, dim=0) for k in batch
+                    if not k.startswith("text_")}
             flat["text_ids"] = cand_ids[:, j:j + n].reshape(B * n, T)
             flat["text_masks"] = cand_masks[:, j:j + n].reshape(B * n, T)
             scores.append(self.score_candidates(flat, B, n, extras, aux, mats))
@@ -543,5 +550,75 @@ class GreedyAttackBarlowTwins(GreedyAttack):
         return on_new + lam * (sum_sq_new - diag_new_sq)
 
 
-# the frameworks whose attacker is ported, and the attacker of each
-GREEDY_ATTACKERS = {"moco": GreedyAttackMoco, "barlowtwins": GreedyAttackBarlowTwins}
+class GreedyAttackNlvr2(GreedyAttack):
+    """Per-sample CE of the two-image pass (reference GreedyAttack_nlvr2
+    :835-1042).  extras = (labels (B,),)."""
+
+    image_keys = ("image_0", "image_1")
+
+    def loss_per_sample(self, batch, extras, mats, word_embeds=None):
+        (labels,) = extras
+        cls = [self.infer(batch, mats, word_embeds, i)["cls_feats"] for i in (1, 2)]
+        logits = self.model.nlvr2_classifier(torch.cat(cls, dim=-1))
+        logp = torch.log_softmax(logits.float(), dim=-1)
+        return -logp.gather(1, labels.long()[:, None])[:, 0], None
+
+    def tile_extras(self, extras, nc):
+        (labels,) = extras
+        return (labels.repeat_interleave(nc, dim=0),)
+
+    def compact_extras(self, extras, idx):
+        (labels,) = extras
+        return (labels[idx],)
+
+
+class GreedyAttackVqa(GreedyAttack):
+    """Per-sample BCE x label_size (reference GreedyAttack_vqa :1263-1478).
+    extras = (vqa_targets (B, label_size),)."""
+
+    def loss_per_sample(self, batch, extras, mats, word_embeds=None):
+        (targets,) = extras
+        logits = self.model.vqa_classifier(
+            self.infer(batch, mats, word_embeds)["cls_feats"]).float()
+        t = targets.float()
+        per = logits.clamp(min=0) - logits * t + torch.log1p(torch.exp(-logits.abs()))
+        return per.mean(dim=1) * targets.shape[1], None
+
+    def tile_extras(self, extras, nc):
+        (targets,) = extras
+        return (targets.repeat_interleave(nc, dim=0),)
+
+    def compact_extras(self, extras, idx):
+        (targets,) = extras
+        return (targets[idx],)
+
+
+class GreedyAttackIrtr(GreedyAttack):
+    """The JAX package's repaired IRTR attacker (the reference's,
+    GreedyAttack_irtr :1045-1260, reads undefined state): InfoNCE of each
+    joint projection against the in-batch text projections.
+    extras = (text_repr (B, 128), temperature, sample_ids (B,))."""
+
+    def loss_per_sample(self, batch, extras, mats, word_embeds=None):
+        text_repr, temperature, sample_ids = extras
+        cls = self.infer(batch, mats, word_embeds)["cls_feats"]
+        q = l2_normalize(self.model.moco_head(cls), dim=1).float()
+        logp = torch.log_softmax(q @ text_repr.float().t() / temperature, dim=-1)
+        return -logp.gather(1, sample_ids.long()[:, None])[:, 0], None
+
+    def tile_extras(self, extras, nc):
+        text_repr, temperature, sample_ids = extras
+        return (text_repr, temperature, sample_ids.repeat_interleave(nc, dim=0))
+
+    def compact_extras(self, extras, idx):
+        # the panel stays whole: sample i's loss reads its own row against
+        # all B text projections
+        text_repr, temperature, sample_ids = extras
+        return (text_repr, temperature, sample_ids[idx])
+
+
+# each framework's attacker (the JAX package's GreedyAttackNlvr2CrossEntropy,
+# which no configuration selects, is not ported: ROADMAP A11d)
+GREEDY_ATTACKERS = {"moco": GreedyAttackMoco, "barlowtwins": GreedyAttackBarlowTwins,
+                    "nlvr2_attacked": GreedyAttackNlvr2, "vqa_attacked": GreedyAttackVqa,
+                    "irtr_attacked": GreedyAttackIrtr}

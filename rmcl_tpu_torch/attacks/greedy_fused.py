@@ -237,7 +237,8 @@ class FusedGreedyAttack:
         word_len, attackable, cand_tok, cand_len, cand_valid, tbucket=None,
         block_matrices=None) -> (ids, masks, n_changed), ids and masks (B,
         max_text_len) int32, n_changed (B,) int32, all on the device.
-        ``batch``: ``image`` (+ ``image_hw`` for u8) on the model's device;
+        ``batch``: the attacker's images (``image``, or NLVR2's ``image_0`` and
+        ``image_1``; with their ``_hw`` for u8) on the model's device;
         ``block_matrices``: the query transformer's matrices in the compute
         type (else cast here)."""
         return self._attack

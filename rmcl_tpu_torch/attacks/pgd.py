@@ -1,5 +1,5 @@
 """PGD image attacks (port of ``rmcl_tpu/attacks/pgd.py``: moco, barlowtwins,
-vqa, irtr).
+nlvr2, vqa, irtr).
 
 Behavioural spec: reference attack/pgd_attack_vilt.py.  The attack
 differentiates a deterministic forward with respect to a pixel perturbation
@@ -29,7 +29,8 @@ image because the complement is identically zero.  ``fast=False`` embeds
 
 Each ``make_pgd_*`` returns ``attack(batch, ...)`` that freezes the model's
 parameters for its duration and returns delta in the batch's image layout
-(patch rows).  The batch's image is normalised float patch rows.
+(patch rows); NLVR2's returns one delta per image.  The batch's images are
+normalised float patch rows.
 """
 
 from __future__ import annotations
@@ -41,7 +42,7 @@ import torch
 
 from rmcl_tpu_torch.models.vit import scatter_delta
 from rmcl_tpu_torch.objectives.contrastive import bt_correlation_loss, infonce
-from rmcl_tpu_torch.objectives.losses import bce_with_logits, l2_normalize
+from rmcl_tpu_torch.objectives.losses import bce_with_logits, cross_entropy, l2_normalize
 
 
 @contextlib.contextmanager
@@ -57,14 +58,16 @@ def _frozen(model: torch.nn.Module):
             p.requires_grad_(flag)
 
 
-def _fast_visual(model, batch, block_matrices):
-    """The per-iteration forward of the hoisted-geometry path.
+def _fast_visual(model, batch, block_matrices, imgkey: str = "image",
+                 image_token_type_idx: int = 1):
+    """The per-iteration forward of the hoisted-geometry path for the image
+    under ``imgkey``, embedded with token type ``image_token_type_idx``.
 
     Returns (fwd, delta_shape, to_full): fwd(delta_sel) runs the full infer
     with delta applied in selected-patch space, delta_shape is delta's
     (B, L, P*P*3) shape, and to_full(delta_sel) expands delta back to the
     batch's patch rows."""
-    img = batch["image"]
+    img = batch[imgkey]
     if img.dim() != 3 or not img.is_floating_point():
         raise ValueError("the attack takes normalised float patch rows (B, N, P*P*3)")
     tr = model.transformer
@@ -73,7 +76,8 @@ def _fast_visual(model, batch, block_matrices):
 
     def fwd(delta_sel):
         emb, xm = tr.visual_embed_from_prep(prep, delta_sel, model.compute_dtype)
-        return model.infer(batch, block_matrices, image_embeds=emb, image_masks=xm)
+        return model.infer(batch, block_matrices, image_embeds=emb, image_masks=xm,
+                           image_token_type_idx=image_token_type_idx)
 
     return fwd, prep.rows_sel.shape, lambda d: scatter_delta(prep, d)
 
@@ -97,6 +101,21 @@ def _pgd_loop(loss_of_delta: Callable, shape, dtype, device,
             grad, = torch.autograd.grad(loss_of_delta(delta), delta)
         delta = _linf_normalised_step(delta.detach(), grad, adv_lr, max_norm)
     return delta
+
+
+def _pgd_loop2(loss_of_deltas: Callable, shapes, dtype, device, adv_steps: int,
+               adv_lr: float, max_norm: float, gate):
+    """``_pgd_loop`` over two deltas differentiated together, each updated
+    only where ``gate`` says (NLVR2's ``attack_idx``)."""
+    deltas = [torch.zeros(s, dtype=dtype, device=device) for s in shapes]
+    for _ in range(adv_steps):
+        for d in deltas:
+            d.requires_grad_(True)
+        with torch.enable_grad():
+            grads = torch.autograd.grad(loss_of_deltas(*deltas), deltas)
+        deltas = [_linf_normalised_step(d.detach(), g, adv_lr, max_norm) if on else d.detach()
+                  for d, g, on in zip(deltas, grads, gate)]
+    return deltas
 
 
 def _pgd_single_image(model, batch, head_loss: Callable,
@@ -166,13 +185,52 @@ def make_pgd_barlowtwins(model, adv_steps: int, adv_lr: float, max_norm: float,
     return attack
 
 
+# ---------------------------------------------------------------- NLVR2
+def make_pgd_nlvr2(model, adv_steps: int, adv_lr: float, max_norm: float,
+                   attack_idx=(True, True), fast: bool = True):
+    """Two-image CE-ascent PGD with per-image gating by ``attack_idx``
+    (reference PGDAttack_nlvr2.pgd_attack :263-342): both images' deltas come
+    from one gradient of the NLVR2 loss, and image i moves only where
+    ``attack_idx[i]``.  ``labels`` (B,).  Returns (delta_0, delta_1)."""
+    gate = tuple(bool(a) for a in attack_idx)
+
+    def attack(batch: Dict[str, torch.Tensor], labels, block_matrices=None):
+        labels = labels.detach()
+        img0, img1 = batch["image_0"], batch["image_1"]
+
+        def head_loss(i1, i2):
+            cls = torch.cat([i1["cls_feats"], i2["cls_feats"]], dim=-1)
+            return cross_entropy(model.nlvr2_classifier(cls), labels) / adv_steps
+
+        with _frozen(model):
+            mats = block_matrices or model.transformer.block_matrices(model.compute_dtype)
+            if fast:
+                fwd0, shape0, full0 = _fast_visual(model, batch, mats, "image_0", 1)
+                fwd1, shape1, full1 = _fast_visual(model, batch, mats, "image_1", 2)
+                d0, d1 = _pgd_loop2(lambda a, b: head_loss(fwd0(a), fwd1(b)),
+                                    (shape0, shape1), img0.dtype, img0.device,
+                                    adv_steps, adv_lr, max_norm, gate)
+                return full0(d0), full1(d1)
+
+            def loss_of(a, b):
+                bb = dict(batch, image_0=img0 + a, image_1=img1 + b)
+                return head_loss(model.infer(bb, mats, image_token_type_idx=1),
+                                 model.infer(bb, mats, image_token_type_idx=2))
+
+            d0, d1 = _pgd_loop2(loss_of, (img0.shape, img1.shape), img0.dtype, img0.device,
+                                adv_steps, adv_lr, max_norm, gate)
+            return d0, d1
+
+    return attack
+
+
 # ------------------------------------------------------------------ VQA
 def make_pgd_vqa(model, adv_steps: int, adv_lr: float, max_norm: float,
                  label_size: int, fast: bool = True):
     """BCE-ascent PGD (reference PGDAttack_vqa.pgd_attack :439-483).
     ``vqa_targets`` is the dense (B, label_size) soft-score matrix."""
 
-    def attack(batch: Dict[str, torch.Tensor], vqa_targets):
+    def attack(batch: Dict[str, torch.Tensor], vqa_targets, block_matrices=None):
         vqa_targets = vqa_targets.detach()
 
         def head_loss(infer):
@@ -180,7 +238,7 @@ def make_pgd_vqa(model, adv_steps: int, adv_lr: float, max_norm: float,
             return bce_with_logits(logits, vqa_targets) * label_size
 
         return _pgd_single_image(model, batch, head_loss,
-                                 adv_steps, adv_lr, max_norm, fast)
+                                 adv_steps, adv_lr, max_norm, fast, block_matrices)
 
     return attack
 
@@ -196,7 +254,7 @@ def make_pgd_irtr(model, adv_steps: int, adv_lr: float, max_norm: float,
     softmax whose gradient is identically zero.  ``text_repr``: (B, 128)
     normalised."""
 
-    def attack(batch: Dict[str, torch.Tensor], text_repr):
+    def attack(batch: Dict[str, torch.Tensor], text_repr, block_matrices=None):
         text_repr = text_repr.detach()
         B = text_repr.shape[0]
 
@@ -211,6 +269,6 @@ def make_pgd_irtr(model, adv_steps: int, adv_lr: float, max_norm: float,
             return loss / adv_steps
 
         return _pgd_single_image(model, batch, head_loss,
-                                 adv_steps, adv_lr, max_norm, fast)
+                                 adv_steps, adv_lr, max_norm, fast, block_matrices)
 
     return attack

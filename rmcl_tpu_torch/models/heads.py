@@ -1,5 +1,5 @@
-"""Task heads served by the port (port of ``rmcl_tpu/models/heads.py``):
-pooler, ITM, MLM, VQA classifier, rank output, the MoCo projector and the
+"""Task heads (port of ``rmcl_tpu/models/heads.py``): pooler, ITM, MLM, the
+VQA and NLVR2 classifiers, rank output, the MoCo projector and the
 BarlowTwins projector.  Module names follow the reference state_dict."""
 
 from __future__ import annotations
@@ -54,7 +54,7 @@ class MLMHead(nn.Module):
 
 class Classifier(nn.ModuleDict):
     """Linear -> LayerNorm(eps 1e-5) -> GELU -> Linear under keys 0, 1, 3
-    (the VQA head)."""
+    (the VQA head, and the NLVR2 head on 2C features)."""
 
     def __init__(self, in_dim: int, hidden: int, out_dim: int):
         super().__init__({"0": Linear(in_dim, hidden),

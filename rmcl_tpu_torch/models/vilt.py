@@ -5,14 +5,15 @@ The module tree carries the reference state_dict names
 (``rmcl_tpu/compat/torch_loader.py``), so a reference checkpoint, or the
 JAX package's parameters and state through ``compat/from_jax.py``, load
 with ``load_reference_state_dict``.  Heads are built per active loss as
-``init_vilt`` builds them, for the heads ported so far: pooler, ITM, MLM,
-VQA, rank output, the MoCo projector and, with the ``barlowtwins`` loss, the
-BarlowTwins projector (``cfg.bt_proj_dims``; its BatchNorm running
-statistics are buffers).  With the ``moco`` loss active the
-model also carries the momentum twins (``k_text_embeddings``,
-``k_token_type_embeddings``, ``k_transformer``, ``k_moco_head``; the key
-path shares ``pooler``) and the negatives queue (``proj_queue``,
-``proj_queue_ptr``) as buffers; ``infer_k`` runs the twins.
+``init_vilt`` builds them: pooler, ITM, MLM, VQA, NLVR2 (with the
+three-row token-type table), rank output, the MoCo projector and, with the
+``barlowtwins`` loss, the BarlowTwins projector (``cfg.bt_proj_dims``; its
+BatchNorm running statistics are buffers).  The heads of the pretraining
+losses ``mpp``, ``mppd`` and ``mpfr`` are not built (ROADMAP A11c).  With
+the ``moco`` loss active the model also carries the momentum twins
+(``k_text_embeddings``, ``k_token_type_embeddings``, ``k_transformer``,
+``k_moco_head``; the key path shares ``pooler``) and the negatives queue
+(``proj_queue``, ``proj_queue_ptr``) as buffers; ``infer_k`` runs the twins.
 
 Dropout.  The JAX package splits a key per task, view, layer and dropout
 site.  Here one int32 tensor of seeds per step (``draw_seeds``: views x
@@ -101,6 +102,9 @@ class ViLT(nn.Module):
             self.itm_score = ITMHead(C)
         if _needs(cfg, "vqa", "vqa_attacked"):
             self.vqa_classifier = Classifier(C, 2 * C, cfg.vqav2_label_size)
+        if _needs(cfg, "nlvr2", "nlvr2_attacked"):
+            # on the two images' concatenated class features
+            self.nlvr2_classifier = Classifier(2 * C, 2 * C, 2)
         if _needs(cfg, "irtr"):
             self.rank_output = Linear(C, 1)
         if _needs(cfg, "moco", "irtr_attacked"):
@@ -145,9 +149,11 @@ class ViLT(nn.Module):
 
     def load_reference_state_dict(self, sd: Dict[str, torch.Tensor]) -> List[str]:
         """Load a reference-named state dict.  Entries of parts this model
-        does not build (heads of losses that are not active or not ported)
-        are skipped and returned, and so are torch BatchNorm's
-        ``num_batches_tracked`` counters, which nothing here reads; a missing
+        does not build (heads of losses that are not active, and the
+        ``mpp_score``, ``mppd_score`` and ``mpfr_score`` heads of the
+        pretraining losses, which are not ported) are skipped and returned,
+        and so are torch BatchNorm's ``num_batches_tracked`` counters, which
+        nothing here reads; a missing
         or misshapen entry of a part it builds raises, except the queue
         state, which a checkpoint may lack (the model then keeps its own)."""
         own = {name for name, _ in self.named_children()}
@@ -168,7 +174,9 @@ class ViLT(nn.Module):
               word_embeds: Optional[torch.Tensor] = None) -> Dict[str, torch.Tensor]:
         """Forward of a wire-format batch: ``image`` patch rows
         (B, N, P*P*3) as uint8 with ``image_hw`` (B, 2), or normalised fp32;
-        ``text_ids`` and ``text_masks`` (B, T).  ``block_matrices`` are the
+        ``text_ids`` and ``text_masks`` (B, T).  A batch with ``image_0`` /
+        ``image_1`` (NLVR2) is read at ``image_{image_token_type_idx - 1}``
+        with its ``_hw``.  ``block_matrices`` are the
         transformer's weights cast once (``ViT.block_matrices``).  With
         ``image_embeds`` and ``image_masks`` (``ViT.visual_embed_from_prep``)
         the image is not embedded again.  ``prefix="k_"`` runs the momentum
@@ -190,12 +198,14 @@ class ViLT(nn.Module):
         if seeds is not None:
             text = dropout(text, seeds[-1, 0], 0, p)
         if image_embeds is None and image_masks is None:
-            img = batch["image"]
+            key = f"image_{image_token_type_idx - 1}"
+            key = key if key in batch else "image"
+            img = batch[key]
             if img.dim() != 3:
                 raise ValueError("the port takes patch rows (B, N, P*P*3), the "
                                  "image_layout='patch' wire format")
             if img.dtype == torch.uint8:
-                img = normalize_u8(img, batch.get("image_hw"), self.grid_hw,
+                img = normalize_u8(img, batch.get(f"{key}_hw"), self.grid_hw,
                                    self.patch_size)
             image_embeds, image_masks = transformer.visual_embed(
                 img, self.grid_hw, self.max_image_len, dtype)

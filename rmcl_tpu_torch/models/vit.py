@@ -86,6 +86,20 @@ def normalize_u8(v: torch.Tensor, hw: Optional[torch.Tensor],
     return torch.where(valid, x, 0.0)
 
 
+def normalize_image_inputs(batch: Dict[str, torch.Tensor], grid_hw: Tuple[int, int],
+                           patch_size: int) -> Dict[str, torch.Tensor]:
+    """Every uint8 image key of a wire-format batch (``image``, NLVR2's
+    ``image_0`` / ``image_1``) as fp32 rows, each with its own ``<key>_hw``
+    (``normalize_u8``); the batch itself when none is uint8."""
+    out = None
+    for k, v in batch.items():
+        if (isinstance(v, torch.Tensor) and v.dtype == torch.uint8 and "image" in k
+                and not k.endswith("_hw")):
+            out = dict(batch) if out is None else out
+            out[k] = normalize_u8(v, batch.get(f"{k}_hw"), grid_hw, patch_size)
+    return batch if out is None else out
+
+
 # ------------------------------------------------- pos-embed interpolation
 def bilinear_weights(n_out: int, size: torch.Tensor, n_src: int) -> torch.Tensor:
     """(B, n_out, n_src) align_corners bilinear row weights for per-sample

@@ -1,6 +1,4 @@
-"""Shared loss primitives in fp32 (port of ``rmcl_tpu/objectives/losses.py``:
-the three that the PGD attacks use, and the cosine similarity of the
-BarlowTwins views' diagnostics)."""
+"""Shared loss primitives in fp32 (port of ``rmcl_tpu/objectives/losses.py``)."""
 
 from __future__ import annotations
 
@@ -16,6 +14,30 @@ def cross_entropy(logits: torch.Tensor, labels: torch.Tensor,
     logp = F.log_softmax(logits.float(), dim=-1)
     nll = -logp.gather(-1, torch.where(valid, labels, 0).long()[..., None])[..., 0]
     return torch.where(valid, nll, 0.0).sum() / valid.sum().clamp(min=1)
+
+
+def cross_entropy_per_sample(logits: torch.Tensor, labels: torch.Tensor,
+                             ignore_index: int = -100):
+    """Per-sample decomposition of ``cross_entropy``: (nll_sum, valid_count)
+    per leading-dim sample, so that ``cross_entropy(...) == sum(nll_sum) /
+    max(sum(valid_count), 1)`` and a row-masked batch loss recombines exactly
+    (the ``_ps`` keys: the val loader's wrap-around padding rows contribute
+    zero)."""
+    valid = labels != ignore_index
+    logp = F.log_softmax(logits.float(), dim=-1)
+    nll = -logp.gather(-1, torch.where(valid, labels, 0).long()[..., None])[..., 0]
+    dims = tuple(range(1, nll.dim()))
+    nll = torch.where(valid, nll, 0.0)
+    return ((nll.sum(dims) if dims else nll),
+            (valid.sum(dims) if dims else valid).float())
+
+
+def bce_rowsum_with_logits(logits: torch.Tensor, targets: torch.Tensor) -> torch.Tensor:
+    """Per-sample sum of the elementwise BCE terms: the VQA loss
+    (``bce_with_logits(...) * n_labels``) is the row mean of this."""
+    x, t = logits.float(), targets.float()
+    loss = x.clamp(min=0) - x * t + torch.log1p(torch.exp(-x.abs()))
+    return loss.sum(tuple(range(1, loss.dim())))
 
 
 def bce_with_logits(logits: torch.Tensor, targets: torch.Tensor) -> torch.Tensor:

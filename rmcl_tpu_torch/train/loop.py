@@ -11,22 +11,23 @@ Per micro-step:
      update, key forward, greedy attack, PGD, the four views, the backward,
      the optimizer once per accumulation cycle, the enqueue; for
      ``task_barlowtwins`` the key forward, greedy attack, PGD, three views,
-     the backward and the optimizer;
+     the backward and the optimizer; for the downstream tasks the greedy
+     attack, PGD, the clean and attacked forwards, the backward and the
+     optimizer;
   4. host: the step's scalar metrics, read from the device once per log
      interval (``Trainer.host_reads``), into the epoch's ``MetricBag``.
 
-Validation runs the eval step with the same adversarial views; the epoch's
-end assembles ``val/the_metric`` (``MetricBag``) and saves ``last`` and
-``best`` (``train/checkpoint.py``).  SIGTERM or ``request_preemption()``
-commits a mid-epoch ``last`` and leaves ``fit``; a Trainer with
-``resume_from`` restores it and draws the same batches, masks and dropout
-seeds as the run it continues.
+Validation runs the eval step with the same adversarial views, writes the
+VQA submission on the test split (``eval/vqa.py``) and computes the IR/TR
+recall when ``cfg.get_recall_metric`` (``eval/retrieval.py``, attacked when
+``irtr_attacked`` is active); the epoch's end assembles ``val/the_metric``
+(``MetricBag``) and saves ``last`` and ``best`` (``train/checkpoint.py``).
+SIGTERM or ``request_preemption()`` commits a mid-epoch ``last`` and leaves
+``fit``; a Trainer with ``resume_from`` restores it and draws the same
+batches, masks and dropout seeds as the run it continues.
 
 One process and one device (multi-process consensus and DDP: ROADMAP A10).
-The greedy attack has the ``moco`` and ``barlowtwins`` frameworks (the
-downstream tasks' attackers come with ROADMAP A11b); the benign augmentation
-views (``cfg.augmentation``), the recall metric and the VQA submission
-writer raise (ROADMAP A9, A12).
+The benign augmentation views (``cfg.augmentation``) raise (ROADMAP A9).
 """
 
 from __future__ import annotations
@@ -50,19 +51,13 @@ from rmcl_tpu_torch.data.datamodule import MultitaskDataModule
 from rmcl_tpu_torch.eval.metrics import MetricBag, Scalar
 from rmcl_tpu_torch.models.vilt import ViLT
 from rmcl_tpu_torch.objectives.contrastive import momentum_update
+from rmcl_tpu_torch.objectives.downstream import irtr_text_repr
 from rmcl_tpu_torch.objectives.losses import l2_normalize
 from rmcl_tpu_torch.train.checkpoint import CheckpointManager, load_initial_params
 from rmcl_tpu_torch.train.logging import MetricLogger
 from rmcl_tpu_torch.train.step import (
     create_train_state, make_attacked_train_step, make_eval_step, make_train_step,
     resolve_max_steps, training_device)
-
-
-def _refuse_other(framework: str) -> None:
-    if framework not in G.GREEDY_ATTACKERS:
-        raise NotImplementedError(
-            f"the greedy attack of the {framework!r} framework is not ported: the port "
-            f"has the {' and '.join(G.GREEDY_ATTACKERS)} frameworks (ROADMAP A11b)")
 
 
 def build_greedy_attacker(cfg, model, tokenizer):
@@ -72,7 +67,6 @@ def build_greedy_attacker(cfg, model, tokenizer):
     framework = G.greedy_attack_framework(cfg)
     if framework is None:
         return None
-    _refuse_other(framework)
     if cfg.synonym == "cos_sim":
         if not os.path.isfile(cfg.embedding_path):
             print(f"[train] text_view requested but embedding_path "
@@ -91,7 +85,7 @@ def build_greedy_attacker(cfg, model, tokenizer):
 
 
 @torch.no_grad()
-def greedy_attack_extras(cfg, model, framework: str, batch):
+def greedy_attack_extras(cfg, model, framework: str, batch, block_matrices=None):
     """The attacker's extras, with no lasting effect on the model.
 
     moco: the post-EMA key projection and the queue, (k, queue,
@@ -101,8 +95,19 @@ def greedy_attack_extras(cfg, model, framework: str, batch):
     restored after it.  barlowtwins: (k, B, adv_lr), k the head's training-mode
     projection of the deterministic forward, its BatchNorm running statistics
     left as they are.  The attacked step (``train/step.py``) takes the
-    step's own keys instead and runs no second key forward."""
-    _refuse_other(framework)
+    step's own keys instead and runs no second key forward.  nlvr2_attacked:
+    (labels,); vqa_attacked: (vqa_targets,); irtr_attacked: (text_repr,
+    temperature, arange(B)), text_repr the normalised MoCo projections of
+    the deterministic forward (``block_matrices``: the transformer's
+    matrices in the compute type, else cast here)."""
+    if framework == "nlvr2_attacked":
+        return (batch["answers"].long(),)
+    if framework == "vqa_attacked":
+        return (batch["vqa_targets"],)
+    if framework == "irtr_attacked":
+        text_repr = irtr_text_repr(model, batch, block_matrices)
+        return (text_repr, cfg.temperature,
+                torch.arange(text_repr.shape[0], device=text_repr.device))
     if framework == "barlowtwins":
         k = model.barlowtwins_head(model.infer(batch)["cls_feats"], training=True)
         return (k, batch["text_ids"].shape[0], cfg.adv_lr)
@@ -123,8 +128,8 @@ def make_greedy_extras_fn(cfg, model) -> Optional[Callable]:
     framework = G.greedy_attack_framework(cfg)
     if framework is None:
         return None
-    _refuse_other(framework)
-    return lambda ts, batch: greedy_attack_extras(cfg, ts.model, framework, batch)
+    return lambda ts, batch: greedy_attack_extras(cfg, ts.model, framework, batch,
+                                                  ts.block_matrices)
 
 
 # ------------------------------------------------------------ the Trainer
@@ -242,8 +247,7 @@ class Trainer:
         # (B, max_text_len) attacked ids that a sliced batch would mismatch
         self._text_bucket = bucket_enabled(cfg, "train") and not cfg.text_view
         # the attack inside the step whenever the attacker is the fused one
-        # (the port has no fuse_attack_step=False path; build_greedy_attacker
-        # refuses the frameworks that are not ported)
+        # (the port has no fuse_attack_step=False path)
         self._fused_step = isinstance(self.greedy, FusedGreedyAttack)
         if self._fused_step:
             self.step_fn = make_attacked_train_step(cfg, self.ts, self.greedy,
@@ -442,26 +446,57 @@ class Trainer:
     def validate(self, split: str = "val") -> Dict[str, float]:
         """The eval step over the ``split`` loader (wrap-padded rows masked
         by ``_valid``) with the training's adversarial views (reference
-        objectives.py:277-285).  Nothing in it draws a random number (no
+        objectives.py:277-285); on the test split of a VQA task the
+        submission file (``eval/vqa.py``, in ``cfg.log_dir``); with
+        ``cfg.get_recall_metric`` (and not ``fast_dev_run``) the IR/TR recall
+        (``eval/retrieval.py``).  Nothing in it draws a random number (no
         dropout; PGD starts from zero), so it takes no generator."""
         cfg = self.cfg
-        if cfg.get_recall_metric and not cfg.fast_dev_run:
-            raise NotImplementedError("the recall metric (eval/retrieval.py) is not "
-                                      "ported (ROADMAP A12)")
-        if split == "test" and (cfg.loss_names.get("vqa", 0) >= 1
-                                or cfg.loss_names.get("vqa_attacked", 0) >= 1):
-            raise NotImplementedError("the VQA submission writer (eval/vqa.py) is not "
-                                      "ported (ROADMAP A12)")
         loader = (self.dm.val_loader(self.per_host_batch) if split == "val"
                   else self.dm.test_loader(self.per_host_batch))
         bag = self.val_metrics
+        # the VQA test submission (reference vqa_test_step objectives.py:1519-1530,
+        # vqa_test_wrapup :1537-1565)
+        vqa_writer = None
+        is_vqa = (cfg.loss_names.get("vqa", 0) >= 1
+                  or cfg.loss_names.get("vqa_attacked", 0) >= 1)
+        if split == "test" and is_vqa and self.dm.id2answer:
+            from rmcl_tpu_torch.eval.vqa import VQASubmissionWriter
+            model_name = (os.path.basename(cfg.load_path).rsplit(".", 1)[0]
+                          if cfg.load_path else cfg.exp_name)
+            vqa_writer = VQASubmissionWriter(self.dm.id2answer, out_dir=cfg.log_dir,
+                                             model_name=model_name)
         for batch in loader:
             batch = self._attach_text_attack(batch, bag=bag, for_train=False)
             if self._text_bucket:
                 batch = bucket_text_batch(batch, cfg.max_text_len)
             ret = self.eval_fn(_device_batch(batch, self.device))
-            bag.update({k: v.detach().cpu().numpy() for k, v in ret.items()},
-                       valid=batch.get("_valid"))
+            valid = batch.get("_valid")
+            # bf16 outputs (logits) widen to fp32 exactly: numpy has no bf16
+            retl = {k: (v.detach().float() if v.is_floating_point() else v.detach())
+                    .cpu().numpy() for k, v in ret.items()}
+            bag.update(retl, valid=valid)
+            if vqa_writer is not None and "qid" in batch:
+                qids = list(batch["qid"])
+                logits = retl.get("vqa_logits", retl.get("vqa_attacked_logits"))
+                if valid is not None and not np.asarray(valid).all():
+                    qids = [q for q, keep in zip(qids, valid) if keep]
+                    logits = logits[np.asarray(valid, bool)]
+                vqa_writer.update(qids, logits)
             if cfg.fast_dev_run:
                 break
-        return bag.epoch_wrapup(split)
+        if vqa_writer is not None:
+            path = vqa_writer.finalize()
+            print(f"[vqa] submission written to {path}", flush=True)
+
+        recall = None
+        if cfg.get_recall_metric and not cfg.fast_dev_run:
+            # every validation computes the recall (reference vilt_utils.py:90-96),
+            # the attacked one when irtr_attacked is active (:91-94)
+            from rmcl_tpu_torch.eval import retrieval
+            if cfg.loss_names.get("irtr_attacked", 0) >= 1:
+                recall = retrieval.compute_attacked_irtr_recall(
+                    self, text_view=cfg.text_view, image_view=cfg.image_view)
+            else:
+                recall = retrieval.compute_irtr_recall(self)
+        return bag.epoch_wrapup(split, recall=recall)

@@ -40,7 +40,16 @@ BatchNorm running statistics move in place at every head call of the step
 (on every micro-step under accumulation), as the JAX step grafts them on
 every call; the optimizer never sees them (they are buffers).
 
-Ported: the ``moco`` and ``barlowtwins`` tasks.  Any other active task raises.
+The downstream tasks (``objectives/downstream.py``): ``vqa``, ``nlvr2`` and
+``irtr`` train on their clean forward; ``vqa_attacked``, ``nlvr2_attacked``
+and ``irtr_attacked`` on the PGD image (when ``cfg.image_view``) and the
+attacked text from ``attacked_text_ids`` (when ``cfg.text_view``), NLVR2 and
+IRTR on the clean forward too.  Each training forward draws its own dropout
+seeds (``task_seeds``); an attacked pass reuses its clean pass's.
+
+Ported: the ``moco``, ``barlowtwins`` and the six downstream tasks.  The
+pretraining tasks (``mlm``, ``itm``, ``mpp``, ``mppd``, ``mpfr``) raise
+(ROADMAP A11c).
 """
 
 from __future__ import annotations
@@ -50,17 +59,22 @@ from typing import Callable, Dict, List, Optional
 
 import torch
 
-from rmcl_tpu_torch.attacks.greedy import GREEDY_ATTACKERS, greedy_attack_framework
+from rmcl_tpu_torch.attacks.greedy import greedy_attack_framework
 from rmcl_tpu_torch.attacks.greedy_fused import TABLE_KEYS, FusedGreedyAttack
-from rmcl_tpu_torch.attacks.pgd import make_pgd_barlowtwins, make_pgd_moco
+from rmcl_tpu_torch.attacks.pgd import (make_pgd_barlowtwins, make_pgd_irtr, make_pgd_moco,
+                                        make_pgd_nlvr2, make_pgd_vqa)
 from rmcl_tpu_torch.core.config import active_tasks
 from rmcl_tpu_torch.models.vilt import ViLT, draw_seeds
-from rmcl_tpu_torch.models.vit import normalize_u8
-from rmcl_tpu_torch.objectives import contrastive
+from rmcl_tpu_torch.models.vit import normalize_image_inputs
+from rmcl_tpu_torch.objectives import contrastive, downstream
 from rmcl_tpu_torch.train.schedule import make_lr_schedule, make_optimizer
 
 VIEWS = 4   # clean, txt, img, both: one set of dropout seeds each, per contrastive task
 CONTRASTIVE = ("moco", "barlowtwins")
+# the training forwards of a downstream task, one set of dropout seeds each:
+# VQA one, NLVR2 one per image, IRTR one over the B * (F+1) rows
+DOWNSTREAM_FORWARDS = {"vqa": 1, "vqa_attacked": 1, "nlvr2": 2, "nlvr2_attacked": 2,
+                       "irtr": 1, "irtr_attacked": 1}
 
 
 @dataclasses.dataclass
@@ -138,26 +152,66 @@ def _attacked_text_of(batch) -> Optional[Dict[str, torch.Tensor]]:
 _TASK_LOSS_KEYS = {
     "moco": ("moco_loss",),
     "barlowtwins": ("barlowtwins_loss",),
+    "vqa": ("vqa_loss",),
+    "nlvr2": ("nlvr2_loss",),
+    "irtr": ("irtr_loss",),
+    "vqa_attacked": ("vqa_attacked_loss",),
+    "nlvr2_attacked": ("nlvr2_original_loss", "nlvr2_attacked_loss"),
+    "irtr_attacked": ("irtr_original_loss", "irtr_attacked_loss"),
 }
+
+
+def task_seeds(cfg, generator: torch.Generator, num_layers: int, batch: int,
+               device) -> Dict[str, torch.Tensor]:
+    """The dropout seeds of one training step, per active task: ``VIEWS``
+    sets for each contrastive task (drawn first, in ``CONTRASTIVE``'s order,
+    as one tensor), then ``DOWNSTREAM_FORWARDS`` sets for each downstream
+    task in the order of ``cfg.loss_names``, IRTR's over B * (F+1) rows."""
+    tasks = active_tasks(cfg)
+    out: Dict[str, torch.Tensor] = {}
+    cont = [t for t in CONTRASTIVE if t in tasks]
+    if cont:
+        s = draw_seeds(generator, VIEWS * len(cont), num_layers, batch, device)
+        out.update({t: s[VIEWS * i:VIEWS * (i + 1)] for i, t in enumerate(cont)})
+    for t in tasks:
+        if t in DOWNSTREAM_FORWARDS:
+            rows = batch * (cfg.draw_false_text + 1) if t.startswith("irtr") else batch
+            out[t] = draw_seeds(generator, DOWNSTREAM_FORWARDS[t], num_layers, rows, device)
+    return out
+
+
+def _build_pgd(cfg, ts: TrainState, task: str) -> Callable:
+    """The PGD image attack of a downstream task on the step's matrices."""
+    a, model = cfg, ts.model
+    if task == "nlvr2_attacked":
+        attack = make_pgd_nlvr2(model, a.adv_steps_img, a.adv_lr_img, a.adv_max_norm_img,
+                                a.attack_idx)
+    elif task == "vqa_attacked":
+        attack = make_pgd_vqa(model, a.adv_steps_img, a.adv_lr_img, a.adv_max_norm_img,
+                              a.vqav2_label_size)
+    else:
+        attack = make_pgd_irtr(model, a.adv_steps_img, a.adv_lr_img, a.adv_max_norm_img,
+                               a.temperature)
+    return lambda b, target: attack(b, target, block_matrices=ts.block_matrices)
 
 
 def compute_all_tasks(cfg, ts: TrainState, batch, seeds, *, train: bool,
                       greedy_fn: Optional[Callable] = None):
     """Run every active task (reference forward vilt_module.py:420-469).
     Returns (total_loss, ret).  Twins, queue and BatchNorm running statistics
-    are updated in place.  ``seeds``: ``VIEWS`` sets per contrastive task, in
-    ``CONTRASTIVE``'s order.  ``greedy_fn``: the text attack inside the step
-    (``objectives/contrastive.py``)."""
+    are updated in place.  ``seeds``: ``task_seeds``'s dict (None when not
+    ``train``).  ``greedy_fn``: the text attack inside a contrastive task's
+    step (``objectives/contrastive.py``)."""
     tasks = active_tasks(cfg)
     other = [t for t in tasks if t not in _TASK_LOSS_KEYS]
     if other:
         raise NotImplementedError(
-            f"tasks {other} are not ported: the training step has the moco and "
-            "barlowtwins tasks (ROADMAP A11b, A11c)")
+            f"tasks {other} are not ported: the training step has the moco, barlowtwins "
+            "and downstream tasks; the pretraining tasks come with ROADMAP A11c")
     model = ts.model
-    if batch["image"].dtype == torch.uint8:          # u8 wire format -> f32 once
-        batch = dict(batch, image=normalize_u8(batch["image"], batch.get("image_hw"),
-                                               model.grid_hw, model.patch_size))
+    # u8 wire format -> f32 once, every image key with its own _hw
+    batch = normalize_image_inputs(batch, model.grid_hw, model.patch_size)
+    seeds = seeds or {}
     ret: Dict[str, torch.Tensor] = {}
     common = dict(
         block_matrices=ts.block_matrices, train=train, text_view=cfg.text_view,
@@ -167,8 +221,6 @@ def compute_all_tasks(cfg, ts: TrainState, batch, seeds, *, train: bool,
         attacked_image=batch.get("augmented_image") if cfg.augmentation else None,
         augmentation=cfg.augmentation)
     pgd = cfg.image_view and not cfg.augmentation
-    view_seeds = {t: None if seeds is None else seeds[VIEWS * i:VIEWS * (i + 1)]
-                  for i, t in enumerate(t for t in CONTRASTIVE if t in tasks)}
     if "moco" in tasks:
         pgd_fn = None
         if pgd:
@@ -177,7 +229,7 @@ def compute_all_tasks(cfg, ts: TrainState, batch, seeds, *, train: bool,
             pgd_fn = lambda b, k, queue: attack(  # noqa: E731
                 b, k, queue, block_matrices=ts.block_matrices)
         ret.update(contrastive.compute_moco_contrastive(
-            model, batch, seeds=view_seeds["moco"],
+            model, batch, seeds=seeds.get("moco"),
             k_block_matrices=lambda: model.k_transformer.block_matrices(
                 model.compute_dtype),
             pgd_fn=pgd_fn, temperature=cfg.temperature, momentum=cfg.momentum, **common))
@@ -189,8 +241,30 @@ def compute_all_tasks(cfg, ts: TrainState, batch, seeds, *, train: bool,
             pgd_fn = lambda b, k: attack(  # noqa: E731
                 b, k, block_matrices=ts.block_matrices)
         ret.update(contrastive.compute_barlowtwins_contrastive(
-            model, batch, seeds=view_seeds["barlowtwins"], pgd_fn=pgd_fn,
+            model, batch, seeds=seeds.get("barlowtwins"), pgd_fn=pgd_fn,
             adv_lr=cfg.adv_lr, **common))
+    ds = dict(block_matrices=ts.block_matrices, train=train)
+    attacked = dict(image_view=cfg.image_view, attacked_text=common["attacked_text"])
+    if "vqa" in tasks:
+        ret.update(downstream.compute_vqa(model, batch, seeds=seeds.get("vqa"), **ds))
+    if "vqa_attacked" in tasks:
+        ret.update(downstream.compute_vqa_attack(
+            model, batch, seeds=seeds.get("vqa_attacked"), **ds, **attacked,
+            pgd_fn=_build_pgd(cfg, ts, "vqa_attacked") if cfg.image_view else None))
+    if "nlvr2" in tasks:
+        ret.update(downstream.compute_nlvr2(model, batch, seeds=seeds.get("nlvr2"), **ds))
+    if "nlvr2_attacked" in tasks:
+        ret.update(downstream.compute_nlvr2_attack(
+            model, batch, seeds=seeds.get("nlvr2_attacked"), **ds, **attacked,
+            pgd_fn=_build_pgd(cfg, ts, "nlvr2_attacked") if cfg.image_view else None))
+    if "irtr" in tasks:
+        ret.update(downstream.compute_irtr(model, batch, seeds=seeds.get("irtr"),
+                                           false_len=cfg.draw_false_text, **ds))
+    if "irtr_attacked" in tasks:
+        ret.update(downstream.compute_irtr_attacked(
+            model, batch, seeds=seeds.get("irtr_attacked"), false_len=cfg.draw_false_text,
+            **ds, **attacked,
+            pgd_fn=_build_pgd(cfg, ts, "irtr_attacked") if cfg.image_view else None))
     total = sum(ret[k].float() for t in tasks for k in _TASK_LOSS_KEYS[t] if k in ret)
     return total, ret
 
@@ -228,11 +302,9 @@ def _train_step_body(cfg, ts: TrainState, max_steps: Optional[int]) -> Callable:
     trainable = [p for p in model.parameters() if p.requires_grad]
     accum = ts.accum
 
-    n_views = VIEWS * sum(t in active_tasks(cfg) for t in CONTRASTIVE)
-
     def body(batch: Dict[str, torch.Tensor], generator: torch.Generator,
              greedy_fn: Optional[Callable] = None):
-        seeds = draw_seeds(generator, n_views, len(model.transformer.blocks),
+        seeds = task_seeds(cfg, generator, len(model.transformer.blocks),
                            batch["text_ids"].shape[0], device)
         ts.optimizer.zero_grad(set_to_none=True)
         total, ret = compute_all_tasks(cfg, ts, batch, seeds, train=True,
@@ -275,12 +347,15 @@ def make_attacked_train_step(cfg, ts: TrainState, greedy,
     """``attacked_step(batch, generator) -> metrics``: the step of
     ``make_train_step`` with the greedy text attack inside it (port of the
     JAX package's ``make_attacked_train_step``, which compiles the attacker
-    extras, the attack and the step as one program).  The attack runs after
-    the key forward, against the step's own keys: for moco after the momentum
-    update and with the queue before the enqueue, so the twins move once per
-    step; for barlowtwins with (k, B, adv_lr), k the key projection the
-    step's head made in training mode (the JAX package's extras compute the
-    same function of the same weights).  Its ids become the text view's.
+    extras, the attack and the step as one program).  In a contrastive
+    task's step the attack runs after the key forward, against the step's own
+    keys: for moco after the momentum update and with the queue before the
+    enqueue, so the twins move once per step; for barlowtwins with (k, B,
+    adv_lr), k the key projection the step's head made in training mode (the
+    JAX package's extras compute the same function of the same weights).  In
+    a downstream task's it runs first, on the extras of
+    ``train/loop.py:greedy_attack_extras`` (the labels, the VQA targets, or
+    IRTR's deterministic text projections).  Its ids become the text view's.
 
     ``greedy``: a ``FusedGreedyAttack``.  ``batch``: the step's batch plus
     the host tables under ``TABLE_KEYS`` (``greedy.prep_tables(text_ids)``,
@@ -289,10 +364,8 @@ def make_attacked_train_step(cfg, ts: TrainState, greedy,
     if not isinstance(greedy, FusedGreedyAttack):
         raise TypeError("make_attacked_train_step needs the fused greedy attacker")
     framework = greedy_attack_framework(cfg)
-    if framework not in GREEDY_ATTACKERS:
-        raise NotImplementedError(
-            f"the attacked step of the {framework!r} framework is not ported: it has the "
-            f"{' and '.join(GREEDY_ATTACKERS)} frameworks (ROADMAP A11b)")
+    if framework is None:
+        raise ValueError("no attacked framework is active")
     body = _train_step_body(cfg, ts, max_steps)
     attack = greedy.build_attack_body()
     device = next(ts.model.parameters()).device
@@ -306,8 +379,17 @@ def make_attacked_train_step(cfg, ts: TrainState, greedy,
         def greedy_fn(b, extras):
             return attack(b, extras, *tables, tbucket, block_matrices=ts.block_matrices)
 
-        metrics, ret = body(clean, generator, greedy_fn)
-        nch = ret["n_changed"].float()
+        if framework in CONTRASTIVE:
+            metrics, ret = body(clean, generator, greedy_fn)
+            nch = ret["n_changed"].float()
+        else:
+            from rmcl_tpu_torch.train.loop import greedy_attack_extras
+            clean = normalize_image_inputs(clean, ts.model.grid_hw, ts.model.patch_size)
+            extras = greedy_attack_extras(cfg, ts.model, framework, clean, ts.block_matrices)
+            ids, masks, nch = greedy_fn(clean, extras)
+            metrics, _ = body(dict(clean, attacked_text_ids=ids, attacked_text_masks=masks),
+                              generator)
+            nch = nch.float()
         metrics["num_changes"] = nch.mean()
         metrics["change_rate"] = (nch / nw.float().clamp(min=1.0)).mean()
         return metrics

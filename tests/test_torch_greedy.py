@@ -536,8 +536,9 @@ def test_attacked_step_matches_jax(files, step_case):
 def test_build_greedy_attacker_and_refusals(files, sides, four, tmp_path):
     """build_greedy_attacker: the fused moco attacker from the vectors file
     (the host one under greedy_impl="host"), None without the file or
-    without a greedy framework; another framework raises, and so does the
-    attacked step.  The fused attack's decision record holds one entry per
+    without a greedy framework; a downstream framework's attacker and
+    extras; the attacked step raises for the host attacker and without an
+    attacked framework.  The fused attack's decision record holds one entry per
     loop whose commits add up to the change counts."""
     vocab, vectors = files
     _, t = sides
@@ -552,16 +553,16 @@ def test_build_greedy_attacker_and_refusals(files, sides, four, tmp_path):
     assert TL.build_greedy_attacker(cfg.replace(loss_names=loss_names({"vqa": 1})),
                                     t.model, t.tok) is None
     other = cfg.replace(loss_names=loss_names({"nlvr2_attacked": 1}))
-    with pytest.raises(NotImplementedError, match="A11"):
-        TL.build_greedy_attacker(other, t.model, t.tok)
-    with pytest.raises(NotImplementedError, match="A11"):
-        TL.make_greedy_extras_fn(other, t.model)
+    nlvr2 = TL.build_greedy_attacker(other, t.model, t.tok)
+    assert isinstance(nlvr2.base, TG.GreedyAttackNlvr2)
+    assert callable(TL.make_greedy_extras_fn(other, t.model))
     step_cfg = _step_cfg(t.tok.vocab_size)
     ts = TT.create_train_state(step_cfg, device="cpu")
     with pytest.raises(TypeError, match="fused"):
         TT.make_attacked_train_step(step_cfg, ts, att.base)
-    with pytest.raises(NotImplementedError, match="A11"):
-        TT.make_attacked_train_step(step_cfg.replace(loss_names=other.loss_names), ts, att)
+    with pytest.raises(ValueError, match="no attacked framework"):
+        TT.make_attacked_train_step(step_cfg.replace(loss_names=loss_names({"vqa": 1})), ts,
+                                    att)
 
     batch, extras, ref, _ = four
     att.record = []
