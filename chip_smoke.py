@@ -155,7 +155,7 @@ Phases, any failure exits non-zero:
  12. greedy    the fused greedy word-substitution attack
                (attacks/greedy_fused.py on GreedyAttackMoco), bf16, 16 pairs,
                n_candidates 5, max_loops 10, against the post-EMA keys
-               (train/loop.py:greedy_attack_extras) and the seeded queue of
+               (attacks/greedy.py:greedy_attack_extras) and the seeded queue of
                65,536, on two caption mixes copied from bench.py:
                _greedy_setup (its synthetic vocabulary and 32-dimensional
                vectors; the real counter-fitted vectors are not in the
@@ -2106,7 +2106,7 @@ def phase_greedy(dev) -> dict:
     """Phase 12: the fused greedy attack alone, per caption mix."""
     from rmcl_tpu_torch import build_config
     from rmcl_tpu_torch.ops import fused_block as FB
-    from rmcl_tpu_torch.train.loop import greedy_attack_extras
+    from rmcl_tpu_torch.attacks.greedy import greedy_attack_extras
     cfg = build_config(PGD_CONFIG)
     model = moco_model(cfg).to(dev)
     out = {}
@@ -2971,18 +2971,6 @@ def downstream_launches(cfg, task: str, stats=None) -> dict:
     return want
 
 
-def _device_busy_ms(fn) -> float:
-    """Device busy time of one call of ``fn``: the CUDA kernels' own time
-    under torch.profiler."""
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        fn()
-        torch.cuda.synchronize()
-    return sum(_device_us(e) for e in prof.key_averages()
-               if e.device_type == DeviceType.CUDA) / 1e3
-
-
 def phase_downstream_step(dev, task: str, mix=None) -> tuple:
     """Phase 17: one downstream task's step at full width, bf16: the attacked
     step (the fused greedy attack on ``mix``'s captions, PGD, the training
@@ -3053,12 +3041,13 @@ def phase_downstream_step(dev, task: str, mix=None) -> tuple:
         print(f"{tag} step {it}: " + " ".join(f"{k}={v!r}" for k, v in sorted(vals.items()))
               + (f"; attack {st}" if st else "") + f"; the {len(learnt)} parameters the loss "
               f"reaches moved; {walls[-1]:.1f} ms")
-    busy = _device_busy_ms(lambda: step(batch, gen))
+    busy = device_ms(lambda: step(batch, gen), iters=1, warmup=0)
     ms, ev = statistics.median(walls), statistics.median(events)
     mem = torch.cuda.max_memory_allocated() / 2 ** 30
     print(f"{tag} launches per step {counts}: every block through the kernels")
     print(f"{tag} step {ms!r} ms (median of {DOWNSTREAM_STEPS}, host clock + synchronize; "
-          f"{ev!r} ms between CUDA events), device busy {busy!r} ms (torch.profiler, one "
+          f"{ev!r} ms between CUDA events), device busy "
+          f"{'not measured' if busy is None else repr(busy) + ' ms'} (torch.profiler, one "
           f"step), {n / ms * 1e3!r} {'images' if task == 'irtr' else 'pairs'}/s; "
           f"max_memory_allocated {mem:.2f} GiB")
     out = {"ms": ms, "device_ms": busy, "mem_gib": mem}
@@ -3180,28 +3169,45 @@ def phase_downstream_recall(dev, root: Path) -> tuple:
         return MemoryDataset(tok, sents, images, cfg.max_text_len, RECALL_CAPTIONS)
 
     tr = _memory_trainer(dev, cfg, make, seeded_model(cfg, SEED))
-    out, counts = {}, {}
-    for name, fn in (("clean", lambda: retrieval.compute_irtr_recall(tr, return_scores=True)),
-                     ("attacked", lambda: retrieval.compute_attacked_irtr_recall(
-                         tr, max_texts=n_txt, return_scores=True))):
-        fn()                                              # warm-up
-        torch.cuda.synchronize()
-        FB.reset_launches()
-        t = time.perf_counter()
-        recall, scores, _, _ = fn()
-        torch.cuda.synchronize()
-        wall = time.perf_counter() - t
-        counts[name] = check_sub_launches(f"{tag} {name}", dict(FB.launches), FB)
-        check(scores.shape == (RECALL_IMAGES, n_txt) and np.isfinite(scores).all()
-              and all(0.0 <= r <= 1.0 for r in recall), f"{tag} {name}: {recall}")
-        check(counts[name]["attn_half"] >= RECALL_IMAGES * cfg.num_layers,
-              f"{tag} {name}: launches {counts[name]}")
-        out[name] = {"s": wall, "s_per_image": wall / RECALL_IMAGES, "recall": recall}
-        print(f"{tag} {name}: {RECALL_IMAGES} images x {n_txt} texts, (ir_r1, ir_r5, ir_r10, "
-              f"tr_r1, tr_r5, tr_r10) = {recall}; {wall!r} s ({wall / RECALL_IMAGES!r} s per "
-              f"image); launches {counts[name]}")
+    out, counts, seen = {}, {}, []
+    ranked = retrieval.recall_at_k
+
+    def recall_at_k(scores, iids, tiids):                 # keeps the matrix it ranks
+        seen.append(np.asarray(scores).copy())
+        return ranked(scores, iids, tiids)
+
+    retrieval.recall_at_k = recall_at_k
+    try:
+        for name, fn in (("clean", lambda: retrieval.compute_irtr_recall(tr)),
+                         ("attacked", lambda: retrieval.compute_attacked_irtr_recall(
+                             tr, max_texts=n_txt))):
+            fn()                                          # warm-up
+            torch.cuda.synchronize()
+            FB.reset_launches()
+            t = time.perf_counter()
+            recall = fn()
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t
+            out[name] = _recall_reading(tag, name, cfg, recall, seen[-1], wall, FB, counts)
+    finally:
+        retrieval.recall_at_k = ranked
     check(counts["attacked"]["attn_half_dx"] > 0, f"{tag} the attacks ran no dx kernel")
     return counts["clean"], counts["attacked"], out
+
+
+def _recall_reading(tag, name, cfg, recall, scores, wall, FB, counts) -> dict:
+    """Checks one recall run (its tuple, the score matrix it ranked, its
+    launches) and prints its readings."""
+    n_txt = RECALL_IMAGES * RECALL_CAPTIONS
+    counts[name] = check_sub_launches(f"{tag} {name}", dict(FB.launches), FB)
+    check(scores.shape == (RECALL_IMAGES, n_txt) and np.isfinite(scores).all()
+          and all(0.0 <= r <= 1.0 for r in recall), f"{tag} {name}: {recall}")
+    check(counts[name]["attn_half"] >= RECALL_IMAGES * cfg.num_layers,
+          f"{tag} {name}: launches {counts[name]}")
+    print(f"{tag} {name}: {RECALL_IMAGES} images x {n_txt} texts, (ir_r1, ir_r5, ir_r10, "
+          f"tr_r1, tr_r5, tr_r10) = {recall}; {wall!r} s ({wall / RECALL_IMAGES!r} s per "
+          f"image); launches {counts[name]}")
+    return {"s": wall, "s_per_image": wall / RECALL_IMAGES, "recall": recall}
 
 
 def phase_downstream(dev) -> dict:
@@ -3209,13 +3215,15 @@ def phase_downstream(dev) -> dict:
     the IRTR step, the fp32 checks, the VQA writer and the two recalls.
     Returns the launches by path."""
     import shutil
-    counts = {}
+    counts, t = {}, [time.perf_counter()]
     for task in ("vqa_attacked", "nlvr2_attacked"):
         for mix in GREEDY_MIXES:
             counts[f"{task}_{mix}"] = phase_downstream_step(dev, task, mix)[0]
     counts["irtr"] = phase_downstream_step(dev, "irtr")[0]
+    t.append(time.perf_counter())
     for task in DOWNSTREAM:
         phase_downstream_slice(dev, task)
+    t.append(time.perf_counter())
     root = Path(DOWNSTREAM_DIR).resolve()
     shutil.rmtree(root, ignore_errors=True)
     try:
@@ -3224,6 +3232,10 @@ def phase_downstream(dev) -> dict:
         counts["recall"], counts["recall_attacked"], _ = phase_downstream_recall(dev, root)
     finally:
         shutil.rmtree(root, ignore_errors=True)
+    t.append(time.perf_counter())
+    print(f"[downstream] phase 17 in {t[-1] - t[0]:.1f} s: the bf16 steps "
+          f"{t[1] - t[0]:.1f} s, the fp32 card-against-CPU steps {t[2] - t[1]:.1f} s, "
+          f"the VQA writer and the recalls {t[3] - t[2]:.1f} s")
     return counts
 
 

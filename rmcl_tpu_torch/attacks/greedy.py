@@ -42,7 +42,9 @@ import torch
 
 from rmcl_tpu_torch.attacks.pgd import _frozen
 from rmcl_tpu_torch.core.config import active_tasks
-from rmcl_tpu_torch.objectives.contrastive import _infonce_rows, bt_correlation_loss
+from rmcl_tpu_torch.objectives.contrastive import (_infonce_rows, bt_correlation_loss,
+                                                   momentum_update)
+from rmcl_tpu_torch.objectives.downstream import irtr_text_repr
 from rmcl_tpu_torch.objectives.losses import l2_normalize
 
 # English function words that are never substitution targets — same role
@@ -622,3 +624,42 @@ class GreedyAttackIrtr(GreedyAttack):
 GREEDY_ATTACKERS = {"moco": GreedyAttackMoco, "barlowtwins": GreedyAttackBarlowTwins,
                     "nlvr2_attacked": GreedyAttackNlvr2, "vqa_attacked": GreedyAttackVqa,
                     "irtr_attacked": GreedyAttackIrtr}
+
+
+@torch.no_grad()
+def greedy_attack_extras(cfg, model, framework: str, batch, block_matrices=None):
+    """The attacker's extras, with no lasting effect on the model.
+
+    moco: the post-EMA key projection and the queue, (k, queue,
+    temperature).  The reference runs the attack after the momentum update
+    (objectives.py:256-265, then :277-285), so the keys come from the
+    updated twins; the twins are updated in place for the key forward and
+    restored after it.  barlowtwins: (k, B, adv_lr), k the head's training-mode
+    projection of the deterministic forward, its BatchNorm running statistics
+    left as they are.  The attacked step (``train/step.py``) takes the
+    step's own keys instead and runs no second key forward.  nlvr2_attacked:
+    (labels,); vqa_attacked: (vqa_targets,); irtr_attacked: (text_repr,
+    temperature, arange(B)), text_repr the normalised MoCo projections of
+    the deterministic forward (``block_matrices``: the transformer's
+    matrices in the compute type, else cast here)."""
+    if framework == "nlvr2_attacked":
+        return (batch["answers"].long(),)
+    if framework == "vqa_attacked":
+        return (batch["vqa_targets"],)
+    if framework == "irtr_attacked":
+        text_repr = irtr_text_repr(model, batch, block_matrices)
+        return (text_repr, cfg.temperature,
+                torch.arange(text_repr.shape[0], device=text_repr.device))
+    if framework == "barlowtwins":
+        k = model.barlowtwins_head(model.infer(batch)["cls_feats"], training=True)
+        return (k, batch["text_ids"].shape[0], cfg.adv_lr)
+    twins = [p for name, p in model.named_parameters() if name.startswith("k_")]
+    saved = [p.detach().clone() for p in twins]
+    try:
+        momentum_update(model, cfg.momentum)
+        infer_k = model.infer_k(batch)
+        k = l2_normalize(model.k_moco_head(infer_k["cls_feats"]), dim=1)
+    finally:
+        for p, s in zip(twins, saved):
+            p.copy_(s)
+    return (k, model.proj_queue.detach().clone(), cfg.temperature)

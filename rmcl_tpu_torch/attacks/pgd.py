@@ -92,21 +92,10 @@ def _linf_normalised_step(delta, grad, adv_lr: float, max_norm: float):
     return delta
 
 
-def _pgd_loop(loss_of_delta: Callable, shape, dtype, device,
-              adv_steps: int, adv_lr: float, max_norm: float):
-    delta = torch.zeros(shape, dtype=dtype, device=device)
-    for _ in range(adv_steps):
-        delta.requires_grad_(True)
-        with torch.enable_grad():
-            grad, = torch.autograd.grad(loss_of_delta(delta), delta)
-        delta = _linf_normalised_step(delta.detach(), grad, adv_lr, max_norm)
-    return delta
-
-
-def _pgd_loop2(loss_of_deltas: Callable, shapes, dtype, device, adv_steps: int,
-               adv_lr: float, max_norm: float, gate):
-    """``_pgd_loop`` over two deltas differentiated together, each updated
-    only where ``gate`` says (NLVR2's ``attack_idx``)."""
+def _pgd_loop(loss_of_deltas: Callable, shapes, dtype, device, adv_steps: int,
+              adv_lr: float, max_norm: float, gate):
+    """PGD over the deltas of ``shapes``, differentiated together, each
+    updated only where ``gate`` says (NLVR2's ``attack_idx``)."""
     deltas = [torch.zeros(s, dtype=dtype, device=device) for s in shapes]
     for _ in range(adv_steps):
         for d in deltas:
@@ -130,15 +119,15 @@ def _pgd_single_image(model, batch, head_loss: Callable,
         mats = block_matrices or model.transformer.block_matrices(model.compute_dtype)
         if fast:
             fwd, dshape, to_full = _fast_visual(model, batch, mats)
-            delta = _pgd_loop(lambda d: head_loss(fwd(d)), dshape, img.dtype,
-                              img.device, adv_steps, adv_lr, max_norm)
+            delta, = _pgd_loop(lambda d: head_loss(fwd(d)), (dshape,), img.dtype,
+                               img.device, adv_steps, adv_lr, max_norm, gate=(True,))
             return to_full(delta)
 
         def loss_of(delta):
             return head_loss(model.infer(dict(batch, image=img + delta), mats))
 
-        return _pgd_loop(loss_of, img.shape, img.dtype, img.device,
-                         adv_steps, adv_lr, max_norm)
+        return _pgd_loop(loss_of, (img.shape,), img.dtype, img.device,
+                         adv_steps, adv_lr, max_norm, gate=(True,))[0]
 
 
 # ------------------------------------------------------------------ MoCo
@@ -207,9 +196,9 @@ def make_pgd_nlvr2(model, adv_steps: int, adv_lr: float, max_norm: float,
             if fast:
                 fwd0, shape0, full0 = _fast_visual(model, batch, mats, "image_0", 1)
                 fwd1, shape1, full1 = _fast_visual(model, batch, mats, "image_1", 2)
-                d0, d1 = _pgd_loop2(lambda a, b: head_loss(fwd0(a), fwd1(b)),
-                                    (shape0, shape1), img0.dtype, img0.device,
-                                    adv_steps, adv_lr, max_norm, gate)
+                d0, d1 = _pgd_loop(lambda a, b: head_loss(fwd0(a), fwd1(b)),
+                                   (shape0, shape1), img0.dtype, img0.device,
+                                   adv_steps, adv_lr, max_norm, gate)
                 return full0(d0), full1(d1)
 
             def loss_of(a, b):
@@ -217,8 +206,8 @@ def make_pgd_nlvr2(model, adv_steps: int, adv_lr: float, max_norm: float,
                 return head_loss(model.infer(bb, mats, image_token_type_idx=1),
                                  model.infer(bb, mats, image_token_type_idx=2))
 
-            d0, d1 = _pgd_loop2(loss_of, (img0.shape, img1.shape), img0.dtype, img0.device,
-                                adv_steps, adv_lr, max_norm, gate)
+            d0, d1 = _pgd_loop(loss_of, (img0.shape, img1.shape), img0.dtype, img0.device,
+                               adv_steps, adv_lr, max_norm, gate)
             return d0, d1
 
     return attack

@@ -74,15 +74,14 @@ def compute_irtr_recall(trainer, dataset_name: Optional[str] = None, split: str 
                         txt_chunk: int = 256, max_texts: Optional[int] = None,
                         max_images: Optional[int] = None, verbose: bool = True,
                         attack_text_fn: Optional[Callable] = None,
-                        attack_image_fn: Optional[Callable] = None,
-                        return_scores: bool = False):
+                        attack_image_fn: Optional[Callable] = None):
     """Full cross-product IR/TR recall from ``rank_output`` scores.
 
     ``trainer``: a ``Trainer`` after ``setup`` (its config, model, block
     matrices and datamodule are read).  ``attack_text_fn(ids, masks) ->
     (ids, masks)`` and ``attack_image_fn(rows) -> rows`` perturb the inputs
     before ranking (``compute_attacked_irtr_recall``).  Returns the recall
-    tuple, and with ``return_scores`` (tuple, scores, iids, tiids)."""
+    tuple."""
     cfg = trainer.cfg
     model = trainer.ts.model
     if not hasattr(model, "rank_output"):
@@ -150,9 +149,7 @@ def compute_irtr_recall(trainer, dataset_name: Optional[str] = None, split: str 
         if verbose and (ii + 1) % 50 == 0:
             print(f"[recall] {ii + 1}/{len(img_rows)} images "
                   f"({(time.time() - t0) / (ii + 1):.2f}s/img)", flush=True)
-    scores = scores.cpu().numpy()
-    recall = recall_at_k(scores, iids, tiids)
-    return (recall, scores, iids, tiids) if return_scores else recall
+    return recall_at_k(scores.cpu().numpy(), iids, tiids)
 
 
 def compute_attacked_irtr_recall(trainer, dataset_name: Optional[str] = None,

@@ -1,6 +1,6 @@
 """Training orchestration (port of the JAX package's ``train/loop.py``): the
 reference's pl.Trainer + run.py path (reference run.py:92-118) as one
-explicit loop, with the greedy attacker's construction and extras.
+explicit loop, with the greedy attacker's construction.
 
 Per micro-step:
   1. host: next collated numpy batch (``data/loader.py``);
@@ -50,9 +50,6 @@ from rmcl_tpu_torch.core.buckets import bucket_enabled, text_bucket
 from rmcl_tpu_torch.data.datamodule import MultitaskDataModule
 from rmcl_tpu_torch.eval.metrics import MetricBag, Scalar
 from rmcl_tpu_torch.models.vilt import ViLT
-from rmcl_tpu_torch.objectives.contrastive import momentum_update
-from rmcl_tpu_torch.objectives.downstream import irtr_text_repr
-from rmcl_tpu_torch.objectives.losses import l2_normalize
 from rmcl_tpu_torch.train.checkpoint import CheckpointManager, load_initial_params
 from rmcl_tpu_torch.train.logging import MetricLogger
 from rmcl_tpu_torch.train.step import (
@@ -84,52 +81,13 @@ def build_greedy_attacker(cfg, model, tokenizer):
     return attacker
 
 
-@torch.no_grad()
-def greedy_attack_extras(cfg, model, framework: str, batch, block_matrices=None):
-    """The attacker's extras, with no lasting effect on the model.
-
-    moco: the post-EMA key projection and the queue, (k, queue,
-    temperature).  The reference runs the attack after the momentum update
-    (objectives.py:256-265, then :277-285), so the keys come from the
-    updated twins; the twins are updated in place for the key forward and
-    restored after it.  barlowtwins: (k, B, adv_lr), k the head's training-mode
-    projection of the deterministic forward, its BatchNorm running statistics
-    left as they are.  The attacked step (``train/step.py``) takes the
-    step's own keys instead and runs no second key forward.  nlvr2_attacked:
-    (labels,); vqa_attacked: (vqa_targets,); irtr_attacked: (text_repr,
-    temperature, arange(B)), text_repr the normalised MoCo projections of
-    the deterministic forward (``block_matrices``: the transformer's
-    matrices in the compute type, else cast here)."""
-    if framework == "nlvr2_attacked":
-        return (batch["answers"].long(),)
-    if framework == "vqa_attacked":
-        return (batch["vqa_targets"],)
-    if framework == "irtr_attacked":
-        text_repr = irtr_text_repr(model, batch, block_matrices)
-        return (text_repr, cfg.temperature,
-                torch.arange(text_repr.shape[0], device=text_repr.device))
-    if framework == "barlowtwins":
-        k = model.barlowtwins_head(model.infer(batch)["cls_feats"], training=True)
-        return (k, batch["text_ids"].shape[0], cfg.adv_lr)
-    twins = [p for name, p in model.named_parameters() if name.startswith("k_")]
-    saved = [p.detach().clone() for p in twins]
-    try:
-        momentum_update(model, cfg.momentum)
-        infer_k = model.infer_k(batch)
-        k = l2_normalize(model.k_moco_head(infer_k["cls_feats"]), dim=1)
-    finally:
-        for p, s in zip(twins, saved):
-            p.copy_(s)
-    return (k, model.proj_queue.detach().clone(), cfg.temperature)
-
-
 def make_greedy_extras_fn(cfg, model) -> Optional[Callable]:
     """``fn(ts, batch) -> extras`` for the active framework, or None."""
     framework = G.greedy_attack_framework(cfg)
     if framework is None:
         return None
-    return lambda ts, batch: greedy_attack_extras(cfg, ts.model, framework, batch,
-                                                  ts.block_matrices)
+    return lambda ts, batch: G.greedy_attack_extras(cfg, ts.model, framework, batch,
+                                                    ts.block_matrices)
 
 
 # ------------------------------------------------------------ the Trainer

@@ -59,7 +59,7 @@ from typing import Callable, Dict, List, Optional
 
 import torch
 
-from rmcl_tpu_torch.attacks.greedy import greedy_attack_framework
+from rmcl_tpu_torch.attacks.greedy import greedy_attack_extras, greedy_attack_framework
 from rmcl_tpu_torch.attacks.greedy_fused import TABLE_KEYS, FusedGreedyAttack
 from rmcl_tpu_torch.attacks.pgd import (make_pgd_barlowtwins, make_pgd_irtr, make_pgd_moco,
                                         make_pgd_nlvr2, make_pgd_vqa)
@@ -354,7 +354,7 @@ def make_attacked_train_step(cfg, ts: TrainState, greedy,
     adv_lr), k the key projection the step's head made in training mode (the
     JAX package's extras compute the same function of the same weights).  In
     a downstream task's it runs first, on the extras of
-    ``train/loop.py:greedy_attack_extras`` (the labels, the VQA targets, or
+    ``attacks/greedy.py:greedy_attack_extras`` (the labels, the VQA targets, or
     IRTR's deterministic text projections).  Its ids become the text view's.
 
     ``greedy``: a ``FusedGreedyAttack``.  ``batch``: the step's batch plus
@@ -383,7 +383,6 @@ def make_attacked_train_step(cfg, ts: TrainState, greedy,
             metrics, ret = body(clean, generator, greedy_fn)
             nch = ret["n_changed"].float()
         else:
-            from rmcl_tpu_torch.train.loop import greedy_attack_extras
             clean = normalize_image_inputs(clean, ts.model.grid_hw, ts.model.patch_size)
             extras = greedy_attack_extras(cfg, ts.model, framework, clean, ts.block_matrices)
             ids, masks, nch = greedy_fn(clean, extras)

@@ -56,7 +56,7 @@ def test_greedy_attack_matches_jax(j, task, fused):
     """The framework's greedy attack, host and fused, with compaction on
     (greedy_compact_frac 0.5) and the scoring chunked (greedy_score_max_rows
     4), against the JAX package's host attack on the same weights and extras
-    (train/loop.py:greedy_attack_extras, held against the JAX package's):
+    (attacks/greedy.py:greedy_attack_extras, held against the JAX package's):
     token ids, masks and change counts equal, some word changed; the fused
     attack launches no kernel on the CPU, reads the host once per loop plus
     once, and compacts the live rows once they fit in half the batch."""
