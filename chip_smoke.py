@@ -9,7 +9,9 @@ around it, the Trainer (phase 15), the main path; then the same for
 task_barlowtwins (phase 16): its attacked step, its fp32 check against the
 CPU and its Trainer; then the downstream tasks (phase 17): the attacked VQA
 and NLVR2 steps, the IRTR step, their fp32 checks, the VQA submission
-writer and the recall.
+writer and the recall; then the pretraining tasks (phase 18): the
+task_mlm_itm_mpp step, MPPD / MPFR, the fp32 check and the task_mlm_itm
+Trainer with the head graft.
 
     python3 chip_smoke.py
 
@@ -268,6 +270,33 @@ Phases, any failure exits non-zero:
                beside irtr_attacked: finite scores, recalls in [0, 1],
                seconds per image, launches.
 
+ 18. pretrain   the pretraining tasks at full width and depth, bf16,
+               max_image_len 200 (S = 40 + 201), drop_rate 0.1, u8 wire, the
+               MLM collator's masked text, seeded weights: make_train_step for
+               task_mlm_itm_mpp on 16 pairs with false_image_0, one warm-up and
+               three timed steps: per step the launch counters equal
+               pretrain_launches (three training forwards: rows 8, 9, 6, 7 x 12
+               each, four embedding dropouts a forward) and the sub-kernels
+               follow, one IPOT solve of 50 rounds (objectives/ot.py's
+               counter), 8 ITM positives, every metric finite, every parameter
+               reached and moved (mask_token, mpp_score, mlm_score, itm_score
+               among them); step ms (host clock), device busy (torch.profiler,
+               one step), pairs/s, memory; one IPOT solve at the step's shapes
+               by torch.profiler (kernel launches beside the derived 13 a
+               round, device time).  One step with mppd and mpfr beside them
+               (five forwards): finite, their heads moved.  One fp32 step of 4
+               pairs at SLICE_LAYERS on the card and on the CPU from one
+               generator: the same draws, _train_results' tolerances, MPP's
+               labels equal but at a truncation boundary (within 1e-4 of an
+               integer).  task_mlm_itm through the Trainer on 32 + 16 pairs in
+               memory (accum 2, one optimizer step, then validate()):
+               launches as derived, mlm_accuracy and itm_accuracy in [0, 1];
+               its weights from a synthetic load_path with the MLM and ITM
+               heads grafted from a synthetic
+               models_weight/vilt_200k_mlm_itm.ckpt (load_initial_params),
+               every grafted tensor equal.  The phase prints its seconds
+               against its 45 s budget.
+
 The line before the last is the kernels' JSON record; the last line is
 ``{"ok": true, "device": {...}}``.  Without a card, or outside the
 repository, it exits non-zero and prints no result.
@@ -286,7 +315,11 @@ count, and for the attacked steps the greedy attack's loops and host reads
 
     python3 chip_smoke.py --downstream
 
-runs phases 1, 2 and 17 only.
+runs phases 1, 2 and 17 only;
+
+    python3 chip_smoke.py --pretrain
+
+phases 1, 2 and 18 only.
 
     python3 chip_smoke.py --gemm-times [ROOT]
 
@@ -3239,6 +3272,417 @@ def phase_downstream(dev) -> dict:
     return counts
 
 
+# ----------------------------------------------------------- pretraining
+PRETRAIN_CONFIG = "task_mlm_itm_mpp"
+PRETRAIN_STEPS = 3                       # timed steps, after one warm-up
+PRETRAIN_DIR = "chip_smoke_pretrain.tmp"  # the Trainer's files and the graft's, removed
+PRETRAIN_FORWARDS = ("mlm", "mpp", "mppd", "mpfr", "itm")   # one training forward each
+
+
+def pretrain_config(config: str = PRETRAIN_CONFIG, **kw):
+    """``config`` as phase 18 runs it: ViLT-B/32 at full width and depth,
+    max_image_len 200 (S = 40 + 201), drop_rate 0.1, warmup 0, bf16."""
+    from rmcl_tpu_torch import build_config
+    return build_config(config, drop_rate=DROP_P, warmup_steps=0, max_steps=1000, **kw)
+
+
+class _BertIds:
+    """The BERT vocabulary's special ids, all the MLM collator reads of a
+    tokenizer (the vocabulary file is not in the repository)."""
+    pad_token_id, unk_token_id, cls_token_id, sep_token_id, mask_token_id = 0, 100, 101, 102, 103
+    vocab_size = 30522
+
+
+def pretrain_batch(cfg, n: int, seed: int, dev) -> dict:
+    """n pairs in the u8 wire format (``synthetic_requests``: ragged images,
+    padded BERT-like ids), ``false_image_0`` with its ``_hw`` from other
+    seeds, and the port's MLM collator's ``text_ids_mlm`` /
+    ``text_labels_mlm``."""
+    from rmcl_tpu_torch.data.mlm import MLMCollator
+    reqs = synthetic_requests(cfg, n, seed)
+    false = synthetic_requests(cfg, n, seed + 1)
+    ids = reqs["text_ids"]
+    special = np.isin(ids, [0, 101, 102])
+    mlm_ids, mlm_labels = MLMCollator(_BertIds(), seed=seed)(ids, special)
+    out = dict(reqs, false_image_0=false["image"], false_image_0_hw=false["image_hw"],
+               text_ids_mlm=mlm_ids, text_labels_mlm=mlm_labels)
+    return {k: torch.from_numpy(np.ascontiguousarray(v)).to(dev) for k, v in out.items()}
+
+
+def pretrain_launches(cfg, train: bool = True) -> dict:
+    """Block-op launches of one pretraining step of the default blocks at
+    drop_rate > 0: a training forward and its backward per active task
+    (``PRETRAIN_FORWARDS``), each with its text and image embedding
+    dropouts both ways; of one validation batch with ``train`` off, a
+    deterministic forward per task."""
+    from rmcl_tpu_torch.core.config import active_tasks
+    from rmcl_tpu_torch.ops import fused_block as FB
+    L = cfg.num_layers
+    n = sum(t in PRETRAIN_FORWARDS for t in active_tasks(cfg))
+    want = dict.fromkeys(FB.launches, 0)
+    if train:
+        want.update(attn_half_train=n * L, attn_half_train_bwd=n * L, mlp_half_train=n * L,
+                    mlp_half_train_bwd=n * L, dropout=4 * n)
+    else:
+        want.update(attn_half=n * L, mlp_half=n * L)
+    return want
+
+
+class _KeepDraws:
+    """Keeps the draws of every ``pretrain_draws`` call while installed."""
+
+    def __enter__(self):
+        import rmcl_tpu_torch.train.step as step_mod
+        self.mod, self.inner, self.seen = step_mod, step_mod.pretrain_draws, []
+
+        def keep(*a, **kw):
+            self.seen.append(self.inner(*a, **kw))
+            return self.seen[-1]
+
+        step_mod.pretrain_draws = keep
+        return self
+
+    def __exit__(self, *exc):
+        self.mod.pretrain_draws = self.inner
+
+
+def ipot_reading(dev, B: int, M: int, N: int) -> dict:
+    """One IPOT solve (objectives/ot.py, 50 rounds) at the ITM forward's
+    shapes on seeded costs with padding: its kernel launches counted by
+    torch.profiler beside the derived ``LAUNCHES_PER_ROUND`` a round, its
+    device time and its time per call."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    from rmcl_tpu_torch.objectives import ot
+    g = torch.Generator(device=dev).manual_seed(SEED)
+    C = torch.rand(B, M, N, generator=g, device=dev) * 2
+    x_pad = torch.arange(M, device=dev)[None] >= torch.randint(4, M, (B, 1), generator=g,
+                                                                device=dev)
+    y_pad = torch.arange(N, device=dev)[None] >= torch.randint(8, N, (B, 1), generator=g,
+                                                                device=dev)
+    joint = x_pad[:, :, None] | y_pad[:, None, :]
+    x_len, y_len = (M - x_pad.sum(1)).float(), (N - y_pad.sum(1)).float()
+
+    def run():
+        return ot.ipot(C, x_len, x_pad, y_len, y_pad, joint, 0.5, 50, 1)
+
+    ms = time_ms(run, iters=5, warmup=1)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        run()
+        torch.cuda.synchronize()
+    ev = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
+    n = sum(e.count for e in ev)
+    us = sum(_device_us(e) for e in ev)
+    check(bool(torch.isfinite(run()).all()), "[pretrain] IPOT plan not finite")
+    return {"launches": n or None, "derived": 50 * ot.LAUNCHES_PER_ROUND,
+            "device_ms": us / 1e3 if us > 0 else None, "ms": ms}
+
+
+def _moved_params(model, before: dict) -> tuple:
+    """(names whose gradient is nonzero, those of them that did not move)."""
+    learnt = [n_ for n_, p in model.named_parameters()
+              if p.grad is not None and bool(p.grad.abs().max() > 0)]
+    named = dict(model.named_parameters())
+    return learnt, [n_ for n_ in learnt if torch.equal(named[n_].detach(), before[n_])]
+
+
+def phase_pretrain_step(dev) -> tuple:
+    """Phase 18 (a): task_mlm_itm_mpp at full width, bf16, 16 pairs: one
+    warm-up and three timed make_train_step steps.  Returns (launches of a
+    step, readings)."""
+    from rmcl_tpu_torch.objectives import ot
+    from rmcl_tpu_torch.ops import fused_block as FB
+    from rmcl_tpu_torch.serve import seeded_model
+    from rmcl_tpu_torch.train.step import create_train_state, make_train_step
+    tag = "[pretrain mlm_itm_mpp]"
+    t0 = time.perf_counter()
+    cfg = pretrain_config()
+    ts = create_train_state(cfg, model=seeded_model(cfg, SEED), device=dev)
+    model = ts.model
+    batch = pretrain_batch(cfg, PGD_BATCH, SEED + 4, dev)
+    step = make_train_step(cfg, ts)
+    L = cfg.num_layers
+    print(f"{tag} {PRETRAIN_CONFIG}, blocks {model.block_impls}, S = {cfg.max_text_len} + "
+          f"{min(cfg.grid_hw[0] * cfg.grid_hw[1], cfg.max_image_len) + 1} ({cfg.grid_hw[0]} x "
+          f"{cfg.grid_hw[1]} patches, max_image_len {cfg.max_image_len}), {PGD_BATCH} pairs, "
+          f"u8 wire, drop_rate {cfg.drop_rate}, the MLM collator's masks "
+          f"({int((batch['text_labels_mlm'] != -100).sum())} labelled tokens); state ready in "
+          f"{time.perf_counter() - t0:.1f} s")
+    gen = torch.Generator().manual_seed(SEED + 7)
+    step(batch, gen)                                        # warm-up
+    gc.collect()
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    walls, events = [], []
+    for it in range(PRETRAIN_STEPS):
+        before = {n_: p.detach().clone() for n_, p in model.named_parameters()}
+        FB.reset_launches()
+        ot.reset_ipot_calls()
+        e0, e1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        with _KeepDraws() as kept:
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            e0.record()
+            metrics = step(batch, gen)
+            e1.record()
+            torch.cuda.synchronize()
+        walls.append((time.perf_counter() - t) * 1e3)
+        events.append(e0.elapsed_time(e1))
+        counts, want = dict(FB.launches), pretrain_launches(cfg)
+        check(counts == want, f"{tag} step {it}: launches {counts}, expected {want}")
+        counts = check_sub_launches(f"{tag} step {it}", counts, FB)
+        check(dict(ot.ipot_calls) == {"calls": 1, "rounds": 50},
+              f"{tag} step {it}: IPOT calls {ot.ipot_calls}")
+        vals = {k: v.item() for k, v in metrics.items()}
+        bad = [k for k, v in vals.items() if not np.isfinite(v)]
+        check(not bad, f"{tag} step {it}: non-finite metrics {bad}")
+        ones = int(kept.seen[0]["itm"].sum())
+        check(ones == PGD_BATCH // 2, f"{tag} step {it}: {ones} ITM positives")
+        learnt, still = _moved_params(model, before)
+        every = [n_ for n_, _ in model.named_parameters()]
+        need = ("transformer.mask_token", "mpp_score.decoder.weight",
+                "mlm_score.decoder.weight", "itm_score.fc.weight")
+        check(set(learnt) == set(every) and not still and all(n_ in learnt for n_ in need),
+              f"{tag} step {it}: not reached {sorted(set(every) - set(learnt))[:3]}, "
+              f"not moved {still[:3]}")
+        print(f"{tag} step {it}: " + " ".join(f"{k}={v!r}" for k, v in sorted(vals.items()))
+              + f"; {ones} ITM positives; all {len(learnt)} parameters reached and moved "
+              f"(mask_token, mpp_score, mlm_score, itm_score among them); {walls[-1]:.1f} ms")
+    busy = device_ms(lambda: step(batch, gen), iters=1, warmup=0)
+    ms, ev = statistics.median(walls), statistics.median(events)
+    mem = torch.cuda.max_memory_allocated() / 2 ** 30
+    ipot = ipot_reading(dev, PGD_BATCH, cfg.max_text_len,
+                        min(cfg.grid_hw[0] * cfg.grid_hw[1], cfg.max_image_len) + 1)
+    print(f"{tag} launches per step {counts}: rows 8, 9, 6, 7 each {3 * L} (three training "
+          f"forwards x {L} layers), dropout {4 * 3} (text and image, each forward both ways)")
+    print(f"{tag} step {ms!r} ms (median of {PRETRAIN_STEPS}, host clock + synchronize; "
+          f"{ev!r} ms between CUDA events), device busy "
+          f"{'not measured' if busy is None else repr(busy) + ' ms'} (torch.profiler, one "
+          f"step), {PGD_BATCH / ms * 1e3!r} pairs/s; max_memory_allocated {mem:.2f} GiB")
+    print(f"{tag} IPOT, one solve per step at B={PGD_BATCH} M={cfg.max_text_len} "
+          f"N={min(cfg.grid_hw[0] * cfg.grid_hw[1], cfg.max_image_len) + 1}: "
+          f"{ipot['launches'] if ipot['launches'] else 'not measured'} kernel launches "
+          f"(torch.profiler; derived {ipot['derived']} = 50 rounds x "
+          f"{ot.LAUNCHES_PER_ROUND}, plus the set-up's), device "
+          f"{'not measured' if ipot['device_ms'] is None else repr(ipot['device_ms']) + ' ms'}"
+          f", {ipot['ms']!r} ms per call (CUDA events)")
+    return counts, {"ms": ms, "device_ms": busy, "mem_gib": mem, "ipot": ipot, "model": model}
+
+
+def phase_pretrain_dense(dev, trained) -> dict:
+    """Phase 18 (b): one bf16 step with mppd and mpfr beside task_mlm_itm_mpp's
+    losses, 16 pairs, from (a)'s ``trained`` model and two seeded heads: its
+    launches (five training forwards), finite losses, the two regression
+    heads moved.  Returns its launches."""
+    from rmcl_tpu_torch.core.config import loss_names
+    from rmcl_tpu_torch.models.layers import reset_all
+    from rmcl_tpu_torch.models.vilt import ViLT
+    from rmcl_tpu_torch.ops import fused_block as FB
+    from rmcl_tpu_torch.train.step import create_train_state, make_train_step
+    tag = "[pretrain mppd mpfr]"
+    cfg = pretrain_config(loss_names=loss_names(dict.fromkeys(PRETRAIN_FORWARDS, 1)))
+    model = ViLT(cfg)
+    g = torch.Generator().manual_seed(SEED + 6)
+    reset_all(model.mppd_score, g)
+    reset_all(model.mpfr_score, g)
+    skipped = model.load_state_dict(trained.state_dict(), strict=False)
+    check(sorted(skipped.missing_keys) == sorted(k for k in model.state_dict() if k.startswith(
+        ("mppd_score.", "mpfr_score."))) and not skipped.unexpected_keys, f"{tag} {skipped}")
+    ts = create_train_state(cfg, model=model, device=dev)
+    batch = pretrain_batch(cfg, PGD_BATCH, SEED + 5, dev)
+    before = {n_: p.detach().clone() for n_, p in ts.model.named_parameters()}
+    torch.cuda.synchronize()
+    FB.reset_launches()
+    t = time.perf_counter()
+    metrics = make_train_step(cfg, ts)(batch, torch.Generator().manual_seed(SEED + 7))
+    torch.cuda.synchronize()
+    wall = (time.perf_counter() - t) * 1e3
+    counts, want = dict(FB.launches), pretrain_launches(cfg)
+    check(counts == want, f"{tag} launches {counts}, expected {want}")
+    counts = check_sub_launches(tag, counts, FB)
+    vals = {k: v.item() for k, v in metrics.items()}
+    bad = [k for k, v in vals.items() if not np.isfinite(v)]
+    check(not bad, f"{tag} non-finite metrics {bad}")
+    learnt, still = _moved_params(ts.model, before)
+    heads = [n_ for n_ in before if n_.startswith(("mppd_score.", "mpfr_score."))]
+    check(len(heads) == 12 and set(heads) <= set(learnt) and not still,
+          f"{tag} heads reached {sorted(set(heads) & set(learnt))}, not moved {still[:3]}")
+    print(f"{tag} one step, five training forwards: " + " ".join(
+        f"{k}={v!r}" for k, v in sorted(vals.items()) if "mppd" in k or "mpfr" in k)
+        + f"; the {len(heads)} mppd_score / mpfr_score parameters moved; launches {counts}; "
+        f"{wall:.1f} ms (the first step of its state)")
+    return counts
+
+
+def _mpp_labels_agree(tag, cfg, model, batch, masks, dev) -> None:
+    """MPP's labels of the masked embedding on the CPU and on the card, the
+    same rows and masks: equal, but where the CPU's mean x 255 lies within
+    1e-4 of an integer (the truncation of a mean whose reduction orders
+    differ); the margin of every differing label is printed."""
+    from rmcl_tpu_torch.models.vit import normalize_u8, patch_mean_rgb
+    labels = {}
+    for where in ("cpu", dev):
+        m = copy.deepcopy(model).to(where)
+        b = {k: v.to(where) for k, v in batch.items()}
+        img = normalize_u8(b["image"], b["image_hw"], cfg.grid_hw, cfg.patch_size)
+        with torch.no_grad():
+            labels[str(where)] = m.transformer.visual_embed_masked(
+                img, cfg.grid_hw, cfg.max_image_len, m.compute_dtype, *masks.to(where))[2].cpu()
+            if where == "cpu":
+                sel = m.transformer.visual_embed_prepare(img, cfg.grid_hw, cfg.max_image_len).sel
+                scaled = patch_mean_rgb(img * 0.5 + 0.5) * 255
+        del m
+    margin = (scaled - scaled.round()).abs()
+    if sel is not None:
+        margin = torch.gather(margin, 1, sel[..., None].expand(-1, -1, 3))
+    margin = torch.cat([torch.full_like(margin[:, :1], float("inf")), margin], dim=1)
+    ref, ours = labels["cpu"], labels[str(dev)]
+    differ = ref != ours
+    check(torch.equal(ref == -100, ours == -100), f"{tag} MPP label masks differ")
+    check(bool((margin[differ] < 1e-4).all()), f"{tag} MPP labels differ away from a "
+                                               f"truncation boundary: {margin[differ]}")
+    print(f"{tag} MPP labels: {int((ref[..., 0] != -100).sum())} masked patches x 3 "
+          f"channels, {int(differ.sum())} labels differ"
+          + (f" at CPU margins {margin[differ].tolist()}" if differ.any() else "")
+          + " (truncation rule: within 1e-4 of an integer)")
+
+
+def phase_pretrain_slice(dev) -> None:
+    """Phase 18 (c): one fp32 task_mlm_itm_mpp step of 4 pairs at SLICE_LAYERS
+    on the card and on the CPU from the same weights, batch and generator
+    (the same dropout seeds, ITM labels and MPP masks): the draws equal,
+    _train_results' tolerances, MPP's labels (_mpp_labels_agree)."""
+    from rmcl_tpu_torch.serve import seeded_model
+    from rmcl_tpu_torch.train.step import create_train_state, make_train_step
+    tag = "[pretrain slice]"
+    cfg32 = pretrain_config().replace(compute_dtype="float32", num_layers=SLICE_LAYERS)
+    base = seeded_model(cfg32, SEED)
+    batch = pretrain_batch(cfg32, N_CPU, SEED + 4, "cpu")
+    results, draws = {}, {}
+    for where in ("cpu", dev):
+        ts = create_train_state(cfg32, model=copy.deepcopy(base), device=where)
+        t0 = time.perf_counter()
+        with _KeepDraws() as kept:
+            metrics = make_train_step(cfg32, ts)({k: v.to(where) for k, v in batch.items()},
+                                                 torch.Generator().manual_seed(SEED + 8))
+        results[str(where)] = _step_result(ts, metrics, t0)
+        draws[str(where)] = {k: v.cpu() for k, v in kept.seen[0].items()}
+        del ts
+    check(all(torch.equal(draws["cpu"][k], draws[str(dev)][k]) for k in draws["cpu"]),
+          f"{tag} the card and the CPU drew differently")
+    _train_results(tag, results, dev, cfg32.learning_rate)
+    _mpp_labels_agree(tag, cfg32, base, batch, draws["cpu"]["mpp"], dev)
+
+
+def phase_pretrain_trainer(dev, root: Path) -> tuple:
+    """Phase 18 (d): task_mlm_itm through Trainer.setup() / fit() / validate()
+    on an in-memory datamodule (32 pairs at 16 per step: accum 2, one
+    optimizer step; 16 validation pairs), the weights loaded from a
+    synthetic load_path with the MLM and ITM heads grafted from a synthetic
+    models_weight/vilt_200k_mlm_itm.ckpt.  Returns (the fit's launches,
+    validate's)."""
+    import os
+    from rmcl_tpu_torch.models.vilt import ViLT
+    from rmcl_tpu_torch.ops import fused_block as FB
+    from rmcl_tpu_torch.serve import seeded_model
+    from rmcl_tpu_torch.train.checkpoint import ITM_HEAD_KEYS, MLM_HEAD_KEYS, load_initial_params
+    tag = "[pretrain trainer]"
+    n_train = PGD_BATCH * TRAINER_ACCUM
+    t0 = time.perf_counter()
+    base = pretrain_config("task_mlm_itm")
+    _, _, sents = greedy_setup(base, n_train + TRAINER_VAL, TRAINER_MIX, keep_dir=str(root))
+    cfg = base.replace(tokenizer=f"{root}/vocab.txt", datasets=("coco",),
+                       batch_size=n_train, per_device_batchsize=PGD_BATCH, max_steps=1,
+                       max_epoch=1, log_dir=str(root / "log"),
+                       load_path=str(root / "weights.ckpt"))
+    images = memory_images(cfg, len(sents), SEED + 13)
+    split = {"train": slice(0, n_train), "val": slice(n_train, None),
+             "test": slice(n_train, None)}
+
+    def make(tok, s):
+        texts, imgs = sents[split[s]], images[split[s]]
+        return MemoryDataset(tok, texts, imgs, cfg.max_text_len,
+                             extra=lambda i: {"false_image_0": [imgs[(i + 1) % len(imgs)]]})
+
+    saved = seeded_model(cfg, SEED).state_dict()
+    torch.save({"state_dict": saved}, cfg.load_path)
+    g = torch.Generator().manual_seed(SEED + 14)
+    heads = {k: torch.randn(saved[k].shape, generator=g) for k in MLM_HEAD_KEYS + ITM_HEAD_KEYS}
+    (root / "models_weight").mkdir()
+    torch.save({"state_dict": heads}, root / "models_weight" / "vilt_200k_mlm_itm.ckpt")
+    cwd = os.getcwd()
+    os.chdir(root)
+    try:
+        model = load_initial_params(cfg, ViLT(cfg))   # every tensor comes from the files
+    finally:
+        os.chdir(cwd)
+    sd = model.state_dict()
+    check(all(torch.equal(sd[k], v) for k, v in heads.items()),
+          f"{tag} the MLM / ITM heads were not grafted")
+    check(all(torch.equal(sd[k], v) for k, v in saved.items() if k not in heads),
+          f"{tag} the load_path's weights were not loaded")
+    print(f"{tag} load_initial_params: {cfg.load_path} with the {len(heads)} MLM / ITM head "
+          f"tensors grafted from models_weight/vilt_200k_mlm_itm.ckpt, every one equal; "
+          f"data and weights ready in {time.perf_counter() - t0:.1f} s")
+    tr = _memory_trainer(dev, cfg.replace(load_path=None), make, model)
+    torch.cuda.synchronize()
+    FB.reset_launches()
+    t = time.perf_counter()
+    tr.fit()
+    torch.cuda.synchronize()
+    fit_s = time.perf_counter() - t
+    counts = dict(FB.launches)
+    step_l, val_l = pretrain_launches(cfg), pretrain_launches(cfg, train=False)
+    want = {k: TRAINER_ACCUM * step_l[k] + val_l[k] for k in step_l}
+    check(tr.steps_done == TRAINER_ACCUM, f"{tag} {tr.steps_done} micro-steps")
+    check(counts == want, f"{tag} fit: launches {counts}, expected {want}")
+    counts = check_sub_launches(f"{tag} fit", counts, FB)
+    FB.reset_launches()
+    t = time.perf_counter()
+    vm = tr.validate()
+    torch.cuda.synchronize()
+    val_s = time.perf_counter() - t
+    vcounts = dict(FB.launches)
+    check(vcounts == val_l, f"{tag} validate: launches {vcounts}, expected {val_l}")
+    vcounts = check_sub_launches(f"{tag} validate", vcounts, FB)
+    acc = {k: vm[k] for k in ("mlm_accuracy", "itm_accuracy")}
+    check(all(0.0 <= v <= 1.0 for v in acc.values()), f"{tag} accuracies {acc}")
+    print(f"{tag} fit: {TRAINER_ACCUM} micro-steps (accum {TRAINER_ACCUM}, one optimizer "
+          f"step) and its validation, {fit_s:.2f} s, launches {counts}; validate(): "
+          f"{TRAINER_VAL} pairs, {val_s:.2f} s, launches {vcounts} (two deterministic forwards "
+          f"x {cfg.num_layers} layers), {acc}, val/the_metric {vm['val/the_metric']!r}")
+    return counts, vcounts
+
+
+def phase_pretrain(dev) -> dict:
+    """Phase 18 whole: the full-width task_mlm_itm_mpp step, the step with
+    mppd and mpfr, the fp32 step against the CPU, the task_mlm_itm Trainer
+    with the graft.  Returns the launches by path."""
+    import shutil
+    counts, t = {}, [time.perf_counter()]
+    counts["pretrain"], reading = phase_pretrain_step(dev)
+    counts["pretrain_dense"] = phase_pretrain_dense(dev, reading.pop("model"))
+    del reading
+    t.append(time.perf_counter())
+    phase_pretrain_slice(dev)
+    t.append(time.perf_counter())
+    root = Path(PRETRAIN_DIR).resolve()
+    shutil.rmtree(root, ignore_errors=True)
+    try:
+        root.mkdir()
+        counts["pretrain_trainer"], counts["pretrain_validate"] = phase_pretrain_trainer(dev,
+                                                                                       root)
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    t.append(time.perf_counter())
+    print(f"[pretrain] phase 18 in {t[-1] - t[0]:.1f} s (budget 45 s): the bf16 steps "
+          f"{t[1] - t[0]:.1f} s, the fp32 card-against-CPU step {t[2] - t[1]:.1f} s, the "
+          f"Trainer with the graft {t[3] - t[2]:.1f} s")
+    return counts
+
+
 # --------------------------------------------------------------- profile
 def _device_us(evt) -> float:
     for attr in ("self_device_time_total", "self_cuda_time_total"):
@@ -3585,9 +4029,21 @@ def main() -> int:
             return 1
         print(json.dumps({"card": card, "launches_by_path": counts}))
         return 0
+    if sys.argv[1:] == ["--pretrain"]:
+        try:
+            from rmcl_tpu_torch import build_config  # noqa: F401
+            card = phase_device()
+            phase_build()
+            counts = phase_pretrain(torch.device("cuda", 0))
+        except Exception as e:  # noqa: BLE001  any failure ends the run
+            traceback.print_exc()
+            print(f"chip_smoke --pretrain: FAILED: {e}", file=sys.stderr)
+            return 1
+        print(json.dumps({"card": card, "launches_by_path": counts}))
+        return 0
     if sys.argv[1:]:
-        print("usage: python3 chip_smoke.py [--profile | --gemm-times [ROOT] | --downstream]",
-              file=sys.stderr)
+        print("usage: python3 chip_smoke.py [--profile | --gemm-times [ROOT] | --downstream | "
+              "--pretrain]", file=sys.stderr)
         return 2
     try:
         from rmcl_tpu_torch import build_config
@@ -3647,6 +4103,8 @@ def main() -> int:
         bt_trainer_counts = phase_trainer_bt(dev, bt_bare[TRAINER_MIX])
         phase = "downstream"
         ds_counts = phase_downstream(dev)
+        phase = "pretrain"
+        pre_counts = phase_pretrain(dev)
     except Exception as e:  # noqa: BLE001  every phase failure ends the run
         traceback.print_exc()
         print(f"chip_smoke: FAILED in phase {phase}: {e}", file=sys.stderr)
@@ -3667,7 +4125,8 @@ def main() -> int:
                 "bt_attacked": bt_counts["worst"][name],
                 "bt_attacked_realistic": bt_counts["realistic"][name],
                 "bt_trainer": bt_trainer_counts[name],
-                **{f"downstream_{k}": v[name] for k, v in ds_counts.items()}}
+                **{f"downstream_{k}": v[name] for k, v in ds_counts.items()},
+                **{k: v[name] for k, v in pre_counts.items()}}
 
     records = []
     for name, replaces in KERNELS.items():

@@ -32,7 +32,8 @@ package's kernel block configurations (``attention_impl`` "fused" /
   objectives/  the loss primitives, InfoNCE, the momentum update, the
                queue and the MoCo objective with its four views; the
                BarlowTwins correlation loss and objective with its three
-               views
+               views; the downstream objectives; the pretraining objectives
+               (MLM, MPP, MPPD, MPFR, ITM with its IPOT word-patch alignment)
   train/       parameter groups, schedule and AdamW / Adam / SGD (schedule.py);
                TrainState, make_train_step with accumulation,
                make_attacked_train_step, make_eval_step (step.py); the Trainer

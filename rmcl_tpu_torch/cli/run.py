@@ -9,7 +9,9 @@
 (``rmcl-torch`` is the same command.)
 
 ``with``: train, as the reference's ``python run.py with task_moco
-text_view=True image_view=True data_root=/data`` does: the port's
+text_view=True image_view=True data_root=/data`` does (or ``with
+task_mlm_itm``, ``task_mlm_itm_mpp``, ``task_finetune_vqa`` ..., or no named
+config for the default pretraining losses, itm and mlm): the port's
 ``Trainer`` (``train/loop.py``) over the arrow tables under ``data_root``,
 with validation and the ``last`` / ``best`` checkpoints under
 ``log_dir/exp_name``; ``test_only=True`` validates on the test split

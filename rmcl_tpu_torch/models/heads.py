@@ -1,6 +1,7 @@
 """Task heads (port of ``rmcl_tpu/models/heads.py``): pooler, ITM, MLM, the
-VQA and NLVR2 classifiers, rank output, the MoCo projector and the
-BarlowTwins projector.  Module names follow the reference state_dict."""
+masked-patch heads (MPP, MPPD, MPFR), the VQA and NLVR2 classifiers, rank
+output, the MoCo projector and the BarlowTwins projector.  Module names follow
+the reference state_dict."""
 
 from __future__ import annotations
 
@@ -50,6 +51,22 @@ class MLMHead(nn.Module):
         y = gelu(self.transform["dense"](x))
         y = self.transform["LayerNorm"](y)
         return self.decoder(y) + self.bias.to(y.dtype)
+
+
+class PatchHead(nn.Module):
+    """dense + GELU + LayerNorm (eps 1e-12), then a decoder with its bias:
+    ``mpp_score`` (C -> 3 x 256 RGB bins), ``mppd_score`` (C -> P*P*3
+    pixels) and ``mpfr_score`` (C -> C patch features)."""
+
+    def __init__(self, hidden: int, out_dim: int):
+        super().__init__()
+        self.transform = nn.ModuleDict({"dense": Linear(hidden, hidden),
+                                        "LayerNorm": LayerNorm(hidden, BERT_LN_EPS)})
+        self.decoder = Linear(hidden, out_dim)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        y = self.transform["LayerNorm"](gelu(self.transform["dense"](x)))
+        return self.decoder(y)
 
 
 class Classifier(nn.ModuleDict):

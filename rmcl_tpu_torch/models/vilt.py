@@ -5,11 +5,11 @@ The module tree carries the reference state_dict names
 (``rmcl_tpu/compat/torch_loader.py``), so a reference checkpoint, or the
 JAX package's parameters and state through ``compat/from_jax.py``, load
 with ``load_reference_state_dict``.  Heads are built per active loss as
-``init_vilt`` builds them: pooler, ITM, MLM, VQA, NLVR2 (with the
-three-row token-type table), rank output, the MoCo projector and, with the
-``barlowtwins`` loss, the BarlowTwins projector (``cfg.bt_proj_dims``; its
-BatchNorm running statistics are buffers).  The heads of the pretraining
-losses ``mpp``, ``mppd`` and ``mpfr`` are not built (ROADMAP A11c).  With
+``init_vilt`` builds them: pooler, ITM, MLM, the masked-patch heads of
+``mpp``, ``mppd`` and ``mpfr``, VQA, NLVR2 (with the three-row token-type
+table), rank output, the MoCo projector and, with the ``barlowtwins`` loss,
+the BarlowTwins projector (``cfg.bt_proj_dims``; its BatchNorm running
+statistics are buffers).  With
 the ``moco`` loss active the model also carries the momentum twins
 (``k_text_embeddings``, ``k_token_type_embeddings``, ``k_transformer``,
 ``k_moco_head``; the key path shares ``pooler``) and the negatives queue
@@ -36,10 +36,10 @@ import torch
 from torch import nn
 
 from rmcl_tpu_torch.models.heads import (BarlowTwinsHead, Classifier, ITMHead, MLMHead,
-                                         MoCoHead, Pooler)
+                                         MoCoHead, PatchHead, Pooler)
 from rmcl_tpu_torch.models.layers import Embedding, Linear, reset_all
 from rmcl_tpu_torch.models.text_embeddings import TextEmbeddings
-from rmcl_tpu_torch.models.vit import ViT, normalize_u8
+from rmcl_tpu_torch.models.vit import ViT, normalize_u8, patch_index
 from rmcl_tpu_torch.ops.dropout import dropout
 
 MOCO_PROJ_DIM = 128
@@ -100,6 +100,12 @@ class ViLT(nn.Module):
             self.mlm_score = MLMHead(C, cfg.vocab_size)
         if _needs(cfg, "itm", "irtr"):
             self.itm_score = ITMHead(C)
+        if _needs(cfg, "mpp"):
+            self.mpp_score = PatchHead(C, 256 * 3)
+        if _needs(cfg, "mppd"):
+            self.mppd_score = PatchHead(C, cfg.patch_size ** 2 * 3)
+        if _needs(cfg, "mpfr"):
+            self.mpfr_score = PatchHead(C, C)
         if _needs(cfg, "vqa", "vqa_attacked"):
             self.vqa_classifier = Classifier(C, 2 * C, cfg.vqav2_label_size)
         if _needs(cfg, "nlvr2", "nlvr2_attacked"):
@@ -149,13 +155,11 @@ class ViLT(nn.Module):
 
     def load_reference_state_dict(self, sd: Dict[str, torch.Tensor]) -> List[str]:
         """Load a reference-named state dict.  Entries of parts this model
-        does not build (heads of losses that are not active, and the
-        ``mpp_score``, ``mppd_score`` and ``mpfr_score`` heads of the
-        pretraining losses, which are not ported) are skipped and returned,
-        and so are torch BatchNorm's ``num_batches_tracked`` counters, which
-        nothing here reads; a missing
-        or misshapen entry of a part it builds raises, except the queue
-        state, which a checkpoint may lack (the model then keeps its own)."""
+        does not build (heads of losses that are not active) are skipped and
+        returned, and so are torch BatchNorm's ``num_batches_tracked``
+        counters, which nothing here reads; a missing or misshapen entry of a
+        part it builds raises, except the queue state, which a checkpoint may
+        lack (the model then keeps its own)."""
         own = {name for name, _ in self.named_children()}
         keep = {k: v for k, v in sd.items() if k.split(".", 1)[0] in own
                 and not k.endswith(".num_batches_tracked")}
@@ -171,7 +175,8 @@ class ViLT(nn.Module):
               image_masks: Optional[torch.Tensor] = None,
               prefix: str = "", deterministic: bool = True,
               seeds: Optional[torch.Tensor] = None,
-              word_embeds: Optional[torch.Tensor] = None) -> Dict[str, torch.Tensor]:
+              word_embeds: Optional[torch.Tensor] = None, mask_text: bool = False,
+              mask_image: Optional[torch.Tensor] = None) -> Dict[str, torch.Tensor]:
         """Forward of a wire-format batch: ``image`` patch rows
         (B, N, P*P*3) as uint8 with ``image_hw`` (B, 2), or normalised fp32;
         ``text_ids`` and ``text_masks`` (B, T).  A batch with ``image_0`` /
@@ -185,7 +190,16 @@ class ViLT(nn.Module):
         inside every block, from ``seeds`` (layers + 1, 2, B) int32, and
         gradients to the parameters.  ``word_embeds`` (B, T, C) replaces the
         word-embedding lookup of ``text_ids`` (the greedy attack's saliency
-        gradient is taken with respect to it)."""
+        gradient is taken with respect to it).  ``mask_text`` reads the MLM
+        collator's ``text_ids_mlm`` and ``text_labels_mlm`` in place of
+        ``text_ids`` and ``text_labels``; ``mask_image`` (2, B, N) bool, the
+        drawn MPP masks (masked, replaced) over every patch, embeds the image
+        with them (``ViT.visual_embed_masked``) and returns its
+        ``image_labels``.  The returned dict is the JAX package's:
+        ``text_feats``, ``image_feats``, ``cls_feats``, ``raw_cls_feats``,
+        ``image_masks``, ``image_labels`` (None unmasked, and with
+        ``image_embeds``), ``patch_index`` (B, L, 2) (None with
+        ``image_embeds``), ``text_labels``, ``text_ids``, ``text_masks``."""
         dtype = self.compute_dtype
         if deterministic:
             seeds = None
@@ -193,10 +207,12 @@ class ViLT(nn.Module):
             raise ValueError("the training forward needs seeds (draw_seeds)")
         p = self.drop_rate
         transformer = getattr(self, prefix + "transformer")
-        text = getattr(self, prefix + "text_embeddings")(batch["text_ids"], dtype,
-                                                         word_embeds)
+        mlm = "_mlm" if mask_text else ""
+        text_ids = batch[f"text_ids{mlm}"]
+        text = getattr(self, prefix + "text_embeddings")(text_ids, dtype, word_embeds)
         if seeds is not None:
             text = dropout(text, seeds[-1, 0], 0, p)
+        image_labels = pidx = None
         if image_embeds is None and image_masks is None:
             key = f"image_{image_token_type_idx - 1}"
             key = key if key in batch else "image"
@@ -207,8 +223,15 @@ class ViLT(nn.Module):
             if img.dtype == torch.uint8:
                 img = normalize_u8(img, batch.get(f"{key}_hw"), self.grid_hw,
                                    self.patch_size)
-            image_embeds, image_masks = transformer.visual_embed(
-                img, self.grid_hw, self.max_image_len, dtype)
+            if mask_image is not None:
+                image_embeds, image_masks, image_labels, pidx = \
+                    transformer.visual_embed_masked(img, self.grid_hw, self.max_image_len,
+                                                    dtype, mask_image[0], mask_image[1])
+            else:
+                prep = transformer.visual_embed_prepare(img, self.grid_hw, self.max_image_len)
+                image_embeds, image_masks = transformer.visual_embed_from_prep(prep, None,
+                                                                               dtype)
+                pidx = patch_index(prep, self.grid_hw)
             if seeds is not None:
                 image_embeds = dropout(image_embeds, seeds[-1, 1], 0, p)
         else:
@@ -224,7 +247,9 @@ class ViLT(nn.Module):
         T = text.shape[1]
         return {"text_feats": x[:, :T], "image_feats": x[:, T:],
                 "cls_feats": self.pooler(x), "raw_cls_feats": x[:, 0],
-                "image_masks": image_masks}
+                "image_masks": image_masks, "image_labels": image_labels,
+                "patch_index": pidx, "text_labels": batch.get(f"text_labels{mlm}"),
+                "text_ids": text_ids, "text_masks": batch["text_masks"]}
 
     def infer_k(self, batch: Dict[str, torch.Tensor], **kw) -> Dict[str, torch.Tensor]:
         """``infer`` through the momentum twins (the key encoder)."""

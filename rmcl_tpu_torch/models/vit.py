@@ -13,6 +13,15 @@ parameters too.
   does not depend on a pixel perturbation is in the ``VisualPrep``, so the
   PGD loop (``attacks/pgd.py``) prepares once and pays one matmul per
   iteration.
+* ``ViT.visual_embed_masked`` is the masked-patch (MPP) embedding in the JAX
+  package's order (``visual_embed(mask_it=True)``): the patch embedding of
+  every patch, the learned ``mask_token`` in place of the replaced patches
+  (``mask_tokens``), the ``max_image_len`` selection moving the labels and the
+  patch grid coordinates with the features, -100 labels on padding patches
+  and on the class token's row, then class token and pos-embed.  The labels
+  are each patch's mean RGB of the unnormalised image in 256 bins; the two
+  Bernoulli masks (masked, and replaced among the masked) are drawn by the
+  caller over every patch before selection.
 * ``ViT.forward`` runs the blocks, then the final LayerNorm.  Without
   ``seeds`` it is the deterministic forward (the key encoder, the attacks,
   serving); with ``seeds`` (layers, 2, B) the training forward at dropout rate
@@ -127,6 +136,35 @@ def resample_pos_embed(spatial: torch.Tensor, h: torch.Tensor, w: torch.Tensor,
 
 
 # ------------------------------------------------- hoisted visual geometry
+def patch_mean_rgb(rows: torch.Tensor) -> torch.Tensor:
+    """(B, N, P*P*3) -> each patch's mean RGB (B, N, 3)."""
+    B, N, F = rows.shape
+    return rows.reshape(B, N, F // 3, 3).mean(2)
+
+
+def mask_tokens(rows: torch.Tensor, feats: torch.Tensor, mask_token: torch.Tensor,
+                masked: torch.Tensor, replaced: torch.Tensor):
+    """MPP masking (reference vision_transformer.py:525-557) on drawn masks:
+    ``rows`` (B, N, P*P*3) normalised, ``feats`` (B, N, C), ``masked`` and
+    ``replaced`` (B, N) bool.  Returns (feats with ``mask_token`` where
+    replaced, labels (B, N, 3) int64: clip(int(mean RGB of rows * 0.5 + 0.5
+    times 255), 0, 255) where masked, -100 elsewhere)."""
+    pm = patch_mean_rgb(rows.float() * 0.5 + 0.5)
+    labels = torch.clamp((pm * 255).long(), 0, 255)
+    labels = torch.where(masked[..., None], labels, -100)
+    feats = torch.where(replaced[..., None], mask_token.reshape(-1).to(feats.dtype), feats)
+    return feats, labels
+
+
+def patch_index(prep: "VisualPrep", grid_hw: Tuple[int, int]) -> torch.Tensor:
+    """(B, L, 2) grid coordinates (row, column) of the selected patches."""
+    gw = grid_hw[1]
+    B = prep.x_mask.shape[0]
+    flat = (prep.sel if prep.sel is not None else
+            torch.arange(prep.n_patches, device=prep.x_mask.device).expand(B, -1))
+    return torch.stack([flat // gw, flat % gw], dim=-1)
+
+
 class VisualPrep(NamedTuple):
     """The part of the visual embedding that a pixel perturbation cannot
     change, computed once from the clean image.  Padding patches are masked
@@ -266,7 +304,7 @@ class ViT(nn.Module):
         self.patch_embed = PatchEmbed(C, patch_size)
         self.cls_token = nn.Parameter(torch.empty(1, 1, C))
         self.pos_embed = nn.Parameter(torch.empty(1, self.pos_grid ** 2 + 1, C))
-        self.mask_token = nn.Parameter(torch.empty(1, 1, C))   # MPP only; unused here
+        self.mask_token = nn.Parameter(torch.empty(1, 1, C))   # MPP's masked patches
         self.blocks = nn.ModuleList(
             Block(C, num_heads, mlp_ratio, attn_impl, mlp_impl) for _ in range(num_layers))
         self.norm = LayerNorm(C, VIT_LN_EPS)
@@ -328,6 +366,25 @@ class ViT(nn.Module):
         """Normalised patch rows (B, N, P*P*3) -> (x (B, L+1, C), mask (B, L+1) int32)."""
         prep = self.visual_embed_prepare(rows, grid_hw, max_image_len)
         return self.visual_embed_from_prep(prep, None, dtype)
+
+    def visual_embed_masked(self, rows: torch.Tensor, grid_hw: Tuple[int, int],
+                            max_image_len: int, dtype: torch.dtype, masked: torch.Tensor,
+                            replaced: torch.Tensor):
+        """The masked-patch embedding of normalised patch rows (B, N, P*P*3)
+        with the drawn masks ``masked`` and ``replaced`` (B, N) bool over every
+        patch.  Returns (x (B, L+1, C), mask (B, L+1) int32, labels (B, L+1, 3)
+        int64, patch_index (B, L, 2))."""
+        prep = self.visual_embed_prepare(rows, grid_hw, max_image_len)
+        x = self.patch_embed(rows, dtype)          # every patch, as the JAX package
+        x, labels = mask_tokens(rows, x, self.mask_token, masked, replaced)
+        if prep.sel is not None:
+            x = torch.gather(x, 1, prep.sel[..., None].expand(-1, -1, x.shape[-1]))
+            labels = torch.gather(labels, 1, prep.sel[..., None].expand(-1, -1, 3))
+        labels = torch.where(prep.x_mask[:, 1:, None] == 1, labels, -100)
+        B, _, C = x.shape
+        labels = torch.cat([labels.new_full((B, 1, 3), -100), labels], dim=1)
+        x = torch.cat([self.cls_token.to(dtype).expand(B, 1, C), x], dim=1)
+        return x + prep.pos_full.to(dtype), prep.x_mask, labels, patch_index(prep, grid_hw)
 
     def forward(self, x: torch.Tensor, mask: torch.Tensor,
                 block_matrices: Optional[List[Dict[str, torch.Tensor]]] = None,

@@ -36,7 +36,7 @@ import os
 import shutil
 import sys
 import threading
-from typing import Optional
+from typing import Dict, Optional
 
 import torch
 
@@ -95,21 +95,48 @@ def resolve_checkpoint_dir(load_path: str) -> Optional[str]:
     return None
 
 
+# where the MLM / ITM heads are grafted from, relative to the working directory
+PRETRAIN_HEAD_FILES = ("models_weight/vilt_200k_mlm_itm.ckpt",
+                       "../models_weight/vilt_200k_mlm_itm.ckpt")
+MLM_HEAD_KEYS = ("mlm_score.bias", "mlm_score.transform.dense.weight",
+                 "mlm_score.transform.dense.bias", "mlm_score.transform.LayerNorm.weight",
+                 "mlm_score.transform.LayerNorm.bias", "mlm_score.decoder.weight")
+ITM_HEAD_KEYS = ("itm_score.fc.weight", "itm_score.fc.bias")
+
+
+def graft_pretrain_heads(sd: Dict[str, torch.Tensor], pretrain_sd: Dict[str, torch.Tensor],
+                         loss_names: Dict[str, float]) -> Dict[str, torch.Tensor]:
+    """``sd`` with the MLM head's entries (when the ``mlm`` weight is > 0) and
+    the ITM head's (when ``itm``'s is) taken from ``pretrain_sd`` (reference
+    vilt_module.py:134-160)."""
+    sd = dict(sd)
+    for name, keys in (("mlm", MLM_HEAD_KEYS), ("itm", ITM_HEAD_KEYS)):
+        if loss_names.get(name, 0) > 0:
+            sd.update({k: pretrain_sd[k] for k in keys})
+    return sd
+
+
 def load_initial_params(cfg, model: ViLT) -> ViLT:
     """cfg.load_path handling (reference vilt_module.py:134-160): a
     checkpoint of this package (``resolve_checkpoint_dir``) or a reference-named
     state dict (a reference ``.ckpt``, plain or under ``"state_dict"``),
     loaded through ``ViLT.load_reference_state_dict``; entries of parts the
-    model does not build are skipped.  The JAX package also grafts the MLM /
-    ITM heads from ``vilt_200k_mlm_itm.ckpt``; those tasks are not ported
-    (ROADMAP A11)."""
+    model does not build are skipped.  A reference state dict first takes the
+    MLM / ITM heads from the first of ``PRETRAIN_HEAD_FILES`` that exists,
+    when the ``mlm`` or ``itm`` loss weight is > 0 (``graft_pretrain_heads``)."""
     if not cfg.load_path:
         return model
     ckpt_dir = resolve_checkpoint_dir(cfg.load_path)
     path = os.path.join(ckpt_dir, MODEL_FILE) if ckpt_dir else cfg.load_path
-    skipped = model.load_reference_state_dict(load_state_dict_file(path))
-    print(f"[rmcl_tpu_torch] loaded {path} ({len(skipped)} entries not used)",
-          file=sys.stderr)
+    sd = load_state_dict_file(path)
+    graft = None
+    if not ckpt_dir and (cfg.loss_names.get("mlm", 0) > 0 or cfg.loss_names.get("itm", 0) > 0):
+        graft = next((f for f in PRETRAIN_HEAD_FILES if os.path.isfile(f)), None)
+    if graft:
+        sd = graft_pretrain_heads(sd, load_state_dict_file(graft), cfg.loss_names)
+    skipped = model.load_reference_state_dict(sd)
+    print(f"[rmcl_tpu_torch] loaded {path} ({len(skipped)} entries not used"
+          f"{', heads grafted from ' + graft if graft else ''})", file=sys.stderr)
     return model
 
 

@@ -7,7 +7,9 @@ Per micro-step:
   2. host: the greedy attack's word/candidate tables for the attacked step
      (``FusedGreedyAttack.prep_tables``), or the whole attack for the host
      attacker, on a worker thread one batch ahead (``host_prefetch``);
-  3. device: the step (``train/step.py``): for ``task_moco`` the momentum
+  3. device: the step (``train/step.py``): for the pretraining tasks the
+     MLM, MPP and ITM forwards (ITM with its optimal-transport alignment),
+     the backward and the optimizer; for ``task_moco`` the momentum
      update, key forward, greedy attack, PGD, the four views, the backward,
      the optimizer once per accumulation cycle, the enqueue; for
      ``task_barlowtwins`` the key forward, greedy attack, PGD, three views,
@@ -407,12 +409,15 @@ class Trainer:
         objectives.py:277-285); on the test split of a VQA task the
         submission file (``eval/vqa.py``, in ``cfg.log_dir``); with
         ``cfg.get_recall_metric`` (and not ``fast_dev_run``) the IR/TR recall
-        (``eval/retrieval.py``).  Nothing in it draws a random number (no
-        dropout; PGD starts from zero), so it takes no generator."""
+        (``eval/retrieval.py``).  No dropout, and PGD starts from zero; the
+        pretraining tasks' ITM labels and MPP masks come from one CPU generator
+        seeded with ``cfg.seed + 2``, as the JAX package's validation key is,
+        drawn batch after batch."""
         cfg = self.cfg
         loader = (self.dm.val_loader(self.per_host_batch) if split == "val"
                   else self.dm.test_loader(self.per_host_batch))
         bag = self.val_metrics
+        generator = torch.Generator().manual_seed(cfg.seed + 2)
         # the VQA test submission (reference vqa_test_step objectives.py:1519-1530,
         # vqa_test_wrapup :1537-1565)
         vqa_writer = None
@@ -428,7 +433,7 @@ class Trainer:
             batch = self._attach_text_attack(batch, bag=bag, for_train=False)
             if self._text_bucket:
                 batch = bucket_text_batch(batch, cfg.max_text_len)
-            ret = self.eval_fn(_device_batch(batch, self.device))
+            ret = self.eval_fn(_device_batch(batch, self.device), generator)
             valid = batch.get("_valid")
             # bf16 outputs (logits) widen to fp32 exactly: numpy has no bf16
             retl = {k: (v.detach().float() if v.is_floating_point() else v.detach())

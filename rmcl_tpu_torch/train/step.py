@@ -47,9 +47,15 @@ attacked text from ``attacked_text_ids`` (when ``cfg.text_view``), NLVR2 and
 IRTR on the clean forward too.  Each training forward draws its own dropout
 seeds (``task_seeds``); an attacked pass reuses its clean pass's.
 
-Ported: the ``moco``, ``barlowtwins`` and the six downstream tasks.  The
-pretraining tasks (``mlm``, ``itm``, ``mpp``, ``mppd``, ``mpfr``) raise
-(ROADMAP A11c).
+The pretraining tasks (``objectives/pretrain.py``): ``mlm``, ``mpp``,
+``mppd``, ``mpfr`` and ``itm`` (ITM with its word-patch alignment) each run
+one training forward on its own dropout seeds.  Their random draws, the ITM
+permutation and each masked-patch task's two masks, come from the step's CPU
+generator on the host (``pretrain_draws``) and reach the device in one copy,
+so that the card and the CPU draw the same from the same generator; the eval
+step draws them from the generator it is given.
+
+Every task of the JAX package's ``compute_all_tasks`` is ported.
 """
 
 from __future__ import annotations
@@ -66,7 +72,7 @@ from rmcl_tpu_torch.attacks.pgd import (make_pgd_barlowtwins, make_pgd_irtr, mak
 from rmcl_tpu_torch.core.config import active_tasks
 from rmcl_tpu_torch.models.vilt import ViLT, draw_seeds
 from rmcl_tpu_torch.models.vit import normalize_image_inputs
-from rmcl_tpu_torch.objectives import contrastive, downstream
+from rmcl_tpu_torch.objectives import contrastive, downstream, pretrain
 from rmcl_tpu_torch.train.schedule import make_lr_schedule, make_optimizer
 
 VIEWS = 4   # clean, txt, img, both: one set of dropout seeds each, per contrastive task
@@ -75,6 +81,10 @@ CONTRASTIVE = ("moco", "barlowtwins")
 # VQA one, NLVR2 one per image, IRTR one over the B * (F+1) rows
 DOWNSTREAM_FORWARDS = {"vqa": 1, "vqa_attacked": 1, "nlvr2": 2, "nlvr2_attacked": 2,
                        "irtr": 1, "irtr_attacked": 1}
+# the pretraining tasks, one training forward each, in the JAX package's order
+PRETRAIN = ("mlm", "mpp", "mppd", "mpfr", "itm")
+MASKED_PATCH = ("mpp", "mppd", "mpfr")
+MPP_MASK_PROB, MPP_REPLACE_PROB = 0.15, 0.8
 
 
 @dataclasses.dataclass
@@ -150,6 +160,11 @@ def _attacked_text_of(batch) -> Optional[Dict[str, torch.Tensor]]:
 # canonical loss keys per task: the total loss is their sum (the reference
 # sums every key containing "loss", which counts diagnostics twice)
 _TASK_LOSS_KEYS = {
+    "mlm": ("mlm_loss",),
+    "mpp": ("mpp_loss",),
+    "mppd": ("mppd_loss",),
+    "mpfr": ("mpfr_loss",),
+    "itm": ("itm_loss", "itm_wpa_loss"),
     "moco": ("moco_loss",),
     "barlowtwins": ("barlowtwins_loss",),
     "vqa": ("vqa_loss",),
@@ -166,7 +181,8 @@ def task_seeds(cfg, generator: torch.Generator, num_layers: int, batch: int,
     """The dropout seeds of one training step, per active task: ``VIEWS``
     sets for each contrastive task (drawn first, in ``CONTRASTIVE``'s order,
     as one tensor), then ``DOWNSTREAM_FORWARDS`` sets for each downstream
-    task in the order of ``cfg.loss_names``, IRTR's over B * (F+1) rows."""
+    task and one for each pretraining task, in the order of
+    ``cfg.loss_names``, IRTR's over B * (F+1) rows."""
     tasks = active_tasks(cfg)
     out: Dict[str, torch.Tensor] = {}
     cont = [t for t in CONTRASTIVE if t in tasks]
@@ -177,7 +193,49 @@ def task_seeds(cfg, generator: torch.Generator, num_layers: int, batch: int,
         if t in DOWNSTREAM_FORWARDS:
             rows = batch * (cfg.draw_false_text + 1) if t.startswith("irtr") else batch
             out[t] = draw_seeds(generator, DOWNSTREAM_FORWARDS[t], num_layers, rows, device)
+        elif t in PRETRAIN:
+            out[t] = draw_seeds(generator, 1, num_layers, batch, device)[0]
     return out
+
+
+def pretrain_draws(cfg, generator: torch.Generator, batch: int, n_patches: int,
+                   device) -> Dict[str, torch.Tensor]:
+    """The random draws of the active pretraining tasks, in the order of
+    ``cfg.loss_names``, from the CPU ``generator``, moved to ``device`` in one
+    copy: for each masked-patch task (2, batch, n_patches) bool, MPP's
+    Bernoulli masks over every patch (masked at 0.15; replaced by the mask
+    token at 0.8 among the masked); for ``itm`` (batch,) int64, a random
+    permutation of batch // 2 ones and batch - batch // 2 zeros (the true
+    image where 1, ``false_image_0`` where 0).  Empty without such a task."""
+    parts: Dict[str, torch.Tensor] = {}
+    for t in active_tasks(cfg):
+        if t in MASKED_PATCH:
+            masked = torch.rand(batch, n_patches, generator=generator) < MPP_MASK_PROB
+            keep = torch.rand(batch, n_patches, generator=generator) < MPP_REPLACE_PROB
+            parts[t] = torch.stack([masked, keep & masked])
+        elif t == "itm":
+            base = torch.arange(batch) < batch // 2
+            parts[t] = base[torch.randperm(batch, generator=generator)]
+    if not parts:
+        return {}
+    flat = torch.cat([v.flatten() for v in parts.values()]).to(device)
+    out = dict(zip(parts, (c.view(v.shape) for c, v in zip(
+        flat.split([v.numel() for v in parts.values()]), parts.values()))))
+    if "itm" in out:
+        out["itm"] = out["itm"].long()
+    return out
+
+
+def _draws_for(cfg, generator: Optional[torch.Generator], batch, device):
+    """``pretrain_draws`` for a step's batch, or {} when no pretraining task
+    is active; such a task needs the generator."""
+    if not any(t in PRETRAIN for t in active_tasks(cfg)):
+        return {}
+    if generator is None:
+        raise ValueError("the pretraining tasks draw their ITM labels and MPP masks from a "
+                         "generator: pass one")
+    return pretrain_draws(cfg, generator, batch["text_ids"].shape[0],
+                          batch["image"].shape[1], device)
 
 
 def _build_pgd(cfg, ts: TrainState, task: str) -> Callable:
@@ -196,23 +254,33 @@ def _build_pgd(cfg, ts: TrainState, task: str) -> Callable:
 
 
 def compute_all_tasks(cfg, ts: TrainState, batch, seeds, *, train: bool,
-                      greedy_fn: Optional[Callable] = None):
+                      greedy_fn: Optional[Callable] = None,
+                      draws: Optional[Dict[str, torch.Tensor]] = None):
     """Run every active task (reference forward vilt_module.py:420-469).
     Returns (total_loss, ret).  Twins, queue and BatchNorm running statistics
     are updated in place.  ``seeds``: ``task_seeds``'s dict (None when not
     ``train``).  ``greedy_fn``: the text attack inside a contrastive task's
-    step (``objectives/contrastive.py``)."""
+    step (``objectives/contrastive.py``).  ``draws``: ``pretrain_draws``'s
+    dict, for the pretraining tasks."""
     tasks = active_tasks(cfg)
     other = [t for t in tasks if t not in _TASK_LOSS_KEYS]
     if other:
-        raise NotImplementedError(
-            f"tasks {other} are not ported: the training step has the moco, barlowtwins "
-            "and downstream tasks; the pretraining tasks come with ROADMAP A11c")
+        raise ValueError(f"unknown tasks {other}")
     model = ts.model
     # u8 wire format -> f32 once, every image key with its own _hw
     batch = normalize_image_inputs(batch, model.grid_hw, model.patch_size)
-    seeds = seeds or {}
+    seeds, draws = seeds or {}, draws or {}
     ret: Dict[str, torch.Tensor] = {}
+    pre = dict(block_matrices=ts.block_matrices, train=train)
+    if "mlm" in tasks:
+        ret.update(pretrain.compute_mlm(model, batch, seeds=seeds.get("mlm"), **pre))
+    for t, fn in (("mpp", pretrain.compute_mpp), ("mppd", pretrain.compute_mppd),
+                  ("mpfr", pretrain.compute_mpfr)):
+        if t in tasks:
+            ret.update(fn(model, batch, draws[t], seeds=seeds.get(t), **pre))
+    if "itm" in tasks:
+        ret.update(pretrain.compute_itm_wpa(model, batch, draws["itm"],
+                                            seeds=seeds.get("itm"), **pre))
     common = dict(
         block_matrices=ts.block_matrices, train=train, text_view=cfg.text_view,
         image_view=cfg.image_view,
@@ -306,9 +374,10 @@ def _train_step_body(cfg, ts: TrainState, max_steps: Optional[int]) -> Callable:
              greedy_fn: Optional[Callable] = None):
         seeds = task_seeds(cfg, generator, len(model.transformer.blocks),
                            batch["text_ids"].shape[0], device)
+        draws = _draws_for(cfg, generator, batch, device)
         ts.optimizer.zero_grad(set_to_none=True)
         total, ret = compute_all_tasks(cfg, ts, batch, seeds, train=True,
-                                       greedy_fn=greedy_fn)
+                                       greedy_fn=greedy_fn, draws=draws)
         if total.requires_grad:      # no attacked view configured: nothing to learn from
             total.backward()
         for p in trainable:
@@ -398,16 +467,21 @@ def make_attacked_train_step(cfg, ts: TrainState, greedy,
 
 # -------------------------------------------------------------- eval step
 def make_eval_step(cfg, ts: TrainState) -> Callable:
-    """``eval_step(batch) -> ret``: every active task's deterministic forward
-    with its attacks (the reference validates on the adversarial views),
-    the momentum twins, the queue and the BatchNorm running statistics
-    untouched (BarlowTwins normalises with the latter), no gradient but the attacks'
-    own; ``ret`` holds every output (per-sample ``_ps`` rows included) and
-    ``total_loss``, on the device."""
+    """``eval_step(batch, generator=None) -> ret``: every active task's
+    deterministic forward with its attacks (the reference validates on the
+    adversarial views), the momentum twins, the queue and the BatchNorm
+    running statistics untouched (BarlowTwins normalises with the latter), no
+    gradient but the attacks' own; ``ret`` holds every output (per-sample
+    ``_ps`` rows included) and ``total_loss``, on the device.  The
+    pretraining tasks draw their ITM labels and MPP masks from ``generator``
+    (``pretrain_draws``), which they need."""
+    device = next(ts.model.parameters()).device
 
     @torch.no_grad()
-    def eval_step(batch: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
-        total, ret = compute_all_tasks(cfg, ts, batch, None, train=False)
+    def eval_step(batch: Dict[str, torch.Tensor],
+                  generator: Optional[torch.Generator] = None) -> Dict[str, torch.Tensor]:
+        total, ret = compute_all_tasks(cfg, ts, batch, None, train=False,
+                                       draws=_draws_for(cfg, generator, batch, device))
         ret["total_loss"] = torch.as_tensor(total, dtype=torch.float32)
         return ret
 

@@ -578,11 +578,7 @@ def test_moco_step_with_dropout_owns_its_stream():
 
 
 def test_train_step_refuses_what_is_not_ported():
-    cfg = _cfg(loss_names=loss_names({"moco": 1, "mlm": 1}))
-    ts = TT.create_train_state(cfg, device="cpu")
-    b = {k: _t(v) for k, v in _fake_batch(cfg, 4, seed=1, with_views=True).items()}
-    with pytest.raises(NotImplementedError, match="A11"):
-        TT.make_train_step(cfg, ts)(b, torch.Generator().manual_seed(0))
+    ts = TT.create_train_state(_cfg(), device="cpu")
     with pytest.raises(NotImplementedError, match="fuse_moco_views"):
         TT.make_train_step(_cfg(fuse_moco_views=True), ts)
     if not torch.cuda.is_available():
