@@ -11,7 +11,10 @@ CPU and its Trainer; then the downstream tasks (phase 17): the attacked VQA
 and NLVR2 steps, the IRTR step, their fp32 checks, the VQA submission
 writer and the recall; then the pretraining tasks (phase 18): the
 task_mlm_itm_mpp step, MPPD / MPFR, the fp32 check and the task_mlm_itm
-Trainer with the head graft.
+Trainer with the head graft; then the benign views and the remaining paths
+(phase 19): the augmentation=True steps and Trainer, standalone MoCo, the
+cross-entropy NLVR2 attacker, the HWC canvas, the native host libraries and
+their fp32 checks.
 
     python3 chip_smoke.py
 
@@ -296,6 +299,38 @@ Phases, any failure exits non-zero:
                models_weight/vilt_200k_mlm_itm.ckpt (load_initial_params),
                every grafted tensor equal.  The phase prints its seconds
                against its 45 s budget.
+ 19. views      the benign views (augmentation=True) and the rest of the
+               port's host and objective paths, at full width and depth,
+               bf16: the task_moco step (make_train_step, 16 pairs, S = 40 +
+               201, drop_rate 0.1) on EDA text views of phase 12's worst
+               captions (data/augmentation.py, global random seeded) and a
+               STAND-IN image view (seeded fp32 384 x 384 pixels in the 384 x
+               608 canvas: SimCLRTransform needs PIL, which the card's machine
+               lacks), a warm-up and three timed steps: launches as
+               benign_launches derives them (no dx op, rows 3 and 5; no "both"
+               view, no PGD), finite metrics, every trained parameter moved,
+               twins within the momentum step, the pointer; step ms, device
+               busy, memory, EDA host ms per 16 captions; one task_barlowtwins
+               benign step with the same checks and its running statistics
+               moved; the Trainer with augmentation=True and image_view=False
+               on phase 15's in-memory data (one optimizer step of two
+               micro-steps, one validation batch): TextAugmentation and no
+               attacker, launches as derived, every parameter moved;
+               standalone MoCo (objectives/moco_standalone.py) at K = 65,536
+               with a 5-step PGD of the image query: launches, finite losses,
+               pointer + 32, the projectors' gradients and an AdamW step; the
+               cross-entropy NLVR2 attacker (GreedyAttackNlvr2CrossEntropy) on
+               8 pairs of phase 17's NLVR2 model: ms, loops, launches; a
+               serving forward of 8 requests as the u8 HWC canvas equal bit
+               for bit to the patch-row one; both native libraries built with
+               g++ and loaded, the C++ token ids equal the Python path's and
+               the C++ patch-row scatter the numpy relayout, with host ms of
+               each; fp32 at SLICE_LAYERS on 2 pairs, card against CPU: the
+               benign step (_train_results' tolerances), standalone MoCo with
+               a 2-step PGD (loss within 1e-5 relative, gradients, twins and
+               queues within 2e-4 x max(1, max|ref|)), the CE attacker's token
+               ids after 2 loops equal.  The phase prints its seconds against
+               its 45 s budget.
 
 The line before the last is the kernels' JSON record; the last line is
 ``{"ok": true, "device": {...}}``.  Without a card, or outside the
@@ -319,7 +354,11 @@ runs phases 1, 2 and 17 only;
 
     python3 chip_smoke.py --pretrain
 
-phases 1, 2 and 18 only.
+phases 1, 2 and 18 only;
+
+    python3 chip_smoke.py --views
+
+phases 1, 2 and 19 only.
 
     python3 chip_smoke.py --gemm-times [ROOT]
 
@@ -1925,18 +1964,18 @@ def phase_train(dev, config: str = "default", mix=None) -> dict:
     return counts, {"ms": ms, "mem_gib": mem, "host_reads": reads}
 
 
-def _loss_result(tag, results: dict, dev) -> None:
+def _loss_result(tag, results: dict, dev, pairs: int = N_CPU) -> None:
     """The loss of one step on the CPU and on the card within 1e-5 relative:
     results maps "cpu" and str(dev) to (loss, gradients, updated leaves,
     seconds)."""
     (l_ref, _, _, cpu_s), (l_gpu, _, _, _) = results["cpu"], results[str(dev)]
     rel = abs(l_gpu - l_ref) / abs(l_ref)
-    print(f"{tag} {N_CPU} pairs, fp32, one step: CPU plain ops ({cpu_s:.1f} s) loss "
+    print(f"{tag} {pairs} pairs, fp32, one step: CPU plain ops ({cpu_s:.1f} s) loss "
           f"{l_ref!r}, card kernels {l_gpu!r}, relative difference {rel!r} (tol 1e-5)")
     check(rel <= 1e-5, f"loss differs by {rel} relative")
 
 
-def _train_results(tag, results: dict, dev, lr: float, rate=None) -> None:
+def _train_results(tag, results: dict, dev, lr: float, rate=None, pairs: int = N_CPU) -> None:
     """Phase 9's comparison of one step on the CPU and on the card: the loss
     (_loss_result), then every gradient and updated leaf within 2e-4 *
     max(1, max|ref|).  With ``rate`` (path -> the leaf's learning rate;
@@ -1946,7 +1985,7 @@ def _train_results(tag, results: dict, dev, lr: float, rate=None) -> None:
     gradient is firm (above 1e-4 of its tensor's largest and of the model's
     largest), within 2.5 x the rate where a rounding-level gradient may
     take either sign (tests/test_torch_downstream.py's rule)."""
-    _loss_result(tag, results, dev)
+    _loss_result(tag, results, dev, pairs)
     (_, g_ref, p_ref, _), (_, g_gpu, p_gpu, _) = results["cpu"], results[str(dev)]
 
     def worst(ours, ref, what):
@@ -1979,11 +2018,11 @@ def _train_results(tag, results: dict, dev, lr: float, rate=None) -> None:
     wg = worst(g_gpu, g_ref, "gradient")
     wp = worst(p_gpu, p_ref, "updated leaf") if rate is None else worst_adamw(p_gpu, p_ref)
     if "proj_queue_ptr" in p_ref:
-        check(int(p_gpu["proj_queue_ptr"]) == int(p_ref["proj_queue_ptr"]) == N_CPU, "pointer")
+        check(int(p_gpu["proj_queue_ptr"]) == int(p_ref["proj_queue_ptr"]) == pairs, "pointer")
     trained = [p for p in g_ref if not p.startswith("k_")]
     near = (sum(int((np.abs(p_gpu[p] - p_ref[p]) <= 0.02 * lr).sum()) for p in trained)
             / sum(p_ref[p].size for p in trained))
-    leaves = ("parameters, twins, queue; pointer " + str(N_CPU) if "proj_queue_ptr" in p_ref
+    leaves = ("parameters, twins, queue; pointer " + str(pairs) if "proj_queue_ptr" in p_ref
               else "parameters, BatchNorm running statistics"
               if any(p.endswith("running_var") for p in p_ref) else "parameters")
     bounds = ("2e-4 * max(1, max|ref|)" if rate is None
@@ -3683,6 +3722,554 @@ def phase_pretrain(dev) -> dict:
     return counts
 
 
+# ------------------------------------------------------------------ views
+VIEWS_STEPS = 3                          # timed benign-view task_moco steps, after a warm-up
+VIEWS_MIX = "worst"                      # phase 12's caption mix of the views' captions
+VIEW_HW = (384, 384)                     # the stand-in image view, top-left in the canvas
+CE_PAIRS = 8                             # the cross-entropy NLVR2 attacker's pairs
+VIEWS_CPU_PAIRS = 2                      # the fp32 checks' pairs (the CPU's steps are the cost)
+CE_CPU_LOOPS = 2                         # the CE attacker's fp32 loops (the card's run: max_loops)
+STANDALONE_CPU_PGD = 2                   # standalone MoCo's fp32 PGD steps (the card's run: 5)
+HWC_BATCH = 8
+VIEWS_DIR = "chip_smoke_views.tmp"       # the Trainer's files, removed
+
+
+def views_config(bt: bool = False, **kw):
+    """Phase 8's task_moco (``bt``: phase 16's task_barlowtwins) with the benign
+    views in place of the attacks: augmentation=True, EDA text views (the
+    PEGASUS paraphraser is a download), the image and text views on."""
+    base = bt_config() if bt else train_config()
+    return base.replace(augmentation=True, type_txt_augm=("EDA",), **kw)
+
+
+def benign_launches(cfg, train: bool = True) -> dict:
+    """Block-op launches of one benign-view step of the default blocks at
+    drop_rate > 0: the key forward, deterministic; no PGD and no greedy
+    attack, so no dx op (rows 3 and 5); a training forward and backward per
+    view (text, image; no "both" view), task_moco's clean query forward, each
+    with its text and image embedding dropouts.  With ``train`` off, one
+    validation batch: every forward deterministic."""
+    from rmcl_tpu_torch.core.config import active_tasks
+    from rmcl_tpu_torch.ops import fused_block as FB
+    L = cfg.num_layers
+    views = int(cfg.text_view) + int(cfg.image_view)
+    fwd = views + int("moco" in active_tasks(cfg))
+    want = dict.fromkeys(FB.launches, 0)
+    if not train:
+        want.update(attn_half=(1 + fwd) * L, mlp_half=(1 + fwd) * L)
+        return want
+    want.update(attn_half=L, mlp_half=L, attn_half_train=fwd * L, mlp_half_train=fwd * L,
+                attn_half_train_bwd=views * L, mlp_half_train_bwd=views * L,
+                dropout=2 * (fwd + views))
+    return want
+
+
+def view_stand_in(cfg, n: int, seed: int, dev) -> torch.Tensor:
+    """n seeded fp32 image views of VIEW_HW, uniform in [-1, 1], top-left in
+    the bucket canvas, as patch rows: a stand-in for SimCLRTransform's views,
+    which need PIL (the card's machine has none)."""
+    from rmcl_tpu_torch.data.patch_rows import hwc_to_patch_rows
+    H, W = cfg.image_bucket_hw
+    canvas = np.zeros((n, H, W, 3), np.float32)
+    canvas[:, :VIEW_HW[0], :VIEW_HW[1]] = np.random.RandomState(seed).uniform(
+        -1, 1, (n, *VIEW_HW, 3))
+    return torch.from_numpy(hwc_to_patch_rows(canvas, cfg.patch_size)).to(dev)
+
+
+def views_batch(cfg, n: int, seed: int, dev) -> tuple:
+    """(batch, EDA host ms per n captions): train_batch's images, phase 12's
+    ``VIEWS_MIX`` captions as the text, their EDA views (TextAugmentation over
+    the mix's synonym table, global ``random`` seeded; median of 5 calls, the
+    last one's ids) as the attacked text, and the stand-in image view."""
+    import random
+    from rmcl_tpu_torch.data.augmentation import TextAugmentation
+    tok, syn, sents = greedy_setup(cfg, n, VIEWS_MIX)
+    aug = TextAugmentation(cfg, tok, synonym_table=syn)
+    check(aug.pegasus is None and aug.ranker is None, "EDA views ranked by Jaccard expected")
+    random.seed(seed)
+    times = []
+    for _ in range(5):
+        t = time.perf_counter()
+        texts, a_ids, a_masks = aug.augment(sents)
+        times.append((time.perf_counter() - t) * 1e3)
+    changed = sum(a != s for a, s in zip(texts, sents))
+    check(changed > 0, f"EDA changed none of {n} captions")
+    ids, masks = tok.batch_encode(sents, cfg.max_text_len)
+    batch = train_batch(cfg, n, seed, dev)
+    t = lambda a: torch.from_numpy(a).to(dev)  # noqa: E731
+    batch.update(text_ids=t(ids), text_masks=t(masks), attacked_text_ids=t(a_ids),
+                 attacked_text_masks=t(a_masks), augmented_image=view_stand_in(cfg, n, seed, dev))
+    return batch, statistics.median(times), (sents[0], texts[0])
+
+
+def _check_benign_step(tag, cfg, ts, metrics, before, counts, ptr0=None) -> None:
+    """One benign step: its launches as benign_launches derives them, finite
+    metrics with the views' losses and none of the "both" view or PGD, every
+    trained parameter moved, task_moco's twins within the momentum step and
+    its pointer advanced."""
+    want = benign_launches(cfg)
+    check(counts == want, f"{tag}: launches {counts}, expected {want}")
+    vals = {k: v.item() for k, v in metrics.items()}
+    bad = [k for k, v in vals.items() if not np.isfinite(v)]
+    check(not bad, f"{tag}: non-finite metrics {bad}")
+    views = (("barlowtwins_loss_invariance_text", "barlowtwins_loss_invariance_img")
+             if ptr0 is None else ("attacked_txt_loss", "attacked_img_loss"))
+    check(all(v in vals for v in views), f"{tag}: views {sorted(vals)}")
+    check(not any("both" in k for k in vals) and "pgd_delta" not in vals,
+          f"{tag}: a both view or PGD ran: {sorted(vals)}")
+    model = ts.model
+    for n_, p in model.named_parameters():
+        moved = (p.detach() - before[n_]).abs().max().item()
+        if n_.startswith("k_"):
+            gap = (before[n_[2:]] - before[n_]).abs().max().item()
+            check(moved <= (1 - cfg.momentum) * gap * 1.001 + 1e-7, f"{tag}: twin {n_} moved "
+                                                                     f"{moved}")
+        elif not n_.endswith("mask_token"):
+            check(moved > 0, f"{tag}: {n_} did not move")
+    if ptr0 is not None:
+        ptr1 = int(model.proj_queue_ptr)
+        check(ptr1 == (ptr0 + PGD_BATCH) % cfg.num_negative, f"{tag}: pointer {ptr0} -> {ptr1}")
+
+
+def phase_views_step(dev, bt: bool = False) -> tuple:
+    """Phase 19 (a): the benign-view task_moco step (``bt``: (b), one
+    task_barlowtwins step) at full width and depth, bf16, 16 pairs, S = 40 +
+    201, drop_rate 0.1, through make_train_step: a warm-up and VIEWS_STEPS
+    timed steps (task_barlowtwins: one), each checked (_check_benign_step).
+    Returns (launches of a step, readings, the model's initial CPU copy or
+    None, the train state)."""
+    from rmcl_tpu_torch.ops import fused_block as FB
+    from rmcl_tpu_torch.train.step import create_train_state, make_train_step
+    tag = "[views bt]" if bt else "[views moco]"
+    t0 = time.perf_counter()
+    cfg = views_config(bt)
+    model = bt_model(cfg) if bt else moco_model(cfg)
+    cpu_copy = None if bt else copy.deepcopy(model)
+    ts = create_train_state(cfg, model=model, device=dev)
+    batch, eda_ms, example = views_batch(cfg, PGD_BATCH, SEED + 4, dev)
+    step = make_train_step(cfg, ts)
+    print(f"{tag} {BT_CONFIG if bt else PGD_CONFIG} augmentation=True, blocks "
+          f"{model.block_impls}, S = {cfg.max_text_len} + {cfg.max_image_len + 1}, "
+          f"{PGD_BATCH} pairs, drop_rate {cfg.drop_rate}; text views: EDA on phase 12's "
+          f"{VIEWS_MIX} captions ({example[0]!r} -> {example[1]!r}), {eda_ms!r} ms of host "
+          f"clock per {PGD_BATCH} captions (median of 5); image view: a STAND-IN, seeded "
+          f"fp32 {VIEW_HW[0]} x {VIEW_HW[1]} pixels in the {cfg.image_bucket_hw[0]} x "
+          f"{cfg.image_bucket_hw[1]} canvas (SimCLRTransform needs PIL); state ready in "
+          f"{time.perf_counter() - t0:.1f} s")
+    gen = torch.Generator().manual_seed(SEED + 7)
+    if not bt:
+        step(batch, gen)                                    # warm-up
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    walls, events = [], []
+    for it in range(1 if bt else VIEWS_STEPS):
+        before = {n_: p.detach().clone() for n_, p in ts.model.named_parameters()}
+        stats = bt_stats(ts.model) if bt else None
+        ptr0 = None if bt else int(ts.model.proj_queue_ptr)
+        FB.reset_launches()
+        e0, e1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        e0.record()
+        metrics = step(batch, gen)
+        e1.record()
+        torch.cuda.synchronize()
+        walls.append((time.perf_counter() - t) * 1e3)
+        events.append(e0.elapsed_time(e1))
+        counts = dict(FB.launches)
+        _check_benign_step(f"{tag} step {it}", cfg, ts, metrics, before, counts, ptr0)
+        counts = check_sub_launches(f"{tag} step {it}", counts, FB)
+        if bt:
+            check_stats_moved(f"{tag} step {it}", ts.model, stats)
+        vals = {k: v.item() for k, v in metrics.items()}
+        print(f"{tag} step {it}: " + " ".join(
+            f"{k}={v!r}" for k, v in sorted(vals.items()) if "loss" in k or k == "lr")
+              + f"; every trained parameter moved; {walls[-1]:.1f} ms"
+              + ("" if bt else f"; pointer {ptr0} -> {int(ts.model.proj_queue_ptr)}"))
+    mem = torch.cuda.max_memory_allocated() / 2 ** 30
+    busy = None if bt else device_ms(lambda: step(batch, gen), iters=1, warmup=0)
+    ms, ev = statistics.median(walls), statistics.median(events)
+    print(f"{tag} launches per step {counts}: rows 3 and 5 (dx) 0, no both view")
+    print(f"{tag} step {ms!r} ms ({'median of ' + str(VIEWS_STEPS) if not bt else 'one step'}"
+          f", host clock + synchronize; {ev!r} ms between CUDA events), device busy "
+          f"{'not measured' if busy is None else repr(busy) + ' ms'} (torch.profiler, one "
+          f"step), {PGD_BATCH / ms * 1e3!r} pairs/s; max_memory_allocated {mem:.2f} GiB; "
+          f"EDA {eda_ms!r} ms per {PGD_BATCH} captions (host)")
+    return counts, {"ms": ms, "device_ms": busy, "mem_gib": mem, "eda_ms": eda_ms}, cpu_copy, ts
+
+
+def phase_views_trainer(dev, cpu_model, root: Path) -> tuple:
+    """Phase 19 (c): task_moco with augmentation=True and image_view=False
+    (the SimCLR views need PIL) through Trainer.setup() / fit() on phase 15's
+    in-memory data (32 pairs at 16 per step: accum 2, one optimizer step; one
+    validation batch of 16): the Trainer builds TextAugmentation and no
+    attacker, the fit's and the validation's launches as derived, every
+    trained parameter moved.  Returns (the fit's launches, the readings)."""
+    from rmcl_tpu_torch.ops import fused_block as FB
+    tag = "[views trainer]"
+    n_train = PGD_BATCH * TRAINER_ACCUM
+    base = views_config(image_view=False)
+    _, _, sents = greedy_setup(base, n_train + TRAINER_VAL, VIEWS_MIX, keep_dir=str(root))
+    cfg = base.replace(tokenizer=f"{root}/vocab.txt", batch_size=n_train,
+                       per_device_batchsize=PGD_BATCH, max_steps=1, max_epoch=1,
+                       log_dir=str(root / "log"))
+    images = memory_images(cfg, len(sents), SEED + 9)
+    split = {"train": slice(0, n_train), "val": slice(n_train, None),
+             "test": slice(n_train, None)}
+
+    def make(tok, s):
+        return MemoryDataset(tok, sents[split[s]], images[split[s]], cfg.max_text_len)
+
+    tr = _memory_trainer(dev, cfg, make, cpu_model)
+    check(tr.greedy is None and tr.text_augment is not None and tr.image_augment is None
+          and not tr._text_bucket, f"{tag} the Trainer's views: greedy {tr.greedy}, text "
+                                   f"{tr.text_augment}, image {tr.image_augment}")
+    named = dict(tr.ts.model.named_parameters())
+    before = {n_: p.detach().clone() for n_, p in named.items()}
+    torch.cuda.synchronize()
+    FB.reset_launches()
+    t = time.perf_counter()
+    tr.fit()
+    torch.cuda.synchronize()
+    fit_s = time.perf_counter() - t
+    counts = dict(FB.launches)
+    step_l, val_l = benign_launches(cfg), benign_launches(cfg, train=False)
+    want = {k: TRAINER_ACCUM * step_l[k] + val_l[k] for k in step_l}
+    check(tr.steps_done == TRAINER_ACCUM, f"{tag} {tr.steps_done} micro-steps")
+    check(counts == want, f"{tag} fit: launches {counts}, expected {want}")
+    counts = check_sub_launches(f"{tag} fit", counts, FB)
+    # the twins of the parts the seeded model did not perturb equal their query
+    # side until its first optimizer step: k_transformer's move
+    still = [n_ for n_, p in named.items()
+             if (n_.startswith("k_transformer") or not n_.startswith("k_"))
+             and not n_.endswith("mask_token") and torch.equal(p.detach(), before[n_])]
+    check(not still, f"{tag} {len(still)} parameters did not move: {still[:3]}")
+    print(f"{tag} fit: {TRAINER_ACCUM} micro-steps (accum {TRAINER_ACCUM}, one optimizer "
+          f"step) on EDA text views, no image view, and one validation batch: {fit_s:.2f} s, "
+          f"launches {counts}; every trained parameter and k_transformer twin moved")
+    return counts, {"fit_s": fit_s}
+
+
+def standalone_pgd(model, cfg, block_matrices):
+    """``pgd_fn`` of compute_standalone_moco: the image query's InfoNCE
+    against the momentum text keys and the shared queue, ascended by cfg's
+    PGD (attacks/pgd.py's scaffold, the hoisted geometry)."""
+    from rmcl_tpu_torch.attacks.pgd import _pgd_single_image
+    from rmcl_tpu_torch.objectives.contrastive import infonce
+    from rmcl_tpu_torch.objectives.losses import l2_normalize
+    A = cfg.adv_steps_img
+
+    def pgd_fn(batch, txt_k, queue):
+        def head_loss(infer):
+            q = l2_normalize(model.img_projector(infer["image_feats"][:, 0]), dim=1)
+            return infonce(q, txt_k.detach(), queue.detach(), cfg.temperature)[0] / A
+
+        return _pgd_single_image(model, batch, head_loss, A, cfg.adv_lr_img,
+                                 cfg.adv_max_norm_img, True, block_matrices)
+
+    return pgd_fn
+
+
+def run_standalone(cfg, model, batch, gen, block_matrices=None):
+    """compute_standalone_moco in training with its PGD and the batch's
+    attacked text, then the backward.  Returns ret."""
+    from rmcl_tpu_torch.models.vilt import draw_seeds
+    from rmcl_tpu_torch.objectives.moco_standalone import compute_standalone_moco
+    dev = batch["text_ids"].device
+    seeds = draw_seeds(gen, 1, cfg.num_layers, batch["text_ids"].shape[0], dev)[0]
+    model.zero_grad(set_to_none=True)
+    ret = compute_standalone_moco(
+        model, batch, seeds=seeds, block_matrices=block_matrices,
+        k_block_matrices=lambda: model.k_transformer.block_matrices(model.compute_dtype),
+        temperature=cfg.temperature, momentum=cfg.momentum,
+        attacked_text={"text_ids": batch["attacked_text_ids"],
+                       "text_masks": batch["attacked_text_masks"]},
+        pgd_fn=standalone_pgd(model, cfg, block_matrices))
+    ret["standalone_moco_loss"].backward()
+    return ret
+
+
+def phase_views_standalone(dev, ts) -> tuple:
+    """Phase 19 (d): standalone bidirectional MoCo on (a)'s model, bf16, 16
+    pairs, the shared queue at K = num_negative = 65,536: init_standalone_moco,
+    then one forward (key forward, 5-step PGD of the image query against the
+    text keys, the attacked query) and backward, and an AdamW step of the
+    four projectors.  Checks: launches as derived, finite losses, pointer +
+    2B, the projectors' gradients finite and nonzero, the projectors moved.
+    Returns (launches, ms)."""
+    from rmcl_tpu_torch.objectives.moco_standalone import init_standalone_moco
+    from rmcl_tpu_torch.ops import fused_block as FB
+    tag = "[views standalone moco]"
+    cfg, model = views_config(), ts.model
+    init_standalone_moco(cfg, model, torch.Generator().manual_seed(SEED + 15))
+    K = model.txt_img_queue.shape[1]
+    check(K == cfg.num_negative == 65536, f"{tag} queue of {K}")
+    batch = train_batch(cfg, PGD_BATCH, SEED + 5, dev)
+    L, A = cfg.num_layers, cfg.adv_steps_img
+    FB.reset_launches()
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    ret = run_standalone(cfg, model, batch, torch.Generator().manual_seed(SEED + 8),
+                         ts.block_matrices)
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t) * 1e3
+    counts = dict(FB.launches)
+    want = dict.fromkeys(FB.launches, 0)
+    want.update(attn_half=L + A * L, mlp_half=L + A * L, attn_half_dx=A * L,
+                mlp_half_dx=A * L, attn_half_train=L, attn_half_train_bwd=L, mlp_half_train=L,
+                mlp_half_train_bwd=L, dropout=4)
+    check(counts == want, f"{tag} launches {counts}, expected {want}")
+    counts = check_sub_launches(tag, counts, FB)
+    vals = {k: ret[k].item() for k in ("standalone_moco_loss", "moco_txt_loss", "moco_img_loss")}
+    check(all(np.isfinite(v) for v in vals.values()), f"{tag} losses {vals}")
+    ptr = int(model.txt_img_queue_ptr)
+    check(ptr == 2 * PGD_BATCH, f"{tag} pointer {ptr}")
+    projectors = [p for n_, p in model.named_parameters()
+                  if n_.startswith(("txt_projector", "img_projector"))]
+    check(all(p.grad is not None and bool(torch.isfinite(p.grad).all())
+              and bool(p.grad.abs().max() > 0) for p in projectors), f"{tag} projector gradients")
+    before = [p.detach().clone() for p in projectors]
+    torch.optim.AdamW(projectors, lr=cfg.learning_rate).step()
+    check(all(not torch.equal(p.detach(), b) for p, b in zip(projectors, before)),
+          f"{tag} a projector did not move")
+    print(f"{tag} K = {K}, {PGD_BATCH} pairs: " + " ".join(f"{k}={v!r}" for k, v in vals.items())
+          + f"; pointer 0 -> {ptr}; the {len(projectors)} projector tensors' gradients finite and "
+          f"nonzero, moved by AdamW; launches {counts} ({A}-step PGD: rows 3 and 5); {ms:.1f} ms "
+          f"(first call, host clock + synchronize)")
+    return counts, ms
+
+
+def ce_setup(cfg, model, n: int, seed: int, dev) -> tuple:
+    """(the cross-entropy NLVR2 attacker on ``model`` moved to ``dev``, its
+    batch: phase 12's captions, downstream_batch's two images, its labels)."""
+    from rmcl_tpu_torch.attacks.greedy import GreedyAttackNlvr2CrossEntropy
+    tok, syn, sents = greedy_setup(cfg, n, VIEWS_MIX)
+    model = model.eval().to(dev)
+    b = downstream_batch(cfg, n, seed, dev)
+    ids, masks = tok.batch_encode(sents, cfg.max_text_len)
+    batch = {"image_0": b["image_0"], "image_1": b["image_1"],
+             "text_ids": torch.from_numpy(ids).to(dev),
+             "text_masks": torch.from_numpy(masks).to(dev)}
+    return GreedyAttackNlvr2CrossEntropy(cfg, model, tok, syn), batch, b["answers"]
+
+
+def phase_views_ce(dev) -> tuple:
+    """Phase 19 (e): GreedyAttackNlvr2CrossEntropy on CE_PAIRS NLVR2 pairs of
+    phase 17's task_finetune_nlvr2_randaug_attacked model (bf16, every patch):
+    the host attack of max_loops loops, each a saliency pass (two forwards and
+    their dx backwards) and a first-order scoring pass (two forwards of B x
+    n_candidates rows).  Checks: launches, the ids' masks, the change counts
+    within budget.  Returns (launches, ms)."""
+    from rmcl_tpu_torch.ops import fused_block as FB
+    from rmcl_tpu_torch.serve import seeded_model
+    tag = "[views ce attacker]"
+    cfg = downstream_config("nlvr2_attacked")
+    atk, batch, labels = ce_setup(cfg, seeded_model(cfg, SEED), CE_PAIRS, SEED + 4, dev)
+    L = cfg.num_layers
+    atk.adv_attack_samples(batch, (labels,))                # warm-up
+    FB.reset_launches()
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    out = atk.adv_attack_samples(batch, (labels,))
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t) * 1e3
+    counts, loops = dict(FB.launches), cfg.max_loops
+    want = dict.fromkeys(FB.launches, 0)
+    want.update(attn_half=4 * L * loops, mlp_half=4 * L * loops, attn_half_dx=2 * L * loops,
+                mlp_half_dx=2 * L * loops)
+    check(counts == want, f"{tag} launches {counts}, expected {want}")
+    counts = check_sub_launches(tag, counts, FB)
+    n_tok = batch["text_masks"].sum(1).cpu().tolist()
+    check(all(n <= min(int(0.2 * (L_ - 1)), loops) for n, L_ in
+              zip(out["changes_verification"], n_tok)), f"{tag} budget exceeded")
+    print(f"{tag} {CE_PAIRS} pairs, {loops} loops, n_candidates {cfg.n_candidates}: "
+          f"num_changes {out['num_changes']!r}, change_rate {out['change_rate']!r}, changes "
+          f"{out['changes_verification']}; {ms:.1f} ms (host clock + synchronize); launches "
+          f"{counts} (per loop: saliency 2 forwards + 2 dx, scoring 2 forwards)")
+    return counts, ms
+
+
+def phase_views_hwc(dev, model) -> dict:
+    """Phase 19 (f): a serving forward (ViLT.infer of the bf16 model, as
+    Session runs it) of HWC_BATCH u8 requests as the (B, 384, 608, 3) canvas
+    of image_layout="hwc" with image_hw, against the same requests as patch
+    rows: text, image and class features equal bit for bit, launches as
+    derived.  Returns the launches of the canvas forward."""
+    from rmcl_tpu_torch.models.vit import from_patch_rows
+    from rmcl_tpu_torch.ops import fused_block as FB
+    tag = "[views hwc]"
+    cfg = train_config()
+    reqs = {k: torch.from_numpy(v).to(dev)
+            for k, v in synthetic_requests(cfg, HWC_BATCH, SEED + 16).items()}
+    canvas = dict(reqs, image=from_patch_rows(reqs["image"], cfg.grid_hw, cfg.patch_size))
+    check(tuple(canvas["image"].shape) == (HWC_BATCH, *cfg.image_bucket_hw, 3)
+          and canvas["image"].dtype == torch.uint8, f"{tag} canvas {canvas['image'].shape}")
+    out = {}
+    with torch.no_grad():
+        for name, b in (("rows", reqs), ("hwc", canvas)):
+            FB.reset_launches()
+            out[name] = model.infer(b)
+            torch.cuda.synchronize()
+            counts = dict(FB.launches)
+    L = cfg.num_layers
+    want = {**dict.fromkeys(FB.launches, 0), "attn_half": L, "mlp_half": L}
+    check(counts == want, f"{tag} launches {counts}, expected {want}")
+    for k in ("text_feats", "image_feats", "cls_feats", "image_masks"):
+        check(torch.equal(out["hwc"][k], out["rows"][k]), f"{tag} {k} differs")
+    print(f"{tag} {HWC_BATCH} requests, u8 canvas {tuple(canvas['image'].shape)} with image_hw: "
+          f"text, image and class features bit for bit the patch-row forward's; launches "
+          f"{counts}")
+    return check_sub_launches(tag, counts, FB)
+
+
+def phase_views_native() -> None:
+    """Phase 19 (g): both native libraries built with g++ into
+    rmcl_tpu_torch/_build/ and loaded; the C++ WordPiece ids equal the Python
+    path's on phase 12's captions (both mixes, 256 each), with host ms of
+    each; the C++ patch-row scatter equals the numpy relayout on seeded u8
+    images, with host ms of each."""
+    from rmcl_tpu_torch.data import _native, patch_rows
+    tag = "[views native]"
+    wp, ip = _native.load_wordpiece(), _native.load_imageproc()
+    check(wp is not None and ip is not None, f"{tag} g++ missing: wordpiece {wp}, imageproc {ip}")
+    cfg = train_config()
+    for mix in GREEDY_MIXES:
+        tok, _, sents = greedy_setup(cfg, 256, mix)
+        check(tok._native is wp, f"{tag} the tokenizer did not take the native encoder")
+        fast = tok.batch_encode(sents, cfg.max_text_len)
+        slow = tok(list(sents), max_length=cfg.max_text_len, return_tensors="np")
+        check(np.array_equal(fast[0], slow["input_ids"]) and np.array_equal(
+            fast[1], slow["attention_mask"]), f"{tag} {mix}: native ids differ")
+        ms_fast = statistics.median(_host_ms(lambda: tok.batch_encode(sents, cfg.max_text_len))
+                                    for _ in range(5))
+        ms_slow = statistics.median(_host_ms(lambda: tok(
+            list(sents), max_length=cfg.max_text_len, return_tensors="np")) for _ in range(5))
+        print(f"{tag} {mix}: 256 captions, ids equal; batch_encode {ms_fast!r} ms native, "
+              f"{ms_slow!r} ms Python (host clock, median of 5)")
+    imgs = memory_images(cfg, PGD_BATCH, SEED + 17)
+    H, W = cfg.image_bucket_hw
+    fast = patch_rows.images_to_patch_rows(imgs, H, W, cfg.patch_size)
+    canvas = np.zeros((len(imgs), H, W, 3), np.uint8)
+    for i, im in enumerate(imgs):
+        canvas[i, :im.shape[0], :im.shape[1]] = im
+    slow = patch_rows.hwc_to_patch_rows(canvas, cfg.patch_size)
+    check(np.array_equal(fast, slow), f"{tag} the native scatter differs")
+    ms_fast = statistics.median(_host_ms(lambda: patch_rows.images_to_patch_rows(
+        imgs, H, W, cfg.patch_size)) for _ in range(5))
+    ms_slow = statistics.median(_host_ms(lambda: patch_rows.hwc_to_patch_rows(
+        canvas, cfg.patch_size)) for _ in range(5))
+    print(f"{tag} libraries {wp._name}, {ip._name} built with g++ at their first use and "
+          f"loaded; "
+          f"{PGD_BATCH} u8 images -> patch rows equal; {ms_fast!r} ms native scatter, "
+          f"{ms_slow!r} ms numpy relayout of the canvas (host clock, median of 5)")
+
+
+def _host_ms(fn) -> float:
+    t = time.perf_counter()
+    fn()
+    return (time.perf_counter() - t) * 1e3
+
+
+def phase_views_slice(dev) -> None:
+    """Phase 19 (h): fp32 at SLICE_LAYERS, card against CPU from the same
+    weights and inputs, VIEWS_CPU_PAIRS pairs each: the benign-view task_moco
+    step (_train_results' tolerances); standalone MoCo (its PGD of
+    STANDALONE_CPU_PGD steps, the attacked query, the backward): loss within
+    1e-5 relative, every gradient, twin and the queue within 2e-4 x max(1,
+    max|ref|), the pointer; the cross-entropy NLVR2 attacker, CE_CPU_LOOPS
+    loops: token ids equal."""
+    from rmcl_tpu_torch.compat.from_jax import leaves_to_jax
+    from rmcl_tpu_torch.objectives.moco_standalone import init_standalone_moco
+    from rmcl_tpu_torch.serve import seeded_model
+    from rmcl_tpu_torch.train.step import create_train_state, make_train_step
+    tag = "[views slice]"
+    cfg32 = views_config().replace(compute_dtype="float32", queue_dtype="float32",
+                                   num_layers=SLICE_LAYERS)
+    base, n = moco_model(cfg32), VIEWS_CPU_PAIRS
+    batch, _, _ = views_batch(cfg32, n, SEED + 4, "cpu")
+    results, std = {}, {}
+    for where in ("cpu", dev):
+        ts = create_train_state(cfg32, model=copy.deepcopy(base), device=where)
+        t0 = time.perf_counter()
+        metrics = make_train_step(cfg32, ts)({k: v.to(where) for k, v in batch.items()},
+                                             torch.Generator().manual_seed(SEED + 8))
+        results[str(where)] = _step_result(ts, metrics, t0)
+        model = ts.model
+        del ts
+        init_standalone_moco(cfg32, model, torch.Generator().manual_seed(SEED + 15))
+        t0 = time.perf_counter()
+        ret = run_standalone(cfg32.replace(adv_steps_img=STANDALONE_CPU_PGD), model,
+                             {k: v.to(where) for k, v in batch.items()},
+                             torch.Generator().manual_seed(SEED + 9))
+        std[str(where)] = (ret["standalone_moco_loss"].item(),
+                           leaves_to_jax(model, grads=True), leaves_to_jax(model),
+                           time.perf_counter() - t0)
+        del model
+    _train_results(f"{tag} benign moco step", results, dev, cfg32.learning_rate, pairs=n)
+    _loss_result(f"{tag} standalone moco", std, dev, n)
+    worst = ("", 0.0)
+    for i in (1, 2):
+        ref, ours = std["cpu"][i], std[str(dev)][i]
+        check(set(ref) == set(ours), f"{tag} standalone: leaves differ")
+        for path, r in ref.items():
+            err = float(np.abs(ours[path] - r).max())
+            tol = 2e-4 * max(1.0, float(np.abs(r).max()))
+            check(err <= tol, f"{tag} standalone {path}: {err} > {tol}")
+            worst = max(worst, (path, err / tol), key=lambda w: w[1])
+    check(int(std[str(dev)][2]["txt_img_queue_ptr"]) == 2 * n, f"{tag} standalone pointer")
+    print(f"{tag} standalone moco: {len(std['cpu'][1])} gradients and {len(std['cpu'][2])} "
+          f"leaves (parameters, twins, both queues) within 2e-4 * max(1, max|ref|), worst "
+          f"{worst[0]} at {worst[1]:.4g} of its bound; pointer {2 * n}; {STANDALONE_CPU_PGD} "
+          f"PGD steps")
+    ncfg = downstream_config("nlvr2_attacked").replace(
+        compute_dtype="float32", num_layers=SLICE_LAYERS, max_loops=CE_CPU_LOOPS)
+    nbase, ids = seeded_model(ncfg, SEED), {}
+    for where in ("cpu", dev):
+        atk, b, labels = ce_setup(ncfg, copy.deepcopy(nbase), n, SEED + 4, where)
+        t0 = time.perf_counter()
+        out = atk.adv_attack_samples(b, (labels,))
+        ids[str(where)] = (out["txt_input_ids"], out["changes_verification"],
+                           time.perf_counter() - t0)
+        del atk
+    (ref, ch_ref, cpu_s), (ours, ch, _) = ids["cpu"], ids[str(dev)]
+    check(np.array_equal(ref, ours) and ch_ref == ch,
+          f"{tag} ce attacker: ids differ {ref.tolist()} vs {ours.tolist()}")
+    print(f"{tag} ce attacker: {n} pairs, {CE_CPU_LOOPS} loops, fp32: the card's token ids "
+          f"equal the CPU's ({cpu_s:.1f} s on the CPU), changes {ch}")
+
+
+def phase_views(dev) -> dict:
+    """Phase 19 whole: the benign-view steps, the Trainer with augmentation,
+    standalone MoCo, the CE attacker, the HWC forward, the native libraries,
+    the fp32 checks.  Returns the launches by path."""
+    import shutil
+    counts, t = {}, [time.perf_counter()]
+    counts["views_moco"], reading, cpu_model, ts = phase_views_step(dev)
+    counts["views_bt"] = phase_views_step(dev, bt=True)[0]
+    t.append(time.perf_counter())
+    root = Path(VIEWS_DIR).resolve()
+    shutil.rmtree(root, ignore_errors=True)
+    try:
+        root.mkdir()
+        counts["views_trainer"] = phase_views_trainer(dev, cpu_model, root)[0]
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    del cpu_model
+    t.append(time.perf_counter())
+    counts["views_hwc"] = phase_views_hwc(dev, ts.model)
+    counts["views_standalone"] = phase_views_standalone(dev, ts)[0]
+    del ts
+    counts["views_ce"] = phase_views_ce(dev)[0]
+    phase_views_native()
+    t.append(time.perf_counter())
+    phase_views_slice(dev)
+    t.append(time.perf_counter())
+    print(f"[views] phase 19 in {t[-1] - t[0]:.1f} s (budget 45 s): the benign steps "
+          f"{t[1] - t[0]:.1f} s, the Trainer {t[2] - t[1]:.1f} s, HWC / standalone / CE / native "
+          f"{t[3] - t[2]:.1f} s, the fp32 checks against the CPU {t[4] - t[3]:.1f} s")
+    return counts
+
+
 # --------------------------------------------------------------- profile
 def _device_us(evt) -> float:
     for attr in ("self_device_time_total", "self_cuda_time_total"):
@@ -4041,9 +4628,21 @@ def main() -> int:
             return 1
         print(json.dumps({"card": card, "launches_by_path": counts}))
         return 0
+    if sys.argv[1:] == ["--views"]:
+        try:
+            from rmcl_tpu_torch import build_config  # noqa: F401
+            card = phase_device()
+            phase_build()
+            counts = phase_views(torch.device("cuda", 0))
+        except Exception as e:  # noqa: BLE001  any failure ends the run
+            traceback.print_exc()
+            print(f"chip_smoke --views: FAILED: {e}", file=sys.stderr)
+            return 1
+        print(json.dumps({"card": card, "launches_by_path": counts}))
+        return 0
     if sys.argv[1:]:
         print("usage: python3 chip_smoke.py [--profile | --gemm-times [ROOT] | --downstream | "
-              "--pretrain]", file=sys.stderr)
+              "--pretrain | --views]", file=sys.stderr)
         return 2
     try:
         from rmcl_tpu_torch import build_config
@@ -4105,6 +4704,8 @@ def main() -> int:
         ds_counts = phase_downstream(dev)
         phase = "pretrain"
         pre_counts = phase_pretrain(dev)
+        phase = "views"
+        views_counts = phase_views(dev)
     except Exception as e:  # noqa: BLE001  every phase failure ends the run
         traceback.print_exc()
         print(f"chip_smoke: FAILED in phase {phase}: {e}", file=sys.stderr)
@@ -4126,7 +4727,8 @@ def main() -> int:
                 "bt_attacked_realistic": bt_counts["realistic"][name],
                 "bt_trainer": bt_trainer_counts[name],
                 **{f"downstream_{k}": v[name] for k, v in ds_counts.items()},
-                **{k: v[name] for k, v in pre_counts.items()}}
+                **{k: v[name] for k, v in pre_counts.items()},
+                **{k: v[name] for k, v in views_counts.items()}}
 
     records = []
     for name, replaces in KERNELS.items():

@@ -2,7 +2,8 @@
 ``rmcl_tpu/attacks/greedy.py``: ``check_word``, ``SynonymTable``,
 ``WordnetSynonyms``, ``GreedyAttack`` and the attackers of the five
 frameworks: ``GreedyAttackMoco``, ``GreedyAttackBarlowTwins``,
-``GreedyAttackNlvr2``, ``GreedyAttackVqa`` and ``GreedyAttackIrtr``).
+``GreedyAttackNlvr2``, ``GreedyAttackVqa`` and ``GreedyAttackIrtr``; and
+``GreedyAttackNlvr2CrossEntropy``, which scores candidates to first order).
 
 Behavioural spec: reference attack/greedy_attack_vilt.py.  Per batch, per
 loop (<= max_loops):
@@ -619,8 +620,65 @@ class GreedyAttackIrtr(GreedyAttack):
         return (text_repr, temperature, sample_ids[idx])
 
 
-# each framework's attacker (the JAX package's GreedyAttackNlvr2CrossEntropy,
-# which no configuration selects, is not ported: ROADMAP A11d)
+class GreedyAttackNlvr2CrossEntropy(GreedyAttack):
+    """Geometric-scored NLVR2 greedy attack (reference
+    Geometric_attack/greedy_attack_vilt_cross_entropy.py:418-447): candidates
+    are ranked by the first-order loss increase, the projection of the
+    representation's change onto the loss gradient, score = per +
+    (cls(cand) - cls(orig)) . dL/dcls, instead of the loss of a full head
+    pass.  One gradient at the joint representation replaces a per-candidate
+    loss.  extras = (labels (B,),).  No configuration selects it, as in the
+    JAX package (``GREEDY_ATTACKERS`` holds the per-framework attackers)."""
+
+    image_keys = ("image_0", "image_1")
+
+    def _head_loss(self, cls, labels):
+        logits = self.model.nlvr2_classifier(cls)
+        logp = torch.log_softmax(logits.float(), dim=-1)
+        return -logp.gather(1, labels.long()[:, None])[:, 0]
+
+    def _cls(self, batch, mats, word_embeds=None):
+        return torch.cat([self.infer(batch, mats, word_embeds, i)["cls_feats"]
+                          for i in (1, 2)], dim=-1)
+
+    def _cls_and_grad(self, batch, labels, mats, word_embeds=None):
+        """(cls (B, 2C), d sum(per) / d cls, per (B,)): the two
+        ``image_token_type_idx`` forwards, the gradient of the summed head
+        loss with respect to ``cls`` only; ``per`` keeps its graph to the
+        word embeddings."""
+        cls = self._cls(batch, mats, word_embeds)
+        c = cls.detach().requires_grad_(True)
+        with torch.enable_grad():
+            grad_cls, = torch.autograd.grad(self._head_loss(c, labels).sum(), c)
+        return cls, grad_cls, self._head_loss(cls, labels)
+
+    def loss_per_sample(self, batch, extras, mats, word_embeds=None):
+        (labels,) = extras
+        cls, grad_cls, per = self._cls_and_grad(batch, labels, mats, word_embeds)
+        # aux: what score_candidates needs, the base loss included, so that the
+        # first-order score compares against the commit rule
+        return per, (cls.detach(), grad_cls.detach(), per.detach())
+
+    def tile_extras(self, extras, nc):
+        (labels,) = extras
+        return (labels.repeat_interleave(nc, dim=0),)
+
+    def compact_extras(self, extras, idx):
+        (labels,) = extras
+        return (labels[idx],)
+
+    def score_candidates(self, flat_batch, B: int, nc: int, extras, aux, mats):
+        cls_orig, grad_cls, per = aux                    # (B, 2C), (B, 2C), (B,)
+        cls_cand = self._cls(flat_batch, mats).reshape(B, nc, -1)
+        delta = cls_cand.float() - cls_orig[:, None].float()
+        first_order = torch.einsum("bnd,bd->bn", delta, grad_cls.float())
+        # the estimated candidate loss: the current loss + the first-order
+        # change; the commit rule keeps a candidate iff it beats the loss
+        return per[:, None] + first_order
+
+
+# each framework's attacker (GreedyAttackNlvr2CrossEntropy, which no
+# configuration selects, is not among them, as in the JAX package)
 GREEDY_ATTACKERS = {"moco": GreedyAttackMoco, "barlowtwins": GreedyAttackBarlowTwins,
                     "nlvr2_attacked": GreedyAttackNlvr2, "vqa_attacked": GreedyAttackVqa,
                     "irtr_attacked": GreedyAttackIrtr}

@@ -29,8 +29,8 @@ image because the complement is identically zero.  ``fast=False`` embeds
 
 Each ``make_pgd_*`` returns ``attack(batch, ...)`` that freezes the model's
 parameters for its duration and returns delta in the batch's image layout
-(patch rows); NLVR2's returns one delta per image.  The batch's images are
-normalised float patch rows.
+(patch rows, or the HWC canvas); NLVR2's returns one delta per image.  The
+batch's images are normalised float patch rows or canvases.
 """
 
 from __future__ import annotations
@@ -40,7 +40,7 @@ from typing import Callable, Dict
 
 import torch
 
-from rmcl_tpu_torch.models.vit import scatter_delta
+from rmcl_tpu_torch.models.vit import as_patch_rows, from_patch_rows, scatter_delta
 from rmcl_tpu_torch.objectives.contrastive import bt_correlation_loss, infonce
 from rmcl_tpu_torch.objectives.losses import bce_with_logits, cross_entropy, l2_normalize
 
@@ -66,20 +66,27 @@ def _fast_visual(model, batch, block_matrices, imgkey: str = "image",
     Returns (fwd, delta_shape, to_full): fwd(delta_sel) runs the full infer
     with delta applied in selected-patch space, delta_shape is delta's
     (B, L, P*P*3) shape, and to_full(delta_sel) expands delta back to the
-    batch's patch rows."""
+    batch's image layout: patch rows, or the canvas (B, H, W, 3) of
+    ``image_layout="hwc"``, which enters as patch rows on its own grid."""
     img = batch[imgkey]
-    if img.dim() != 3 or not img.is_floating_point():
-        raise ValueError("the attack takes normalised float patch rows (B, N, P*P*3)")
+    if img.dim() not in (3, 4) or not img.is_floating_point():
+        raise ValueError("the attack takes normalised float patch rows (B, N, P*P*3) "
+                         "or a canvas (B, H, W, 3)")
     tr = model.transformer
+    rows, grid = as_patch_rows(img, model.grid_hw, model.patch_size)
     with torch.no_grad():
-        prep = tr.visual_embed_prepare(img, model.grid_hw, model.max_image_len)
+        prep = tr.visual_embed_prepare(rows, grid, model.max_image_len)
 
     def fwd(delta_sel):
         emb, xm = tr.visual_embed_from_prep(prep, delta_sel, model.compute_dtype)
         return model.infer(batch, block_matrices, image_embeds=emb, image_masks=xm,
                            image_token_type_idx=image_token_type_idx)
 
-    return fwd, prep.rows_sel.shape, lambda d: scatter_delta(prep, d)
+    def to_full(delta_sel):
+        d = scatter_delta(prep, delta_sel)
+        return from_patch_rows(d, grid, model.patch_size) if img.dim() == 4 else d
+
+    return fwd, prep.rows_sel.shape, to_full
 
 
 def _linf_normalised_step(delta, grad, adv_lr: float, max_norm: float):

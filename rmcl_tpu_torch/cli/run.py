@@ -2,6 +2,7 @@
 
     python -m rmcl_tpu_torch.cli.run with <named_config> [key=value ...] [device=cpu]
     python -m rmcl_tpu_torch.cli.run configs
+    python -m rmcl_tpu_torch.cli.run prepare <dataset> root=RAW_DIR out=ARROW_DIR
     python -m rmcl_tpu_torch.cli.run serve <task> input=reqs.jsonl [output=out.jsonl]
         [batch_size=N] [device=cuda|cpu] with <named_config> [key=value ...]
         [load_path=state_dict.pt]
@@ -27,8 +28,11 @@ as in a Lightning checkpoint; without it the weights are drawn from the
 config's seed.  Both subcommands run on the first CUDA device and fail when
 there is none; ``device=cpu`` asks for the CPU and the plain ops.
 
-Not ported: ``prepare`` (the arrow writers, ROADMAP A9) and ``export``
-(ROADMAP "Not ported").
+``prepare``: ``prepare {coco|f30k|gcc|sbu|vg|nlvr2|vqa} root=RAW_DIR
+out=ARROW_DIR`` writes the arrow tables the loader reads
+(``data/writers.py``; pyarrow on the host).
+
+Not ported: ``export`` (ROADMAP "Not ported").
 """
 
 from __future__ import annotations
@@ -153,8 +157,22 @@ def train(argv: List[str]) -> int:
     return 0
 
 
+def prepare(argv: List[str]) -> int:
+    """``prepare <dataset> root=RAW_DIR out=ARROW_DIR``: the raw dataset's
+    arrow tables (``data/writers.py:WRITERS``)."""
+    from rmcl_tpu_torch.data.writers import WRITERS
+    kw = dict(a.split("=", 1) for a in argv[1:] if "=" in a)
+    root = kw.get("--root") or kw.get("root")
+    out = kw.get("--out") or kw.get("out")
+    if not argv or argv[0] not in WRITERS or not root or not out:
+        print(f"usage: python -m rmcl_tpu_torch.cli.run prepare {{{'|'.join(WRITERS)}}} "
+              f"root=RAW_DIR out=ARROW_DIR", file=sys.stderr)
+        return 2
+    WRITERS[argv[0]](root, out)
+    return 0
+
+
 NOT_PORTED = {
-    "prepare": "the arrow writers (data/writers.py) are not ported (ROADMAP A9)",
     "export": "the StableHLO export is not ported (ROADMAP, Not ported)",
 }
 
@@ -170,6 +188,8 @@ def main(argv: Optional[List[str]] = None) -> int:
         return 0
     if argv[0] == "serve":
         return serve(argv[1:])
+    if argv[0] == "prepare":
+        return prepare(argv[1:])
     if argv[0] in NOT_PORTED:
         raise NotImplementedError(f"{argv[0]}: {NOT_PORTED[argv[0]]}")
     if argv[0] == "with":

@@ -12,7 +12,10 @@ written over numpy only:
   * every other leaf keeps its dotted path and its value; the momentum
     twins (``k_*`` trees) go through the same rules;
   * the model state's ``proj_queue`` keeps its (128, K) value and
-    ``proj_queue_ptr`` () becomes (1,);
+    ``proj_queue_ptr`` () becomes (1,); so do standalone MoCo's shared
+    ``txt_img_queue`` and ``txt_img_queue_ptr``, whose four projectors
+    (``txt_projector``, ``img_projector`` and their ``k_`` twins) are
+    MoCo heads under the rules above;
   * BatchNorm running statistics (``running_mean``, ``running_var``), which
     the JAX package keeps among the parameters, keep their paths and become
     the port's buffers.
@@ -26,6 +29,10 @@ from __future__ import annotations
 from typing import Any, Dict, Optional
 
 import numpy as np
+
+# the model state's queues, each with its ``<queue>_ptr``: MoCo's negatives
+# and standalone MoCo's shared text / image queue
+QUEUES = ("proj_queue", "txt_img_queue")
 
 
 def _leaves(prefix: str, node, num_layers: int, out: Dict[str, np.ndarray]):
@@ -62,9 +69,10 @@ def state_dict_from_jax(params: Dict[str, Any], num_layers: int,
     arrays in torch layouts."""
     out: Dict[str, np.ndarray] = {}
     _leaves("", params, num_layers, out)
-    if state and "proj_queue" in state:
-        out["proj_queue"] = np.array(state["proj_queue"], order="C")
-        out["proj_queue_ptr"] = np.array(state["proj_queue_ptr"]).reshape(1)
+    for queue in QUEUES:
+        if state and queue in state:
+            out[queue] = np.array(state[queue], order="C")
+            out[queue + "_ptr"] = np.array(state[queue + "_ptr"]).reshape(1)
     return out
 
 
@@ -74,8 +82,8 @@ def leaves_to_jax(model, grads: bool = False) -> Dict[str, np.ndarray]:
     the JAX package's layout}: the inverse of ``state_dict_from_jax``, so that
     a test can compare leaf by leaf with the JAX pytree.  When ``grads`` is
     off, the BatchNorm running statistics come under their parameter paths,
-    as the JAX package keeps them, and the queue buffers as ``proj_queue`` and
-    ``proj_queue_ptr`` (a scalar) when the model has them."""
+    as the JAX package keeps them, and the queue buffers (``QUEUES``) as
+    ``<queue>`` and ``<queue>_ptr`` (a scalar) when the model has them."""
     from rmcl_tpu_torch.models.layers import Linear   # torch only from here on
     from rmcl_tpu_torch.models.vit import PatchEmbed
 
@@ -110,7 +118,9 @@ def leaves_to_jax(model, grads: bool = False) -> Dict[str, np.ndarray]:
             out[path] = a
     for key, layers in stacked.items():
         out[key] = np.stack([layers[i] for i in range(len(layers))])
-    if not grads and hasattr(model, "proj_queue"):
-        out["proj_queue"] = model.proj_queue.detach().float().cpu().numpy().copy()
-        out["proj_queue_ptr"] = model.proj_queue_ptr.detach().cpu().numpy().reshape(()).copy()
+    for queue in QUEUES:
+        if not grads and hasattr(model, queue):
+            out[queue] = getattr(model, queue).detach().float().cpu().numpy().copy()
+            out[queue + "_ptr"] = getattr(model, queue + "_ptr").detach().cpu().numpy(
+            ).reshape(()).copy()
     return out

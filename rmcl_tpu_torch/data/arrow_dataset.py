@@ -202,14 +202,15 @@ def collate(batch: List[Dict[str, Any]], mlm_collator,
             bucket_hw: Optional[Tuple[int, int]] = None,
             image_layout: str = "patch",
             patch_size: int = 32) -> Dict[str, Any]:
-    """Batch dict with every image key padded to the static canvas as patch
-    rows, and text keys expanded to *_ids / *_labels / *_ids_mlm /
-    *_labels_mlm / *_masks (reference base_dataset.py:167-245).  The pixel
-    canvas layout ``image_layout="hwc"`` is not ported (ROADMAP A11)."""
-    if image_layout != "patch":
-        raise NotImplementedError(
-            f"image_layout={image_layout!r}: the port lays images out as patch "
-            "rows only; the HWC canvas comes with ROADMAP A11")
+    """Batch dict with every image key padded to the static canvas, and text
+    keys expanded to *_ids / *_labels / *_ids_mlm / *_labels_mlm / *_masks
+    (reference base_dataset.py:167-245).  ``image_layout="patch"`` lays the
+    canvas out as patch rows (B, gh*gw, P*P*3) on the host; ``"hwc"`` keeps
+    the (B, H, W, 3) canvas, which the model turns into patch rows on entry
+    (``models/vit.py:as_patch_rows``)."""
+    if image_layout not in ("patch", "hwc"):
+        raise ValueError(f"image_layout must be 'patch' or 'hwc', got {image_layout!r}")
+    B = len(batch)
     keys = {k for b in batch for k in b}
     out: Dict[str, Any] = {
         k: [b.get(k) for b in batch] for k in keys}
@@ -226,7 +227,16 @@ def collate(batch: List[Dict[str, Any]], mlm_collator,
                 # hw-metadata contract is single-view); same normalise math
                 imgs = [normalize_u8_array(im) for im in imgs]
             H, W = _canvas_shape(imgs, bucket_hw)
-            stacked.append(images_to_patch_rows(imgs, H, W, patch_size))
+            if image_layout == "patch":
+                stacked.append(images_to_patch_rows(imgs, H, W, patch_size))
+            else:
+                canvas = np.zeros(
+                    (B, H, W, 3),
+                    np.uint8 if imgs[0].dtype == np.uint8 else np.float32)
+                for bi, im in enumerate(imgs):
+                    h, w = im.shape[:2]
+                    canvas[bi, :min(h, H), :min(w, W)] = im[:H, :W]
+                stacked.append(canvas)
             if n_views == 1 and stacked[0].dtype == np.uint8:
                 # u8 wire format: per-sample valid (h, w) — the device
                 # rebuilds the exact zero-padding rect on entry

@@ -1,6 +1,7 @@
 """Host-side relayout of images into the patch-row wire format (the port's
 own copy of ``hwc_to_patch_rows`` / ``_images_to_patch_rows`` from the JAX
-package's ``data/arrow_dataset.py``; numpy only)."""
+package's ``data/arrow_dataset.py``; numpy, and the C++ scatter where g++
+is on PATH)."""
 
 from __future__ import annotations
 
@@ -23,8 +24,18 @@ def images_to_patch_rows(imgs: Sequence[np.ndarray], H: int, W: int,
                          P: int) -> np.ndarray:
     """Per-sample (h, w, 3) images, top-left aligned on a zero (H, W) canvas,
     as patch rows.  Dtype follows the inputs (u8 wire format or normalised
-    float32)."""
+    float32).  Where g++ is on PATH, the C++ scatter of
+    ``data/_native/imageproc.cpp`` writes the rows without the canvas (the
+    same bytes); else the canvas is relaid out in numpy."""
     dtype = np.uint8 if len(imgs) and imgs[0].dtype == np.uint8 else np.float32
+    from rmcl_tpu_torch.data import _native
+    lib = _native.load_imageproc()
+    if lib is not None:
+        out = np.zeros((len(imgs), (H // P) * (W // P), P * P * 3), dtype)
+        for bi, im in enumerate(imgs):
+            _native.image_to_patch_rows(lib, np.ascontiguousarray(im[:H, :W], dtype),
+                                        H, W, P, out[bi])
+        return out
     canvas = np.zeros((len(imgs), H, W, 3), dtype)
     for bi, im in enumerate(imgs):
         h, w = im.shape[:2]

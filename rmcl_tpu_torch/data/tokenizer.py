@@ -1,7 +1,8 @@
 """Self-contained WordPiece tokenizer (BERT-uncased compatible); the port's
-own copy of the JAX package's ``data/tokenizer.py``, in pure Python (that
-package's optional C++ batch encoder is not part of the port; the ids are
-the same).
+own copy of the JAX package's ``data/tokenizer.py``.  ``batch_encode`` of
+ASCII texts runs the C++ encoder of ``data/_native/wordpiece.cpp`` where
+``g++`` is on PATH (built at first use), the Python path otherwise; the ids
+are the same.
 
 The reference relies on HF ``BertTokenizer.from_pretrained("bert-base-
 uncased")`` (reference vilt/datamodules/datamodule_base.py:12-27), which
@@ -67,6 +68,24 @@ class WordPieceTokenizer:
         self.cls_token_id = self.vocab[CLS]
         self.sep_token_id = self.vocab[SEP]
         self.mask_token_id = self.vocab[MASK]
+        # the C++ batch encoder for ASCII texts, where its table is this one
+        # (a vocabulary with repeated lines is not: the Python path keeps it)
+        self._native = self._native_handle = None
+        from rmcl_tpu_torch.data import _native
+        lib = _native.load_wordpiece()
+        if lib is not None:
+            h = lib.wp_create(vocab_path.encode())
+            if not h:
+                raise RuntimeError(f"wp_create could not read {vocab_path}")
+            if lib.wp_vocab_size(h) == len(self.vocab):
+                self._native, self._native_handle = lib, h
+            else:
+                lib.wp_free(h)
+
+    def __del__(self):
+        if getattr(self, "_native_handle", None):
+            self._native.wp_free(self._native_handle)
+            self._native_handle = None
 
     # HF-compatible aliases
     @property
@@ -207,8 +226,35 @@ class WordPieceTokenizer:
         return out
 
     def batch_encode(self, texts: Sequence[str], max_length: int):
+        native = self._batch_encode_native(texts, max_length)
+        if native is not None:
+            return native
         enc = self(list(texts), max_length=max_length, return_tensors="np")
         return enc["input_ids"], enc["attention_mask"]
+
+    def _batch_encode_native(self, texts: Sequence[str], max_length: int):
+        """The C++ encoder (``data/_native/wordpiece.cpp``) for ASCII texts;
+        None for a batch with any other text, or without the encoder."""
+        if self._native is None or not texts:
+            return None
+        import ctypes
+        try:
+            blobs = [t.encode("ascii") for t in texts]
+        except UnicodeEncodeError:
+            return None
+        n = len(blobs)
+        offsets = np.zeros((n + 1,), np.int64)
+        np.cumsum([len(b) for b in blobs], out=offsets[1:])
+        ids = np.zeros((n, max_length), np.int32)
+        mask = np.zeros((n, max_length), np.int32)
+        rc = self._native.wp_encode_batch(
+            self._native_handle, b"".join(blobs),
+            offsets.ctypes.data_as(ctypes.POINTER(ctypes.c_int64)), n, max_length,
+            ids.ctypes.data_as(ctypes.POINTER(ctypes.c_int32)),
+            mask.ctypes.data_as(ctypes.POINTER(ctypes.c_int32)))
+        if rc != 0:
+            raise RuntimeError(f"wp_encode_batch failed ({rc})")
+        return ids, mask
 
     def decode(self, ids, skip_special_tokens: bool = True,
                clean_up_tokenization_spaces: bool = False) -> str:

@@ -1,10 +1,11 @@
 """Host-side image transforms: the pixelbert resize and RandAugment.
 
 The port's own copy of the JAX package's ``data/transforms.py`` (behavioural
-spec: reference vilt/transforms/{utils.py,pixelbert.py,randaug.py}); pure
-PIL + numpy.  That package's optional C++ resize gives the same bytes as the
-PIL path kept here.  PIL is imported where an image is touched, never at
-import, so the modules that import this one import without it.
+spec: reference vilt/transforms/{utils.py,pixelbert.py,randaug.py}): PIL +
+numpy, and where g++ is on PATH the C++ resize and normalisation of
+``data/_native/imageproc.cpp`` (built at first use; the same bytes as the
+PIL path).  PIL is imported where an image is touched, never at import, so
+the modules that import this one import without it.
 
 Output convention: channels-LAST (H, W, 3), float32 normalised
 ``(x/255 - 0.5)/0.5`` or raw uint8 for the u8 wire format.
@@ -184,6 +185,51 @@ class RandAugment:
         return img
 
 
+# --------------------------------------------------- native fast path
+def _native_resize(lib, arr: np.ndarray, neww: int, newh: int) -> np.ndarray:
+    import ctypes
+    h, w, c = arr.shape
+    out = np.empty((newh, neww, c), np.uint8)
+    rc = lib.ip_resize_bicubic_u8(
+        arr.ctypes.data_as(ctypes.POINTER(ctypes.c_uint8)), h, w, c,
+        newh, neww, out.ctypes.data_as(ctypes.POINTER(ctypes.c_uint8)))
+    if rc != 0:
+        raise RuntimeError(f"ip_resize_bicubic_u8 failed ({rc})")
+    return out
+
+
+def _native_pixelbert(lib, img, size: int, longer: int,
+                      bucket_hw: Optional[Tuple[int, int]],
+                      out_dtype: str = "float32") -> np.ndarray:
+    """The C++ resize chain and normalisation, bit for bit the PIL path's
+    (``ip_resize_bicubic_u8`` is Pillow's fixed-point bicubic): the
+    ``min_max_resize`` and ``fit_bucket`` rules, then the normalisation,
+    skipped for ``out_dtype="uint8"`` (normalised on the device)."""
+    import ctypes
+    arr = np.ascontiguousarray(np.asarray(img.convert("RGB"), np.uint8))
+    h, w = arr.shape[:2]
+    neww, newh = min_max_size(w, h, size, longer)
+    if (newh, neww) != (h, w):
+        arr = _native_resize(lib, arr, neww, newh)
+        h, w = newh, neww
+    if bucket_hw is not None and (w > bucket_hw[1] or h > bucket_hw[0]):
+        bh, bw = bucket_hw
+        s = min(bw / w, bh / h)
+        neww = max(int(w * s) // 32 * 32, 32)
+        newh = max(int(h * s) // 32 * 32, 32)
+        arr = _native_resize(lib, arr, neww, newh)
+        h, w = newh, neww
+    if out_dtype == "uint8":
+        return arr
+    out = np.empty((h, w, 3), np.float32)
+    rc = lib.ip_normalize_hwc(
+        arr.ctypes.data_as(ctypes.POINTER(ctypes.c_uint8)), h, w, 3,
+        out.ctypes.data_as(ctypes.POINTER(ctypes.c_float)))
+    if rc != 0:
+        raise RuntimeError(f"ip_normalize_hwc failed ({rc})")
+    return out
+
+
 # ------------------------------------------------------------- pipelines
 def pixelbert_transform(size: int = 800,
                         bucket_hw: Optional[Tuple[int, int]] = None,
@@ -191,13 +237,18 @@ def pixelbert_transform(size: int = 800,
                         out_dtype: str = "float32") -> Callable:
     """PIL -> (H, W, 3) float32 in [-1, 1] (reference pixelbert.py:8-30),
     or raw uint8 when out_dtype="uint8" (normalised on the device);
-    RandAugment(2, 9) first when ``randaug``."""
+    RandAugment(2, 9) first when ``randaug``.  The C++ resize and
+    normalisation where g++ is on PATH (``_native_pixelbert``)."""
     longer = int((1333 / 800) * size)
     ra = RandAugment(2, 9) if randaug else None
 
     def tr(img) -> np.ndarray:
+        from rmcl_tpu_torch.data._native import load_imageproc
         if ra is not None:
             img = ra(img)
+        lib = load_imageproc()
+        if lib is not None:
+            return _native_pixelbert(lib, img, size, longer, bucket_hw, out_dtype)
         img = min_max_resize(img, shorter=size, longer=longer)
         if bucket_hw is not None:
             img = fit_bucket(img, bucket_hw)

@@ -39,7 +39,7 @@ from rmcl_tpu_torch.models.heads import (BarlowTwinsHead, Classifier, ITMHead, M
                                          MoCoHead, PatchHead, Pooler)
 from rmcl_tpu_torch.models.layers import Embedding, Linear, reset_all
 from rmcl_tpu_torch.models.text_embeddings import TextEmbeddings
-from rmcl_tpu_torch.models.vit import ViT, normalize_u8, patch_index
+from rmcl_tpu_torch.models.vit import ViT, as_patch_rows, normalize_u8, patch_index
 from rmcl_tpu_torch.ops.dropout import dropout
 
 MOCO_PROJ_DIM = 128
@@ -178,7 +178,9 @@ class ViLT(nn.Module):
               word_embeds: Optional[torch.Tensor] = None, mask_text: bool = False,
               mask_image: Optional[torch.Tensor] = None) -> Dict[str, torch.Tensor]:
         """Forward of a wire-format batch: ``image`` patch rows
-        (B, N, P*P*3) as uint8 with ``image_hw`` (B, 2), or normalised fp32;
+        (B, N, P*P*3), or the canvas (B, H, W, 3) of ``image_layout="hwc"``
+        (patch rows on entry), as uint8 with ``image_hw`` (B, 2), or
+        normalised fp32;
         ``text_ids`` and ``text_masks`` (B, T).  A batch with ``image_0`` /
         ``image_1`` (NLVR2) is read at ``image_{image_token_type_idx - 1}``
         with its ``_hw``.  ``block_matrices`` are the
@@ -217,21 +219,20 @@ class ViLT(nn.Module):
             key = f"image_{image_token_type_idx - 1}"
             key = key if key in batch else "image"
             img = batch[key]
-            if img.dim() != 3:
-                raise ValueError("the port takes patch rows (B, N, P*P*3), the "
-                                 "image_layout='patch' wire format")
             if img.dtype == torch.uint8:
                 img = normalize_u8(img, batch.get(f"{key}_hw"), self.grid_hw,
                                    self.patch_size)
+            # the HWC canvas (image_layout="hwc") as patch rows on its own grid
+            img, grid_hw = as_patch_rows(img, self.grid_hw, self.patch_size)
             if mask_image is not None:
                 image_embeds, image_masks, image_labels, pidx = \
-                    transformer.visual_embed_masked(img, self.grid_hw, self.max_image_len,
+                    transformer.visual_embed_masked(img, grid_hw, self.max_image_len,
                                                     dtype, mask_image[0], mask_image[1])
             else:
-                prep = transformer.visual_embed_prepare(img, self.grid_hw, self.max_image_len)
+                prep = transformer.visual_embed_prepare(img, grid_hw, self.max_image_len)
                 image_embeds, image_masks = transformer.visual_embed_from_prep(prep, None,
                                                                                dtype)
-                pidx = patch_index(prep, self.grid_hw)
+                pidx = patch_index(prep, grid_hw)
             if seeds is not None:
                 image_embeds = dropout(image_embeds, seeds[-1, 1], 0, p)
         else:

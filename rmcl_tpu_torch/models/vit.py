@@ -78,11 +78,17 @@ VIT_LN_EPS = 1e-6
 # ------------------------------------------------------------ u8 wire format
 def normalize_u8(v: torch.Tensor, hw: Optional[torch.Tensor],
                  grid_hw: Tuple[int, int], patch_size: int) -> torch.Tensor:
-    """u8 patch rows (B, N, P*P*3) -> fp32 normalised rows, exactly as the
-    host pipeline normalises; pixels outside each sample's (h, w) are 0.0."""
+    """u8 patch rows (B, N, P*P*3), or a u8 canvas (B, H, W, 3), -> fp32 in
+    the same layout, normalised exactly as the host pipeline normalises;
+    pixels outside each sample's (h, w) are 0.0."""
     x = (v.float() / 255.0 - 0.5) / 0.5
     if hw is None:
         return x
+    if v.dim() == 4:                       # the canvas: the (h, w) rect itself
+        yy = torch.arange(v.shape[1], device=v.device)[None, :, None]
+        xx = torch.arange(v.shape[2], device=v.device)[None, None, :]
+        valid = (yy < hw[:, 0, None, None]) & (xx < hw[:, 1, None, None])
+        return torch.where(valid[..., None], x, 0.0)
     gw, P = grid_hw[1], patch_size
     if v.dim() != 3 or v.shape[1] != grid_hw[0] * gw:
         raise ValueError(f"u8 patch rows with hw metadata need the bucket grid "
@@ -93,6 +99,35 @@ def normalize_u8(v: torch.Tensor, hw: Optional[torch.Tensor],
     px = (n % gw)[:, None] * P + (e[None, :] % (P * 3)) // 3
     valid = (py[None] < hw[:, 0, None, None]) & (px[None] < hw[:, 1, None, None])
     return torch.where(valid, x, 0.0)
+
+
+# ------------------------------------------------------------ the HWC canvas
+def to_patch_rows(img: torch.Tensor, patch_size: int) -> torch.Tensor:
+    """(B, H, W, 3) -> (B, gh*gw, P*P*3) rows in (ph, pw, ch) flat order."""
+    B, H, W, _ = img.shape
+    P = patch_size
+    gh, gw = H // P, W // P
+    x = img.reshape(B, gh, P, gw, P, 3)
+    return x.permute(0, 1, 3, 2, 4, 5).reshape(B, gh * gw, P * P * 3)
+
+
+def from_patch_rows(rows: torch.Tensor, grid_hw: Tuple[int, int],
+                    patch_size: int) -> torch.Tensor:
+    """(B, gh*gw, P*P*3) -> (B, H, W, 3): the inverse of ``to_patch_rows``."""
+    gh, gw = grid_hw
+    P = patch_size
+    x = rows.reshape(rows.shape[0], gh, gw, P, P, 3)
+    return x.permute(0, 1, 3, 2, 4, 5).reshape(rows.shape[0], gh * P, gw * P, 3)
+
+
+def as_patch_rows(img: torch.Tensor, grid_hw: Tuple[int, int], patch_size: int):
+    """(patch rows, their grid) of patch rows (B, N, P*P*3) on ``grid_hw``,
+    or of a canvas (B, H, W, 3) (``image_layout="hwc"``) on its own grid
+    (H // P, W // P): the same numbers, permuted."""
+    if img.dim() == 4:
+        return to_patch_rows(img, patch_size), (img.shape[1] // patch_size,
+                                                img.shape[2] // patch_size)
+    return img, grid_hw
 
 
 def normalize_image_inputs(batch: Dict[str, torch.Tensor], grid_hw: Tuple[int, int],
@@ -322,8 +357,9 @@ class ViT(nn.Module):
     def visual_embed_prepare(self, rows: torch.Tensor, grid_hw: Tuple[int, int],
                              max_image_len: int) -> "VisualPrep":
         """Everything in ``visual_embed`` that does not depend on a pixel
-        perturbation, from the CLEAN normalised patch rows (B, N, P*P*3)."""
-        gh, gw = grid_hw
+        perturbation, from the CLEAN normalised patch rows (B, N, P*P*3) on
+        ``grid_hw``, or a canvas (B, H, W, 3) on its own grid."""
+        rows, (gh, gw) = as_patch_rows(rows, grid_hw, self.patch_embed.patch_size)
         B, N, _ = rows.shape
         C = self.cls_token.shape[-1]
         # a patch is valid when its top-left pixel is: elements 0..2 of its row
@@ -363,7 +399,8 @@ class ViT(nn.Module):
 
     def visual_embed(self, rows: torch.Tensor, grid_hw: Tuple[int, int],
                      max_image_len: int, dtype: torch.dtype):
-        """Normalised patch rows (B, N, P*P*3) -> (x (B, L+1, C), mask (B, L+1) int32)."""
+        """Normalised patch rows (B, N, P*P*3), or a canvas (B, H, W, 3) ->
+        (x (B, L+1, C), mask (B, L+1) int32)."""
         prep = self.visual_embed_prepare(rows, grid_hw, max_image_len)
         return self.visual_embed_from_prep(prep, None, dtype)
 
@@ -372,8 +409,9 @@ class ViT(nn.Module):
                             replaced: torch.Tensor):
         """The masked-patch embedding of normalised patch rows (B, N, P*P*3)
         with the drawn masks ``masked`` and ``replaced`` (B, N) bool over every
-        patch.  Returns (x (B, L+1, C), mask (B, L+1) int32, labels (B, L+1, 3)
-        int64, patch_index (B, L, 2))."""
+        patch (a canvas (B, H, W, 3) on its own grid).  Returns (x (B, L+1, C),
+        mask (B, L+1) int32, labels (B, L+1, 3) int64, patch_index (B, L, 2))."""
+        rows, grid_hw = as_patch_rows(rows, grid_hw, self.patch_embed.patch_size)
         prep = self.visual_embed_prepare(rows, grid_hw, max_image_len)
         x = self.patch_embed(rows, dtype)          # every patch, as the JAX package
         x, labels = mask_tokens(rows, x, self.mask_token, masked, replaced)

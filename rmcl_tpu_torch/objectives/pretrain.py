@@ -25,6 +25,7 @@ from typing import Dict
 
 import torch
 
+from rmcl_tpu_torch.models.vit import as_patch_rows
 from rmcl_tpu_torch.objectives.downstream import _infer
 from rmcl_tpu_torch.objectives.losses import cross_entropy, cross_entropy_per_sample
 from rmcl_tpu_torch.objectives.ot import cost_matrix_cosine, ipot, trace_bmm
@@ -128,7 +129,8 @@ def compute_mppd(model, batch, masks: torch.Tensor, *, seeds=None, block_matrice
     """Masked-patch dense regression: each masked patch's normalised pixel
     row (P*P*3) from its output feature."""
     infer = _infer(model, batch, block_matrices, train, seeds, mask_image=masks)
-    targets = _gather_patches(batch["image"], infer["patch_index"], model.grid_hw[1])
+    rows, grid = as_patch_rows(batch["image"], model.grid_hw, model.patch_size)
+    targets = _gather_patches(rows, infer["patch_index"], grid[1])
     logits = model.mppd_score(infer["image_feats"][:, 1:])
     return _masked_mse("mppd", logits, targets, infer["image_labels"])
 
@@ -139,7 +141,8 @@ def compute_mpfr(model, batch, masks: torch.Tensor, *, seeds=None, block_matrice
     embedding (fp32, no gradient) from its output feature."""
     infer = _infer(model, batch, block_matrices, train, seeds, mask_image=masks)
     with torch.no_grad():
-        clean = model.transformer.patch_embed(batch["image"].float(), torch.float32)
-        targets = _gather_patches(clean, infer["patch_index"], model.grid_hw[1])
+        rows, grid = as_patch_rows(batch["image"], model.grid_hw, model.patch_size)
+        clean = model.transformer.patch_embed(rows.float(), torch.float32)
+        targets = _gather_patches(clean, infer["patch_index"], grid[1])
     logits = model.mpfr_score(infer["image_feats"][:, 1:])
     return _masked_mse("mpfr", logits, targets, infer["image_labels"])

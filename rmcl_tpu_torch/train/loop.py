@@ -28,8 +28,12 @@ SIGTERM or ``request_preemption()`` commits a mid-epoch ``last`` and leaves
 ``fit``; a Trainer with ``resume_from`` restores it and draws the same
 batches, masks and dropout seeds as the run it continues.
 
+With ``cfg.augmentation`` the benign views take the attacks' place: EDA
+text views and SimCLR image views (``data/augmentation.py``), attached to the
+host batch as ``attacked_text_ids`` / ``attacked_text_masks`` and
+``augmented_image``; no greedy attack and no PGD runs.
+
 One process and one device (multi-process consensus and DDP: ROADMAP A10).
-The benign augmentation views (``cfg.augmentation``) raise (ROADMAP A9).
 """
 
 from __future__ import annotations
@@ -50,6 +54,7 @@ from rmcl_tpu_torch.attacks import greedy as G
 from rmcl_tpu_torch.attacks.greedy_fused import FusedGreedyAttack
 from rmcl_tpu_torch.core.buckets import bucket_enabled, text_bucket
 from rmcl_tpu_torch.data.datamodule import MultitaskDataModule
+from rmcl_tpu_torch.data.patch_rows import hwc_to_patch_rows
 from rmcl_tpu_torch.eval.metrics import MetricBag, Scalar
 from rmcl_tpu_torch.models.vilt import ViLT
 from rmcl_tpu_torch.train.checkpoint import CheckpointManager, load_initial_params
@@ -175,10 +180,6 @@ class Trainer:
         """``model``: the weights to train (default: ``ViLT`` from
         ``cfg.seed``, then ``cfg.load_path``)."""
         cfg = self.cfg
-        if cfg.augmentation:
-            raise NotImplementedError(
-                "augmentation (the EDA / SimCLR views of data/augmentation.py) is "
-                "not ported (ROADMAP A9)")
         self.dm.setup()
         per_host = cfg.per_device_batchsize or max(cfg.batch_size, 1)
         self.per_host_batch = per_host
@@ -201,11 +202,22 @@ class Trainer:
                 cfg, ViLT(cfg).init(torch.Generator().manual_seed(cfg.seed)))
         self.ts = create_train_state(cfg, max_steps=self.max_steps, model=model,
                                      device=self.device, accum=self.accum_steps)
-        self.greedy = (build_greedy_attacker(cfg, self.ts.model, self.dm.tokenizer)
-                       if cfg.text_view else None)
-        # train/eval text bucket: off whenever a text view supplies
-        # (B, max_text_len) attacked ids that a sliced batch would mismatch
-        self._text_bucket = bucket_enabled(cfg, "train") and not cfg.text_view
+        self.greedy = self.text_augment = self.image_augment = None
+        if cfg.augmentation:
+            # benign views replace the attacks (reference objectives.py:277-279,
+            # 320-321)
+            from rmcl_tpu_torch.data.augmentation import ImageAugmentation, TextAugmentation
+            if cfg.text_view:
+                self.text_augment = TextAugmentation(cfg, self.dm.tokenizer)
+            if cfg.image_view:
+                self.image_augment = ImageAugmentation(
+                    self.dm.datasets["train"]["concat"].datasets[0], size=cfg.image_size)
+        elif cfg.text_view:
+            self.greedy = build_greedy_attacker(cfg, self.ts.model, self.dm.tokenizer)
+        # train/eval text bucket: off whenever a text view or augmentation
+        # supplies (B, max_text_len) attacked ids that a sliced batch would mismatch
+        self._text_bucket = (bucket_enabled(cfg, "train") and not cfg.text_view
+                             and not cfg.augmentation)
         # the attack inside the step whenever the attacker is the fused one
         # (the port has no fuse_attack_step=False path)
         self._fused_step = isinstance(self.greedy, FusedGreedyAttack)
@@ -241,9 +253,19 @@ class Trainer:
 
     def _attach_text_attack(self, batch: Dict[str, Any], bag=None,
                             for_train: bool = True) -> Dict[str, Any]:
-        """The greedy attack's part of a host batch: the tables of the
-        attack inside the step, or (host attacker, and validation) the
-        attacked ids themselves."""
+        """The host's part of a batch's views: the benign views when
+        ``cfg.augmentation`` (the augmented ids and image); else the greedy
+        attack's tables for the attack inside the step, or (host attacker,
+        and validation) the attacked ids themselves."""
+        if self.text_augment is not None and "text" in batch:
+            _, ids, masks = self.text_augment.augment(batch["text"], epoch=self.epoch)
+            batch = dict(batch, attacked_text_ids=ids, attacked_text_masks=masks)
+        if self.image_augment is not None and "img_index" in batch:
+            aug = self.image_augment.augment_indices(batch["img_index"],
+                                                     self.cfg.image_bucket_hw)
+            if self.cfg.image_layout == "patch":
+                aug = hwc_to_patch_rows(aug, self.cfg.patch_size)
+            batch = dict(batch, augmented_image=aug)
         if self.greedy is None:
             return batch
         if self._fused_step and for_train:
@@ -323,7 +345,9 @@ class Trainer:
         # the host side of the attack for batch N+1 runs on a worker thread
         # while the device runs step N
         pool = (ThreadPoolExecutor(max_workers=1)
-                if cfg.host_prefetch and self.greedy is not None else None)
+                if cfg.host_prefetch and (self.greedy is not None
+                                          or self.text_augment is not None
+                                          or self.image_augment is not None) else None)
         fut = None
         try:
             with self._sigterm_guard():

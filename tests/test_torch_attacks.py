@@ -168,7 +168,7 @@ def test_attack_refuses_other_image_layouts():
     _, _, model, b = _setup(cfg)
     tb = _t(b)
     attack = TP.make_pgd_vqa(model, 1, LR, NORM, cfg.vqav2_label_size)
-    with pytest.raises(ValueError, match="patch rows"):
-        attack(dict(tb, image=torch.zeros(3, 32, 48, 3)), torch.zeros(3, 7))
+    with pytest.raises(ValueError, match="patch rows"):   # flat rows: neither layout
+        attack(dict(tb, image=torch.zeros(3, 6 * 768)), torch.zeros(3, 7))
     with pytest.raises(ValueError, match="patch rows"):
         attack(dict(tb, image=torch.zeros(3, 6, 768, dtype=torch.uint8)), torch.zeros(3, 7))
