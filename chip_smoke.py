@@ -38,7 +38,10 @@ Phases, any failure exits non-zero:
                (csrc/hopper_attention.cuh: fwd with D padded to 64 or 128;
                dq and dkv, kRound or not, D padded to 64 or 128), with no
                spills at D = 64; the SIMT attention kernels are listed and
-               exist for fp32 only
+               exist for fp32 only; the five fp32 GEMM kernels
+               (csrc/simt_gemm.cuh: ln_gemm by weight layout and tile width,
+               gemm_tn) must be FFMA mainloops with LDS.128
+               reads, no HMMA or HGMMA (no TF32), and spill nothing
   3. kernels   each op against its plain version on the same inputs, random
                key mask: attn_half and mlp_half at B=8, S=269 (serving) and,
                in bf16, at B=16, S=241 (the attack); attn_half_dx and
@@ -75,10 +78,15 @@ Phases, any failure exits non-zero:
                with its byte bound, time per call and device time beside
                torch.ops.aten.native_layer_norm_backward on fp32 copies (the
                nearest call: no + g, no y) and a.sum(0, dtype=float32).  The
-               port never calls them.  Every fp32 reading (the ops above, and
-               the fp32 FMA GEMMs ln_gemm_f32 at fc2 with the residual and
-               gemm_tn_f32 at dW1 against their plain versions, 2e-4 of
-               max(1, max|ref|)) beside its fp32 bound: bytes at 4 B per
+               port never calls them.  The fp32 FMA GEMMs (ln_gemm_f32 with
+               ln_stats, gemm_tn_f32): every instance above in fp32 at M =
+               3,856, at the fp32 parity steps' ragged M (2 x 241, 3 x 37)
+               and, for ln_gemm, at the scoring forward's M = 80 x 217,
+               against their plain versions (2e-4 of max(1, max|ref|), the
+               pre-GELU value likewise, masks bit for bit), bit-identical
+               twice; at 3,856 and 17,360 by device time beside F.linear /
+               torch.matmul in fp32 (TF32 off).  Every fp32 reading (the ops
+               above and these GEMMs) beside its fp32 bound: bytes at 4 B per
                element over 3.35 TB/s against FLOPs over the CUDA cores'
                fp32 FMA rate (67 TFLOP/s).
                The training ops at B=16, S=241, fp32 and bf16, p = 0.1 and
@@ -92,7 +100,8 @@ Phases, any failure exits non-zero:
                bf16: masked_attention (row 10) and its backward (row 11) on
                the heads of the block's qkv projection, beside
                F.scaled_dot_product_attention and its backward through
-               torch.autograd.grad (the backwards also by device time);
+               torch.autograd.grad, in bf16 and in fp32 (both by device time
+               too);
                attn_half_full and its backward (row 2), seven outputs
                bit-identical twice; the dropout op at (S, 4C),
                the plain version's bits exactly; attn_half and mlp_half at a
@@ -363,18 +372,19 @@ phases 1, 2 and 19 only.
     python3 chip_smoke.py --gemm-times [ROOT]
 
 times the GEMM sub-kernels of the package under ROOT (default: this
-checkout) at phase 3's shapes, the bf16 attention forward and backward
-through their four C entry points (rmcl_masked_attention_fwd,
+checkout) at phase 3's shapes, bf16 and fp32, the bf16 attention forward
+and backward through their four C entry points (rmcl_masked_attention_fwd,
 rmcl_attention_fwd, rmcl_masked_attention_bwd, rmcl_attention_bwd) at B=16,
 S=241, H=12, D=64, beside F.scaled_dot_product_attention's forward, and the
 LayerNorm backward (_ln_bwd_dx, _ln_backward) and column sums (_colsum) at
-M = 16 x 241 in bf16, per
-call, by device time and by host enqueue time, and the attack under the
-default configuration and P, through arguments every slice of the port
-shares: run it on two checkouts in one call to compare their kernels on one
-card.  Every phase also checks the sub-kernels' launch counters (the GEMMs,
-the bf16 attention forward and backward, the LayerNorm backward and the
-column sums) against the ops' (expected_sub_launches).
+M = 16 x 241 in bf16, per call, by device time and by host enqueue time;
+then the attack under the default configuration and P, and one unattacked
+fp32 task_moco step (16 pairs, 12 layers: wall and device busy), through
+arguments every slice of the port shares: run it on two checkouts in one
+call to compare their kernels on one card.  Every phase also checks the
+sub-kernels' launch counters (the GEMMs, the bf16 attention forward and
+backward, the LayerNorm backward and the column sums) against the ops'
+(expected_sub_launches).
 """
 
 from __future__ import annotations
@@ -447,6 +457,9 @@ LN_COLSUM_KERNELS = {
 }
 # the bf16 GEMM kernels (4 ln_gemm and 2 gemm_tn instances) the SASS check reads
 GEMM_BF16_KERNELS = ("ln_gemm_bf16_kernel", "gemm_tn_bf16_kernel")
+# the fp32 FMA GEMM kernels of csrc/simt_gemm.cuh (4 ln_gemm instances: weight
+# layout x tile width; 1 gemm_tn)
+GEMM_F32_KERNELS = ("ln_gemm_f32_kernel", "gemm_tn_f32_kernel")
 # the bf16 attention kernels: the forward (2 instances: D padded to 64, 128)
 # and the backward (8 instances: dq, dkv x kRound x D padded to 64, 128)
 ATTN_SOURCE = "rmcl_tpu_torch/csrc/hopper_attention.cuh"
@@ -537,7 +550,10 @@ def phase_build() -> None:
 
 def _sass_check(path, ptxas_rows) -> None:
     """The bf16 GEMM kernels as built must be wgmma (HGMMA) fed by TMA
-    (UTMALDG), with no legacy mma.sync (HMMA) left in them.  The bf16
+    (UTMALDG), with no legacy mma.sync (HMMA) left in them.  The fp32 GEMM
+    kernels must be FFMA mainloops with 16-byte shared-memory reads (LDS.128)
+    and no tensor-core instruction (HMMA, HGMMA: no TF32), and spill
+    nothing.  The bf16
     attention kernels (hopper_attention.cuh: the forward, and the backward's
     dq and dkv, kRound or not; D padded to 64 or 128) must contain HGMMA, and
     those at D = 64 spill nothing (ptxas -v); the SIMT attention kernels,
@@ -562,15 +578,29 @@ def _sass_check(path, ptxas_rows) -> None:
         check(n_hgmma > 0 and n_tma > 0 and n_hmma == 0,
               f"{pretty}: not a wgmma + TMA kernel (HGMMA {n_hgmma}, UTMALDG {n_tma}, "
               f"HMMA {n_hmma})")
+    spills = {}
+    for name, info in ptxas_rows:
+        if "spill" in info:
+            spills[name] = re.findall(r"(\d+) bytes spill (?:stores|loads)", info)
+    f32 = sorted(n for n in funcs if any(k in n for k in GEMM_F32_KERNELS))
+    check(len(f32) == 5, f"expected 5 fp32 GEMM kernels in the SASS, found {f32}")
+    for fname, pretty in zip(f32, _demangle(f32)):
+        body, spill = funcs[fname], spills.get(fname)
+        n_ffma, n_lds = len(re.findall(r"\bFFMA\b", body)), body.count("LDS.128")
+        n_mma = len(re.findall(r"\bHMMA\b", body)) + body.count("HGMMA")
+        print(f"[build] SASS {pretty[:100]}: FFMA x{n_ffma}, LDS.128 x{n_lds}, HMMA/HGMMA "
+              f"x{n_mma}, spill bytes {spill}")
+        # the mainloop's 16 k steps of an 8 x 8 accumulator are 1,024 FFMAs (512: a floor)
+        check(n_ffma >= 512 and n_lds > 0 and n_mma == 0,
+              f"{pretty}: not an FFMA mainloop (FFMA {n_ffma}, LDS.128 {n_lds}, "
+              f"HMMA/HGMMA {n_mma})")
+        check(spill is not None and all(b == "0" for b in spill),
+              f"{pretty}: ptxas reports spills {spill}")
     attn = sorted(n for n in funcs if n.startswith(ATTN_PREFIX))
     fwd = [n for n in attn if ATTN_FWD in n]
     check(len(fwd) == 2, f"expected 2 bf16 attention-forward kernels in the SASS, found {fwd}")
     check(len(attn) - len(fwd) == 8, f"expected 8 bf16 attention-backward kernels in the "
                                      f"SASS, found {sorted(set(attn) - set(fwd))}")
-    spills = {}
-    for name, info in ptxas_rows:
-        if "spill" in info:
-            spills[name] = re.findall(r"(\d+) bytes spill (?:stores|loads)", info)
     for fname, pretty in zip(attn, _demangle(attn)):
         n_hgmma = funcs[fname].count("HGMMA")
         spill = spills.get(fname)
@@ -887,11 +917,16 @@ def _config_kernels(res, dev, x, mask, g, ln, attn_w, mlp_w, H, eps, shape) -> N
             "masked_attention_bwd", tag, shape, A.masked_attention_bwd,
             A.masked_attention_bwd_plain, (q, k, v, mask, gh, D ** -0.5), rtol, fp32,
             ("dq", "dk", "dv"), True)
-        if not fp32:   # the pair's device time, without the host's share of a call
-            res["masked_attention_bwd"][tag]["device_ms"] = dms = device_ms(
-                lambda: A.masked_attention_bwd(q, k, v, mask, gh, D ** -0.5))
-            print(f"[kernels] masked_attention_bwd bf16 {shape}: device_ms={dms!r}")
-            _sdpa_yardsticks(res, q, k, v, mask, gh)
+        # the pair's device time, without the host's share of a call; in fp32
+        # the SIMT forward's too (rows 10, 11 of the fp32 table)
+        res["masked_attention_bwd"][tag]["device_ms"] = dms = device_ms(
+            lambda: A.masked_attention_bwd(q, k, v, mask, gh, D ** -0.5))
+        print(f"[kernels] masked_attention_bwd {tag} {shape}: device_ms={dms!r}")
+        if fp32:
+            res["masked_attention"][tag]["device_ms"] = fms = device_ms(
+                lambda: A.masked_attention(q, k, v, mask, D ** -0.5))
+            print(f"[kernels] masked_attention {tag} {shape}: device_ms={fms!r}")
+        _sdpa_yardsticks(res, q, k, v, mask, gh, tag)
         res.setdefault("attn_half_full", {})[tag] = _compare(
             "attn_half_full", tag, shape, FB.attn_half_full,
             lambda *a: FB.attn_half_plain(*a, residual=False), (xd, mask, *a_w, H, eps),
@@ -924,19 +959,22 @@ def _sdpa_backward_times(q, k, v, keep, g) -> tuple:
         return time_ms(bwd), device_ms(bwd)
 
 
-def _sdpa_yardsticks(res, q, k, v, mask, g) -> None:
+def _sdpa_yardsticks(res, q, k, v, mask, g, tag) -> None:
     """F.scaled_dot_product_attention on the same heads and its backward
-    (_sdpa_backward_times): the one-call yardsticks of rows 10 and 11."""
+    (_sdpa_backward_times) in the heads' type (``tag``: bf16, or fp32 with
+    TF32 off): the one-call yardsticks of rows 10 and 11, under library_*
+    (bf16) or fp32_library_* (fp32)."""
     import torch.nn.functional as F
     keep = (mask > 0)[:, None, None, :]
-    fwd_ms = time_ms(lambda: F.scaled_dot_product_attention(q, k, v, attn_mask=keep))
+    fwd = lambda: F.scaled_dot_product_attention(q, k, v, attn_mask=keep)  # noqa: E731
+    fwd_ms, fwd_dev_ms = time_ms(fwd), device_ms(fwd)
     bwd_ms, bwd_dev_ms = _sdpa_backward_times(q, k, v, keep, g)
-    res["masked_attention"]["library_ms"] = fwd_ms
-    res["masked_attention_bwd"]["library_ms"] = bwd_ms
-    res["masked_attention_bwd"]["library_device_ms"] = bwd_dev_ms
-    print(f"[kernels] F.scaled_dot_product_attention bf16 on the same heads: forward "
-          f"{fwd_ms!r} ms, backward through torch.autograd.grad {bwd_ms!r} ms "
-          f"(device {bwd_dev_ms!r} ms)")
+    key = "library" if tag == "bf16" else "fp32_library"
+    res["masked_attention"].update({f"{key}_ms": fwd_ms, f"{key}_device_ms": fwd_dev_ms})
+    res["masked_attention_bwd"].update({f"{key}_ms": bwd_ms, f"{key}_device_ms": bwd_dev_ms})
+    print(f"[kernels] F.scaled_dot_product_attention {tag} on the same heads: forward "
+          f"{fwd_ms!r} ms (device {fwd_dev_ms!r} ms), backward through torch.autograd.grad "
+          f"{bwd_ms!r} ms (device {bwd_dev_ms!r} ms)")
 
 
 def _shard_kernels(x, mask, ln, attn_w, mlp_w, H, eps) -> list:
@@ -987,10 +1025,13 @@ GEMM_TN_SUBS = (("dWqkv", 2304, 768), ("dWproj", 768, 768), ("dW1", 3072, 768),
 GEMM_HEADLINE = {"ln_gemm": "fc2", "gemm_tn": "dW1"}   # their rows of the kernels record
 
 
-def _sub_bound(flops: float, nbytes: float, core_ops: float = 0.0) -> tuple:
-    """(least ms, what bounds it): tensor-core FLOP, 32-bit integer work on
-    the CUDA cores (the dropout's Philox) and bytes each at the card's peak."""
-    t_ops = max(flops / PEAK_BF16_FLOPS, core_ops / PEAK_INT32_OPS) * 1e3
+def _sub_bound(flops: float, nbytes: float, core_ops: float = 0.0,
+               peak: float = PEAK_BF16_FLOPS) -> tuple:
+    """(least ms, what bounds it): FLOP at ``peak`` (the tensor cores' bf16
+    rate, or PEAK_FP32_FLOPS for the fp32 FMA kernels), 32-bit integer work
+    on the CUDA cores (the dropout's Philox) and bytes each at the card's
+    peak."""
+    t_ops = max(flops / peak, core_ops / PEAK_INT32_OPS) * 1e3
     t_bytes = nbytes / PEAK_BYTES_S * 1e3
     return max(t_ops, t_bytes), "operations" if t_ops >= t_bytes else "bytes"
 
@@ -1025,30 +1066,31 @@ def _rate(num: float, ms, unit: str) -> str:
     return "not measured" if ms is None else f"{num / ms:.3f} {unit}"
 
 
-def _ln_gemm_case(dev, FB, gen, N, K, opts) -> dict:
-    """Inputs of one ln_gemm instance at M = 16 x 241 (see LN_GEMM_SUBS), with
-    the bytes it must move (each input read once, each output written once)."""
-    B, S = PGD_BATCH, 241
-    M, opts = B * S, opts.split()
-    rn = lambda *s, std=1.0, dt=torch.bfloat16: (  # noqa: E731
+def _ln_gemm_case(dev, FB, gen, N, K, opts, dtype=torch.bfloat16, B=PGD_BATCH,
+                  S=241) -> dict:
+    """Inputs of one ln_gemm instance (see LN_GEMM_SUBS) in ``dtype`` at M = B
+    S (dropout: S rows per sample), with the bytes it must move (each input
+    read once, each output written once)."""
+    M, opts, es = B * S, opts.split(), torch.empty(0, dtype=dtype).element_size()
+    rn = lambda *s, std=1.0, dt=dtype: (  # noqa: E731
         torch.randn(*s, generator=gen, device=dev) * std).to(dt)
     kn = "kn" in opts
     c = dict(a=rn(M, K), w=rn(*((K, N) if kn else (N, K)), std=0.02), kn=kn, opts=opts, M=M,
              bias=None if kn else rn(N, std=0.02, dt=torch.float32), kw=dict(w_kn=kn))
-    kw, nbytes = c["kw"], 2 * M * K + 2 * N * K + (0 if kn else 4 * N)
+    kw, nbytes = c["kw"], es * M * K + es * N * K + (0 if kn else 4 * N)
     if "ln" in opts:
         kw.update(ln=(1.0 + rn(K, std=0.1, dt=torch.float32), rn(K, std=0.1, dt=torch.float32)),
                   eps=1e-12)
         nbytes += 8 * K
     if "gelu" in opts:
-        kw.update(gelu=True, aux=torch.empty(M, N, device=dev, dtype=torch.bfloat16))
+        kw.update(gelu=True, aux=torch.empty(M, N, device=dev, dtype=dtype))
     if "res" in opts:
         kw["residual"] = rn(M, N)
     if "dgelu" in opts:
         kw.update(epi=FB._EPI_DGELU, aux=rn(M, N))
     if "f32" in opts:
         kw["epi"] = FB._EPI_F32
-    c["bytes"] = nbytes + M * N * (4 if "f32" in opts else 2) + 2 * M * N * (
+    c["bytes"] = nbytes + M * N * (4 if "f32" in opts else es) + es * M * N * (
         ("res" in opts) + ("gelu" in opts) + ("dgelu" in opts))
     c["plain_kw"], c["core_ops"] = {k: v for k, v in kw.items() if k != "aux" or
                                     "dgelu" in opts}, 0.0
@@ -1057,8 +1099,7 @@ def _ln_gemm_case(dev, FB, gen, N, K, opts) -> dict:
         c["plain_kw"]["drop"] = (seeds, S, 0, DROP_P)
         kw["drop"] = (seeds, S, 0, DROP_P, None)
         c["core_ops"] = PHILOX_OPS * M * N
-    c["out"] = torch.empty(M, N, device=dev,
-                           dtype=torch.float32 if "f32" in opts else torch.bfloat16)
+    c["out"] = torch.empty(M, N, device=dev, dtype=torch.float32 if "f32" in opts else dtype)
     return c
 
 
@@ -1139,44 +1180,120 @@ def _gemm_tn_sub(dev, FB, lib, gen, label, Na, Nb) -> dict:
                 bound_ms=bound_ms, bound_by=bound_by, max_abs_err=err, slabs=slabs)
 
 
+# (B, S) of the fp32 GEMM checks: the step's M = 3,856; the ragged M of the
+# fp32 parity steps (2 x 241 = 482, 3 x 37 = 111), which no tile divides; the
+# greedy attack's scoring forward, M = 80 x 217 = 17,360.  Timed at the
+# first and the last.
+F32_GEMM_ROWS = ((PGD_BATCH, 241), (2, 241), (3, 37), (GREEDY_ROWS, GREEDY_S))
+F32_TIMED_ROWS = (PGD_BATCH * 241, GREEDY_ROWS * GREEDY_S)
+
+
+def _f32_check(name, got, again, ref, tol_rel=2e-4) -> float:
+    """fp32 kernel output against its plain version (2e-4 of max(1, max|ref|):
+    exact products, summation order only) and bit-identical to a second
+    call; the error."""
+    check(bool(torch.isfinite(got).all()), f"{name}: non-finite output")
+    check(torch.equal(got, again), f"{name}: two calls differ")
+    err = (got.float() - ref.float()).abs().max().item()
+    tol = tol_rel * max(1.0, ref.float().abs().max().item())
+    check(err <= tol, f"{name}: error {err} > {tol}")
+    return err
+
+
+def _f32_ln_gemm(dev, FB, lib, gen, label, N, K, opts, B, S) -> dict:
+    """One fp32 ln_gemm instance (the FMA kernel) at M = B S against
+    _gemm_plain: the output, the pre-GELU value it keeps and the dropout mask
+    it emits (equal to keep_mask bit for bit), each bit-identical over two
+    calls; at F32_TIMED_ROWS timed by device time beside its fp32 bound, its
+    plain version (at the step's M) and F.linear / torch.matmul(g, W) in fp32
+    (TF32 off; neither has the LayerNorm or the epilogue)."""
+    import torch.nn.functional as F
+    c = _ln_gemm_case(dev, FB, gen, N, K, opts, torch.float32, B, S)
+    a, w, bias, out, kw, kn, M = c["a"], c["w"], c["bias"], c["out"], c["kw"], c["kn"], c["M"]
+    name, shape = f"ln_gemm[{label}]", f"M={M} N={N} K={K} {'+'.join(c['opts']) or 'bias'}"
+    mask, mask2 = ((torch.empty(M, N, device=dev) for _ in range(2)) if "drop" in kw else
+                   (None, None))
+
+    def call(m):
+        kw2 = dict(kw, drop=kw["drop"][:4] + (m,)) if "drop" in kw else kw
+        FB._gemm(lib, a, w, bias, out, **kw2)
+        return out.clone(), (kw["aux"].clone() if "aux" in kw and "gelu" in c["opts"] else None)
+    (got, pre), (again, pre2) = call(mask), call(mask2)
+    ref, ref_pre, keep = FB._gemm_plain(a, w, bias, **c["plain_kw"])
+    torch.cuda.synchronize()
+    err = _f32_check(f"{name} fp32 {shape}", got, again, ref)
+    if ref_pre is not None:
+        _f32_check(f"{name} fp32 {shape} aux", pre, pre2, ref_pre)
+    if keep is not None:
+        check(torch.equal(mask > 0, keep) and torch.equal(mask, mask2),
+              f"{name} fp32 {shape}: mask differs from keep_mask")
+    rec = dict(name=f"{name} fp32", dtype="fp32", shape=shape, M=M, max_abs_err=err)
+    if M not in F32_TIMED_ROWS:
+        return rec
+    run = lambda: FB._gemm(lib, a, w, bias, out, **kw)  # noqa: E731
+    lib_call = ((lambda: torch.matmul(a, w)) if kn else  # noqa: E731
+                (lambda: F.linear(a, w, bias)))
+    flops = 2 * M * N * K
+    bound_ms, bound_by = _sub_bound(flops, c["bytes"], c["core_ops"], PEAK_FP32_FLOPS)
+    rec.update(ms=time_ms(run), device_ms=device_ms(run), library_ms=time_ms(lib_call),
+               library_device_ms=device_ms(lib_call), bound_ms=bound_ms, bound_by=bound_by,
+               library="torch.matmul(g, W)" if kn else "F.linear",
+               plain_ms=time_ms(lambda: FB._gemm_plain(a, w, bias, **c["plain_kw"]))
+               if M == F32_TIMED_ROWS[0] else None)
+    return rec
+
+
+def _f32_gemm_tn(dev, FB, lib, gen, label, Na, Nb, B, S) -> dict:
+    """One fp32 gemm_tn instance at M = B S against a^T . b in fp32 (2e-4 of
+    max(1, max|ref|)), bit-identical twice, with the slices its plan cut the
+    rows into; at the step's M timed beside its fp32 bound, its plain
+    version and torch.matmul(A.t(), B)."""
+    M = B * S
+    a = torch.randn(M, Na, generator=gen, device=dev)
+    b = torch.randn(M, Nb, generator=gen, device=dev)
+    run = lambda: FB._gemm_tn(lib, a, b)  # noqa: E731
+    name, shape = f"gemm_tn[{label}]", f"M={M} -> {Na}x{Nb}"
+    got, again, ref = run(), run(), FB._gemm_tn_plain(a, b)
+    torch.cuda.synchronize()
+    err = _f32_check(f"{name} fp32 {shape}", got, again, ref)
+    rec = dict(name=f"{name} fp32", dtype="fp32", shape=shape, M=M, max_abs_err=err,
+               slabs=lib.rmcl_gemm_tn_slabs(0, M, Na, Nb))
+    if M != F32_TIMED_ROWS[0]:
+        return rec
+    lib_call = lambda: torch.matmul(a.t(), b)  # noqa: E731
+    bound_ms, bound_by = _sub_bound(2 * M * Na * Nb, 4 * (M * (Na + Nb) + Na * Nb), 0.0,
+                                    PEAK_FP32_FLOPS)
+    rec.update(ms=time_ms(run), device_ms=device_ms(run), plain_ms=time_ms(
+        lambda: FB._gemm_tn_plain(a, b)), library_ms=time_ms(lib_call),
+        library_device_ms=device_ms(lib_call), library="torch.matmul(A.t(), B)",
+        bound_ms=bound_ms, bound_by=bound_by)
+    return rec
+
+
 def _f32_gemm_subs(dev, FB, lib, gen) -> list:
     """The fp32 FMA kernels that compute_dtype="float32" reaches,
-    ln_gemm_f32_kernel and gemm_tn_f32_kernel, at the headline instances of
-    their bf16 rows: fc2 with the residual (M = 16 x 241, N = 768, K = 3072)
-    and dW1 (3072 x 768 over the rows), against their plain versions (fp32,
-    TF32 off: 2e-4 of max(1, max|ref|)), per call and by device time, each
-    with its fp32 bound: bytes at 4 B per element over 3.35 TB/s against
-    FLOPs over the fp32 FMA rate."""
-    M = PGD_BATCH * 241
-    rn = lambda *s, std=1.0: torch.randn(*s, generator=gen, device=dev) * std  # noqa: E731
-    a, w, bias, res = rn(M, 3072), rn(768, 3072, std=0.02), rn(768, std=0.02), rn(M, 768)
-    y = torch.empty(M, 768, device=dev)
-    a1, b1 = rn(M, 3072), rn(M, 768)
-    cases = (
-        ("ln_gemm[fc2] fp32", f"M={M} N=768 K=3072 res",
-         lambda: FB._gemm(lib, a, w, bias, y, residual=res) or y,
-         lambda: FB._gemm_plain(a, w, bias, residual=res)[0],
-         2 * M * 768 * 3072, 4 * (M * 3072 + 768 * 3072 + 768 + 2 * M * 768)),
-        ("gemm_tn[dW1] fp32", f"M={M} -> 3072x768", lambda: FB._gemm_tn(lib, a1, b1),
-         lambda: FB._gemm_tn_plain(a1, b1), 2 * M * 3072 * 768,
-         4 * (M * (3072 + 768) + 3072 * 768)))
+    ln_gemm_f32_kernel (with ln_stats_kernel) and gemm_tn_f32_kernel: every
+    LN_GEMM_SUBS and GEMM_TN_SUBS instance at every F32_GEMM_ROWS M, each
+    against its plain version (fp32, TF32 off), bit-identical twice; timed
+    at F32_TIMED_ROWS, each with its fp32 bound: bytes at 4 B per element
+    over 3.35 TB/s against FLOPs over the fp32 FMA rate."""
     out = []
-    for name, shape, run, plain, flops, nbytes in cases:
-        got, ref = run().clone(), plain()
-        torch.cuda.synchronize()
-        err = (got - ref).abs().max().item()
-        tol = 2e-4 * max(1.0, ref.abs().max().item())
-        check(bool(torch.isfinite(got).all()) and err <= tol, f"{name}: error {err} > {tol}")
-        ms, dev_ms, plain_ms = time_ms(run), device_ms(run), time_ms(plain)
-        t_ops, t_bytes = flops / PEAK_FP32_FLOPS * 1e3, nbytes / PEAK_BYTES_S * 1e3
-        bound_ms, bound_by = max(t_ops, t_bytes), "operations" if t_ops >= t_bytes else "bytes"
-        print(f"[kernels] {name} ({shape}): kernel_ms={ms!r} device_ms={dev_ms!r} "
-              f"({_rate(bound_ms, dev_ms, 'of the bound')}) plain_ms={plain_ms!r} "
-              f"fp32_bound_ms={bound_ms!r} ({bound_by}) max_abs_err={err!r} (tol {tol:.3g})")
-        out.append(dict(name=name, dtype="fp32", shape=shape, ms=ms, device_ms=dev_ms,
-                        plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by,
-                        max_abs_err=err))
-    return out
+    for B, S in F32_GEMM_ROWS:
+        out += [_f32_ln_gemm(dev, FB, lib, gen, *sub, B, S) for sub in LN_GEMM_SUBS]
+        if B * S != GREEDY_ROWS * GREEDY_S:   # no weight gradient at the scoring forward
+            out += [_f32_gemm_tn(dev, FB, lib, gen, *sub, B, S) for sub in GEMM_TN_SUBS]
+    for r in out:
+        timed = "" if "ms" not in r else (
+            f" kernel_ms={r['ms']!r} device_ms={r['device_ms']!r} "
+            f"({_rate(r['bound_ms'], r['device_ms'], 'of the bound')}) plain_ms="
+            f"{r['plain_ms']!r} {r['library']}_ms={r['library_ms']!r} (device "
+            f"{r['library_device_ms']!r}) fp32_bound_ms={r['bound_ms']!r} ({r['bound_by']})")
+        slabs = f", {r['slabs']} slab(s)" if "slabs" in r else ""
+        print(f"[kernels] {r['name']} ({r['shape']}{slabs}): max_abs_err={r['max_abs_err']!r}"
+              f" within 2e-4 of max(1, max|ref|), bit-identical twice{timed}")
+    # the records' key: the step's M
+    return [dict(r, name=r["name"] if r["M"] == F32_TIMED_ROWS[0] else
+                 f"{r['name']} M={r['M']}") for r in out]
 
 
 # The LayerNorm backward's two forms, as the main path runs them with + g:
@@ -4448,6 +4565,34 @@ def attack_times(dev, config: str) -> tuple:
     return statistics.median(walls), busy / 1e3
 
 
+def fp32_step_times(dev) -> tuple:
+    """(wall ms, median of 3 after a warm-up, host clock + synchronize; device
+    busy ms of one step under torch.profiler) of phase 8's unattacked default
+    task_moco step with compute_dtype="float32": 16 pairs, 12 layers, the
+    fp32 kernels throughout."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    from rmcl_tpu_torch.train.step import create_train_state, make_train_step
+    cfg = train_config().replace(compute_dtype="float32", queue_dtype="float32")
+    ts = create_train_state(cfg, model=moco_model(cfg), device=dev)
+    batch = train_batch(cfg, PGD_BATCH, SEED + 4, dev)
+    gen = torch.Generator().manual_seed(SEED + 7)
+    step = make_train_step(cfg, ts)
+    step(batch, gen)
+    walls = []
+    for _ in range(3):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        step(batch, gen)
+        torch.cuda.synchronize()
+        walls.append((time.perf_counter() - t) * 1e3)
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        step(batch, gen)
+        torch.cuda.synchronize()
+    busy = sum(_device_us(e) for e in prof.key_averages() if e.device_type == DeviceType.CUDA)
+    return statistics.median(walls), busy / 1e3
+
+
 def _attention_calls(dev, lib, gen) -> dict:
     """The four C entry points of the bf16 attention forward and backward at
     B=16, S=241, H=12, D=64, called as they have been since they exist: the
@@ -4529,7 +4674,18 @@ def gemm_times(root: str) -> None:
             res[f"ln_gemm[{label}]"] = (time_ms(run), device_ms(run), host_us(run))
             if label == "qkv":   # its LayerNorm pass alone, by kernel name
                 res["ln_rows_kernel"] = (None, device_ms(run, kernel="ln_rows_kernel"), None)
+        torch.backends.cuda.matmul.allow_tf32 = False
+        for label, N, K, opts in LN_GEMM_SUBS:   # the fp32 FMA kernels, the same arguments
+            c = _ln_gemm_case(dev, FB, gen, N, K, opts, torch.float32)
+            def run(c=c):
+                FB._gemm(lib, c["a"], c["w"], c["bias"], c["out"], **c["kw"])
+            res[f"ln_gemm[{label}] fp32"] = (time_ms(run), device_ms(run), host_us(run))
         M = PGD_BATCH * 241
+        for label, Na, Nb in GEMM_TN_SUBS:
+            a, b = (torch.randn(M, n, generator=gen, device=dev) for n in (Na, Nb))
+            def run(a=a, b=b):
+                return FB._gemm_tn(lib, a, b)
+            res[f"gemm_tn[{label}] fp32"] = (time_ms(run), device_ms(run), host_us(run))
         for label, Na, Nb in GEMM_TN_SUBS:
             a = torch.randn(M, Na, generator=gen, device=dev).bfloat16()
             b = torch.randn(M, Nb, generator=gen, device=dev).bfloat16()
@@ -4580,7 +4736,10 @@ def gemm_times(root: str) -> None:
         attacks[config] = attack_times(dev, config)
         print(f"[gemm-times] {root} attack {config}: wall_ms={attacks[config][0]!r} "
               f"device_busy_ms={attacks[config][1]!r}")
-    print(json.dumps({"root": root, "times": res, "attacks": attacks}))
+    step32 = fp32_step_times(dev)
+    print(f"[gemm-times] {root} fp32 task_moco step ({PGD_BATCH} pairs, 12 layers, "
+          f"unattacked): wall_ms={step32[0]!r} device_busy_ms={step32[1]!r}")
+    print(json.dumps({"root": root, "times": res, "attacks": attacks, "fp32_step": step32}))
 
 
 def main() -> int:
@@ -4753,6 +4912,8 @@ def main() -> int:
                        worst_error_over_tolerance=main["worst"])
         elif new:
             rec.update(fp32_ms=r["fp32"]["ms"], fp32_plain_ms=r["fp32"]["plain_ms"],
+                       **{f"fp32_{f}": r.get(f"fp32_{f}") or r["fp32"].get(f)
+                          for f in ("device_ms", "library_ms", "library_device_ms")},
                        library=("F.scaled_dot_product_attention" if name == "masked_attention"
                                 else "torch.autograd.grad of F.scaled_dot_product_attention"
                                 if name == "masked_attention_bwd" else None))
@@ -4784,9 +4945,15 @@ def main() -> int:
             "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
             "library_ms": r["library_ms"], "library": r["library"], "shape": r["shape"],
             "instances": {k: v["ms"] for k, v in subs.items()
-                          if k.startswith(name + "[") and not k.endswith(" fp32")},
+                          if k.startswith(name + "[") and v.get("dtype") != "fp32"},
             **{f"fp32_{f}": f32[f] for f32 in [subs[f"{name}[{GEMM_HEADLINE[name]}] fp32"]]
-               for f in ("ms", "device_ms", "plain_ms", "bound_ms", "bound_by")}})
+               for f in ("ms", "device_ms", "plain_ms", "bound_ms", "bound_by", "library",
+                         "library_ms", "library_device_ms")},
+            "fp32_instances": {k: {f: v.get(f) for f in ("device_ms", "bound_ms",
+                                                         "library_device_ms", "slabs")}
+                               for k, v in subs.items()
+                               if k.startswith(name + "[") and "ms" in v
+                               and v.get("dtype") == "fp32"}})
     r = subs["attention_fwd"]   # the bf16 forward under rows 1, 8, 2 and 10
     records.append({
         "name": "attention_fwd", "route": "cuda", "source": ATTN_SOURCE,

@@ -112,13 +112,15 @@
 //     registers, two columns per access.  Its LayerNorm runs as a separate
 //     pass in bf16 (ln_rows_kernel: the statistics once per row, the rounded
 //     y into a scratch the wrapper passes, the A operand the GEMM then loads
-//     by TMA); in fp32 it stays a prologue of the FMA kernel.
+//     by TMA); in fp32 a statistics pass (ln_stats_kernel, (mean, rstd) per
+//     row) and the LayerNorm applied in the FMA kernel's registers.
 //   * gemm_tn cuts the contraction into a few fixed slices where its output
-//     tiles fill less than half the SMs (dWproj: 768 x 768), each slice into
-//     its own fp32 slab, added in order by a second pass.
-//   * fp32 stays on FMA kernels (64x64 tiles, a K loop): wgmma's fp32 input
-//     would be TF32 (about 3 digits), and the fp32 slices are held to the
-//     CPU within 1e-3 to 2e-4 of their largest value.
+//     tiles are too few for the SMs (dWproj: 768 x 768), each slice into its
+//     own fp32 slab, added in order by a second pass.
+//   * fp32 stays on the CUDA cores' FMA units (simt_gemm.cuh: 128 x 128 or
+//     128 x 64 tiles, 8 x 8 accumulators a thread, a 4-stage cp.async ring):
+//     wgmma's fp32 input would be TF32 (about 3 digits), and the fp32 slices
+//     are held to the CPU within 1e-3 to 2e-4 of their largest value.
 //   * masked_attention_fwd reads q, k and v straight from the (B, S, 3C)
 //     qkv buffer (column order (3, H, D)), keeps K/V tiles in shared
 //     memory and runs an online softmax, so no S x S tensor reaches device
@@ -175,6 +177,7 @@
 
 #include "hopper_attention.cuh"
 #include "hopper_gemm.cuh"
+#include "simt_gemm.cuh"
 
 namespace {
 
@@ -258,16 +261,16 @@ __device__ __forceinline__ bool drop_keep(const Drop& d, int m, int n) {
 //                  once; out is T.
 //   epi EPI_F32:   the fp32 accumulator as it is; out is float.
 // A, W, residual and aux are T; ln_w, ln_b and bias are fp32.
-// Needs K % 8 == 0, for WKN also N % 8 == 0, and 16-byte aligned A and W
-// (the wrapper checks).
-// Two kernels by type: float runs ln_gemm_f32_kernel (FMA, LayerNorm as a
-// prologue while the A tile is staged); bf16 runs ln_rows_kernel when there
-// is a LayerNorm (the rounded LN(A) into a scratch the wrapper passes) and
-// then ln_gemm_bf16_kernel (TMA + wgmma, hopper_gemm.cuh).  Both apply the
-// epilogue below element by element.
+// Needs K % 8 == 0, for WKN also N % 8 == 0, and 16-byte aligned A, W, out,
+// bias, residual, aux and the LayerNorm parameters (the wrapper checks).
+// Two routes by type.  float: ln_stats_kernel when there is a LayerNorm (each
+// row's (mean, rstd) into a scratch the wrapper passes), then
+// ln_gemm_f32_kernel (simt_gemm.cuh: register-tiled FMA, a cp.async ring, the
+// LayerNorm applied to A in registers on its way into shared memory).  bf16:
+// ln_rows_kernel when there is a LayerNorm (the rounded LN(A) into a scratch
+// the wrapper passes), then ln_gemm_bf16_kernel (TMA + wgmma,
+// hopper_gemm.cuh).  Both apply the epilogue below element by element.
 
-constexpr int BM = 64, BN = 64, BK = 32, GEMM_THREADS = 256;
-constexpr int LDC = BN + 4;
 constexpr int EPI_BIAS = 0, EPI_DGELU = 1, EPI_F32 = 2;
 
 // EPI_DGELU of one element: exact-erf gelu'(h) = Phi(h) + h phi(h), in fp32
@@ -297,160 +300,100 @@ __device__ __forceinline__ float epi_bias(float acc, bool has_bias, float b, int
   return v;
 }
 
-template <bool WKN>
-__global__ void __launch_bounds__(GEMM_THREADS)
-ln_gemm_f32_kernel(const float* __restrict__ A, const float* __restrict__ ln_w,
-                   const float* __restrict__ ln_b, float eps,
+// The LayerNorm statistics of row m of x (M, K), by the warp that owns it:
+// the lane sums in k order, then the warp's butterfly, two passes over the
+// row; (mean, rstd = 1 / sqrt(var + eps)).
+template <typename T>
+__device__ __forceinline__ float2 row_stats(const T* __restrict__ row, int K, float eps,
+                                            int lane) {
+  float s = 0.f;
+  for (int k = lane; k < K; k += 32) s += to_f<T>(row[k]);
+  const float mean = warp_sum(s) / (float)K;
+  float ss = 0.f;
+  for (int k = lane; k < K; k += 32) {
+    const float d = to_f<T>(row[k]) - mean;
+    ss += d * d;
+  }
+  return make_float2(mean, 1.f / sqrtf(warp_sum(ss) / (float)K + eps));
+}
+
+// (mean, rstd) of each row of the fp32 ln_gemm's A: its LayerNorm statistics,
+// once per row rather than once per CTA of a row block; one warp per row.
+constexpr int LNR_THREADS = 256;
+
+__global__ void __launch_bounds__(LNR_THREADS)
+ln_stats_kernel(const float* __restrict__ x, float eps, float2* __restrict__ stats, int M,
+                int K) {
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int m = blockIdx.x * (LNR_THREADS / 32) + warp;
+  if (m >= M) return;
+  const float2 st = row_stats(x + (size_t)m * K, K, eps, lane);
+  if (lane == 0) stats[m] = st;
+}
+
+// The fp32 ln_gemm: simt_gemm.cuh's mainloop (A k-contiguous through
+// registers with the LayerNorm from ln_stats_kernel's statistics; W (N, K)
+// likewise, or (K, N) by cp.async), then the epilogue on 4 columns a thread.
+template <bool WKN, int TBN>
+__global__ void __launch_bounds__(sg::Tile<TBN>::THREADS, sg::Tile<TBN>::MIN_CTAS)
+ln_gemm_f32_kernel(const float* __restrict__ A, const float2* __restrict__ ln_stats,
+                   const float* __restrict__ ln_w, const float* __restrict__ ln_b,
                    const float* __restrict__ W, const float* __restrict__ bias,
                    const float* __restrict__ residual, float* __restrict__ aux,
-                   void* __restrict__ out_v, int M, int N, int K, int gelu, int epi,
-                   Drop drop) {
-  // the threads read columns of the staged tiles: an odd stride keeps those
-  // reads on distinct banks
-  constexpr int LDS = BK + 1;
-  // a (K, N) weight tile is staged as [BK][LDW]; its reads run along n
-  constexpr int LDW = BN + 8;
-  constexpr int VEC = 4;
-  constexpr int CHUNKS = BK / VEC;
-  constexpr int NCHUNKS = BN / VEC;
-
-  __shared__ __align__(128) float As[BM * LDS];
-  __shared__ __align__(128) float Ws[WKN ? BK * LDW : BN * LDS];
-  __shared__ __align__(128) float Cs[BM * LDC];
-  __shared__ float s_mean[BM], s_rstd[BM];
-
-  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
-  const int bm = blockIdx.y * BM, bn = blockIdx.x * BN;
-  const bool ln = ln_w != nullptr;
-
-  if (ln) {
-    for (int r = warp; r < BM; r += GEMM_THREADS / 32) {
-      const int m = bm + r;
-      float mean = 0.f, rstd = 0.f;
-      if (m < M) {
-        const float* row = A + (size_t)m * K;
-        float s = 0.f;
-        for (int k = lane; k < K; k += 32) s += row[k];
-        mean = warp_sum(s) / (float)K;
-        float ss = 0.f;
-        for (int k = lane; k < K; k += 32) {
-          const float d = row[k] - mean;
-          ss += d * d;
-        }
-        rstd = 1.f / sqrtf(warp_sum(ss) / (float)K + eps);
-      }
-      if (lane == 0) {
-        s_mean[r] = mean;
-        s_rstd[r] = rstd;
-      }
-    }
-    __syncthreads();
-  }
-
-  // thread (ty, tx) owns rows ty + 16 i and columns tx + 16 j
-  const int ty = tid / 16, tx = tid % 16;
-  float acc[4][4];
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int j = 0; j < 4; ++j) acc[i][j] = 0.f;
-
-  for (int k0 = 0; k0 < K; k0 += BK) {
-    for (int c = tid; c < BM * CHUNKS; c += GEMM_THREADS) {
-      const int r = c / CHUNKS, kc = (c % CHUNKS) * VEC;
-      const int m = bm + r, k = k0 + kc;
-      float v[VEC];
-      if (m < M && k < K) {
-        const float4 raw = *reinterpret_cast<const float4*>(A + (size_t)m * K + k);
-        v[0] = raw.x, v[1] = raw.y, v[2] = raw.z, v[3] = raw.w;
-        if (ln) {
-#pragma unroll
-          for (int q = 0; q < VEC; ++q)
-            v[q] = ((v[q] - s_mean[r]) * s_rstd[r]) * ln_w[k + q] + ln_b[k + q];
-        }
-      } else {
-#pragma unroll
-        for (int q = 0; q < VEC; ++q) v[q] = 0.f;
-      }
-#pragma unroll
-      for (int q = 0; q < VEC; ++q) As[r * LDS + kc + q] = v[q];
-    }
-    if constexpr (WKN) {
-      for (int c = tid; c < BK * NCHUNKS; c += GEMM_THREADS) {
-        const int r = c / NCHUNKS, nc = (c % NCHUNKS) * VEC;
-        const int k = k0 + r, n = bn + nc;
-        float4 raw = make_float4(0.f, 0.f, 0.f, 0.f);
-        if (k < K && n < N) raw = *reinterpret_cast<const float4*>(W + (size_t)k * N + n);
-        Ws[r * LDW + nc] = raw.x, Ws[r * LDW + nc + 1] = raw.y;
-        Ws[r * LDW + nc + 2] = raw.z, Ws[r * LDW + nc + 3] = raw.w;
-      }
-    } else {
-      for (int c = tid; c < BN * CHUNKS; c += GEMM_THREADS) {
-        const int r = c / CHUNKS, kc = (c % CHUNKS) * VEC;
-        const int n = bn + r, k = k0 + kc;
-        float4 raw = make_float4(0.f, 0.f, 0.f, 0.f);
-        if (n < N && k < K) raw = *reinterpret_cast<const float4*>(W + (size_t)n * K + k);
-        Ws[r * LDS + kc] = raw.x, Ws[r * LDS + kc + 1] = raw.y;
-        Ws[r * LDS + kc + 2] = raw.z, Ws[r * LDS + kc + 3] = raw.w;
-      }
-    }
-    __syncthreads();
-
-#pragma unroll 8
-    for (int kk = 0; kk < BK; ++kk) {
-      float a[4], b[4];
-#pragma unroll
-      for (int i = 0; i < 4; ++i) a[i] = As[(ty + 16 * i) * LDS + kk];
-#pragma unroll
-      for (int j = 0; j < 4; ++j)
-        b[j] = WKN ? Ws[kk * LDW + tx + 16 * j] : Ws[(tx + 16 * j) * LDS + kk];
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int j = 0; j < 4; ++j) acc[i][j] = fmaf(a[i], b[j], acc[i][j]);
-    }
-    __syncthreads();
-  }
-
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int j = 0; j < 4; ++j) Cs[(ty + 16 * i) * LDC + tx + 16 * j] = acc[i][j];
-  __syncthreads();
-
-  for (int idx = tid; idx < BM * BN; idx += GEMM_THREADS) {
-    const int r = idx / BN, c = idx % BN;
-    const int m = bm + r, n = bn + c;
-    if (m >= M || n >= N) continue;
+                   float* __restrict__ out, int M, int N, int K, int gelu, int epi, Drop drop) {
+  extern __shared__ __align__(16) float smem[];
+  const int m0 = blockIdx.y * sg::BM, n0 = blockIdx.x * TBN;
+  float acc[8][8];
+  sg::mainloop<TBN, false, WKN>(sg::Operand{A, K, M}, sg::Operand{W, WKN ? N : K, N}, m0, n0, 0,
+                                (K + sg::BK - 1) / sg::BK, K, ln_w, ln_b, ln_stats, smem, acc);
+  const bool dropping = drop.seeds != nullptr;
+  sg::epilogue<TBN>(acc, smem, [&](int r, int c, float4 a4) {
+    const int m = m0 + r, n = n0 + c;
+    if (m >= M || n >= N) return;
     const size_t o = (size_t)m * N + n;
-    const float acc1 = Cs[r * LDC + c];
     if (epi == EPI_F32) {
-      static_cast<float*>(out_v)[o] = acc1;
-      continue;
+      *reinterpret_cast<float4*>(out + o) = a4;
+      return;
     }
-    float* out = static_cast<float*>(out_v);
-    const bool dropping = drop.seeds != nullptr;
-    bool keep = true;
+    const float acc4[4] = {a4.x, a4.y, a4.z, a4.w};
+    bool keep[4] = {true, true, true, true};
     if (dropping) {
-      keep = drop_keep(drop, m, n);
-      if (drop.mask_out != nullptr) static_cast<float*>(drop.mask_out)[o] = keep ? 1.f : 0.f;
+#pragma unroll
+      for (int q = 0; q < 4; ++q) keep[q] = drop_keep(drop, m, n + q);
+      if (drop.mask_out != nullptr)
+        *reinterpret_cast<float4*>(static_cast<float*>(drop.mask_out) + o) = make_float4(
+            keep[0] ? 1.f : 0.f, keep[1] ? 1.f : 0.f, keep[2] ? 1.f : 0.f, keep[3] ? 1.f : 0.f);
     }
+    float v[4];
     if (epi == EPI_DGELU) {
-      out[o] = epi_dgelu(acc1, aux[o], dropping, keep, drop.inv_keep);
-      continue;
+      const float4 h = *reinterpret_cast<const float4*>(aux + o);
+      const float hv[4] = {h.x, h.y, h.z, h.w};
+#pragma unroll
+      for (int q = 0; q < 4; ++q)
+        v[q] = epi_dgelu(acc4[q], hv[q], dropping, keep[q], drop.inv_keep);
+    } else {
+      const bool has_bias = bias != nullptr;
+      const float4 b = has_bias ? *reinterpret_cast<const float4*>(bias + n)
+                                : make_float4(0.f, 0.f, 0.f, 0.f);
+      const float bv[4] = {b.x, b.y, b.z, b.w};
+      float pre[4];
+#pragma unroll
+      for (int q = 0; q < 4; ++q)
+        v[q] = epi_bias<float>(acc4[q], has_bias, bv[q], gelu, dropping, keep[q], drop.inv_keep,
+                               pre[q]);
+      if (gelu && aux != nullptr)   // pre-GELU h, kept for the backward
+        *reinterpret_cast<float4*>(aux + o) = make_float4(pre[0], pre[1], pre[2], pre[3]);
+      if (residual != nullptr) {
+        const float4 res = *reinterpret_cast<const float4*>(residual + o);
+        v[0] += res.x, v[1] += res.y, v[2] += res.z, v[3] += res.w;
+      }
     }
-    float pre;
-    float v = epi_bias<float>(acc1, bias != nullptr, bias != nullptr ? bias[n] : 0.f, gelu,
-                              dropping, keep, drop.inv_keep, pre);
-    if (gelu && aux != nullptr) aux[o] = pre;   // pre-GELU h, kept for the backward
-    if (residual != nullptr) v = v + residual[o];
-    out[o] = v;
-  }
+    *reinterpret_cast<float4*>(out + o) = make_float4(v[0], v[1], v[2], v[3]);
+  });
 }
 
 // The LayerNorm of the bf16 path: y[m] = round((x[m] - mean) rstd ln_w + ln_b),
-// the same arithmetic as the fp32 kernel's prologue; one warp per row.
-constexpr int LNR_THREADS = 256;
+// with row_stats and the fp32 kernel's formula; one warp per row.
 
 __global__ void __launch_bounds__(LNR_THREADS)
 ln_rows_kernel(const bf16* __restrict__ x, const float* __restrict__ ln_w,
@@ -459,17 +402,9 @@ ln_rows_kernel(const bf16* __restrict__ x, const float* __restrict__ ln_w,
   const int m = blockIdx.x * (LNR_THREADS / 32) + warp;
   if (m >= M) return;
   const bf16* row = x + (size_t)m * K;
-  float s = 0.f;
-  for (int k = lane; k < K; k += 32) s += to_f<bf16>(row[k]);
-  const float mean = warp_sum(s) / (float)K;
-  float ss = 0.f;
-  for (int k = lane; k < K; k += 32) {
-    const float d = to_f<bf16>(row[k]) - mean;
-    ss += d * d;
-  }
-  const float rstd = 1.f / sqrtf(warp_sum(ss) / (float)K + eps);
+  const float2 st = row_stats(row, K, eps, lane);
   for (int k = lane; k < K; k += 32)
-    y[(size_t)m * K + k] = from_f<bf16>(((to_f<bf16>(row[k]) - mean) * rstd) * ln_w[k] + ln_b[k]);
+    y[(size_t)m * K + k] = from_f<bf16>(((to_f<bf16>(row[k]) - st.x) * st.y) * ln_w[k] + ln_b[k]);
 }
 
 // The bf16 epilogue, through hg::staged_epilogue: rows(m0, n, v) takes the
@@ -863,76 +798,34 @@ drop_scale_kernel(const T* __restrict__ g, T* __restrict__ out, int M, int N, Dr
 // weight-gradient product, contracting over the M = B S rows.  Needs
 // Na % 8 == 0 and Nb % 8 == 0 (the wrapper checks).  Each output element has
 // one owner and one summation order, so the result is reproducible:
-//   float: gemm_tn_f32_kernel, one 64x64 output tile per block (FMA) and a
-//          loop over M in steps of BK;
-//   bf16:  gemm_tn_bf16_kernel (hopper_gemm.cuh, both operands MN-major);
-//          where the output tiles fill less than half the SMs the rows are
-//          cut into a fixed number of slices, each slice's product goes to
-//          its own fp32 slab of a scratch the wrapper allocates
-//          (rmcl_gemm_tn_slabs), and split_sum_kernel adds the slabs in
-//          order.
+//   float: gemm_tn_f32_kernel (simt_gemm.cuh, register-tiled FMA on
+//          128-column tiles, both operands by cp.async; sg::plan);
+//   bf16:  gemm_tn_bf16_kernel (hopper_gemm.cuh, both operands MN-major;
+//          hg::plan).
+// Where the plan finds the output tiles too few for the SMs, the rows are
+// cut into a fixed number of slices, each slice's product goes to its own
+// fp32 slab of a scratch the wrapper allocates (rmcl_gemm_tn_slabs), and
+// split_sum_kernel adds the slabs in order.
 
-__global__ void __launch_bounds__(GEMM_THREADS)
+// The fp32 gemm_tn: simt_gemm.cuh's mainloop on a 128-column tile, both
+// operands by cp.async, over the contraction slice blockIdx.z (kps slabs of
+// BK rows), into slab blockIdx.z of out.
+constexpr int TN_BN = 128;
+
+__global__ void __launch_bounds__(sg::Tile<TN_BN>::THREADS, sg::Tile<TN_BN>::MIN_CTAS)
 gemm_tn_f32_kernel(const float* __restrict__ A, const float* __restrict__ B,
-                   float* __restrict__ out, int M, int Na, int Nb) {
-  constexpr int LDT = BM + 8;   // staged [BK][LDT]: rows are contraction steps
-  constexpr int VEC = 4;
-  constexpr int NCHUNKS = BM / VEC;
-  static_assert(BM == BN, "both operands are staged with one tile shape");
-
-  __shared__ __align__(128) float As[BK * LDT];
-  __shared__ __align__(128) float Bs[BK * LDT];
-  __shared__ __align__(128) float Cs[BM * LDC];
-
-  const int tid = threadIdx.x;
-  const int bi = blockIdx.y * BM, bj = blockIdx.x * BN;
-
-  const int ty = tid / 16, tx = tid % 16;
-  float acc[4][4];
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int j = 0; j < 4; ++j) acc[i][j] = 0.f;
-
-  for (int m0 = 0; m0 < M; m0 += BK) {
-    for (int c = tid; c < BK * NCHUNKS; c += GEMM_THREADS) {
-      const int r = c / NCHUNKS, cc = (c % NCHUNKS) * VEC;
-      const int m = m0 + r;
-      float4 ra = make_float4(0.f, 0.f, 0.f, 0.f), rb = make_float4(0.f, 0.f, 0.f, 0.f);
-      if (m < M && bi + cc < Na)
-        ra = *reinterpret_cast<const float4*>(A + (size_t)m * Na + bi + cc);
-      if (m < M && bj + cc < Nb)
-        rb = *reinterpret_cast<const float4*>(B + (size_t)m * Nb + bj + cc);
-      *reinterpret_cast<float4*>(As + r * LDT + cc) = ra;
-      *reinterpret_cast<float4*>(Bs + r * LDT + cc) = rb;
-    }
-    __syncthreads();
-
-#pragma unroll 8
-    for (int kk = 0; kk < BK; ++kk) {
-      float a[4], b[4];
-#pragma unroll
-      for (int i = 0; i < 4; ++i) a[i] = As[kk * LDT + ty + 16 * i];
-#pragma unroll
-      for (int j = 0; j < 4; ++j) b[j] = Bs[kk * LDT + tx + 16 * j];
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int j = 0; j < 4; ++j) acc[i][j] = fmaf(a[i], b[j], acc[i][j]);
-    }
-    __syncthreads();
-  }
-
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int j = 0; j < 4; ++j) Cs[(ty + 16 * i) * LDC + tx + 16 * j] = acc[i][j];
-  __syncthreads();
-
-  for (int idx = tid; idx < BM * BN; idx += GEMM_THREADS) {
-    const int r = idx / BN, c = idx % BN;
-    if (bi + r < Na && bj + c < Nb) out[(size_t)(bi + r) * Nb + bj + c] = Cs[r * LDC + c];
-  }
+                   float* __restrict__ out, int M, int Na, int Nb, int nkb, int kps) {
+  extern __shared__ __align__(16) float smem[];
+  const int m0 = blockIdx.y * sg::BM, n0 = blockIdx.x * TN_BN, slice = blockIdx.z;
+  float acc[8][8];
+  sg::mainloop<TN_BN, true, true>(sg::Operand{A, Na, Na}, sg::Operand{B, Nb, Nb}, m0, n0,
+                                  slice * kps, min(nkb, (slice + 1) * kps), M, nullptr,
+                                  nullptr, nullptr, smem, acc);
+  float* o = out + (size_t)slice * Na * Nb;
+  sg::epilogue<TN_BN>(acc, smem, [&](int r, int c, float4 v) {
+    if (m0 + r < Na && n0 + c < Nb)
+      *reinterpret_cast<float4*>(o + (size_t)(m0 + r) * Nb + n0 + c) = v;
+  });
 }
 
 // fp32 stores of the accumulators: slice s into slab s of out
@@ -1596,18 +1489,46 @@ cudaError_t launch_attention_packed_bwd(const void* qkv, const void* mask, const
                                        stream);
 }
 
+template <bool WKN, int TBN>
+cudaError_t launch_gemm_f32_tiles(const float* a, const float2* stats, const void* ln_w,
+                                  const void* ln_b, const void* w, const void* bias,
+                                  const void* residual, void* aux, void* out, int M, int N,
+                                  int K, int gelu, int epi, Drop drop, const sg::Plan& p,
+                                  cudaStream_t stream) {
+  constexpr int smem = sg::Tile<TBN>::SMEM;
+  const cudaError_t err = hg::allow_smem<ln_gemm_f32_kernel<WKN, TBN>>(smem);
+  if (err != cudaSuccess) return err;
+  ln_gemm_f32_kernel<WKN, TBN>
+      <<<dim3(p.tiles_n, p.tiles_m), sg::Tile<TBN>::THREADS, smem, stream>>>(
+      a, stats, static_cast<const float*>(ln_w), static_cast<const float*>(ln_b),
+      static_cast<const float*>(w), static_cast<const float*>(bias),
+      static_cast<const float*>(residual), static_cast<float*>(aux), static_cast<float*>(out),
+      M, N, K, gelu, epi, drop);
+  return cudaGetLastError();
+}
+
+// ln_stats: (M,) float2 scratch for the LayerNorm's row statistics, needed
+// with ln_w
 template <bool WKN>
 cudaError_t launch_gemm_f32(const void* a, const void* ln_w, const void* ln_b, float eps,
-                            const void* w, const void* bias, const void* residual, void* aux,
-                            void* out, int M, int N, int K, int gelu, int epi, Drop drop,
-                            cudaStream_t stream) {
-  const dim3 grid((N + BN - 1) / BN, (M + BM - 1) / BM);
-  ln_gemm_f32_kernel<WKN><<<grid, GEMM_THREADS, 0, stream>>>(
-      static_cast<const float*>(a), static_cast<const float*>(ln_w),
-      static_cast<const float*>(ln_b), eps, static_cast<const float*>(w),
-      static_cast<const float*>(bias), static_cast<const float*>(residual),
-      static_cast<float*>(aux), out, M, N, K, gelu, epi, drop);
-  return cudaGetLastError();
+                            void* ln_stats, const void* w, const void* bias,
+                            const void* residual, void* aux, void* out, int M, int N, int K,
+                            int gelu, int epi, Drop drop, cudaStream_t stream) {
+  const auto* af = static_cast<const float*>(a);
+  auto* stats = static_cast<float2*>(ln_stats);
+  if (ln_w != nullptr) {
+    if (stats == nullptr || ln_b == nullptr) return cudaErrorInvalidValue;
+    const int rows = LNR_THREADS / 32;
+    ln_stats_kernel<<<(M + rows - 1) / rows, LNR_THREADS, 0, stream>>>(af, eps, stats, M, K);
+    const cudaError_t err = cudaGetLastError();
+    if (err != cudaSuccess) return err;
+  }
+  const sg::Plan p = sg::plan(M, N, K, false);
+  return p.bn == 128
+             ? launch_gemm_f32_tiles<WKN, 128>(af, stats, ln_w, ln_b, w, bias, residual, aux,
+                                               out, M, N, K, gelu, epi, drop, p, stream)
+             : launch_gemm_f32_tiles<WKN, 64>(af, stats, ln_w, ln_b, w, bias, residual, aux,
+                                              out, M, N, K, gelu, epi, drop, p, stream);
 }
 
 template <bool WKN, int TBN>
@@ -1733,13 +1654,30 @@ cudaError_t launch_drop_scale(const void* g, void* out, int M, int N, Drop drop,
   return cudaGetLastError();
 }
 
-cudaError_t launch_gemm_tn_f32(const void* a, const void* b, void* out, int M, int Na, int Nb,
-                               cudaStream_t stream) {
-  const dim3 grid((Nb + BN - 1) / BN, (Na + BM - 1) / BM);
-  gemm_tn_f32_kernel<<<grid, GEMM_THREADS, 0, stream>>>(
-      static_cast<const float*>(a), static_cast<const float*>(b), static_cast<float*>(out), M,
-      Na, Nb);
+// the slabs of a split contraction, added in order into out
+cudaError_t launch_split_sum(const float* partial, void* out, int splits, size_t n,
+                             cudaStream_t stream) {
+  const int blocks = (int)std::min<size_t>((n + EW_THREADS - 1) / EW_THREADS, 4096);
+  split_sum_kernel<<<blocks, EW_THREADS, 0, stream>>>(partial, static_cast<float*>(out), splits,
+                                                      n);
   return cudaGetLastError();
+}
+
+// partial: (plan.splits, Na, Nb) fp32 scratch when plan.splits > 1, else unused
+cudaError_t launch_gemm_tn_f32(const void* a, const void* b, void* out, void* partial, int M,
+                               int Na, int Nb, cudaStream_t stream) {
+  const sg::Plan p = sg::plan(Na, Nb, M, true);   // p.bn == TN_BN
+  if (p.splits > 1 && partial == nullptr) return cudaErrorInvalidValue;
+  float* dst = static_cast<float*>(p.splits > 1 ? partial : out);
+  constexpr int smem = sg::Tile<TN_BN>::SMEM;
+  cudaError_t err = hg::allow_smem<gemm_tn_f32_kernel>(smem);
+  if (err != cudaSuccess) return err;
+  gemm_tn_f32_kernel<<<dim3(p.tiles_n, p.tiles_m, p.splits), sg::Tile<TN_BN>::THREADS, smem,
+                       stream>>>(static_cast<const float*>(a), static_cast<const float*>(b), dst,
+                                 M, Na, Nb, p.nkb, p.kps);
+  err = cudaGetLastError();
+  if (err != cudaSuccess || p.splits == 1) return err;
+  return launch_split_sum(dst, out, p.splits, (size_t)Na * Nb, stream);
 }
 
 template <int TBN>
@@ -1766,11 +1704,7 @@ cudaError_t launch_gemm_tn_bf16(const void* a, const void* b, void* out, void* p
   cudaError_t err = p.bn == 192 ? launch_gemm_tn_bf16_tiles<192>(a, b, dst, M, Na, Nb, p, stream)
                                 : launch_gemm_tn_bf16_tiles<128>(a, b, dst, M, Na, Nb, p, stream);
   if (err != cudaSuccess || p.splits == 1) return err;
-  const size_t n = (size_t)Na * Nb;
-  const int blocks = (int)std::min<size_t>((n + EW_THREADS - 1) / EW_THREADS, 4096);
-  split_sum_kernel<<<blocks, EW_THREADS, 0, stream>>>(dst, static_cast<float*>(out), p.splits,
-                                                      n);
-  return cudaGetLastError();
+  return launch_split_sum(dst, out, p.splits, (size_t)Na * Nb, stream);
 }
 
 template <typename T>
@@ -1790,12 +1724,14 @@ const char* rmcl_error_string(int err) { return cudaGetErrorString((cudaError_t)
 // aux: with gelu, where the pre-GELU value is kept (or null); epi and w_kn
 // as described at ln_gemm (w_kn = 1: W is stored (K, N)).  Dropout (see
 // Drop) when seeds is not null: rows per sample, draw, keep threshold,
-// 1 / (1 - p) and an optional (M, N) mask output.  ln_y: (M, K) bf16
-// scratch for the LayerNorm output, needed by dtype 1 with ln_w, else unused.
-// dtype 0 runs the FMA kernel, dtype 1 the LayerNorm pass and the wgmma one.
+// 1 / (1 - p) and an optional (M, N) mask output.  ln_scratch: with ln_w,
+// the LayerNorm pass's scratch: (M, 2) fp32 row statistics for dtype 0, the (M,
+// K) bf16 LayerNorm output for dtype 1; else unused.  dtype 0 runs the
+// statistics pass and the FMA kernel, dtype 1 the LayerNorm pass and the
+// wgmma one.
 int rmcl_ln_gemm(int dtype, const void* a, const void* ln_w, const void* ln_b, float eps,
-                 void* ln_y, const void* w, const void* bias, const void* residual, void* aux,
-                 void* out, int M, int N, int K, int gelu, int epi, int w_kn,
+                 void* ln_scratch, const void* w, const void* bias, const void* residual,
+                 void* aux, void* out, int M, int N, int K, int gelu, int epi, int w_kn,
                  const void* seeds, int rows, unsigned draw, unsigned threshold,
                  float inv_keep, void* mask_out, void* stream) {
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
@@ -1805,15 +1741,17 @@ int rmcl_ln_gemm(int dtype, const void* a, const void* ln_w, const void* ln_b, f
   const Drop drop{static_cast<const int32_t*>(seeds), rows, draw, threshold, inv_keep,
                   mask_out};
   if (dtype == 0)
-    return (int)(w_kn ? launch_gemm_f32<true>(a, ln_w, ln_b, eps, w, bias, residual, aux, out,
-                                              M, N, K, gelu, epi, drop, st)
-                      : launch_gemm_f32<false>(a, ln_w, ln_b, eps, w, bias, residual, aux,
-                                               out, M, N, K, gelu, epi, drop, st));
+    return (int)(w_kn ? launch_gemm_f32<true>(a, ln_w, ln_b, eps, ln_scratch, w, bias,
+                                              residual, aux, out, M, N, K, gelu, epi, drop, st)
+                      : launch_gemm_f32<false>(a, ln_w, ln_b, eps, ln_scratch, w, bias,
+                                               residual, aux, out, M, N, K, gelu, epi, drop,
+                                               st));
   if (dtype == 1)
-    return (int)(w_kn ? launch_gemm_bf16<true>(a, ln_w, ln_b, eps, ln_y, w, bias, residual,
-                                               aux, out, M, N, K, gelu, epi, drop, st)
-                      : launch_gemm_bf16<false>(a, ln_w, ln_b, eps, ln_y, w, bias, residual,
-                                                aux, out, M, N, K, gelu, epi, drop, st));
+    return (int)(w_kn ? launch_gemm_bf16<true>(a, ln_w, ln_b, eps, ln_scratch, w, bias,
+                                               residual, aux, out, M, N, K, gelu, epi, drop, st)
+                      : launch_gemm_bf16<false>(a, ln_w, ln_b, eps, ln_scratch, w, bias,
+                                                residual, aux, out, M, N, K, gelu, epi, drop,
+                                                st));
   return (int)cudaErrorInvalidValue;
 }
 
@@ -1870,11 +1808,13 @@ int rmcl_drop_scale(int dtype, const void* g, void* out, int M, int N, const voi
   return (int)cudaErrorInvalidValue;
 }
 
-// slabs of the (slabs, Na, Nb) fp32 scratch rmcl_gemm_tn needs: 1 = none
-// (dtype 0 never splits; dtype 1 splits where its tiles fill less than half
-// the current device's SMs)
+// slabs of the (slabs, Na, Nb) fp32 scratch rmcl_gemm_tn needs: 1 = none.
+// Each type's plan splits the rows where its output tiles are too few for
+// the current device's SMs (dtype 0: sg::plan, dtype 1: hg::plan); the
+// count depends only on the shape and the SM count.
 int rmcl_gemm_tn_slabs(int dtype, int M, int Na, int Nb) {
-  return dtype == 1 ? hg::plan(Na, Nb, M, true).splits : 1;
+  return dtype == 0 ? sg::plan(Na, Nb, M, true).splits
+                    : dtype == 1 ? hg::plan(Na, Nb, M, true).splits : 1;
 }
 
 // out (Na, Nb) fp32 = a^T . b, a (M, Na), b (M, Nb); partial: the scratch
@@ -1883,7 +1823,7 @@ int rmcl_gemm_tn_slabs(int dtype, int M, int Na, int Nb) {
 int rmcl_gemm_tn(int dtype, const void* a, const void* b, void* out, void* partial, int M,
                  int Na, int Nb, void* stream) {
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (dtype == 0) return (int)launch_gemm_tn_f32(a, b, out, M, Na, Nb, st);
+  if (dtype == 0) return (int)launch_gemm_tn_f32(a, b, out, partial, M, Na, Nb, st);
   if (dtype == 1) return (int)launch_gemm_tn_bf16(a, b, out, partial, M, Na, Nb, st);
   return (int)cudaErrorInvalidValue;
 }

@@ -31,8 +31,9 @@ _ST = [ctypes.c_longlong] * 3   # element strides (b, h, s) of a (B, H, S, D) op
 _DROP = [_P, _I, _U, _U, _F, _P]
 # entry point -> ctypes argtypes; every pointer and the stream as c_void_p
 SIGNATURES = {
-    # dtype, a, ln_w, ln_b, eps, ln_y (bf16 LayerNorm scratch), w, bias, residual,
-    # aux, out, M, N, K, gelu, epi, w_kn, dropout, stream
+    # dtype, a, ln_w, ln_b, eps, ln_scratch (the LayerNorm pass's: fp32 row statistics
+    # or the bf16 LayerNorm output), w, bias, residual, aux, out, M, N, K, gelu, epi,
+    # w_kn, dropout, stream
     "rmcl_ln_gemm": [_I, _P, _P, _P, _F, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
                      *_DROP, _P],
     # dtype, x, dy, ln_w, ln_b, g, dx, y, dln, M, C, eps, stream

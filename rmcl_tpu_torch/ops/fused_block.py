@@ -320,23 +320,31 @@ def _gemm(lib, a2d, w, bias, out, ln=None, eps=0.0, residual=None, gelu=False,
     """The ``ln_gemm`` kernel: out = epi(LN?(a2d) . w^T + bias), or . w when
     ``w_kn`` (w stored (K, N), read in place); ``drop``: the epilogue's
     dropout (``_drop_args``).  ``_gemm_plain`` is the same function in torch.
-    By type: float32 runs an FMA kernel (64x64 tiles, LayerNorm as its
-    prologue); bfloat16 a LayerNorm pass into a scratch allocated here, then
-    a persistent TMA + wgmma kernel (``csrc/hopper_gemm.cuh``) whose
-    epilogue reads the fp32 accumulators back through shared memory."""
+    By type: float32 runs a statistics pass ((mean, rstd) per row into a
+    scratch allocated here) when there is a LayerNorm, then a register-tiled
+    FMA kernel with a cp.async ring (``csrc/simt_gemm.cuh``: 128 x 128 or
+    128 x 64 tiles by its plan, the LayerNorm applied in registers);
+    bfloat16 a LayerNorm pass into a scratch allocated here, then a
+    persistent TMA + wgmma kernel (``csrc/hopper_gemm.cuh``) whose epilogue
+    reads the fp32 accumulators back through shared memory."""
     M, K = a2d.shape
     N = w.shape[1] if w_kn else w.shape[0]
     if w.shape[0 if w_kn else 1] != K or N % 8 or K % 8:
         raise ValueError(f"GEMM of {tuple(a2d.shape)} against {tuple(w.shape)} "
                          f"(w_kn={w_kn}): sizes must match and be multiples of 8")
-    if M * max(N, K) >= 2 ** 31:
+    if max(M, N) * max(N, K) >= 2 ** 31:
         raise ValueError(f"GEMM of {M}x{N}x{K} exceeds 32-bit indexing")
-    _aligned(a2d, w, out)
     ln_w, ln_b = ln if ln is not None else (None, None)
-    ln_y = torch.empty_like(a2d) if ln is not None and a2d.dtype == torch.bfloat16 else None
+    mask_out = drop[4] if drop is not None else None
+    _aligned(*(t for t in (a2d, w, out, bias, residual, aux, ln_w, ln_b, mask_out)
+               if t is not None))
+    scratch = None   # the LayerNorm pass's: row statistics (fp32), LN(a2d) (bf16)
+    if ln is not None:
+        scratch = (torch.empty_like(a2d) if a2d.dtype == torch.bfloat16 else
+                   torch.empty(M, 2, device=a2d.device, dtype=torch.float32))
     ptr = lambda t: t.data_ptr() if t is not None else None  # noqa: E731
     rc = lib.rmcl_ln_gemm(
-        _DTYPE_CODE[a2d.dtype], a2d.data_ptr(), ptr(ln_w), ptr(ln_b), eps, ptr(ln_y),
+        _DTYPE_CODE[a2d.dtype], a2d.data_ptr(), ptr(ln_w), ptr(ln_b), eps, ptr(scratch),
         w.data_ptr(), ptr(bias), ptr(residual), ptr(aux), out.data_ptr(),
         M, N, K, int(gelu), epi, int(w_kn), *_drop_args(drop),
         _stream(a2d))
@@ -452,13 +460,14 @@ def _ln_bwd_dx(lib, x2d, dy, ln_w, g2d, eps, residual):
 def _gemm_tn(lib, a2d, b2d):
     """The ``gemm_tn`` kernel: a^T . b over the rows, fp32, the weight-gradient
     product; ``_gemm_tn_plain`` is the same function in torch.  By type:
-    float32 runs an FMA kernel (one 64x64 tile per block, a loop over the
-    rows); bfloat16 the persistent TMA + wgmma kernel of
-    ``csrc/hopper_gemm.cuh`` with both row-major operands read MN-major.
-    Where its tiles fill less than half the SMs it cuts the rows into fixed
-    slices: ``rmcl_gemm_tn_slabs`` says how many, the (slabs, Na, Nb) fp32
-    scratch is allocated here and the slabs are added in order, so the
-    result is the same bits on every call."""
+    float32 runs the register-tiled FMA kernel of ``csrc/simt_gemm.cuh``
+    with both row-major operands copied k-major by cp.async; bfloat16 the
+    persistent TMA + wgmma kernel of ``csrc/hopper_gemm.cuh`` with both
+    read MN-major.  Where either type's plan finds its output tiles too few
+    for the SMs it cuts the rows into fixed slices: ``rmcl_gemm_tn_slabs``
+    says how many, the (slabs, Na, Nb) fp32 scratch is allocated here and
+    the slabs are added in order, so the result is the same bits on every
+    call."""
     (M, Na), (Mb, Nb) = a2d.shape, b2d.shape
     if M != Mb or Na % 8 or Nb % 8 or a2d.dtype != b2d.dtype:
         raise ValueError(f"weight-gradient GEMM of {tuple(a2d.shape)} against "

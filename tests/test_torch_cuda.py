@@ -600,7 +600,9 @@ def _gemm_case(mode, M, S, N, K, dev, dtype, seed=0):
     return kw, plain_kw, a, w, out
 
 
-def _check_gemm(mode, M, S, N, K, dev, dtype, tol):
+def _check_gemm(mode, M, S, N, K, dev, dtype, tol, twice=False):
+    """One ln_gemm mode against _gemm_plain; ``twice``: a second call into
+    fresh outputs gives the same bits (out, the pre-GELU value, the mask)."""
     from rmcl_tpu_torch.ops import _build
     kw, plain_kw, a, w, out = _gemm_case(mode, M, S, N, K, dev, dtype)
     bias = kw.pop("bias", None)
@@ -614,6 +616,19 @@ def _check_gemm(mode, M, S, N, K, dev, dtype, tol):
         _close("pre-GELU aux", kw["aux"], pre, tol)
     if keep is not None:
         assert torch.equal(kw["drop"][4] > 0, keep), "dropout mask differs from keep_mask"
+    if twice:
+        kw2 = {k: torch.empty_like(v) if k == "aux" and pre is not None else v
+               for k, v in kw.items()}
+        if keep is not None:
+            kw2["drop"] = kw["drop"][:4] + (torch.empty_like(kw["drop"][4]),)
+        out2 = torch.empty_like(out)
+        FB._gemm(_build.library(), a, w, bias, out2, **kw2)
+        torch.cuda.synchronize()
+        assert torch.equal(out, out2), "two calls differ"
+        if pre is not None:
+            assert torch.equal(kw["aux"], kw2["aux"]), "two calls' pre-GELU values differ"
+        if keep is not None:
+            assert torch.equal(kw["drop"][4], kw2["drop"][4]), "two calls' masks differ"
 
 
 @pytest.mark.cuda
@@ -627,35 +642,45 @@ def test_ln_gemm_kernel_matches_plain(cuda, rows, mode, N, K):
     _check_gemm(mode, *rows, N, K, cuda, torch.bfloat16, 2e-2)
 
 
-@pytest.mark.cuda
-@pytest.mark.parametrize("mode,N,K", [c for c in GEMM_CASES if c[1] <= 1024 and c[2] <= 1024],
-                         ids=lambda v: str(v))
-def test_ln_gemm_fp32_kernel_matches_plain(cuda, mode, N, K):
-    """The fp32 dispatch (the FMA kernel) at one sample's 269 rows: summation
-    order only, 2e-4 of max(1, max|ref|)."""
-    _check_gemm(mode, 269, 269, N, K, cuda, torch.float32, 2e-4)
+# one sample's 269 rows, and the fp32 parity steps' ragged M (2 x 241, 3 x
+# 37), which no 128-row tile divides; their rows per sample place the dropout
+F32_ROWS = [(269, 269), (482, 241), (111, 37)]
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("M", [r[0] for r in GEMM_ROWS], ids=lambda m: f"M{m}")
+@pytest.mark.parametrize("rows", F32_ROWS, ids=lambda r: f"M{r[0]}")
+@pytest.mark.parametrize("mode,N,K", GEMM_CASES, ids=lambda v: str(v))
+def test_ln_gemm_fp32_kernel_matches_plain(cuda, rows, mode, N, K):
+    """The fp32 dispatch (ln_stats_kernel, then simt_gemm.cuh's FMA kernel):
+    summation order only, 2e-4 of max(1, max|ref|), the pre-GELU value
+    likewise, the mask equal to keep_mask, and a second call bit for bit."""
+    _check_gemm(mode, *rows, N, K, cuda, torch.float32, 2e-4, twice=True)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("M", [r[0] for r in GEMM_ROWS + F32_ROWS[1:]], ids=lambda m: f"M{m}")
 @pytest.mark.parametrize("Na,Nb", TN_CASES, ids=lambda v: str(v))
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32], ids=["bf16", "fp32"])
 def test_gemm_tn_kernel_matches_plain(cuda, M, Na, Nb, dtype):
     """gemm_tn against a^T . b in fp32: exact products, so only the summation
-    order differs (1e-3 of max|ref|); two calls give the same bits, the
-    contraction's slices (bf16, where the tiles fill less than half the
-    SMs) being added in a fixed order."""
+    order differs (1e-3 of max|ref|; fp32, 2e-4 of max(1, max|ref|)); two
+    calls give the same bits, the contraction's slices (where a type's plan
+    finds its tiles too few for the SMs: rmcl_gemm_tn_slabs) being added in
+    a fixed order."""
     from rmcl_tpu_torch.ops import _build
     r = np.random.RandomState(M + Na + Nb)
     a = torch.from_numpy(r.randn(M, Na).astype(np.float32)).to(cuda, dtype)
     b = torch.from_numpy(r.randn(M, Nb).astype(np.float32)).to(cuda, dtype)
     lib = _build.library()
+    assert 1 <= lib.rmcl_gemm_tn_slabs(int(dtype == torch.bfloat16), M, Na, Nb) <= 8
     out, again = FB._gemm_tn(lib, a, b), FB._gemm_tn(lib, a, b)
     ref = FB._gemm_tn_plain(a, b)
     torch.cuda.synchronize()
     assert out.dtype == torch.float32 and out.shape == (Na, Nb)
     assert torch.equal(out, again)
     err = (out - ref).abs().max().item()
+    if dtype == torch.float32:
+        assert err <= 2e-4 * max(1.0, ref.abs().max().item()), err
     assert err <= 1e-3 * ref.abs().max().item(), err
 
 

@@ -209,3 +209,34 @@ def test_gemm_plain_modes():
     out, _, _ = FB._gemm_plain(a, w, aux=h, epi=FB._EPI_DGELU)
     torch.testing.assert_close(out, acc * FB._gelu_grad(h), rtol=0, atol=1e-6)
     torch.testing.assert_close(FB._gemm_tn_plain(a, res), a.t() @ res, rtol=0, atol=1e-5)
+
+
+def _row_slices(M, slices, bk=16):
+    """The row ranges of gemm_tn's split contraction as the kernels cut it:
+    slabs of ``bk`` rows, ceil(slabs / slices) of them to a slice, the last
+    slice ragged."""
+    nkb = -(-M // bk)
+    kps = -(-nkb // slices)
+    return [(z * kps * bk, min(M, (z + 1) * kps * bk)) for z in range(-(-nkb // kps))]
+
+
+# 7: the slices the fp32 plan (csrc/simt_gemm.cuh:sg::plan) takes for dWproj
+# (768 x 768 over 3,856 rows) on a 132-SM H100; 8: the most it takes
+@pytest.mark.parametrize("slices", [1, 2, 7, 8])
+@pytest.mark.parametrize("M", [111, 482, 3856], ids=lambda m: f"M{m}")
+def test_gemm_tn_row_slices_add_to_the_product(M, slices):
+    """The split-M contract of gemm_tn (fp32 and bf16): each fixed slice of
+    rows gives its own product, the slices are added in order, and the sum
+    is the unsliced a^T . b up to summation order (1e-6 of max(1, max|ref|))."""
+    r = np.random.RandomState(M + slices)
+    a = torch.from_numpy(r.randn(M, 48).astype(np.float32))
+    b = torch.from_numpy(r.randn(M, 40).astype(np.float32))
+    cuts = _row_slices(M, slices)
+    assert cuts[0][0] == 0 and cuts[-1][1] == M and len(cuts) <= slices
+    assert all(hi > lo and hi == nlo for (lo, hi), (nlo, _) in zip(cuts, cuts[1:]))
+    total = FB._gemm_tn_plain(a[cuts[0][0]:cuts[0][1]], b[cuts[0][0]:cuts[0][1]])
+    for lo, hi in cuts[1:]:
+        total = total + FB._gemm_tn_plain(a[lo:hi], b[lo:hi])
+    ref = FB._gemm_tn_plain(a, b)
+    err = (total - ref).abs().max().item()
+    assert err <= 1e-6 * max(1.0, ref.abs().max().item()), err
