@@ -37,11 +37,13 @@ Phases, any failure exits non-zero:
                and the eight bf16 attention-backward kernels
                (csrc/hopper_attention.cuh: fwd with D padded to 64 or 128;
                dq and dkv, kRound or not, D padded to 64 or 128), with no
-               spills at D = 64; the SIMT attention kernels are listed and
-               exist for fp32 only; the five fp32 GEMM kernels
+               spills at D = 64; the five fp32 GEMM kernels
                (csrc/simt_gemm.cuh: ln_gemm by weight layout and tile width,
-               gemm_tn) must be FFMA mainloops with LDS.128
-               reads, no HMMA or HGMMA (no TF32), and spill nothing
+               gemm_tn) and the fifteen fp32 attention kernels
+               (csrc/simt_attention.cuh: the forward at D compiled as 32, 64
+               and 128; bwd_dq and bwd_dkv, kRound or not, at the three
+               widths) must be FFMA kernels with LDS.128 reads, no HMMA or
+               HGMMA (no TF32), and spill nothing
   3. kernels   each op against its plain version on the same inputs, random
                key mask: attn_half and mlp_half at B=8, S=269 (serving) and,
                in bf16, at B=16, S=241 (the attack); attn_half_dx and
@@ -85,8 +87,16 @@ Phases, any failure exits non-zero:
                against their plain versions (2e-4 of max(1, max|ref|), the
                pre-GELU value likewise, masks bit for bit), bit-identical
                twice; at 3,856 and 17,360 by device time beside F.linear /
-               torch.matmul in fp32 (TF32 off).  Every fp32 reading (the ops
-               above and these GEMMs) beside its fp32 bound: bytes at 4 B per
+               torch.matmul in fp32 (TF32 off).  The fp32 attention kernels
+               (csrc/simt_attention.cuh: the forward and the bwd_dq ->
+               bwd_dkv pair) at B=8 S=269, B=16 S=241, B=80 S=217 and the
+               two-way shard (6 heads), in the packed layout (against mha
+               and _attn_dqkv_plain with Wproj = I) and on head views
+               (against mha and masked_attention_bwd_plain), 2e-4 of max(1,
+               max|ref|), bit-identical twice; at B=16 S=241 by device
+               time beside F.scaled_dot_product_attention and its backward
+               in fp32.  Every fp32 reading (the ops
+               above and these kernels) beside its fp32 bound: bytes at 4 B per
                element over 3.35 TB/s against FLOPs over the CUDA cores'
                fp32 FMA rate (67 TFLOP/s).
                The training ops at B=16, S=241, fp32 and bf16, p = 0.1 and
@@ -158,6 +168,9 @@ Phases, any failure exits non-zero:
                queue within 2e-4 * max(1, max|ref|); the pointer equal.  An
                AdamW step moves an element by at most the rate (1e-4), so the
                share of elements within 2% of the rate is printed beside it.
+               The card step's sub-kernels (the fp32 GEMMs and attention)
+               follow its ops' launch counters (expected_sub_launches), the
+               attention kernels launched at least once.
  10. train P, train F   phase 8 under configurations P and F.  Per step, P:
                masked_attention 120 (12 key forward, 60 PGD, 48 views),
                masked_attention_bwd 96, mlp_half 72, mlp_half_dx 60,
@@ -372,14 +385,16 @@ phases 1, 2 and 19 only.
     python3 chip_smoke.py --gemm-times [ROOT]
 
 times the GEMM sub-kernels of the package under ROOT (default: this
-checkout) at phase 3's shapes, bf16 and fp32, the bf16 attention forward
-and backward through their four C entry points (rmcl_masked_attention_fwd,
+checkout) at phase 3's shapes, bf16 and fp32, the attention forward and
+backward through their four C entry points (rmcl_masked_attention_fwd,
 rmcl_attention_fwd, rmcl_masked_attention_bwd, rmcl_attention_bwd) at B=16,
-S=241, H=12, D=64, beside F.scaled_dot_product_attention's forward, and the
+S=241, H=12, D=64, bf16 and fp32, beside F.scaled_dot_product_attention's
+forward (and, fp32, its backward), and the
 LayerNorm backward (_ln_bwd_dx, _ln_backward) and column sums (_colsum) at
 M = 16 x 241 in bf16, per call, by device time and by host enqueue time;
 then the attack under the default configuration and P, and one unattacked
-fp32 task_moco step (16 pairs, 12 layers: wall and device busy), through
+fp32 task_moco step (16 pairs, 12 layers: wall and device busy, and the
+device time of its three fp32 attention kernels by name), through
 arguments every slice of the port shares: run it on two checkouts in one
 call to compare their kernels on one card.  Every phase also checks the
 sub-kernels' launch counters (the GEMMs, the bf16 attention forward and
@@ -464,6 +479,11 @@ GEMM_F32_KERNELS = ("ln_gemm_f32_kernel", "gemm_tn_f32_kernel")
 # and the backward (8 instances: dq, dkv x kRound x D padded to 64, 128)
 ATTN_SOURCE = "rmcl_tpu_torch/csrc/hopper_attention.cuh"
 ATTN_PREFIX, ATTN_FWD = "_ZN5hattn", "fwd_kernel"
+# the fp32 attention kernels: the forward (D compiled as 32, 64, 128) and the
+# backward pair (dq, dkv; kRound or not; the three widths)
+F32_ATTN_SOURCE = "rmcl_tpu_torch/csrc/simt_attention.cuh"
+F32_ATTN_PREFIX = "_ZN2sa"
+F32_ATTN_KERNELS = {"fwd_kernel": 3, "bwd_dq_kernel": 6, "bwd_dkv_kernel": 6}
 PEAK_BYTES_S = 3.35e12      # H100 SXM device memory
 PEAK_BF16_FLOPS = 989e12    # H100 SXM tensor cores, dense bf16
 # H100 SXM fp32 on the CUDA cores (the FMA kernels compute_dtype="float32"
@@ -556,8 +576,10 @@ def _sass_check(path, ptxas_rows) -> None:
     nothing.  The bf16
     attention kernels (hopper_attention.cuh: the forward, and the backward's
     dq and dkv, kRound or not; D padded to 64 or 128) must contain HGMMA, and
-    those at D = 64 spill nothing (ptxas -v); the SIMT attention kernels,
-    forward and backward, are listed and must exist for fp32 only."""
+    those at D = 64 spill nothing (ptxas -v).  The fp32 attention kernels
+    (simt_attention.cuh: the forward and the backward pair, every width and
+    kRound) must be FFMA kernels with LDS.128 reads, no tensor-core
+    instruction, and spill nothing."""
     import shutil
     from rmcl_tpu_torch.ops import _build
     tool = shutil.which("cuobjdump") or str(Path(_build.nvcc()).with_name("cuobjdump"))
@@ -609,14 +631,21 @@ def _sass_check(path, ptxas_rows) -> None:
         if "ILi64E" in fname:
             check(spill is not None and all(b == "0" for b in spill),
                   f"{pretty}: ptxas reports spills {spill} at D = 64")
-    simt = sorted(n for n in funcs if "masked_attention_bwd_d" in n)
-    simt_fwd = sorted(n for n in funcs if "masked_attention_fwd_kernel" in n)
-    for fname, pretty in zip(simt_fwd + simt, _demangle(simt_fwd + simt)):
-        print(f"[build] SASS {pretty[:100]} (SIMT)")
-    check(len(simt) == 4 and all("IfLb" in n for n in simt),
-          f"the SIMT attention backward must exist for fp32 only, found {simt}")
-    check(len(simt_fwd) == 1 and "masked_attention_fwd_kernelIfE" in simt_fwd[0],
-          f"the SIMT attention forward must exist for fp32 only, found {simt_fwd}")
+    f32a = sorted(n for n in funcs if n.startswith(F32_ATTN_PREFIX))
+    counts = {k: sum(k in n for n in f32a) for k in F32_ATTN_KERNELS}
+    check(counts == F32_ATTN_KERNELS, f"expected the fp32 attention kernels "
+                                      f"{F32_ATTN_KERNELS} in the SASS, found {f32a}")
+    for fname, pretty in zip(f32a, _demangle(f32a)):
+        body, spill = funcs[fname], spills.get(fname)
+        n_ffma, n_lds = len(re.findall(r"\bFFMA\b", body)), body.count("LDS.128")
+        n_mma = len(re.findall(r"\bHMMA\b", body)) + body.count("HGMMA")
+        print(f"[build] SASS {pretty[:100]}: FFMA x{n_ffma}, LDS.128 x{n_lds}, HMMA/HGMMA "
+              f"x{n_mma}, spill bytes {spill}")
+        # a score tile of 4 x 4 per 4 d is 64 FFMAs (their floor: 64)
+        check(n_ffma >= 64 and n_lds > 0 and n_mma == 0,
+              f"{pretty}: not an FFMA kernel (FFMA {n_ffma}, LDS.128 {n_lds}, HMMA/HGMMA {n_mma})")
+        check(spill is not None and all(b == "0" for b in spill),
+              f"{pretty}: ptxas reports spills {spill}")
 
 
 def _block_inputs(dev, C=768, H=12, B=BATCH, S=269):
@@ -918,7 +947,7 @@ def _config_kernels(res, dev, x, mask, g, ln, attn_w, mlp_w, H, eps, shape) -> N
             A.masked_attention_bwd_plain, (q, k, v, mask, gh, D ** -0.5), rtol, fp32,
             ("dq", "dk", "dv"), True)
         # the pair's device time, without the host's share of a call; in fp32
-        # the SIMT forward's too (rows 10, 11 of the fp32 table)
+        # the forward's too (rows 10, 11 of the fp32 table)
         res["masked_attention_bwd"][tag]["device_ms"] = dms = device_ms(
             lambda: A.masked_attention_bwd(q, k, v, mask, gh, D ** -0.5))
         print(f"[kernels] masked_attention_bwd {tag} {shape}: device_ms={dms!r}")
@@ -1296,6 +1325,121 @@ def _f32_gemm_subs(dev, FB, lib, gen) -> list:
                  f"{r['name']} M={r['M']}") for r in out]
 
 
+# (B, S, heads) of the fp32 attention as phase 3 runs the fp32 ops: serving,
+# the step, the greedy attack's scoring forward and a two-way shard (row 14)
+F32_ATTN_SHAPES = ((BATCH, 269, 12), (PGD_BATCH, 241, 12), (GREEDY_ROWS, GREEDY_S, 12),
+                   (PGD_BATCH, 241, 6))
+
+
+def _f32_ds_probe(dev, FB, lib, qkv, mask, dattn, H, shape) -> None:
+    """bwd_dq_kernel and bwd_dkv_kernel each recompute s, p, dp and ds.  With
+    16 columns of q and k one-hot (q[s0[c], c] = k[t0[c], c] = 1, t0 valid
+    keys), dq[s0[c'], c] from bwd_dq and dk[t0[c], c'] from bwd_dkv both hold
+    ds at (s0[c'], t0[c]), each an exact sum of one product and zeros: equal
+    bit for bit in both layouts, as one order of the sums over d makes them."""
+    from rmcl_tpu_torch.ops import attention as A
+    B, S, C3 = qkv.shape
+    D, n = C3 // 3 // H, 16
+    qkv = qkv.clone()
+    q, k, v = qkv.view(B, S, 3, H, D).permute(2, 0, 3, 1, 4).unbind(0)
+    gen = torch.Generator().manual_seed(SEED)
+    s0 = torch.stack([torch.randperm(S, generator=gen)[:n] for _ in range(B * H)]).view(B, H, n)
+    valid = [mask[b].nonzero().flatten().cpu() for b in range(B)]
+    t0 = torch.stack([valid[b][torch.randperm(len(valid[b]), generator=gen)[:n]]
+                      for b in range(B) for _ in range(H)]).view(B, H, n)
+    s0, t0 = s0.to(dev), t0.to(dev)
+    at = torch.arange(S, device=dev)[:, None]
+    for x, rows in ((q, s0), (k, t0)):       # views of qkv: written in place
+        x[..., :n] = (at == rows[:, :, None, :]).float()
+    dqkv, stats = torch.empty_like(qkv), torch.empty(B, H, S, 3, device=dev)
+    FB._attn_bwd_packed(lib, qkv, mask, dattn, dqkv, stats, H)
+    g = dattn.view(B, S, H, D).transpose(1, 2)
+    for layout, (dq, dk) in (("packed", dqkv.view(B, S, 3, H, D).permute(2, 0, 3, 1, 4)[:2]),
+                             ("heads", A.masked_attention_bwd(q, k, v, mask, g, D ** -0.5)[:2])):
+        at_q = dq.gather(2, s0[..., None].expand(-1, -1, -1, D))[..., :n]
+        at_k = dk.gather(2, t0[..., None].expand(-1, -1, -1, D))[..., :n].transpose(-1, -2)
+        check(torch.equal(at_q, at_k) and bool((at_q != 0).any()),
+              f"attention_bwd fp32 {layout} {shape}: bwd_dq's ds and bwd_dkv's differ by up "
+              f"to {(at_q - at_k).abs().max().item()!r}")
+    print(f"[kernels] attention_bwd fp32 ({shape}): bwd_dq's and bwd_dkv's ds equal bit for bit "
+          f"at {n} x {n} (query, key) pairs of each of the {B * H} (sample, head)s, packed and "
+          f"heads")
+
+
+def _f32_attention_subs(dev, FB, lib, gen) -> list:
+    """The fp32 attention kernels (csrc/simt_attention.cuh: fwd_kernel, and
+    bwd_dq_kernel -> bwd_dkv_kernel) at every F32_ATTN_SHAPES shape, D = 64,
+    in both layouts: packed (rmcl_masked_attention_fwd / _bwd, the block
+    halves' rounding points) against mha on the same heads and
+    _attn_dqkv_plain with Wproj = I, and the heads on views of one qkv buffer
+    (rmcl_attention_fwd / _bwd through masked_attention) against mha and
+    masked_attention_bwd_plain; fp32 (TF32 off), 2e-4 of max(1, max|ref|),
+    bit-identical twice.  At the step's shape _f32_ds_probe, and the packed
+    forward and pair by time per call and device time beside their fp32
+    bound, their plain versions and F.scaled_dot_product_attention's forward
+    and backward in fp32."""
+    import torch.nn.functional as F
+    from rmcl_tpu_torch.ops import attention as A
+    out = []
+    for B, S, H in F32_ATTN_SHAPES:
+        D = 64
+        C, scale, shape = H * D, D ** -0.5, f"B={B} S={S} H={H} D={D}"
+        qkv = torch.randn(B, S, 3 * C, generator=gen, device=dev)
+        mask = (torch.rand(B, S, generator=gen, device=dev) > 0.3).int()
+        mask[:, 0] = 1
+        dattn = torch.randn(B, S, C, generator=gen, device=dev)
+        q, k, v = qkv.view(B, S, 3, H, D).permute(2, 0, 3, 1, 4).unbind(0)
+        g = dattn.view(B, S, H, D).transpose(1, 2)
+        att, dqkv = torch.empty(B, S, C, device=dev), torch.empty(B, S, 3 * C, device=dev)
+        stats = torch.empty(B, H, S, 3, device=dev)
+        fwd = lambda: FB._attn_fwd_packed(lib, qkv, mask, att, H)  # noqa: E731
+        bwd = lambda: FB._attn_bwd_packed(lib, qkv, mask, dattn, dqkv, stats, H)  # noqa: E731
+        plain_fwd = lambda: A.mha(q, k, v, mask, scale).transpose(1, 2).reshape(B, S, C)  # noqa: E731
+        eye = torch.eye(C, device=dev)
+        plain_bwd = lambda: FB._attn_dqkv_plain(qkv, mask, eye, dattn, H)  # noqa: E731
+        errs = {}
+        for part, run, buf, plain in (("fwd", fwd, att, plain_fwd), ("bwd", bwd, dqkv, plain_bwd)):
+            run()
+            first = buf.clone()
+            run()
+            errs[f"{part} packed"] = _f32_check(f"attention_{part} fp32 packed {shape}", buf,
+                                                first, plain())
+        errs["fwd heads"] = _f32_check(f"attention_fwd fp32 heads {shape}",
+                                       A.masked_attention(q, k, v, mask, scale),
+                                       A.masked_attention(q, k, v, mask, scale),
+                                       A.mha(q, k, v, mask, scale))
+        ours, again = (A.masked_attention_bwd(q, k, v, mask, g, scale) for _ in range(2))
+        ref = A.masked_attention_bwd_plain(q, k, v, mask, g, scale)
+        errs["bwd heads"] = max(_f32_check(f"attention_bwd fp32 heads {shape} {n}", a, b, c)
+                                for n, a, b, c in zip(("dq", "dk", "dv"), ours, again, ref))
+        torch.cuda.synchronize()
+        rec = dict(name=f"attention f32 {shape}", dtype="fp32", shape=shape, max_abs_err=errs)
+        if (B, S, H) == (PGD_BATCH, 241, 12):
+            _f32_ds_probe(dev, FB, lib, qkv, mask, dattn, H, shape)
+            keep = (mask > 0)[:, None, None, :]
+            sdpa = lambda: F.scaled_dot_product_attention(q, k, v, attn_mask=keep)  # noqa: E731
+            lib_bwd_ms, lib_bwd_dev = _sdpa_backward_times(q, k, v, keep, g)
+            for part, run, plain, name in (("fwd", fwd, plain_fwd, "masked_attention"),
+                                           ("bwd", bwd, plain_bwd, "masked_attention_bwd")):
+                b_ms, b_by = bound(name, B, S, C, es=4)
+                rec[part] = dict(ms=time_ms(run), device_ms=device_ms(run),
+                                 plain_ms=time_ms(plain), bound_ms=b_ms, bound_by=b_by)
+            rec["fwd"].update(library="F.scaled_dot_product_attention", library_ms=time_ms(sdpa),
+                              library_device_ms=device_ms(sdpa))
+            rec["bwd"].update(library="torch.autograd.grad of F.scaled_dot_product_attention",
+                              library_ms=lib_bwd_ms, library_device_ms=lib_bwd_dev)
+        timed = "".join(
+            f"; {p} kernel_ms={r['ms']!r} device_ms={r['device_ms']!r} "
+            f"({_rate(r['bound_ms'], r['device_ms'], 'of the bound')}) plain_ms="
+            f"{r['plain_ms']!r} fp32_bound_ms={r['bound_ms']!r} ({r['bound_by']}) "
+            f"{r['library']} device_ms={r['library_device_ms']!r}"
+            for p, r in ((p, rec.get(p)) for p in ("fwd", "bwd")) if r)
+        print(f"[kernels] attention fp32 ({shape}): max_abs_err {errs} within 2e-4 of max(1, "
+              f"max|ref|), bit-identical twice{timed}")
+        out.append(rec)
+    return out
+
+
 # The LayerNorm backward's two forms, as the main path runs them with + g:
 # dx only (rows 3, 5: attn_half_dx, mlp_half_dx) and training (rows 9, 7:
 # dx, y and dLN in one launch), at M = 16 x 241, C = 768; the bias gradients'
@@ -1452,6 +1596,7 @@ def _library_yardsticks(dev, FB, x, mask, wqkv, bqkv, H) -> list:
     out.append(_attention_bwd_sub(dev, FB, lib, gen, qkv.view(B, S, 3 * C), mask, H))
     torch.backends.cuda.matmul.allow_tf32 = False      # the plain fp32 products
     out += _f32_gemm_subs(dev, FB, lib, gen)
+    out += _f32_attention_subs(dev, FB, lib, gen)
     return out + _ln_colsum_kernels(dev, FB, lib)
 
 
@@ -2163,7 +2308,12 @@ def _step_result(ts, metrics, t0) -> tuple:
 SLICE_LAYERS = 3
 
 
-def phase_train_slice(dev, config: str = "default") -> None:
+def phase_train_slice(dev, config: str = "default") -> dict:
+    """One fp32 step of N_CPU pairs at SLICE_LAYERS on the CPU and on the
+    card (phase 9 and, per configuration, 11); the card step's launch
+    counters, the fp32 sub-kernels (FMA GEMMs, attention) following its ops
+    (expected_sub_launches), are returned."""
+    from rmcl_tpu_torch.ops import fused_block as FB
     from rmcl_tpu_torch.train.step import create_train_state, make_train_step
     tag = f"[train slice {config}]" if config != "default" else "[train slice]"
     cfg32 = train_config(config).replace(compute_dtype="float32", queue_dtype="float32",
@@ -2173,11 +2323,18 @@ def phase_train_slice(dev, config: str = "default") -> None:
     results = {}
     for where in ("cpu", dev):
         ts = create_train_state(cfg32, model=copy.deepcopy(base), device=where)
+        FB.reset_launches()
         t0 = time.perf_counter()
         metrics = make_train_step(cfg32, ts)({k: v.to(where) for k, v in batch.items()},
                                              torch.Generator().manual_seed(SEED + 8))
         results[str(where)] = _step_result(ts, metrics, t0)
+    counts = check_sub_launches(f"{tag} fp32 step", dict(FB.launches), FB)
+    check(counts["attention_fwd"] > 0 and counts["attention_bwd"] > 0,
+          f"{tag}: the fp32 step launched no attention kernel: {counts}")
+    print(f"{tag} the card's fp32 step: sub-kernel launches "
+          f"{ {k: counts[k] for k in FB.sub_launches} }")
     _train_results(tag, results, dev, train_config().learning_rate)
+    return counts
 
 
 # ------------------------------------------------------- greedy attack
@@ -4565,9 +4722,18 @@ def attack_times(dev, config: str) -> tuple:
     return statistics.median(walls), busy / 1e3
 
 
+# the fp32 attention kernels by profiler name, this checkout's and the SIMT
+# ones before them (masked_attention_*_kernel<float>), so that --gemm-times
+# splits both packages' fp32 steps alike
+F32_ATTN_NAMES = {"attention fwd": ("sa::fwd_kernel", "masked_attention_fwd_kernel"),
+                  "attention bwd_dq": ("bwd_dq_kernel",),
+                  "attention bwd_dkv": ("bwd_dkv_kernel",)}
+
+
 def fp32_step_times(dev) -> tuple:
     """(wall ms, median of 3 after a warm-up, host clock + synchronize; device
-    busy ms of one step under torch.profiler) of phase 8's unattacked default
+    busy ms of one step under torch.profiler; that step's device ms of each
+    fp32 attention kernel, F32_ATTN_NAMES) of phase 8's unattacked default
     task_moco step with compute_dtype="float32": 16 pairs, 12 layers, the
     fp32 kernels throughout."""
     from torch.autograd import DeviceType
@@ -4589,76 +4755,96 @@ def fp32_step_times(dev) -> tuple:
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
         step(batch, gen)
         torch.cuda.synchronize()
-    busy = sum(_device_us(e) for e in prof.key_averages() if e.device_type == DeviceType.CUDA)
-    return statistics.median(walls), busy / 1e3
+    events = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
+    busy = sum(_device_us(e) for e in events)
+    attn = {part: sum(_device_us(e) for e in events if any(n in e.key for n in names)) / 1e3
+            for part, names in F32_ATTN_NAMES.items()}
+    return statistics.median(walls), busy / 1e3, attn
 
 
-def _attention_calls(dev, lib, gen) -> dict:
-    """The four C entry points of the bf16 attention forward and backward at
-    B=16, S=241, H=12, D=64, called as they have been since they exist: the
-    packed layout (rmcl_masked_attention_fwd, rows 1, 8, 2;
+def _attention_calls(dev, lib, gen, dtype=torch.bfloat16) -> dict:
+    """The four C entry points of the attention forward and backward at
+    B=16, S=241, H=12, D=64 in ``dtype`` (bf16: hopper_attention.cuh; fp32,
+    dtype code 0: the FMA kernels), called as they have been since they
+    exist: the packed layout (rmcl_masked_attention_fwd, rows 1, 8, 2;
     rmcl_masked_attention_bwd, rows 3, 9, 2) and the heads layout on views
     of one qkv buffer (rmcl_attention_fwd, row 10; rmcl_attention_bwd, row
-    11); and F.scaled_dot_product_attention on the same heads."""
+    11); and F.scaled_dot_product_attention on the same heads and its
+    backward (torch.autograd.grad), fp32 without TF32.  An fp32 name ends
+    in " fp32"."""
     import torch.nn.functional as F
     B, S, H, D = PGD_BATCH, 241, 12, 64
-    C = H * D
-    qkv = torch.randn(B, S, 3 * C, generator=gen, device=dev).bfloat16()
+    C, code = H * D, {torch.float32: 0, torch.bfloat16: 1}[dtype]
+    qkv = torch.randn(B, S, 3 * C, generator=gen, device=dev).to(dtype)
     mask = (torch.rand(B, S, generator=gen, device=dev) > 0.3).int()
     mask[:, 0] = 1
-    dattn = torch.randn(B, S, C, generator=gen, device=dev).bfloat16()
+    dattn = torch.randn(B, S, C, generator=gen, device=dev).to(dtype)
     dqkv = torch.empty_like(qkv)
     stats = torch.empty(B, H, S, 3, device=dev, dtype=torch.float32)
     q, k, v = qkv.view(B, S, 3, H, D).permute(2, 0, 3, 1, 4)
-    g = torch.randn(B, H, S, D, generator=gen, device=dev).bfloat16()
+    g = torch.randn(B, H, S, D, generator=gen, device=dev).to(dtype)
     dq, dk, dv = dqkv.view(B, S, 3, H, D).permute(2, 0, 3, 1, 4)
-    att = torch.empty(B, S, C, device=dev, dtype=torch.bfloat16)
-    o = torch.empty(B, S, H, D, device=dev, dtype=torch.bfloat16).transpose(1, 2)
+    att = torch.empty(B, S, C, device=dev, dtype=dtype)
+    o = torch.empty(B, S, H, D, device=dev, dtype=dtype).transpose(1, 2)
     keep = (mask > 0)[:, None, None, :]
     stream = torch.cuda.current_stream(dev).cuda_stream
     scale = D ** -0.5
 
     def packed_fwd():
-        rc = lib.rmcl_masked_attention_fwd(1, qkv.data_ptr(), mask.data_ptr(), att.data_ptr(),
-                                           B, S, H, D, scale, stream)
+        rc = lib.rmcl_masked_attention_fwd(code, qkv.data_ptr(), mask.data_ptr(),
+                                           att.data_ptr(), B, S, H, D, scale, stream)
         check(rc == 0, f"rmcl_masked_attention_fwd returned {rc}")
 
     def heads_fwd():
-        rc = lib.rmcl_attention_fwd(1, q.data_ptr(), k.data_ptr(), v.data_ptr(), *q.stride()[:3],
-                                    mask.data_ptr(), o.data_ptr(), *o.stride()[:3], B, S, H, D,
-                                    scale, stream)
+        rc = lib.rmcl_attention_fwd(code, q.data_ptr(), k.data_ptr(), v.data_ptr(),
+                                    *q.stride()[:3], mask.data_ptr(), o.data_ptr(),
+                                    *o.stride()[:3], B, S, H, D, scale, stream)
         check(rc == 0, f"rmcl_attention_fwd returned {rc}")
 
     def packed():
-        rc = lib.rmcl_masked_attention_bwd(1, qkv.data_ptr(), mask.data_ptr(), dattn.data_ptr(),
-                                           dqkv.data_ptr(), stats.data_ptr(), B, S, H, D, scale,
-                                           stream)
+        rc = lib.rmcl_masked_attention_bwd(code, qkv.data_ptr(), mask.data_ptr(),
+                                           dattn.data_ptr(), dqkv.data_ptr(), stats.data_ptr(),
+                                           B, S, H, D, scale, stream)
         check(rc == 0, f"rmcl_masked_attention_bwd returned {rc}")
 
     def heads():
-        rc = lib.rmcl_attention_bwd(1, q.data_ptr(), k.data_ptr(), v.data_ptr(), *q.stride()[:3],
-                                    mask.data_ptr(), g.data_ptr(), *g.stride()[:3],
-                                    dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
+        rc = lib.rmcl_attention_bwd(code, q.data_ptr(), k.data_ptr(), v.data_ptr(),
+                                    *q.stride()[:3], mask.data_ptr(), g.data_ptr(),
+                                    *g.stride()[:3], dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
                                     *dq.stride()[:3], stats.data_ptr(), B, S, H, D, scale,
                                     stream)
         check(rc == 0, f"rmcl_attention_bwd returned {rc}")
 
-    return {"rmcl_masked_attention_fwd": packed_fwd, "rmcl_attention_fwd": heads_fwd,
-            "F.scaled_dot_product_attention": lambda: F.scaled_dot_product_attention(
-                q, k, v, attn_mask=keep),
-            "rmcl_masked_attention_bwd": packed, "rmcl_attention_bwd": heads}
+    calls = {"rmcl_masked_attention_fwd": packed_fwd, "rmcl_attention_fwd": heads_fwd,
+             "F.scaled_dot_product_attention": lambda: F.scaled_dot_product_attention(
+                 q, k, v, attn_mask=keep),
+             "rmcl_masked_attention_bwd": packed, "rmcl_attention_bwd": heads}
+    if dtype == torch.float32:
+        with torch.inference_mode(False), torch.enable_grad():
+            qg, kg, vg, keep2, g2 = (t.clone() for t in (q, k, v, keep, g))
+            for t in (qg, kg, vg):
+                t.requires_grad_(True)
+            out = F.scaled_dot_product_attention(qg, kg, vg, attn_mask=keep2)
+
+        def sdpa_bwd():
+            with torch.inference_mode(False), torch.enable_grad():
+                return torch.autograd.grad(out, (qg, kg, vg), g2, retain_graph=True)
+        calls["torch.autograd.grad of F.scaled_dot_product_attention"] = sdpa_bwd
+        calls = {f"{name} fp32": run for name, run in calls.items()}
+    return calls
 
 
 def gemm_times(root: str) -> None:
     """Times of the GEMM sub-kernels of the package under ``root`` at the
-    step's shapes (LN_GEMM_SUBS, GEMM_TN_SUBS), of the bf16 attention
-    forward and backward through their C entry points at B=16, S=241, H=12,
-    D=64, and of the LayerNorm backward (_ln_bwd_dx, _ln_backward) and the
-    column sums (_colsum) at M = 16 x 241, bf16: per
+    step's shapes (LN_GEMM_SUBS, GEMM_TN_SUBS), of the attention forward and
+    backward through their C entry points at B=16, S=241, H=12, D=64 in bf16
+    and fp32, and of the LayerNorm backward (_ln_bwd_dx, _ln_backward) and
+    the column sums (_colsum) at M = 16 x 241, bf16: per
     call as phase 3 times them (time_ms), by device time and by host enqueue
     time, through the arguments every slice of the port has had, so that two
     versions compare in one run; then the attack's wall and device time
-    under the default configuration and P."""
+    under the default configuration and P, and the fp32 step's, with its
+    attention kernels' device time."""
     sys.path.insert(0, root)
     from rmcl_tpu_torch.ops import _build
     from rmcl_tpu_torch.ops import fused_block as FB
@@ -4700,8 +4886,9 @@ def gemm_times(root: str) -> None:
                 def run(part=part):
                     return part.sum(0)
                 res[f"partial.sum(0)[{label}]"] = (time_ms(run), device_ms(run), host_us(run))
-        for name, run in _attention_calls(dev, lib, gen).items():
-            res[name] = (time_ms(run), device_ms(run), host_us(run))
+        for dtype in (torch.bfloat16, torch.float32):   # fp32: TF32 is off (above)
+            for name, run in _attention_calls(dev, lib, gen, dtype).items():
+                res[name] = (time_ms(run), device_ms(run), host_us(run))
         from rmcl_tpu_torch.models.vit import VIT_LN_EPS
         c = _ln_bwd_case(dev, gen, torch.bfloat16)
         for form in LN_BWD_FORMS:
@@ -4737,8 +4924,10 @@ def gemm_times(root: str) -> None:
         print(f"[gemm-times] {root} attack {config}: wall_ms={attacks[config][0]!r} "
               f"device_busy_ms={attacks[config][1]!r}")
     step32 = fp32_step_times(dev)
+    share = sum(step32[2].values()) / step32[1]
     print(f"[gemm-times] {root} fp32 task_moco step ({PGD_BATCH} pairs, 12 layers, "
-          f"unattacked): wall_ms={step32[0]!r} device_busy_ms={step32[1]!r}")
+          f"unattacked): wall_ms={step32[0]!r} device_busy_ms={step32[1]!r}; its fp32 attention "
+          f"kernels' device ms {step32[2]}, {share:.4f} of the busy time")
     print(json.dumps({"root": root, "times": res, "attacks": attacks, "fp32_step": step32}))
 
 
@@ -4809,67 +4998,77 @@ def main() -> int:
     except ImportError as e:
         print(f"chip_smoke: run from the root of the repository ({e})", file=sys.stderr)
         return 1
-    phase, t_start = "device", time.perf_counter()
+    t_start, marks = time.perf_counter(), []    # marks: (phase, its start)
+
+    def enter(name: str) -> str:
+        marks.append((name, time.perf_counter()))
+        return name
+
+    phase = enter("device")
     try:
         phase_device()
         dev = torch.device("cuda", 0)
-        phase = "build"
+        phase = enter("build")
         phase_build()
-        phase = "kernels"
+        phase = enter("kernels")
         kres = phase_kernels(dev)
-        phase = "serving"
+        phase = enter("serving")
         cfg = build_config(CONFIG)
         model = seeded_model(cfg, SEED)
         cpu_state = copy.deepcopy(model.state_dict())
         reqs = synthetic_requests(cfg, N_REQUESTS, SEED)
         sess, counts = phase_serving(cfg, model, reqs, dev)
-        phase = "slice"
+        phase = enter("slice")
         vqa_cpu32, vqa_gpu32 = phase_slice(cfg, cpu_state, sess, reqs, dev)
         del sess, model
-        phase = "pgd"
+        phase = enter("pgd")
         pgd_cfg, pgd_state, pgd_counts = phase_pgd(dev)
-        phase = "pgd slice"
+        phase = enter("pgd slice")
         phase_pgd_slice(pgd_cfg, pgd_state, cfg, vqa_cpu32, vqa_gpu32, dev)
         del vqa_cpu32, vqa_gpu32
-        phase = "train"
+        phase = enter("train")
         train_counts = {"default": phase_train(dev)[0]}
-        phase = "train slice"
-        phase_train_slice(dev)
+        phase = enter("train slice")
+        slice_counts = {"default": phase_train_slice(dev)}
         for config in ("P", "F"):
-            phase = f"train {config}"
+            phase = enter(f"train {config}")
             train_counts[config] = phase_train(dev, config)[0]
         for config in ("P", "F"):
-            phase = f"train slice {config}"
-            phase_train_slice(dev, config)
-        phase = "greedy"
+            phase = enter(f"train slice {config}")
+            slice_counts[config] = phase_train_slice(dev, config)
+        phase = enter("greedy")
         greedy_counts = phase_greedy(dev)
         attacked_counts, bare = {}, {}
         for mix in GREEDY_MIXES:
-            phase = f"train attacked {mix}"
+            phase = enter(f"train attacked {mix}")
             attacked_counts[mix], bare[mix] = phase_train(dev, mix=mix)
-        phase = "train attacked slice"
+        phase = enter("train attacked slice")
         phase_train_attacked_slice(dev)
-        phase = "trainer"
+        phase = enter("trainer")
         trainer_counts = phase_trainer(dev, bare[TRAINER_MIX])
         bt_counts, bt_bare = {}, {}
         for mix in GREEDY_MIXES:
-            phase = f"bt attacked {mix}"
+            phase = enter(f"bt attacked {mix}")
             bt_counts[mix], bt_bare[mix] = phase_bt(dev, mix)
-        phase = "bt attacked slice"
+        phase = enter("bt attacked slice")
         phase_bt_slice(dev)
-        phase = "bt trainer"
+        phase = enter("bt trainer")
         bt_trainer_counts = phase_trainer_bt(dev, bt_bare[TRAINER_MIX])
-        phase = "downstream"
+        phase = enter("downstream")
         ds_counts = phase_downstream(dev)
-        phase = "pretrain"
+        phase = enter("pretrain")
         pre_counts = phase_pretrain(dev)
-        phase = "views"
+        phase = enter("views")
         views_counts = phase_views(dev)
     except Exception as e:  # noqa: BLE001  every phase failure ends the run
         traceback.print_exc()
         print(f"chip_smoke: FAILED in phase {phase}: {e}", file=sys.stderr)
         return 1
-    print(f"[done] every phase passed in {time.perf_counter() - t_start:.1f} s")
+    t_end = time.perf_counter()
+    ends = [t for _, t in marks[1:]] + [t_end]
+    print(f"[done] seconds by phase: "
+          f"{ {name: round(e - t, 1) for (name, t), e in zip(marks, ends)} }")
+    print(f"[done] every phase passed in {t_end - t_start:.1f} s")
     # the main path: python -m rmcl_tpu_torch.cli.run with task_moco, the
     # Trainer around the attacked step (default blocks), validation included
     main_path = trainer_counts
@@ -4954,24 +5153,28 @@ def main() -> int:
                                for k, v in subs.items()
                                if k.startswith(name + "[") and "ms" in v
                                and v.get("dtype") == "fp32"}})
-    r = subs["attention_fwd"]   # the bf16 forward under rows 1, 8, 2 and 10
-    records.append({
-        "name": "attention_fwd", "route": "cuda", "source": ATTN_SOURCE,
-        "replaces": KERNELS["attn_half"], "launches": main_path["attention_fwd"],
-        "launches_by_path": by_path("attention_fwd"),
-        "max_abs_err": r["max_abs_err"], "ms": r["ms"], "device_ms": r["device_ms"],
-        "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
-        "library_ms": r["library_ms"], "library_device_ms": r["library_device_ms"],
-        "library": r["library"], "shape": r["shape"]})
-    r = subs["attention_bwd"]   # the bf16 pair under rows 3, 9, 2 and 11
-    records.append({
-        "name": "attention_bwd", "route": "cuda", "source": ATTN_SOURCE,
-        "replaces": KERNELS["attn_half_dx"], "launches": main_path["attention_bwd"],
-        "launches_by_path": by_path("attention_bwd"),
-        "max_abs_err": r["max_abs_err"], "ms": r["ms"], "device_ms": r["device_ms"],
-        "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
-        "library_ms": r["library_ms"], "library_device_ms": r["library_device_ms"],
-        "library": r["library"], "shape": r["shape"]})
+    f32a = subs[f"attention f32 B={PGD_BATCH} S=241 H=12 D=64"]
+    for name, part, body in (("attention_fwd", "fwd", "attn_half"),
+                             ("attention_bwd", "bwd", "attn_half_dx")):
+        # the bf16 kernels under rows 1, 8, 2 and 10 (forward), 3, 9, 2 and 11
+        # (backward); their fp32 counterparts (simt_attention.cuh) beside them,
+        # launched by the fp32 steps of phases 9 and 11
+        r, f = subs[name], f32a[part]
+        records.append({
+            "name": name, "route": "cuda", "source": ATTN_SOURCE,
+            "replaces": KERNELS[body], "launches": main_path[name],
+            "launches_by_path": by_path(name),
+            "max_abs_err": r["max_abs_err"], "ms": r["ms"], "device_ms": r["device_ms"],
+            "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
+            "library_ms": r["library_ms"], "library_device_ms": r["library_device_ms"],
+            "library": r["library"], "shape": r["shape"],
+            "fp32_source": F32_ATTN_SOURCE,
+            "fp32_launches": {f"train_slice_{c}": n[name] for c, n in slice_counts.items()},
+            "fp32_max_abs_err": {sh: v["max_abs_err"] for sh, v in subs.items()
+                                 if sh.startswith("attention f32")},
+            **{f"fp32_{k}": f[k] for k in ("ms", "device_ms", "plain_ms", "bound_ms",
+                                            "bound_by", "library", "library_ms",
+                                            "library_device_ms")}})
     small = {f"{r['name']} {r['dtype']}": r for r in kres["sub_kernels"]
              if r["name"].startswith(("ln_bwd", "colsum"))}
     for name, head in (("ln_bwd", "ln_bwd[train] bf16"), ("colsum", "colsum[3072] bf16")):

@@ -128,7 +128,8 @@
 //     strides: the packed buffer and the (B, H, S, D) operands of the
 //     attention core are two stride sets of one body.  In bf16 it runs on
 //     wgmma with cp.async double buffering (hopper_attention.cuh:
-//     fwd_kernel); in fp32 it is a SIMT loop.
+//     fwd_kernel); in fp32 on register-tiled FMA products with a cp.async
+//     ring (simt_attention.cuh: fwd_kernel).
 //   * The attention backward recomputes P tile by tile from q, k and the
 //     key mask in two kernels, so no S x S tensor reaches device memory and
 //     no atomics are needed: masked_attention_bwd_dq owns a query tile
@@ -136,7 +137,7 @@
 //     and dq), masked_attention_bwd_dkv owns a key tile and walks the
 //     queries with the row statistics the first kernel left.  In bf16 both
 //     run on wgmma with cp.async double buffering (hopper_attention.cuh);
-//     in fp32 they are SIMT loops like the forward core.
+//     in fp32 on register-tiled FMA products (simt_attention.cuh).
 //   * Not yet done (left for later work): the qkv buffer, the attention
 //     output, the (S, 4C) MLP hidden and the backward's dattn, dqkv, dh and
 //     fp32 dy pass through device memory, which the TPU kernels kept on
@@ -177,6 +178,7 @@
 
 #include "hopper_attention.cuh"
 #include "hopper_gemm.cuh"
+#include "simt_attention.cuh"
 #include "simt_gemm.cuh"
 
 namespace {
@@ -197,12 +199,6 @@ template <typename T> __device__ __forceinline__ float rnd(float v) { return to_
 __device__ __forceinline__ float warp_sum(float v) {
 #pragma unroll
   for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
-  return v;
-}
-
-__device__ __forceinline__ float warp_max(float v) {
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1) v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, o));
   return v;
 }
 
@@ -949,520 +945,48 @@ colsum_kernel(const T* __restrict__ a, float* __restrict__ out, int M, int N) {
 //   heads   the attention core of the unfused block (masked_attention):
 //           q, k, v as (B, H, S, D) tensors or views of one qkv buffer, any
 //           strides that q, k and v share
-// mask: (B, S) int32, 1 = valid key.  One block per (query tile, head,
-// sample); 8 warps, 8 query rows each.  K and V tiles are staged in shared
-// memory as fp32; scores, the running max and sum, and the output
-// accumulators stay in registers.  This SIMT kernel runs fp32 only (wgmma's
-// fp32 input would be TF32); bf16 runs hopper_attention.cuh's fwd_kernel
-// with the same numerics: e = exp(s - m) rounded before P.V, l summed from
-// the fp32 e, o divided by l at the store.
+// mask: (B, S) int32, 1 = valid key.  bf16 runs the wgmma kernels of
+// hopper_attention.cuh, fp32 the register-tiled FMA kernels of
+// simt_attention.cuh (wgmma's fp32 input would be TF32): the same two-kernel
+// backward, each output element one owner, stats (B, H, S, 3) fp32 scratch.
+// The backward's rounding points (pallas_attention.py:_attn_bwd_kernel
+// against the block halves' _attn_bwd_math) are the template flag kRound;
+// in fp32 they differ only in where scale multiplies.  In fp32 the scores
+// are summed over d in the same order in all three kernels, so each sees the
+// same s, bit for bit.  In bf16 the backward's s come from the tensor cores,
+// summed in their order: not the forward's bits, and bwd_dq's Q.K^T and
+// bwd_dkv's K.Q^T need not be each other's either.
 
-constexpr int AQ = 64, AK = 64, ATT_THREADS = 256, ROWS_PER_WARP = AQ / (ATT_THREADS / 32);
-constexpr int MAX_D = 128;
-constexpr float NEG_BIAS = -1e30f;
+constexpr int MAX_D = sa::MAX_D;
+using sa::Strides;
 
-struct Strides {   // element strides of a (B, H, S, D) operand, d contiguous
-  long long b, h, s;
-  __device__ __forceinline__ size_t at(int bb, int hh, int ss) const {
-    return (size_t)(bb * b + hh * h + ss * s);
-  }
-};
-
-inline size_t attention_smem_bytes(int D) {
-  // Qs [AQ][D], Ks [AK][D + 1], Vs [AK][D], Ps [AQ][AK], key bias [AK]
-  return sizeof(float) * ((size_t)AQ * D + (size_t)AK * (D + 1) + (size_t)AK * D +
-                          (size_t)AQ * AK + AK);
-}
-
-template <typename T>
-__global__ void __launch_bounds__(ATT_THREADS)
-masked_attention_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                            const T* __restrict__ v, Strides in,
-                            const int32_t* __restrict__ mask, T* __restrict__ out,
-                            Strides os, int S, int D, float scale) {
-  extern __shared__ __align__(16) float smem[];
-  float* Qs = smem;
-  float* Ks = Qs + AQ * D;
-  float* Vs = Ks + AK * (D + 1);
-  float* Ps = Vs + AK * D;
-  float* kbias = Ps + AQ * AK;
-
-  const int q0 = blockIdx.x * AQ, h = blockIdx.y, b = blockIdx.z;
-  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
-  const T* qh = q + in.at(b, h, 0);
-  const T* kh = k + in.at(b, h, 0);
-  const T* vh = v + in.at(b, h, 0);
-
-  for (int idx = tid; idx < AQ * D; idx += ATT_THREADS) {
-    const int r = idx / D, d = idx % D, s = q0 + r;
-    Qs[idx] = s < S ? to_f<T>(qh[(size_t)s * in.s + d]) : 0.f;
-  }
-
-  float m_run[ROWS_PER_WARP], l_run[ROWS_PER_WARP], o[ROWS_PER_WARP][MAX_D / 32];
-#pragma unroll
-  for (int r = 0; r < ROWS_PER_WARP; ++r) {
-    m_run[r] = -INFINITY;
-    l_run[r] = 0.f;
-#pragma unroll
-    for (int i = 0; i < MAX_D / 32; ++i) o[r][i] = 0.f;
-  }
-
-  for (int k0 = 0; k0 < S; k0 += AK) {
-    __syncthreads();  // the previous tile's K, V and bias are consumed
-    for (int idx = tid; idx < AK * D; idx += ATT_THREADS) {
-      const int j = idx / D, d = idx % D, s = k0 + j;
-      float kv = 0.f, vv = 0.f;
-      if (s < S) {
-        kv = to_f<T>(kh[(size_t)s * in.s + d]);
-        vv = to_f<T>(vh[(size_t)s * in.s + d]);
-      }
-      Ks[j * (D + 1) + d] = kv;
-      Vs[j * D + d] = vv;
-    }
-    for (int j = tid; j < AK; j += ATT_THREADS) {
-      const int s = k0 + j;
-      // keys past S take no weight at all; masked keys get the -1e30 bias
-      kbias[j] = s < S ? (mask[(size_t)b * S + s] > 0 ? 0.f : NEG_BIAS) : -INFINITY;
-    }
-    __syncthreads();
-
-    float sc[ROWS_PER_WARP][2];
-#pragma unroll
-    for (int r = 0; r < ROWS_PER_WARP; ++r) sc[r][0] = sc[r][1] = 0.f;
-    for (int d = 0; d < D; ++d) {
-      const float ka = Ks[lane * (D + 1) + d], kb = Ks[(lane + 32) * (D + 1) + d];
-#pragma unroll
-      for (int r = 0; r < ROWS_PER_WARP; ++r) {
-        const float qv = Qs[(warp * ROWS_PER_WARP + r) * D + d];
-        sc[r][0] = fmaf(qv, ka, sc[r][0]);
-        sc[r][1] = fmaf(qv, kb, sc[r][1]);
-      }
-    }
-
-#pragma unroll
-    for (int r = 0; r < ROWS_PER_WARP; ++r) {
-      const float s0 = sc[r][0] * scale + kbias[lane];
-      const float s1 = sc[r][1] * scale + kbias[lane + 32];
-      // a tile whose keys are all masked gives a max near -1e30; a later
-      // valid key rescales everything gathered so far by exp(-1e30) = 0
-      const float m_new = fmaxf(m_run[r], warp_max(fmaxf(s0, s1)));
-      const float alpha = expf(m_run[r] - m_new);
-      const float p0 = expf(s0 - m_new), p1 = expf(s1 - m_new);
-      l_run[r] = l_run[r] * alpha + warp_sum(p0 + p1);
-      m_run[r] = m_new;
-      float* prow = Ps + (warp * ROWS_PER_WARP + r) * AK;
-      prow[lane] = rnd<T>(p0);
-      prow[lane + 32] = rnd<T>(p1);
-#pragma unroll
-      for (int i = 0; i < MAX_D / 32; ++i) o[r][i] *= alpha;
-    }
-    __syncwarp();
-
-    const int jn = min(AK, S - k0);
-    for (int j = 0; j < jn; ++j) {
-      float vr[MAX_D / 32];
-#pragma unroll
-      for (int i = 0; i < MAX_D / 32; ++i) {
-        const int d = lane + 32 * i;
-        vr[i] = d < D ? Vs[j * D + d] : 0.f;
-      }
-#pragma unroll
-      for (int r = 0; r < ROWS_PER_WARP; ++r) {
-        const float p = Ps[(warp * ROWS_PER_WARP + r) * AK + j];
-#pragma unroll
-        for (int i = 0; i < MAX_D / 32; ++i) o[r][i] = fmaf(p, vr[i], o[r][i]);
-      }
-    }
-  }
-
-#pragma unroll
-  for (int r = 0; r < ROWS_PER_WARP; ++r) {
-    const int s = q0 + warp * ROWS_PER_WARP + r;
-    if (s >= S) continue;
-    T* orow = out + os.at(b, h, s);
-#pragma unroll
-    for (int i = 0; i < MAX_D / 32; ++i) {
-      const int d = lane + 32 * i;
-      if (d < D) orow[d] = from_f<T>(o[r][i] / l_run[r]);
-    }
-  }
-}
-
-// ---------------------------------------------- masked attention, backward
-// Given q, k, v, the key mask and g (the gradient at the attention output),
-// write dq, dk and dv (strides shared by the three).  With s = q.k^T scale +
-// key bias, p = softmax(s) in fp32 and pb = p rounded to T:
-//   dp = g . v^T (fp32)        delta = sum_t dp p (fp32 p)
-//   kRound (the block halves, pallas_block.py:_attn_bwd_math):
-//     ds = round(p (dp - delta) scale)
-//     dq = round(ds . k)   dk = round(ds^T . q)   dv = round(pb^T . g)
-//   !kRound (the attention core, pallas_attention.py:_attn_bwd_kernel):
-//     ds = p (dp - delta), fp32 and unscaled
-//     dq = round(scale (ds . k))   dk = round(scale (ds^T . q))   dv = round(p^T . g)
-// Two kernels, so that every output element has one owner and nothing is
-// accumulated across blocks:
-//   bwd_dq  one block per (query tile, head, sample).  Pass 1 over the key
-//           tiles: running row max m, row sum l and sum_t e^(s - m) dp,
-//           rescaled as in the forward; delta is their quotient.  m, l and
-//           delta go to stats (B, H, S, 3).  Pass 2: ds per tile, dq.
-//   bwd_dkv one block per (key tile, head, sample), launched after bwd_dq:
-//           walks the query tiles, rebuilds p and ds from stats, and
-//           accumulates dk and dv.
-// These SIMT kernels run fp32 only; bf16 runs the same two-kernel scheme on
-// wgmma (hopper_attention.cuh).  In fp32 the scores are summed over d in the
-// same order in all three attention kernels, so each sees the same s, bit
-// for bit.  In bf16 the backward's s come from the tensor cores, summed in
-// their order: not the SIMT forward's bits, and bwd_dq's Q.K^T and bwd_dkv's
-// K.Q^T need not be each other's either.
-
-inline size_t attention_bwd_dq_smem_bytes(int D) {
-  // Qs [AQ][D], dOs [AQ][D], Ks [AK][D + 1], Vs [AK][D + 1], dSs [AQ][AK], key bias [AK]
-  return sizeof(float) * (2 * (size_t)AQ * D + 2 * (size_t)AK * (D + 1) +
-                          (size_t)AQ * AK + AK);
-}
-
-inline size_t attention_bwd_dkv_smem_bytes(int D) {
-  // Ks [AK][D], Vs [AK][D], Qs [AQ][D + 1], dOs [AQ][D + 1], Ps [AK][AQ], dSs [AK][AQ],
-  // stats [AQ][3]
-  return sizeof(float) * (2 * (size_t)AK * D + 2 * (size_t)AQ * (D + 1) +
-                          2 * (size_t)AK * AQ + 3 * AQ);
-}
-
-template <typename T, bool kRound>
-__global__ void __launch_bounds__(ATT_THREADS)
-masked_attention_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                               const T* __restrict__ v, Strides in,
-                               const int32_t* __restrict__ mask, const T* __restrict__ g,
-                               Strides gs, T* __restrict__ dq_out, Strides ds_,
-                               float* __restrict__ stats, int S, int D, float scale) {
-  extern __shared__ __align__(16) float smem[];
-  float* Qs = smem;
-  float* dOs = Qs + AQ * D;
-  float* Ks = dOs + AQ * D;
-  float* Vs = Ks + AK * (D + 1);
-  float* dSs = Vs + AK * (D + 1);
-  float* kbias = dSs + AQ * AK;
-
-  const int q0 = blockIdx.x * AQ, h = blockIdx.y, b = blockIdx.z;
-  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
-  const T* qh = q + in.at(b, h, 0);
-  const T* kh = k + in.at(b, h, 0);
-  const T* vh = v + in.at(b, h, 0);
-  const T* gh = g + gs.at(b, h, 0);
-
-  for (int idx = tid; idx < AQ * D; idx += ATT_THREADS) {
-    const int r = idx / D, d = idx % D, s = q0 + r;
-    Qs[idx] = s < S ? to_f<T>(qh[(size_t)s * in.s + d]) : 0.f;
-    dOs[idx] = s < S ? to_f<T>(gh[(size_t)s * gs.s + d]) : 0.f;
-  }
-
-  float m_run[ROWS_PER_WARP], l_run[ROWS_PER_WARP], a_run[ROWS_PER_WARP];
-#pragma unroll
-  for (int r = 0; r < ROWS_PER_WARP; ++r) {
-    m_run[r] = -INFINITY;
-    l_run[r] = 0.f;
-    a_run[r] = 0.f;
-  }
-  float dq[ROWS_PER_WARP][MAX_D / 32];
-#pragma unroll
-  for (int r = 0; r < ROWS_PER_WARP; ++r)
-#pragma unroll
-    for (int i = 0; i < MAX_D / 32; ++i) dq[r][i] = 0.f;
-
-  for (int pass = 0; pass < 2; ++pass) {
-    for (int k0 = 0; k0 < S; k0 += AK) {
-      __syncthreads();  // the previous tile's K, V, bias and ds are consumed
-      for (int idx = tid; idx < AK * D; idx += ATT_THREADS) {
-        const int j = idx / D, d = idx % D, s = k0 + j;
-        float kv = 0.f, vv = 0.f;
-        if (s < S) {
-          kv = to_f<T>(kh[(size_t)s * in.s + d]);
-          vv = to_f<T>(vh[(size_t)s * in.s + d]);
-        }
-        Ks[j * (D + 1) + d] = kv;
-        Vs[j * (D + 1) + d] = vv;
-      }
-      for (int j = tid; j < AK; j += ATT_THREADS) {
-        const int s = k0 + j;
-        kbias[j] = s < S ? (mask[(size_t)b * S + s] > 0 ? 0.f : NEG_BIAS) : -INFINITY;
-      }
-      __syncthreads();
-
-      float sc[ROWS_PER_WARP][2], dp[ROWS_PER_WARP][2];
-#pragma unroll
-      for (int r = 0; r < ROWS_PER_WARP; ++r) sc[r][0] = sc[r][1] = dp[r][0] = dp[r][1] = 0.f;
-      for (int d = 0; d < D; ++d) {
-        const float ka = Ks[lane * (D + 1) + d], kb = Ks[(lane + 32) * (D + 1) + d];
-        const float va = Vs[lane * (D + 1) + d], vb = Vs[(lane + 32) * (D + 1) + d];
-#pragma unroll
-        for (int r = 0; r < ROWS_PER_WARP; ++r) {
-          const float qv = Qs[(warp * ROWS_PER_WARP + r) * D + d];
-          const float gv = dOs[(warp * ROWS_PER_WARP + r) * D + d];
-          sc[r][0] = fmaf(qv, ka, sc[r][0]);
-          sc[r][1] = fmaf(qv, kb, sc[r][1]);
-          dp[r][0] = fmaf(gv, va, dp[r][0]);
-          dp[r][1] = fmaf(gv, vb, dp[r][1]);
-        }
-      }
-
-      if (pass == 0) {
-#pragma unroll
-        for (int r = 0; r < ROWS_PER_WARP; ++r) {
-          const float s0 = sc[r][0] * scale + kbias[lane];
-          const float s1 = sc[r][1] * scale + kbias[lane + 32];
-          const float m_new = fmaxf(m_run[r], warp_max(fmaxf(s0, s1)));
-          const float alpha = expf(m_run[r] - m_new);
-          const float p0 = expf(s0 - m_new), p1 = expf(s1 - m_new);
-          l_run[r] = l_run[r] * alpha + warp_sum(p0 + p1);
-          a_run[r] = a_run[r] * alpha + warp_sum(p0 * dp[r][0] + p1 * dp[r][1]);
-          m_run[r] = m_new;
-        }
-      } else {
-#pragma unroll
-        for (int r = 0; r < ROWS_PER_WARP; ++r) {
-          const float s0 = sc[r][0] * scale + kbias[lane];
-          const float s1 = sc[r][1] * scale + kbias[lane + 32];
-          const float delta = a_run[r] / l_run[r];
-          const float p0 = expf(s0 - m_run[r]) / l_run[r];
-          const float p1 = expf(s1 - m_run[r]) / l_run[r];
-          const float ds0 = p0 * (dp[r][0] - delta), ds1 = p1 * (dp[r][1] - delta);
-          float* drow = dSs + (warp * ROWS_PER_WARP + r) * AK;
-          drow[lane] = kRound ? rnd<T>(ds0 * scale) : ds0;
-          drow[lane + 32] = kRound ? rnd<T>(ds1 * scale) : ds1;
-        }
-        __syncwarp();
-
-        const int jn = min(AK, S - k0);
-        for (int j = 0; j < jn; ++j) {
-          float kv[MAX_D / 32];
-#pragma unroll
-          for (int i = 0; i < MAX_D / 32; ++i) {
-            const int d = lane + 32 * i;
-            kv[i] = d < D ? Ks[j * (D + 1) + d] : 0.f;
-          }
-#pragma unroll
-          for (int r = 0; r < ROWS_PER_WARP; ++r) {
-            const float ds = dSs[(warp * ROWS_PER_WARP + r) * AK + j];
-#pragma unroll
-            for (int i = 0; i < MAX_D / 32; ++i) dq[r][i] = fmaf(ds, kv[i], dq[r][i]);
-          }
-        }
-      }
-    }
-  }
-
-#pragma unroll
-  for (int r = 0; r < ROWS_PER_WARP; ++r) {
-    const int s = q0 + warp * ROWS_PER_WARP + r;
-    if (s >= S) continue;
-    if (lane == 0) {
-      float* st = stats + (((size_t)b * gridDim.y + h) * S + s) * 3;
-      st[0] = m_run[r];
-      st[1] = l_run[r];
-      st[2] = a_run[r] / l_run[r];
-    }
-    T* orow = dq_out + ds_.at(b, h, s);
-#pragma unroll
-    for (int i = 0; i < MAX_D / 32; ++i) {
-      const int d = lane + 32 * i;
-      if (d < D) orow[d] = from_f<T>(kRound ? dq[r][i] : dq[r][i] * scale);
-    }
-  }
-}
-
-template <typename T, bool kRound>
-__global__ void __launch_bounds__(ATT_THREADS)
-masked_attention_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                                const T* __restrict__ v, Strides in,
-                                const int32_t* __restrict__ mask, const T* __restrict__ g,
-                                Strides gs, const float* __restrict__ stats,
-                                T* __restrict__ dk_out, T* __restrict__ dv_out, Strides ds_,
-                                int S, int D, float scale) {
-  extern __shared__ __align__(16) float smem[];
-  float* Ks = smem;
-  float* Vs = Ks + AK * D;
-  float* Qs = Vs + AK * D;
-  float* dOs = Qs + AQ * (D + 1);
-  float* Ps = dOs + AQ * (D + 1);
-  float* dSs = Ps + AK * AQ;
-  float* st = dSs + AK * AQ;
-
-  const int t0 = blockIdx.x * AK, h = blockIdx.y, b = blockIdx.z;
-  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
-  const T* qh = q + in.at(b, h, 0);
-  const T* kh = k + in.at(b, h, 0);
-  const T* vh = v + in.at(b, h, 0);
-  const T* gh = g + gs.at(b, h, 0);
-  const float* sbase = stats + ((size_t)b * gridDim.y + h) * S * 3;
-
-  for (int idx = tid; idx < AK * D; idx += ATT_THREADS) {
-    const int j = idx / D, d = idx % D, t = t0 + j;
-    float kv = 0.f, vv = 0.f;
-    if (t < S) {
-      kv = to_f<T>(kh[(size_t)t * in.s + d]);
-      vv = to_f<T>(vh[(size_t)t * in.s + d]);
-    }
-    Ks[idx] = kv;
-    Vs[idx] = vv;
-  }
-
-  // this warp's keys: rows warp * ROWS_PER_WARP + r of the tile
-  float kb[ROWS_PER_WARP], dk[ROWS_PER_WARP][MAX_D / 32], dv[ROWS_PER_WARP][MAX_D / 32];
-#pragma unroll
-  for (int r = 0; r < ROWS_PER_WARP; ++r) {
-    const int t = t0 + warp * ROWS_PER_WARP + r;
-    kb[r] = t < S ? (mask[(size_t)b * S + t] > 0 ? 0.f : NEG_BIAS) : -INFINITY;
-#pragma unroll
-    for (int i = 0; i < MAX_D / 32; ++i) dk[r][i] = dv[r][i] = 0.f;
-  }
-
-  for (int q0 = 0; q0 < S; q0 += AQ) {
-    __syncthreads();  // the previous tile's Q, g and stats are consumed
-    for (int idx = tid; idx < AQ * D; idx += ATT_THREADS) {
-      const int j = idx / D, d = idx % D, s = q0 + j;
-      Qs[j * (D + 1) + d] = s < S ? to_f<T>(qh[(size_t)s * in.s + d]) : 0.f;
-      dOs[j * (D + 1) + d] = s < S ? to_f<T>(gh[(size_t)s * gs.s + d]) : 0.f;
-    }
-    for (int idx = tid; idx < AQ * 3; idx += ATT_THREADS) {
-      const int s = q0 + idx / 3;
-      // rows past S: any finite statistics; their p and ds are forced to 0 below
-      st[idx] = s < S ? sbase[(size_t)s * 3 + idx % 3] : (idx % 3 == 1 ? 1.f : 0.f);
-    }
-    __syncthreads();
-
-    float sc[ROWS_PER_WARP][2], dp[ROWS_PER_WARP][2];
-#pragma unroll
-    for (int r = 0; r < ROWS_PER_WARP; ++r) sc[r][0] = sc[r][1] = dp[r][0] = dp[r][1] = 0.f;
-    for (int d = 0; d < D; ++d) {
-      const float qa = Qs[lane * (D + 1) + d], qb = Qs[(lane + 32) * (D + 1) + d];
-      const float ga = dOs[lane * (D + 1) + d], gb = dOs[(lane + 32) * (D + 1) + d];
-#pragma unroll
-      for (int r = 0; r < ROWS_PER_WARP; ++r) {
-        const float kv = Ks[(warp * ROWS_PER_WARP + r) * D + d];
-        const float vv = Vs[(warp * ROWS_PER_WARP + r) * D + d];
-        sc[r][0] = fmaf(qa, kv, sc[r][0]);
-        sc[r][1] = fmaf(qb, kv, sc[r][1]);
-        dp[r][0] = fmaf(ga, vv, dp[r][0]);
-        dp[r][1] = fmaf(gb, vv, dp[r][1]);
-      }
-    }
-
-#pragma unroll
-    for (int r = 0; r < ROWS_PER_WARP; ++r) {
-      float* prow = Ps + (warp * ROWS_PER_WARP + r) * AQ;
-      float* drow = dSs + (warp * ROWS_PER_WARP + r) * AQ;
-#pragma unroll
-      for (int c = 0; c < 2; ++c) {
-        const int sl = lane + 32 * c;
-        float p = 0.f, ds = 0.f;
-        if (q0 + sl < S) {
-          p = expf(sc[r][c] * scale + kb[r] - st[sl * 3]) / st[sl * 3 + 1];
-          ds = p * (dp[r][c] - st[sl * 3 + 2]);
-          if (kRound) {
-            ds = rnd<T>(ds * scale);
-            p = rnd<T>(p);
-          }
-        }
-        prow[sl] = p;
-        drow[sl] = ds;
-      }
-    }
-    __syncwarp();
-
-    const int jn = min(AQ, S - q0);
-    for (int j = 0; j < jn; ++j) {
-      float qv[MAX_D / 32], gv[MAX_D / 32];
-#pragma unroll
-      for (int i = 0; i < MAX_D / 32; ++i) {
-        const int d = lane + 32 * i;
-        qv[i] = d < D ? Qs[j * (D + 1) + d] : 0.f;
-        gv[i] = d < D ? dOs[j * (D + 1) + d] : 0.f;
-      }
-#pragma unroll
-      for (int r = 0; r < ROWS_PER_WARP; ++r) {
-        const float ds = dSs[(warp * ROWS_PER_WARP + r) * AQ + j];
-        const float p = Ps[(warp * ROWS_PER_WARP + r) * AQ + j];
-#pragma unroll
-        for (int i = 0; i < MAX_D / 32; ++i) {
-          dk[r][i] = fmaf(ds, qv[i], dk[r][i]);
-          dv[r][i] = fmaf(p, gv[i], dv[r][i]);
-        }
-      }
-    }
-  }
-
-#pragma unroll
-  for (int r = 0; r < ROWS_PER_WARP; ++r) {
-    const int t = t0 + warp * ROWS_PER_WARP + r;
-    if (t >= S) continue;
-    T* krow = dk_out + ds_.at(b, h, t);
-    T* vrow = dv_out + ds_.at(b, h, t);
-#pragma unroll
-    for (int i = 0; i < MAX_D / 32; ++i) {
-      const int d = lane + 32 * i;
-      if (d < D) {
-        krow[d] = from_f<T>(kRound ? dk[r][i] : dk[r][i] * scale);
-        vrow[d] = from_f<T>(dv[r][i]);
-      }
-    }
-  }
-}
-
-// bf16 runs the wgmma kernel of hopper_attention.cuh; fp32 the SIMT kernel
-// above (wgmma's fp32 input would be TF32)
 template <typename T>
 cudaError_t launch_attention(const T* q, const T* k, const T* v, Strides in, const void* mask,
                              void* out, Strides os, int B, int S, int H, int D, float scale,
                              cudaStream_t stream) {
-  if constexpr (std::is_same<T, bf16>::value) {
-    return hattn::launch_fwd(q, k, v, {in.b, in.h, in.s}, static_cast<const int32_t*>(mask),
-                             static_cast<bf16*>(out), {os.b, os.h, os.s}, B, S, H, D, scale,
-                             stream);
-  } else {
-    const size_t smem = attention_smem_bytes(D);
-    cudaError_t err = cudaFuncSetAttribute(masked_attention_fwd_kernel<T>,
-                                           cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                           (int)smem);
-    if (err != cudaSuccess) return err;
-    const dim3 grid((S + AQ - 1) / AQ, H, B);
-    masked_attention_fwd_kernel<T><<<grid, ATT_THREADS, smem, stream>>>(
-        q, k, v, in, static_cast<const int32_t*>(mask), static_cast<T*>(out), os, S, D, scale);
-    return cudaGetLastError();
-  }
+  const int32_t* m = static_cast<const int32_t*>(mask);
+  if constexpr (std::is_same<T, bf16>::value)
+    return hattn::launch_fwd(q, k, v, {in.b, in.h, in.s}, m, static_cast<bf16*>(out),
+                             {os.b, os.h, os.s}, B, S, H, D, scale, stream);
+  else
+    return sa::launch_fwd(q, k, v, in, m, static_cast<float*>(out), os, B, S, H, D, scale,
+                          stream);
 }
 
-// bf16 runs the wgmma kernels of hopper_attention.cuh; fp32 the SIMT kernels
-// above (wgmma's fp32 input would be TF32)
 template <typename T, bool kRound>
 cudaError_t launch_attention_bwd(const T* q, const T* k, const T* v, Strides in,
                                  const void* mask, const T* g, Strides gs, T* dq, T* dk, T* dv,
                                  Strides ds_, void* stats, int B, int S, int H, int D,
                                  float scale, cudaStream_t stream) {
-  if constexpr (std::is_same<T, bf16>::value) {
-    return hattn::launch_bwd<kRound>(q, k, v, {in.b, in.h, in.s},
-                                     static_cast<const int32_t*>(mask), g, {gs.b, gs.h, gs.s},
-                                     dq, dk, dv, {ds_.b, ds_.h, ds_.s},
-                                     static_cast<float*>(stats), B, S, H, D, scale, stream);
-  } else {
-    const size_t smem_q = attention_bwd_dq_smem_bytes(D);
-    const size_t smem_kv = attention_bwd_dkv_smem_bytes(D);
-    cudaError_t err = cudaFuncSetAttribute(masked_attention_bwd_dq_kernel<T, kRound>,
-                                           cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                           (int)smem_q);
-    if (err != cudaSuccess) return err;
-    err = cudaFuncSetAttribute(masked_attention_bwd_dkv_kernel<T, kRound>,
-                               cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem_kv);
-    if (err != cudaSuccess) return err;
-    const dim3 grid_q((S + AQ - 1) / AQ, H, B), grid_kv((S + AK - 1) / AK, H, B);
-    const int32_t* m = static_cast<const int32_t*>(mask);
-    masked_attention_bwd_dq_kernel<T, kRound><<<grid_q, ATT_THREADS, smem_q, stream>>>(
-        q, k, v, in, m, g, gs, dq, ds_, static_cast<float*>(stats), S, D, scale);
-    err = cudaGetLastError();
-    if (err != cudaSuccess) return err;
-    masked_attention_bwd_dkv_kernel<T, kRound><<<grid_kv, ATT_THREADS, smem_kv, stream>>>(
-        q, k, v, in, m, g, gs, static_cast<const float*>(stats), dk, dv, ds_, S, D, scale);
-    return cudaGetLastError();
-  }
+  const int32_t* m = static_cast<const int32_t*>(mask);
+  float* st = static_cast<float*>(stats);
+  if constexpr (std::is_same<T, bf16>::value)
+    return hattn::launch_bwd<kRound>(q, k, v, {in.b, in.h, in.s}, m, g, {gs.b, gs.h, gs.s}, dq,
+                                     dk, dv, {ds_.b, ds_.h, ds_.s}, st, B, S, H, D, scale,
+                                     stream);
+  else
+    return sa::launch_bwd<kRound>(q, k, v, in, m, g, gs, dq, dk, dv, ds_, st, B, S, H, D, scale,
+                                  stream);
 }
 
 // the packed (B, S, 3C) layout of the block halves; row 3's rounding points

@@ -36,9 +36,10 @@
 // double-buffered.  Per tile: S = Q.K^T, the online row max m and sum l on
 // the accumulator rows, e = exp(s - m) rounded to bf16 as the A fragments of
 // O = alpha O + E.V; the store multiplies each row by 1 / l.  These are the
-// SIMT forward's numerics (e rounded before P.V, l summed from the fp32 e,
-// division by l at the end), where the Pallas kernels round the normalised
-// p: both sit within one bf16 rounding of the plain version.
+// fp32 forward's steps (simt_attention.cuh: l summed from the fp32 e, o
+// divided by l at the end) with e rounded before P.V, where the Pallas
+// kernels round the normalised p: both sit within one bf16 rounding of the
+// plain version.
 //
 // The backward, two kernels, so that every output element has one owner and
 // nothing is accumulated across blocks (no atomics; every sum in a fixed

@@ -37,12 +37,17 @@ from torch import nn
 
 from rmcl_tpu_torch.models.heads import (BarlowTwinsHead, Classifier, ITMHead, MLMHead,
                                          MoCoHead, PatchHead, Pooler)
-from rmcl_tpu_torch.models.layers import Embedding, Linear, reset_all
+from rmcl_tpu_torch.models.layers import BatchNorm1d, Embedding, Linear, reset_all
 from rmcl_tpu_torch.models.text_embeddings import TextEmbeddings
-from rmcl_tpu_torch.models.vit import ViT, as_patch_rows, normalize_u8, patch_index
+from rmcl_tpu_torch.models.vit import (ViT, as_patch_rows, normalize_u8, patch_index,
+                                      resize_pos_embed)
 from rmcl_tpu_torch.ops.dropout import dropout
 
 MOCO_PROJ_DIM = 128
+# parts the JAX package's conversion of a torch checkpoint does not read
+# (rmcl_tpu/compat/torch_loader.py:convert_state_dict): from such a file they
+# keep the model's own values
+UNCONVERTED_PARTS = ("mppd_score", "mpfr_score")
 
 
 def draw_seeds(generator: torch.Generator, views: int, num_layers: int, batch: int,
@@ -153,20 +158,64 @@ class ViLT(nn.Module):
             self.proj_queue_ptr.zero_()
         return self
 
-    def load_reference_state_dict(self, sd: Dict[str, torch.Tensor]) -> List[str]:
-        """Load a reference-named state dict.  Entries of parts this model
-        does not build (heads of losses that are not active) are skipped and
-        returned, and so are torch BatchNorm's ``num_batches_tracked``
-        counters, which nothing here reads; a missing or misshapen entry of a
-        part it builds raises, except the queue state, which a checkpoint may
-        lack (the model then keeps its own)."""
-        own = {name for name, _ in self.named_children()}
-        keep = {k: v for k, v in sd.items() if k.split(".", 1)[0] in own
-                and not k.endswith(".num_batches_tracked")}
-        for name, buf in self.named_buffers(recurse=False):
-            keep[name] = sd.get(name, buf)
-        self.load_state_dict(keep, strict=True)
-        return sorted(set(sd) - set(keep))
+    def load_reference_state_dict(self, sd: Dict[str, torch.Tensor],
+                                  reference_file: bool = False) -> List[str]:
+        """Load a reference-named state dict into this model as the JAX
+        package merges a converted checkpoint into its fresh init
+        (``rmcl_tpu/train/loop.py:load_initial_params``' ``merge`` over
+        ``rmcl_tpu/compat/torch_loader.py:convert_state_dict``):
+          * a part (top-level module) the model builds but ``sd`` lacks keeps
+            the model's own values: a head, the ``k_*`` twins, the pooler;
+            so does the queue, and its pointer is 0 when ``sd`` has the queue
+            without it;
+          * a part ``sd`` has must be whole, as the conversion reads it: a
+            missing entry raises, except a linear bias and a BatchNorm's
+            weight and bias (the model's own stay) and
+            ``transformer.mask_token`` (zeros);
+          * repairs: a 2-row ``token_type_embeddings`` (and its twin) where
+            the model has 3 rows (NLVR2) takes row 1 again as row 2; a
+            ``transformer.pos_embed`` (and its twin) of another grid is
+            resized to the model's (``vit.resize_pos_embed``);
+          * a misshapen entry the repairs do not fix raises, naming it;
+          * entries of parts this model does not build, entries its parts do
+            not have and torch BatchNorm's ``num_batches_tracked`` counters are
+            skipped and returned.  With ``reference_file`` (a torch file read
+            as the conversion reads one) so are the parts it does not convert
+            (``mppd_score``, ``mpfr_score``), which keep the model's own."""
+        own_sd = self.state_dict()
+        parts = ({name for name, _ in self.named_children()}
+                 | {name for name, _ in self.named_buffers(recurse=False)}) - (
+            set(UNCONVERTED_PARTS) if reference_file else set())
+        keep = {k: v for k, v in sd.items() if k in own_sd and k.split(".", 1)[0] in parts}
+        if "proj_queue" in keep:
+            keep.setdefault("proj_queue_ptr", torch.zeros_like(own_sd["proj_queue_ptr"]))
+        else:
+            keep.pop("proj_queue_ptr", None)
+        for prefix in ("", "k_"):
+            name = f"{prefix}token_type_embeddings.weight"
+            if name in keep and keep[name].shape[0] == 2 and own_sd[name].shape[0] == 3:
+                keep[name] = torch.cat([keep[name], keep[name][1:2]], 0)
+            name = f"{prefix}transformer.pos_embed"
+            if name in keep and keep[name].shape[1] != own_sd[name].shape[1]:
+                keep[name] = resize_pos_embed(keep[name], own_sd[name].shape[1] - 1)
+            name = f"{prefix}transformer.mask_token"
+            if any(k.startswith(f"{prefix}transformer.") for k in keep):
+                keep.setdefault(name, torch.zeros_like(own_sd[name]))
+        optional = {f"{m}.{p}" for m, mod in self.named_modules()
+                    for p in (("bias",) if isinstance(mod, Linear) else
+                              ("weight", "bias") if isinstance(mod, BatchNorm1d) else ())}
+        present = {k.split(".", 1)[0] for k in keep}
+        missing = sorted(k for k in own_sd if k.split(".", 1)[0] in present - {
+            "proj_queue", "proj_queue_ptr"} and k not in keep and k not in optional)
+        if missing:
+            raise KeyError(f"the state dict lacks entries of parts it holds: {missing}")
+        bad = [f"{k}: {tuple(v.shape)}, the model's {tuple(own_sd[k].shape)}"
+               for k, v in keep.items() if v.shape != own_sd[k].shape]
+        if bad:
+            raise ValueError(f"misshapen entries: {bad}")
+        own_sd.update(keep)
+        self.load_state_dict(own_sd, strict=True)
+        return sorted(k for k in sd if k not in keep)
 
     def infer(self, batch: Dict[str, torch.Tensor],
               block_matrices: Optional[List[Dict[str, torch.Tensor]]] = None,

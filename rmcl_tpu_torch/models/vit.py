@@ -160,6 +160,40 @@ def bilinear_weights(n_out: int, size: torch.Tensor, n_src: int) -> torch.Tensor
     return w * (r[None, :, None] < size[:, None, None])
 
 
+def _triangle_weights(n_in: int, n_out: int) -> torch.Tensor:
+    """(n_in, n_out) fp32 weights of ``jax.image.resize(..., "bilinear")``
+    along one axis (``jax._src.image.scale.compute_weight_mat`` with the
+    triangle kernel, antialias on, no translation): the kernel widened by
+    n_in / n_out when shrinking, each column normalised, columns whose sample
+    falls outside the input zeroed; the same fp32 steps."""
+    inv = torch.tensor(n_in / n_out, dtype=torch.float32)
+    sample = (torch.arange(n_out, dtype=torch.float32) + 0.5) * inv - 0.5
+    width = torch.clamp(inv, min=1.0)
+    x = (sample[None, :] - torch.arange(n_in, dtype=torch.float32)[:, None]).abs() / width
+    w = torch.clamp(1.0 - x.abs(), min=0.0)
+    total = w.sum(0, keepdim=True)
+    w = torch.where(total.abs() > 1000.0 * torch.finfo(torch.float32).eps,
+                    w / torch.where(total != 0, total, torch.ones_like(total)), 0.0)
+    inside = (sample >= -0.5) & (sample <= n_in - 0.5)
+    return torch.where(inside[None, :], w, 0.0)
+
+
+def resize_pos_embed(pos: torch.Tensor, n_new: int) -> torch.Tensor:
+    """(1, 1 + S*S, C) -> (1, 1 + n*n, C), n*n = ``n_new``: the class token
+    kept, the spatial grid resized bilinearly as the JAX package resizes a
+    reference checkpoint's pos-embed (``rmcl_tpu/compat/torch_loader.py:
+    resize_pos_embed``, ``jax.image.resize`` with its antialiasing when it
+    shrinks), in fp32."""
+    n_tok = pos.shape[1] - 1
+    s_old, s_new = round(n_tok ** 0.5), round(n_new ** 0.5)
+    if s_old * s_old == n_tok and s_old == s_new:
+        return pos
+    cls, grid = pos[:, :1].float(), pos[:, 1:].float().reshape(1, s_old, s_old, -1)
+    w = _triangle_weights(s_old, s_new)
+    grid = torch.einsum("bijc,iy,jx->byxc", grid, w, w)
+    return torch.cat([cls, grid.reshape(1, s_new * s_new, -1)], dim=1)
+
+
 def resample_pos_embed(spatial: torch.Tensor, h: torch.Tensor, w: torch.Tensor,
                        gh: int, gw: int) -> torch.Tensor:
     """spatial (S, S, C) fp32; h, w (B,) valid grid sizes -> (B, gh, gw, C):

@@ -25,13 +25,14 @@ raise; on a CPU tensor it is ``mha`` under autograd.  The kernels read q, k
 and v through their strides (views of one qkv buffer need no copy) and write
 the output as (B, S, H, D) memory, so that merging the heads back to
 (B, S, C) is a view.  Launches count in ``fused_block.launches`` under
-``masked_attention`` and ``masked_attention_bwd``.  In bfloat16 the forward
-and the backward run the wgmma kernels of ``csrc/hopper_attention.cuh``
-(counted in ``fused_block.sub_launches`` under ``attention_fwd`` and
-``attention_bwd``), which read q, k, v and g by cp.async: their head dim a
-multiple of 8, their bases 16-byte aligned and their (b, h, s) strides
-multiples of 8 elements, or it raises; in float32 SIMT kernels that take
-any strides.
+``masked_attention`` and ``masked_attention_bwd``, and the kernels in
+``fused_block.sub_launches`` under ``attention_fwd`` and ``attention_bwd``.
+In bfloat16 the forward and the backward run the wgmma kernels of
+``csrc/hopper_attention.cuh``, which read q, k, v and g by cp.async: their
+head dim a multiple of 8, their bases 16-byte aligned and their (b, h, s)
+strides multiples of 8 elements, or it raises; in float32 the register-tiled
+FMA kernels of ``csrc/simt_attention.cuh`` (no TF32), which take any strides
+(16-byte copies where bases and strides allow, else 4-byte ones).
 """
 
 from __future__ import annotations
@@ -108,8 +109,7 @@ def _stream(t):
 def _attention_fwd(q, k, v, mask, scale):
     from rmcl_tpu_torch.ops.fused_block import launches, sub_launches  # imports this one
     B, H, S, D = q.shape
-    bf16 = q.dtype == torch.bfloat16
-    if bf16:
+    if q.dtype == torch.bfloat16:
         _wgmma_layout(q=q, k=k, v=v)
     out = torch.empty(B, S, H, D, device=q.device, dtype=q.dtype).transpose(1, 2)
     rc = _build.library().rmcl_attention_fwd(
@@ -117,8 +117,7 @@ def _attention_fwd(q, k, v, mask, scale):
         mask.data_ptr(), out.data_ptr(), *_strides(out), B, S, H, D, scale, _stream(q))
     _build.check(rc, "attention_fwd")
     launches["masked_attention"] += 1
-    if bf16:
-        sub_launches["attention_fwd"] += 1
+    sub_launches["attention_fwd"] += 1
     return out
 
 
@@ -143,8 +142,7 @@ def _attention_bwd(q, k, v, mask, g, scale):
     B, H, S, D = q.shape
     if g.shape != q.shape or g.dtype != q.dtype or g.stride(3) != 1:
         g = g.to(q.dtype).contiguous()
-    bf16 = q.dtype == torch.bfloat16
-    if bf16:
+    if q.dtype == torch.bfloat16:
         _wgmma_layout(q=q, k=k, v=v, g=g)
     # dq, dk, dv as views of one (B, S, 3, H, D) buffer: the layout of the qkv
     # projection they flow back into
@@ -157,8 +155,7 @@ def _attention_bwd(q, k, v, mask, g, scale):
         dv.data_ptr(), *_strides(dq), stats.data_ptr(), B, S, H, D, scale, _stream(q))
     _build.check(rc, "attention_bwd")
     launches["masked_attention_bwd"] += 1
-    if bf16:
-        sub_launches["attention_bwd"] += 1
+    sub_launches["attention_bwd"] += 1
     return dq, dk, dv
 
 

@@ -73,12 +73,13 @@ launches = {"attn_half": 0, "mlp_half": 0, "attn_half_dx": 0, "mlp_half_dx": 0,
             "attn_half_train_bwd": 0, "mlp_half_train_bwd": 0,
             # ops/attention.py:masked_attention and ops/dropout.py:dropout
             "masked_attention": 0, "masked_attention_bwd": 0, "dropout": 0}
-# launches of the sub-kernels under those ops: the two GEMMs (``_gemm``,
-# ``_gemm_tn``), the bf16 attention forward (``_attn_fwd_packed``,
-# ``attention._attention_fwd``) and the bf16 attention backward pair
+# launches of the sub-kernels under those ops, in either type: the two GEMMs
+# (``_gemm``, ``_gemm_tn``), the attention forward (``_attn_fwd_packed``,
+# ``attention._attention_fwd``) and the attention backward pair
 # (``_attn_bwd_packed``, ``attention._attention_bwd``), the last two in
-# csrc/hopper_attention.cuh; the LayerNorm backward (``_ln_bwd_dx``,
-# ``_ln_backward``) and the bias-gradient column sums (``_colsum``)
+# csrc/hopper_attention.cuh (bf16) or csrc/simt_attention.cuh (fp32); the
+# LayerNorm backward (``_ln_bwd_dx``, ``_ln_backward``) and the bias-gradient
+# column sums (``_colsum``)
 sub_launches = {"ln_gemm": 0, "gemm_tn": 0, "attention_fwd": 0, "attention_bwd": 0,
                 "ln_bwd": 0, "colsum": 0}
 
@@ -353,39 +354,35 @@ def _gemm(lib, a2d, w, bias, out, ln=None, eps=0.0, residual=None, gelu=False,
 
 
 def _attn_fwd_packed(lib, qkv, mask, attn, num_heads):
-    """masked_attention_fwd on the packed layout: attn (B, S, C) from qkv
+    """The attention forward on the packed layout: attn (B, S, C) from qkv
     (B, S, 3C).  bfloat16 runs the wgmma kernel (``csrc/hopper_attention.cuh``:
-    head dim a multiple of 8), float32 the SIMT one."""
+    head dim a multiple of 8), float32 the FMA one (``csrc/simt_attention.cuh``)."""
     B, S = mask.shape
     D = qkv.shape[-1] // 3 // num_heads
-    bf16 = qkv.dtype == torch.bfloat16
-    if bf16 and D % 8:
+    if qkv.dtype == torch.bfloat16 and D % 8:
         raise ValueError(f"head dim {D} must be a multiple of 8 for the bf16 attention forward")
     rc = lib.rmcl_masked_attention_fwd(
         _DTYPE_CODE[qkv.dtype], qkv.data_ptr(), mask.data_ptr(), attn.data_ptr(),
         B, S, num_heads, D, D ** -0.5, _stream(qkv))
     _build.check(rc, "masked_attention_fwd")
-    if bf16:
-        sub_launches["attention_fwd"] += 1
+    sub_launches["attention_fwd"] += 1
 
 
 def _attn_bwd_packed(lib, qkv, mask, dattn, dqkv, stats, num_heads):
-    """masked_attention_bwd_dq -> _dkv on the packed layout: dqkv (B, S, 3C)
-    from qkv (B, S, 3C) and dattn (B, S, C), with the block halves' rounding
-    points; stats (B, H, S, 3) fp32 scratch.  bfloat16 runs the wgmma kernels
-    (``csrc/hopper_attention.cuh``: head dim a multiple of 8), float32 the
-    SIMT ones."""
+    """The attention backward pair (bwd_dq -> bwd_dkv) on the packed layout:
+    dqkv (B, S, 3C) from qkv (B, S, 3C) and dattn (B, S, C), with the block
+    halves' rounding points; stats (B, H, S, 3) fp32 scratch.  bfloat16 runs
+    the wgmma kernels (``csrc/hopper_attention.cuh``: head dim a multiple of
+    8), float32 the FMA ones (``csrc/simt_attention.cuh``)."""
     B, S = mask.shape
     D = qkv.shape[-1] // 3 // num_heads
-    bf16 = qkv.dtype == torch.bfloat16
-    if bf16 and D % 8:
+    if qkv.dtype == torch.bfloat16 and D % 8:
         raise ValueError(f"head dim {D} must be a multiple of 8 for the bf16 attention backward")
     rc = lib.rmcl_masked_attention_bwd(
         _DTYPE_CODE[qkv.dtype], qkv.data_ptr(), mask.data_ptr(), dattn.data_ptr(),
         dqkv.data_ptr(), stats.data_ptr(), B, S, num_heads, D, D ** -0.5, _stream(qkv))
     _build.check(rc, "masked_attention_bwd")
-    if bf16:
-        sub_launches["attention_bwd"] += 1
+    sub_launches["attention_bwd"] += 1
 
 
 def _aligned(*tensors):

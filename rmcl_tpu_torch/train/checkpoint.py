@@ -120,10 +120,15 @@ def load_initial_params(cfg, model: ViLT) -> ViLT:
     """cfg.load_path handling (reference vilt_module.py:134-160): a
     checkpoint of this package (``resolve_checkpoint_dir``) or a reference-named
     state dict (a reference ``.ckpt``, plain or under ``"state_dict"``),
-    loaded through ``ViLT.load_reference_state_dict``; entries of parts the
-    model does not build are skipped.  A reference state dict first takes the
-    MLM / ITM heads from the first of ``PRETRAIN_HEAD_FILES`` that exists,
-    when the ``mlm`` or ``itm`` loss weight is > 0 (``graft_pretrain_heads``)."""
+    loaded through ``ViLT.load_reference_state_dict`` as the JAX package's
+    ``load_initial_params`` merges it into the fresh init: parts the file
+    lacks (another task's head, the momentum twins) keep the model's own
+    values, NLVR2's third token type and a pos-embed of another grid are
+    repaired, entries of parts the model does not build are skipped; a file
+    is read as the JAX package's conversion reads one
+    (``reference_file``).  A reference state dict first takes the MLM / ITM
+    heads from the first of ``PRETRAIN_HEAD_FILES`` that exists, when the
+    ``mlm`` or ``itm`` loss weight is > 0 (``graft_pretrain_heads``)."""
     if not cfg.load_path:
         return model
     ckpt_dir = resolve_checkpoint_dir(cfg.load_path)
@@ -134,7 +139,7 @@ def load_initial_params(cfg, model: ViLT) -> ViLT:
         graft = next((f for f in PRETRAIN_HEAD_FILES if os.path.isfile(f)), None)
     if graft:
         sd = graft_pretrain_heads(sd, load_state_dict_file(graft), cfg.loss_names)
-    skipped = model.load_reference_state_dict(sd)
+    skipped = model.load_reference_state_dict(sd, reference_file=not ckpt_dir)
     print(f"[rmcl_tpu_torch] loaded {path} ({len(skipped)} entries not used"
           f"{', heads grafted from ' + graft if graft else ''})", file=sys.stderr)
     return model

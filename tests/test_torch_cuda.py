@@ -805,6 +805,149 @@ def test_attention_bwd_refuses_unaligned_layouts(cuda):
         A.masked_attention_bwd(q, q, q, mask, g, D ** -0.5)
 
 
+# ------------------ the fp32 attention kernels (csrc/simt_attention.cuh)
+# fwd_kernel and the bwd_dq -> bwd_dkv pair in both layouts against their
+# plain versions: S around and past the 32- and 64-row tiles, D in the three
+# compiled widths and one that is padded (24); 2e-4 of max(1, max|ref|)
+# (summation order only), bit-identical twice.  "first_tile" masks the first
+# 64 keys (a valid key comes later), "masked_sample" every key of the last
+# sample.
+def _f32_case(B, S, H, D, seed, mask_kind="random"):
+    r = np.random.RandomState(seed)
+    mask = (r.rand(B, S) > 0.3).astype(np.int32)
+    mask[:, 0] = 1
+    if mask_kind == "first_tile":
+        mask[:, :64], mask[:, S - 3] = 0, 1
+    elif mask_kind == "masked_sample":
+        mask[-1] = 0
+    t = lambda *s: torch.from_numpy(r.randn(*s).astype(np.float32)).cuda()  # noqa: E731
+    return t(B, S, 3 * H * D), torch.from_numpy(mask).cuda(), t(B, S, H * D)
+
+
+def _twice(name, run, out, ref):
+    run()
+    first = out.clone()
+    run()
+    torch.cuda.synchronize()
+    assert torch.equal(first, out), name
+    _close(name, out, ref, 2e-4)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("S,D,mask_kind", [(S, D, "random") for S in (1, 31, 63, 64, 65, 241)
+                                           for D in (24, 32, 64, 128)]
+                         + [(241, 64, "first_tile"), (70, 64, "masked_sample")])
+@pytest.mark.parametrize("layout", ["packed", "views", "contiguous"])
+def test_attention_fp32_kernels_match_plain(cuda, S, D, mask_kind, layout):
+    from rmcl_tpu_torch.ops import _build
+    from rmcl_tpu_torch.ops import attention as A
+    B, H = 3, 2
+    C, scale = H * D, D ** -0.5
+    qkv, mask, dattn = _f32_case(B, S, H, D, S + D, mask_kind)
+    q, k, v = qkv.view(B, S, 3, H, D).permute(2, 0, 3, 1, 4).unbind(0)
+    before = dict(FB.sub_launches)
+    if layout == "packed":
+        lib = _build.library()
+        att, dqkv = torch.empty(B, S, C, device=cuda), torch.empty_like(qkv)
+        stats = torch.empty(B, H, S, 3, device=cuda)
+        _twice("attn", lambda: FB._attn_fwd_packed(lib, qkv, mask, att, H), att,
+               A.mha(q, k, v, mask, scale).transpose(1, 2).reshape(B, S, C))
+        _twice("dqkv", lambda: FB._attn_bwd_packed(lib, qkv, mask, dattn, dqkv, stats, H), dqkv,
+               FB._attn_dqkv_plain(qkv, mask, torch.eye(C, device=cuda), dattn, H))
+    else:
+        if layout == "contiguous":
+            q, k, v = (t.contiguous() for t in (q, k, v))
+        g = dattn.view(B, S, H, D).transpose(1, 2)
+        with torch.no_grad():
+            out, again = (A.masked_attention(q, k, v, mask, scale) for _ in range(2))
+            grads, grads2 = (A.masked_attention_bwd(q, k, v, mask, g, scale) for _ in range(2))
+        torch.cuda.synchronize()
+        assert torch.equal(out, again)
+        _close("out", out, A.mha(q, k, v, mask, scale), 2e-4)
+        for name, a, b, c in zip(("dq", "dk", "dv"), grads, grads2,
+                                 A.masked_attention_bwd_plain(q, k, v, mask, g, scale)):
+            assert torch.equal(a, b), name
+            _close(name, a, c, 2e-4)
+    assert FB.sub_launches["attention_fwd"] == before["attention_fwd"] + 2
+    assert FB.sub_launches["attention_bwd"] == before["attention_bwd"] + 2
+
+
+def one_hot_probe(q, k, mask, n, seed):
+    """The probe of the fp32 backward's ds (``tests/test_torch_attn_f32.py``):
+    make columns c < n of q and k (B, H, S, D) one-hot, in place: q[s0[c], c]
+    = 1 and k[t0[c], c] = 1, s0 distinct rows and t0 distinct valid keys of
+    each (sample, head).  Then dq[s0[c'], c] and dk[t0[c], c'] are both ds
+    at (s0[c'], t0[c]), times scale, each an exact sum of one product and
+    zeros.  Returns (s0, t0), (B, H, n) int64."""
+    r = np.random.RandomState(seed)
+    Bn, Hn, Sn, _ = q.shape
+    s0 = np.stack([[r.choice(Sn, n, replace=False) for _ in range(Hn)] for _ in range(Bn)])
+    t0 = np.stack([[r.choice(np.flatnonzero(mask[b].cpu().numpy()), n, replace=False)
+                    for _ in range(Hn)] for b in range(Bn)])
+    s0, t0 = torch.from_numpy(s0).to(q.device), torch.from_numpy(t0).to(q.device)
+    at = torch.arange(Sn, device=q.device)[:, None]
+    for x, rows in ((q, s0), (k, t0)):       # x may be a view: written in place
+        x[..., :n] = (at == rows[:, :, None, :]).to(x.dtype)
+    return s0, t0
+
+
+def probe_ds(dq, dk, s0, t0):
+    """ds at the (s0[c'], t0[c]) pairs, (B, H, n c', n c), as dq and as dk
+    hold it: dq[s0[c'], c] and dk[t0[c], c']."""
+    n, D = s0.shape[-1], dq.shape[-1]
+    at_q = dq.gather(2, s0[..., None].expand(-1, -1, -1, D))[..., :n]
+    at_k = dk.gather(2, t0[..., None].expand(-1, -1, -1, D))[..., :n]
+    return at_q, at_k.transpose(-1, -2)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("S,D", [(241, 64), (65, 32), (217, 128)])
+@pytest.mark.parametrize("layout", ["packed", "heads"])
+def test_attention_fp32_backward_kernels_give_one_ds(cuda, S, D, layout):
+    """bwd_dq_kernel and bwd_dkv_kernel each recompute s, p, dp and ds from
+    q, k, v, g and the stats: the probe reads ds from dq (bwd_dq) and from
+    dk (bwd_dkv) at 16 x 16 (query, key) pairs of every (sample, head), equal
+    bit for bit, as the scores and dp summed over d in one order make them."""
+    from rmcl_tpu_torch.ops import _build
+    from rmcl_tpu_torch.ops import attention as A
+    B, H = 2, 3
+    qkv, mask, dattn = _f32_case(B, S, H, D, S + D + 1)
+    q, k, v = qkv.view(B, S, 3, H, D).permute(2, 0, 3, 1, 4).unbind(0)
+    s0, t0 = one_hot_probe(q, k, mask, 16, S)
+    if layout == "packed":
+        dqkv, stats = torch.empty_like(qkv), torch.empty(B, H, S, 3, device=cuda)
+        FB._attn_bwd_packed(_build.library(), qkv, mask, dattn, dqkv, stats, H)
+        dq, dk = dqkv.view(B, S, 3, H, D).permute(2, 0, 3, 1, 4)[:2]
+    else:
+        g = dattn.view(B, S, H, D).transpose(1, 2)
+        with torch.no_grad():
+            dq, dk, _ = A.masked_attention_bwd(q, k, v, mask, g, D ** -0.5)
+    at_q, at_k = probe_ds(dq, dk, s0, t0)
+    torch.cuda.synchronize()
+    assert torch.equal(at_q, at_k) and bool((at_q != 0).any()), (at_q - at_k).abs().max()
+
+
+@pytest.mark.cuda
+def test_attention_fp32_kernels_take_odd_strides(cuda):
+    """q, k, v as views of a (B, S, 3C + 1) buffer: row strides that are not
+    multiples of 4 floats, which the kernels copy 4 bytes at a time."""
+    from rmcl_tpu_torch.ops import attention as A
+    B, S, H, D = 2, 70, 4, 64
+    C, scale = H * D, D ** -0.5
+    r = np.random.RandomState(4)
+    buf = torch.from_numpy(r.randn(B, S, 3 * C + 1).astype(np.float32)).cuda()
+    q, k, v = buf[..., :3 * C].unflatten(-1, (3, H, D)).permute(2, 0, 3, 1, 4).unbind(0)
+    mask = torch.from_numpy((r.rand(B, S) > 0.3).astype(np.int32)).cuda()
+    mask[:, 0] = 1
+    g = torch.from_numpy(r.randn(B, H, S, D).astype(np.float32)).cuda()
+    with torch.no_grad():
+        _close("out", A.masked_attention(q, k, v, mask, scale), A.mha(q, k, v, mask, scale),
+               2e-4)
+        for name, a, c in zip(("dq", "dk", "dv"), A.masked_attention_bwd(q, k, v, mask, g, scale),
+                              A.masked_attention_bwd_plain(q, k, v, mask, g, scale)):
+            _close(name, a, c, 2e-4)
+
+
 # --------------------------- the bf16 attention forward (csrc/hopper_attention.cuh)
 def _close_to_max(name, out, ref, tol):
     """Error relative to max|ref| of that output."""
