@@ -14,7 +14,8 @@ task_mlm_itm_mpp step, MPPD / MPFR, the fp32 check and the task_mlm_itm
 Trainer with the head graft; then the benign views and the remaining paths
 (phase 19): the augmentation=True steps and Trainer, standalone MoCo, the
 cross-entropy NLVR2 attacker, the HWC canvas, the native host libraries and
-their fp32 checks.
+their fp32 checks; then the rest of the one-card paths (phase 20): the demos,
+the golden replay, the timm loader and the learning runs.
 
     python3 chip_smoke.py
 
@@ -95,7 +96,15 @@ Phases, any failure exits non-zero:
                (against mha and masked_attention_bwd_plain), 2e-4 of max(1,
                max|ref|), bit-identical twice; at B=16 S=241 by device
                time beside F.scaled_dot_product_attention and its backward
-               in fp32.  Every fp32 reading (the ops
+               in fp32.  attn_half and mlp_half at the demos' B=1, S=402
+               (fp32 and bf16, bit-identical twice, beside their bound); the
+               attention kernels at H=8, D=96 (vit_small_patch16_224's heads,
+               padded to 128) at B=16, S=349, bf16 and fp32, packed and on
+               head views, bit-identical twice, the packed pair by device
+               time beside its bound; ln_stats_kernel (the fp32 ln_gemm's
+               row statistics) at M = 3,856 and 17,360, C = 768, its (mean,
+               rstd) against torch.var_mean's, bit-identical twice, by device
+               time beside its byte bound and torch.var_mean's.  Every fp32 reading (the ops
                above and these kernels) beside its fp32 bound: bytes at 4 B per
                element over 3.35 TB/s against FLOPs over the CUDA cores'
                fp32 FMA rate (67 TFLOP/s).
@@ -353,6 +362,31 @@ Phases, any failure exits non-zero:
                queues within 2e-4 x max(1, max|ref|)), the CE attacker's token
                ids after 2 loops equal.  The phase prints its seconds against
                its 45 s budget.
+ 20. rest      the remaining one-card paths, full width unless said: the
+               demos (demos/demo.py and demo_vqa.py's build_engine from seeded
+               checkpoints, S = 19 x 19 + 1 + 40 = 402, B = 1, bf16, default
+               blocks, a seeded stand-in canvas for prepare_image: no PIL on
+               the card's machine): mlm_fill with two masks, wpa_heatmap and
+               answer, ms per call, launches as derived; then at SLICE_LAYERS
+               in fp32, card against the CPU's plain engine: the same fills
+               (a differing pick only at a tie within 2e-4 x max(1, p)), the
+               heatmap within 1e-4, the answers' names and probabilities
+               within 1e-6, cls_feats within 1e-3 x max(1, max|ref|); a golden
+               file written by the CPU's plain fp32 infer (task_mlm_itm at
+               vit32_base, the 384 x 384 HWC canvas, B = 1) replayed on the
+               card's fp32 kernels by compat/golden.py:compare_golden at 5e-3;
+               a seeded synthetic timm dict through compat/timm.py into the
+               default ViLT-B/32 (7 x 7 grid resized to 12 x 12) and into
+               vit_small_patch16_224 (8 heads of D = 96): each a forward and
+               a timed training step of 16 pairs in bf16, then an fp32 step
+               of 2 pairs at SLICE_LAYERS against the CPU (_train_results);
+               the seven learning families of tests/test_torch_convergence*.py
+               at their tiny configurations on the fp32 kernels, 60 steps,
+               their criteria, the first three losses against the CPU's; at
+               full width in bf16 (16 pairs, one fixed batch, 30 steps at lr
+               5e-4) task_mlm_itm with MLM only and task_finetune_vqa, the
+               mean of the last five losses under half the first.  The phase
+               prints its seconds against its 60 s budget.
 
 The line before the last is the kernels' JSON record; the last line is
 ``{"ok": true, "device": {...}}``.  Without a card, or outside the
@@ -377,6 +411,10 @@ runs phases 1, 2 and 17 only;
     python3 chip_smoke.py --pretrain
 
 phases 1, 2 and 18 only;
+
+    python3 chip_smoke.py --rest
+
+phases 1, 2 and 20 only;
 
     python3 chip_smoke.py --views
 
@@ -796,6 +834,7 @@ def phase_kernels(dev) -> dict:
             res[name]["bf16_greedy_shape"] = _compare(name, "bf16", gshape, op, plain, args,
                                                       2e-2, False)
         del xg, maskg, gg, a_g, m_g
+        _demo_shape_kernels(res, dev, FB, eps)
         _train_kernels(res, dev, x, mask, g, (lw, lb), (wq, bq, wp, bp), (w1, b1, w2, b2),
                        H, eps, shape)
         _config_kernels(res, dev, x, mask, g, (lw, lb), (wq, bq, wp, bp), (w1, b1, w2, b2),
@@ -1577,6 +1616,176 @@ def _ln_colsum_kernels(dev, FB, lib) -> list:
     return out
 
 
+# demos/demo.py's sequence at B = 1: 19 x 19 patches of the 608 x 608 canvas,
+# the class token and 40 text positions; vit="vit_small_patch16_224"'s heads
+# (8 of D = 96, padded to 128 in both attention types) at its step's
+# (B, S): 16 pairs of 14 x 22 patches + 1 + 40
+DEMO_S = 19 * 19 + 1 + 40
+D96_SHAPE = (PGD_BATCH, 14 * 22 + 1 + 40, 8, 96)
+
+
+def _demo_shape_kernels(res, dev, FB, eps) -> None:
+    """attn_half and mlp_half at the demos' B = 1, S = DEMO_S, fp32 and bf16,
+    against their plain versions at phase 3's tolerances, bit-identical
+    twice, timed per call and by device time beside their bound; in bf16 a
+    trace of each (_trace: device time by kernel, the idle share)."""
+    x, mask, (lw, lb), (wq, bq, wp, bp), (w1, b1, w2, b2), H = _block_inputs(dev, B=1,
+                                                                           S=DEMO_S)
+    shape = f"B=1 S={DEMO_S} C=768 H=12"
+    for dtype, rtol, tag in ((torch.float32, 2e-4, "fp32"), (torch.bfloat16, 2e-2, "bf16")):
+        xd = x.to(dtype)
+        calls = {"attn_half": (FB.attn_half, FB.attn_half_plain,
+                               (xd, mask, lw, lb, wq.to(dtype), bq, wp.to(dtype), bp, H, eps)),
+                 "mlp_half": (FB.mlp_half, FB.mlp_half_plain,
+                              (xd, lw, lb, w1.to(dtype), b1, w2.to(dtype), b2, eps))}
+        for name, (op, plain, args) in calls.items():
+            rec = _compare_all(name, tag, shape, lambda *a, op=op: (op(*a),),
+                               lambda *a, plain=plain: (plain(*a),), args, rtol,
+                               dtype == torch.float32, ("out",), True)
+            rec["bound_ms"], rec["bound_by"] = bound(name, 1, DEMO_S, 768,
+                                                     es=dtype.itemsize)
+            rec["device_ms"] = device_ms(lambda op=op, args=args: op(*args))
+            print(f"[kernels] {name} {tag} {shape}: bound_ms={rec['bound_ms']!r} "
+                  f"({rec['bound_by']}; {rec['bound_ms'] / rec['ms']:.3f} of it per call), "
+                  f"device_ms={rec['device_ms']!r} "
+                  f"({_rate(rec['bound_ms'], rec['device_ms'], 'of the bound')})")
+            if tag == "bf16":
+                _trace(f"{name} bf16 {shape}", lambda op=op, args=args: op(*args), 20, top=6)
+            res[name][f"{tag}_demo_shape"] = rec
+
+
+def _attn_check(name, got, again, ref, fp32: bool) -> float:
+    """Phase 3's attention tolerance: fp32 2e-4 of max(1, max|ref|)
+    (_f32_check), bf16 2e-2 of max|ref|; bit-identical to a second call."""
+    if fp32:
+        return _f32_check(name, got, again, ref)
+    check(bool(torch.isfinite(got).all()), f"{name}: non-finite output")
+    check(torch.equal(got, again), f"{name}: two calls differ")
+    err = (got.float() - ref.float()).abs().max().item()
+    tol = 2e-2 * ref.float().abs().max().item()
+    check(err <= tol, f"{name}: error {err} > {tol}")
+    return err
+
+
+def _d96_attention(dev, FB, lib, gen) -> list:
+    """The attention kernels at D96_SHAPE (H = 8, D = 96), bf16 and fp32,
+    packed (rmcl_masked_attention_fwd / _bwd against mha on the same heads
+    and _attn_dqkv_plain with Wproj = I) and on views of one qkv buffer
+    (masked_attention / masked_attention_bwd against mha and
+    masked_attention_bwd_plain), bit-identical twice; the packed forward and
+    pair by time per call and device time beside their bound and
+    F.scaled_dot_product_attention's forward and backward on the same heads
+    (fp32 with TF32 off)."""
+    import torch.nn.functional as F
+    from rmcl_tpu_torch.ops import attention as A
+    B, S, H, D = D96_SHAPE
+    C, scale, shape = H * D, D ** -0.5, f"B={B} S={S} H={H} D={D}"
+    out = []
+    for dtype, tag in ((torch.bfloat16, "bf16"), (torch.float32, "fp32")):
+        fp32 = dtype == torch.float32
+        qkv = torch.randn(B, S, 3 * C, generator=gen, device=dev).to(dtype)
+        mask = (torch.rand(B, S, generator=gen, device=dev) > 0.3).int()
+        mask[:, 0] = 1
+        dattn = torch.randn(B, S, C, generator=gen, device=dev).to(dtype)
+        q, k, v = qkv.view(B, S, 3, H, D).permute(2, 0, 3, 1, 4).unbind(0)
+        g = dattn.view(B, S, H, D).transpose(1, 2).contiguous()
+        att = torch.empty(B, S, C, device=dev, dtype=dtype)
+        dqkv = torch.empty(B, S, 3 * C, device=dev, dtype=dtype)
+        stats = torch.empty(B, H, S, 3, device=dev)
+        fwd = lambda: FB._attn_fwd_packed(lib, qkv, mask, att, H)  # noqa: E731
+        bwd = lambda: FB._attn_bwd_packed(lib, qkv, mask, dattn, dqkv, stats, H)  # noqa: E731
+        plain_fwd = lambda: A.mha(q, k, v, mask, scale).transpose(1, 2).reshape(B, S, C)  # noqa: E731
+        eye = torch.eye(C, device=dev, dtype=dtype)
+        plain_bwd = lambda: FB._attn_dqkv_plain(qkv, mask, eye, dattn, H)  # noqa: E731
+        errs = {}
+        for part, run, buf, plain in (("fwd", fwd, att, plain_fwd), ("bwd", bwd, dqkv, plain_bwd)):
+            run()
+            first = buf.clone()
+            run()
+            errs[f"{part} packed"] = _attn_check(f"attention_{part} {tag} packed {shape}", buf,
+                                                 first, plain(), fp32)
+        errs["fwd heads"] = _attn_check(f"attention_fwd {tag} heads {shape}",
+                                        A.masked_attention(q, k, v, mask, scale),
+                                        A.masked_attention(q, k, v, mask, scale),
+                                        A.mha(q, k, v, mask, scale), fp32)
+        ours, again = (A.masked_attention_bwd(q, k, v, mask, g, scale) for _ in range(2))
+        ref = A.masked_attention_bwd_plain(q, k, v, mask, g, scale)
+        errs["bwd heads"] = max(_attn_check(f"attention_bwd {tag} heads {shape} {n}", a, b, c,
+                                            fp32)
+                                for n, a, b, c in zip(("dq", "dk", "dv"), ours, again, ref))
+        torch.cuda.synchronize()
+        rec = dict(name=f"attention d96 {tag}", dtype=tag, shape=shape, max_abs_err=errs)
+        for part, run, name in (("fwd", fwd, "masked_attention"),
+                                ("bwd", bwd, "masked_attention_bwd")):
+            b_ms, b_by = bound(name, B, S, C, es=dtype.itemsize)
+            rec[part] = dict(ms=time_ms(run), device_ms=device_ms(run), bound_ms=b_ms,
+                             bound_by=b_by)
+        keep = (mask > 0)[:, None, None, :]
+        sdpa = lambda: F.scaled_dot_product_attention(q, k, v, attn_mask=keep)  # noqa: E731
+        lib_bwd_ms, lib_bwd_dev = _sdpa_backward_times(q, k, v, keep, g)
+        rec["fwd"].update(library="F.scaled_dot_product_attention", library_ms=time_ms(sdpa),
+                          library_device_ms=device_ms(sdpa))
+        rec["bwd"].update(library="torch.autograd.grad of F.scaled_dot_product_attention",
+                          library_ms=lib_bwd_ms, library_device_ms=lib_bwd_dev)
+        timed = "; ".join(
+            f"{p} kernel_ms={r['ms']!r} device_ms={r['device_ms']!r} "
+            f"({_rate(r['bound_ms'], r['device_ms'], 'of the bound')}), {r['library']} "
+            f"{r['library_ms']!r} ms (device {r['library_device_ms']!r})"
+            for p, r in (("fwd", rec["fwd"]), ("bwd pair", rec["bwd"])))
+        print(f"[kernels] attention {tag} ({shape}, packed and heads): max_abs_err {errs} "
+              f"within phase 3's tolerance, bit-identical twice; packed {timed}")
+        out.append(rec)
+    return out
+
+
+# ln_stats_kernel's rows: the step's M and the greedy scoring forward's
+LN_STATS_ROWS = ((PGD_BATCH, 241), (GREEDY_ROWS, GREEDY_S))
+
+
+def _ln_stats_subs(dev, FB, lib, gen) -> list:
+    """ln_stats_kernel, the (mean, rstd) pass of every fp32 ln_gemm with a
+    LayerNorm, at LN_STATS_ROWS, C = 768: the statistics it writes (read back
+    through rmcl_ln_gemm with a scratch of ours, as _gemm calls it) against
+    torch.var_mean's (2e-4 of max(1, max|ref|)), bit-identical twice; its
+    device time inside ln_gemm[qkv] by kernel name beside its byte bound (M
+    C x 4 bytes read, M x 2 x 4 written, over 3.35 TB/s), its plain version
+    and torch.var_mean(x, -1, unbiased=False)'s device time."""
+    out = []
+    for B, S in LN_STATS_ROWS:
+        c = _ln_gemm_case(dev, FB, gen, 2304, 768, "ln", torch.float32, B, S)
+        a, M, (ln_w, ln_b), eps = c["a"], c["M"], c["kw"]["ln"], c["kw"]["eps"]
+        K = a.shape[1]
+        scratch = [torch.empty(M, 2, device=dev) for _ in range(2)]
+        for st in scratch:
+            rc = lib.rmcl_ln_gemm(FB._DTYPE_CODE[a.dtype], a.data_ptr(), ln_w.data_ptr(),
+                                  ln_b.data_ptr(), eps, st.data_ptr(), c["w"].data_ptr(),
+                                  c["bias"].data_ptr(), None, None, c["out"].data_ptr(), M,
+                                  c["w"].shape[0], K, 0, FB._EPI_BIAS, 0, *FB._drop_args(None),
+                                  FB._stream(a))
+            check(rc == 0, f"rmcl_ln_gemm returned {rc}")
+
+        def plain():
+            var, mean = torch.var_mean(a, -1, unbiased=False)
+            return torch.stack([mean, torch.rsqrt(var + eps)], -1)
+        torch.cuda.synchronize()
+        name = f"ln_stats[M={M}] fp32"
+        err = _f32_check(name, scratch[0], scratch[1], plain())
+        run = lambda: FB._gemm(lib, a, c["w"], c["bias"], c["out"], **c["kw"])  # noqa: E731
+        lib_call = lambda: torch.var_mean(a, -1, unbiased=False)  # noqa: E731
+        bound_ms, bound_by = _sub_bound(0.0, 4 * M * K + 8 * M, 0.0, PEAK_FP32_FLOPS)
+        rec = dict(name=name, dtype="fp32", shape=f"M={M} C={K}", M=M, max_abs_err=err,
+                   device_ms=device_ms(run, kernel="ln_stats_kernel"), plain_ms=time_ms(plain),
+                   library="torch.var_mean", library_ms=time_ms(lib_call),
+                   library_device_ms=device_ms(lib_call), bound_ms=bound_ms, bound_by=bound_by)
+        print(f"[kernels] {name} (C={K}): max_abs_err={err!r} within 2e-4 of max(1, max|ref|), "
+              f"bit-identical twice; device_ms={rec['device_ms']!r} "
+              f"({_rate(bound_ms, rec['device_ms'], 'of the bound')}) plain_ms="
+              f"{rec['plain_ms']!r} torch.var_mean device_ms={rec['library_device_ms']!r} "
+              f"bound_ms={bound_ms!r} ({bound_by})")
+        out.append(rec)
+    return out
+
+
 def _library_yardsticks(dev, FB, x, mask, wqkv, bqkv, H) -> list:
     """The device sub-kernels at the attack's and the step's shapes, bf16:
     every GEMM instance of the main path against its plain version, with its
@@ -1597,6 +1806,8 @@ def _library_yardsticks(dev, FB, x, mask, wqkv, bqkv, H) -> list:
     torch.backends.cuda.matmul.allow_tf32 = False      # the plain fp32 products
     out += _f32_gemm_subs(dev, FB, lib, gen)
     out += _f32_attention_subs(dev, FB, lib, gen)
+    out += _d96_attention(dev, FB, lib, gen)
+    out += _ln_stats_subs(dev, FB, lib, gen)
     return out + _ln_colsum_kernels(dev, FB, lib)
 
 
@@ -2331,8 +2542,12 @@ def phase_train_slice(dev, config: str = "default") -> dict:
     counts = check_sub_launches(f"{tag} fp32 step", dict(FB.launches), FB)
     check(counts["attention_fwd"] > 0 and counts["attention_bwd"] > 0,
           f"{tag}: the fp32 step launched no attention kernel: {counts}")
+    counts["ln_stats"] = FB.stats_launches["ln_stats"]
+    check(0 < counts["ln_stats"] <= counts["ln_gemm"],
+          f"{tag}: ln_stats launches {counts['ln_stats']} of {counts['ln_gemm']} ln_gemm")
     print(f"{tag} the card's fp32 step: sub-kernel launches "
-          f"{ {k: counts[k] for k in FB.sub_launches} }")
+          f"{ {k: counts[k] for k in FB.sub_launches} }, ln_stats_kernel "
+          f"{counts['ln_stats']} (of its {SLICE_LAYERS} layers)")
     _train_results(tag, results, dev, train_config().learning_rate)
     return counts
 
@@ -4544,6 +4759,525 @@ def phase_views(dev) -> dict:
     return counts
 
 
+# ------------------------------------------------------------------ rest
+REST_DIR = "chip_smoke_rest.tmp"          # vocabulary, checkpoints, golden file; removed
+DEMO_TEXT = "a [MASK] sitting on the [MASK]"   # two masks: two passes of mlm_fill
+DEMO_QUESTION = "what animal is sitting on the grass"
+DEMO_HIDX = 2                             # the heatmap's token, in the filled text
+DEMO_HW = (480, 608)                      # the stand-in image's part of the 608 x 608 canvas
+DEMO_CALLS = 3                            # timed calls of each capability, after a warm-up
+DEMO_WORDS = ("a", "dog", "cat", "sitting", "on", "the", "grass", "what", "animal", "is")
+BERT_VOCAB = 30522
+TIE_REL = 2e-4                            # a differing fill is a tie within this of max(1, p)
+HEAT_TOL, PROB_TOL = 1e-4, 1e-6           # tests/test_torch_demos.py's
+GOLDEN_HW = (384, 384)
+TIMM_GRID = 7                             # the synthetic timm dict's grid for ViLT-B/32 (to 12)
+LEARN_STEPS, LEARN_PARITY = 60, 3         # tests/test_convergence.py's steps; parity steps
+FULL_STEPS, FULL_LR = 30, 5e-4            # the full-width bf16 runs (16 pairs)
+# tests/test_convergence.py:_tiny, the JAX package's learning configuration
+LEARN_TINY = dict(hidden_size=32, num_heads=2, num_layers=2, patch_size=16, image_size=32,
+                  image_bucket_hw=(32, 48), max_text_len=10, vocab_size=64,
+                  compute_dtype="float32", drop_rate=0.0, learning_rate=5e-3,
+                  warmup_steps=0, max_steps=10000, decay_power=1, end_lr=0.0)
+_VIEWS = dict(image_view=True, text_view=True, adv_lr_img=0.05, adv_max_norm_img=0.005)
+# the seven families of tests/test_torch_convergence*.py: family -> (losses,
+# overrides, pairs, the trends held as (key, factor, "first" or "peak"), the
+# relative tolerance of the first LEARN_PARITY losses against the CPU's; the
+# BarlowTwins head's BatchNorms compute from rounding noise at initialisation:
+# tests/test_torch_convergence.py:BT_PARITY_RTOL)
+LEARN_FAMILIES = {
+    "mlm": ({"mlm": 1}, {}, 4, (("mlm_loss", 0.05, "first"),), 1e-5),
+    "vqa": ({"vqa": 1}, {"vqav2_label_size": 8}, 4, (("vqa_loss", 0.1, "first"),), 1e-5),
+    "nlvr2": ({"nlvr2": 1}, {}, 8, (("nlvr2_loss", 0.1, "first"),), 1e-5),
+    "barlowtwins": ({"barlowtwins": 1},
+                    dict(_VIEWS, learning_rate=2e-3, adv_lr=0.0051, bt_proj_dims=(64, 64, 32),
+                         adv_steps_img=3), 8,
+                    (("barlowtwins_loss", 0.5, "peak"),
+                     ("barlowtwins_loss_invariance_text", 0.5, "peak")), 1e-3),
+    "moco": ({"moco": 1},
+             dict(_VIEWS, learning_rate=2e-3, num_negative=16, momentum=0.9, temperature=0.07,
+                  adv_steps_img=5), 4,
+             (("moco_loss", 0.55, "first"), ("attacked_img_loss", 0.5, "peak"),
+              ("attacked_txt_loss", 0.5, "peak")), 1e-5),
+    "irtr": ({"irtr": 1}, {"draw_false_text": 3}, 4, (("irtr_loss", 0.05, "first"),), 1e-5),
+    "itm": ({"itm": 1}, {}, 8, (("itm_loss", 0.05, "first"),), 1e-5),
+}
+ACCURACY = {"nlvr2": "nlvr2_step_accuracy", "irtr": "irtr_step_accuracy",
+            "itm": "itm_step_accuracy"}
+
+
+def demo_vocab(root: Path) -> str:
+    """A WordPiece vocabulary of BERT's size: the specials, DEMO_WORDS, then
+    fillers, so that every id the MLM head picks decodes to its own token
+    (BERT's file is not in the repository)."""
+    from rmcl_tpu_torch.data.tokenizer import make_tiny_vocab
+    path = root / "vocab.txt"
+    make_tiny_vocab(str(path), DEMO_WORDS)
+    have = path.read_text().splitlines()
+    fill = [f"w{i:05d}" for i in range(BERT_VOCAB - len(have))]
+    path.write_text("\n".join(have + fill) + "\n")
+    return str(path)
+
+
+def demo_canvas(cfg, seed: int) -> np.ndarray:
+    """(1, H, W, 3) fp32: a seeded stand-in for demos/inference.py:
+    prepare_image (which needs PIL, which the card's machine lacks): uniform
+    in [-1, 1] on DEMO_HW, top-left, zero elsewhere."""
+    H, W = cfg.image_bucket_hw
+    canvas = np.zeros((1, H, W, 3), np.float32)
+    h, w = min(DEMO_HW[0], H), min(DEMO_HW[1], W)
+    canvas[0, :h, :w] = np.random.RandomState(seed).uniform(-1, 1, (h, w, 3))
+    return canvas
+
+
+def _demo_call(tag, FB, fn, want: dict) -> tuple:
+    """(result, ms per call, launches): a warm-up, then DEMO_CALLS timed calls
+    (host clock, synchronised); the launches of one call against ``want``
+    (the block ops) and the sub-kernels following them."""
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(DEMO_CALLS):
+        fn()
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t0) / DEMO_CALLS * 1e3
+    FB.reset_launches()
+    out = fn()
+    torch.cuda.synchronize()
+    counts = dict(FB.launches)
+    check(counts == dict(dict.fromkeys(FB.launches, 0), **want),
+          f"{tag}: launches {counts}, expected {want}")
+    return out, ms, check_sub_launches(tag, counts, FB)
+
+
+def _fill_pick(engine, canvas, text) -> tuple:
+    """(probabilities of every position (T, vocab), the text's ids) of one
+    mlm_fill pass on ``text``: what the pass's argmax reads."""
+    batch = engine._text_batch(text, canvas)
+    with torch.no_grad():
+        logits = engine.model.mlm_score(engine._infer(batch)["text_feats"])[0]
+        probs = torch.softmax(logits.float(), dim=-1).cpu().numpy()
+    return probs, batch["text_ids"][0].cpu().numpy()
+
+
+def _fills_agree(tag, engines, canvas) -> None:
+    """mlm_fill on the card and on the CPU: the same steps, or, where a step
+    differs, the card's pick within TIE_REL of the CPU's best under the CPU's
+    probabilities (a tie the two orders of summation break apart)."""
+    gpu, cpu = engines
+    (_, s_gpu), (_, s_cpu) = gpu.mlm_fill(canvas, DEMO_TEXT), cpu.mlm_fill(canvas, DEMO_TEXT)
+    if s_gpu == s_cpu:
+        print(f"{tag} mlm_fill: the card's {len(s_gpu) - 1} steps equal the CPU's: {s_gpu}")
+        return
+    i = next(i for i, (a, b) in enumerate(zip(s_gpu, s_cpu)) if a != b)
+    p_cpu, ids = _fill_pick(cpu, canvas, s_cpu[i - 1])
+    p_gpu = _fill_pick(gpu, canvas, s_gpu[i - 1])[0]
+    masked = ids == cpu.tokenizer.mask_token_id
+    best = p_cpu[masked].max()
+    pos_g = np.flatnonzero(masked)[p_gpu[masked].max(-1).argmax()]
+    pick = p_cpu[pos_g, p_gpu[pos_g].argmax()]
+    check(best - pick <= TIE_REL * max(1.0, best),
+          f"{tag} mlm_fill parts at step {i}: {s_gpu[i]!r} against {s_cpu[i]!r}, not a tie "
+          f"({pick} against {best})")
+    print(f"{tag} mlm_fill parts at step {i} on a tie ({pick!r} against {best!r}): "
+          f"{s_gpu[i]!r} / {s_cpu[i]!r}")
+
+
+def phase_rest_demos(dev, root: Path) -> dict:
+    """demos/demo.py's and demos/demo_vqa.py's engines at full width (S = 19
+    x 19 + 1 + 40 = 402, B = 1, bf16, default blocks) from seeded
+    checkpoints through their build_engine: mlm_fill (two masks),
+    wpa_heatmap and answer, ms per call and launches; then fp32 at
+    SLICE_LAYERS on the card against the CPU's plain engine."""
+    from rmcl_tpu_torch.data.tokenizer import WordPieceTokenizer
+    from rmcl_tpu_torch.demos import demo, demo_vqa
+    from rmcl_tpu_torch.demos.inference import DemoEngine
+    from rmcl_tpu_torch.ops import fused_block as FB
+    from rmcl_tpu_torch.serve import seeded_model
+    vocab, counts = demo_vocab(root), {}
+    ckpt = {}
+    for name, mod in (("demo", demo), ("vqa", demo_vqa)):
+        ckpt[name] = str(root / f"{name}.ckpt")
+        torch.save({"state_dict": seeded_model(mod.config(), SEED).state_dict()}, ckpt[name])
+    t0 = time.perf_counter()
+    eng = demo.build_engine(ckpt["demo"], vocab, device=dev)
+    vqa = demo_vqa.build_engine(ckpt["vqa"], vocab, device=dev)
+    load_s = time.perf_counter() - t0
+    cfg, L = eng.cfg, eng.cfg.num_layers
+    gh, gw = cfg.grid_hw
+    S = gh * gw + 1 + cfg.max_text_len
+    check(S == 402 and cfg.compute_dtype == "bfloat16", f"the demo's S = {S}")
+    canvas = demo_canvas(cfg, SEED + 40)
+    n_masks = DEMO_TEXT.count("[MASK]")
+    (filled, steps), fill_ms, counts["demo_mlm_fill"] = _demo_call(
+        "[rest] demo mlm_fill", FB, lambda: eng.mlm_fill(canvas, DEMO_TEXT),
+        dict(attn_half=n_masks * L, mlp_half=n_masks * L))
+    check(len(steps) == n_masks + 1 and "[MASK]" not in filled, f"mlm_fill: {steps}")
+    (heat, token), heat_ms, counts["demo_heatmap"] = _demo_call(
+        "[rest] demo wpa_heatmap", FB, lambda: eng.wpa_heatmap(canvas, filled, DEMO_HIDX),
+        dict(attn_half=L, mlp_half=L))
+    check(heat.shape == (gh, gw) and bool(np.isfinite(heat).all()) and heat.min() >= 0
+          and heat.max() <= 1, f"heatmap {heat.shape}, range [{heat.min()}, {heat.max()}]")
+    answers, ans_ms, counts["demo_answer"] = _demo_call(
+        "[rest] demo_vqa answer", FB, lambda: vqa.answer(canvas, DEMO_QUESTION),
+        dict(attn_half=L, mlp_half=L))
+    probs = [p for _, p in answers]
+    check(len(answers) == 5 and probs == sorted(probs, reverse=True) and 0 < sum(probs) <= 1,
+          f"answers {answers}")
+    print(f"[rest] demos at S = {S}, B = 1, bf16, {L} layers (two build_engine calls with "
+          f"their checkpoints: {load_s:.1f} s): mlm_fill ({n_masks} masks) "
+          f"{fill_ms:.2f} ms per call, steps {steps}; wpa_heatmap ({gh} x {gw}, token "
+          f"{token!r}) {heat_ms:.2f} ms; answer {ans_ms:.2f} ms, top {answers[:2]}; launches "
+          f"per call {[{k: v for k, v in counts[p].items() if v} for p in counts]}")
+    del eng, vqa
+    # fp32 at SLICE_LAYERS: the card's kernels against the CPU's plain engine
+    tok = WordPieceTokenizer(vocab)
+    cfg32 = cfg.replace(compute_dtype="float32", num_layers=SLICE_LAYERS)
+    vcfg32 = demo_vqa.config().replace(compute_dtype="float32", num_layers=SLICE_LAYERS)
+    t0 = time.perf_counter()
+    fill, heats, ans, cls = {}, {}, {}, {}
+    pair, base, vbase = [], seeded_model(cfg32, SEED), seeded_model(vcfg32, SEED)
+    for where in (dev, "cpu"):
+        e = DemoEngine(cfg32, copy.deepcopy(base), tok, device=where)
+        v = DemoEngine(vcfg32, copy.deepcopy(vbase), tok,
+                       id2answer={i: f"answer {i}" for i in range(vcfg32.vqav2_label_size)},
+                       device=where)
+        pair.append(e)
+        key = str(where)
+        fill[key] = e.mlm_fill(canvas, DEMO_TEXT)[0]
+        heats[key] = e.wpa_heatmap(canvas, fill[key], DEMO_HIDX)
+        ans[key] = v.answer(canvas, DEMO_QUESTION)
+        cls[key] = e._infer(e._text_batch(DEMO_TEXT, canvas))["cls_feats"].float().cpu()
+    _fills_agree("[rest] fp32", pair, canvas)
+    g, c = str(dev), "cpu"
+    heat_err = float(np.abs(heats[g][0] - heats[c][0]).max())
+    check(heats[g][1] == heats[c][1] and heat_err <= HEAT_TOL,
+          f"heatmap: token {heats[g][1]!r} / {heats[c][1]!r}, error {heat_err}")
+    check([a for a, _ in ans[g]] == [a for a, _ in ans[c]], f"answers {ans[g]} / {ans[c]}")
+    prob_err = max(abs(p - q) for (_, p), (_, q) in zip(ans[g], ans[c]))
+    check(prob_err <= PROB_TOL, f"answer probabilities differ by {prob_err}")
+    cls_err = float((cls[g] - cls[c]).abs().max())
+    cls_tol = 1e-3 * max(1.0, float(cls[c].abs().max()))
+    check(cls_err <= cls_tol, f"cls_feats differ by {cls_err} > {cls_tol}")
+    print(f"[rest] fp32 demos at {SLICE_LAYERS} layers, card against CPU "
+          f"({time.perf_counter() - t0:.1f} s): heatmap within {heat_err!r} (tol {HEAT_TOL}), "
+          f"the same {len(ans[g])} answers, probabilities within {prob_err!r} (tol "
+          f"{PROB_TOL}), cls_feats within {cls_err!r} (tol {cls_tol:.3g})")
+    return counts
+
+
+def phase_rest_golden(dev, root: Path) -> dict:
+    """A golden file written on the CPU by the port's plain fp32 infer
+    (task_mlm_itm at vit32_base, the 384 x 384 HWC canvas, B = 1) and
+    replayed through compat/golden.py:compare_golden on the card's fp32
+    kernels at its 5e-3 default."""
+    from rmcl_tpu_torch import build_config
+    from rmcl_tpu_torch.compat.golden import GOLDEN_KEYS, compare_golden, save_golden
+    from rmcl_tpu_torch.ops import fused_block as FB
+    from rmcl_tpu_torch.serve import seeded_model
+    cfg = build_config("task_mlm_itm", "vit32_base", image_bucket_hw=GOLDEN_HW, max_image_len=-1,
+                       compute_dtype="float32", drop_rate=0.0, image_layout="hwc")
+    r = np.random.RandomState(SEED + 50)
+    T = cfg.max_text_len
+    ids = np.zeros((1, T), np.int32)
+    masks = np.zeros((1, T), np.int32)
+    ids[0, :12] = r.randint(1000, cfg.vocab_size, 12)
+    ids[0, 0], ids[0, 11] = 101, 102
+    masks[0, :12] = 1
+    batch = {"image": r.uniform(-1, 1, (1, *GOLDEN_HW, 3)).astype(np.float32),
+             "text_ids": ids, "text_masks": masks}
+    model = seeded_model(cfg, SEED).eval()
+    t0 = time.perf_counter()
+    with torch.no_grad():
+        out = model.infer({k: torch.from_numpy(v) for k, v in batch.items()})
+    cpu_s = time.perf_counter() - t0
+    path = str(root / "golden.npz")
+    save_golden(path, batch, {k: out[k].numpy() for k in GOLDEN_KEYS},
+                meta={"config": "task_mlm_itm vit32_base", "writer": "plain fp32, CPU"})
+    FB.reset_launches()
+    errs = compare_golden(path, model.to(dev))
+    torch.cuda.synchronize()
+    L = cfg.num_layers
+    counts = check_sub_launches("[rest] golden", dict(FB.launches), FB)
+    check(counts["attn_half"] == counts["mlp_half"] == L, f"golden launches {counts}")
+    S = cfg.grid_hw[0] * cfg.grid_hw[1] + 1 + T
+    print(f"[rest] golden (task_mlm_itm, vit32_base, {GOLDEN_HW[0]} x {GOLDEN_HW[1]} HWC, S = "
+          f"{S}, B = 1, fp32, {L} layers; the CPU's forward {cpu_s:.1f} s): the card's replay "
+          f"within 5e-3: {errs}")
+    return counts
+
+
+def timm_dict(cfg, grid: int, seed: int) -> dict:
+    """A seeded bare timm ViT state dict at cfg's widths and depth, with a
+    ``grid`` x ``grid`` pos-embed and timm's classifier head (which the
+    loader skips): tests/test_compat.py:_synthetic_timm_sd's layout."""
+    r = np.random.RandomState(seed)
+    C, P, M, L = cfg.hidden_size, cfg.patch_size, cfg.mlp_ratio, cfg.num_layers
+    rn = lambda *s: (0.05 * r.randn(*s)).astype(np.float32)  # noqa: E731
+    sd = {"patch_embed.proj.weight": rn(C, 3, P, P), "patch_embed.proj.bias": rn(C),
+          "cls_token": rn(1, 1, C), "pos_embed": rn(1, grid * grid + 1, C),
+          "norm.weight": 1 + rn(C), "norm.bias": rn(C), "head.weight": rn(1000, C),
+          "head.bias": rn(1000)}
+    for i in range(L):
+        b = f"blocks.{i}."
+        sd.update({b + "norm1.weight": 1 + rn(C), b + "norm1.bias": rn(C),
+                   b + "attn.qkv.weight": rn(3 * C, C), b + "attn.qkv.bias": rn(3 * C),
+                   b + "attn.proj.weight": rn(C, C), b + "attn.proj.bias": rn(C),
+                   b + "norm2.weight": 1 + rn(C), b + "norm2.bias": rn(C),
+                   b + "mlp.fc1.weight": rn(M * C, C), b + "mlp.fc1.bias": rn(M * C),
+                   b + "mlp.fc2.weight": rn(C, M * C), b + "mlp.fc2.bias": rn(C)})
+    return sd
+
+
+def timm_model(cfg, sd: dict):
+    """The seeded model of ``cfg`` with the timm dict loaded through
+    compat/timm.py:load_timm_vit: every transformer entry of the dict there
+    (the pos-embed resized), the classifier head skipped."""
+    from rmcl_tpu_torch.compat.timm import load_timm_vit
+    from rmcl_tpu_torch.serve import seeded_model
+    model = seeded_model(cfg, SEED)
+    skipped = model.load_reference_state_dict(load_timm_vit(sd, cfg))
+    check({"transformer.head.weight", "transformer.head.bias"} <= set(skipped),
+          f"timm: skipped {skipped[:4]}")
+    own = model.state_dict()
+    n_model = (cfg.image_size // cfg.patch_size) ** 2 + 1
+    check(tuple(own["transformer.pos_embed"].shape) == (1, n_model, cfg.hidden_size),
+          "timm: pos-embed shape")
+    for i in range(cfg.num_layers):
+        name = f"blocks.{i}.attn.qkv.weight"
+        check(torch.equal(own[f"transformer.{name}"], torch.from_numpy(sd[name])),
+              f"timm: {name} not loaded")
+    return model
+
+
+def phase_rest_timm(dev) -> dict:
+    """A seeded synthetic timm dict into the default ViLT-B/32 (MLM loss;
+    from a 7 x 7 grid, resized to 12 x 12) and into
+    vit="vit_small_patch16_224" (8 layers, 8 heads of D = 96, MLP 3 x; its
+    native 14 x 14 grid, its own canvas): for each, a forward and one
+    make_train_step of 16 pairs on the card, bf16, timed; then one fp32 step
+    of VIEWS_CPU_PAIRS pairs at SLICE_LAYERS on the card against the CPU at
+    phase 9's tolerances (_train_results)."""
+    from rmcl_tpu_torch import build_config
+    from rmcl_tpu_torch.core.config import loss_names
+    from rmcl_tpu_torch.ops import fused_block as FB
+    from rmcl_tpu_torch.train.step import create_train_state, make_train_step
+    counts = {}
+    presets = {"b32": ({}, TIMM_GRID), "small": ({"vit": "vit_small_patch16_224"}, 14)}
+    for name, (kw, grid) in presets.items():
+        tag = f"[rest] timm {name}"
+        cfg = build_config(loss_names=loss_names({"mlm": 1}), drop_rate=DROP_P,
+                           warmup_steps=0, max_steps=1000, **kw)
+        sd = timm_dict(cfg, grid, SEED + 60)
+        model = timm_model(cfg, sd)
+        batch = pretrain_batch(cfg, PGD_BATCH, SEED + 61, dev)
+        ts = create_train_state(cfg, model=model, device=dev)
+        with torch.no_grad():
+            fwd = lambda: ts.model.infer(batch, ts.block_matrices)  # noqa: E731
+            feats = fwd()["cls_feats"]
+            check(bool(torch.isfinite(feats).all()), f"{tag}: forward not finite")
+            fwd_ms = time_ms(fwd, iters=5, warmup=1)
+        step = make_train_step(cfg, ts)
+        gen = torch.Generator().manual_seed(SEED + 62)
+        step(batch, gen)
+        torch.cuda.synchronize()
+        FB.reset_launches()
+        t0 = time.perf_counter()
+        m = step(batch, gen)
+        loss = m["total_loss"].item()
+        step_ms = (time.perf_counter() - t0) * 1e3
+        ops, want = dict(FB.launches), pretrain_launches(cfg)
+        check(np.isfinite(loss) and ops == want, f"{tag}: loss {loss}, launches {ops}, "
+                                                 f"expected {want}")
+        counts[f"timm_{name}"] = check_sub_launches(tag, ops, FB)
+        S = cfg.grid_hw[0] * cfg.grid_hw[1] + 1 + cfg.max_text_len
+        print(f"{tag}: {cfg.num_layers} layers, {cfg.num_heads} heads of D = "
+              f"{cfg.hidden_size // cfg.num_heads}, MLP {cfg.mlp_ratio} x, S = {S}, pos-embed "
+              f"{grid} x {grid} -> {cfg.image_size // cfg.patch_size} x "
+              f"{cfg.image_size // cfg.patch_size}; bf16 forward of {PGD_BATCH} pairs "
+              f"{fwd_ms:.2f} ms, one training step {step_ms:.1f} ms (host clock), loss {loss!r}")
+        del ts, model, step, batch
+        cfg32 = cfg.replace(compute_dtype="float32", num_layers=SLICE_LAYERS, drop_rate=0.0)
+        base = timm_model(cfg32, sd)
+        batch = pretrain_batch(cfg32, VIEWS_CPU_PAIRS, SEED + 63, "cpu")
+        results = {}
+        for where in ("cpu", dev):
+            ts = create_train_state(cfg32, model=copy.deepcopy(base), device=where)
+            t0 = time.perf_counter()
+            metrics = make_train_step(cfg32, ts)({k: v.to(where) for k, v in batch.items()},
+                                                 torch.Generator().manual_seed(SEED + 64))
+            results[str(where)] = _step_result(ts, metrics, t0)
+        _train_results(f"{tag} fp32", results, dev, cfg32.learning_rate,
+                       pairs=VIEWS_CPU_PAIRS)
+    return counts
+
+
+def fake_batch(cfg, n: int, seed: int = 0) -> dict:
+    """tests/conftest.py:make_fake_batch's numbers: n pairs of top-left-valid
+    zero-padded HWC images and random ids, the last three positions padding."""
+    r = np.random.RandomState(seed)
+    H, W = cfg.image_bucket_hw
+    img = np.zeros((n, H, W, 3), np.float32)
+    for b in range(n):
+        h, w = r.randint(H // 2, H + 1), r.randint(W // 2, W + 1)
+        img[b, :h, :w] = r.uniform(-1, 1, (h, w, 3))
+    T = cfg.max_text_len
+    ids = r.randint(5, cfg.vocab_size, (n, T)).astype(np.int32)
+    masks = np.ones((n, T), np.int32)
+    masks[:, T - 3:] = 0
+    ids[masks == 0] = 0
+    return {"image": img, "text_ids": ids, "text_labels": np.full_like(ids, -100),
+            "text_masks": masks}
+
+
+def learn_config(family: str):
+    from rmcl_tpu_torch import build_config
+    from rmcl_tpu_torch.core.config import loss_names
+    losses, kw = LEARN_FAMILIES[family][:2]
+    return build_config(**dict(LEARN_TINY, loss_names=loss_names(losses), **kw))
+
+
+def learn_batch(family: str, cfg) -> dict:
+    """The fixed batch of ``family``'s learning test
+    (tests/test_torch_convergence*.py), as numpy arrays."""
+    from rmcl_tpu_torch.data.patch_rows import hwc_to_patch_rows
+    n = LEARN_FAMILIES[family][2]
+    b = fake_batch(cfg, n)
+    if family in ("barlowtwins", "moco"):
+        b["attacked_text_ids"] = np.roll(b["text_ids"], 1, axis=1)
+        b["attacked_text_masks"] = b["text_masks"]
+    elif family == "mlm":
+        labels = np.full_like(b["text_ids"], -100)
+        labels[:, 2:5] = b["text_ids"][:, 2:5]
+        b.update(text_ids_mlm=b["text_ids"], text_labels_mlm=labels)
+    elif family == "vqa":
+        t = np.zeros((n, 8), np.float32)
+        t[np.arange(n), np.arange(n)] = 1.0
+        t[1, 5] = 0.3
+        b["vqa_targets"] = t
+    elif family == "nlvr2":
+        b["image_1"] = fake_batch(cfg, n, seed=3)["image"]
+        b["image_0"] = b.pop("image")
+        b["answers"] = (np.arange(n) % 2).astype(np.int32)
+    elif family == "irtr":
+        for i in range(cfg.draw_false_text):
+            f = fake_batch(cfg, n, seed=10 + i)
+            b[f"false_text_{i}_ids"], b[f"false_text_{i}_masks"] = (f["text_ids"],
+                                                                    f["text_masks"])
+    elif family == "itm":
+        b["image"] = hwc_to_patch_rows(b["image"], cfg.patch_size)
+        b["false_image_0"] = hwc_to_patch_rows(fake_batch(cfg, n, seed=3)["image"],
+                                               cfg.patch_size)
+    return b
+
+
+def learn_run(cfg, model, batch: dict, where, steps: int) -> tuple:
+    """(scalar metrics of each step, ms per step) of ``steps`` make_train_step
+    calls on the one batch from a copy of ``model``."""
+    from rmcl_tpu_torch.train.step import create_train_state, make_train_step
+    ts = create_train_state(cfg, model=copy.deepcopy(model), device=where)
+    step = make_train_step(cfg, ts)
+    tb = {k: (v if isinstance(v, torch.Tensor) else
+              torch.from_numpy(np.ascontiguousarray(v))).to(where) for k, v in batch.items()}
+    gen = torch.Generator().manual_seed(SEED)
+    history = []
+    t0 = time.perf_counter()
+    for _ in range(steps):
+        metrics = step(tb, gen)
+        history.append({k: v.item() for k, v in metrics.items() if v.dim() == 0})
+    return history, (time.perf_counter() - t0) / steps * 1e3
+
+
+def check_trend(tag, history, key, factor, vs="first") -> tuple:
+    """tests/test_convergence.py:_trend: the mean of the last five values of
+    ``key`` below ``factor`` x the first (or the peak); (reference, last)."""
+    losses = [h[key] for h in history]
+    check(all(np.isfinite(losses)), f"{tag} {key}: not finite: {losses}")
+    ref = max(losses) if vs == "peak" else losses[0]
+    last = float(np.mean(losses[-5:]))
+    check(last < factor * ref, f"{tag} {key}: {last} is not below {factor} x {ref} ({vs}): "
+                               f"{losses}")
+    return ref, last
+
+
+def phase_rest_learning(dev) -> dict:
+    """(a) The seven learning families of tests/test_torch_convergence*.py at
+    their tiny configurations on the card's fp32 kernels, LEARN_STEPS steps
+    from the port's seeded weights: the same criteria, and the first
+    LEARN_PARITY losses against the CPU's plain steps.  (b) At full width in
+    bf16 (16 pairs, default blocks, one fixed batch, FULL_STEPS steps at
+    FULL_LR): task_mlm_itm with MLM only, and task_finetune_vqa; the mean of
+    the last five losses under 0.5 x the first."""
+    from rmcl_tpu_torch import build_config
+    from rmcl_tpu_torch.core.config import loss_names
+    from rmcl_tpu_torch.ops import fused_block as FB
+    from rmcl_tpu_torch.serve import seeded_model
+    counts = {}
+    for family, (_, _, n, trends, rtol) in LEARN_FAMILIES.items():
+        tag = f"[rest] learn {family}"
+        cfg = learn_config(family)
+        model, batch = seeded_model(cfg, SEED), learn_batch(family, cfg)
+        cpu = learn_run(cfg, model, batch, "cpu", LEARN_PARITY)[0]
+        FB.reset_launches()
+        history, ms = learn_run(cfg, model, batch, dev, LEARN_STEPS)
+        counts[f"learn_{family}"] = check_sub_launches(tag, dict(FB.launches), FB)
+        check(sum(FB.launches.values()) > 0, f"{tag}: no kernel launched")
+        key = trends[0][0]
+        rel = [abs(g[key] - c[key]) / abs(c[key]) for g, c in zip(history, cpu)]
+        check(max(rel) <= rtol, f"{tag}: the first {LEARN_PARITY} {key} differ from the CPU's "
+                                f"by {rel} relative (tol {rtol})")
+        held = [check_trend(tag, history, *t) for t in trends]
+        if family in ACCURACY:
+            acc = float(np.mean([h[ACCURACY[family]] for h in history[-5:]]))
+            check(acc >= 0.99, f"{tag}: accuracy {acc}")
+        print(f"{tag} ({n} pairs, fp32 kernels, {LEARN_STEPS} steps, {ms:.1f} ms per step): "
+              f"{key} {history[0][key]!r} -> {history[-1][key]!r}; held "
+              f"{[(t[0], t[1], t[2], r) for t, r in zip(trends, held)]}; first "
+              f"{LEARN_PARITY} against the CPU within {max(rel)!r} relative (tol {rtol})")
+    full = {"mlm": (build_config("task_mlm_itm", loss_names=loss_names({"mlm": 1}),
+                                 learning_rate=FULL_LR, warmup_steps=0, max_steps=1000),
+                    pretrain_batch, "mlm_loss"),
+            "vqa": (build_config("task_finetune_vqa", learning_rate=FULL_LR, warmup_steps=0,
+                                 max_steps=1000), downstream_batch, "vqa_loss")}
+    for name, (cfg, make, key) in full.items():
+        tag = f"[rest] learn full {name}"
+        batch = make(cfg, PGD_BATCH, SEED + 70, dev)
+        FB.reset_launches()
+        history, ms = learn_run(cfg, seeded_model(cfg, SEED), batch, dev, FULL_STEPS)
+        counts[f"learn_full_{name}"] = check_sub_launches(tag, dict(FB.launches), FB)
+        losses = [h[key] for h in history]
+        first, last = check_trend(tag, history, key, 0.5)
+        print(f"{tag} ({PGD_BATCH} pairs, bf16, {cfg.num_layers} layers, lr {FULL_LR}, drop_rate "
+              f"{cfg.drop_rate}, {FULL_STEPS} steps, {ms:.1f} ms per step): mean of the last "
+              f"five {last!r} < 0.5 x the first {first!r}; {key} by step {losses}")
+    return counts
+
+
+def phase_rest(dev) -> dict:
+    """Phase 20 whole: the demos, the golden replay, the timm loads, the
+    learning runs.  Returns the launches by path."""
+    import shutil
+    counts, t = {}, [time.perf_counter()]
+    root = Path(REST_DIR).resolve()
+    shutil.rmtree(root, ignore_errors=True)
+    try:
+        root.mkdir()
+        counts.update(phase_rest_demos(dev, root))
+        t.append(time.perf_counter())
+        counts["golden"] = phase_rest_golden(dev, root)
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    t.append(time.perf_counter())
+    counts.update(phase_rest_timm(dev))
+    t.append(time.perf_counter())
+    counts.update(phase_rest_learning(dev))
+    t.append(time.perf_counter())
+    print(f"[rest] phase 20 in {t[-1] - t[0]:.1f} s (budget 60 s): the demos {t[1] - t[0]:.1f} s, "
+          f"the golden replay {t[2] - t[1]:.1f} s, the timm loads {t[3] - t[2]:.1f} s, the "
+          f"learning runs {t[4] - t[3]:.1f} s")
+    return counts
+
+
 # --------------------------------------------------------------- profile
 def _device_us(evt) -> float:
     for attr in ("self_device_time_total", "self_cuda_time_total"):
@@ -4866,6 +5600,16 @@ def gemm_times(root: str) -> None:
             def run(c=c):
                 FB._gemm(lib, c["a"], c["w"], c["bias"], c["out"], **c["kw"])
             res[f"ln_gemm[{label}] fp32"] = (time_ms(run), device_ms(run), host_us(run))
+        for B, S in LN_STATS_ROWS:   # the fp32 statistics pass alone, by kernel name
+            c = _ln_gemm_case(dev, FB, gen, 2304, 768, "ln", torch.float32, B, S)
+            def run(c=c):
+                FB._gemm(lib, c["a"], c["w"], c["bias"], c["out"], **c["kw"])
+            res[f"ln_stats_kernel[M={c['M']}] fp32"] = (
+                None, device_ms(run, kernel="ln_stats_kernel"), None)
+            def run(a=c["a"]):
+                return torch.var_mean(a, -1, unbiased=False)
+            res[f"torch.var_mean[M={c['M']}] fp32"] = (time_ms(run), device_ms(run),
+                                                       host_us(run))
         M = PGD_BATCH * 241
         for label, Na, Nb in GEMM_TN_SUBS:
             a, b = (torch.randn(M, n, generator=gen, device=dev) for n in (Na, Nb))
@@ -4988,9 +5732,21 @@ def main() -> int:
             return 1
         print(json.dumps({"card": card, "launches_by_path": counts}))
         return 0
+    if sys.argv[1:] == ["--rest"]:
+        try:
+            from rmcl_tpu_torch import build_config  # noqa: F401
+            card = phase_device()
+            phase_build()
+            counts = phase_rest(torch.device("cuda", 0))
+        except Exception as e:  # noqa: BLE001  any failure ends the run
+            traceback.print_exc()
+            print(f"chip_smoke --rest: FAILED: {e}", file=sys.stderr)
+            return 1
+        print(json.dumps({"card": card, "launches_by_path": counts}))
+        return 0
     if sys.argv[1:]:
         print("usage: python3 chip_smoke.py [--profile | --gemm-times [ROOT] | --downstream | "
-              "--pretrain | --views]", file=sys.stderr)
+              "--pretrain | --views | --rest]", file=sys.stderr)
         return 2
     try:
         from rmcl_tpu_torch import build_config
@@ -5060,6 +5816,8 @@ def main() -> int:
         pre_counts = phase_pretrain(dev)
         phase = enter("views")
         views_counts = phase_views(dev)
+        phase = enter("rest")
+        rest_counts = phase_rest(dev)
     except Exception as e:  # noqa: BLE001  every phase failure ends the run
         traceback.print_exc()
         print(f"chip_smoke: FAILED in phase {phase}: {e}", file=sys.stderr)
@@ -5086,7 +5844,8 @@ def main() -> int:
                 "bt_trainer": bt_trainer_counts[name],
                 **{f"downstream_{k}": v[name] for k, v in ds_counts.items()},
                 **{k: v[name] for k, v in pre_counts.items()},
-                **{k: v[name] for k, v in views_counts.items()}}
+                **{k: v[name] for k, v in views_counts.items()},
+                **{f"rest_{k}": v[name] for k, v in rest_counts.items()}}
 
     records = []
     for name, replaces in KERNELS.items():
@@ -5127,6 +5886,12 @@ def main() -> int:
             rec.update(pgd_shape_ms=r["bf16_pgd_shape"]["ms"],
                        pgd_shape_plain_ms=r["bf16_pgd_shape"]["plain_ms"],
                        pgd_shape_bound_ms=r["pgd_shape_bound_ms"])
+        if "bf16_demo_shape" in r:   # demos/demo.py's B = 1, S = 402
+            rec.update({f"{t}demo_shape_{f}": r[f"{t or 'bf16_'}demo_shape"][k]
+                        for t in ("", "fp32_") for f, k in (
+                            ("ms", "ms"), ("device_ms", "device_ms"), ("plain_ms", "plain_ms"),
+                            ("max_abs_err", "err"), ("bound_ms", "bound_ms"))},
+                       demo_shape=f"B=1 S={DEMO_S}")
         if "bf16_greedy_shape" in r:
             rec.update(greedy_shape=f"B={GREEDY_ROWS} S={GREEDY_S}",
                        greedy_shape_ms=r["bf16_greedy_shape"]["ms"],
@@ -5153,7 +5918,16 @@ def main() -> int:
                                for k, v in subs.items()
                                if k.startswith(name + "[") and "ms" in v
                                and v.get("dtype") == "fp32"}})
+        if name == "ln_gemm":   # its fp32 statistics pass, launched by the fp32 steps
+            records[-1]["fp32_ln_stats"] = {
+                "kernel": "ln_stats_kernel", "source": SOURCE,
+                "launches": {f"train_slice_{c}": n["ln_stats"] for c, n in slice_counts.items()},
+                **{k: {f: v[f] for f in ("device_ms", "plain_ms", "library", "library_ms",
+                                         "library_device_ms", "bound_ms", "bound_by",
+                                         "max_abs_err")}
+                   for k, v in subs.items() if k.startswith("ln_stats[")}}
     f32a = subs[f"attention f32 B={PGD_BATCH} S=241 H=12 D=64"]
+    d96 = {t: subs[f"attention d96 {t}"] for t in ("bf16", "fp32")}
     for name, part, body in (("attention_fwd", "fwd", "attn_half"),
                              ("attention_bwd", "bwd", "attn_half_dx")):
         # the bf16 kernels under rows 1, 8, 2 and 10 (forward), 3, 9, 2 and 11
@@ -5174,7 +5948,9 @@ def main() -> int:
                                  if sh.startswith("attention f32")},
             **{f"fp32_{k}": f[k] for k in ("ms", "device_ms", "plain_ms", "bound_ms",
                                             "bound_by", "library", "library_ms",
-                                            "library_device_ms")}})
+                                            "library_device_ms")},
+            "d96": {t: dict(d96[t][part], shape=d96[t]["shape"],
+                            max_abs_err=d96[t]["max_abs_err"]) for t in d96}})
     small = {f"{r['name']} {r['dtype']}": r for r in kres["sub_kernels"]
              if r["name"].startswith(("ln_bwd", "colsum"))}
     for name, head in (("ln_bwd", "ln_bwd[train] bf16"), ("colsum", "colsum[3072] bf16")):

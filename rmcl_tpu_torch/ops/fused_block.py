@@ -82,12 +82,16 @@ launches = {"attn_half": 0, "mlp_half": 0, "attn_half_dx": 0, "mlp_half_dx": 0,
 # column sums (``_colsum``)
 sub_launches = {"ln_gemm": 0, "gemm_tn": 0, "attention_fwd": 0, "attention_bwd": 0,
                 "ln_bwd": 0, "colsum": 0}
+# launches of ln_stats_kernel, the row statistics an fp32 ``_gemm`` with a
+# LayerNorm computes before its FMA kernel (csrc/block_kernels.cu); counted
+# apart, since they run inside ln_gemm launches counted above
+stats_launches = {"ln_stats": 0}
 
 _EPI_BIAS, _EPI_DGELU, _EPI_F32 = 0, 1, 2      # ln_gemm epilogues (block_kernels.cu)
 
 
 def reset_launches() -> None:
-    for counts in (launches, sub_launches):
+    for counts in (launches, sub_launches, stats_launches):
         for k in counts:
             counts[k] = 0
 
@@ -351,6 +355,8 @@ def _gemm(lib, a2d, w, bias, out, ln=None, eps=0.0, residual=None, gelu=False,
         _stream(a2d))
     _build.check(rc, "ln_gemm")
     sub_launches["ln_gemm"] += 1
+    if ln is not None and a2d.dtype == torch.float32:
+        stats_launches["ln_stats"] += 1
 
 
 def _attn_fwd_packed(lib, qkv, mask, attn, num_heads):
