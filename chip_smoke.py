@@ -15,7 +15,8 @@ Trainer with the head graft; then the benign views and the remaining paths
 (phase 19): the augmentation=True steps and Trainer, standalone MoCo, the
 cross-entropy NLVR2 attacker, the HWC canvas, the native host libraries and
 their fp32 checks; then the rest of the one-card paths (phase 20): the demos,
-the golden replay, the timm loader and the learning runs.
+the golden replay, the timm loader and the learning runs; then distribution
+(phase 21): the attacked step with a one-rank NCCL group, and two ranks.
 
     python3 chip_smoke.py
 
@@ -387,6 +388,35 @@ Phases, any failure exits non-zero:
                5e-4) task_mlm_itm with MLM only and task_finetune_vqa, the
                mean of the last five losses under half the first.  The phase
                prints its seconds against its 60 s budget.
+ 21. ddp       distribution (parallel/, train/step.py's global batch),
+               after printing torch.cuda.device_count(): (a) phase 13's
+               attacked task_moco step (16 pairs, bf16, worst captions),
+               one warm-up and 3 timed steps with a one-rank NCCL group live
+               (init_distributed on cuda:0) and without one, from the same
+               state and generator: metrics, parameters, twins and queue bit
+               for bit, the launches equal, ms per step beside phase 13's,
+               the NCCL kernels' device time in one profiled step; (b) two
+               ranks (chip_smoke.py --ddp-rank under torchrun, its deadline
+               240 s: tests/_torch_ddp_worker.py:torchrun; NCCL on cuda:0 /
+               cuda:1 with two cards, gloo with the CUDA tensors of cuda:0
+               with one): the fp32
+               attacked task_moco and task_barlowtwins steps at SLICE_LAYERS,
+               2 ranks x 2 pairs, against one process on the same 4 pairs on
+               the card (made by the ranks before they join the group,
+               rank 0 BarlowTwins', rank 1 MoCo's, and compared there): loss
+               within 1e-5 relative, gradients within 2e-4 x max(1,
+               max|ref|), the updated leaves within 2% of the rate where the
+               gradient is firm and 2.5 x the rate elsewhere (the CPU tests'
+               _close_params), the attacked ids equal, the ranks
+               bit-identical; BarlowTwins' gradients and leaves those of a
+               second step on the one-process ids cut at the head's input
+               (HeadSeam, as phase 16 cuts it: the one process's records
+               replayed by the ranks); (c) the two ranks' Trainer.fit of
+               task_moco at full width, bf16, 2 x 16 pairs per micro-step,
+               accum 2, 2 optimizer steps: ms per micro-step beside phase
+               15's, max_memory_allocated per rank, 'last' loaded into a
+               fresh ViLT equal on both ranks.  The phase prints its seconds
+               against its 75 s budget.
 
 The line before the last is the kernels' JSON record; the last line is
 ``{"ok": true, "device": {...}}``.  Without a card, or outside the
@@ -418,7 +448,11 @@ phases 1, 2 and 20 only;
 
     python3 chip_smoke.py --views
 
-phases 1, 2 and 19 only.
+phases 1, 2 and 19 only;
+
+    python3 chip_smoke.py --ddp
+
+phases 1, 2 and 21 only.
 
     python3 chip_smoke.py --gemm-times [ROOT]
 
@@ -534,6 +568,10 @@ PEAK_FP32_FLOPS = 128 * 132 * 2 * 1.98e9
 PEAK_INT32_OPS = 64 * 132 * 1.98e9
 PHILOX_OPS = 100            # 32-bit operations of one Philox-4x32-10 word, mask and scale
 DELTA_TOL, DELTA_TIGHT, DELTA_TIGHT_SHARE = 2.5e-4, 1e-5, 0.99
+
+
+# figures of earlier phases that a later phase prints beside its own
+READINGS: dict = {}
 
 
 class SmokeFailure(Exception):
@@ -2319,16 +2357,18 @@ class _StepClock:
             h.remove()
 
 
-def train_setup(dev, config: str = "default", mix=None) -> tuple:
+def train_setup(dev, config: str = "default", mix=None, model=None) -> tuple:
     """(cfg, ts, batch, greedy, make_step) of the training phases.  With a
     caption ``mix`` the batch carries the mix's captions and the greedy
     attack's tables, ``greedy`` is the fused attacker and ``make_step()``
     makes the attacked step; else the batch carries seeded attacked ids and
-    ``make_step()`` makes ``make_train_step``'s step."""
+    ``make_step()`` makes ``make_train_step``'s step.  ``model``: a CPU
+    moco_model(cfg) to copy (default: made here)."""
     from rmcl_tpu_torch.train.step import (create_train_state, make_attacked_train_step,
                                            make_train_step)
     cfg = train_config(config)
-    ts = create_train_state(cfg, model=moco_model(cfg), device=dev)
+    model = copy.deepcopy(model) if model is not None else moco_model(cfg)
+    ts = create_train_state(cfg, model=model, device=dev)
     batch = train_batch(cfg, PGD_BATCH, SEED + 4, dev)
     if mix is None:
         return cfg, ts, batch, None, lambda: make_train_step(cfg, ts)
@@ -2896,6 +2936,13 @@ class HeadSeam:
         self.x, self.g, self.seen, self.paused = [], {}, [], False
         self.handle = head.register_forward_pre_hook(self._record)
 
+    @classmethod
+    def of(cls, x: list, g: dict) -> "HeadSeam":
+        """A seam from another process's records (phase 21's ranks), to replay."""
+        rec = cls.__new__(cls)
+        rec.x, rec.g, rec.seen, rec.paused, rec.handle = x, g, [], False, None
+        return rec
+
     def _record(self, _, args):
         if self.paused:
             return None
@@ -2921,19 +2968,20 @@ class HeadSeam:
             return (_Seam.apply(x, x_ref, self.g[i].to(dev)), *args[1:])
         return head.register_forward_pre_hook(seam)
 
-    def check_forward(self, tag) -> None:
-        """The card's class features at every head call against the CPU's."""
+    def check_forward(self, tag, ours: str = "the card's", ref: str = "the CPU's") -> None:
+        """The card's class features at every head call against the CPU's
+        (``ours`` and ``ref`` name the two sides)."""
         check(len(self.seen) == len(self.x), f"{tag}: the card's step called the head "
                                              f"{len(self.seen)} times, the CPU's {len(self.x)}")
         w = 0.0
-        for ours, ref in zip(self.seen, self.x):
-            err = float((ours - ref).abs().max())
-            tol = 2e-4 * max(1.0, float(ref.abs().max()))
+        for got, want in zip(self.seen, self.x):
+            err = float((got - want).abs().max())
+            tol = 2e-4 * max(1.0, float(want.abs().max()))
             check(err <= tol, f"{tag}: class features differ by {err} > {tol}")
             w = max(w, err / tol)
-        print(f"{tag} the card's class features at the head's {len(self.x)} calls of the "
+        print(f"{tag} {ours} class features at the head's {len(self.x)} calls of the "
               f"step ({len(self.g)} with a gradient: PGD's and the views') within 2e-4 * "
-              f"max(1, max|ref|) of the CPU's: worst at {w:.4f} of the bound")
+              f"max(1, max|ref|) of {ref}: worst at {w:.4f} of the bound")
 
 
 # --------------------------------------------------------------- trainer
@@ -2999,20 +3047,22 @@ def memory_images(cfg, n: int, seed: int) -> list:
             for _ in range(n)]
 
 
-def trainer_setup(dev, d: str, bt: bool = False) -> tuple:
+def trainer_setup(dev, d: str, bt: bool = False, opt_steps=None, ranks: int = 1) -> tuple:
     """(cfg, make_datamodule, model) of phase 15: task_moco at full width and
     depth as phase 13 runs it, 32 pairs per optimizer step at 16 per step, 3
     optimizer steps; the greedy vocabulary and vectors of greedy_setup written
     under ``d``, its worst-mix captions, seeded ragged u8 images.  ``bt``:
     phase 16's, task_barlowtwins as its attacked step runs it, one optimizer
-    step."""
-    opt_steps = BT_TRAINER_OPT_STEPS if bt else TRAINER_OPT_STEPS
-    n_train = PGD_BATCH * TRAINER_ACCUM * opt_steps
+    step.  ``opt_steps`` and ``ranks`` (phase 21): the optimizer steps, and
+    the ranks that each take 16 pairs per micro-step (batch_size and the
+    training captions ``ranks`` times phase 15's)."""
+    opt_steps = opt_steps or (BT_TRAINER_OPT_STEPS if bt else TRAINER_OPT_STEPS)
+    n_train = PGD_BATCH * TRAINER_ACCUM * opt_steps * ranks
     base = bt_config() if bt else train_config()
     _, _, sents = greedy_setup(base, n_train + TRAINER_VAL, TRAINER_MIX, keep_dir=d)
     cfg = base.replace(
         tokenizer=f"{d}/vocab.txt", embedding_path=f"{d}/vectors.txt", sim_path="",
-        batch_size=PGD_BATCH * TRAINER_ACCUM, per_device_batchsize=PGD_BATCH,
+        batch_size=PGD_BATCH * TRAINER_ACCUM * ranks, per_device_batchsize=PGD_BATCH,
         max_steps=opt_steps, max_epoch=1)
     images = memory_images(cfg, len(sents), SEED + 9)
     split = {"train": slice(0, n_train), "val": slice(n_train, None),
@@ -3159,6 +3209,7 @@ def phase_trainer(dev, bare: dict) -> dict:
               f"reads per micro-step {reads!r} ({tr.host_reads} metric reads over {n} "
               f"micro-steps, {attack_reads} in the greedy attacks); the run with its "
               f"validation and two checkpoint saves {t_end - recs[0]['t']:.1f} s")
+        READINGS["trainer_ms"] = ms
         print(f"{tag} bare attacked step (phase 13, {TRAINER_MIX} captions): {bare['ms']!r} ms, "
               f"{PGD_BATCH / bare['ms'] * 1e3!r} pairs/s, {bare['mem_gib']:.2f} GiB, host reads "
               f"per step {bare['host_reads']}; Trainer overhead {ms - bare['ms']!r} ms per "
@@ -5278,6 +5329,447 @@ def phase_rest(dev) -> dict:
     return counts
 
 
+# ---------------------------------------------------------- distribution
+DDP_STEPS = 3                              # (a): timed steps after one warm-up, each run
+DDP_TRAINER_OPT_STEPS = 2                  # (c): optimizer steps of the two ranks' Trainer
+DDP_DIR = "chip_smoke_ddp.tmp"             # the ranks' spec, results and checkpoints; removed
+DDP_WAIT_S = 240                           # the two ranks' deadline (the phase's budget: 75 s)
+DDP_COLLECTIVE_S = 120                     # each collective's own deadline inside a rank
+
+
+def _ddp_steps(step, batch, gen, greedy, steps: int) -> tuple:
+    """One warm-up and ``steps`` timed calls of ``step``: (metrics of every
+    call as floats, ms of the timed ones, the attack's stats of every call)."""
+    out, walls, stats = [], [], []
+    for it in range(steps + 1):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        metrics = step(batch, gen)
+        torch.cuda.synchronize()
+        if it:
+            walls.append((time.perf_counter() - t) * 1e3)
+        out.append({k: v.item() for k, v in metrics.items()})
+        stats.append(dict(greedy.last_stats))
+    return out, walls, stats
+
+
+def phase_ddp_one_rank(dev, bare) -> dict:
+    """Phase 21 (a): phase 13's attacked task_moco step (ViLT-B/32, 16
+    pairs, bf16, worst captions) with a one-rank NCCL group live on ``dev``
+    against the same step without a group, from the same state and
+    generator: metrics, parameters, twins and queue bit for bit (a one-rank
+    all-reduce is a copy, the division by 1 exact); the kernels' launches
+    equal; ms per step beside phase 13's; the NCCL kernels' device time in
+    one profiled step.  Returns the launches of the NCCL run."""
+    import os
+    from torch.profiler import ProfilerActivity, profile
+    from rmcl_tpu_torch.ops import fused_block as FB
+    from rmcl_tpu_torch.parallel import dist as D
+    import socket
+    tag = "[ddp one rank]"
+    runs = {}
+    with socket.socket() as sock:                          # a free port on localhost
+        sock.bind(("127.0.0.1", 0))
+        port = sock.getsockname()[1]
+    group_env = dict(RANK="0", LOCAL_RANK="0", WORLD_SIZE="1", LOCAL_WORLD_SIZE="1",
+                     MASTER_ADDR="127.0.0.1", MASTER_PORT=str(port))  # torchrun's, one rank
+    base = moco_model(train_config())
+    for mode in ("plain", "nccl"):
+        cfg, ts, batch, greedy, make_step = train_setup(dev, mix="worst", model=base)
+        saved = {k: os.environ.get(k) for k in group_env}
+        if mode == "nccl":
+            os.environ.update(group_env)
+            D.init_distributed(dev)
+            check(torch.distributed.get_backend() == "nccl", f"{tag} backend "
+                                                               f"{torch.distributed.get_backend()}")
+        try:
+            step = make_step()
+            FB.reset_launches()
+            metrics, walls, stats = _ddp_steps(step, batch, torch.Generator().manual_seed(SEED + 7),
+                                               greedy, DDP_STEPS)
+            counts = check_sub_launches(f"{tag} {mode}", dict(FB.launches), FB)
+            state = {k: v.detach().clone() for k, v in ts.model.state_dict().items()}
+            nccl_ms = None
+            if mode == "nccl":       # one more step, profiled, after the state was kept
+                torch.cuda.synchronize()
+                with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+                    step(batch, torch.Generator().manual_seed(SEED + 70))
+                    torch.cuda.synchronize()
+                from torch.autograd import DeviceType
+                rows = [(e.key, e.count, _device_us(e)) for e in prof.key_averages()
+                        if e.device_type == DeviceType.CUDA and "nccl" in e.key.lower()]
+                nccl_ms = sum(r[2] for r in rows) / 1e3
+                check(rows, f"{tag} the profiled step shows no NCCL kernel")
+                print(f"{tag} NCCL kernels of one profiled step: {nccl_ms!r} ms device time, "
+                      + "; ".join(f"{k[:60]} x{c}" for k, c, _ in rows))
+        finally:
+            if mode == "nccl":
+                D.destroy()
+            for k, v in saved.items():
+                if v is None:
+                    os.environ.pop(k, None)
+                else:
+                    os.environ[k] = v
+        want = {k: sum(expected_launches(cfg)[k] + attack_launches(st, cfg.num_layers)[k]
+                       for st in stats) for k in FB.launches}
+        check({k: counts[k] for k in want} == want,
+              f"{tag} {mode}: launches {counts}, expected {want}")
+        runs[mode] = dict(metrics=metrics, ms=statistics.median(walls), min_ms=min(walls),
+                          counts=counts, state=state, nccl_ms=nccl_ms)
+        del ts, step, greedy, batch
+        gc.collect()
+        torch.cuda.empty_cache()
+    plain, nccl = runs["plain"], runs["nccl"]
+    check(nccl["metrics"] == plain["metrics"], f"{tag} metrics differ: {nccl['metrics']} vs "
+                                               f"{plain['metrics']}")
+    differ = [k for k, v in plain["state"].items() if not torch.equal(v, nccl["state"][k])]
+    check(not differ, f"{tag} {len(differ)} tensors differ, first {differ[:3]}")
+    check(nccl["counts"] == plain["counts"], f"{tag} launches differ")
+    print(f"{tag} {DDP_STEPS + 1} attacked steps (one warm-up) with a one-rank NCCL group "
+          f"live (gathered keys, the metrics' and the gradients' all-reduce) and without: "
+          f"metrics and all {len(plain['state'])} tensors of the state (parameters, twins, "
+          f"queue, pointer) bit for bit; launches equal {nccl['counts']}")
+    print(f"{tag} ms per step (median of {DDP_STEPS}, host clock + synchronize; the fastest "
+          f"in brackets): without a group {plain['ms']!r} ({plain['min_ms']!r}), one-rank "
+          f"NCCL {nccl['ms']!r} ({nccl['min_ms']!r}) ({nccl['ms'] / plain['ms']:.4f}x)"
+          + (f"; phase 13's worst-mix step {bare['ms']!r}" if bare else ""))
+    READINGS.update(ddp_ms=nccl["ms"], ddp_plain_ms=plain["ms"], nccl_ms=nccl["nccl_ms"])
+    return nccl["counts"]
+
+
+def _state_hash(model) -> str:
+    import hashlib
+    h = hashlib.sha256()
+    for k, v in sorted(model.state_dict().items()):
+        h.update(k.encode() + v.detach().cpu().contiguous().view(-1).view(torch.uint8)
+                 .numpy().tobytes())
+    return h.hexdigest()
+
+
+def ddp_slice_case(dev, name: str, rows=None, seam=None) -> dict:
+    """One fp32 attacked step of phase 14's (``name`` "moco") or phase 16's
+    ("bt") configuration at SLICE_LAYERS on ``dev``: the 4 pairs, or
+    ``rows`` of them (a rank's).  Returns the loss, the attacked ids, the
+    state's hash, and the gradients and updated leaves: for "moco" the
+    attacked step's; for "bt" those of a second step from the same weights
+    on the one-process attack's ids, cut at the head's input as phase 16
+    cuts it (HeadSeam): in one process (``seam`` None) it records the head's
+    input and gradient at every call (returned under "seam"); a rank
+    (``seam``: those records) replays them and returns the head's inputs
+    it saw ("seen")."""
+    from rmcl_tpu_torch.compat.from_jax import leaves_to_jax
+    from rmcl_tpu_torch.train.step import (create_train_state, make_attacked_train_step,
+                                           make_train_step)
+    if name == "moco":
+        cfg32 = train_config().replace(compute_dtype="float32", queue_dtype="float32",
+                                       num_layers=SLICE_LAYERS)
+        make_model = moco_model
+    else:
+        cfg32 = bt_config().replace(compute_dtype="float32", num_layers=SLICE_LAYERS)
+        make_model = bt_model
+    batch0 = train_batch(cfg32, N_CPU, SEED + 4, "cpu")
+    ts = create_train_state(cfg32, model=make_model(cfg32), device=dev)
+    greedy, batch, _ = attacked_batch(cfg32, ts.model, batch0, GREEDY_SLICE_MIX)
+    sl = rows or slice(0, N_CPU)
+    local = {k: v[sl] for k, v in batch.items() if not k.startswith("gw_")}
+    local.update(greedy.prep_tables(local["text_ids"].numpy()))
+    attacked = []
+    body = greedy._attack
+
+    def keep(*a, **kw):
+        out = body(*a, **kw)
+        attacked.append([t.cpu() for t in out[:2]])
+        return out
+    greedy._attack = keep
+    gen = lambda: torch.Generator().manual_seed(SEED + 8)  # noqa: E731
+    metrics = make_attacked_train_step(cfg32, ts, greedy)(
+        {k: v.to(dev) if isinstance(v, torch.Tensor) else v for k, v in local.items()}, gen())
+    out = dict(loss=metrics["total_loss"].item(), ids=attacked[0][0], hash=_state_hash(ts.model),
+               cfg=cfg32)
+    if name == "moco":
+        return dict(out, grads=leaves_to_jax(ts.model, grads=True), leaves=leaves_to_jax(ts.model))
+    ids, masks = (seam["ids"], seam["masks"]) if seam else attacked[0]
+    ts = create_train_state(cfg32, model=make_model(cfg32), device=dev)
+    step_batch = {k: v[sl].to(dev) for k, v in batch0.items() if not k.startswith("attacked_")}
+    step_batch.update(text_ids=batch["text_ids"][sl].to(dev),
+                      text_masks=batch["text_masks"][sl].to(dev),
+                      attacked_text_ids=ids[sl].to(dev), attacked_text_masks=masks[sl].to(dev))
+    if seam is None:
+        rec = HeadSeam(ts.model.barlowtwins_head)
+    else:
+        rec = HeadSeam.of(seam["x"], seam["g"])
+        handle = rec.replay(ts.model.barlowtwins_head, dev)
+    make_train_step(cfg32, ts)(step_batch, gen())
+    if seam is None:
+        rec.stop()
+        out["seam"] = dict(x=[t.cpu() for t in rec.x], g={i: g.cpu() for i, g in rec.g.items()},
+                           ids=ids, masks=masks)
+    else:
+        handle.remove()
+        out["seen"] = rec.seen
+    return dict(out, grads=leaves_to_jax(ts.model, grads=True), leaves=leaves_to_jax(ts.model))
+
+
+def ddp_trainer_rank(dev, root: str) -> dict:
+    """Phase 21 (c) on this rank: phase 15's Trainer.setup() / fit() at full
+    width, bf16, 16 pairs per rank and micro-step, accum 2,
+    DDP_TRAINER_OPT_STEPS optimizer steps, the checkpoints under ``root``;
+    then 'last' loaded into a fresh ViLT.  Returns ms per micro-step, peak
+    memory, the micro-steps, the state's hash and whether 'last' equals the
+    trained model."""
+    from rmcl_tpu_torch.models.vilt import ViLT
+    from rmcl_tpu_torch.parallel import comm
+    from rmcl_tpu_torch.serve import load_state_dict_file
+    from rmcl_tpu_torch.train.checkpoint import MODEL_FILE
+    from rmcl_tpu_torch.train.loop import Trainer
+    rank, world = comm.get_rank(), comm.get_world_size()
+    Path(f"{root}/files{rank}").mkdir(parents=True, exist_ok=True)
+    cfg, dm_cls, model = trainer_setup(dev, f"{root}/files{rank}",
+                                       opt_steps=DDP_TRAINER_OPT_STEPS, ranks=world)
+    cfg = cfg.replace(log_dir=f"{root}/run")
+    torch.cuda.reset_peak_memory_stats(dev)
+    tr = Trainer(cfg, workdir=f"{root}/run", device=dev,
+                 datamodule=dm_cls(cfg, process_index=rank, process_count=world))
+    tr.setup(model=model)
+    inner, starts = tr.step_fn, []
+
+    def step_fn(db, gen):
+        starts.append(time.perf_counter())
+        return inner(db, gen)
+    tr.step_fn = step_fn
+    tr.fit()
+    torch.cuda.synchronize(dev)
+    starts.append(time.perf_counter())
+    mem = torch.cuda.max_memory_allocated(dev) / 2 ** 30
+    path = Path(tr.ckpt.checkpoint_dir("last")) / MODEL_FILE
+    fresh = ViLT(cfg)
+    unused = fresh.load_reference_state_dict(load_state_dict_file(str(path)))
+    live, back = tr.ts.model.state_dict(), fresh.state_dict()
+    equal = sum(torch.equal(live[k].cpu(), back[k]) for k in live)
+    gaps = [(b - a) * 1e3 for a, b in zip(starts, starts[1:])][1:]
+    return dict(ms=statistics.median(gaps[:-1] or gaps), steps=tr.steps_done, mem_gib=mem,
+                last_s=gaps[-1] / 1e3,
+                accum=tr.accum_steps, per_rank=tr.per_host_batch, unused=len(unused),
+                equal=equal, tensors=len(live), hash=_state_hash(tr.ts.model),
+                best=tr.ckpt.has("best"))
+
+
+def rank_device(rank: int, world: int) -> tuple:
+    """(device, backend) of a rank of phase 21: NCCL on cuda:RANK with a card
+    per rank, else gloo with the CUDA tensors of cuda:0."""
+    if torch.cuda.device_count() >= world:
+        return torch.device("cuda", rank), "nccl"
+    return torch.device("cuda", 0), "gloo"
+
+
+def _held(tag: str, what: str, ours: dict, ref: dict) -> tuple:
+    """Every leaf of ``ours`` within 2e-4 * max(1, max|ref|) of ``ref``;
+    (path, error / bound) of the worst."""
+    check(set(ours) == set(ref), f"{tag} {what}: leaves differ")
+    worst = ("", 0.0)
+    for path, r in ref.items():
+        err = float(np.abs(ours[path] - r).max()) if r.size else 0.0
+        tol = 2e-4 * max(1.0, float(np.abs(r).max()) if r.size else 0.0)
+        check(err <= tol, f"{tag} {what} {path}: {err} > {tol}")
+        worst = max(worst, (path, err / tol), key=lambda t: t[1])
+    return worst
+
+
+def _held_after_adamw(tag: str, ours: dict, ref: dict, grads: dict, cfg) -> tuple:
+    """The leaves after one AdamW step from the same weights, as the CPU
+    tests hold them (tests/test_torch_train.py:_close_params): AdamW's first
+    step moves an element by its rate times the sign of its gradient, so
+    where the reference gradient is firm (above 1e-4 of its tensor's
+    largest) the leaf is held to 2% of the rate, and where it is at rounding
+    level, whose sign is not determined, to 2.5 times the rate; the rate is
+    the head's (x lr_mult) for the heads of schedule.HEAD_NAMES.  A leaf
+    without a gradient (BatchNorm statistics, twins, queue) is held within
+    2e-4 * max(1, max|ref|).  Returns the worst (path, error / bound) of the
+    firm elements and of all."""
+    from rmcl_tpu_torch.train.schedule import HEAD_NAMES
+    check(set(ours) == set(ref), f"{tag} updated leaf: leaves differ")
+    firm_worst, all_worst = ("", 0.0), ("", 0.0)
+    for path, r in ref.items():
+        diff = np.abs(ours[path] - r)
+        if path not in grads:
+            _held(tag, "updated leaf", {path: ours[path]}, {path: r})
+            continue
+        rate = cfg.learning_rate * (cfg.lr_mult if any(h in path for h in HEAD_NAMES) else 1)
+        g = np.abs(grads[path])
+        firm = g > 1e-4 * max(float(g.max()), 1e-30)
+        worst_firm, worst = float(diff[firm].max(initial=0.0)), float(diff.max(initial=0.0))
+        check(worst_firm <= 0.02 * rate, f"{tag} updated leaf {path}: {worst_firm} > "
+                                        f"{0.02 * rate} where the gradient is firm")
+        check(worst <= 2.5 * rate, f"{tag} updated leaf {path}: {worst} > {2.5 * rate}")
+        firm_worst = max(firm_worst, (path, worst_firm / (0.02 * rate)), key=lambda t: t[1])
+        all_worst = max(all_worst, (path, worst / (2.5 * rate)), key=lambda t: t[1])
+    return firm_worst, all_worst
+
+
+def _compare_slice(tag: str, name: str, ref: dict, mine: dict, summaries: list) -> str:
+    """Phase 21 (b)'s checks of one configuration on the rank that made its
+    one-process reference: every rank's state hash and loss equal, the ranks'
+    ids in rank order the reference's, the loss within 1e-5 relative, this
+    rank's gradients within 2e-4 * max(1, max|ref|) and its updated leaves as
+    ``_held_after_adamw`` holds them (BarlowTwins: its seam step's, and every
+    rank's gathered class features at the seam).  Returns the line it
+    prints."""
+    ctag = f"{tag} {name} fp32 attacked step, {SLICE_LAYERS} layers"
+    ranks = [x[name] for x in summaries]
+    check(len({r["hash"] for r in ranks}) == 1, f"{ctag}: the ranks' states differ")
+    check(len({r["loss"] for r in ranks}) == 1, f"{ctag}: the ranks' losses differ")
+    check(torch.equal(torch.cat([r["ids"] for r in ranks]), ref["ids"]),
+          f"{ctag}: attacked ids differ from the one-process attack's")
+    rel = abs(mine["loss"] - ref["loss"]) / abs(ref["loss"])
+    check(rel <= 1e-5, f"{ctag}: loss {mine['loss']!r} vs {ref['loss']!r}")
+    wg = _held(ctag, "gradient", mine["grads"], ref["grads"])
+    wf, wp = _held_after_adamw(ctag, mine["leaves"], ref["leaves"], ref["grads"], ref["cfg"])
+    seam = ""
+    if name == "bt":      # the gradients and leaves are the seam step's
+        for r in ranks:
+            rec = HeadSeam.of(ref["seam"]["x"], ref["seam"]["g"])
+            rec.seen = r["seen"]
+            rec.check_forward(f"{ctag}, at the seam:", "a rank's gathered", "one process's")
+        same = all(torch.equal(a, b) for a, b in zip(ranks[0]["seen"], ref["seam"]["x"]))
+        seam = (f"; the gradients and leaves those of a second step on the one-process ids "
+                f"cut at the head's input (HeadSeam, {len(ref['seam']['x'])} head calls); the "
+                f"ranks' gathered class features there "
+                f"{'bit for bit' if same else 'within 2e-4 but not bit for bit'} the one "
+                f"process's")
+    return (f"{ctag}: {len(ranks)} ranks x {N_CPU // len(ranks)} pairs against one process on "
+            f"the {N_CPU} pairs on the card: loss {mine['loss']!r} vs {ref['loss']!r} "
+            f"(relative {rel!r}, tol 1e-5); {len(ref['grads'])} gradients within 2e-4 * max(1, "
+            f"max|ref|), worst {wg[0]} at {wg[1]:.4g} of its bound; {len(ref['leaves'])} updated "
+            f"leaves, firm elements within 2% of the rate (worst {wf[0]} at {wf[1]:.4g} of it), "
+            f"all within 2.5 x the rate (worst {wp[0]} at {wp[1]:.4g}); attacked ids equal; the "
+            f"ranks bit-identical{seam}")
+
+
+def ddp_rank_main(root: str) -> int:
+    """``chip_smoke.py --ddp-rank ROOT``: one rank of phase 21's parts (b)
+    and (c), started by phase_ddp_ranks in torchrun's environment.  With a
+    card per rank, NCCL on cuda:RANK; with one card for both, gloo with the
+    CUDA tensors of cuda:0 (NCCL refuses two ranks on one device).  Before
+    it joins the group, rank 0 makes the one-process reference of
+    BarlowTwins (whose seam records it then sends to rank 1) and rank 1
+    MoCo's, each on the 4 pairs; after the ranks' steps each compares its
+    configuration in memory (the leaves are too large to pass through
+    files).  The readings and the lines to print go to ROOT/rank<r>.pt."""
+    import os
+    from rmcl_tpu_torch.parallel import comm
+    from rmcl_tpu_torch.parallel import dist as D
+    spawned = float(Path(f"{root}/spawned").read_text())
+    marks = {"started": time.time() - spawned}
+    rank, world = int(os.environ["RANK"]), int(os.environ["WORLD_SIZE"])
+    dev, backend = rank_device(rank, world)
+    if dev.type == "cuda":
+        torch.cuda.set_device(dev)
+    mine_ref = ("bt", "moco")[rank] if world == 2 else None
+    refs = {mine_ref: ddp_slice_case(dev, mine_ref)} if mine_ref else {}
+    marks["reference"] = time.time() - spawned
+    D.init_distributed(dev, backend=backend, timeout_s=DDP_COLLECTIVE_S)
+    marks["joined"] = time.time() - spawned
+    seam = comm.all_gather(refs["bt"]["seam"] if "bt" in refs else None)[0]
+    sl = slice(rank * (N_CPU // world), (rank + 1) * (N_CPU // world))
+    slices = {"moco": ddp_slice_case(dev, "moco", sl),
+              "bt": ddp_slice_case(dev, "bt", sl, seam=seam)}
+    summaries = comm.all_gather({n: {k: v for k, v in r.items()
+                                     if k in ("hash", "loss", "ids", "seen")}
+                                 for n, r in slices.items()})
+    lines = [_compare_slice("[ddp two ranks]", n, refs[n], slices[n], summaries) for n in refs]
+    marks["slices"] = time.time() - spawned
+    del refs, slices, seam, summaries       # the Trainer's peak memory is its own
+    gc.collect()
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+    out = {"backend": torch.distributed.get_backend(), "lines": lines,
+           "trainer": ddp_trainer_rank(dev, root)}
+    marks["trainer"] = time.time() - spawned
+    out["marks"] = marks
+    torch.save(out, f"{root}/rank{rank}.pt")
+    D.destroy()
+    return 0
+
+
+def phase_ddp_ranks(dev) -> None:
+    """Phase 21 (b) and (c): two ranks of ``chip_smoke.py --ddp-rank`` under
+    torchrun (tests/_torch_ddp_worker.py:torchrun: a failed rank makes
+    torchrun end the other, the deadline kills both; either fails the
+    phase).  (b): the fp32 attacked task_moco and task_barlowtwins steps at
+    SLICE_LAYERS, 2 ranks x 2 pairs, against one process on the same 4 pairs
+    on the card (ddp_rank_main, _compare_slice): the loss within 1e-5
+    relative, every gradient within 2e-4 * max(1, max|ref|), the updated
+    leaves as _held_after_adamw holds them, the attacked ids equal, the
+    ranks bit-identical.  (c): the Trainer of two ranks at full width."""
+    import os
+    import shutil
+    sys.path.insert(0, str(Path(__file__).resolve().parent / "tests"))
+    from _torch_ddp_worker import torchrun                 # the two-process tests' launcher
+    tag = "[ddp two ranks]"
+    root = Path(DDP_DIR).resolve()
+    shutil.rmtree(root, ignore_errors=True)
+    root.mkdir()
+    try:
+        t0 = time.perf_counter()
+        (root / "spawned").write_text(repr(time.time()))
+        out = torchrun([str(Path(__file__).resolve()), "--ddp-rank", str(root)], 2, DDP_WAIT_S,
+                       env=dict(os.environ), cwd=str(Path.cwd()))
+        wall = time.perf_counter() - t0
+        for ln in out.splitlines():              # the ranks' own lines (their seam checks)
+            if ln.startswith(("[ddp", "[epoch")):
+                print(f"{tag} a rank: {ln}")
+        ranks = [torch.load(root / f"rank{r}.pt", weights_only=False) for r in range(2)]
+        backend = ranks[0]["backend"]
+        print(f"{tag} {torch.cuda.device_count()} card(s): {backend} "
+              + ("on cuda:0 and cuda:1" if backend == "nccl" else
+                 "with the CUDA tensors of cuda:0 for both ranks (one card: NCCL refuses two "
+                 "ranks on one device)") + f"; the ranks {wall:.1f} s from their spawn, seconds "
+              "since it: " + "; ".join(f"rank {r} " + ", ".join(
+                  f"{k} {v:.1f}" for k, v in x["marks"].items()) for r, x in enumerate(ranks)))
+        lines = [ln for r in ranks for ln in r["lines"]]
+        check(len(lines) == 2, f"{tag} {len(lines)} configurations compared, want 2")
+        for ln in lines:
+            print(ln)
+        t0_, t1_ = (r["trainer"] for r in ranks)
+        for r, t in enumerate((t0_, t1_)):
+            check(t["steps"] == TRAINER_ACCUM * DDP_TRAINER_OPT_STEPS and t["accum"] ==
+                  TRAINER_ACCUM and t["per_rank"] == PGD_BATCH,
+                  f"{tag} Trainer rank {r}: {t['steps']} micro-steps, accum {t['accum']}")
+            check(t["equal"] == t["tensors"] and t["unused"] == 0 and t["best"],
+                  f"{tag} Trainer rank {r}: 'last' loads {t['equal']} of {t['tensors']} "
+                  "tensors equal")
+        check(t0_["hash"] == t1_["hash"], f"{tag} Trainer: the ranks' models differ")
+        one = READINGS.get("trainer_ms")
+        print(f"{tag} Trainer.fit, task_moco full width bf16, 2 ranks x {PGD_BATCH} pairs per "
+              f"micro-step, accum {TRAINER_ACCUM}, {DDP_TRAINER_OPT_STEPS} optimizer steps: "
+              f"ms per micro-step (median after the first, host clock) rank 0 {t0_['ms']!r}, "
+              f"rank 1 {t1_['ms']!r}" + (f"; phase 15's one rank {one!r}" if one else "")
+              + f"; max_memory_allocated rank 0 {t0_['mem_gib']:.2f} GiB, rank 1 "
+              f"{t1_['mem_gib']:.2f} GiB; 'last' loads into a fresh ViLT equal on both ranks "
+              f"({t0_['tensors']} tensors), the ranks' models bit-identical; the last "
+              f"micro-step with validation and two checkpoint saves {t0_['last_s']:.1f} s, the "
+              f"ranks' exit {wall - max(r['marks']['trainer'] for r in ranks):.1f} s")
+        READINGS.update(ddp_trainer_ms=(t0_["ms"], t1_["ms"]), ddp_backend=backend)
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+
+
+def phase_ddp(dev, bare=None) -> dict:
+    """Phase 21: distribution (a) one-rank NCCL at full width, (b) and (c)
+    two ranks.  Returns the launches of (a)'s NCCL run."""
+    t0 = time.perf_counter()
+    print(f"[ddp] {torch.cuda.device_count()} CUDA device(s)")
+    counts = phase_ddp_one_rank(dev, bare)
+    gc.collect()
+    torch.cuda.empty_cache()
+    t1 = time.perf_counter()
+    phase_ddp_ranks(dev)
+    t2 = time.perf_counter()
+    print(f"[ddp] phase 21 in {t2 - t0:.1f} s (budget 75 s): one rank {t1 - t0:.1f} s, "
+          f"two ranks {t2 - t1:.1f} s")
+    return counts
+
+
 # --------------------------------------------------------------- profile
 def _device_us(evt) -> float:
     for attr in ("self_device_time_total", "self_cuda_time_total"):
@@ -5732,6 +6224,25 @@ def main() -> int:
             return 1
         print(json.dumps({"card": card, "launches_by_path": counts}))
         return 0
+    if sys.argv[1:2] == ["--ddp-rank"] and len(sys.argv) == 3:
+        try:
+            return ddp_rank_main(sys.argv[2])
+        except Exception as e:  # noqa: BLE001  the launcher kills the other rank
+            traceback.print_exc()
+            print(f"chip_smoke --ddp-rank: FAILED: {e}", file=sys.stderr)
+            return 1
+    if sys.argv[1:] == ["--ddp"]:
+        try:
+            from rmcl_tpu_torch import build_config  # noqa: F401
+            card = phase_device()
+            phase_build()
+            counts = phase_ddp(torch.device("cuda", 0))
+        except Exception as e:  # noqa: BLE001  any failure ends the run
+            traceback.print_exc()
+            print(f"chip_smoke --ddp: FAILED: {e}", file=sys.stderr)
+            return 1
+        print(json.dumps({"card": card, "launches_by_path": {"ddp": counts}}))
+        return 0
     if sys.argv[1:] == ["--rest"]:
         try:
             from rmcl_tpu_torch import build_config  # noqa: F401
@@ -5746,7 +6257,7 @@ def main() -> int:
         return 0
     if sys.argv[1:]:
         print("usage: python3 chip_smoke.py [--profile | --gemm-times [ROOT] | --downstream | "
-              "--pretrain | --views | --rest]", file=sys.stderr)
+              "--pretrain | --views | --rest | --ddp]", file=sys.stderr)
         return 2
     try:
         from rmcl_tpu_torch import build_config
@@ -5818,6 +6329,8 @@ def main() -> int:
         views_counts = phase_views(dev)
         phase = enter("rest")
         rest_counts = phase_rest(dev)
+        phase = enter("ddp")
+        ddp_counts = phase_ddp(dev, bare["worst"])
     except Exception as e:  # noqa: BLE001  every phase failure ends the run
         traceback.print_exc()
         print(f"chip_smoke: FAILED in phase {phase}: {e}", file=sys.stderr)
@@ -5845,7 +6358,8 @@ def main() -> int:
                 **{f"downstream_{k}": v[name] for k, v in ds_counts.items()},
                 **{k: v[name] for k, v in pre_counts.items()},
                 **{k: v[name] for k, v in views_counts.items()},
-                **{f"rest_{k}": v[name] for k, v in rest_counts.items()}}
+                **{f"rest_{k}": v[name] for k, v in rest_counts.items()},
+                "ddp": ddp_counts[name]}
 
     records = []
     for name, replaces in KERNELS.items():

@@ -42,6 +42,9 @@ package's kernel block configurations (``attention_impl`` "fused" /
   attacks/     PGD on the pixels (moco, barlowtwins, vqa, irtr), the greedy
                word attack (moco, barlowtwins)
   compat/      the JAX package's parameters as the port's state dict
+  parallel/    data parallelism over processes under torchrun: the object
+               collectives (comm.py), the process group and the step's
+               tensor collectives (dist.py)
   serve.py     build_infer_fn, batch_spec, Session, postprocess
   cli/run.py   python -m rmcl_tpu_torch.cli.run with <config> ... | configs | serve ...
 """

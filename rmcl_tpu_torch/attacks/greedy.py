@@ -45,8 +45,9 @@ from rmcl_tpu_torch.attacks.pgd import _frozen
 from rmcl_tpu_torch.core.config import active_tasks
 from rmcl_tpu_torch.objectives.contrastive import (_infonce_rows, bt_correlation_loss,
                                                    momentum_update)
-from rmcl_tpu_torch.objectives.downstream import irtr_text_repr
+from rmcl_tpu_torch.objectives.downstream import irtr_text_panel
 from rmcl_tpu_torch.objectives.losses import l2_normalize
+from rmcl_tpu_torch.parallel.dist import gather_rows, local_rows
 
 # English function words that are never substitution targets — same role
 # as the reference's stopword/filter_words union (greedy_attack_vilt.py:20-46).
@@ -506,29 +507,39 @@ class GreedyAttackBarlowTwins(GreedyAttack):
     O(D) from terms of the batch.  The head's BatchNorms run in training mode
     (batch statistics: the gradient pass's over B rows, the scoring
     forward's over B * nc) and their running statistics stay as they are.
-    extras = (k (B, D), per_step_bs, lam)."""
+    extras = (k (B, D), per_step_bs, lam).
+
+    Over several processes the batch is the global one, as the JAX
+    package's pjit step sees it: ``k`` and the gradient pass's projections
+    hold every rank's rows, both head calls read every rank's class features
+    (``parallel/dist.py:gather_rows``), and each rank scores the candidates
+    of its own rows against the global terms; the fused loop agrees its exit
+    across ranks (``greedy_fused.py``)."""
 
     per_sample_independent = False  # the correlation loss couples the batch
 
     def loss_per_sample(self, batch, extras, mats, word_embeds=None):
         k, psb, lam = extras
-        infer = self.infer(batch, mats, word_embeds)
-        q = self.model.barlowtwins_head(infer["cls_feats"], training=True)
+        cls = self.infer(batch, mats, word_embeds)["cls_feats"]
+        q = self.model.barlowtwins_head(gather_rows(cls), training=True)
         loss, _, _ = bt_correlation_loss(q, k, psb, lam)
         # the batch loss for every sample: the word-embedding gradient still
         # tells the words of each sentence apart, which is all the pick needs
-        return loss.expand(q.shape[0]), q.detach()
+        return loss.expand(cls.shape[0]), q.detach()
 
     def score_candidates(self, flat_batch, B: int, nc: int, extras, aux, mats):
         k, psb, lam = extras
         infer = self.infer(flat_batch, mats)
-        q_cand = self.model.barlowtwins_head(infer["cls_feats"], training=True)
+        q_cand = local_rows(self.model.barlowtwins_head(gather_rows(infer["cls_feats"]),
+                                                        training=True))
         D = aux.shape[1]
         q_cand = q_cand.reshape(B, nc, D).float()
         q32, k32 = aux.float(), k.float()               # aux: q of the gradient pass
+        qi, v = local_rows(q32), local_rows(k32)         # this rank's rows of the batch
         # the batch terms: diag(c), ||c||^2 and c v_i, from (B, B) Grams when
         # B < D (bt_correlation_loss's algebra), from c itself when B >= D
-        if B >= D:
+        Bg = q32.shape[0]
+        if Bg >= D:
             c = q32.t() @ k32 / psb                      # (D, D)
             diag_c = torch.diagonal(c)
             sum_sq = (c ** 2).sum()
@@ -538,10 +549,9 @@ class GreedyAttackBarlowTwins(GreedyAttack):
         sum_diag_sq = (diag_c ** 2).sum()
         on_base = ((diag_c - 1.0) ** 2).sum()
         # candidate (i, j): c' = c + u v^T with u = (q_cand - q_i) / psb, v = k_i
-        u = (q_cand - q32[:, None, :]) / psb             # (B, nc, D)
-        v = k32
+        u = (q_cand - qi[:, None, :]) / psb              # (B, nc, D)
         # ||c'||^2 = ||c||^2 + 2 u.(c v) + ||u||^2 ||v||^2
-        cvi = v @ c.t() if B >= D else ((v @ k32.t()) @ q32) / psb   # (B, D) = c v_i
+        cvi = v @ c.t() if Bg >= D else ((v @ k32.t()) @ q32) / psb  # (B, D) = c v_i
         dot_ucv = torch.einsum("bnd,bd->bn", u, cvi)
         norm2 = (u ** 2).sum(-1) * (v ** 2).sum(-1)[:, None]
         sum_sq_new = sum_sq + 2 * dot_ucv + norm2
@@ -600,7 +610,9 @@ class GreedyAttackIrtr(GreedyAttack):
     """The JAX package's repaired IRTR attacker (the reference's,
     GreedyAttack_irtr :1045-1260, reads undefined state): InfoNCE of each
     joint projection against the in-batch text projections.
-    extras = (text_repr (B, 128), temperature, sample_ids (B,))."""
+    extras = (text_repr (N, 128), temperature, sample_ids (B,)): the panel
+    of texts (N the global batch in a training step over several processes)
+    and each pair's own row in it."""
 
     def loss_per_sample(self, batch, extras, mats, word_embeds=None):
         text_repr, temperature, sample_ids = extras
@@ -692,25 +704,30 @@ def greedy_attack_extras(cfg, model, framework: str, batch, block_matrices=None)
     temperature).  The reference runs the attack after the momentum update
     (objectives.py:256-265, then :277-285), so the keys come from the
     updated twins; the twins are updated in place for the key forward and
-    restored after it.  barlowtwins: (k, B, adv_lr), k the head's training-mode
-    projection of the deterministic forward, its BatchNorm running statistics
-    left as they are.  The attacked step (``train/step.py``) takes the
-    step's own keys instead and runs no second key forward.  nlvr2_attacked:
+    restored after it.  barlowtwins: (k, B, adv_lr), k the head's
+    training-mode projection of the deterministic forward of the global
+    batch (every rank's rows), its BatchNorm running statistics left as they
+    are.  The attacked step (``train/step.py``) takes the step's own keys
+    instead and runs no second key forward.  nlvr2_attacked:
     (labels,); vqa_attacked: (vqa_targets,); irtr_attacked: (text_repr,
-    temperature, arange(B)), text_repr the normalised MoCo projections of
-    the deterministic forward (``block_matrices``: the transformer's
-    matrices in the compute type, else cast here)."""
+    temperature, sample_ids), text_repr the normalised MoCo projections of
+    the deterministic forward of the global batch (every rank's rows,
+    ``objectives/downstream.py:irtr_text_panel``) and sample_ids this rank's
+    rows among them (``block_matrices``: the transformer's matrices in the
+    compute type, else cast here)."""
     if framework == "nlvr2_attacked":
         return (batch["answers"].long(),)
     if framework == "vqa_attacked":
         return (batch["vqa_targets"],)
-    if framework == "irtr_attacked":
-        text_repr = irtr_text_repr(model, batch, block_matrices)
+    if framework == "irtr_attacked":     # every rank's texts: the global batch's panel
+        text_repr, row0 = irtr_text_panel(model, batch, block_matrices)
+        b = batch["text_ids"].shape[0]
         return (text_repr, cfg.temperature,
-                torch.arange(text_repr.shape[0], device=text_repr.device))
-    if framework == "barlowtwins":
-        k = model.barlowtwins_head(model.infer(batch)["cls_feats"], training=True)
-        return (k, batch["text_ids"].shape[0], cfg.adv_lr)
+                torch.arange(row0, row0 + b, device=text_repr.device))
+    if framework == "barlowtwins":       # every rank's rows: the global batch's key
+        k = model.barlowtwins_head(gather_rows(model.infer(batch)["cls_feats"]),
+                                   training=True)
+        return (k, k.shape[0], cfg.adv_lr)
     twins = [p for name, p in model.named_parameters() if name.startswith("k_")]
     saved = [p.detach().clone() for p in twins]
     try:

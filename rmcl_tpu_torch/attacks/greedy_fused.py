@@ -30,6 +30,11 @@ host (``read`` in ``_run``): the live count, which ends the loop early or
 moves it to the next compaction stage, and whether any sample committed,
 which decides whether the next loop needs a gradient pass; plus one read of
 the initial live count.
+Over several processes a framework whose loss couples the batch
+(BarlowTwins: ``per_sample_independent`` False) reads the counts summed over
+ranks, so that every rank runs the same loops and gradient passes, each
+with its collectives; a per-sample framework keeps its own exit and
+compaction (its loops run no collective).
 The compaction order stays on the device.  ``last_stats`` counts the loops,
 the gradient passes, the scoring forwards and the host reads of the last
 attack.  Exact shortcuts kept from the JAX package:
@@ -56,6 +61,7 @@ import torch
 from rmcl_tpu_torch.attacks.greedy import GreedyAttack, check_word
 from rmcl_tpu_torch.attacks.pgd import _frozen
 from rmcl_tpu_torch.core.buckets import bucket_enabled, text_bucket
+from rmcl_tpu_torch.parallel.dist import sum_over_ranks
 
 _NEG = -1e30
 
@@ -280,9 +286,13 @@ class FusedGreedyAttack:
                     & (n_changed_ < max_changes)[:, None])
 
         def read(*values) -> List[int]:
-            """One host read of a few device scalars, packed."""
+            """One host read of a few device scalars, packed; summed over
+            ranks for a framework whose loss couples the batch."""
             stats["host_reads"] += 1
-            return torch.stack([v.to(torch.int64) for v in values]).tolist()
+            packed = torch.stack([v.to(torch.int64) for v in values])
+            if not base.per_sample_independent:
+                packed = sum_over_ranks(packed)
+            return packed.tolist()
 
         def body(state, rows, img_c, extras_c, att_c, ctok_c, clen_c, cval_c):
             wt, wl, history, n_changed, sal, per_loss, aux, need_grad = state

@@ -43,6 +43,7 @@ import torch
 from rmcl_tpu_torch.models.vit import as_patch_rows, from_patch_rows, scatter_delta
 from rmcl_tpu_torch.objectives.contrastive import bt_correlation_loss, infonce
 from rmcl_tpu_torch.objectives.losses import bce_with_logits, cross_entropy, l2_normalize
+from rmcl_tpu_torch.parallel.dist import gather_rows
 
 
 @contextlib.contextmanager
@@ -164,14 +165,17 @@ def make_pgd_barlowtwins(model, adv_steps: int, adv_lr: float, max_norm: float,
     """Cross-correlation-ascent PGD (reference PGDAttack_bartlowtwins
     .pgd_attack :198-238).  The head's BatchNorms run in training mode and
     their running statistics stay as they are; the correlation divides by
-    the attacked batch's own size (the reference's local batch, :219).
-    ``k_modality`` (B, D): the detached key projections."""
+    the attacked batch's own size (the reference's local batch, :219), which
+    over several processes is the global batch, as the JAX package's pjit
+    step sees it: every iteration the head reads every rank's class features
+    of that iteration (``parallel/dist.py:gather_rows``).  ``k_modality``
+    (global B, D): the detached key projections."""
 
     def attack(batch: Dict[str, torch.Tensor], k_modality, block_matrices=None):
         k_modality = k_modality.detach()
 
         def head_loss(infer):
-            q = model.barlowtwins_head(infer["cls_feats"], training=True)
+            q = model.barlowtwins_head(gather_rows(infer["cls_feats"]), training=True)
             loss, _, _ = bt_correlation_loss(q, k_modality, q.shape[0], bt_lambda)
             return loss / adv_steps
 
@@ -247,21 +251,28 @@ def make_pgd_irtr(model, adv_steps: int, adv_lr: float, max_norm: float,
     joint cls AWAY from its own text projection and TOWARD the other
     in-batch text projections.  The denominator uses negatives only: with
     the positive included, a batch of one collapses to a constant-zero
-    softmax whose gradient is identically zero.  ``text_repr``: (B, 128)
-    normalised."""
+    softmax whose gradient is identically zero.  ``text_repr``: (N, 128)
+    normalised, the panel of texts: the attacked batch's own (N = B; the
+    recall's per-image loop) or, in a training step over several processes,
+    every rank's (N the global batch: ``objectives/downstream.py:
+    irtr_text_panel``); ``row0``: the row of the attacked batch's first pair
+    in it.  The means are over the panel's N rows, as the JAX package's are
+    over its global batch."""
 
-    def attack(batch: Dict[str, torch.Tensor], text_repr, block_matrices=None):
+    def attack(batch: Dict[str, torch.Tensor], text_repr, row0: int = 0,
+               block_matrices=None):
         text_repr = text_repr.detach()
-        B = text_repr.shape[0]
+        N = text_repr.shape[0]
 
         def head_loss(infer):
             q = l2_normalize(model.moco_head(infer["cls_feats"]), dim=1)
             logits = (q.float() @ text_repr.float().t()) / temperature
-            loss = -logits.diagonal().mean()
-            if B > 1:
-                eye = torch.eye(B, dtype=torch.bool, device=logits.device)
-                neg = logits.masked_fill(eye, float("-inf"))
-                loss = loss + torch.logsumexp(neg, dim=1).mean()
+            cols = torch.arange(row0, row0 + logits.shape[0], device=logits.device)[:, None]
+            loss = -logits.gather(1, cols).sum() / N
+            if N > 1:
+                own = torch.arange(N, device=logits.device)[None, :] == cols
+                loss = loss + torch.logsumexp(logits.masked_fill(own, float("-inf")),
+                                              dim=1).sum() / N
             return loss / adv_steps
 
         return _pgd_single_image(model, batch, head_loss,

@@ -17,7 +17,14 @@ config for the default pretraining losses, itm and mlm): the port's
 with validation and the ``last`` / ``best`` checkpoints under
 ``log_dir/exp_name``; ``test_only=True`` validates on the test split
 instead; ``resume_from=last`` continues a run.  ``configs`` lists the named
-configs.
+configs.  On N cards of one machine::
+
+    torchrun --nproc_per_node=N -m rmcl_tpu_torch.cli.run with task_moco ...
+
+(``python -m torch.distributed.run`` is the same): with ``WORLD_SIZE`` > 1
+every rank joins the NCCL process group on its ``cuda:LOCAL_RANK``
+(``parallel/dist.py:init_distributed``), or gloo with ``device=cpu``, and
+the Trainer runs data-parallel over the ranks.
 
 ``serve``: requests are one JSON object per line, ``{"image": path, "text":
 str}``; each output line is the ``rmcl serve`` record of its request.
@@ -39,6 +46,7 @@ from __future__ import annotations
 
 import ast
 import json
+import os
 import sys
 from typing import Any, Dict, List, Optional, Tuple
 
@@ -133,6 +141,7 @@ def serve(argv: List[str]) -> int:
 
 
 def train(argv: List[str]) -> int:
+    from rmcl_tpu_torch.parallel import comm, dist
     from rmcl_tpu_torch.train.loop import Trainer
     names, overrides = parse_with(argv)
     device = overrides.pop("device", None)
@@ -142,18 +151,29 @@ def train(argv: List[str]) -> int:
         print(f"error: {e}\n  named configs: python -m rmcl_tpu_torch.cli.run configs\n"
               "  overrides must be valid RMCLConfig fields", file=sys.stderr)
         return 2
-    trainer = Trainer(cfg, workdir=cfg.log_dir, device=device)
-    trainer.setup()
-    print(f"[rmcl_tpu_torch] exp={cfg.exp_name} tasks="
-          f"{[k for k, v in cfg.loss_names.items() if v >= 1]} device={trainer.device} "
-          f"max_steps={trainer.max_steps} accum={trainer.accum_steps}")
-    if cfg.test_only:
-        metrics = trainer.validate(split="test")
-    else:
-        trainer.fit()
-        metrics = trainer.validate(split="val")
-    for k, v in sorted(metrics.items()):
-        print(f"{k}: {v}")
+    joined = int(os.environ.get("WORLD_SIZE", "1")) > 1
+    if joined:
+        device = dist.init_distributed(device)
+    try:
+        trainer = Trainer(cfg, workdir=cfg.log_dir, device=device)
+        trainer.setup()
+        world = comm.get_world_size()
+        main = comm.is_main_process()
+        if main:
+            print(f"[rmcl_tpu_torch] exp={cfg.exp_name} tasks="
+                  f"{[k for k, v in cfg.loss_names.items() if v >= 1]} device={trainer.device} "
+                  f"ranks={world} max_steps={trainer.max_steps} accum={trainer.accum_steps}")
+        if cfg.test_only:
+            metrics = trainer.validate(split="test")
+        else:
+            trainer.fit()
+            metrics = trainer.validate(split="val")
+        if main:
+            for k, v in sorted(metrics.items()):
+                print(f"{k}: {v}")
+    finally:
+        if joined:
+            dist.destroy()
     return 0
 
 

@@ -6,8 +6,8 @@ multitask_datamodule.py, vqav2_datamodule.py}.  One class covers what the
 reference splits over BaseDataModule + 7 subclasses + MTDataModule:
 per-dataset construction is table-driven (DATASETS registry), the
 answer-vocab build for VQA lives here (reference vqav2_datamodule.py:18-36),
-and loaders shard per process.  The process index and count are arguments
-(one process until ROADMAP A10).
+and loaders shard per process: the process index and count are arguments,
+the rank and the world size under several processes (``train/loop.py``).
 """
 
 from __future__ import annotations

@@ -3,9 +3,9 @@ per-split metric bag (reference vilt/modules/vilt_utils.py set_metrics /
 epoch_wrapup): the port's own copy of the JAX package's ``eval/metrics.py``.
 
 The reference uses PL `Metric` objects with dist_reduce_fx="sum"; here
-accumulators are plain python floats fed with numpy scalars on host.  The
-port runs one process, so there is no cross-process reduction yet (ROADMAP
-A10).
+accumulators are plain python floats fed with numpy scalars on host, summed
+across processes (``parallel/comm.py:all_gather``) before ``epoch_wrapup``
+computes them.
 """
 
 from __future__ import annotations
@@ -13,6 +13,8 @@ from __future__ import annotations
 from typing import Dict, Optional, Tuple
 
 import numpy as np
+
+from rmcl_tpu_torch.parallel import comm
 
 
 class Accuracy:
@@ -204,12 +206,32 @@ class MetricBag:
                 else:
                     self.extra.setdefault(k, Scalar()).update(np.asarray(v))
 
+    # ------------------------------------------------ cross-host reduce
+    def _cross_host_sync(self):
+        """Sum every accumulator's fields across processes (the reference's
+        PL Metric dist_reduce_fx="sum", vilt/gadgets/my_metrics.py; the JAX
+        package's ``_cross_host_sync``).  Right for both update styles:
+        per-sample updates of each process's rows sum to the global totals,
+        and the same scalar on every process scales numerator and
+        denominator alike, leaving the mean as it is.  A key some process
+        lacks is summed over those that have it."""
+        if comm.get_world_size() == 1:
+            return
+        mine = {k: {f: float(x) for f, x in vars(m).items()}
+                for k, m in {**self.metrics, **self.extra}.items()}
+        everyone = comm.all_gather(mine)
+        for k, m in {**self.metrics, **self.extra}.items():
+            for f in vars(m):
+                setattr(m, f, sum(host[k][f] for host in everyone if k in host))
+
     # ------------------------------------------------------------- wrapup
     def epoch_wrapup(self, split: str = "val",
                      recall: Optional[Tuple[float, ...]] = None
                      ) -> Dict[str, float]:
         """Compute all metrics + `the_metric` model-selection scalar
-        (reference vilt_utils.py:86-313), then reset."""
+        (reference vilt_utils.py:86-313) over every process's updates, then
+        reset."""
+        self._cross_host_sync()
         out = {k: m.compute() for k, m in self.metrics.items()}
         out.update({k: m.compute() for k, m in self.extra.items()})
         the_metric = 0.0

@@ -14,8 +14,9 @@ The JAX package embeds an (H, W, 3) canvas, the image placed top-left on
 zeros; the port lays the same canvas out as patch rows
 (``data/patch_rows.py``), whose validity mask follows the same rule (a
 patch is valid when its top-left pixel is not all zero), and runs the image
-PGD on those rows.  One process: the cross-process score gather comes with
-ROADMAP A10.
+PGD on those rows.  Over several processes the image rows are sharded
+(``rank::world``) and every rank's score rows gathered
+(``parallel/comm.py:all_gather``) into the whole matrix on every rank.
 """
 
 from __future__ import annotations
@@ -30,6 +31,7 @@ from rmcl_tpu_torch.core.buckets import bucket_enabled, text_bucket
 from rmcl_tpu_torch.data.patch_rows import hwc_to_patch_rows
 from rmcl_tpu_torch.data.transforms import normalize_u8_array
 from rmcl_tpu_torch.objectives.downstream import irtr_text_repr
+from rmcl_tpu_torch.parallel import comm
 
 
 def recall_at_k(scores: np.ndarray, iids: np.ndarray, tiids: np.ndarray
@@ -74,14 +76,18 @@ def compute_irtr_recall(trainer, dataset_name: Optional[str] = None, split: str 
                         txt_chunk: int = 256, max_texts: Optional[int] = None,
                         max_images: Optional[int] = None, verbose: bool = True,
                         attack_text_fn: Optional[Callable] = None,
-                        attack_image_fn: Optional[Callable] = None):
+                        attack_image_fn: Optional[Callable] = None,
+                        shard_by_process: bool = True):
     """Full cross-product IR/TR recall from ``rank_output`` scores.
 
     ``trainer``: a ``Trainer`` after ``setup`` (its config, model, block
     matrices and datamodule are read).  ``attack_text_fn(ids, masks) ->
     (ids, masks)`` and ``attack_image_fn(rows) -> rows`` perturb the inputs
-    before ranking (``compute_attacked_irtr_recall``).  Returns the recall
-    tuple."""
+    before ranking (``compute_attacked_irtr_recall``).  With several
+    processes and ``shard_by_process``, each ranks the image rows
+    ``rank::world`` (attacked where ``attack_image_fn`` is given) and the
+    score rows are gathered; every rank returns the recall of the whole
+    matrix.  Returns the recall tuple."""
     cfg = trainer.cfg
     model = trainer.ts.model
     if not hasattr(model, "rank_output"):
@@ -132,7 +138,11 @@ def compute_irtr_recall(trainer, dataset_name: Optional[str] = None, split: str 
     scores = torch.zeros((len(img_rows), n_txt), dtype=torch.float32, device=dev)
     tr = model.transformer
     t0 = time.time()
-    for ii, row in enumerate(img_rows):
+    world, rank = comm.get_world_size(), comm.get_rank()
+    mine = (range(rank, len(img_rows), world) if shard_by_process and world > 1
+            else range(len(img_rows)))
+    for ii in mine:
+        row = img_rows[ii]
         rows = image_rows(cfg, dset.get_image(row_to_sample[row])["image"][0])
         if attack_image_fn is not None:
             rows = attack_image_fn(rows)
@@ -149,7 +159,12 @@ def compute_irtr_recall(trainer, dataset_name: Optional[str] = None, split: str 
         if verbose and (ii + 1) % 50 == 0:
             print(f"[recall] {ii + 1}/{len(img_rows)} images "
                   f"({(time.time() - t0) / (ii + 1):.2f}s/img)", flush=True)
-    return recall_at_k(scores.cpu().numpy(), iids, tiids)
+    scores = scores.cpu().numpy()
+    if shard_by_process and world > 1:
+        for part in comm.all_gather({ii: scores[ii] for ii in mine}):
+            for ii, row_scores in part.items():
+                scores[ii] = row_scores
+    return recall_at_k(scores, iids, tiids)
 
 
 def compute_attacked_irtr_recall(trainer, dataset_name: Optional[str] = None,

@@ -3,8 +3,8 @@ package's ``eval/vqa.py``; numpy and the standard library only).
 
 Submission: reference objectives.py vqa_test_step:1519-1530 /
 vqa_test_wrapup:1537-1565, the (question_id, answer) list written as
-``vqa_submit_{name}.json``.  One process: the cross-process gather comes with
-ROADMAP A10.
+``vqa_submit_{name}.json``; over several processes every rank's part is
+gathered and rank 0 alone writes the merged file.
 
 Accuracy: reference vilt/gadgets/{vqa.py,vqa_eval.py,vqa_acc.py}, the
 official VQAv2 evaluation (10 annotators, acc = min(#matching / 3, 1)
@@ -42,13 +42,23 @@ class VQASubmissionWriter:
 
     def finalize(self, process_index: int = 0, process_count: int = 1,
                  gather=None) -> Optional[str]:
-        """Writes the file and returns its path.  More than one process
-        raises: the gather of the parts is not ported (ROADMAP A10)."""
-        if process_count > 1:
-            raise NotImplementedError("the cross-process gather of the VQA submission is "
-                                      "not ported (ROADMAP A10)")
+        """Writes the file and returns its path.  With ``process_count`` > 1,
+        ``gather(rets)`` (``parallel/comm.py:all_gather``) returns every
+        rank's list in rank order; rank 0 writes them merged and returns the
+        path, the other ranks return None.  The merge interleaves the parts
+        (rank 0's first answer, rank 1's first, ...): the loader gives rank r
+        the samples r, r + W, ... of the one-process order
+        (``data/loader.py``), so the merged file is the one-process file."""
         rets = [{"question_id": q, "answer": self.id2answer[p]}
                 for q, p in zip(self.qids, self.preds)]
+        if process_count > 1:
+            if gather is None:
+                raise ValueError("finalize over several processes needs gather")
+            parts = gather(rets)
+            if process_index != 0:
+                return None
+            rets = [part[i] for i in range(max(map(len, parts), default=0))
+                    for part in parts if i < len(part)]
         os.makedirs(self.out_dir, exist_ok=True)
         path = os.path.join(self.out_dir, f"vqa_submit_{self.model_name}.json")
         with open(path, "w") as fp:

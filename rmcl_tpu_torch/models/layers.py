@@ -112,7 +112,10 @@ class BatchNorm1d(nn.Module):
     """BatchNorm1d with ``running_mean`` / ``running_var`` as buffers (and
     ``weight`` / ``bias`` when ``affine``).  ``forward(x, training, update)``:
     the buffers change only when ``training`` and ``update`` are both set,
-    so that an attack's training-mode forward leaves them as they were."""
+    so that an attack's training-mode forward leaves them as they were.  Over
+    several processes BarlowTwins' callers hand the head every rank's rows
+    (``parallel/dist.py:gather_rows``): the statistics are the global
+    batch's, and the running statistics move alike on every rank."""
 
     def __init__(self, dim: int, affine: bool = True, momentum: float = 0.1,
                  eps: float = 1e-5):

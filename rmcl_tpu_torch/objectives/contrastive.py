@@ -9,6 +9,13 @@ JAX package returns new parameter and state pytrees, the port updates the
 model's momentum twins, its queue buffers and the BarlowTwins head's
 BatchNorm running statistics in place, under ``no_grad``: they are never
 differentiated.
+
+Over several processes (``parallel/dist.py``) each objective computes what
+the JAX package's pjit step computes on the global batch: MoCo enqueues the
+keys of every rank, in rank order, so that every rank's queue and pointer
+stay identical, and its loss is per sample; BarlowTwins' head (its BatchNorm
+statistics) and correlation loss run on every rank's rows, and every rank
+computes the same global loss.
 """
 
 from __future__ import annotations
@@ -18,6 +25,7 @@ from typing import Callable, Dict, List, Optional
 import torch
 
 from rmcl_tpu_torch.objectives.losses import cosine_similarity, cross_entropy, l2_normalize
+from rmcl_tpu_torch.parallel.dist import gather_rows
 
 MOMENTUM_TWINS = ("text_embeddings", "token_type_embeddings", "transformer", "moco_head")
 
@@ -140,7 +148,9 @@ def compute_moco_contrastive(
     change counts.  ``augmentation=True`` (benign views, the image
     view given as ``attacked_image``) disables the combined view, as the
     reference does (objectives.py:356).  The momentum twins and the queue
-    are updated in place when ``train``.
+    are updated in place when ``train``.  ``per_step_bs``: the global batch;
+    the enqueue writes every rank's keys (``gather_rows``), a batch of
+    another size is skipped.
     """
     ret: Dict[str, torch.Tensor] = {}
     if train:
@@ -195,7 +205,8 @@ def compute_moco_contrastive(
         loss_num += 1
 
     if train:
-        dequeue_and_enqueue(model, k, per_step_bs or k.shape[0])
+        keys = gather_rows(k)
+        dequeue_and_enqueue(model, keys, per_step_bs or keys.shape[0])
 
     ret["moco_loss"] = torch.as_tensor(loss / max(loss_num, 1), dtype=torch.float32,
                                        device=k.device)
@@ -279,14 +290,19 @@ def compute_barlowtwins_contrastive(
     ``greedy_fn(batch, (k, per_step_bs, adv_lr)) -> (ids, masks,
     n_changed)``, run after the key forward (its ids take the place of
     ``attacked_text``; ``ret["n_changed"]`` holds the change counts).  There
-    is no clean query view, no momentum encoder and no queue."""
+    is no clean query view, no momentum encoder and no queue.
+
+    Every head call takes the class features of every rank (``gather_rows``),
+    so the key ``k`` and each view's projection are the global batch's, the
+    BatchNorm statistics and the correlation (over ``per_step_bs``, by
+    default the rows of ``k``) too; the attacks get the global key."""
     ret: Dict[str, torch.Tensor] = {}
     head = model.barlowtwins_head
-    psb = per_step_bs or batch["text_ids"].shape[0]
 
     with torch.no_grad():
-        k = head(model.infer(batch, block_matrices)["cls_feats"], training=train,
-                 update=train)
+        k = head(gather_rows(model.infer(batch, block_matrices)["cls_feats"]),
+                 training=train, update=train)
+    psb = per_step_bs or k.shape[0]
 
     if greedy_fn is not None:
         ids, masks, ret["n_changed"] = greedy_fn(batch, (k, psb, adv_lr))
@@ -310,7 +326,7 @@ def compute_barlowtwins_contrastive(
     for name, suffix, view, view_batch in views:
         infer = model.infer(view_batch, block_matrices, deterministic=not train,
                             seeds=seeds[view] if train else None)
-        q = head(infer["cls_feats"], training=train, update=train)
+        q = head(gather_rows(infer["cls_feats"]), training=train, update=train)
         l_view, on, off = bt_correlation_loss(q, k, psb, adv_lr)
         ret[f"barlowtwins_loss_invariance_{name}"] = on
         ret[f"barlowtwins_loss_redundancy_{name}"] = off

@@ -27,13 +27,15 @@ compute type (``ViT.block_matrices``).
 
 from __future__ import annotations
 
-from typing import Callable, Dict, Optional
+from typing import Callable, Dict, Optional, Tuple
 
 import torch
 
 from rmcl_tpu_torch.objectives.losses import (bce_rowsum_with_logits, bce_with_logits,
                                               cross_entropy, cross_entropy_per_sample,
                                               l2_normalize)
+from rmcl_tpu_torch.parallel.comm import get_rank
+from rmcl_tpu_torch.parallel.dist import gather_rows
 
 
 def _infer(model, batch, block_matrices, train: bool, seeds, **kw):
@@ -177,6 +179,16 @@ def irtr_text_repr(model, batch, block_matrices=None) -> torch.Tensor:
         return l2_normalize(model.moco_head(cls), dim=1)
 
 
+def irtr_text_panel(model, batch, block_matrices=None) -> Tuple[torch.Tensor, int]:
+    """The text side of the training step's IRTR attacks, whose InfoNCE
+    takes the batch's other texts as its negatives: the projections of the
+    global batch (``irtr_text_repr`` of every rank's pairs in rank order, as
+    the JAX package's pjit step sees them; this rank's alone without a
+    process group) and the row of this rank's first pair among them."""
+    return (gather_rows(irtr_text_repr(model, batch, block_matrices)),
+            get_rank() * batch["text_ids"].shape[0])
+
+
 def compute_irtr_attacked(model, batch, *, seeds=None, block_matrices=None,
                           train: bool = False, false_len: int = 15,
                           image_view: bool = False,
@@ -184,8 +196,9 @@ def compute_irtr_attacked(model, batch, *, seeds=None, block_matrices=None,
                           pgd_fn: Optional[Callable] = None) -> Dict[str, torch.Tensor]:
     """Attacked IRTR scored by ``moco_head[:, 0]`` (reference :1092), clean
     and, when a view is on, attacked on the clean pass's seeds.
-    ``pgd_fn(batch, text_repr) -> delta`` (the repaired IRTR PGD, pushing
-    each pair's joint projection away from its own text's)."""
+    ``pgd_fn(batch, text_repr, row0) -> delta`` (the repaired IRTR PGD,
+    pushing each pair's joint projection away from its own text's, on
+    ``irtr_text_panel``'s texts of the global batch)."""
     score = irtr_scores(model, batch, model.moco_head, false_len, block_matrices, train, seeds)
     answer = torch.zeros(score.shape[0], dtype=torch.long, device=score.device)
     ret: Dict[str, torch.Tensor] = {**_ce(score, answer, "irtr_original"),
@@ -193,8 +206,8 @@ def compute_irtr_attacked(model, batch, *, seeds=None, block_matrices=None,
     b = dict(batch)
     pgd = image_view and pgd_fn is not None
     if pgd:
-        text_repr = irtr_text_repr(model, batch, block_matrices)
-        b["image"] = batch["image"] + pgd_fn(batch, text_repr).detach()
+        b["image"] = batch["image"] + pgd_fn(
+            batch, *irtr_text_panel(model, batch, block_matrices)).detach()
     if pgd or attacked_text is not None:
         att = irtr_scores(model, _with_text(b, attacked_text), model.moco_head, false_len,
                           block_matrices, train, seeds)

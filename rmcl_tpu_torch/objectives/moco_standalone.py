@@ -11,7 +11,9 @@ this is the JAX package's working equivalent of its documented semantics:
     image key, the attacked image query against the momentum text key, both
     against ONE shared negatives queue (``txt_img_queue``);
   * both key batches enqueue back to back into the shared queue (reference
-    _dequeue_and_enqueue :76-93).
+    _dequeue_and_enqueue :76-93); over several processes, the keys of every
+    rank (``parallel/dist.py:gather_rows``), as the JAX package's global
+    batch.
 
 Where the JAX package returns new parameter and state pytrees, the port
 updates the model's momentum twins and its queue buffers in place, under
@@ -29,6 +31,7 @@ from rmcl_tpu_torch.models.heads import MoCoHead
 from rmcl_tpu_torch.models.layers import reset_all
 from rmcl_tpu_torch.objectives.contrastive import infonce, momentum_update
 from rmcl_tpu_torch.objectives.losses import l2_normalize
+from rmcl_tpu_torch.parallel.dist import gather_rows
 
 PROJ_DIM = 128
 STANDALONE_TWINS = ("text_embeddings", "token_type_embeddings",
@@ -125,8 +128,8 @@ def compute_standalone_moco(
     loss_txt, logits_txt = infonce(txt_q, img_k, queue, temperature)
     loss_img, logits_img = infonce(img_q, txt_k, queue, temperature)
 
-    if train:
-        _shared_enqueue(model, txt_k, img_k)
+    if train:     # every rank's keys, in rank order: the queue stays the same on every rank
+        _shared_enqueue(model, gather_rows(txt_k), gather_rows(img_k))
     return {"standalone_moco_loss": 0.5 * (loss_txt + loss_img),
             "moco_txt_loss": loss_txt, "moco_img_loss": loss_img,
             "logits_txt": logits_txt, "logits_img": logits_img}

@@ -17,6 +17,12 @@ rows ``eval/metrics.py`` recombines, the logits and labels its accuracies
 read.  Logits stay in the compute type; every loss is fp32, and so is the
 optimal-transport alignment (``objectives/ot.py``), whose plan carries no
 gradient.
+
+Over several processes the token and masked-patch means of MLM, MPP, MPPD
+and MPFR divide by the global batch's count (``parallel/dist.py:
+batch_mean``), as the JAX package's global batch does; the per-sample means
+(ITM, and the word-patch alignment's ``/ n``) need nothing over equal
+per-rank batches.
 """
 
 from __future__ import annotations
@@ -29,6 +35,7 @@ from rmcl_tpu_torch.models.vit import as_patch_rows
 from rmcl_tpu_torch.objectives.downstream import _infer
 from rmcl_tpu_torch.objectives.losses import cross_entropy, cross_entropy_per_sample
 from rmcl_tpu_torch.objectives.ot import cost_matrix_cosine, ipot, trace_bmm
+from rmcl_tpu_torch.parallel.dist import batch_mean
 
 OT_BETA, OT_ITERATIONS = 0.5, 50
 WPA_WEIGHT = 0.1
@@ -45,10 +52,10 @@ def compute_mlm(model, batch, *, seeds=None, block_matrices=None,
     ps, wt = cross_entropy_per_sample(logits, labels)
     valid = labels != -100
     correct = (logits.argmax(-1) == labels) & valid
-    return {"mlm_loss": cross_entropy(logits.reshape(-1, logits.shape[-1]), labels.reshape(-1)),
+    return {"mlm_loss": batch_mean(ps.sum(), wt.sum()),
             "mlm_loss_ps": ps, "mlm_loss_wt": wt, "mlm_logits": logits,
             "mlm_labels": labels, "mlm_ids": infer["text_ids"],
-            "mlm_step_accuracy": correct.sum() / valid.sum().clamp(min=1)}
+            "mlm_step_accuracy": batch_mean(correct.sum(), valid.sum())}
 
 
 # ------------------------------------------------------------------- MPP
@@ -61,7 +68,7 @@ def compute_mpp(model, batch, masks: torch.Tensor, *, seeds=None, block_matrices
     logits = logits.reshape(B, S, 3, 256)
     labels = infer["image_labels"]                            # (B, S, 3)
     ps, wt = cross_entropy_per_sample(logits, labels)
-    return {"mpp_loss": cross_entropy(logits.reshape(-1, 256), labels.reshape(-1)),
+    return {"mpp_loss": batch_mean(ps.sum(), wt.sum()),
             "mpp_loss_ps": ps, "mpp_loss_wt": wt, "mpp_logits": logits,
             "mpp_labels": labels}
 
@@ -119,7 +126,7 @@ def _masked_mse(name: str, logits, targets, image_labels) -> Dict[str, torch.Ten
     masked = (image_labels[:, 1:] != -100).any(-1)            # (B, L)
     diff = torch.where(masked[..., None], (logits.float() - targets.float()) ** 2, 0.0)
     F = diff.shape[-1]
-    return {f"{name}_loss": diff.sum() / (masked.sum() * F).clamp(min=1),
+    return {f"{name}_loss": batch_mean(diff.sum(), masked.sum() * F),
             f"{name}_logits": logits, f"{name}_loss_ps": diff.sum((1, 2)),
             f"{name}_loss_wt": (masked.sum(1) * F).float(), f"{name}_labels": targets}
 

@@ -28,6 +28,15 @@ the logical name ("last"/"best") is a pointer file ``<NAME>.ptr`` swung by
 superseded directory is deleted only after the swing, so a crash at any
 point leaves the previous checkpoint reachable and at most one orphaned
 directory.  Saves are synchronous: ``wait`` has nothing to wait for.
+
+Over several processes every rank calls ``save_last`` / ``maybe_save_best``
+at the same step: under ZeRO-1 every rank first sends its shard of the
+optimizer's state to rank 0 (``consolidate_state_dict``), an unfinished
+accumulation cycle's gradient is saved as its mean over ranks (each rank
+accumulates its own; the mean is the global cycle's so far, which every
+rank continues from on resume), rank 0 alone writes, and a barrier follows,
+so that no rank reads a pointer before it swings.  ``restore`` loads on
+every rank.
 """
 
 from __future__ import annotations
@@ -41,6 +50,8 @@ from typing import Dict, Optional
 import torch
 
 from rmcl_tpu_torch.models.vilt import ViLT
+from rmcl_tpu_torch.parallel import comm
+from rmcl_tpu_torch.parallel.dist import sum_over_ranks
 from rmcl_tpu_torch.serve import load_state_dict_file
 
 MODEL_FILE = "model.pt"
@@ -184,20 +195,28 @@ class CheckpointManager:
                 continue
 
     def _save(self, logical: str, ts):
-        dirname = self._claim_dir(logical, ts.step)
-        path = self._path(dirname)
-        torch.save({"state_dict": _cpu(ts.model.state_dict())},
-                   os.path.join(path, MODEL_FILE))
-        torch.save({"optimizer": _cpu(ts.optimizer.state_dict()),
-                    "scheduler": ts.scheduler.state_dict(),
-                    "step": int(ts.step),
-                    "acc_grads": _cpu(ts.acc_grads),
-                    "best_score": self.best_score},
-                   os.path.join(path, TRAIN_FILE))
-        old = pointed_dir(self.workdir, logical)
-        self._write_ptr(logical, dirname)
-        if old and old != dirname:
-            shutil.rmtree(self._path(old), ignore_errors=True)
+        world = comm.get_world_size()
+        if hasattr(ts.optimizer, "consolidate_state_dict"):     # ZeroRedundancyOptimizer
+            ts.optimizer.consolidate_state_dict(to=0)
+        acc = ts.acc_grads
+        if acc is not None and world > 1:
+            acc = [sum_over_ranks(a) / world for a in acc]
+        if comm.is_main_process():
+            dirname = self._claim_dir(logical, ts.step)
+            path = self._path(dirname)
+            torch.save({"state_dict": _cpu(ts.model.state_dict())},
+                       os.path.join(path, MODEL_FILE))
+            torch.save({"optimizer": _cpu(ts.optimizer.state_dict()),
+                        "scheduler": ts.scheduler.state_dict(),
+                        "step": int(ts.step),
+                        "acc_grads": _cpu(acc),
+                        "best_score": self.best_score},
+                       os.path.join(path, TRAIN_FILE))
+            old = pointed_dir(self.workdir, logical)
+            self._write_ptr(logical, dirname)
+            if old and old != dirname:
+                shutil.rmtree(self._path(old), ignore_errors=True)
+        comm.synchronize()
 
     # ---------------------------------------------------------- public
     def wait(self):

@@ -33,7 +33,16 @@ text views and SimCLR image views (``data/augmentation.py``), attached to the
 host batch as ``attacked_text_ids`` / ``attacked_text_masks`` and
 ``augmented_image``; no greedy attack and no PGD runs.
 
-One process and one device (multi-process consensus and DDP: ROADMAP A10).
+Over several processes (``python -m torch.distributed.run`` around ``cli.run
+with``, ``parallel/dist.py:init_distributed``), each rank trains on its
+``rank::world`` shard of the data (the datamodule's process index and
+count) at ``batch_size // world`` pairs per step unless
+``per_device_batchsize`` sets it, the accumulation counted on the global
+batch; the step couples the ranks (``train/step.py``); the preemption flag
+is any-reduced every ``cfg.preempt_sync_every`` micro-steps, so that every
+rank leaves the loop at the same step; the metric bags sum over ranks
+before their epoch's end; validation gathers the VQA file and the recall's
+score rows; rank 0 alone logs and writes checkpoints.
 """
 
 from __future__ import annotations
@@ -57,6 +66,7 @@ from rmcl_tpu_torch.data.datamodule import MultitaskDataModule
 from rmcl_tpu_torch.data.patch_rows import hwc_to_patch_rows
 from rmcl_tpu_torch.eval.metrics import MetricBag, Scalar
 from rmcl_tpu_torch.models.vilt import ViLT
+from rmcl_tpu_torch.parallel import comm
 from rmcl_tpu_torch.train.checkpoint import CheckpointManager, load_initial_params
 from rmcl_tpu_torch.train.logging import MetricLogger
 from rmcl_tpu_torch.train.step import (
@@ -151,17 +161,30 @@ def step_generator(seed: int, steps_done: int) -> torch.Generator:
 
 
 def preempt_consensus(cfg, requested: bool, steps_done: int) -> bool:
-    """Step-boundary preemption decision.  One process: the local flag (the
-    multi-process any-reduce every ``preempt_sync_every`` micro-steps comes
-    with ROADMAP A10)."""
-    return bool(cfg.graceful_preemption and requested)
+    """Step-boundary preemption decision (SURVEY §5.3).  One process: the
+    local flag.  Several: the flag any-reduced across ranks every
+    ``cfg.preempt_sync_every`` micro-steps (and False between), so that
+    every rank leaves the step loop, and enters the checkpoint save's
+    collectives, at the same step; a rank acting on its own flag would
+    leave the others waiting in the next step's collectives.  Every rank
+    must call it after every micro-step."""
+    if not cfg.graceful_preemption:
+        return False
+    if comm.get_world_size() == 1:
+        return bool(requested)
+    if steps_done % max(cfg.preempt_sync_every, 1):
+        return False
+    return any(comm.all_gather(bool(requested)))
 
 
 class Trainer:
     """``Trainer(cfg, workdir, datamodule=None, vocab_path=None,
     device=None)``: ``setup()`` then ``fit()``; ``validate()`` alone with
     ``test_only``.  Runs on the first CUDA device unless ``device`` says
-    otherwise; without a card only ``device="cpu"`` runs (the plain ops)."""
+    otherwise; without a card only ``device="cpu"`` runs (the plain ops).
+    Over several processes: after ``parallel/dist.py:init_distributed``,
+    each rank with the device that returned; the default datamodule takes
+    the rank and the world size as its process index and count."""
 
     def __init__(self, cfg, workdir: str = "result",
                  datamodule: Optional[MultitaskDataModule] = None,
@@ -169,7 +192,9 @@ class Trainer:
         self.cfg = cfg
         self.workdir = os.path.join(workdir, cfg.exp_name)
         self.device = training_device(device)
-        self.dm = datamodule or MultitaskDataModule(cfg, vocab_path=vocab_path)
+        self.dm = datamodule or MultitaskDataModule(
+            cfg, vocab_path=vocab_path, process_index=comm.get_rank(),
+            process_count=comm.get_world_size())
         self.steps_done = 0
         self.host_reads = 0          # device -> host reads of the step metrics
         self._preempt_requested = False
@@ -181,15 +206,18 @@ class Trainer:
         ``cfg.seed``, then ``cfg.load_path``)."""
         cfg = self.cfg
         self.dm.setup()
-        per_host = cfg.per_device_batchsize or max(cfg.batch_size, 1)
+        world = comm.get_world_size()
+        per_host = cfg.per_device_batchsize or max(cfg.batch_size // world, 1)
         self.per_host_batch = per_host
         # from the loader's own length, so resume's epoch/skip arithmetic
-        # can never drift from what the loader yields
+        # can never drift from what the loader yields (the loader equalises
+        # the shards: every rank's length is the same)
         steps_per_epoch = max(len(self.dm.train_loader(per_host)), 1)
         # gradient accumulation: micro-batches per optimizer step (reference
-        # run.py:86-88,105), when per_device_batchsize caps the step batch
-        # below cfg.batch_size
-        self.accum_steps = (max(cfg.batch_size // per_host, 1)
+        # run.py:86-88,105), when per_device_batchsize caps the global step
+        # batch below cfg.batch_size
+        world_batch = per_host * world
+        self.accum_steps = (max(cfg.batch_size // world_batch, 1)
                             if cfg.per_device_batchsize else 1)
         # max_steps and the schedule count OPTIMIZER steps; steps_per_epoch
         # and steps_done count micro-batches
@@ -235,7 +263,7 @@ class Trainer:
         self.epoch = 0
         self.train_metrics = MetricBag(cfg.loss_names)
         self.val_metrics = MetricBag(cfg.loss_names)
-        self.logger = MetricLogger(self.workdir)
+        self.logger = MetricLogger(self.workdir, enabled=comm.is_main_process())
 
     # ------------------------------------------------------------- attack
     def _prefetch_attack(self, raw: Dict[str, Any]):
@@ -343,11 +371,15 @@ class Trainer:
         self._preempt_requested = False
         t0 = time.time()
         # the host side of the attack for batch N+1 runs on a worker thread
-        # while the device runs step N
+        # while the device runs step N; over several processes only when that
+        # side is the host's alone (the tables, the benign views): a host
+        # attacker's device work has collectives, which must keep the main
+        # thread's order
+        host_only = self._fused_step or self.greedy is None
         pool = (ThreadPoolExecutor(max_workers=1)
-                if cfg.host_prefetch and (self.greedy is not None
-                                          or self.text_augment is not None
-                                          or self.image_augment is not None) else None)
+                if cfg.host_prefetch and (comm.get_world_size() == 1 or host_only)
+                and (self.greedy is not None or self.text_augment is not None
+                     or self.image_augment is not None) else None)
         fut = None
         try:
             with self._sigterm_guard():
@@ -473,8 +505,11 @@ class Trainer:
             if cfg.fast_dev_run:
                 break
         if vqa_writer is not None:
-            path = vqa_writer.finalize()
-            print(f"[vqa] submission written to {path}", flush=True)
+            path = vqa_writer.finalize(process_index=comm.get_rank(),
+                                       process_count=comm.get_world_size(),
+                                       gather=comm.all_gather)
+            if path:
+                print(f"[vqa] submission written to {path}", flush=True)
 
         recall = None
         if cfg.get_recall_metric and not cfg.fast_dev_run:

@@ -29,6 +29,7 @@ transforms do, per group:
 All index the schedule by the number of updates already made.  Gradient
 accumulation (optax ``MultiSteps``) is the training step's
 (``train/step.py``): it hands the optimizer the mean gradient once per cycle.
+``cfg.zero1`` shards the optimizer's state over the processes (ZeRO-1).
 """
 
 from __future__ import annotations
@@ -37,6 +38,8 @@ import math
 from typing import Callable, Dict, Tuple
 
 import torch
+
+from rmcl_tpu_torch.parallel.comm import is_distributed
 
 NO_DECAY_SUBSTRINGS = ("norm", "LayerNorm")  # + leaf name "bias"
 HEAD_NAMES = ("vqa_classifier", "nlvr2_classifier", "moco_head")
@@ -101,7 +104,11 @@ def make_optimizer(cfg, model: torch.nn.Module, max_steps: int
                               Dict[str, str]]:
     """(optimizer, scheduler, labels).  One group per non-empty label;
     frozen parameters are in none.  Call ``scheduler.step()`` after every
-    ``optimizer.step()``."""
+    ``optimizer.step()``.  ``cfg.zero1`` over several processes: the same
+    optimizer as a ``ZeroRedundancyOptimizer`` (PARITY #24), each rank
+    keeping the state of its shard of the parameters and broadcasting their
+    update, which is the replicated optimizer's bit for bit; in one process
+    there is nothing to shard and the optimizer is the plain one."""
     if cfg.optim_type not in ("adamw", "adam", "sgd"):
         raise ValueError(f"unknown optim_type {cfg.optim_type!r}")
     labels = param_group_labels(model)
@@ -117,11 +124,13 @@ def make_optimizer(cfg, model: torch.nn.Module, max_steps: int
             groups.append({"params": members, "lr": 1.0, "weight_decay": decay})
             lambdas.append(make_lr_schedule(cfg, max_steps,
                                             lr=cfg.learning_rate * lr_scale))
-    if cfg.optim_type == "adamw":
-        optimizer = torch.optim.AdamW(groups, betas=(0.9, 0.98), eps=1e-8)
-    elif cfg.optim_type == "adam":
-        optimizer = torch.optim.Adam(groups, betas=(0.9, 0.999), eps=1e-8)
+    kind, kw = {"adamw": (torch.optim.AdamW, dict(betas=(0.9, 0.98), eps=1e-8)),
+                "adam": (torch.optim.Adam, dict(betas=(0.9, 0.999), eps=1e-8)),
+                "sgd": (torch.optim.SGD, dict(momentum=0.9))}[cfg.optim_type]
+    if cfg.zero1 and is_distributed():
+        from torch.distributed.optim import ZeroRedundancyOptimizer
+        optimizer = ZeroRedundancyOptimizer(groups, optimizer_class=kind, **kw)
     else:
-        optimizer = torch.optim.SGD(groups, momentum=0.9)
+        optimizer = kind(groups, **kw)
     scheduler = torch.optim.lr_scheduler.LambdaLR(optimizer, lambdas)
     return optimizer, scheduler, labels

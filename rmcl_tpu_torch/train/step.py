@@ -55,6 +55,19 @@ generator on the host (``pretrain_draws``) and reach the device in one copy,
 so that the card and the CPU draw the same from the same generator; the eval
 step draws them from the generator it is given.
 
+Over several processes (``parallel/dist.py``; the Trainer under torchrun)
+each rank runs the step on its b pairs and the ranks together compute the
+step of one process on the W * b pairs laid end to end in rank order, as the
+JAX package's pjit step sees the global batch: the dropout seeds and the
+pretraining draws are drawn for the global batch from the step's generator
+(the same on every rank) and each rank keeps its slice; the objectives
+couple the ranks where their loss couples the batch (the MoCo enqueue,
+BarlowTwins' head and correlation, the pretraining tasks' global counts);
+the gradient is averaged over ranks by one bucketed all-reduce per
+optimizer step, after the accumulation cycle's running mean; the scalar
+metrics are the global batch's (the mean over ranks).  ``cfg.zero1`` shards
+the optimizer's state over the ranks (``train/schedule.py``).
+
 Every task of the JAX package's ``compute_all_tasks`` is ported.
 """
 
@@ -73,6 +86,8 @@ from rmcl_tpu_torch.core.config import active_tasks
 from rmcl_tpu_torch.models.vilt import ViLT, draw_seeds
 from rmcl_tpu_torch.models.vit import normalize_image_inputs
 from rmcl_tpu_torch.objectives import contrastive, downstream, pretrain
+from rmcl_tpu_torch.parallel.comm import reduce_over_ranks
+from rmcl_tpu_torch.parallel.dist import all_reduce_grads, global_batch, local_rows
 from rmcl_tpu_torch.train.schedule import make_lr_schedule, make_optimizer
 
 VIEWS = 4   # clean, txt, img, both: one set of dropout seeds each, per contrastive task
@@ -132,7 +147,9 @@ def create_train_state(cfg, max_steps: Optional[int] = None,
     """A ``TrainState`` on the training device.  ``model`` defaults to a
     ``ViLT`` initialised from ``cfg.seed``; the momentum twins are frozen
     (the momentum update moves them, never the optimizer).  ``max_steps``
-    counts optimizer steps; ``accum`` > 1 keeps the accumulated gradients."""
+    counts optimizer steps; ``accum`` > 1 keeps the accumulated gradients.
+    Over several processes every rank builds the same state from the same
+    seed (``cfg.zero1``: the optimizer's state sharded, ``make_optimizer``)."""
     device = training_device(device)
     if model is None:
         model = ViLT(cfg).init(torch.Generator().manual_seed(cfg.seed))
@@ -182,19 +199,25 @@ def task_seeds(cfg, generator: torch.Generator, num_layers: int, batch: int,
     sets for each contrastive task (drawn first, in ``CONTRASTIVE``'s order,
     as one tensor), then ``DOWNSTREAM_FORWARDS`` sets for each downstream
     task and one for each pretraining task, in the order of
-    ``cfg.loss_names``, IRTR's over B * (F+1) rows."""
+    ``cfg.loss_names``, IRTR's over B * (F+1) rows.  Over several processes
+    each set is drawn for the global batch and this rank keeps its rows."""
     tasks = active_tasks(cfg)
     out: Dict[str, torch.Tensor] = {}
+
+    def draw(views, rows):
+        s = draw_seeds(generator, views, num_layers, global_batch(rows), device)
+        return local_rows(s, dim=-1).contiguous()
+
     cont = [t for t in CONTRASTIVE if t in tasks]
     if cont:
-        s = draw_seeds(generator, VIEWS * len(cont), num_layers, batch, device)
+        s = draw(VIEWS * len(cont), batch)
         out.update({t: s[VIEWS * i:VIEWS * (i + 1)] for i, t in enumerate(cont)})
     for t in tasks:
         if t in DOWNSTREAM_FORWARDS:
             rows = batch * (cfg.draw_false_text + 1) if t.startswith("irtr") else batch
-            out[t] = draw_seeds(generator, DOWNSTREAM_FORWARDS[t], num_layers, rows, device)
+            out[t] = draw(DOWNSTREAM_FORWARDS[t], rows)
         elif t in PRETRAIN:
-            out[t] = draw_seeds(generator, 1, num_layers, batch, device)[0]
+            out[t] = draw(1, batch)[0]
     return out
 
 
@@ -206,16 +229,19 @@ def pretrain_draws(cfg, generator: torch.Generator, batch: int, n_patches: int,
     Bernoulli masks over every patch (masked at 0.15; replaced by the mask
     token at 0.8 among the masked); for ``itm`` (batch,) int64, a random
     permutation of batch // 2 ones and batch - batch // 2 zeros (the true
-    image where 1, ``false_image_0`` where 0).  Empty without such a task."""
+    image where 1, ``false_image_0`` where 0).  Empty without such a task.
+    Over several processes each draw is the global batch's and this rank
+    keeps its rows."""
     parts: Dict[str, torch.Tensor] = {}
+    n = global_batch(batch)
     for t in active_tasks(cfg):
         if t in MASKED_PATCH:
-            masked = torch.rand(batch, n_patches, generator=generator) < MPP_MASK_PROB
-            keep = torch.rand(batch, n_patches, generator=generator) < MPP_REPLACE_PROB
-            parts[t] = torch.stack([masked, keep & masked])
+            masked = torch.rand(n, n_patches, generator=generator) < MPP_MASK_PROB
+            keep = torch.rand(n, n_patches, generator=generator) < MPP_REPLACE_PROB
+            parts[t] = local_rows(torch.stack([masked, keep & masked]), dim=1)
         elif t == "itm":
-            base = torch.arange(batch) < batch // 2
-            parts[t] = base[torch.randperm(batch, generator=generator)]
+            base = torch.arange(n) < n // 2
+            parts[t] = local_rows(base[torch.randperm(n, generator=generator)])
     if not parts:
         return {}
     flat = torch.cat([v.flatten() for v in parts.values()]).to(device)
@@ -250,7 +276,7 @@ def _build_pgd(cfg, ts: TrainState, task: str) -> Callable:
     else:
         attack = make_pgd_irtr(model, a.adv_steps_img, a.adv_lr_img, a.adv_max_norm_img,
                                a.temperature)
-    return lambda b, target: attack(b, target, block_matrices=ts.block_matrices)
+    return lambda b, *target: attack(b, *target, block_matrices=ts.block_matrices)
 
 
 def compute_all_tasks(cfg, ts: TrainState, batch, seeds, *, train: bool,
@@ -285,7 +311,7 @@ def compute_all_tasks(cfg, ts: TrainState, batch, seeds, *, train: bool,
         block_matrices=ts.block_matrices, train=train, text_view=cfg.text_view,
         image_view=cfg.image_view,
         attacked_text=_attacked_text_of(batch) if cfg.text_view else None,
-        greedy_fn=greedy_fn, per_step_bs=batch["text_ids"].shape[0],
+        greedy_fn=greedy_fn, per_step_bs=global_batch(batch["text_ids"].shape[0]),
         attacked_image=batch.get("augmented_image") if cfg.augmentation else None,
         augmentation=cfg.augmentation)
     pgd = cfg.image_view and not cfg.augmentation
@@ -342,6 +368,14 @@ def _scalar_metrics(ret: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
             if isinstance(v, torch.Tensor) and v.dim() == 0}
 
 
+def _global_metrics(metrics: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
+    """The step's scalar metrics of the global batch: each the mean over
+    ranks of the rank's (a coupled loss is the same number on every rank, a
+    per-sample mean the rank's part; ``lr`` is every rank's own)."""
+    lr = metrics.pop("lr")
+    return {**reduce_over_ranks(metrics), "lr": lr}
+
+
 # ------------------------------------------------------------- train step
 def make_train_step(cfg, ts: TrainState, max_steps: Optional[int] = None) -> Callable:
     """``train_step(batch, generator) -> metrics`` over ``ts``, on the device
@@ -349,12 +383,14 @@ def make_train_step(cfg, ts: TrainState, max_steps: Optional[int] = None) -> Cal
     CPU ``torch.Generator`` the step draws its dropout seeds from.  Metrics
     are 0-d tensors on the device (no host read in the step), with
     ``total_loss`` and ``lr``, the base rate of this micro-batch's optimizer
-    step (``ts.accum`` micro-batches per optimizer step)."""
+    step (``ts.accum`` micro-batches per optimizer step).  Over several
+    processes: this rank's b pairs of the global batch, the same generator
+    on every rank, metrics of the global batch."""
     body = _train_step_body(cfg, ts, max_steps)
 
     def train_step(batch: Dict[str, torch.Tensor],
                    generator: torch.Generator) -> Dict[str, torch.Tensor]:
-        return body(batch, generator)[0]
+        return _global_metrics(body(batch, generator)[0])
 
     return train_step
 
@@ -395,6 +431,7 @@ def _train_step_body(cfg, ts: TrainState, max_steps: Optional[int]) -> Callable:
                 if micro == accum - 1:
                     torch._foreach_copy_(grads, ts.acc_grads)
         if micro == accum - 1:
+            all_reduce_grads(trainable)      # the mean over ranks, once per cycle
             ts.optimizer.step()
             ts.scheduler.step()
             ts.refresh_block_matrices()
@@ -460,7 +497,7 @@ def make_attacked_train_step(cfg, ts: TrainState, greedy,
             nch = nch.float()
         metrics["num_changes"] = nch.mean()
         metrics["change_rate"] = (nch / nw.float().clamp(min=1.0)).mean()
-        return metrics
+        return _global_metrics(metrics)
 
     return attacked_step
 

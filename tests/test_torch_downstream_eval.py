@@ -135,7 +135,8 @@ def test_recall_at_k_matches_jax():
 def test_vqa_writer_and_accuracy_match_jax(tmp_path):
     """VQASubmissionWriter on the same logits, question ids and answer table
     (a defaultdict: unknown ids answer "unknown") writes the JAX package's
-    file byte for byte; more than one process raises; vqa_accuracy equals
+    file byte for byte, and so does its merge of two processes' parts
+    (without a gather, more than one process raises); vqa_accuracy equals
     the JAX package's on annotations that exercise the normalisation."""
     from collections import defaultdict
     r = np.random.RandomState(1)
@@ -149,7 +150,21 @@ def test_vqa_writer_and_accuracy_match_jax(tmp_path):
         files.append(w.finalize())
     with open(files[0], "rb") as a, open(files[1], "rb") as b:
         assert a.read() == b.read()
-    with pytest.raises(NotImplementedError, match="A10"):
+    # two processes: rank 0 writes the parts merged in the loader's order
+    # (rank r holds the samples r, r + 2, ...), here the one-process file
+    parts = []
+    for rank in range(2):
+        w = TV.VQASubmissionWriter(id2answer, out_dir=str(tmp_path / "ranks"), model_name="m")
+        for s, x in enumerate(logits):
+            w.update(list(range(10 * s, 10 * s + 4))[rank::2], x[rank::2])
+        parts.append(w)
+    rets = [[{"question_id": q, "answer": id2answer[int(p)]} for q, p in zip(w.qids, w.preds)]
+            for w in parts]
+    assert parts[1].finalize(process_index=1, process_count=2, gather=lambda _: rets) is None
+    merged = parts[0].finalize(process_index=0, process_count=2, gather=lambda _: rets)
+    with open(files[0], "rb") as a, open(merged, "rb") as b:
+        assert a.read() == b.read()
+    with pytest.raises(ValueError, match="gather"):
         TV.VQASubmissionWriter(id2answer).finalize(process_index=0, process_count=2)
     preds = {1: "Two", 2: "a dog", 3: "yes!", 4: "no"}
     anns = [{"question_id": q, "answer_type": t, "answers": [{"answer": a} for a in ans]}

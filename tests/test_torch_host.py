@@ -190,7 +190,8 @@ def test_importing_every_module_pulls_in_neither_jax_nor_rmcl_tpu(tmp_path):
         "        'rmcl_tpu_torch.objectives.moco_standalone',\n"
         "        'rmcl_tpu_torch.compat.timm', 'rmcl_tpu_torch.compat.golden',\n"
         "        'rmcl_tpu_torch.eval.tsne', 'rmcl_tpu_torch.demos.inference',\n"
-        "        'rmcl_tpu_torch.demos.demo', 'rmcl_tpu_torch.demos.demo_vqa'} <= set(names)\n"
+        "        'rmcl_tpu_torch.demos.demo', 'rmcl_tpu_torch.demos.demo_vqa',\n"
+        "        'rmcl_tpu_torch.parallel.comm', 'rmcl_tpu_torch.parallel.dist'} <= set(names)\n"
         "for n in names:\n"
         "    importlib.import_module(n)\n"
         "bad = sorted(m for m in sys.modules\n"
@@ -208,10 +209,12 @@ def test_importing_every_module_pulls_in_neither_jax_nor_rmcl_tpu(tmp_path):
 
 
 def test_no_source_line_imports_the_jax_package():
-    """No import statement of the port or of chip_smoke.py names jax or
-    rmcl_tpu (comments and strings may name a counterpart)."""
+    """No import statement of the port, of chip_smoke.py or of the port's
+    rank script for the two-process tests names jax or rmcl_tpu (comments
+    and strings may name a counterpart)."""
     import ast
-    files = [os.path.join(REPO, "chip_smoke.py")]
+    files = [os.path.join(REPO, "chip_smoke.py"),
+             os.path.join(REPO, "tests", "_torch_ddp_worker.py")]
     for root, _, names in os.walk(os.path.join(REPO, "rmcl_tpu_torch")):
         files += [os.path.join(root, n) for n in names if n.endswith(".py")]
     for path in files:
