@@ -16,7 +16,9 @@ Trainer with the head graft; then the benign views and the remaining paths
 cross-entropy NLVR2 attacker, the HWC canvas, the native host libraries and
 their fp32 checks; then the rest of the one-card paths (phase 20): the demos,
 the golden replay, the timm loader and the learning runs; then distribution
-(phase 21): the attacked step with a one-rank NCCL group, and two ranks.
+(phase 21): the attacked step with a one-rank NCCL group, and two ranks; then
+tensor parallelism (phase 22): the sharded block's ops at the shard shapes,
+and two ranks of a (data, model) grid of (1, 2).
 
     python3 chip_smoke.py
 
@@ -417,6 +419,31 @@ Phases, any failure exits non-zero:
                15's, max_memory_allocated per rank, 'last' loaded into a
                fresh ViLT equal on both ranks.  The phase prints its seconds
                against its 75 s budget.
+ 22. tp        tensor parallelism (parallel/mesh.py, tp.py,
+               sharding_rules.py; models/vit.py:Block under a model axis):
+               (b) every op of the sharded block at Queue B row 14's shapes
+               (6 of 12 heads, qkv 768 -> 1152, proj 384 -> 768 partial,
+               fc1 768 -> 1536, fc2 1536 -> 768 partial; B = 16, S = 241),
+               both shards (the first with the residual and the row-parallel
+               biases, the second without, its in-MLP mask from column
+               1536), fp32 and bf16, against its plain version: the forward
+               halves, the dx halves (saved and recomputing), F's attention
+               half and backward, the training halves forward and backward
+               at p = 0.1, the masks equal keep_mask with the column offset
+               bit for bit, the second shard's calls timed beside their
+               bounds; then two ranks of a (1, 2) grid (chip_smoke.py
+               --tp-rank under torchrun, its deadline 300 s; NCCL with two
+               cards, gloo with the CUDA tensors of cuda:0 with one): (a)
+               the fp32 attacked task_moco step of phase 21 and a task_moco
+               + MLM step (the 30,522-row decoder sharded) at SLICE_LAYERS
+               on the 4 pairs against one process on the card, phase 21's
+               tolerances on the gathered gradients and leaves, the attacked
+               ids equal, the replicated entries bit-identical on both
+               ranks; (c) phase 13's attacked step in bf16 at TP_LAYERS on
+               both ranks against one process at the same depth: ms per
+               step, max_memory_allocated per rank, the launches of a step
+               as expected_launches derives them.  The phase prints its
+               seconds against its 75 s budget.
 
 The line before the last is the kernels' JSON record; the last line is
 ``{"ok": true, "device": {...}}``.  Without a card, or outside the
@@ -452,7 +479,11 @@ phases 1, 2 and 19 only;
 
     python3 chip_smoke.py --ddp
 
-phases 1, 2 and 21 only.
+phases 1, 2 and 21 only;
+
+    python3 chip_smoke.py --tp
+
+phases 1, 2 and 22 only.
 
     python3 chip_smoke.py --gemm-times [ROOT]
 
@@ -736,33 +767,41 @@ def _block_inputs(dev, C=768, H=12, B=BATCH, S=269):
     return x, mask, ln, attn, mlp, H
 
 
-def op_work(name: str, B: int, S: int, C: int, saved: bool = False, es: int = 2) -> tuple:
+def op_work(name: str, B: int, S: int, C: int, saved: bool = False, es: int = 2,
+            m: int = 1) -> tuple:
     """(operations, bytes) one call of an op needs at these shapes, with
     activations and weights of ``es`` bytes (2: bf16, 4: fp32): each input
     read once, each output written once (biases, LayerNorm parameters and
     parameter gradients 4 bytes); 2 operations per multiply-add of every
-    product the op is defined by."""
+    product the op is defined by.  ``m`` > 1: a tensor-parallel shard's call
+    (phase 22), whose inner width (heads, the MLP's hidden columns) and
+    matrices are 1/m of the block's; its input, output and gradients of the
+    input stay (B, S, C)."""
     M, C4 = B * S, 4 * C
     act = es * M * C                      # one (B, S, C) activation
+    inner = act // m                      # one (B, S, C / m) activation of the shard's heads
     if name in ("attn_half", "attn_half_train"):   # qkv, proj; q.k^T, p.v
-        return (8 * M * C * C + 4 * B * S * S * C,
-                2 * act + 4 * M + es * 4 * C * C + 4 * 6 * C)
+        return ((8 * M * C * C + 4 * B * S * S * C) // m,
+                2 * act + 4 * M + es * 4 * C * C // m + 4 * (3 * C + 3 * C // m))
     if name in ("mlp_half", "mlp_half_train"):     # fc1, fc2
-        return 4 * M * C * C4, 2 * act + es * 2 * C * C4 + 4 * (3 * C + C4)
+        return 4 * M * C * C4 // m, 2 * act + es * 2 * C * C4 // m + 4 * (3 * C + C4 // m)
     if name == "attn_half_train_bwd":     # the dx work from the kept qkv, + dWqkv, dWproj;
         # reads x, g, qkv, attn; writes dx and the fp32 parameter gradients
-        return (16 * M * C * C + 10 * B * S * S * C,
-                7 * act + 4 * M + es * 4 * C * C + 4 * 2 * C + 4 * (4 * C * C + 6 * C))
+        return ((16 * M * C * C + 10 * B * S * S * C) // m,
+                3 * act + 4 * inner + 4 * M + es * 4 * C * C // m + 4 * 2 * C
+                + 4 * (4 * C * C // m + 3 * C + 3 * C // m))
     if name == "mlp_half_train_bwd":      # g.W2, dh.W1, dW1, dW2; reads x, g, h, a_d
-        return (8 * M * C * C4,
-                3 * act + es * 2 * M * C4 + es * 2 * C * C4 + 4 * 2 * C
-                + 4 * (2 * C * C4 + 3 * C + C4))
+        return (8 * M * C * C4 // m,
+                3 * act + es * 2 * M * C4 // m + es * 2 * C * C4 // m + 4 * 2 * C
+                + 4 * (2 * C * C4 // m + 3 * C + C4 // m))
     if name == "attn_half_dx":            # [qkv], g.Wproj, dqkv.Wqkv; s, dp, dq, dk, dv
-        return ((8 if saved else 14) * M * C * C + 10 * B * S * S * C,
-                3 * act + 4 * M + es * 4 * C * C + 4 * 5 * C + (3 * act if saved else 0))
+        return (((8 if saved else 14) * M * C * C + 10 * B * S * S * C) // m,
+                3 * act + 4 * M + es * 4 * C * C // m + 4 * (2 * C + 3 * C // m)
+                + (3 * inner if saved else 0))
     if name == "mlp_half_dx":             # [fc1], g.W2, dh.W1
-        return ((4 if saved else 6) * M * C * C4,
-                3 * act + es * 2 * C * C4 + 4 * (2 * C + C4) + (es * M * C4 if saved else 0))
+        return ((4 if saved else 6) * M * C * C4 // m,
+                3 * act + es * 2 * C * C4 // m + 4 * (2 * C + C4 // m)
+                + (es * M * C4 // m if saved else 0))
     if name == "masked_attention":        # q.k^T, p.v; reads q, k, v, mask, writes out
         return 4 * B * S * S * C, 4 * act + 4 * M
     if name == "masked_attention_bwd":    # s, dp, dq, dk, dv; reads q, k, v, g, mask
@@ -770,16 +809,18 @@ def op_work(name: str, B: int, S: int, C: int, saved: bool = False, es: int = 2)
     raise KeyError(name)
 
 
-def bound(name: str, B: int, S: int, C: int, saved: bool = False, es: int = 2) -> tuple:
+def bound(name: str, B: int, S: int, C: int, saved: bool = False, es: int = 2,
+          m: int = 1) -> tuple:
     """(least ms, what bounds it) for one call at these shapes: bf16 (``es``
     2) against the tensor cores' dense bf16 rate, fp32 (``es`` 4) against the
     CUDA cores' fp32 FMA rate.  The dropout (C = its width N) does Philox
-    integer work on the CUDA cores."""
+    integer work on the CUDA cores.  ``m``: a tensor-parallel shard's call
+    (``op_work``)."""
     if name == "dropout":
         ops, nbytes, peak = PHILOX_OPS * B * S * C, 2 * es * B * S * C + 4 * B, PEAK_INT32_OPS
     else:
         alias = {"attn_half_full": "attn_half", "attn_half_full_bwd": "attn_half_train_bwd"}
-        ops, nbytes = op_work(alias.get(name, name), B, S, C, saved, es)
+        ops, nbytes = op_work(alias.get(name, name), B, S, C, saved, es, m)
         peak = PEAK_BF16_FLOPS if es == 2 else PEAK_FP32_FLOPS
     t_ops, t_bytes = ops / peak * 1e3, nbytes / PEAK_BYTES_S * 1e3
     return max(t_ops, t_bytes), "operations" if t_ops >= t_bytes else "bytes"
@@ -2258,7 +2299,7 @@ def expected_launches(cfg) -> dict:
     return want
 
 
-def expected_sub_launches(ops: dict) -> dict:
+def expected_sub_launches(ops: dict, lead: bool = True) -> dict:
     """Sub-kernel launches under block ops launched ``ops`` times, in bf16:
     two ln_gemm in every block op (the two products of a forward; the two
     g . W products of a dx op, whose forward kept qkv / h; those of a full
@@ -2267,7 +2308,8 @@ def expected_sub_launches(ops: dict) -> dict:
     every op whose forward runs attention, the attention backward pair in
     every op that differentiates through it; one ln_bwd (the LayerNorm
     backward) in every dx op and full backward, and two colsum (the bias
-    gradients) in every full backward."""
+    gradients) in every full backward, one on a tensor-parallel shard that is
+    not the first (``lead`` off: the row-parallel bias is the first's)."""
     full_bwd = ("attn_half_train_bwd", "mlp_half_train_bwd", "attn_half_full_bwd")
     dx = ("attn_half_dx", "mlp_half_dx")
     other = ("masked_attention", "masked_attention_bwd", "dropout")
@@ -2279,12 +2321,12 @@ def expected_sub_launches(ops: dict) -> dict:
             "attention_fwd": sum(ops.get(op, 0) for op in attn_fwd),
             "attention_bwd": sum(ops.get(op, 0) for op in attn_bwd),
             "ln_bwd": sum(ops.get(op, 0) for op in dx + full_bwd),
-            "colsum": 2 * sum(ops.get(op, 0) for op in full_bwd)}
+            "colsum": (2 if lead else 1) * sum(ops.get(op, 0) for op in full_bwd)}
 
 
-def check_sub_launches(where: str, ops: dict, FB) -> dict:
+def check_sub_launches(where: str, ops: dict, FB, lead: bool = True) -> dict:
     """The sub-kernels' counters against the ops' counters; both merged."""
-    subs, want = dict(FB.sub_launches), expected_sub_launches(ops)
+    subs, want = dict(FB.sub_launches), expected_sub_launches(ops, lead)
     check(subs == want, f"{where}: sub-kernel launches {subs}, expected {want}")
     return {**ops, **subs}
 
@@ -5487,7 +5529,7 @@ def ddp_slice_case(dev, name: str, rows=None, seam=None) -> dict:
     out = dict(loss=metrics["total_loss"].item(), ids=attacked[0][0], hash=_state_hash(ts.model),
                cfg=cfg32)
     if name == "moco":
-        return dict(out, grads=leaves_to_jax(ts.model, grads=True), leaves=leaves_to_jax(ts.model))
+        return dict(out, **_full_leaves(cfg32, ts))
     ids, masks = (seam["ids"], seam["masks"]) if seam else attacked[0]
     ts = create_train_state(cfg32, model=make_model(cfg32), device=dev)
     step_batch = {k: v[sl].to(dev) for k, v in batch0.items() if not k.startswith("attacked_")}
@@ -5768,6 +5810,436 @@ def phase_ddp(dev, bare=None) -> dict:
     print(f"[ddp] phase 21 in {t2 - t0:.1f} s (budget 75 s): one rank {t1 - t0:.1f} s, "
           f"two ranks {t2 - t1:.1f} s")
     return counts
+
+
+# ------------------------------------------------------ tensor parallelism
+TP_DIR = "chip_smoke_tp.tmp"               # the ranks' spec and results; removed
+TP_WAIT_S = 300                            # the two ranks' deadline (the phase's budget: 75 s)
+TP_COLLECTIVE_S = 120                      # each collective's own deadline inside a rank
+TP_GRID = ((1, 2), ("data", "model"))      # two model ranks, one data rank
+TP_SHARDS = 2
+TP_LAYERS = 2      # (c): the bf16 step's depth; over gloo every f / g moves its activation
+#                    through host memory (24 of (16, 241, 768) per forward at 12 layers)
+TP_STEPS = 2                               # (c): timed steps after one warm-up
+TP_MIX = "realistic"                       # (c): phase 12's caption mix
+TP_ROW14 = {"attn_half": "scripts/bench_tp_kernel_shapes.py:80",    # Queue B row 14
+            "mlp_half": "scripts/bench_tp_kernel_shapes.py:123"}
+
+
+def _full_leaves(cfg, ts) -> dict:
+    """The gradients and leaves of ``ts``'s model under the JAX package's
+    paths; on a grid with a model axis those of the unsharded model the
+    model group's shards make (``sharding_rules.gather_model``: every rank of
+    the group calls it), with the hash of the entries a model axis does not
+    shard."""
+    from rmcl_tpu_torch.compat.from_jax import leaves_to_jax
+    from rmcl_tpu_torch.parallel import mesh
+    from rmcl_tpu_torch.parallel.sharding_rules import gather_model, shard_dim
+    if mesh.model_size() == 1:
+        return dict(grads=leaves_to_jax(ts.model, grads=True), leaves=leaves_to_jax(ts.model))
+    full = gather_model(cfg, ts.model, grads=True)
+    import hashlib
+    h = hashlib.sha256()
+    for k, v in sorted(ts.model.state_dict().items()):
+        if shard_dim(k) is None:
+            h.update(k.encode() + v.detach().cpu().contiguous().view(-1).view(torch.uint8)
+                     .numpy().tobytes())
+    return dict(grads=leaves_to_jax(full, grads=True), leaves=leaves_to_jax(full),
+                replicated=h.hexdigest())
+
+
+def tp_mlm_case(dev) -> dict:
+    """One fp32 step of task_moco with the MLM task added (the decoder's
+    30,522 rows sharded under a model axis, its logits gathered) at
+    SLICE_LAYERS, on the 4 pairs of phase 14 with the port's MLM collator's
+    masked ids: ``make_train_step`` with image and text views (seeded
+    attacked ids).  Returns the loss, the gradients and updated leaves."""
+    from rmcl_tpu_torch.core.config import loss_names
+    from rmcl_tpu_torch.data.mlm import MLMCollator
+    from rmcl_tpu_torch.train.step import create_train_state, make_train_step
+    cfg32 = train_config().replace(compute_dtype="float32", queue_dtype="float32",
+                                   num_layers=SLICE_LAYERS,
+                                   loss_names=loss_names({"moco": 1, "mlm": 1}))
+    batch = train_batch(cfg32, N_CPU, SEED + 4, "cpu")
+    ids = batch["text_ids"].numpy()
+    mlm_ids, mlm_labels = MLMCollator(_BertIds(), seed=SEED)(ids, np.isin(ids, [0, 101, 102]))
+    batch.update(text_ids_mlm=torch.from_numpy(mlm_ids), text_labels_mlm=torch.from_numpy(
+        np.ascontiguousarray(mlm_labels)))
+    ts = create_train_state(cfg32, model=moco_model(cfg32), device=dev)
+    metrics = make_train_step(cfg32, ts)({k: v.to(dev) for k, v in batch.items()},
+                                         torch.Generator().manual_seed(SEED + 8))
+    return dict(loss=metrics["total_loss"].item(), mlm_loss=metrics["mlm_loss"].item(),
+                ids=torch.from_numpy(ids), cfg=cfg32, **_full_leaves(cfg32, ts))
+
+
+def tp_slice_case(dev, name: str) -> dict:
+    """Phase 22 (a)'s case ``name``: "moco", phase 21's fp32 attacked step
+    (``ddp_slice_case``), or "mlm" (``tp_mlm_case``)."""
+    return ddp_slice_case(dev, "moco") if name == "moco" else tp_mlm_case(dev)
+
+
+def _compare_tp(tag: str, name: str, ref: dict, mine: dict, summaries: list) -> str:
+    """Phase 22 (a)'s checks of one case on the rank that made its
+    one-process reference: both model ranks' losses and attacked ids equal
+    each other and the reference's ids, the replicated entries the same bits
+    on both, the loss within 1e-5 relative, the gathered gradients within
+    2e-4 * max(1, max|ref|) and the gathered updated leaves as
+    ``_held_after_adamw`` holds them (phase 21's MoCo tolerances)."""
+    ctag = f"{tag} {name} fp32 step on a (1, {TP_SHARDS}) grid, {SLICE_LAYERS} layers"
+    ranks = [x[name] for x in summaries]
+    check(len({r["replicated"] for r in ranks}) == 1,
+          f"{ctag}: the ranks' replicated entries differ")
+    check(len({r["loss"] for r in ranks}) == 1, f"{ctag}: the ranks' losses differ")
+    for r in ranks:
+        check(torch.equal(r["ids"], ref["ids"]), f"{ctag}: ids differ from the one-process ids")
+    rel = abs(mine["loss"] - ref["loss"]) / abs(ref["loss"])
+    check(rel <= 1e-5, f"{ctag}: loss {mine['loss']!r} vs {ref['loss']!r}")
+    wg = _held(ctag, "gradient", mine["grads"], ref["grads"])
+    wf, wp = _held_after_adamw(ctag, mine["leaves"], ref["leaves"], ref["grads"], ref["cfg"])
+    extra = (f"; MLM loss {mine['mlm_loss']!r} vs {ref['mlm_loss']!r}, the decoder's "
+             f"{ref['cfg'].vocab_size} rows {ref['cfg'].vocab_size // TP_SHARDS} a rank"
+             if name == "mlm" else "; attacked ids equal")
+    return (f"{ctag}: {TP_SHARDS} model ranks against one process on the {N_CPU} pairs on the "
+            f"card: loss {mine['loss']!r} vs {ref['loss']!r} (relative {rel!r}, tol 1e-5); "
+            f"{len(ref['grads'])} gathered gradients within 2e-4 * max(1, max|ref|), worst "
+            f"{wg[0]} at {wg[1]:.4g} of its bound; {len(ref['leaves'])} gathered leaves, firm "
+            f"elements within 2% of the rate (worst {wf[0]} at {wf[1]:.4g} of it), all within "
+            f"2.5 x the rate (worst {wp[0]} at {wp[1]:.4g}); the replicated entries "
+            f"bit-identical on both ranks{extra}")
+
+
+def tp_step_setup(dev) -> tuple:
+    """(cfg, ts, batch, greedy, step) of phase 22 (c): phase 13's attacked
+    task_moco step (bf16, 16 pairs, drop_rate 0.1, TP_MIX captions) at
+    TP_LAYERS; under a model axis the state is this rank's shards."""
+    from rmcl_tpu_torch.train.step import create_train_state, make_attacked_train_step
+    cfg = train_config().replace(num_layers=TP_LAYERS)
+    ts = create_train_state(cfg, model=moco_model(cfg), device=dev)
+    greedy, batch, _ = attacked_batch(cfg, ts.model, train_batch(cfg, PGD_BATCH, SEED + 4, dev),
+                                      TP_MIX)
+    return cfg, ts, batch, greedy, make_attacked_train_step(cfg, ts, greedy)
+
+
+def tp_step_reading(dev, tag: str, lead: bool = True) -> dict:
+    """Phase 22 (c)'s step on this process: one warm-up and TP_STEPS timed
+    steps, each step's launches against ``expected_launches`` plus the
+    attack's own count, finite metrics.  Returns ms per step (median, host
+    clock + synchronize), peak memory and the launches of the last step."""
+    from rmcl_tpu_torch.ops import fused_block as FB
+    cfg, ts, batch, greedy, step = tp_step_setup(dev)
+    gen = torch.Generator().manual_seed(SEED + 7)
+    step(batch, gen)                                          # warm-up
+    torch.cuda.synchronize(dev)
+    torch.cuda.reset_peak_memory_stats(dev)
+    walls, counts = [], None
+    for it in range(TP_STEPS):
+        FB.reset_launches()
+        torch.cuda.synchronize(dev)
+        t = time.perf_counter()
+        metrics = step(batch, gen)
+        torch.cuda.synchronize(dev)
+        walls.append((time.perf_counter() - t) * 1e3)
+        counts = dict(FB.launches)
+        want = expected_launches(cfg)
+        attack = attack_launches(greedy.last_stats, cfg.num_layers)
+        want = {k: want[k] + attack[k] for k in want}
+        check(counts == want, f"{tag} step {it}: launches {counts}, expected {want}")
+        counts = check_sub_launches(f"{tag} step {it}", counts, FB, lead)
+        vals = {k: v.item() for k, v in metrics.items()}
+        check(all(np.isfinite(v) for v in vals.values()), f"{tag} step {it}: {vals}")
+    return dict(ms=statistics.median(walls), walls=walls, counts=counts,
+                mem_gib=torch.cuda.max_memory_allocated(dev) / 2 ** 30,
+                loss=vals["total_loss"])
+
+
+def tp_rank_main(root: str) -> int:
+    """``chip_smoke.py --tp-rank ROOT``: one rank of phase 22's parts (a) and
+    (c), started by phase_tp_ranks in torchrun's environment, on a (1, 2)
+    grid (``parallel/mesh.py:init_grid``).  With a card per rank, NCCL on
+    cuda:RANK; with one card for both, gloo with the CUDA tensors of cuda:0.
+    Before it joins the group rank 0 makes the one-process reference of the
+    "mlm" case and rank 1 the "moco" case's; after the grid's steps each
+    compares its case.  The readings go to ROOT/rank<r>.pt."""
+    import os
+    from rmcl_tpu_torch.parallel import comm, mesh
+    from rmcl_tpu_torch.parallel import dist as D
+    spawned = float(Path(f"{root}/spawned").read_text())
+    marks = {"started": time.time() - spawned}
+    rank, world = int(os.environ["RANK"]), int(os.environ["WORLD_SIZE"])
+    dev, backend = rank_device(rank, world)
+    if dev.type == "cuda":
+        torch.cuda.set_device(dev)
+    mine = ("mlm", "moco")[rank]
+    ref = tp_slice_case(dev, mine)
+    marks["reference"] = time.time() - spawned
+    D.init_distributed(dev, backend=backend, timeout_s=TP_COLLECTIVE_S)
+    grid = mesh.init_grid(*TP_GRID)
+    check((grid.data_rank, grid.model_rank) == (0, rank), f"rank {rank}: grid {grid}")
+    marks["joined"] = time.time() - spawned
+    cases = {n: tp_slice_case(dev, n) for n in ("moco", "mlm")}
+    summaries = comm.all_gather({n: {k: r[k] for k in ("loss", "ids", "replicated")}
+                                 for n, r in cases.items()})
+    lines = [_compare_tp("[tp]", mine, ref, cases[mine], summaries)]
+    marks["checks"] = time.time() - spawned
+    del ref, cases, summaries
+    gc.collect()
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+    step = tp_step_reading(dev, f"[tp rank {rank}]", lead=grid.model_rank == 0)
+    marks["step"] = time.time() - spawned
+    torch.save({"backend": torch.distributed.get_backend(), "lines": lines, "step": step,
+                "marks": marks}, f"{root}/rank{rank}.pt")
+    D.destroy()
+    return 0
+
+
+def phase_tp_ranks(dev) -> dict:
+    """Phase 22 (a) and (c): two ranks of ``chip_smoke.py --tp-rank`` under
+    torchrun (tests/_torch_ddp_worker.py:torchrun), beside the one-process
+    step at TP_LAYERS on this process for (c).  Returns the readings."""
+    import os
+    import shutil
+    sys.path.insert(0, str(Path(__file__).resolve().parent / "tests"))
+    from _torch_ddp_worker import torchrun                 # the two-process tests' launcher
+    tag = "[tp two ranks]"
+    one = tp_step_reading(dev, "[tp one process]")
+    gc.collect()
+    torch.cuda.empty_cache()
+    root = Path(TP_DIR).resolve()
+    shutil.rmtree(root, ignore_errors=True)
+    root.mkdir()
+    try:
+        t0 = time.perf_counter()
+        (root / "spawned").write_text(repr(time.time()))
+        out = torchrun([str(Path(__file__).resolve()), "--tp-rank", str(root)], 2, TP_WAIT_S,
+                       env=dict(os.environ), cwd=str(Path.cwd()))
+        wall = time.perf_counter() - t0
+        for ln in out.splitlines():
+            if ln.startswith("[tp"):
+                print(f"{tag} a rank: {ln}")
+        ranks = [torch.load(root / f"rank{r}.pt", weights_only=False) for r in range(2)]
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    backend = ranks[0]["backend"]
+    print(f"{tag} {torch.cuda.device_count()} card(s): {backend} "
+          + ("on cuda:0 and cuda:1" if backend == "nccl" else
+             "with the CUDA tensors of cuda:0 for both ranks (one card: NCCL refuses two "
+             "ranks on one device)") + f"; the ranks {wall:.1f} s from their spawn, seconds "
+          "since it: " + "; ".join(f"rank {r} " + ", ".join(
+              f"{k} {v:.1f}" for k, v in x["marks"].items()) for r, x in enumerate(ranks)))
+    lines = [ln for r in ranks for ln in r["lines"]]
+    check(len(lines) == 2, f"{tag} {len(lines)} cases compared, want 2")
+    for ln in lines:
+        print(ln)
+    s0, s1 = (r["step"] for r in ranks)
+    # each step's launches were held to expected_launches and the attack's own
+    # count in its process; the attack's loops follow its data-dependent
+    # decisions, so the one process's bf16 step may take another number of them
+    check(all(s1["counts"][k] == v for k, v in s0["counts"].items() if k != "colsum"),
+          f"{tag} the ranks' launches per step differ: {s0['counts']}, {s1['counts']}")
+    check(s0["loss"] == s1["loss"], f"{tag} the ranks' losses differ")
+    trainer = READINGS.get("trainer_ms")
+    print(f"{tag} (c) the attacked task_moco step, bf16, {PGD_BATCH} pairs, {TP_MIX} captions, "
+          f"{TP_LAYERS} layers: ms per step (median of {TP_STEPS}, host clock + synchronize) "
+          f"rank 0 {s0['ms']!r}, rank 1 {s1['ms']!r} against one process {one['ms']!r} "
+          f"({s0['ms'] / one['ms']:.3f}x)" + (f"; phase 15's Trainer micro-step at 12 layers "
+                                               f"{trainer!r}" if trainer else "")
+          + f"; max_memory_allocated rank 0 {s0['mem_gib']:.3f} GiB, rank 1 "
+          f"{s1['mem_gib']:.3f} GiB, one process {one['mem_gib']:.3f} GiB; launches per step "
+          f"rank 0 {s0['counts']}, one process {one['counts']}")
+    READINGS.update(tp_ms=(s0["ms"], s1["ms"]), tp_one_ms=one["ms"],
+                    tp_mem_gib=(s0["mem_gib"], s1["mem_gib"]), tp_one_mem_gib=one["mem_gib"])
+    return dict(counts=s0["counts"], ms=(s0["ms"], s1["ms"]), one_ms=one["ms"],
+                mem_gib=(s0["mem_gib"], s1["mem_gib"]), one_mem_gib=one["mem_gib"],
+                backend=backend)
+
+
+def _tp_shard(w: dict, r: int, m: int) -> dict:
+    """Shard ``r`` of ``m`` of a block's (ln, attn, mlp) weights, by the
+    rules of ``parallel/sharding_rules.py``."""
+    from rmcl_tpu_torch.parallel.sharding_rules import shard_tensor
+    names = {"wq": "attn.qkv.weight", "bq": "attn.qkv.bias", "wp": "attn.proj.weight",
+             "w1": "mlp.fc1.weight", "b1": "mlp.fc1.bias", "w2": "mlp.fc2.weight"}
+    return {k: (shard_tensor(f"transformer.blocks.0.{names[k]}", v, r, m).contiguous()
+                if k in names else v) for k, v in w.items()}
+
+
+def _no_none(fn):
+    return lambda *a, **kw: tuple(o for o in fn(*a, **kw) if o is not None)
+
+
+def _one(fn):
+    return lambda *a: (fn(*a),)
+
+
+def tp_op_kernels(dev) -> dict:
+    """Phase 22 (b): every op of the tensor-parallel block at Queue B row 14's
+    shard shapes (two-way: 6 of 12 heads, qkv 768 -> 1152, proj 384 -> 768
+    partial, fc1 768 -> 1536, fc2 1536 -> 768 partial; B = 16, S = 241),
+    both shards (the first adds the residual and the proj / fc2 bias, the
+    second neither and starts the in-MLP mask at column 1536), fp32 and
+    bf16, against its plain version on the same inputs: the forward halves,
+    the dx halves (from the kept qkv / h and recomputing), F's attention
+    half and its backward, and the training halves forward and backward at
+    p = 0.1.  Every mask the training kernels apply or regenerate equals
+    ``keep_mask`` with the shard's column offset bit for bit; every
+    multi-output op gives the same bits twice.  The second shard's calls are
+    timed (CUDA events), each beside its bound at the shard's work."""
+    from rmcl_tpu_torch.models.vit import VIT_LN_EPS as eps
+    from rmcl_tpu_torch.ops import fused_block as FB
+    from rmcl_tpu_torch.ops import fused_block_train as FT
+    from rmcl_tpu_torch.ops.philox import keep_mask
+    torch.backends.cuda.matmul.allow_tf32 = False
+    m = TP_SHARDS
+    x, mask, (lw, lb), (wq, bq, wp, bp), (w1, b1, w2, b2), H = _block_inputs(
+        dev, B=PGD_BATCH, S=241)
+    B, S, C = x.shape
+    C4 = 4 * C // m
+    full = dict(wq=wq, bq=bq, wp=wp, bp=bp, w1=w1, b1=b1, w2=w2, b2=b2)
+    gen = torch.Generator(device=dev).manual_seed(SEED + 11)
+    g = torch.randn(x.shape, generator=gen, device=dev)
+    seeds = torch.randint(-2 ** 31, 2 ** 31, (B,), generator=gen, device=dev).int()
+    shape = f"B={B} S={S} C={C} shard of {m}: {H // m} heads, qkv {C}->{3 * C // m}, fc1 {C}->{C4}"
+    res = {}
+    with torch.inference_mode():
+        for r in range(m):
+            s = _tp_shard(full, r, m)
+            lead, col0, timed = r == 0, r * C4, r == m - 1
+            bpr, b2r = (s["bp"], s["b2"]) if lead else (None, None)
+            want = [keep_mask(seeds, 0, S, C, DROP_P), keep_mask(seeds, 0, S, C4, DROP_P, col0),
+                    keep_mask(seeds, 1, S, C, DROP_P)]
+            for dtype, rtol, tag in ((torch.float32, 2e-4, "fp32"),
+                                     (torch.bfloat16, 2e-2, "bf16")):
+                fp32 = dtype == torch.float32
+                xd, gd = x.to(dtype), g.to(dtype)
+                wqd, wpd, w1d, w2d = (s[k].to(dtype) for k in ("wq", "wp", "w1", "w2"))
+                a_w = (xd, mask, lw, lb, wqd, s["bq"], wpd)
+                m_w = (xd, lw, lb, w1d, s["b1"], w2d)
+                tg = f"{tag} shard {r}"
+
+                def keep(name, rec):
+                    if timed:
+                        res[f"{name} {tag}"] = rec
+                qkv = FB._attn_fwd(*a_w, bpr, H // m, eps, lead)[1]
+                h = FB._mlp_fwd(*m_w, b2r, eps, lead, keep_h=True)[1]
+                for name, op, plain, args in (
+                        ("attn_half", FB.attn_half, FB.attn_half_plain,
+                         (*a_w, bpr, H // m, eps, lead)),
+                        ("mlp_half", FB.mlp_half, FB.mlp_half_plain, (*m_w, b2r, eps, lead)),
+                        ("attn_half_dx", FB.attn_half_dx, FB.attn_half_dx_plain,
+                         (*a_w, gd, H // m, eps, lead, qkv)),
+                        ("mlp_half_dx", FB.mlp_half_dx, FB.mlp_half_dx_plain,
+                         (*m_w, gd, eps, lead, h)),
+                        ("attn_half_dx[recompute]", FB.attn_half_dx, FB.attn_half_dx_plain,
+                         (*a_w, gd, H // m, eps, lead)),
+                        ("mlp_half_dx[recompute]", FB.mlp_half_dx, FB.mlp_half_dx_plain,
+                         (*m_w, gd, eps, lead)),
+                        ("attn_half_full", FB.attn_half_full,
+                         lambda *a: FB.attn_half_plain(*a, residual=False),
+                         (xd, mask, lw, lb, wqd, s["bq"], wpd, bpr, H // m, eps))):
+                    keep(name, _compare_all(name, tg, shape, _one(op), _one(plain), args, rtol,
+                                            fp32, ("out",), timed))
+                _, fq, fa = FB._attn_fwd(xd, mask, lw, lb, wqd, s["bq"], wpd, bpr, H // m, eps,
+                                         False)
+                keep("attn_half_full_bwd", _compare_all(
+                    "attn_half_full_bwd", tg, shape, _no_none(FB.attn_half_full_bwd),
+                    _no_none(FB.attn_half_full_bwd_plain),
+                    (xd, mask, lw, lb, wqd, wpd, gd, fq, fa, H // m, eps, lead), rtol, fp32,
+                    GRADS, timed))
+                # the training halves: masks first, then outputs and gradients
+                ta = (xd, seeds, mask, lw, lb, wqd, s["bq"], wpd, bpr, H // m, eps, DROP_P)
+                tm = (xd, seeds, lw, lb, w1d, s["b1"], w2d, b2r, DROP_P, eps)
+                _, m_a = FT.attn_half_train(*ta, emit_mask=True, residual=lead)
+                _, m_1, m_2 = FT.mlp_half_train(*tm, emit_mask=True, residual=lead, col0=col0)
+                check(torch.equal(m_a, want[0]) and torch.equal(m_1, want[1])
+                      and torch.equal(m_2, want[2]),
+                      f"[tp] {tg}: forward masks differ from keep_mask at column {col0}")
+                keep("attn_half_train", _compare_all(
+                    "attn_half_train", tg, shape,
+                    lambda *a: (FT.attn_half_train(*a, residual=lead),),
+                    lambda *a: (FT.attn_half_train_plain(*a, residual=lead),), ta, rtol, fp32,
+                    ("out",), timed))
+                keep("mlp_half_train", _compare_all(
+                    "mlp_half_train", tg, shape,
+                    lambda *a: (FT.mlp_half_train(*a, residual=lead, col0=col0),),
+                    lambda *a: (FT.mlp_half_train_plain(*a, residual=lead, col0=col0),), tm,
+                    rtol, fp32, ("out",), timed))
+                _, tq, tat, _ = FT._attn_train_fwd(*ta, residual=lead)
+                _, th, ad, _, _ = FT._mlp_train_fwd(xd, seeds, lw, lb, w1d, s["b1"], w2d, b2r,
+                                                    eps, DROP_P, True, residual=lead, col0=col0)
+                ab = (xd, seeds, mask, lw, lb, wqd, wpd, gd, tq, tat, H // m, eps, DROP_P)
+                mb = (xd, seeds, lw, lb, w1d, w2d, gd, th, ad, DROP_P, eps)
+                kw_a, kw_m = dict(residual=lead, bias=lead), dict(residual=lead, bias=lead,
+                                                                   col0=col0)
+                *_, m_a = FT.attn_half_train_bwd(*ab, emit_mask=True, **kw_a)
+                *_, m_1, m_2 = FT.mlp_half_train_bwd(*mb, emit_mask=True, **kw_m)
+                check(torch.equal(m_a, want[0]) and torch.equal(m_1, want[1])
+                      and torch.equal(m_2, want[2]),
+                      f"[tp] {tg}: backward masks differ from keep_mask at column {col0}")
+                keep("attn_half_train_bwd", _compare_all(
+                    "attn_half_train_bwd", tg, shape,
+                    _no_none(lambda *a: FT.attn_half_train_bwd(*a, **kw_a)),
+                    _no_none(lambda *a: FT.attn_half_train_bwd_plain(*a, **kw_a)), ab, rtol,
+                    fp32, GRADS, timed))
+                keep("mlp_half_train_bwd", _compare_all(
+                    "mlp_half_train_bwd", tg, shape,
+                    _no_none(lambda *a: FT.mlp_half_train_bwd(*a, **kw_m)),
+                    _no_none(lambda *a: FT.mlp_half_train_bwd_plain(*a, **kw_m)), mb, rtol,
+                    fp32, GRADS, timed))
+            print(f"[tp] shard {r}: every op at the shard's shapes within tolerance in fp32 and "
+                  f"bf16; the training kernels' masks (attention, in-MLP from column {col0}, "
+                  f"tail) equal keep_mask bit for bit in both directions")
+    for key, rec in res.items():
+        name, tag = key.rsplit(" ", 1)
+        base = name.split("[")[0]
+        b_ms, b_by = bound(base, B, S, C, saved="recompute" not in name,
+                           es=4 if tag == "fp32" else 2, m=m)
+        rec.update(bound_ms=b_ms, bound_by=b_by)
+        print(f"[tp] {key} (second shard, {shape}): kernel_ms={rec['ms']!r} "
+              f"plain_ms={rec['plain_ms']!r} bound_ms={b_ms!r} (by {b_by}; "
+              f"{b_ms / rec['ms']:.3f} of it)")
+    return res
+
+
+def phase_tp(dev) -> dict:
+    """Phase 22: tensor parallelism.  (b) every op at the shard shapes on
+    this process; (a) and (c) two ranks of a (1, 2) grid.  Returns the
+    readings of both."""
+    t0 = time.perf_counter()
+    ops = tp_op_kernels(dev)
+    gc.collect()
+    torch.cuda.empty_cache()
+    t1 = time.perf_counter()
+    ranks = phase_tp_ranks(dev)
+    t2 = time.perf_counter()
+    print(f"[tp] phase 22 in {t2 - t0:.1f} s (budget 75 s): the ops {t1 - t0:.1f} s, the "
+          f"ranks and the one-process step {t2 - t1:.1f} s")
+    return dict(ops=ops, **ranks)
+
+
+def tp_records(tp: dict) -> list:
+    """Queue B row 14's records of the kernels line: the forward halves at the
+    shard shapes (the second shard's bf16 calls), with their launches per
+    tensor-parallel step of (c) (rank 0's; the attack's and the key
+    forward's deterministic forwards)."""
+    out = []
+    for name, replaces in TP_ROW14.items():
+        r, f = tp["ops"][f"{name} bf16"], tp["ops"][f"{name} fp32"]
+        out.append({"name": f"{name}[tp{TP_SHARDS}]", "route": "cuda", "source": SOURCE,
+                    "replaces": replaces, "launches": tp["counts"][name],
+                    "launches_per": f"tensor-parallel attacked step, {TP_LAYERS} layers, "
+                                    f"rank 0 of (1, {TP_SHARDS})",
+                    "max_abs_err": r["err"], "ms": r["ms"], "plain_ms": r["plain_ms"],
+                    "bound_ms": r["bound_ms"], "bound_by": r["bound_by"], "library_ms": None,
+                    "shape": f"B={PGD_BATCH} S=241, shard of {TP_SHARDS}",
+                    "fp32_ms": f["ms"], "fp32_plain_ms": f["plain_ms"],
+                    "fp32_bound_ms": f["bound_ms"],
+                    "shard_ops": {k: {x: v.get(x) for x in ("ms", "plain_ms", "bound_ms", "err")}
+                                  for k, v in tp["ops"].items()},
+                    "step_ms": list(tp["ms"]), "one_process_ms": tp["one_ms"],
+                    "mem_gib": list(tp["mem_gib"]), "one_process_mem_gib": tp["one_mem_gib"],
+                    "backend": tp["backend"]})
+    return out
 
 
 # --------------------------------------------------------------- profile
@@ -6243,6 +6715,25 @@ def main() -> int:
             return 1
         print(json.dumps({"card": card, "launches_by_path": {"ddp": counts}}))
         return 0
+    if sys.argv[1:2] == ["--tp-rank"] and len(sys.argv) == 3:
+        try:
+            return tp_rank_main(sys.argv[2])
+        except Exception as e:  # noqa: BLE001  the launcher kills the other rank
+            traceback.print_exc()
+            print(f"chip_smoke --tp-rank: FAILED: {e}", file=sys.stderr)
+            return 1
+    if sys.argv[1:] == ["--tp"]:
+        try:
+            from rmcl_tpu_torch import build_config  # noqa: F401
+            card = phase_device()
+            phase_build()
+            tp = phase_tp(torch.device("cuda", 0))
+        except Exception as e:  # noqa: BLE001  any failure ends the run
+            traceback.print_exc()
+            print(f"chip_smoke --tp: FAILED: {e}", file=sys.stderr)
+            return 1
+        print(json.dumps({"card": card, "kernels": tp_records(tp)}))
+        return 0
     if sys.argv[1:] == ["--rest"]:
         try:
             from rmcl_tpu_torch import build_config  # noqa: F401
@@ -6257,7 +6748,7 @@ def main() -> int:
         return 0
     if sys.argv[1:]:
         print("usage: python3 chip_smoke.py [--profile | --gemm-times [ROOT] | --downstream | "
-              "--pretrain | --views | --rest | --ddp]", file=sys.stderr)
+              "--pretrain | --views | --rest | --ddp | --tp]", file=sys.stderr)
         return 2
     try:
         from rmcl_tpu_torch import build_config
@@ -6331,6 +6822,8 @@ def main() -> int:
         rest_counts = phase_rest(dev)
         phase = enter("ddp")
         ddp_counts = phase_ddp(dev, bare["worst"])
+        phase = enter("tp")
+        tp = phase_tp(dev)
     except Exception as e:  # noqa: BLE001  every phase failure ends the run
         traceback.print_exc()
         print(f"chip_smoke: FAILED in phase {phase}: {e}", file=sys.stderr)
@@ -6359,7 +6852,7 @@ def main() -> int:
                 **{k: v[name] for k, v in pre_counts.items()},
                 **{k: v[name] for k, v in views_counts.items()},
                 **{f"rest_{k}": v[name] for k, v in rest_counts.items()},
-                "ddp": ddp_counts[name]}
+                "ddp": ddp_counts[name], "tp": tp["counts"][name]}
 
     records = []
     for name, replaces in KERNELS.items():
@@ -6480,6 +6973,7 @@ def main() -> int:
             "instances": {k: {f: v[f] for f in ("ms", "device_ms", "plain_ms", "bound_ms",
                                                 "library_ms", "max_abs_err")}
                           for k, v in small.items() if k.startswith(name + "[")}})
+    records += tp_records(tp)      # Queue B row 14: the forward halves at the shard shapes
     print(json.dumps({"kernels": records, "shard_shapes": kres["shard_shapes"],
                       "sub_kernels": kres["sub_kernels"]}))
     print(json.dumps({"ok": True, "device": {

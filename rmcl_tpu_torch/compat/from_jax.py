@@ -20,7 +20,8 @@ written over numpy only:
     the JAX package keeps among the parameters, keep their paths and become
     the port's buffers.
 
-``leaves_to_jax`` is the inverse, from a live model: it tells a linear weight
+``shard_from_jax`` cuts the same state dict to a rank's tensor-parallel
+shards.  ``leaves_to_jax`` is the inverse, from a live model: it tells a linear weight
 from a LayerNorm or embedding weight by the module that owns it.
 """
 
@@ -74,6 +75,19 @@ def state_dict_from_jax(params: Dict[str, Any], num_layers: int,
             out[queue] = np.array(state[queue], order="C")
             out[queue + "_ptr"] = np.array(state[queue + "_ptr"]).reshape(1)
     return out
+
+
+def shard_from_jax(params: Dict[str, Any], num_layers: int, model_rank: int, m: int,
+                   state: Optional[Dict[str, Any]] = None):
+    """``state_dict_from_jax`` cut to model rank ``model_rank``'s shards of a
+    tensor-parallel model of ``m`` (``parallel/sharding_rules.py:
+    shard_state_dict``), as torch tensors: the weights a rank of a
+    ``(data, model)`` grid loads (``ViLT(cfg, model_shards=m)``)."""
+    import torch
+
+    from rmcl_tpu_torch.parallel.sharding_rules import shard_state_dict
+    sd = state_dict_from_jax(params, num_layers, state)
+    return shard_state_dict({k: torch.from_numpy(v) for k, v in sd.items()}, model_rank, m)
 
 
 def leaves_to_jax(model, grads: bool = False) -> Dict[str, np.ndarray]:

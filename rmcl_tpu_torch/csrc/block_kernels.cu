@@ -225,7 +225,10 @@ __device__ __forceinline__ uint32_t philox_word(uint32_t seed, uint32_t draw, ui
 }
 
 // Inverted dropout over an (M, N) array whose row m belongs to sample
-// m / rows at row m % rows.  seeds == nullptr: no dropout.
+// m / rows at row m % rows.  seeds == nullptr: no dropout.  Column n of the
+// array is column col0 + n of the mask: a tensor-parallel shard of the MLP's
+// hidden columns draws the words of its global columns, so that the shards'
+// masks are the columns of the unsharded mask.
 struct Drop {
   const int32_t* seeds;   // (B,) one stream per sample
   int rows;               // rows per sample
@@ -233,12 +236,13 @@ struct Drop {
   uint32_t threshold;     // keep iff word >= threshold
   float inv_keep;         // 1 / (1 - p)
   void* mask_out;         // (M, N) 0/1 in the activation type, or nullptr
+  uint32_t col0;          // the mask column of the array's column 0
 };
 
 __device__ __forceinline__ bool drop_keep(const Drop& d, int m, int n) {
   const int b = m / d.rows;
   return philox_word((uint32_t)d.seeds[b], d.draw, (uint32_t)(m - b * d.rows),
-                     (uint32_t)n) >= d.threshold;
+                     d.col0 + (uint32_t)n) >= d.threshold;
 }
 
 // ------------------------------------------------------------------ ln_gemm
@@ -1248,22 +1252,22 @@ const char* rmcl_error_string(int err) { return cudaGetErrorString((cudaError_t)
 // aux: with gelu, where the pre-GELU value is kept (or null); epi and w_kn
 // as described at ln_gemm (w_kn = 1: W is stored (K, N)).  Dropout (see
 // Drop) when seeds is not null: rows per sample, draw, keep threshold,
-// 1 / (1 - p) and an optional (M, N) mask output.  ln_scratch: with ln_w,
-// the LayerNorm pass's scratch: (M, 2) fp32 row statistics for dtype 0, the (M,
-// K) bf16 LayerNorm output for dtype 1; else unused.  dtype 0 runs the
-// statistics pass and the FMA kernel, dtype 1 the LayerNorm pass and the
-// wgmma one.
+// 1 / (1 - p), an optional (M, N) mask output and the mask column of
+// column 0.  ln_scratch: with ln_w, the LayerNorm pass's scratch: (M, 2)
+// fp32 row statistics for dtype 0, the (M, K) bf16 LayerNorm output for
+// dtype 1; else unused.  dtype 0 runs the statistics pass and the FMA
+// kernel, dtype 1 the LayerNorm pass and the wgmma one.
 int rmcl_ln_gemm(int dtype, const void* a, const void* ln_w, const void* ln_b, float eps,
                  void* ln_scratch, const void* w, const void* bias, const void* residual,
                  void* aux, void* out, int M, int N, int K, int gelu, int epi, int w_kn,
                  const void* seeds, int rows, unsigned draw, unsigned threshold,
-                 float inv_keep, void* mask_out, void* stream) {
+                 float inv_keep, void* mask_out, unsigned col0, void* stream) {
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (epi < EPI_BIAS || epi > EPI_F32 || (epi == EPI_DGELU && aux == nullptr) ||
       (seeds != nullptr && (rows <= 0 || epi == EPI_F32)))
     return (int)cudaErrorInvalidValue;
   const Drop drop{static_cast<const int32_t*>(seeds), rows, draw, threshold, inv_keep,
-                  mask_out};
+                  mask_out, col0};
   if (dtype == 0)
     return (int)(w_kn ? launch_gemm_f32<true>(a, ln_w, ln_b, eps, ln_scratch, w, bias,
                                               residual, aux, out, M, N, K, gelu, epi, drop, st)
@@ -1322,11 +1326,11 @@ int rmcl_ln_bwd_grid(int dtype, int M, int C) {
 
 int rmcl_drop_scale(int dtype, const void* g, void* out, int M, int N, const void* seeds,
                     int rows, unsigned draw, unsigned threshold, float inv_keep,
-                    void* mask_out, void* stream) {
+                    void* mask_out, unsigned col0, void* stream) {
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (seeds == nullptr || rows <= 0) return (int)cudaErrorInvalidValue;
   const Drop drop{static_cast<const int32_t*>(seeds), rows, draw, threshold, inv_keep,
-                  mask_out};
+                  mask_out, col0};
   if (dtype == 0) return (int)launch_drop_scale<float>(g, out, M, N, drop, st);
   if (dtype == 1) return (int)launch_drop_scale<bf16>(g, out, M, N, drop, st);
   return (int)cudaErrorInvalidValue;

@@ -10,6 +10,7 @@ from torch import nn
 
 from rmcl_tpu_torch.models.layers import BatchNorm1d, LayerNorm, Linear, gelu
 from rmcl_tpu_torch.models.text_embeddings import BERT_LN_EPS
+from rmcl_tpu_torch.parallel.tp import copy_to_model, gather_from_model
 
 TORCH_LN_EPS = 1e-5    # nn.LayerNorm's default, used by the moco and vqa heads
 
@@ -35,14 +36,20 @@ class ITMHead(nn.Module):
 
 class MLMHead(nn.Module):
     """dense + GELU + LayerNorm, then an untied decoder with no bias of its
-    own and a separate ``bias`` parameter."""
+    own and a separate ``bias`` parameter.  ``shards`` m > 1 (a model axis):
+    the decoder and bias hold this rank's V/m rows of the vocabulary, and the
+    logits of the model group are gathered (``parallel/tp.py``), so that every
+    rank computes the loss on the full (.., V) logits."""
 
-    def __init__(self, hidden: int, vocab: int):
+    def __init__(self, hidden: int, vocab: int, shards: int = 1):
         super().__init__()
+        self.shards = shards
+        if vocab % shards:
+            raise ValueError(f"a model axis of {shards} does not divide the vocabulary {vocab}")
         self.transform = nn.ModuleDict({"dense": Linear(hidden, hidden),
                                         "LayerNorm": LayerNorm(hidden, BERT_LN_EPS)})
-        self.decoder = Linear(hidden, vocab, bias=False)
-        self.bias = nn.Parameter(torch.empty(vocab))
+        self.decoder = Linear(hidden, vocab // shards, bias=False)
+        self.bias = nn.Parameter(torch.empty(vocab // shards))
 
     def reset_parameters(self, generator: torch.Generator) -> None:
         nn.init.zeros_(self.bias)
@@ -50,7 +57,9 @@ class MLMHead(nn.Module):
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         y = gelu(self.transform["dense"](x))
         y = self.transform["LayerNorm"](y)
-        return self.decoder(y) + self.bias.to(y.dtype)
+        if self.shards == 1:
+            return self.decoder(y) + self.bias.to(y.dtype)
+        return gather_from_model(self.decoder(copy_to_model(y)) + self.bias.to(y.dtype))
 
 
 class PatchHead(nn.Module):

@@ -85,9 +85,15 @@ def _needs(cfg, *names: str) -> bool:
 
 
 class ViLT(nn.Module):
-    def __init__(self, cfg):
+    """``model_shards`` m > 1: model rank's shards of a tensor-parallel model
+    (``parallel/sharding_rules.py``; built by ``shard_model`` from the full
+    one, never initialised itself): the query transformer, its momentum twin
+    and the MLM decoder."""
+
+    def __init__(self, cfg, model_shards: int = 1):
         super().__init__()
         C = cfg.hidden_size
+        self.model_shards = model_shards
         self.compute_dtype = getattr(torch, cfg.compute_dtype)
         self.grid_hw = tuple(cfg.grid_hw)
         self.patch_size = cfg.patch_size
@@ -99,10 +105,11 @@ class ViLT(nn.Module):
         self.token_type_embeddings = Embedding(
             3 if _needs(cfg, "nlvr2", "nlvr2_attacked") else 2, C)
         self.transformer = ViT(C, cfg.num_heads, cfg.num_layers, cfg.mlp_ratio,
-                               cfg.patch_size, cfg.image_size, *self.block_impls)
+                               cfg.patch_size, cfg.image_size, *self.block_impls,
+                               model_shards)
         self.pooler = Pooler(C)
         if _needs(cfg, "mlm"):
-            self.mlm_score = MLMHead(C, cfg.vocab_size)
+            self.mlm_score = MLMHead(C, cfg.vocab_size, model_shards)
         if _needs(cfg, "itm", "irtr"):
             self.itm_score = ITMHead(C)
         if _needs(cfg, "mpp"):
@@ -125,7 +132,8 @@ class ViLT(nn.Module):
             self.k_token_type_embeddings = Embedding(
                 self.token_type_embeddings.weight.shape[0], C)
             self.k_transformer = ViT(C, cfg.num_heads, cfg.num_layers, cfg.mlp_ratio,
-                                     cfg.patch_size, cfg.image_size, *self.block_impls)
+                                     cfg.patch_size, cfg.image_size, *self.block_impls,
+                                     model_shards)
             self.k_moco_head = MoCoHead(C, C, MOCO_PROJ_DIM)
             qdt = getattr(torch, cfg.queue_dtype or cfg.compute_dtype)
             self.register_buffer("proj_queue",

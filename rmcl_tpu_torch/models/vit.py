@@ -47,6 +47,19 @@ parameters too.
                          the plain block: LN2, fc1, GELU, ``dropout`` (draw 0),
                          fc2, ``dropout`` (draw 1), ``+ x``
 
+  Under a model axis (``model_shards`` m > 1, tensor parallelism over the
+  active grid's model group, ``parallel/mesh.py``) a block holds its shards
+  (``parallel/sharding_rules.py``): qkv (3C/m, C) of H/m whole heads, proj
+  (C, C/m), fc1 (4C/m, C), fc2 (C, 4C/m).  Every half, in every mode, runs
+  the same op on the shards between Megatron's f and g (``parallel/tp.py``):
+  f before it sums the input gradient over the model group, g after it sums
+  the shards' partial outputs.  The first shard alone adds the residual and
+  the proj / fc2 bias; every shard drops its partial with the full (S, C)
+  mask (dropout is linear for a fixed mask), and the in-MLP mask of a shard
+  starts at its first global hidden column.  The partials are rounded to the
+  activation type by the ops and summed in it by g.  Configurations P and F
+  are not sharded (``NotImplementedError``).
+
   One kept deviation computes the same function another way: at p = 0 the
   JAX package runs ``fused_mlp_half`` (weight gradients from an XLA twin)
   where the port runs ``mlp_half_train`` (weight gradients from the
@@ -71,6 +84,8 @@ from rmcl_tpu_torch.ops.attention import masked_attention
 from rmcl_tpu_torch.ops.dropout import dropout
 from rmcl_tpu_torch.ops.fused_block import attn_half, attn_half_full, mlp_half
 from rmcl_tpu_torch.ops.fused_block_train import attn_half_train, mlp_half_train
+from rmcl_tpu_torch.parallel import mesh
+from rmcl_tpu_torch.parallel.tp import copy_to_model, reduce_from_model
 
 VIT_LN_EPS = 1e-6
 
@@ -281,22 +296,36 @@ class PatchEmbed(nn.Module):
         return linear(rows.to(dtype), kernel, self.proj.bias)
 
 
+def _same(x):
+    return x
+
+
 class Block(nn.Module):
     """Pre-norm transformer block; names follow the reference state_dict.
     ``attn_impl``: "fused" | "pallas" | "flash"; ``mlp_impl``: "fused" |
-    "fused_train" (``models/vilt.py:derive_block_impls``)."""
+    "fused_train" (``models/vilt.py:derive_block_impls``).  ``model_shards``
+    m > 1: this model rank's shards of the four matrices, and ``num_heads``
+    the H/m heads it runs."""
 
     def __init__(self, hidden_size: int, num_heads: int, mlp_ratio: int,
-                 attn_impl: str = "fused", mlp_impl: str = "fused_train"):
+                 attn_impl: str = "fused", mlp_impl: str = "fused_train",
+                 model_shards: int = 1):
         super().__init__()
-        C = hidden_size
-        self.num_heads = num_heads
+        C, m = hidden_size, model_shards
+        if m > 1 and (attn_impl, mlp_impl) != ("fused", "fused_train"):
+            raise NotImplementedError(
+                f"attention_impl={attn_impl!r}, mlp_impl={mlp_impl!r} under a model axis: "
+                "tensor parallelism runs the default configuration's fused halves")
+        if num_heads % m or (mlp_ratio * C) % m:
+            raise ValueError(f"a model axis of {m} does not divide {num_heads} heads "
+                             f"and the MLP width {mlp_ratio * C}")
+        self.num_heads, self.model_shards = num_heads // m, m
         self.attn_impl, self.mlp_impl = attn_impl, mlp_impl
+        Ci, C4 = C // m, mlp_ratio * C // m
         self.norm1 = LayerNorm(C, VIT_LN_EPS)
-        self.attn = nn.ModuleDict({"qkv": Linear(C, 3 * C), "proj": Linear(C, C)})
+        self.attn = nn.ModuleDict({"qkv": Linear(C, 3 * Ci), "proj": Linear(Ci, C)})
         self.norm2 = LayerNorm(C, VIT_LN_EPS)
-        self.mlp = nn.ModuleDict({"fc1": Linear(C, mlp_ratio * C),
-                                  "fc2": Linear(mlp_ratio * C, C)})
+        self.mlp = nn.ModuleDict({"fc1": Linear(C, C4), "fc2": Linear(C4, C)})
 
     def matrices(self, dtype: torch.dtype) -> Dict[str, torch.Tensor]:
         """The four weight matrices in ``dtype``, as the fused ops take them."""
@@ -334,40 +363,50 @@ class Block(nn.Module):
         MLP half); ``mats`` are the weight matrices in the compute type, the
         training ops' operands, and the parameters receive the gradients."""
         train = seeds is not None
+        sharded = self.model_shards > 1
+        f, g = (copy_to_model, reduce_from_model) if sharded else (_same, _same)
+        rank = mesh.model_rank() if sharded else 0
+        lead = rank == 0        # the first shard adds the residual and the row-parallel biases
         n1, qkv, proj = self.norm1, self.attn["qkv"], self.attn["proj"]
+        bproj = proj.bias if lead else None
         if self.attn_impl != "fused":
             a = self._unfused_attention(x, mask, mats, train)
             x = x + (dropout(a, seeds[0], 0, p) if train else a)
         elif not train:
-            x = attn_half(x, mask, n1.weight, n1.bias, mats["wqkv"], qkv.bias,
-                          mats["wproj"], proj.bias, self.num_heads, VIT_LN_EPS,
-                          residual=True)
+            x = g(attn_half(f(x), mask, n1.weight, n1.bias, mats["wqkv"], qkv.bias,
+                            mats["wproj"], bproj, self.num_heads, VIT_LN_EPS,
+                            residual=lead))
         elif self.mlp_impl == "fused_train" and p > 0:
-            x = attn_half_train(x, seeds[0], mask, n1.weight, n1.bias, qkv.weight, qkv.bias,
-                                proj.weight, proj.bias, self.num_heads, VIT_LN_EPS, p,
-                                wqkv_c=mats["wqkv"], wproj_c=mats["wproj"])
+            x = g(attn_half_train(f(x), seeds[0], mask, n1.weight, n1.bias, qkv.weight,
+                                  qkv.bias, proj.weight, bproj, self.num_heads, VIT_LN_EPS,
+                                  p, wqkv_c=mats["wqkv"], wproj_c=mats["wproj"],
+                                  residual=lead))
         else:
-            a = attn_half_full(x, mask, n1.weight, n1.bias, qkv.weight, qkv.bias,
-                               proj.weight, proj.bias, self.num_heads, VIT_LN_EPS,
-                               wqkv_c=mats["wqkv"], wproj_c=mats["wproj"])
+            a = g(attn_half_full(f(x), mask, n1.weight, n1.bias, qkv.weight, qkv.bias,
+                                 proj.weight, bproj, self.num_heads, VIT_LN_EPS,
+                                 wqkv_c=mats["wqkv"], wproj_c=mats["wproj"]))
             x = x + dropout(a, seeds[0], 0, p)
 
         n2, fc1, fc2 = self.norm2, self.mlp["fc1"], self.mlp["fc2"]
+        b2 = fc2.bias if lead else None
         if not train:
-            return mlp_half(x, n2.weight, n2.bias, mats["w1"], fc1.bias, mats["w2"],
-                            fc2.bias, VIT_LN_EPS, residual=True)
+            return g(mlp_half(f(x), n2.weight, n2.bias, mats["w1"], fc1.bias, mats["w2"],
+                              b2, VIT_LN_EPS, residual=lead))
         if self.mlp_impl == "fused" and p > 0:
             return x + self._plain_mlp(x, seeds[1], p)
-        return mlp_half_train(x, seeds[1], n2.weight, n2.bias, fc1.weight, fc1.bias,
-                              fc2.weight, fc2.bias, p, VIT_LN_EPS, tail=True,
-                              w1_c=mats["w1"], w2_c=mats["w2"])
+        return g(mlp_half_train(f(x), seeds[1], n2.weight, n2.bias, fc1.weight, fc1.bias,
+                                fc2.weight, b2, p, VIT_LN_EPS, tail=True,
+                                w1_c=mats["w1"], w2_c=mats["w2"], residual=lead,
+                                col0=rank * fc1.weight.shape[0]))
 
 
 class ViT(nn.Module):
     def __init__(self, hidden_size: int, num_heads: int, num_layers: int,
                  mlp_ratio: int, patch_size: int, img_size: int,
-                 attn_impl: str = "fused", mlp_impl: str = "fused_train"):
+                 attn_impl: str = "fused", mlp_impl: str = "fused_train",
+                 model_shards: int = 1):
         super().__init__()
+        self.model_shards = model_shards
         C = hidden_size
         self.pos_grid = img_size // patch_size   # grid the pos-embed lives on
         self.patch_embed = PatchEmbed(C, patch_size)
@@ -375,7 +414,8 @@ class ViT(nn.Module):
         self.pos_embed = nn.Parameter(torch.empty(1, self.pos_grid ** 2 + 1, C))
         self.mask_token = nn.Parameter(torch.empty(1, 1, C))   # MPP's masked patches
         self.blocks = nn.ModuleList(
-            Block(C, num_heads, mlp_ratio, attn_impl, mlp_impl) for _ in range(num_layers))
+            Block(C, num_heads, mlp_ratio, attn_impl, mlp_impl, model_shards)
+            for _ in range(num_layers))
         self.norm = LayerNorm(C, VIT_LN_EPS)
 
     def reset_parameters(self, generator: torch.Generator) -> None:
@@ -463,6 +503,10 @@ class ViT(nn.Module):
                 seeds: Optional[torch.Tensor] = None, p: float = 0.0) -> torch.Tensor:
         """(B, S, C) activations, (B, S) int32 mask -> final-normed (B, S, C).
         ``seeds`` (layers, 2, B) int32: the training forward at dropout rate ``p``."""
+        if self.model_shards > 1 and self.model_shards != mesh.model_size():
+            raise RuntimeError(f"a transformer of {self.model_shards} model shards on a grid "
+                               f"whose model axis has {mesh.model_size()} "
+                               "(parallel/mesh.py:init_grid)")
         if block_matrices is None:
             block_matrices = self.block_matrices(x.dtype)
         for i, (blk, mats) in enumerate(zip(self.blocks, block_matrices)):

@@ -34,7 +34,7 @@ import torch
 from rmcl_tpu_torch.objectives.losses import (bce_rowsum_with_logits, bce_with_logits,
                                               cross_entropy, cross_entropy_per_sample,
                                               l2_normalize)
-from rmcl_tpu_torch.parallel.comm import get_rank
+from rmcl_tpu_torch.parallel.mesh import data_rank
 from rmcl_tpu_torch.parallel.dist import gather_rows
 
 
@@ -186,7 +186,7 @@ def irtr_text_panel(model, batch, block_matrices=None) -> Tuple[torch.Tensor, in
     the JAX package's pjit step sees them; this rank's alone without a
     process group) and the row of this rank's first pair among them."""
     return (gather_rows(irtr_text_repr(model, batch, block_matrices)),
-            get_rank() * batch["text_ids"].shape[0])
+            data_rank() * batch["text_ids"].shape[0])
 
 
 def compute_irtr_attacked(model, batch, *, seeds=None, block_matrices=None,

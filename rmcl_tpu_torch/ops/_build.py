@@ -27,8 +27,9 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 
 _P, _I, _F, _U = ctypes.c_void_p, ctypes.c_int, ctypes.c_float, ctypes.c_uint
 _ST = [ctypes.c_longlong] * 3   # element strides (b, h, s) of a (B, H, S, D) operand
-# dropout arguments: seeds, rows per sample, draw, keep threshold, 1/(1-p), mask_out
-_DROP = [_P, _I, _U, _U, _F, _P]
+# dropout arguments: seeds, rows per sample, draw, keep threshold, 1/(1-p), mask_out,
+# the mask column of column 0
+_DROP = [_P, _I, _U, _U, _F, _P, _U]
 # entry point -> ctypes argtypes; every pointer and the stream as c_void_p
 SIGNATURES = {
     # dtype, a, ln_w, ln_b, eps, ln_scratch (the LayerNorm pass's: fp32 row statistics

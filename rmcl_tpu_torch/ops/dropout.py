@@ -13,6 +13,10 @@ configuration computes the same function from the same seeds:
   * inside the MLP, after GELU:   ``seeds[1]``, draw 0, S x 4C
   * the MLP tail, after fc2:      ``seeds[1]``, draw 1, S x C
 
+``col0`` shifts the mask's columns (``ops/philox.py``): x's column c draws the
+word of column ``col0 + c``, as a tensor-parallel shard of the MLP's hidden
+columns does.
+
 Both directions are ``keep ? x / (1 - p) : 0`` in fp32, rounded once.  On a
 CUDA tensor the forward and the backward launch the ``drop_scale`` kernel of
 ``csrc/block_kernels.cu`` (the one the training attention backward uses for
@@ -33,37 +37,39 @@ from rmcl_tpu_torch.ops.fused_block_train import _drop_scale
 from rmcl_tpu_torch.ops.philox import check_rate, keep_mask
 
 
-def _apply(x, seeds, draw: int, p: float):
+def _apply(x, seeds, draw: int, p: float, col0: int = 0):
     B, S, N = x.shape
     if x.device.type == "cpu":
-        return dropout_plain(x, keep_mask(seeds, draw, S, N, p), p)
+        return dropout_plain(x, keep_mask(seeds, draw, S, N, p, col0), p)
     x = x.contiguous()
     _check(x, dict(x=x, seeds=seeds), dict(x=(B, S, N), seeds=(B,)))
-    out = _drop_scale(_build.library(), x.view(B * S, N), (seeds, S, draw, p, None))
+    out = _drop_scale(_build.library(), x.view(B * S, N), (seeds, S, draw, p, None, col0))
     launches["dropout"] += 1
     return out.view(B, S, N)
 
 
 class _Dropout(torch.autograd.Function):
     @staticmethod
-    def forward(ctx, x, seeds, draw, p):
+    def forward(ctx, x, seeds, draw, p, col0):
         ctx.save_for_backward(seeds)
-        ctx.conf = (draw, p)
-        return _apply(x, seeds, draw, p)
+        ctx.conf = (draw, p, col0)
+        return _apply(x, seeds, draw, p, col0)
 
     @staticmethod
     @once_differentiable
     def backward(ctx, g):
         seeds, = ctx.saved_tensors
-        return _apply(g, seeds, *ctx.conf), None, None, None
+        return _apply(g, seeds, *ctx.conf), None, None, None, None
 
 
-def dropout(x: torch.Tensor, seeds: torch.Tensor, draw: int, p: float) -> torch.Tensor:
+def dropout(x: torch.Tensor, seeds: torch.Tensor, draw: int, p: float,
+            col0: int = 0) -> torch.Tensor:
     """Inverted dropout of x (B, S, N) at rate p with mask ``draw`` of the
-    per-sample streams ``seeds`` (B,) int32; x itself at p = 0."""
+    per-sample streams ``seeds`` (B,) int32, at the mask's columns ``col0`` ..
+    ``col0 + N - 1``; x itself at p = 0."""
     check_rate(p)
     if p == 0.0:
         return x
     if torch.is_grad_enabled() and x.requires_grad:
-        return _Dropout.apply(x, seeds, draw, p)
-    return _apply(x, seeds, draw, p)
+        return _Dropout.apply(x, seeds, draw, p, col0)
+    return _apply(x, seeds, draw, p, col0)

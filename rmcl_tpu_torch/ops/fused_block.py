@@ -44,6 +44,12 @@ them once, not per call); LayerNorm parameters and biases in float32 (the
 kernels round biases to x's type, as ``bias.astype(x.dtype)`` does); mask
 (B, S) int32, 1 = valid key.
 
+Tensor-parallel shards (``models/vit.py:Block`` under a model axis) call the
+same ops on their shards: the attention's inner width Ci is wqkv's rows / 3,
+the MLP's C4 w1's rows, and a None proj / fc2 bias is left out (the first
+shard alone adds it); the dx and full backwards then give no bias gradient
+(``bias=False``) and, with ``residual`` off, no ``+ g``.
+
 The plain versions follow the Pallas kernels' rounding points.  Forward:
 LayerNorm in fp32 then rounded; every matmul accumulates in fp32 and is
 rounded to x's type; + bias, GELU and + residual each round again.
@@ -98,9 +104,10 @@ def reset_launches() -> None:
 
 # ------------------------------------------------------------ plain versions
 def _dense(y, w, b):
-    """(y @ w^T) accumulated in fp32, rounded, then + bias rounded."""
+    """(y @ w^T) accumulated in fp32, rounded, then + bias rounded (b None:
+    no bias, a row-parallel shard other than the first)."""
     out = (y.float() @ w.to(y.dtype).float().t()).to(y.dtype)
-    return out + b.to(y.dtype)
+    return out if b is None else out + b.to(y.dtype)
 
 
 def _attn_core_plain(x, mask, ln_w, ln_b, wqkv, bqkv, wproj, bproj, num_heads, eps):
@@ -217,12 +224,12 @@ def _rows(t):
 
 
 def _attn_param_bwd_plain(x, mask, ln_w, ln_b, wqkv, wproj, gm, qkv, attn, num_heads,
-                          eps, g_res):
+                          eps, g_res, bias=True):
     """(dx [+ g_res], dln_w, dln_b, dwqkv, dbqkv, dwproj, dbproj) of
     ``proj(MHA(qkv(LN1 x)))`` given its output gradient gm, the forward's qkv
     and attn: ``pallas_block.py:_attn_bwd_math`` step by step, y = LN1 x,
     attn and gm entering the weight-gradient products as their rounded values
-    (``_bwd_impl`` :431-441)."""
+    (``_bwd_impl`` :431-441).  dbproj is None unless ``bias``."""
     dqkv = _attn_dqkv_plain(qkv, mask, wproj, gm, num_heads)
     dy = dqkv.float() @ wqkv.float()                      # fp32, not rounded
     dx, y, dln_w, dln_b = _ln_backward_plain(
@@ -230,14 +237,14 @@ def _attn_param_bwd_plain(x, mask, ln_w, ln_b, wqkv, wproj, gm, qkv, attn, num_h
         g_res is not None)
     dqkv2d, gm2d = _rows(dqkv), _rows(gm)
     return (dx.view(x.shape), dln_w, dln_b, _gemm_tn_plain(dqkv2d, y), _colsum_plain(dqkv2d),
-            _gemm_tn_plain(gm2d, _rows(attn)), _colsum_plain(gm2d))
+            _gemm_tn_plain(gm2d, _rows(attn)), _colsum_plain(gm2d) if bias else None)
 
 
 def attn_half_full_bwd_plain(x, mask, ln_w, ln_b, wqkv, wproj, g, qkv, attn,
-                             num_heads: int, eps: float):
+                             num_heads: int, eps: float, bias: bool = True):
     """Plain version of ``attn_half_full_bwd``."""
     return _attn_param_bwd_plain(x, mask, ln_w, ln_b, wqkv, wproj, g, qkv, attn,
-                                 num_heads, eps, None)
+                                 num_heads, eps, None, bias)
 
 
 def _gelu_grad(h32):
@@ -276,6 +283,8 @@ def _check(x, named, shapes):
     if C % 8:
         raise ValueError(f"hidden size C={C} must be a multiple of 8")
     for name, t in named.items():
+        if t is None:                 # an optional operand left out
+            continue
         want_dtype = (torch.int32 if name in ("mask", "seeds") else
                       x.dtype if name in _IN_X_TYPE else torch.float32)
         if t.device != x.device:
@@ -302,7 +311,7 @@ def _refuse_weight_grads(**params):
     """x is the only input these ops differentiate to."""
     if not torch.is_grad_enabled():
         return
-    bad = [k for k, t in params.items() if t.requires_grad]
+    bad = [k for k, t in params.items() if t is not None and t.requires_grad]
     if bad:
         raise RuntimeError(
             f"the block ops differentiate with respect to x only, but {bad} "
@@ -312,12 +321,14 @@ def _refuse_weight_grads(**params):
 
 def _drop_args(drop):
     """ctypes arguments of a kernel's dropout: ``drop`` is None or
-    (seeds (B,) int32, rows per sample, draw, p, mask_out or None)."""
+    (seeds (B,) int32, rows per sample, draw, p, mask_out or None[, col0]),
+    col0 the mask column of the output's column 0 (``ops/philox.py``; 0 when
+    left out)."""
     if drop is None:
-        return None, 0, 0, 0, 1.0, None
-    seeds, rows, draw, p, mask_out = drop
+        return None, 0, 0, 0, 1.0, None, 0
+    seeds, rows, draw, p, mask_out, *col0 = drop
     return (seeds.data_ptr(), rows, draw, keep_threshold(p), 1.0 / (1.0 - p),
-            mask_out.data_ptr() if mask_out is not None else None)
+            mask_out.data_ptr() if mask_out is not None else None, col0[0] if col0 else 0)
 
 
 def _gemm(lib, a2d, w, bias, out, ln=None, eps=0.0, residual=None, gelu=False,
@@ -402,7 +413,7 @@ def _gemm_plain(a2d, w, bias=None, ln=None, eps=0.0, residual=None, gelu=False, 
                 epi=_EPI_BIAS, w_kn=False, drop=None):
     """Plain version of ``_gemm`` with the kernel's rounding points (see
     ``ln_gemm`` in ``csrc/block_kernels.cu``).  ``drop``: None or (seeds,
-    rows per sample, draw, p).  Returns (out, the pre-GELU value when
+    rows per sample, draw, p[, col0]).  Returns (out, the pre-GELU value when
     ``gelu``, else None, the keep mask (M, N) when ``drop``, else None); out
     is fp32 for ``_EPI_F32``, else a2d's type."""
     dt = a2d.dtype
@@ -413,8 +424,9 @@ def _gemm_plain(a2d, w, bias=None, ln=None, eps=0.0, residual=None, gelu=False, 
         return acc, None, None
     keep = None
     if drop is not None:
-        seeds, rows, draw, p = drop
-        keep = keep_mask(seeds, draw, rows, acc.shape[1], p).reshape(acc.shape)
+        seeds, rows, draw, p, *col0 = drop
+        keep = keep_mask(seeds, draw, rows, acc.shape[1], p,
+                         col0[0] if col0 else 0).reshape(acc.shape)
     scale = lambda v32: torch.where(keep, v32 * (1.0 / (1.0 - drop[3])), 0.0)  # noqa: E731
     if epi == _EPI_DGELU:
         da = acc if keep is None else scale(acc)
@@ -525,19 +537,21 @@ def _ln_backward(lib, x2d, dy, ln_w, ln_b, g2d, eps, residual):
 
 
 def _attn_param_bwd(x, mask, ln_w, ln_b, wqkv, wproj, gm, qkv, attn, num_heads, eps,
-                    g_res):
+                    g_res, bias=True):
     """The kernels of ``_attn_param_bwd_plain``: gemm(dattn = gm . Wproj) ->
     masked_attention_bwd_dq / _dkv -> gemm(dy = dqkv . Wqkv, fp32) ->
     ln_bwd [+ g_res] (also y and dLN1, one launch) -> gemm_tn(dWqkv =
     dqkv^T . y) -> colsum(dbqkv) -> gemm_tn(dWproj = gm^T . attn) ->
-    colsum(dbproj).  Arguments as checked by the callers."""
+    [colsum(dbproj), when ``bias``].  The attention's inner width Ci is
+    wqkv's rows / 3.  Arguments as checked by the callers."""
     B, S, C = x.shape
+    Ci = wqkv.shape[0] // 3
     lib = _build.library()
     M = B * S
     x2d, gm2d = x.view(M, C), gm.view(M, C)
     new = lambda *shape, dtype=x.dtype: torch.empty(  # noqa: E731
         *shape, device=x.device, dtype=dtype)
-    dattn, dqkv = new(M, C), new(M, 3 * C)
+    dattn, dqkv = new(M, Ci), new(M, 3 * Ci)
     stats = new(B, num_heads, S, 3, dtype=torch.float32)
     dy = new(M, C, dtype=torch.float32)
     _gemm(lib, gm2d, wproj, None, dattn, w_kn=True)
@@ -547,7 +561,7 @@ def _attn_param_bwd(x, mask, ln_w, ln_b, wqkv, wproj, gm, qkv, attn, num_heads, 
         lib, x2d, dy, ln_w, ln_b, None if g_res is None else g_res.view(M, C), eps,
         g_res is not None)
     return (dx.view(B, S, C), dln_w, dln_b, _gemm_tn(lib, dqkv, y), _colsum(lib, dqkv),
-            _gemm_tn(lib, gm2d, attn.view(M, C)), _colsum(lib, gm2d))
+            _gemm_tn(lib, gm2d, attn.view(M, Ci)), _colsum(lib, gm2d) if bias else None)
 
 
 # ------------------------------------------------------------ forward chains
@@ -612,12 +626,13 @@ def attn_half_dx(x, mask, ln_w, ln_b, wqkv, bqkv, wproj, g,
         return attn_half_dx_plain(x, mask, ln_w, ln_b, wqkv, bqkv, wproj, g,
                                   num_heads, eps, residual, qkv)
     B, S, C = x.shape
-    _head_dim(C, num_heads)
+    Ci = wqkv.shape[0] // 3
+    _head_dim(Ci, num_heads)
     named = dict(x=x, mask=mask, ln_w=ln_w, ln_b=ln_b, wqkv=wqkv, bqkv=bqkv,
                  wproj=wproj, g=g)
     shapes = dict(x=(B, S, C), mask=(B, S), ln_w=(C,), ln_b=(C,),
-                  wqkv=(3 * C, C), bqkv=(3 * C,), wproj=(C, C), g=(B, S, C),
-                  qkv=(B, S, 3 * C))
+                  wqkv=(3 * Ci, C), bqkv=(3 * Ci,), wproj=(C, Ci), g=(B, S, C),
+                  qkv=(B, S, 3 * Ci))
     if qkv is not None:
         named["qkv"] = qkv
     _check(x, named, shapes)
@@ -627,9 +642,9 @@ def attn_half_dx(x, mask, ln_w, ln_b, wqkv, bqkv, wproj, g,
     new = lambda *shape, dtype=x.dtype: torch.empty(  # noqa: E731
         *shape, device=x.device, dtype=dtype)
     if qkv is None:
-        qkv = new(M, 3 * C)
+        qkv = new(M, 3 * Ci)
         _gemm(lib, x2d, wqkv, bqkv, qkv, ln=(ln_w, ln_b), eps=eps)
-    dattn, dqkv = new(M, C), new(M, 3 * C)
+    dattn, dqkv = new(M, Ci), new(M, 3 * Ci)
     stats = new(B, num_heads, S, 3, dtype=torch.float32)
     dy = new(M, C, dtype=torch.float32)
     _gemm(lib, g2d, wproj, None, dattn, w_kn=True)
@@ -671,30 +686,37 @@ def mlp_half_dx(x, ln_w, ln_b, w1, b1, w2, g, eps: float,
 
 
 def attn_half_full_bwd(x, mask, ln_w, ln_b, wqkv, wproj, g, qkv, attn,
-                       num_heads: int, eps: float):
+                       num_heads: int, eps: float, bias: bool = True):
     """Backward of ``attn_half_full`` given its output gradient g (B, S, C) and
-    the forward's ``qkv`` (B, S, 3C) and ``attn`` (B, S, C).  Returns (dx,
-    dln_w, dln_b, dwqkv (3C, C), dbqkv, dwproj (C, C), dbproj), dx in x's type
-    and the rest float32."""
+    the forward's ``qkv`` (B, S, 3Ci) and ``attn`` (B, S, Ci), Ci = C but for a
+    tensor-parallel shard.  Returns (dx, dln_w, dln_b, dwqkv (3Ci, C), dbqkv,
+    dwproj (C, Ci), dbproj, None unless ``bias``), dx in x's type and the rest
+    float32."""
     if x.device.type == "cpu":
         return attn_half_full_bwd_plain(x, mask, ln_w, ln_b, wqkv, wproj, g, qkv, attn,
-                                        num_heads, eps)
+                                        num_heads, eps, bias)
     B, S, C = x.shape
-    _head_dim(C, num_heads)
+    Ci = wqkv.shape[0] // 3
+    _head_dim(Ci, num_heads)
     _check(x, dict(x=x, mask=mask, ln_w=ln_w, ln_b=ln_b, wqkv=wqkv, wproj=wproj, g=g,
                    qkv=qkv, attn=attn),
-           dict(x=(B, S, C), mask=(B, S), ln_w=(C,), ln_b=(C,), wqkv=(3 * C, C),
-                wproj=(C, C), g=(B, S, C), qkv=(B, S, 3 * C), attn=(B, S, C)))
+           dict(x=(B, S, C), mask=(B, S), ln_w=(C,), ln_b=(C,), wqkv=(3 * Ci, C),
+                wproj=(C, Ci), g=(B, S, C), qkv=(B, S, 3 * Ci), attn=(B, S, Ci)))
     res = _attn_param_bwd(x, mask, ln_w, ln_b, wqkv, wproj, g, qkv, attn, num_heads, eps,
-                          None)
+                          None, bias)
     launches["attn_half_full_bwd"] += 1
     return res
 
 
 # ------------------------------------------------------------------ autograd
 def _like(grads, dtypes):
-    """Parameter gradients in their parameters' types (float32 masters: as is)."""
-    return tuple(g.to(dt) for g, dt in zip(grads, dtypes))
+    """Parameter gradients in their parameters' types (float32 masters: as is);
+    None for a parameter left out (its dtype None)."""
+    return tuple(None if dt is None else g.to(dt) for g, dt in zip(grads, dtypes))
+
+
+def _dtypes(*params):
+    return tuple(None if t is None else t.dtype for t in params)
 
 
 def _operand(w, w_c, dtype):
@@ -747,8 +769,8 @@ class _AttnHalfFull(torch.autograd.Function):
         out, qkv, attn = _attn_fwd(x, mask, ln_w, ln_b, wqkv_c, bqkv, wproj_c, bproj,
                                    num_heads, eps, False, "attn_half_full")
         ctx.save_for_backward(x, mask, ln_w, ln_b, wqkv_c, wproj_c, qkv, attn)
-        ctx.conf = (num_heads, eps)
-        ctx.dtypes = tuple(t.dtype for t in (ln_w, ln_b, wqkv, bqkv, wproj, bproj))
+        ctx.conf = (num_heads, eps, bproj is not None)
+        ctx.dtypes = _dtypes(ln_w, ln_b, wqkv, bqkv, wproj, bproj)
         return out
 
     @staticmethod
@@ -764,7 +786,9 @@ class _AttnHalfFull(torch.autograd.Function):
 def attn_half(x, mask, ln_w, ln_b, wqkv, bqkv, wproj, bproj,
               num_heads: int, eps: float, residual: bool = True,
               save_for_backward: bool = True):
-    """``[x +] proj(MHA(qkv(LN1 x)))``.  x: (B, S, C); mask: (B, S)."""
+    """``[x +] proj(MHA(qkv(LN1 x)))``.  x: (B, S, C); mask: (B, S).  A
+    tensor-parallel shard passes its qkv rows (3Ci, C), proj columns (C, Ci)
+    and ``num_heads`` of its own, and ``bproj=None`` but on the first shard."""
     _refuse_weight_grads(ln_w=ln_w, ln_b=ln_b, wqkv=wqkv, bqkv=bqkv,
                          wproj=wproj, bproj=bproj)
     if torch.is_grad_enabled() and x.requires_grad:
@@ -776,7 +800,8 @@ def attn_half(x, mask, ln_w, ln_b, wqkv, bqkv, wproj, bproj,
 
 def mlp_half(x, ln_w, ln_b, w1, b1, w2, b2, eps: float, residual: bool = True,
              save_for_backward: bool = True):
-    """``[x +] fc2(gelu_erf(fc1(LN2 x)))``.  x: (B, S, C); w1: (C4, C); w2: (C, C4)."""
+    """``[x +] fc2(gelu_erf(fc1(LN2 x)))``.  x: (B, S, C); w1: (C4, C); w2: (C, C4);
+    ``b2=None`` leaves out the fc2 bias (a tensor-parallel shard but the first)."""
     _refuse_weight_grads(ln_w=ln_w, ln_b=ln_b, w1=w1, b1=b1, w2=w2, b2=b2)
     if torch.is_grad_enabled() and x.requires_grad:
         return _MlpHalf.apply(x, ln_w, ln_b, w1, b1, w2, b2, eps, residual,

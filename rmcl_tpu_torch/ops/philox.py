@@ -16,7 +16,10 @@ seed read as uint32.  It depends on nothing else: no tile, launch or batch
 geometry.  ``csrc/block_kernels.cu`` evaluates the same function in its
 epilogues, so the kernels' masks and ``keep_mask`` agree bit for bit.
 Draw 0 is a half's first mask (the MLP's (S, 4C) mask, the attention
-half's (S, C) mask), draw 1 the MLP half's second, (S, C) mask.
+half's (S, C) mask), draw 1 the MLP half's second, (S, C) mask.  A
+tensor-parallel shard of the MLP's hidden columns asks for the columns
+``col0 .. col0 + cols - 1`` of the (S, 4C) mask, so that the shards drop
+what the unsharded block drops.
 
 uint32 arithmetic is carried in int64 tensors (torch has no uint32
 multiply): values stay in [0, 2**32).
@@ -66,12 +69,14 @@ def philox4x32(counter, key, rounds: int = 10):
     return c0, c1, c2, c3
 
 
-def random_bits(seeds: torch.Tensor, draw: int, rows: int, cols: int) -> torch.Tensor:
-    """(B, rows, cols) int64 tensor of uint32 words; ``seeds``: (B,) int32."""
+def random_bits(seeds: torch.Tensor, draw: int, rows: int, cols: int,
+                col0: int = 0) -> torch.Tensor:
+    """(B, rows, cols) int64 tensor of uint32 words of the columns ``col0`` ..
+    ``col0 + cols - 1``; ``seeds``: (B,) int32."""
     dev = seeds.device
     key0 = (seeds.to(torch.int64) & _MASK32)[:, None, None]
     r = torch.arange(rows, device=dev, dtype=torch.int64)[None, :, None]
-    c = torch.arange(cols, device=dev, dtype=torch.int64)[None, None, :]
+    c = torch.arange(col0, col0 + cols, device=dev, dtype=torch.int64)[None, None, :]
     zero = torch.zeros((), device=dev, dtype=torch.int64)
     d = torch.full((), int(draw), device=dev, dtype=torch.int64)
     return philox4x32((c, r, d, zero), (key0, zero))[0].expand(
@@ -79,8 +84,9 @@ def random_bits(seeds: torch.Tensor, draw: int, rows: int, cols: int) -> torch.T
 
 
 def keep_mask(seeds: torch.Tensor, draw: int, rows: int, cols: int,
-              p: float) -> torch.Tensor:
+              p: float, col0: int = 0) -> torch.Tensor:
     """(B, rows, cols) bool keep mask of dropout rate ``p`` for draw ``draw``
-    of the per-sample streams ``seeds`` (B,) int32."""
+    of the per-sample streams ``seeds`` (B,) int32, at the mask's columns
+    ``col0`` .. ``col0 + cols - 1``."""
     check_rate(p)
-    return random_bits(seeds, draw, rows, cols) >= keep_threshold(p)
+    return random_bits(seeds, draw, rows, cols, col0) >= keep_threshold(p)

@@ -79,24 +79,24 @@ def gather(data: Any, dst: int = 0) -> List[Any]:
     return out if get_rank() == dst else []
 
 
-def reduce_over_ranks(values: Dict[str, torch.Tensor], average: bool = True
-                      ) -> Dict[str, torch.Tensor]:
-    """Each 0-d tensor of ``values`` summed over ranks in one all-reduce, and
-    divided by W when ``average`` (the sum, then / W: the same on every
-    backend), in float64 where a value is float64 and in float32 otherwise;
-    each returned in its own dtype.  It acts whenever a process group is
-    initialised, one rank included, and returns ``values`` without one.  The
-    tensors lie on one device the backend reduces (under NCCL, this rank's
-    card)."""
+def reduce_over_ranks(values: Dict[str, torch.Tensor], average: bool = True,
+                      group=None) -> Dict[str, torch.Tensor]:
+    """Each 0-d tensor of ``values`` summed over the ranks of ``group`` (the
+    default: all of them) in one all-reduce, and divided by their number
+    when ``average`` (the sum, then / W: the same on every backend), in
+    float64 where a value is float64 and in float32 otherwise; each returned
+    in its own dtype.  It acts whenever a process group is initialised, one
+    rank included, and returns ``values`` without one.  The tensors lie on
+    one device the backend reduces (under NCCL, this rank's card)."""
     if not is_distributed() or not values:
         return values
     keys = list(values)
     wide = (torch.float64 if any(v.dtype == torch.float64 for v in values.values())
             else torch.float32)
     flat = torch.stack([values[k].detach().to(wide) for k in keys])
-    dist.all_reduce(flat)
+    dist.all_reduce(flat, group=group)
     if average:
-        flat /= get_world_size()
+        flat /= dist.get_world_size(group)
     return {k: v.to(values[k].dtype) for k, v in zip(keys, flat.unbind())}
 
 

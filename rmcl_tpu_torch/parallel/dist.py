@@ -25,6 +25,12 @@ reducer is built for one forward per backward.
 Every function here acts whenever a process group is initialised, one rank
 included (a one-rank NCCL group runs its collectives: an all-reduce of one
 rank is a copy, a division by 1 exact), and is the identity without one.
+
+On a ``(data, model)`` grid (``parallel/mesh.py``; tensor parallelism) "the
+ranks" above are the data group's: the batch is split over the data ranks,
+every coupling and the gradient mean run over the data group, and the m ranks
+of a model group, which hold the same rows, compute the same couplings.
+Without a grid the data group is the whole world.
 """
 
 from __future__ import annotations
@@ -37,7 +43,9 @@ from typing import Iterable, List, Optional
 import torch
 import torch.distributed as dist
 
-from rmcl_tpu_torch.parallel.comm import get_rank, get_world_size, is_distributed
+from rmcl_tpu_torch.parallel import mesh
+from rmcl_tpu_torch.parallel.comm import is_distributed
+from rmcl_tpu_torch.parallel.sharding_rules import model_partial
 
 # the gradient all-reduce's flat buckets: 2^24 elements (64 MiB in fp32)
 BUCKET_ELEMS = 1 << 24
@@ -81,7 +89,8 @@ def init_distributed(device=None, backend: Optional[str] = None,
 
 
 def destroy() -> None:
-    """Leave the process group, when there is one."""
+    """Leave the process group, when there is one, and the grid."""
+    mesh.reset()
     if is_distributed():
         dist.destroy_process_group()
 
@@ -89,9 +98,9 @@ def destroy() -> None:
 # ------------------------------------------------------------- the batch
 def local_rows(x: torch.Tensor, dim: int = 0) -> torch.Tensor:
     """This rank's slice of a global-batch tensor along ``dim``: the
-    ``rank``-th of ``world`` equal parts (the rows of one-process step that
-    this rank's b pairs are)."""
-    rank, world = get_rank(), get_world_size()
+    ``rank``-th of ``world`` equal parts, over the data group (the rows of
+    one-process step that this rank's b pairs are)."""
+    rank, world = mesh.data_rank(), mesh.data_size()
     if world == 1:
         return x
     n = x.shape[dim] // world
@@ -109,11 +118,11 @@ class _GatherRows(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, x):
-        rank, world = get_rank(), get_world_size()
+        rank, world = mesh.data_rank(), mesh.data_size()
         ctx.rank, ctx.world, ctx.n = rank, world, x.shape[0]
         x = x.contiguous()
         parts = [torch.empty_like(x) for _ in range(world)]
-        dist.all_gather(parts, x)
+        dist.all_gather(parts, x, group=mesh.data_group())
         return torch.cat(parts)
 
     @staticmethod
@@ -132,7 +141,7 @@ def gather_rows(x: torch.Tensor) -> torch.Tensor:
 
 def global_batch(b: int) -> int:
     """The global batch of ranks of ``b`` pairs each."""
-    return b * get_world_size()
+    return b * mesh.data_size()
 
 
 def batch_mean(total: torch.Tensor, count: torch.Tensor) -> torch.Tensor:
@@ -143,16 +152,17 @@ def batch_mean(total: torch.Tensor, count: torch.Tensor) -> torch.Tensor:
     if not is_distributed():
         return total / count.clamp(min=1)
     c = count.detach().to(torch.float32).clone()
-    dist.all_reduce(c)
-    return total * get_world_size() / c.clamp(min=1)
+    dist.all_reduce(c, group=mesh.data_group())
+    return total * mesh.data_size() / c.clamp(min=1)
 
 
 def sum_over_ranks(x: torch.Tensor) -> torch.Tensor:
-    """``x`` summed over ranks (a new tensor; ``x`` without a process group)."""
+    """``x`` summed over the data ranks (a new tensor; ``x`` without a process
+    group)."""
     if not is_distributed():
         return x
     x = x.clone()
-    dist.all_reduce(x)
+    dist.all_reduce(x, group=mesh.data_group())
     return x
 
 
@@ -173,20 +183,41 @@ def _buckets(tensors: List[torch.Tensor]) -> Iterable[List[torch.Tensor]]:
         yield run
 
 
-@torch.no_grad()
-def all_reduce_grads(params: Iterable[torch.nn.Parameter]) -> None:
-    """The mean over ranks of every parameter's ``.grad``, in place: flat
-    buckets in the order of ``params`` (``model.parameters()``'s, the same on
-    every rank), each summed by one all-reduce and divided by W.  A
-    parameter without a gradient is skipped (the step gives each trainable
-    one a gradient)."""
-    if not is_distributed():
-        return
-    world = get_world_size()
-    grads = [p.grad for p in params if p.grad is not None]
+def _reduce_buckets(grads: List[torch.Tensor], group, divide: int) -> None:
     for run in _buckets(grads):
         flat = torch.cat([g.reshape(-1) for g in run])
-        dist.all_reduce(flat)
-        flat /= world
+        dist.all_reduce(flat, group=group)
+        if divide != 1:
+            flat /= divide
         torch._foreach_copy_(run, [c.view_as(g) for c, g in zip(
             flat.split([g.numel() for g in run]), run)])
+
+
+def partial_params(model: torch.nn.Module) -> List[torch.nn.Parameter]:
+    """The parameters whose gradients are partial sums over the model group
+    (``sharding_rules.model_partial``); none without a model axis."""
+    if mesh.model_size() == 1:
+        return []
+    return [p for n, p in model.named_parameters() if model_partial(n)]
+
+
+@torch.no_grad()
+def all_reduce_grads(params: Iterable[torch.nn.Parameter],
+                     partial: Iterable[torch.nn.Parameter] = ()) -> None:
+    """The mean over the data ranks of every parameter's ``.grad``, in place:
+    flat buckets in the order of ``params`` (``model.parameters()``'s, the same
+    on every rank), each summed by one all-reduce over the data group and
+    divided by its size.  The ``partial`` parameters (``partial_params``) are
+    first summed over the model group, in buckets of their own: after it a
+    replicated parameter's gradient is the same bits on every rank of a model
+    group.  A parameter without a gradient is skipped (the step gives each
+    trainable one a gradient)."""
+    if not is_distributed():
+        return
+    params = list(params)
+    part = {id(p) for p in partial}
+    if part:
+        _reduce_buckets([p.grad for p in params if p.grad is not None and id(p) in part],
+                        mesh.model_group(), 1)
+    _reduce_buckets([p.grad for p in params if p.grad is not None], mesh.data_group(),
+                    mesh.data_size())

@@ -39,7 +39,9 @@ from typing import Callable, Dict, Tuple
 
 import torch
 
+from rmcl_tpu_torch.parallel import mesh
 from rmcl_tpu_torch.parallel.comm import is_distributed
+from rmcl_tpu_torch.parallel.sharding_rules import check_zero1
 
 NO_DECAY_SUBSTRINGS = ("norm", "LayerNorm")  # + leaf name "bias"
 HEAD_NAMES = ("vqa_classifier", "nlvr2_classifier", "moco_head")
@@ -108,9 +110,11 @@ def make_optimizer(cfg, model: torch.nn.Module, max_steps: int
     optimizer as a ``ZeroRedundancyOptimizer`` (PARITY #24), each rank
     keeping the state of its shard of the parameters and broadcasting their
     update, which is the replicated optimizer's bit for bit; in one process
-    there is nothing to shard and the optimizer is the plain one."""
+    there is nothing to shard and the optimizer is the plain one.  On a grid
+    with a model axis ``cfg.zero1`` raises."""
     if cfg.optim_type not in ("adamw", "adam", "sgd"):
         raise ValueError(f"unknown optim_type {cfg.optim_type!r}")
+    check_zero1(cfg, mesh.model_size())
     labels = param_group_labels(model)
     params = dict(model.named_parameters())
     wd = cfg.weight_decay if cfg.optim_type == "adamw" else 0.0

@@ -68,6 +68,15 @@ optimizer step, after the accumulation cycle's running mean; the scalar
 metrics are the global batch's (the mean over ranks).  ``cfg.zero1`` shards
 the optimizer's state over the ranks (``train/schedule.py``).
 
+Tensor parallelism (``parallel/mesh.py:init_grid`` on a ``(data, model)``
+grid, ``cfg.mesh_shape`` / ``cfg.mesh_axis_names``): "the ranks" above are the
+data ranks, each data rank's b pairs run on the m ranks of its model group,
+and each of those holds its shards of the transformers and the MLM decoder
+(``create_train_state``).  The gradient of a block's LayerNorms and
+row-parallel biases is summed over the model group before the data mean
+(``parallel/dist.py:all_reduce_grads``).  The ``Trainer`` keeps the 1-D grid,
+as the JAX package's does.
+
 Every task of the JAX package's ``compute_all_tasks`` is ported.
 """
 
@@ -86,8 +95,11 @@ from rmcl_tpu_torch.core.config import active_tasks
 from rmcl_tpu_torch.models.vilt import ViLT, draw_seeds
 from rmcl_tpu_torch.models.vit import normalize_image_inputs
 from rmcl_tpu_torch.objectives import contrastive, downstream, pretrain
+from rmcl_tpu_torch.parallel import mesh
 from rmcl_tpu_torch.parallel.comm import reduce_over_ranks
-from rmcl_tpu_torch.parallel.dist import all_reduce_grads, global_batch, local_rows
+from rmcl_tpu_torch.parallel.dist import (all_reduce_grads, global_batch, local_rows,
+                                          partial_params)
+from rmcl_tpu_torch.parallel.sharding_rules import shard_model
 from rmcl_tpu_torch.train.schedule import make_lr_schedule, make_optimizer
 
 VIEWS = 4   # clean, txt, img, both: one set of dropout seeds each, per contrastive task
@@ -149,10 +161,20 @@ def create_train_state(cfg, max_steps: Optional[int] = None,
     (the momentum update moves them, never the optimizer).  ``max_steps``
     counts optimizer steps; ``accum`` > 1 keeps the accumulated gradients.
     Over several processes every rank builds the same state from the same
-    seed (``cfg.zero1``: the optimizer's state sharded, ``make_optimizer``)."""
+    seed (``cfg.zero1``: the optimizer's state sharded, ``make_optimizer``).
+    On a grid with a model axis (``parallel/mesh.py:init_grid``) the full
+    model, ``model`` or the seeded one, is cut to this model rank's shards
+    (``parallel/sharding_rules.py:shard_model``): the shard is the same slice
+    of the same weights on any grid, and the optimizer's state follows it."""
     device = training_device(device)
     if model is None:
         model = ViLT(cfg).init(torch.Generator().manual_seed(cfg.seed))
+    m = mesh.model_size()
+    if m > 1 and model.model_shards == 1:
+        model = shard_model(cfg, model, mesh.model_rank(), m)
+    elif model.model_shards != m:
+        raise ValueError(f"a model of {model.model_shards} shards on a grid whose model "
+                         f"axis has {m}")
     model = model.to(device).train()
     for name, p in model.named_parameters():
         if name.startswith("k_"):
@@ -369,11 +391,11 @@ def _scalar_metrics(ret: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
 
 
 def _global_metrics(metrics: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
-    """The step's scalar metrics of the global batch: each the mean over
-    ranks of the rank's (a coupled loss is the same number on every rank, a
-    per-sample mean the rank's part; ``lr`` is every rank's own)."""
+    """The step's scalar metrics of the global batch: each the mean over the
+    data ranks of the rank's (a coupled loss is the same number on every rank,
+    a per-sample mean the rank's part; ``lr`` is every rank's own)."""
     lr = metrics.pop("lr")
-    return {**reduce_over_ranks(metrics), "lr": lr}
+    return {**reduce_over_ranks(metrics, group=mesh.data_group()), "lr": lr}
 
 
 # ------------------------------------------------------------- train step
@@ -404,6 +426,7 @@ def _train_step_body(cfg, ts: TrainState, max_steps: Optional[int]) -> Callable:
     model = ts.model
     device = next(model.parameters()).device
     trainable = [p for p in model.parameters() if p.requires_grad]
+    partial = [p for p in partial_params(model) if p.requires_grad]
     accum = ts.accum
 
     def body(batch: Dict[str, torch.Tensor], generator: torch.Generator,
@@ -431,7 +454,7 @@ def _train_step_body(cfg, ts: TrainState, max_steps: Optional[int]) -> Callable:
                 if micro == accum - 1:
                     torch._foreach_copy_(grads, ts.acc_grads)
         if micro == accum - 1:
-            all_reduce_grads(trainable)      # the mean over ranks, once per cycle
+            all_reduce_grads(trainable, partial)   # the mean over ranks, once per cycle
             ts.optimizer.step()
             ts.scheduler.step()
             ts.refresh_block_matrices()

@@ -4,8 +4,9 @@ the tests' side of it (``torchrun``, ``run_ranks``, ``start_ranks``).
 The ranks run under torchrun, the launcher the port documents:
 ``torchrun --standalone --nproc_per_node=2 tests/_torch_ddp_worker.py SPEC
 OUT``.  SPEC is a ``torch.save``d dict whose ``case`` names what to run; the
-rank joins a gloo group on the CPU, runs it and saves its result as
-``OUT/rank<r>.pt``.  This module imports torch and the port only; the tests
+rank joins a gloo group on the CPU (and, when SPEC has a ``grid``, the
+``(data, model)`` grid of ``parallel/mesh.py:init_grid``), runs it and saves
+its result as ``OUT/rank<r>.pt``.  This module imports torch and the port only; the tests
 hold the results to the JAX package and to the same functions run in one
 process (``run_steps``, ``run_eval``, called without a process group).
 """
@@ -28,7 +29,8 @@ import torch
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))  # the repo
 
 from rmcl_tpu_torch.compat.from_jax import leaves_to_jax  # noqa: E402
-from rmcl_tpu_torch.parallel import comm, dist  # noqa: E402
+from rmcl_tpu_torch.parallel import comm, dist, mesh  # noqa: E402
+from rmcl_tpu_torch.parallel.sharding_rules import gather_model, shard_dim  # noqa: E402
 
 COLLECTIVE_TIMEOUT_S = 60.0
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -145,20 +147,57 @@ def held_across_ranks(ranks, one):
 # ------------------------------------------------------------- a rank
 
 
-def state_hash(ts) -> str:
+def state_hash(ts, replicated: bool = False) -> str:
     """sha256 of every tensor of the model's state dict (parameters, twins,
     queue, BatchNorm statistics) and of the optimizer's state (its moments;
-    ZeRO-1 shards them, and then only the model's)."""
+    ZeRO-1 shards them, and then only the model's); with ``replicated``, of
+    the entries a model axis does not shard alone."""
     h = hashlib.sha256()
-    tensors = sorted(ts.model.state_dict().items())
+    keep = (lambda name: shard_dim(name) is None) if replicated else (lambda name: True)
+    tensors = sorted((k, v) for k, v in ts.model.state_dict().items() if keep(k))
     if not hasattr(ts.optimizer, "consolidate_state_dict"):
+        names = {id(p): n for n, p in ts.model.named_parameters()}
+        order = [names[id(p)] for g in ts.optimizer.param_groups for p in g["params"]]
         for i, st in sorted(ts.optimizer.state_dict()["state"].items()):
-            tensors += [(f"opt{i}.{k}", v) for k, v in sorted(st.items())
-                        if isinstance(v, torch.Tensor)]
+            if keep(order[i]):
+                tensors += [(f"opt.{order[i]}.{k}", v) for k, v in sorted(st.items())
+                            if isinstance(v, torch.Tensor)]
     for name, t in tensors:
         h.update(name.encode())
         h.update(t.detach().cpu().contiguous().view(-1).view(torch.uint8).numpy().tobytes())
     return h.hexdigest()
+
+
+def full_leaves(ts, cfg, grads: bool = False):
+    """``leaves_to_jax`` of the full model: on a grid with a model axis the
+    model group's shards gathered into an unsharded ``ViLT``
+    (``sharding_rules.gather_model``)."""
+    if mesh.model_size() == 1:
+        return leaves_to_jax(ts.model, grads=grads)
+    return leaves_to_jax(gather_model(cfg, ts.model, grads), grads=grads)
+
+
+class mlp_masks:
+    """Records the in-MLP keep masks (draw 0 at the MLP's hidden width) that
+    the plain training ops draw, in call order, as numpy arrays."""
+
+    def __init__(self, hidden: int):
+        from rmcl_tpu_torch.ops import fused_block_train as FT
+        self.FT, self.hidden, self.seen = FT, hidden, []
+
+    def __enter__(self):
+        inner = self.inner = self.FT.keep_mask
+
+        def keep_mask(seeds, draw, rows, cols, p, col0=0):
+            out = inner(seeds, draw, rows, cols, p, col0)
+            if draw == 0 and cols != self.hidden:
+                self.seen.append(out.numpy().copy())
+            return out
+        self.FT.keep_mask = keep_mask
+        return self
+
+    def __exit__(self, *exc):
+        self.FT.keep_mask = self.inner
 
 
 def run_steps(run: dict) -> dict:
@@ -197,19 +236,24 @@ def run_steps(run: dict) -> dict:
     else:
         step = TT.make_train_step(cfg, ts)
     gen = torch.Generator().manual_seed(run.get("seed", 0))
-    out = {k: [] for k in ("metrics", "leaves", "grads", "hash")}
+    out = {k: [] for k in ("metrics", "leaves", "grads", "hash", "replicated")}
+    recorder = mlp_masks(cfg.hidden_size)
     for gb in run["batches"]:
         b = {k: dist.local_rows(torch.from_numpy(np.ascontiguousarray(v))).contiguous()
              for k, v in gb.items()}
         if run.get("attack"):
             b.update(fused.prep_tables(b["text_ids"].numpy()))
-        metrics = step(b, gen)
+        with recorder:
+            metrics = step(b, gen)
         out["metrics"].append({k: v.item() for k, v in metrics.items()})
-        out["leaves"].append(leaves_to_jax(ts.model))
-        out["grads"].append(leaves_to_jax(ts.model, grads=True))
+        out["leaves"].append(full_leaves(ts, cfg))
+        out["grads"].append(full_leaves(ts, cfg, grads=True))
         out["hash"].append(state_hash(ts))
+        out["replicated"].append(state_hash(ts, replicated=True))
     out["ids"] = [i.numpy() for i, _ in ids]
     out["masks"] = [m.numpy() for _, m in ids]
+    out["mlp_masks"] = recorder.seen
+    out["grid"] = (mesh.data_rank(), mesh.model_rank())
     return out
 
 
@@ -291,6 +335,8 @@ def main() -> int:
     spec = torch.load(spec_path, weights_only=False)
     torch.set_num_threads(1)
     dist.init_distributed("cpu", timeout_s=COLLECTIVE_TIMEOUT_S)
+    if spec.get("grid"):
+        mesh.init_grid(*spec["grid"])
     rank = comm.get_rank()
     print(f"rank {rank} of {comm.get_world_size()} joined", flush=True)
     case = spec["case"]

@@ -20,6 +20,7 @@ from rmcl_tpu_torch.train import schedule as TS
 from rmcl_tpu_torch.train import step as TT
 from tests.test_torch_train import (_cfg, _close_params, _jax_path, _jflat, _perturbed,
                                     _port_of, _t)
+from tests._torch_threads import one_thread  # noqa: F401
 
 
 # ------------------------------------------------------------ accumulation

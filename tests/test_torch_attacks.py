@@ -25,6 +25,7 @@ from rmcl_tpu_torch.compat.from_jax import state_dict_from_jax
 from rmcl_tpu_torch.models.vilt import ViLT
 from rmcl_tpu_torch.objectives.contrastive import infonce
 from rmcl_tpu_torch.objectives.losses import l2_normalize
+from tests._torch_threads import one_thread  # noqa: F401
 
 ATOL = 1e-5
 STEPS, LR, NORM, TEMP = 3, 0.05, 0.005, 0.07

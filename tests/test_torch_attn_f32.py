@@ -50,6 +50,7 @@ from rmcl_tpu_torch.ops import attention as TA
 from rmcl_tpu_torch.ops import fused_block as FB
 from tests.test_torch_cuda import one_hot_probe, probe_ds
 from tests.test_torch_ops import B, C, EPS, H, S, _attn_args, _inputs
+from tests._torch_threads import one_thread  # noqa: F401
 
 FWD_TILE = 32     # fwd_kernel's key tile (8 x its columns a thread)
 BWD_TILE = 32     # bwd_dq_kernel's key tile and bwd_dkv_kernel's query tile

@@ -34,6 +34,7 @@ from rmcl_tpu.ops import pallas_block as PB
 from rmcl_tpu_torch.ops import attention as TA
 from rmcl_tpu_torch.ops import fused_block as FB
 from tests.test_torch_ops import C, EPS, H, _attn_args, _inputs
+from tests._torch_threads import one_thread  # noqa: F401
 
 TILE = 64
 NEG_BIAS = -1e30

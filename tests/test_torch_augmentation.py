@@ -38,6 +38,7 @@ from rmcl_tpu_torch.train import loop as TL
 from tests.test_attacks import WORDS
 from tests.test_torch_train import _port_of
 from tests.test_torch_trainer import CAPTIONS, write_tables
+from tests._torch_threads import one_thread  # noqa: F401
 
 TEXTS = ["A dog, running in the park!", "the red cat sits on a mat",
          "big-dog's toy\tball near the old tree", "one"]

@@ -69,6 +69,7 @@ from tests.conftest import make_fake_batch
 from tests.test_attacks import SYN_GROUPS, WORDS
 from tests.test_torch_greedy import _write_vectors
 from tests.test_torch_train import _close, _close_params, _jax_path, _jflat, _port_of
+from tests._torch_threads import one_thread  # noqa: F401
 
 GRAD_RTOL = 2e-4
 SENTENCES = ["dog runs in park", "cat sits in street", "big red car on road", "the a on in"]

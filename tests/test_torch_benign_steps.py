@@ -33,6 +33,7 @@ from tests.test_torch_barlowtwins import (GRAD_RTOL, SENTENCES, STATS, SWAPPED, 
 from tests.test_torch_barlowtwins import _cfg as bt_cfg
 from tests.test_torch_train import _cfg as moco_cfg
 from tests.test_torch_train import _close, _close_params, _jflat, _perturbed, _port_of
+from tests._torch_threads import one_thread  # noqa: F401
 
 
 # ------------------------------------------------------------------ steps

@@ -34,7 +34,7 @@ from rmcl_tpu_torch.models.vilt import ViLT
 from rmcl_tpu_torch.train import step as TT
 from tests.conftest import make_fake_batch
 from tests.test_compat import _synthetic_timm_sd
-from tests.test_torch_convergence import one_thread  # noqa: F401
+from tests._torch_threads import one_thread  # noqa: F401
 from tests.test_torch_load import RESIZE_TOL
 from tests.test_torch_train import _jflat
 

@@ -40,6 +40,7 @@ from tests.conftest import make_fake_batch
 from tests.test_convergence import _tiny as tiny
 from tests.test_convergence import _trend as trend
 from tests.test_torch_train import _port_of
+from tests._torch_threads import one_thread  # noqa: F401
 
 PARITY_STEPS = 3
 PARITY_RTOL = 1e-5
@@ -181,15 +182,3 @@ def test_learning_families_are_the_jax_files(family):
             assert held == jax_held, (key, factor, vs, losses)
 
 
-@pytest.fixture(autouse=True, scope="module")
-def one_thread():
-    """One intra-op thread for torch and for the OpenMP and BLAS pools
-    (sklearn's t-SNE): these files run thousands of small ops, which one
-    thread runs faster than many, and beside other test processes many
-    spinning threads made them ten times slower."""
-    from threadpoolctl import threadpool_limits
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    with threadpool_limits(limits=1):
-        yield
-    torch.set_num_threads(n)

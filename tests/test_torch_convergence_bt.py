@@ -5,7 +5,7 @@ the JAX file's configuration and criteria, the first three losses against
 the JAX step's at BT_PARITY_RTOL (``tests/test_torch_convergence.py``, whose
 note says why)."""
 
-from tests.test_torch_convergence import one_thread  # noqa: F401
+from tests._torch_threads import one_thread  # noqa: F401
 from tests.test_torch_convergence import learn_family
 
 

@@ -4,7 +4,7 @@ attacked-text view, 16-slot queue) on one repeated batch, at the JAX file's
 configuration and criteria, the first three losses against the JAX step's
 within 1e-5 relative (``tests/test_torch_convergence.py:learn``)."""
 
-from tests.test_torch_convergence import one_thread  # noqa: F401
+from tests._torch_threads import one_thread  # noqa: F401
 from tests.test_torch_convergence import learn_family
 
 

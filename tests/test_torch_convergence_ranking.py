@@ -7,7 +7,7 @@ so the factors come from the port's measured runs, with a wide margin."""
 
 import numpy as np
 
-from tests.test_torch_convergence import one_thread  # noqa: F401
+from tests._torch_threads import one_thread  # noqa: F401
 from tests.test_torch_convergence import learn_family
 
 

@@ -31,6 +31,7 @@ from rmcl_tpu_torch.data import rng as TR
 from rmcl_tpu_torch.data import transforms as TT
 from rmcl_tpu_torch.data.tokenizer import get_tokenizer, make_tiny_vocab
 from rmcl_tpu_torch.eval import metrics as TMet
+from tests._torch_threads import one_thread  # noqa: F401
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 WORDS = ["dog", "cat", "running", "jumping", "park", "small", "big", "the", "quick"]

@@ -42,6 +42,7 @@ from tests._torch_ddp_worker import held_across_ranks, port_cfg, run_steps, star
 from tests.test_attacks import SYN_GROUPS, WORDS
 from tests.test_torch_greedy import SENTENCES, _batch, _step_cfg, _write_vectors
 from tests.test_torch_train import _close, _close_params, _jflat, _perturbed, _port_of
+from tests._torch_threads import one_thread  # noqa: F401
 
 def close_metrics(ours, ref, rtol, what):
     assert set(ours) == set(ref), set(ours) ^ set(ref)

@@ -27,6 +27,7 @@ from tests.test_attacks import SYN_GROUPS, WORDS
 from tests.test_torch_ddp import close_metrics
 from tests.test_torch_greedy import SENTENCES, _batch, _step_cfg, _write_vectors
 from tests.test_torch_train import _close, _close_params, _jflat, _perturbed, _port_of
+from tests._torch_threads import one_thread  # noqa: F401
 
 # the micro-batches: tests/test_attacks.py's four captions on two sets of
 # images (the same captions keep the JAX package's attack tables, and with

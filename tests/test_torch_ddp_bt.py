@@ -52,6 +52,7 @@ from tests.test_torch_pretrain import WORDS as PRETRAIN_WORDS
 from tests.test_torch_pretrain import _cfg as _pretrain_cfg
 from tests.test_torch_pretrain import make_batch
 from tests.test_torch_train import _close, _close_params, _jflat, _port_of
+from tests._torch_threads import one_thread  # noqa: F401
 
 PRETRAIN = ("itm", "mlm", "mpp")          # task_mlm_itm_mpp's losses
 # rank 1's captions have no word the attack may change: its own live count is

@@ -22,6 +22,7 @@ from rmcl_tpu_torch.core.config import build_config
 from tests._torch_ddp_worker import (REPO, WAIT_S, WorkerFailure, run_eval, run_ranks,
                                      start_ranks, torchrun)
 from tests.test_multiprocess import _make_eval_data
+from tests._torch_threads import one_thread  # noqa: F401
 
 TINY = dict(hidden_size=32, num_heads=2, num_layers=1, patch_size=16, image_size=32,
             image_bucket_hw=(32, 48), max_text_len=12, vocab_size=64,

@@ -39,7 +39,7 @@ from rmcl_tpu_torch.demos import demo_vqa as port_demo_vqa
 from rmcl_tpu_torch.demos.inference import DemoEngine, prepare_image
 from rmcl_tpu_torch.eval.tsne import tsne_projection
 from rmcl_tpu_torch.models.vilt import ViLT
-from tests.test_torch_convergence import one_thread  # noqa: F401
+from tests._torch_threads import one_thread  # noqa: F401
 
 HEAT_TOL = 1e-4
 PROB_TOL = 1e-6

@@ -52,6 +52,7 @@ from tests.conftest import make_fake_batch
 from tests.test_attacks import SYN_GROUPS, WORDS
 from tests.test_torch_greedy import _write_vectors
 from tests.test_torch_train import _close, _jflat, _port_of
+from tests._torch_threads import one_thread  # noqa: F401
 
 RTOL = 1e-5
 DELTA_ATOL = 2.5e-7

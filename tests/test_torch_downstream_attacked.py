@@ -21,6 +21,7 @@ from tests.test_torch_downstream import (ATTACKED, JG_ATTACKERS, RTOL, B, _check
                                          _jax_step, _port, _t, files, j,  # noqa: F401
                                          objective_matches_jax, train_step_matches_jax)
 from tests.test_torch_train import _close
+from tests._torch_threads import one_thread  # noqa: F401
 
 
 @pytest.mark.parametrize("task", ATTACKED)

@@ -15,6 +15,7 @@ from rmcl_tpu_torch.eval import retrieval as TR
 from rmcl_tpu_torch.train import loop as TL
 from tests.test_torch_downstream_eval import _capture, _kw, _trainers, data  # noqa: F401
 from tests.test_torch_train import _close
+from tests._torch_threads import one_thread  # noqa: F401
 
 
 def test_attacked_recall_matches_jax(data, tmp_path, monkeypatch):

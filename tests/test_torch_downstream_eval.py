@@ -47,6 +47,7 @@ from tests.test_attacks import SYN_GROUPS
 from tests.test_torch_downstream import _moved
 from tests.test_torch_greedy import _write_vectors
 from tests.test_torch_train import _close, _jflat, _port_of
+from tests._torch_threads import one_thread  # noqa: F401
 
 WORDS = ["dog", "puppy", "cat", "kitten", "red", "crimson", "big", "large", "runs",
          "sprints", "park", "garden", "street", "road", "is", "what", "the", "a", "in",

@@ -55,6 +55,7 @@ from rmcl_tpu_torch.objectives.losses import l2_normalize
 from tests.conftest import make_fake_batch
 from tests.test_torch_train import _close, _jflat
 from tests.test_torch_trainer import CAPTIONS, write_tables
+from tests._torch_threads import one_thread  # noqa: F401
 
 DELTA_ATOL = 2.5e-7
 

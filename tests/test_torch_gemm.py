@@ -18,6 +18,7 @@ from rmcl_tpu_torch.ops import fused_block as FB
 from rmcl_tpu_torch.ops import fused_block_train as FT
 from rmcl_tpu_torch.ops.attention import mha
 from rmcl_tpu_torch.ops.philox import keep_mask
+from tests._torch_threads import one_thread  # noqa: F401
 
 B, S, C, H = 2, 37, 32, 4
 EPS = 1e-6

@@ -47,6 +47,7 @@ from rmcl_tpu_torch.train import step as TT
 from tests.conftest import make_fake_batch
 from tests.test_attacks import SYN_GROUPS, WORDS
 from tests.test_torch_train import _close, _close_params, _jflat, _perturbed, _port_of
+from tests._torch_threads import one_thread  # noqa: F401
 
 SENTENCES = {   # the batches of tests/test_attacks.py
     "end_to_end": ["dog runs in park", "cat sits in street"],

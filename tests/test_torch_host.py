@@ -28,6 +28,7 @@ from rmcl_tpu_torch.data import patch_rows as port_rows
 from rmcl_tpu_torch.data import tokenizer as port_tokenizer
 from rmcl_tpu_torch.data import transforms as port_transforms
 from rmcl_tpu_torch.serve import TASKS, postprocess
+from tests._torch_threads import one_thread  # noqa: F401
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 WORDS = ["dog", "park", "the", "red", "running", "unaffable"]
@@ -191,7 +192,9 @@ def test_importing_every_module_pulls_in_neither_jax_nor_rmcl_tpu(tmp_path):
         "        'rmcl_tpu_torch.compat.timm', 'rmcl_tpu_torch.compat.golden',\n"
         "        'rmcl_tpu_torch.eval.tsne', 'rmcl_tpu_torch.demos.inference',\n"
         "        'rmcl_tpu_torch.demos.demo', 'rmcl_tpu_torch.demos.demo_vqa',\n"
-        "        'rmcl_tpu_torch.parallel.comm', 'rmcl_tpu_torch.parallel.dist'} <= set(names)\n"
+        "        'rmcl_tpu_torch.parallel.comm', 'rmcl_tpu_torch.parallel.dist',\n"
+        "        'rmcl_tpu_torch.parallel.mesh', 'rmcl_tpu_torch.parallel.tp',\n"
+        "        'rmcl_tpu_torch.parallel.sharding_rules'} <= set(names)\n"
         "for n in names:\n"
         "    importlib.import_module(n)\n"
         "bad = sorted(m for m in sys.modules\n"

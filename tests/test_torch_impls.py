@@ -38,6 +38,7 @@ from rmcl_tpu_torch.train import step as TT
 from tests.test_torch_train import (ATTN_NAMES, EPS, _cfg, _close, _compare_grads,
                                     _half_inputs, _port_of, _t, _torch_args,
                                     two_moco_steps_match_jax, vit_training_matches_jax)
+from tests._torch_threads import one_thread  # noqa: F401
 
 CONFIGS = {"default": {}, "F": dict(attention_impl="fused", mlp_impl="fused"),
            "P": dict(attention_impl="pallas")}
@@ -96,8 +97,9 @@ def test_attn_half_full_matches_fused_attn_half(monkeypatch):
                                   wproj, bproj, H, (C // H) ** -0.5, EPS)
 
     jargs = [jnp.asarray(inp[n]) for n in ATTN_NAMES]
-    ref = jfn(*jargs)
-    ref_g = jax.grad(lambda *a: jnp.sum(jfn(*a) * inp["g"]), argnums=tuple(range(7)))(*jargs)
+    ref = jax.jit(jfn)(*jargs)
+    ref_g = jax.jit(jax.grad(lambda *a: jnp.sum(jfn(*a) * inp["g"]),
+                             argnums=tuple(range(7))))(*jargs)
 
     targs = _torch_args(inp, ATTN_NAMES)
     out = FB.attn_half_full(targs[0], mask, *targs[1:], H, EPS)

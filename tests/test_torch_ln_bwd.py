@@ -49,6 +49,7 @@ from rmcl_tpu_torch.ops import fused_block as FB
 from rmcl_tpu_torch.ops import fused_block_train as FT
 from rmcl_tpu_torch.ops import philox
 from tests.test_torch_train import ATTN_NAMES, MATRICES, MLP_NAMES, _half_inputs, _t
+from tests._torch_threads import one_thread  # noqa: F401
 
 EPS = 1e-6
 LANES, CHUNK, WIDTH = 32, 8, 256          # ln_bwd: lanes, chunk, columns per chunk round
@@ -175,7 +176,13 @@ def _inputs(C, H):
 
 def _jax_grads(fn, inp, names, argnums):
     jargs = [jnp.asarray(inp[n]) for n in names]
-    return jax.grad(lambda *a: jnp.sum(fn(*a) * inp["g"]), argnums=argnums)(*jargs)
+    return jax.jit(jax.grad(lambda *a: jnp.sum(fn(*a) * inp["g"]), argnums=argnums))(*jargs)
+
+
+def _jax_dx(fn, x, g):
+    """The input gradient of ``fn`` at ``x`` for the output gradient ``g``,
+    compiled."""
+    return jax.jit(lambda xx, gg: jax.vjp(fn, xx)[1](gg)[0])(x, jnp.asarray(g))
 
 
 def _torch_leaves(inp, names):
@@ -214,13 +221,11 @@ def test_model_in_dx_rows_matches_pallas(C, H, monkeypatch):
     monkeypatch.setenv("RMCL_PALLAS_INTERPRET", "1")
     inp = _inputs(C, H)
     j = {n: jnp.asarray(inp[n]) for n in ATTN_NAMES + MLP_NAMES + ("mask",)}
-    _, vjp = jax.vjp(lambda x: PB.fused_attn_half_det(
+    ref_attn = _jax_dx(lambda x: PB.fused_attn_half_det(
         x, j["mask"], j["ln_w"], j["ln_b"], j["wqkv"], j["bqkv"], j["wproj"], j["bproj"], H,
-        (C // H) ** -0.5, EPS, True), j["x"])
-    ref_attn, = vjp(jnp.asarray(inp["g"]))
-    _, vjp = jax.vjp(lambda x: PB.fused_mlp_half(
-        x, j["ln_w"], j["ln_b"], j["w1"], j["b1"], j["w2"], j["b2"], EPS, True), j["x"])
-    ref_mlp, = vjp(jnp.asarray(inp["g"]))
+        (C // H) ** -0.5, EPS, True), j["x"], inp["g"])
+    ref_mlp = _jax_dx(lambda x: PB.fused_mlp_half(
+        x, j["ln_w"], j["ln_b"], j["w1"], j["b1"], j["w2"], j["b2"], EPS, True), j["x"], inp["g"])
     x, lw, lb, wq, bq, wp, _ = _torch_leaves(inp, ATTN_NAMES)
     _, _, _, w1, b1, w2, _ = _torch_leaves(inp, MLP_NAMES)
     g = _t(inp["g"])

@@ -33,6 +33,7 @@ from rmcl_tpu_torch.models.vilt import ViLT
 from rmcl_tpu_torch.train import checkpoint as TC
 from tests.test_torch_downstream import _moved
 from tests.test_torch_train import _jflat
+from tests._torch_threads import one_thread  # noqa: F401
 
 SMALL = dict(hidden_size=32, num_heads=2, num_layers=2, patch_size=16, image_size=192,
              max_text_len=10, vocab_size=64, vqav2_label_size=7, num_negative=16,

@@ -20,6 +20,7 @@ from rmcl_tpu.models.vit import (_normalize_u8, scatter_delta as jax_scatter_del
 from rmcl_tpu_torch.compat.from_jax import state_dict_from_jax
 from rmcl_tpu_torch.models.vilt import ViLT
 from rmcl_tpu_torch.models.vit import normalize_u8, scatter_delta
+from tests._torch_threads import one_thread  # noqa: F401
 
 ATOL = 2e-4      # as tests/test_compat.py holds the converted forward
 TASK_LOSS = {"mlm": {"mlm": 1}, "itm": {"itm": 1}, "rank": {"irtr": 1},

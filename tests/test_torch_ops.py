@@ -13,6 +13,7 @@ import torch
 
 from rmcl_tpu.ops import pallas_block as PB
 from rmcl_tpu_torch.ops import fused_block as FB
+from tests._torch_threads import one_thread  # noqa: F401
 
 B, S, C, H = 2, 37, 32, 4
 EPS = 1e-6

@@ -51,6 +51,7 @@ from rmcl_tpu_torch.train import step as TT
 from tests.conftest import make_fake_batch
 from tests.test_torch_downstream import _moved
 from tests.test_torch_train import _close, _close_params, _jax_path, _jflat, _port_of
+from tests._torch_threads import one_thread  # noqa: F401
 
 ALL = ("itm", "mlm", "mpp", "mppd", "mpfr")
 WORDS = ["dog", "puppy", "cat", "kitten", "red", "big", "runs", "park", "street", "road",

@@ -37,6 +37,7 @@ from tests.test_torch_downstream_eval import (_kw, _records, _same_epoch, _same_
                                               _trainers, data)
 from tests.test_torch_pretrain import _replay
 from tests.test_torch_train import _jflat
+from tests._torch_threads import one_thread  # noqa: F401
 
 
 def _feed_jax_draws(monkeypatch, cfg, n_steps, n_val):

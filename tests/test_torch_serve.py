@@ -20,6 +20,7 @@ from rmcl_tpu.serve import build_infer_fn as jax_infer_fn
 from rmcl_tpu_torch.compat.from_jax import state_dict_from_jax
 from rmcl_tpu_torch.models.vilt import ViLT
 from rmcl_tpu_torch.serve import TASKS, Session, batch_spec, build_infer_fn
+from tests._torch_threads import one_thread  # noqa: F401
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 ATOL = 2e-4

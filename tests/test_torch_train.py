@@ -37,6 +37,7 @@ from rmcl_tpu_torch.ops import fused_block_train as FT
 from rmcl_tpu_torch.ops import philox
 from rmcl_tpu_torch.train import schedule as TS
 from rmcl_tpu_torch.train import step as TT
+from tests._torch_threads import one_thread  # noqa: F401
 
 EPS = 1e-6
 RTOL = 1e-5
@@ -168,7 +169,8 @@ def test_mlp_half_train_matches_jax_twin(p, tail):
 
     jargs = [jnp.asarray(inp[n]) for n in MLP_NAMES]
     ref = twin(*jargs)
-    ref_g = jax.grad(lambda *a: jnp.sum(twin(*a) * inp["g"]), argnums=tuple(range(7)))(*jargs)
+    ref_g = jax.jit(jax.grad(lambda *a: jnp.sum(twin(*a) * inp["g"]),
+                             argnums=tuple(range(7))))(*jargs)
 
     targs = _torch_args(inp, MLP_NAMES)
     out = FT.mlp_half_train(targs[0], seeds, *targs[1:], p, EPS, tail)
@@ -196,7 +198,8 @@ def test_attn_half_train_matches_jax_twin(p):
 
     jargs = [jnp.asarray(inp[n]) for n in ATTN_NAMES]
     ref = twin(*jargs)
-    ref_g = jax.grad(lambda *a: jnp.sum(twin(*a) * inp["g"]), argnums=tuple(range(7)))(*jargs)
+    ref_g = jax.jit(jax.grad(lambda *a: jnp.sum(twin(*a) * inp["g"]),
+                             argnums=tuple(range(7))))(*jargs)
 
     targs = _torch_args(inp, ATTN_NAMES)
     out = FT.attn_half_train(targs[0], seeds, mask, *targs[1:], H, EPS, p)
@@ -228,9 +231,9 @@ def test_train_halves_at_p0_match_pallas_interpret(monkeypatch):
                            (MLP_NAMES, j_mlp,
                             lambda x, *a: FT.mlp_half_train(x, seeds, *a, 0.0, EPS))):
         jargs = [jnp.asarray(inp[n]) for n in names]
-        ref = jfn(*jargs)
-        ref_g = jax.grad(lambda *a: jnp.sum(jfn(*a) * inp["g"]),
-                         argnums=tuple(range(7)))(*jargs)
+        ref = jax.jit(jfn)(*jargs)
+        ref_g = jax.jit(jax.grad(lambda *a: jnp.sum(jfn(*a) * inp["g"]),
+                                 argnums=tuple(range(7))))(*jargs)
         targs = _torch_args(inp, names)
         out = op(*targs)
         _close("forward", out, ref)
@@ -335,8 +338,8 @@ def vit_training_matches_jax(cfg):
         return JV.transformer_apply(tr, xx, jnp.asarray(mask), spec=make_spec(cfg),
                                     rng=jax.random.PRNGKey(3), deterministic=False)
 
-    ref = jfn(params["transformer"], jnp.asarray(x))
-    g_tr, g_x = jax.grad(lambda tr, xx: jnp.sum(jfn(tr, xx) * g), argnums=(0, 1))(
+    ref = jax.jit(jfn)(params["transformer"], jnp.asarray(x))
+    g_tr, g_x = jax.jit(jax.grad(lambda tr, xx: jnp.sum(jfn(tr, xx) * g), argnums=(0, 1)))(
         params["transformer"], jnp.asarray(x))
 
     xt = _t(x, grad=True)
@@ -520,8 +523,8 @@ def two_moco_steps_match_jax(cfg):
     jmodel, jts, tx = JT.create_train_state(jax.random.PRNGKey(0), cfg, params=params,
                                             state=state)
     jstep = JT.make_train_step(cfg, jmodel, tx, donate=False)
-    jgrads = _jflat(jax.grad(lambda p: JT.compute_all_tasks(
-        cfg, jmodel, p, jts.state, jbatch, jax.random.PRNGKey(5), train=True)[0])(jts.params))
+    jgrads = _jflat(jax.jit(jax.grad(lambda p: JT.compute_all_tasks(
+        cfg, jmodel, p, jts.state, jbatch, jax.random.PRNGKey(5), train=True)[0]))(jts.params))
 
     ts = TT.create_train_state(cfg, model=_port_of(cfg, params, state), device="cpu")
     step = TT.make_train_step(cfg, ts)

@@ -51,6 +51,7 @@ from tests.test_attacks import SYN_GROUPS
 from tests.test_attacks import WORDS as GREEDY_WORDS
 from tests.test_torch_greedy import _write_vectors
 from tests.test_torch_train import _cfg, _close_params, _jflat, _perturbed, _port_of
+from tests._torch_threads import one_thread  # noqa: F401
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 WORDS = ["dog", "running", "park", "the", "red", "cat", "sits"]
@@ -404,6 +405,7 @@ def test_cli_trains_on_the_cpu_when_asked(resume_data, tmp_path):
             "image_view=True", "adv_steps_img=1", "batch_size=2", "num_workers=2",
             f"log_dir={tmp_path}"]
     env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    env["OMP_NUM_THREADS"] = "1"          # one intra-op thread, as tests/_torch_threads.py
     run = lambda extra: subprocess.run(  # noqa: E731
         [sys.executable, "-m", "rmcl_tpu_torch.cli.run", *args, *extra], cwd=REPO, env=env,
         capture_output=True, text=True, timeout=300)
