@@ -18,7 +18,9 @@ their fp32 checks; then the rest of the one-card paths (phase 20): the demos,
 the golden replay, the timm loader and the learning runs; then distribution
 (phase 21): the attacked step with a one-rank NCCL group, and two ranks; then
 tensor parallelism (phase 22): the sharded block's ops at the shard shapes,
-and two ranks of a (data, model) grid of (1, 2).
+and two ranks of a (data, model) grid of (1, 2), configurations P and F
+among them; then the AOT serving artifact (phase 23): exported on the host,
+served on the card.
 
     python3 chip_smoke.py
 
@@ -430,20 +432,39 @@ Phases, any failure exits non-zero:
                halves, the dx halves (saved and recomputing), F's attention
                half and backward, the training halves forward and backward
                at p = 0.1, the masks equal keep_mask with the column offset
-               bit for bit, the second shard's calls timed beside their
-               bounds; then two ranks of a (1, 2) grid (chip_smoke.py
-               --tp-rank under torchrun, its deadline 300 s; NCCL with two
-               cards, gloo with the CUDA tensors of cuda:0 with one): (a)
-               the fp32 attacked task_moco step of phase 21 and a task_moco
-               + MLM step (the 30,522-row decoder sharded) at SLICE_LAYERS
-               on the 4 pairs against one process on the card, phase 21's
-               tolerances on the gathered gradients and leaves, the attacked
-               ids equal, the replicated entries bit-identical on both
+               bit for bit, P's attention core (masked_attention forward and
+               backward on the shard's 6 heads, views of its qkv), the
+               second shard's calls timed beside their bounds; then two
+               ranks of a (1, 2) grid (chip_smoke.py --tp-rank under
+               torchrun, its deadline 300 s; NCCL with two cards, gloo with
+               the CUDA tensors of cuda:0 with one): (a) the fp32 attacked
+               task_moco step of phase 21, a task_moco + MLM step (the
+               30,522-row decoder sharded) and phase 11's fp32 task_moco
+               steps of configurations P and F (drop_rate 0.1) at
+               SLICE_LAYERS on the 4 pairs against one process on the card,
+               phase 21's tolerances on the gathered gradients and leaves,
+               the ids equal, the replicated entries bit-identical on both
                ranks; (c) phase 13's attacked step in bf16 at TP_LAYERS on
                both ranks against one process at the same depth: ms per
                step, max_memory_allocated per rank, the launches of a step
                as expected_launches derives them.  The phase prints its
                seconds against its 75 s budget.
+ 23. export    the AOT serving artifact (serve.py: export_inference,
+               load_artifact, ArtifactSession): (a) phase 4's cell
+               (task_finetune_vqa, 12 layers, bf16, u8 wire, batch 8)
+               exported on the host (device="cpu"), saved, loaded onto the
+               card: no parameter or constant inside, 12 rmcl.attn_half and
+               12 rmcl.mlp_half nodes; phase 4's 20 requests in batches of 8
+               equal the live Session's output on the same weights bit for
+               bit; 12 + 12 launches per forward; batch-8 ms (median of 15)
+               and requests/s of the artifact and the live Session in turns,
+               beside phase 4's; the file's bytes; (b) an fp32 task_moco
+               embed artifact (12 layers, batch 4) on the card against the
+               same artifact on the CPU within 1e-3 * max(1, max|ref|); (c)
+               phase 4's cell under configuration P at SLICE_LAYERS: one
+               rmcl.masked_attention node a layer, launched on the card,
+               equal to the live Session bit for bit.  The phase prints its
+               seconds against its 60 s budget.
 
 The line before the last is the kernels' JSON record; the last line is
 ``{"ok": true, "device": {...}}``.  Without a card, or outside the
@@ -483,7 +504,11 @@ phases 1, 2 and 21 only;
 
     python3 chip_smoke.py --tp
 
-phases 1, 2 and 22 only.
+phases 1, 2 and 22 only;
+
+    python3 chip_smoke.py --export
+
+phases 1, 2 and 23 only.
 
     python3 chip_smoke.py --gemm-times [ROOT]
 
@@ -497,8 +522,12 @@ LayerNorm backward (_ln_bwd_dx, _ln_backward) and column sums (_colsum) at
 M = 16 x 241 in bf16, per call, by device time and by host enqueue time;
 then the attack under the default configuration and P, and one unattacked
 fp32 task_moco step (16 pairs, 12 layers: wall and device busy, and the
-device time of its three fp32 attention kernels by name), through
-arguments every slice of the port shares: run it on two checkouts in one
+device time of its three fp32 attention kernels by name), phase 4's serving
+cell through the live Session and, where the package has one, its artifact
+(batch-8 ms, requests/s, device ms a forward, and the host time of one
+attn_half call beside its launch alone), and phase 13's attacked step
+(realistic captions, wall ms), through arguments every slice of the port
+shares: run it on two checkouts in one
 call to compare their kernels on one card.  Every phase also checks the
 sub-kernels' launch counters (the GEMMs, the bf16 attention forward and
 backward, the LayerNorm backward and the column sums) against the ops'
@@ -803,9 +832,9 @@ def op_work(name: str, B: int, S: int, C: int, saved: bool = False, es: int = 2,
                 3 * act + es * 2 * C * C4 // m + 4 * (2 * C + C4 // m)
                 + (es * M * C4 // m if saved else 0))
     if name == "masked_attention":        # q.k^T, p.v; reads q, k, v, mask, writes out
-        return 4 * B * S * S * C, 4 * act + 4 * M
+        return 4 * B * S * S * C // m, 4 * inner + 4 * M
     if name == "masked_attention_bwd":    # s, dp, dq, dk, dv; reads q, k, v, g, mask
-        return 10 * B * S * S * C, 7 * act + 4 * M
+        return 10 * B * S * S * C // m, 7 * inner + 4 * M
     raise KeyError(name)
 
 
@@ -2040,6 +2069,7 @@ def phase_serving(cfg, model, reqs, dev) -> tuple:
         sess.infer(reqs)
         walls.append(time.perf_counter() - t)
     rps = N_REQUESTS / statistics.median(walls)
+    READINGS["serving"] = (statistics.median(lat), rps)
     print(f"[serving] {len(recs)} postprocess records; first call {wall:.3f} s; "
           f"median batch-{BATCH} latency {statistics.median(lat)!r} ms; "
           f"{rps!r} requests/s (median of 5 runs of {N_REQUESTS})")
@@ -5872,9 +5902,32 @@ def tp_mlm_case(dev) -> dict:
                 ids=torch.from_numpy(ids), cfg=cfg32, **_full_leaves(cfg32, ts))
 
 
+def tp_impl_case(dev, config: str) -> dict:
+    """One fp32 task_moco step of block configuration ``config`` (P or F) at
+    SLICE_LAYERS on the 4 pairs of phase 9: ``make_train_step`` with image
+    and text views (seeded attacked ids) at drop_rate DROP_P.  Returns the
+    loss, the gradients and updated leaves."""
+    from rmcl_tpu_torch.train.step import create_train_state, make_train_step
+    cfg32 = train_config(config).replace(compute_dtype="float32", queue_dtype="float32",
+                                          num_layers=SLICE_LAYERS)
+    batch = train_batch(cfg32, N_CPU, SEED + 4, "cpu")
+    ts = create_train_state(cfg32, model=moco_model(cfg32), device=dev)
+    metrics = make_train_step(cfg32, ts)({k: v.to(dev) for k, v in batch.items()},
+                                         torch.Generator().manual_seed(SEED + 8))
+    return dict(loss=metrics["total_loss"].item(), ids=batch["text_ids"], cfg=cfg32,
+                **_full_leaves(cfg32, ts))
+
+
+TP_CASES = ("moco", "mlm", "P", "F")
+TP_REFERENCES = (("mlm", "P"), ("moco", "F"))   # the one-process references each rank makes
+
+
 def tp_slice_case(dev, name: str) -> dict:
     """Phase 22 (a)'s case ``name``: "moco", phase 21's fp32 attacked step
-    (``ddp_slice_case``), or "mlm" (``tp_mlm_case``)."""
+    (``ddp_slice_case``), "mlm" (``tp_mlm_case``), or "P" / "F", the step of
+    that block configuration (``tp_impl_case``)."""
+    if name in IMPLS:
+        return tp_impl_case(dev, name)
     return ddp_slice_case(dev, "moco") if name == "moco" else tp_mlm_case(dev)
 
 
@@ -5898,7 +5951,9 @@ def _compare_tp(tag: str, name: str, ref: dict, mine: dict, summaries: list) -> 
     wf, wp = _held_after_adamw(ctag, mine["leaves"], ref["leaves"], ref["grads"], ref["cfg"])
     extra = (f"; MLM loss {mine['mlm_loss']!r} vs {ref['mlm_loss']!r}, the decoder's "
              f"{ref['cfg'].vocab_size} rows {ref['cfg'].vocab_size // TP_SHARDS} a rank"
-             if name == "mlm" else "; attacked ids equal")
+             if name == "mlm" else "; attacked ids equal" if name == "moco" else
+             f"; configuration {name} ({IMPLS[name]}), drop_rate {ref['cfg'].drop_rate}, "
+             f"{ref['cfg'].num_heads // TP_SHARDS} heads a rank")
     return (f"{ctag}: {TP_SHARDS} model ranks against one process on the {N_CPU} pairs on the "
             f"card: loss {mine['loss']!r} vs {ref['loss']!r} (relative {rel!r}, tol 1e-5); "
             f"{len(ref['grads'])} gathered gradients within 2e-4 * max(1, max|ref|), worst "
@@ -5969,19 +6024,19 @@ def tp_rank_main(root: str) -> int:
     dev, backend = rank_device(rank, world)
     if dev.type == "cuda":
         torch.cuda.set_device(dev)
-    mine = ("mlm", "moco")[rank]
-    ref = tp_slice_case(dev, mine)
+    mine = TP_REFERENCES[rank]
+    refs = {n: tp_slice_case(dev, n) for n in mine}
     marks["reference"] = time.time() - spawned
     D.init_distributed(dev, backend=backend, timeout_s=TP_COLLECTIVE_S)
     grid = mesh.init_grid(*TP_GRID)
     check((grid.data_rank, grid.model_rank) == (0, rank), f"rank {rank}: grid {grid}")
     marks["joined"] = time.time() - spawned
-    cases = {n: tp_slice_case(dev, n) for n in ("moco", "mlm")}
+    cases = {n: tp_slice_case(dev, n) for n in TP_CASES}
     summaries = comm.all_gather({n: {k: r[k] for k in ("loss", "ids", "replicated")}
                                  for n, r in cases.items()})
-    lines = [_compare_tp("[tp]", mine, ref, cases[mine], summaries)]
+    lines = [_compare_tp("[tp]", n, refs[n], cases[n], summaries) for n in mine]
     marks["checks"] = time.time() - spawned
-    del ref, cases, summaries
+    del refs, cases, summaries
     gc.collect()
     if dev.type == "cuda":
         torch.cuda.empty_cache()
@@ -6028,7 +6083,8 @@ def phase_tp_ranks(dev) -> dict:
           "since it: " + "; ".join(f"rank {r} " + ", ".join(
               f"{k} {v:.1f}" for k, v in x["marks"].items()) for r, x in enumerate(ranks)))
     lines = [ln for r in ranks for ln in r["lines"]]
-    check(len(lines) == 2, f"{tag} {len(lines)} cases compared, want 2")
+    check(len(lines) == len(TP_CASES),
+          f"{tag} {len(lines)} cases compared, want {len(TP_CASES)}")
     for ln in lines:
         print(ln)
     s0, s1 = (r["step"] for r in ranks)
@@ -6080,12 +6136,13 @@ def tp_op_kernels(dev) -> dict:
     second neither and starts the in-MLP mask at column 1536), fp32 and
     bf16, against its plain version on the same inputs: the forward halves,
     the dx halves (from the kept qkv / h and recomputing), F's attention
-    half and its backward, and the training halves forward and backward at
-    p = 0.1.  Every mask the training kernels apply or regenerate equals
+    half and its backward, P's attention core forward and backward on the
+    shard's heads, and the training halves forward and backward at p = 0.1.  Every mask the training kernels apply or regenerate equals
     ``keep_mask`` with the shard's column offset bit for bit; every
     multi-output op gives the same bits twice.  The second shard's calls are
     timed (CUDA events), each beside its bound at the shard's work."""
     from rmcl_tpu_torch.models.vit import VIT_LN_EPS as eps
+    from rmcl_tpu_torch.ops import attention as A
     from rmcl_tpu_torch.ops import fused_block as FB
     from rmcl_tpu_torch.ops import fused_block_train as FT
     from rmcl_tpu_torch.ops.philox import keep_mask
@@ -6094,11 +6151,12 @@ def tp_op_kernels(dev) -> dict:
     x, mask, (lw, lb), (wq, bq, wp, bp), (w1, b1, w2, b2), H = _block_inputs(
         dev, B=PGD_BATCH, S=241)
     B, S, C = x.shape
-    C4 = 4 * C // m
+    C4, D = 4 * C // m, C // H
     full = dict(wq=wq, bq=bq, wp=wp, bp=bp, w1=w1, b1=b1, w2=w2, b2=b2)
     gen = torch.Generator(device=dev).manual_seed(SEED + 11)
     g = torch.randn(x.shape, generator=gen, device=dev)
     seeds = torch.randint(-2 ** 31, 2 ** 31, (B,), generator=gen, device=dev).int()
+    g_heads = torch.randn(B, H // m, S, D, generator=gen, device=dev)
     shape = f"B={B} S={S} C={C} shard of {m}: {H // m} heads, qkv {C}->{3 * C // m}, fc1 {C}->{C4}"
     res = {}
     with torch.inference_mode():
@@ -6146,6 +6204,16 @@ def tp_op_kernels(dev) -> dict:
                     _no_none(FB.attn_half_full_bwd_plain),
                     (xd, mask, lw, lb, wqd, wpd, gd, fq, fa, H // m, eps, lead), rtol, fp32,
                     GRADS, timed))
+                # P's attention core on the shard's H/m heads: views of its qkv
+                q, k, v = qkv.view(B, S, 3, H // m, D).permute(2, 0, 3, 1, 4).unbind(0)
+                ghd = g_heads.to(dtype)
+                keep("masked_attention", _compare_all(
+                    "masked_attention", tg, shape, _one(A.masked_attention), _one(A.mha),
+                    (q, k, v, mask, D ** -0.5), rtol, fp32, ("out",), timed))
+                keep("masked_attention_bwd", _compare_all(
+                    "masked_attention_bwd", tg, shape, A.masked_attention_bwd,
+                    A.masked_attention_bwd_plain, (q, k, v, mask, ghd, D ** -0.5), rtol, fp32,
+                    ("dq", "dk", "dv"), timed))
                 # the training halves: masks first, then outputs and gradients
                 ta = (xd, seeds, mask, lw, lb, wqd, s["bq"], wpd, bpr, H // m, eps, DROP_P)
                 tm = (xd, seeds, lw, lb, w1d, s["b1"], w2d, b2r, DROP_P, eps)
@@ -6240,6 +6308,204 @@ def tp_records(tp: dict) -> list:
                     "mem_gib": list(tp["mem_gib"]), "one_process_mem_gib": tp["one_mem_gib"],
                     "backend": tp["backend"]})
     return out
+
+
+# ---------------------------------------------------------------- export
+EXPORT_DIR = "chip_smoke_export.tmp"      # the artifacts and their sidecars; removed
+EXPORT_TIMED = 15                         # (a): timed batch-8 forwards, median
+
+
+def _artifact_nodes(art) -> dict:
+    """The ``rmcl::`` operator nodes of a loaded artifact's graph, by name."""
+    counts: dict = {}
+    for node in art.program.graph.nodes:
+        name = str(node.target)
+        if name.startswith("rmcl."):
+            counts[name] = counts.get(name, 0) + 1
+    return counts
+
+
+def _artifact_checks(tag: str, art, want_nodes: dict) -> None:
+    """No parameter inside the program, and the operator nodes ``want_nodes``."""
+    check(len(art.program.state_dict) == 0 and len(art.program.constants) == 0,
+          f"{tag}: the program holds {len(art.program.state_dict)} parameters and "
+          f"{len(art.program.constants)} constants")
+    nodes = _artifact_nodes(art)
+    check(nodes == want_nodes, f"{tag}: operator nodes {nodes}, want {want_nodes}")
+
+
+def _forward_launches(tag: str, FB, fn, want: dict) -> dict:
+    """The launches of one forward ``fn()``: ``want``'s ops that many times,
+    every other op none; the sub-kernels as the ops derive them."""
+    FB.reset_launches()
+    fn()
+    torch.cuda.synchronize()
+    counts = dict(FB.launches)
+    check(counts == {**{k: 0 for k in counts}, **want},
+          f"{tag}: launches per forward {counts}, want {want}")
+    counts = check_sub_launches(tag, counts, FB)
+    return {k: v for k, v in counts.items() if v}
+
+
+def _serving_times(sess, full: dict, reqs: dict) -> tuple:
+    """(batch-8 ms: median of EXPORT_TIMED forwards, host clock + synchronize;
+    requests/s: the median of 5 runs of ``infer`` over every request)."""
+    lat = []
+    for _ in range(EXPORT_TIMED):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        sess.forward(full)
+        torch.cuda.synchronize()
+        lat.append((time.perf_counter() - t) * 1e3)
+    walls = []
+    for _ in range(5):
+        t = time.perf_counter()
+        sess.infer(reqs)
+        walls.append(time.perf_counter() - t)
+    return statistics.median(lat), len(reqs["text_ids"]) / statistics.median(walls)
+
+
+def phase_export_vqa(dev, root: Path) -> dict:
+    """Phase 23 (a): phase 4's cell (task_finetune_vqa, ViLT-B/32 at full
+    width and depth, bf16, u8 wire, batch 8) as an artifact exported on the
+    host (device="cpu"), saved, loaded onto the card and serving phase 4's
+    requests against the live Session on the same weights."""
+    from rmcl_tpu_torch import build_config
+    from rmcl_tpu_torch.ops import fused_block as FB
+    from rmcl_tpu_torch.serve import (ArtifactSession, Session, export_inference, load_artifact,
+                                      seeded_model)
+    tag = "[export] (a)"
+    cfg = build_config(CONFIG)
+    model = seeded_model(cfg, SEED)
+    reqs = synthetic_requests(cfg, N_REQUESTS, SEED)
+    path = root / "vqa.pt2"
+    t0 = time.perf_counter()
+    blob = export_inference(cfg, model, "vqa", BATCH, out_path=str(path), device="cpu")
+    t1 = time.perf_counter()
+    art = load_artifact(str(path), dev)
+    t2 = time.perf_counter()
+    L = cfg.num_layers
+    _artifact_checks(tag, art, {"rmcl.attn_half.default": L, "rmcl.mlp_half.default": L})
+    meta = json.loads(Path(f"{path}.json").read_text())
+    served = ArtifactSession(art, model.state_dict(), None, meta)
+    live = Session(cfg, model, "vqa", BATCH, dev)
+    chunks = [{k: v[i:i + BATCH] for k, v in reqs.items()} for i in range(0, N_REQUESTS, BATCH)]
+    for i, c in enumerate(chunks):
+        m = len(c["text_ids"])
+        if m < BATCH:   # the sessions' pad by repeat
+            c = {k: np.concatenate([v, np.repeat(v[:1], BATCH - m, axis=0)])
+                 for k, v in c.items()}
+        a, b = served.forward(c), live.forward(c)
+        check(a.dtype == b.dtype == torch.bfloat16 and torch.equal(a, b),
+              f"{tag} chunk {i}: the artifact's logits differ from the live Session's "
+              f"(max abs {(a.float() - b.float()).abs().max().item()!r})")
+    out = served.infer(reqs)
+    check(out.shape == (N_REQUESTS, cfg.vqav2_label_size) and bool(np.isfinite(out).all()),
+          f"{tag}: outputs {out.shape}, finite {bool(np.isfinite(out).all())}")
+    full = chunks[0]
+    counts = _forward_launches(tag, FB, lambda: served.forward(full),
+                               {"attn_half": L, "mlp_half": L})
+    # timed in turns: live, artifact, artifact, live
+    times = {}
+    for name, sess in (("live", live), ("artifact", served), ("artifact2", served),
+                       ("live2", live)):
+        times[name] = _serving_times(sess, full, reqs)
+    ms = statistics.median([times["artifact"][0], times["artifact2"][0]])
+    live_ms = statistics.median([times["live"][0], times["live2"][0]])
+    rps = statistics.median([times["artifact"][1], times["artifact2"][1]])
+    live_rps = statistics.median([times["live"][1], times["live2"][1]])
+    p4 = READINGS.get("serving")
+    print(f"{tag} {CONFIG}, {L} layers, bf16, u8 wire, batch {BATCH}: exported on the CPU in "
+          f"{t1 - t0:.1f} s, {len(blob)} bytes ({path.name} + {path.name}.json), loaded onto "
+          f"the card in {t2 - t1:.1f} s; no parameter or constant inside; {L} rmcl.attn_half "
+          f"+ {L} rmcl.mlp_half nodes; {len(chunks)} batches of phase 4's {N_REQUESTS} "
+          f"requests equal the live Session's bit for bit; launches per forward {counts}")
+    print(f"{tag} batch-{BATCH} ms (median of {EXPORT_TIMED}, host clock + synchronize, in turns "
+          f"live / artifact / artifact / live): artifact {ms!r} ({times['artifact'][0]!r}, "
+          f"{times['artifact2'][0]!r}), live Session {live_ms!r}; requests/s (median of 5 runs "
+          f"of {N_REQUESTS}): artifact {rps!r}, live Session {live_rps!r}"
+          + (f"; phase 4's Session: {p4[0]!r} ms, {p4[1]!r} requests/s" if p4 else ""))
+    READINGS.update(export_ms=ms, export_rps=rps)
+    return dict(counts=counts, ms=ms, rps=rps, live_ms=live_ms, live_rps=live_rps,
+                bytes=len(blob))
+
+
+def phase_export_embed(dev, root: Path) -> None:
+    """Phase 23 (b): an fp32 task_moco embed artifact (full width and depth,
+    u8 wire, batch N_CPU) exported on the host, served on the card and on
+    the CPU on the same 4 requests: within phase 5's 1e-3 * max(1, max|ref|)."""
+    from rmcl_tpu_torch import build_config
+    from rmcl_tpu_torch.ops import fused_block as FB
+    from rmcl_tpu_torch.serve import export_inference, load_artifact, seeded_model
+    tag = "[export] (b)"
+    cfg = build_config(PGD_CONFIG, compute_dtype="float32")
+    model = seeded_model(cfg, SEED)
+    sd = model.state_dict()
+    blob = export_inference(cfg, model, "embed", N_CPU, device="cpu")
+    batch = synthetic_requests(cfg, N_CPU, SEED + 1)
+    on_cpu, on_card = load_artifact(blob, "cpu"), load_artifact(blob, dev)
+    t0 = time.perf_counter()
+    ref = on_cpu(sd, batch).float()
+    cpu_s = time.perf_counter() - t0
+    L = cfg.num_layers
+    got = {}
+    counts = _forward_launches(tag, FB, lambda: got.setdefault("out", on_card(sd, batch)),
+                               {"attn_half": L, "mlp_half": L})
+    out = got["out"].float().cpu()
+    diff = (out - ref).abs().max().item()
+    tol = 1e-3 * max(1.0, ref.abs().max().item())
+    print(f"{tag} {PGD_CONFIG} embed, fp32, {L} layers, batch {N_CPU}: {len(blob)} bytes; the "
+          f"card's output vs the same artifact on the CPU ({cpu_s:.1f} s) max_abs_diff={diff!r} "
+          f"(tol {tol:.3g}); launches per forward {counts}")
+    check(out.shape == (N_CPU, 128) and diff <= tol,
+          f"{tag}: shape {tuple(out.shape)}, max_abs_diff {diff} > {tol}")
+
+
+def phase_export_p(dev, root: Path) -> dict:
+    """Phase 23 (c): phase 4's cell under configuration P at SLICE_LAYERS:
+    the artifact holds one rmcl.masked_attention node a layer, launches it
+    on the card, and equals the live Session bit for bit."""
+    from rmcl_tpu_torch import build_config
+    from rmcl_tpu_torch.ops import fused_block as FB
+    from rmcl_tpu_torch.serve import Session, export_inference, load_artifact, seeded_model
+    tag = "[export] (c)"
+    cfg = build_config(CONFIG, attention_impl="pallas", num_layers=SLICE_LAYERS)
+    model = seeded_model(cfg, SEED)
+    sd = model.state_dict()
+    blob = export_inference(cfg, model, "vqa", BATCH, device="cpu")
+    art = load_artifact(blob, dev)
+    L = cfg.num_layers
+    _artifact_checks(tag, art, {"rmcl.masked_attention.default": L, "rmcl.mlp_half.default": L})
+    batch = {k: v[:BATCH] for k, v in synthetic_requests(cfg, BATCH, SEED + 2).items()}
+    got = {}
+    counts = _forward_launches(tag, FB, lambda: got.setdefault("out", art(sd, batch)),
+                               {"masked_attention": L, "mlp_half": L})
+    live = Session(cfg, model, "vqa", BATCH, dev).forward(batch)
+    check(torch.equal(got["out"], live), f"{tag}: the artifact's logits differ from the live "
+          f"Session's (max abs {(got['out'].float() - live.float()).abs().max().item()!r})")
+    print(f"{tag} {CONFIG} under P (attention_impl='pallas'), bf16, {L} layers, batch {BATCH}: "
+          f"{len(blob)} bytes; {L} rmcl.masked_attention + {L} rmcl.mlp_half nodes; equal to "
+          f"the live Session bit for bit; launches per forward {counts}")
+    return counts
+
+
+def phase_export(dev) -> dict:
+    """Phase 23: the AOT serving artifact (serve.py: export_inference,
+    load_artifact, ArtifactSession), exported on the host and served on the
+    card.  Returns the launches per forward of (a) and (c)."""
+    import shutil
+    t0 = time.perf_counter()
+    root = Path(EXPORT_DIR).resolve()
+    shutil.rmtree(root, ignore_errors=True)
+    root.mkdir()
+    try:
+        vqa = phase_export_vqa(dev, root)
+        phase_export_embed(dev, root)
+        p = phase_export_p(dev, root)
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    print(f"[export] phase 23 in {time.perf_counter() - t0:.1f} s (budget 60 s)")
+    return {"artifact": vqa["counts"], "artifact_P": p}
 
 
 # --------------------------------------------------------------- profile
@@ -6392,7 +6658,7 @@ def host_us(fn, calls: int = 100) -> float:
 
 
 def attack_times(dev, config: str) -> tuple:
-    """(wall ms, median of 3, host clock + synchronize; device busy ms) of
+    """(wall ms, median of 7, host clock + synchronize; device busy ms) of
     the 5-step attack of phase 6 under a block configuration."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -6407,7 +6673,7 @@ def attack_times(dev, config: str) -> tuple:
     run = lambda: attack(batch, k, model.proj_queue)  # noqa: E731
     run()
     walls = []
-    for _ in range(3):
+    for _ in range(7):
         torch.cuda.synchronize()
         t = time.perf_counter()
         run()
@@ -6532,6 +6798,68 @@ def _attention_calls(dev, lib, gen, dtype=torch.bfloat16) -> dict:
     return calls
 
 
+def serving_times(dev, root: str) -> dict:
+    """Phase 4's cell (task_finetune_vqa, 12 layers, bf16, u8 wire, batch 8)
+    through the live Session of the package on the path, and through its
+    artifact where the package has one (phase 23 (a)): batch-8 ms (median of
+    EXPORT_TIMED, host clock + synchronize), requests/s (median of 5 runs of
+    phase 4's 20 requests) and the device time of one batch-8 forward; and the
+    host time of one bf16 ``attn_half`` call at B=8, S=269 (enqueue only)
+    beside its launch alone (``_attn_fwd``), and of ``masked_attention`` at
+    that shape without and with a graph."""
+    from rmcl_tpu_torch import build_config, serve
+    from rmcl_tpu_torch.ops import fused_block as FB
+    from rmcl_tpu_torch.serve import Session, seeded_model
+    x, mask, (lw, lb), (wq, bq, wp, bp), _, H = _block_inputs(dev)
+    args = (x.bfloat16(), mask, lw, lb, wq.bfloat16(), bq, wp.bfloat16(), bp, H, 1e-6)
+    with torch.inference_mode():
+        res = {"attn_half host_us": host_us(lambda: FB.attn_half(*args)),
+               "_attn_fwd host_us": host_us(lambda: FB._attn_fwd(*args, True))}
+    # P's attention core at that shape: q, k, v views of one qkv buffer, as
+    # the unfused block makes them, without and with a graph (the attack's)
+    from rmcl_tpu_torch.ops.attention import masked_attention
+    B, S, C = x.shape
+    qkv = torch.randn(B, S, 3, H, C // H, device=dev).bfloat16()
+    q, k, v = qkv.permute(2, 0, 3, 1, 4).unbind(0)
+    with torch.no_grad():
+        res["masked_attention host_us"] = host_us(lambda: masked_attention(q, k, v, mask, 0.125))
+    qg, kg, vg = qkv.requires_grad_(True).permute(2, 0, 3, 1, 4).unbind(0)
+    res["masked_attention autograd host_us"] = host_us(
+        lambda: masked_attention(qg, kg, vg, mask, 0.125))
+    cfg = build_config(CONFIG)
+    model = seeded_model(cfg, SEED)
+    reqs = synthetic_requests(cfg, N_REQUESTS, SEED)
+    full = {k: v[:BATCH] for k, v in reqs.items()}
+    sessions = {"live": Session(cfg, model, "vqa", BATCH, dev)}
+    if hasattr(serve, "export_inference"):
+        art = serve.load_artifact(serve.export_inference(cfg, model, "vqa", BATCH,
+                                                         device="cpu"), dev)
+        sessions["artifact"] = serve.ArtifactSession(art, model.state_dict(), None,
+                                                     serve.export_meta(cfg, "vqa", BATCH))
+    for name, sess in sessions.items():
+        sess.infer(reqs)                                       # warm-up
+        ms, rps = _serving_times(sess, full, reqs)
+        res[name] = dict(ms=ms, rps=rps, device_ms=device_ms(lambda: sess.forward(full)))
+    return res
+
+
+def attacked_step_ms(dev, mix: str = "realistic") -> float:
+    """Wall ms of phase 13's attacked task_moco step (16 pairs, bf16, the
+    fused greedy attack inside), median of 5 after a warm-up, host clock +
+    synchronize."""
+    _, _, batch, _, make_step = train_setup(dev, mix=mix)
+    step, gen = make_step(), torch.Generator().manual_seed(SEED + 7)
+    step(batch, gen)
+    walls = []
+    for _ in range(5):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        step(batch, gen)
+        torch.cuda.synchronize()
+        walls.append((time.perf_counter() - t) * 1e3)
+    return statistics.median(walls)
+
+
 def gemm_times(root: str) -> None:
     """Times of the GEMM sub-kernels of the package under ``root`` at the
     step's shapes (LN_GEMM_SUBS, GEMM_TN_SUBS), of the attention forward and
@@ -6542,7 +6870,8 @@ def gemm_times(root: str) -> None:
     time, through the arguments every slice of the port has had, so that two
     versions compare in one run; then the attack's wall and device time
     under the default configuration and P, and the fp32 step's, with its
-    attention kernels' device time."""
+    attention kernels' device time; phase 4's serving cell (``serving_times``)
+    and phase 13's attacked step (``attacked_step_ms``)."""
     sys.path.insert(0, root)
     from rmcl_tpu_torch.ops import _build
     from rmcl_tpu_torch.ops import fused_block as FB
@@ -6636,7 +6965,14 @@ def gemm_times(root: str) -> None:
     print(f"[gemm-times] {root} fp32 task_moco step ({PGD_BATCH} pairs, 12 layers, "
           f"unattacked): wall_ms={step32[0]!r} device_busy_ms={step32[1]!r}; its fp32 attention "
           f"kernels' device ms {step32[2]}, {share:.4f} of the busy time")
-    print(json.dumps({"root": root, "times": res, "attacks": attacks, "fp32_step": step32}))
+    serving = serving_times(dev, root)
+    for name, r in serving.items():
+        print(f"[gemm-times] {root} serving {name}: {r!r}")
+    attacked = attacked_step_ms(dev)
+    print(f"[gemm-times] {root} attacked task_moco step ({PGD_BATCH} pairs, bf16, realistic "
+          f"captions): wall_ms={attacked!r}")
+    print(json.dumps({"root": root, "times": res, "attacks": attacks, "fp32_step": step32,
+                      "serving": serving, "attacked_step_ms": attacked}))
 
 
 def main() -> int:
@@ -6734,6 +7070,18 @@ def main() -> int:
             return 1
         print(json.dumps({"card": card, "kernels": tp_records(tp)}))
         return 0
+    if sys.argv[1:] == ["--export"]:
+        try:
+            from rmcl_tpu_torch import build_config  # noqa: F401
+            card = phase_device()
+            phase_build()
+            counts = phase_export(torch.device("cuda", 0))
+        except Exception as e:  # noqa: BLE001  any failure ends the run
+            traceback.print_exc()
+            print(f"chip_smoke --export: FAILED: {e}", file=sys.stderr)
+            return 1
+        print(json.dumps({"card": card, "launches_by_path": counts}))
+        return 0
     if sys.argv[1:] == ["--rest"]:
         try:
             from rmcl_tpu_torch import build_config  # noqa: F401
@@ -6747,8 +7095,9 @@ def main() -> int:
         print(json.dumps({"card": card, "launches_by_path": counts}))
         return 0
     if sys.argv[1:]:
-        print("usage: python3 chip_smoke.py [--profile | --gemm-times [ROOT] | --downstream | "
-              "--pretrain | --views | --rest | --ddp | --tp]", file=sys.stderr)
+        print("usage: python3 chip_smoke.py [--profile | --gemm-times [ROOT] | "
+              "--downstream | "
+              "--pretrain | --views | --rest | --ddp | --tp | --export]", file=sys.stderr)
         return 2
     try:
         from rmcl_tpu_torch import build_config
@@ -6824,6 +7173,8 @@ def main() -> int:
         ddp_counts = phase_ddp(dev, bare["worst"])
         phase = enter("tp")
         tp = phase_tp(dev)
+        phase = enter("export")
+        export_counts = phase_export(dev)
     except Exception as e:  # noqa: BLE001  every phase failure ends the run
         traceback.print_exc()
         print(f"chip_smoke: FAILED in phase {phase}: {e}", file=sys.stderr)
@@ -6852,7 +7203,8 @@ def main() -> int:
                 **{k: v[name] for k, v in pre_counts.items()},
                 **{k: v[name] for k, v in views_counts.items()},
                 **{f"rest_{k}": v[name] for k, v in rest_counts.items()},
-                "ddp": ddp_counts[name], "tp": tp["counts"][name]}
+                "ddp": ddp_counts[name], "tp": tp["counts"][name],
+                **{k: v.get(name, 0) for k, v in export_counts.items()}}
 
     records = []
     for name, replaces in KERNELS.items():

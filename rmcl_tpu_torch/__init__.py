@@ -3,7 +3,8 @@
 The JAX package ``rmcl_tpu`` is the reference; this package imports torch,
 never jax, and nothing of ``rmcl_tpu``: what it needs of that package's
 jax-free host modules it keeps as its own copies.  Ported so far: the
-serving path (``rmcl serve``), the PGD image attack, the greedy text attack,
+serving path (``rmcl serve``, live or from an ahead-of-time artifact of
+``rmcl export``), the PGD image attack, the greedy text attack,
 the task_moco and task_barlowtwins training steps and the training entry
 point around them (the loader, the Trainer, checkpoints, ``cli.run with``),
 under each of the JAX
@@ -45,8 +46,11 @@ package's kernel block configurations (``attention_impl`` "fused" /
   parallel/    data parallelism over processes under torchrun: the object
                collectives (comm.py), the process group and the step's
                tensor collectives (dist.py)
-  serve.py     build_infer_fn, batch_spec, Session, postprocess
-  cli/run.py   python -m rmcl_tpu_torch.cli.run with <config> ... | configs | serve ...
+  serve.py     build_infer_fn, batch_spec, Session, postprocess; the AOT
+               artifact (torch.export): export_inference, load_artifact,
+               ArtifactSession
+  cli/run.py   python -m rmcl_tpu_torch.cli.run with <config> ... | configs |
+               serve ... | export ... | prepare ...
 """
 
 from rmcl_tpu_torch.core.config import build_config  # noqa: F401

@@ -54,11 +54,14 @@ parameters too.
   the same op on the shards between Megatron's f and g (``parallel/tp.py``):
   f before it sums the input gradient over the model group, g after it sums
   the shards' partial outputs.  The first shard alone adds the residual and
-  the proj / fc2 bias; every shard drops its partial with the full (S, C)
-  mask (dropout is linear for a fixed mask), and the in-MLP mask of a shard
-  starts at its first global hidden column.  The partials are rounded to the
-  activation type by the ops and summed in it by g.  Configurations P and F
-  are not sharded (``NotImplementedError``).
+  the proj / fc2 bias; the in-MLP mask of a shard starts at its first global
+  hidden column.  Inside the fused training halves every shard drops its
+  partial with the full (S, C) mask (dropout is linear for a fixed mask);
+  where the dropout runs outside a kernel (F's attention half and plain MLP
+  tail, P's attention half) it runs after g, on the sum.  The partials are
+  rounded to the activation type by the ops and summed in it by g.  P's
+  unfused attention runs the shard's H/m heads of width Ci/(H/m) between f
+  and g.
 
   One kept deviation computes the same function another way: at p = 0 the
   JAX package runs ``fused_mlp_half`` (weight gradients from an XLA twin)
@@ -312,10 +315,6 @@ class Block(nn.Module):
                  model_shards: int = 1):
         super().__init__()
         C, m = hidden_size, model_shards
-        if m > 1 and (attn_impl, mlp_impl) != ("fused", "fused_train"):
-            raise NotImplementedError(
-                f"attention_impl={attn_impl!r}, mlp_impl={mlp_impl!r} under a model axis: "
-                "tensor parallelism runs the default configuration's fused halves")
         if num_heads % m or (mlp_ratio * C) % m:
             raise ValueError(f"a model axis of {m} does not divide {num_heads} heads "
                              f"and the MLP width {mlp_ratio * C}")
@@ -333,28 +332,32 @@ class Block(nn.Module):
               "w1": self.mlp["fc1"].weight, "w2": self.mlp["fc2"].weight}
         return {k: w.detach().to(dtype).contiguous() for k, w in ws.items()}
 
-    def _unfused_attention(self, x, mask, mats, train: bool):
+    def _unfused_attention(self, x, mask, mats, train: bool, bproj):
         """proj(MHA(qkv(LN1 x))) of the unfused block, around the attention
-        core op.  Training takes the float32 masters (cast at use, so that
+        core op, on this shard's heads (``bproj`` None: a shard but the
+        first).  Training takes the float32 masters (cast at use, so that
         they receive the gradients), the deterministic forward the cast
         matrices."""
-        B, S, C = x.shape
+        B, S, _ = x.shape
         H = self.num_heads
         qkv, proj = self.attn["qkv"], self.attn["proj"]
+        Ci = qkv.weight.shape[0] // 3
         y = layer_norm(x, self.norm1.weight, self.norm1.bias, VIT_LN_EPS)
         y = linear(y, qkv.weight if train else mats["wqkv"], qkv.bias)
-        q, k, v = y.view(B, S, 3, H, C // H).permute(2, 0, 3, 1, 4).unbind(0)
-        a = masked_attention(q, k, v, mask, (C // H) ** -0.5)
-        a = a.transpose(1, 2).reshape(B, S, C)
-        return linear(a, proj.weight if train else mats["wproj"], proj.bias)
+        q, k, v = y.view(B, S, 3, H, Ci // H).permute(2, 0, 3, 1, 4).unbind(0)
+        a = masked_attention(q, k, v, mask, (Ci // H) ** -0.5)
+        a = a.transpose(1, 2).reshape(B, S, Ci)
+        return linear(a, proj.weight if train else mats["wproj"], bproj)
 
-    def _plain_mlp(self, x, seeds, p: float):
+    def _plain_mlp(self, x, seeds, p: float, f, g, lead: bool, col0: int):
         """fc2(drop(gelu(fc1(LN2 x)))) dropped: the MLP of the JAX package's
-        plain block, on the kernels' mask convention."""
+        plain block, on the kernels' mask convention; under a model axis f
+        before LN2, g after fc2, this shard's hidden columns from ``col0``
+        and fc2's bias on the first shard (``lead``)."""
         fc1, fc2 = self.mlp["fc1"], self.mlp["fc2"]
-        y = layer_norm(x, self.norm2.weight, self.norm2.bias, VIT_LN_EPS)
-        y = dropout(gelu(linear(y, fc1.weight, fc1.bias)), seeds, 0, p)
-        return dropout(linear(y, fc2.weight, fc2.bias), seeds, 1, p)
+        y = layer_norm(f(x), self.norm2.weight, self.norm2.bias, VIT_LN_EPS)
+        y = dropout(gelu(linear(y, fc1.weight, fc1.bias)), seeds, 0, p, col0)
+        return dropout(g(linear(y, fc2.weight, fc2.bias if lead else None)), seeds, 1, p)
 
     def forward(self, x: torch.Tensor, mask: torch.Tensor,
                 mats: Dict[str, torch.Tensor],
@@ -370,7 +373,7 @@ class Block(nn.Module):
         n1, qkv, proj = self.norm1, self.attn["qkv"], self.attn["proj"]
         bproj = proj.bias if lead else None
         if self.attn_impl != "fused":
-            a = self._unfused_attention(x, mask, mats, train)
+            a = g(self._unfused_attention(f(x), mask, mats, train, bproj))
             x = x + (dropout(a, seeds[0], 0, p) if train else a)
         elif not train:
             x = g(attn_half(f(x), mask, n1.weight, n1.bias, mats["wqkv"], qkv.bias,
@@ -389,15 +392,15 @@ class Block(nn.Module):
 
         n2, fc1, fc2 = self.norm2, self.mlp["fc1"], self.mlp["fc2"]
         b2 = fc2.bias if lead else None
+        col0 = rank * fc1.weight.shape[0]       # this shard's first hidden column
         if not train:
             return g(mlp_half(f(x), n2.weight, n2.bias, mats["w1"], fc1.bias, mats["w2"],
                               b2, VIT_LN_EPS, residual=lead))
         if self.mlp_impl == "fused" and p > 0:
-            return x + self._plain_mlp(x, seeds[1], p)
+            return x + self._plain_mlp(x, seeds[1], p, f, g, lead, col0)
         return g(mlp_half_train(f(x), seeds[1], n2.weight, n2.bias, fc1.weight, fc1.bias,
                                 fc2.weight, b2, p, VIT_LN_EPS, tail=True,
-                                w1_c=mats["w1"], w2_c=mats["w2"], residual=lead,
-                                col0=rank * fc1.weight.shape[0]))
+                                w1_c=mats["w1"], w2_c=mats["w2"], residual=lead, col0=col0))
 
 
 class ViT(nn.Module):

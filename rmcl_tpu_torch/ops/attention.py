@@ -21,7 +21,10 @@ On a CUDA tensor ``masked_attention`` is a ``torch.autograd.Function`` whose
 forward and backward launch the kernels of ``csrc/block_kernels.cu``
 (``rmcl_attention_fwd`` / ``rmcl_attention_bwd``: the block halves'
 attention kernels with explicit strides and these rounding points), or
-raise; on a CPU tensor it is ``mha`` under autograd.  The kernels read q, k
+raise; on a CPU tensor that needs a gradient it is ``mha`` under autograd.
+The forward is the ``torch.library`` operator ``rmcl::masked_attention``
+(CUDA kernel the launch, CPU kernel ``mha``, as ``fused_block.py`` says
+why), which the Function and the no-gradient call both go through.  The kernels read q, k
 and v through their strides (views of one qkv buffer need no copy) and write
 the output as (B, S, H, D) memory, so that merging the heads back to
 (B, S, C) is a view.  Launches count in ``fused_block.launches`` under
@@ -107,14 +110,16 @@ def _stream(t):
 
 
 def _attention_fwd(q, k, v, mask, scale):
+    """The forward kernel: the output as contiguous (B, S, H, D) memory."""
     from rmcl_tpu_torch.ops.fused_block import launches, sub_launches  # imports this one
     B, H, S, D = q.shape
     if q.dtype == torch.bfloat16:
         _wgmma_layout(q=q, k=k, v=v)
-    out = torch.empty(B, S, H, D, device=q.device, dtype=q.dtype).transpose(1, 2)
+    out = torch.empty(B, S, H, D, device=q.device, dtype=q.dtype)
+    heads = out.transpose(1, 2)
     rc = _build.library().rmcl_attention_fwd(
         _DTYPE_CODE[q.dtype], q.data_ptr(), k.data_ptr(), v.data_ptr(), *_strides(q),
-        mask.data_ptr(), out.data_ptr(), *_strides(out), B, S, H, D, scale, _stream(q))
+        mask.data_ptr(), heads.data_ptr(), *_strides(heads), B, S, H, D, scale, _stream(q))
     _build.check(rc, "attention_fwd")
     launches["masked_attention"] += 1
     sub_launches["attention_fwd"] += 1
@@ -168,13 +173,44 @@ def masked_attention_bwd(q, k, v, mask, g, scale: float):
     return _attention_bwd(q, k, v, mask, g, scale)
 
 
+# The forward as a ``torch.library`` operator (``fused_block.py`` says why and
+# how it is registered): rmcl::masked_attention returns the output as
+# contiguous (B, S, H, D), the layout the kernel writes, and
+# ``masked_attention`` hands out its (B, H, S, D) view.  The CPU kernel is
+# ``mha``, the CUDA kernel the launch above.
+_LIB = torch.library.Library("rmcl", "FRAGMENT")
+_LIB.define("masked_attention(Tensor q, Tensor k, Tensor v, Tensor mask, float scale) -> Tensor")
+
+
+def _masked_attention_cpu(q, k, v, mask, scale):
+    return mha(q, k, v, mask, scale).transpose(1, 2).contiguous()
+
+
+def _masked_attention_cuda(q, k, v, mask, scale):
+    q, k, v = _operands(q, k, v, mask)
+    return _attention_fwd(q, k, v, mask, scale)
+
+
+_LIB.impl("masked_attention", _masked_attention_cpu, "CPU")
+_LIB.impl("masked_attention", _masked_attention_cuda, "CUDA")
+
+
+@torch.library.register_fake("rmcl::masked_attention", lib=_LIB)
+def _(q, k, v, mask, scale):
+    B, H, S, D = q.shape
+    return q.new_empty(B, S, H, D)
+
+
+_masked_attention_op = torch.ops.rmcl.masked_attention.default
+
+
 class _MaskedAttention(torch.autograd.Function):
     @staticmethod
     def forward(ctx, q, k, v, mask, scale):
         q, k, v = _operands(q, k, v, mask)
         ctx.save_for_backward(q, k, v, mask)
         ctx.scale = scale
-        return _attention_fwd(q, k, v, mask, scale)
+        return _masked_attention_op(q, k, v, mask, scale).transpose(1, 2)
 
     @staticmethod
     @once_differentiable
@@ -187,9 +223,10 @@ def masked_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                      mask: torch.Tensor, scale: float) -> torch.Tensor:
     """Masked attention of q, k, v (B, H, S, D) under the key mask (B, S),
     differentiable with respect to q, k and v."""
-    if q.device.type == "cpu":
-        return mha(q, k, v, mask, scale)
+    if q.device.type not in ("cpu", "cuda"):
+        raise RuntimeError(f"masked_attention takes CPU or CUDA tensors, got {q.device}")
     if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v)):
+        if q.device.type == "cpu":
+            return mha(q, k, v, mask, scale)
         return _MaskedAttention.apply(q, k, v, mask, scale)
-    q, k, v = _operands(q, k, v, mask)
-    return _attention_fwd(q, k, v, mask, scale)
+    return _masked_attention_op(q, k, v, mask, scale).transpose(1, 2)

@@ -26,6 +26,15 @@ On a CUDA tensor each op launches the hand-written kernels of
 ``csrc/block_kernels.cu`` (see the note there for the design) or raises; on
 a CPU tensor it runs its plain version.  There is no other switch.
 
+The two deterministic forwards are ``torch.library`` operators,
+``rmcl::attn_half`` and ``rmcl::mlp_half``: their CUDA kernel is the launch
+(``_attn_fwd``, ``_mlp_fwd``), their CPU kernel the plain version, their
+fake kernel allocates the outputs.  ``attn_half``, ``mlp_half`` and their
+autograd Functions reach the forward only through them, so a program
+captured by ``torch.export`` (``serve.py:export_inference``) holds each
+half as one node, which launches the kernels wherever the program was
+exported; tracing never reaches ``_build.library()`` or a pointer.
+
 ``attn_half`` and ``mlp_half`` are differentiable with respect to x only
 (the deterministic callers, PGD and the saliency pass, differentiate to the
 input through frozen weights): when x requires grad they run as
@@ -305,6 +314,13 @@ def _head_dim(C, num_heads):
     if D > _MAX_HEAD_DIM:
         raise ValueError(f"head dim {D} > {_MAX_HEAD_DIM}")
     return D
+
+
+def _cpu_or_cuda(x):
+    """The public ops run the plain version or the kernels: no other device
+    (the operators' fake kernels serve tracing, not a caller)."""
+    if x.device.type not in ("cpu", "cuda"):
+        raise RuntimeError(f"fused block ops take CPU or CUDA tensors, got {x.device}")
 
 
 def _refuse_weight_grads(**params):
@@ -616,6 +632,60 @@ def _mlp_fwd(x, ln_w, ln_b, w1, b1, w2, b2, eps, residual, keep_h):
     return out, (h.view(B, S, C4) if keep_h else None)
 
 
+# ------------------------------------------------------- registered operators
+# The deterministic halves as ``torch.library`` operators: a graph captured by
+# ``torch.export`` (``serve.py:export_inference``) holds them as single nodes,
+# which launch the kernels when the program runs on CUDA tensors, wherever it
+# was exported.  The CPU kernel is the plain version, the CUDA kernel the
+# launch above; the fake only allocates.  attn_half also returns qkv
+# (B, S, 3Ci), mlp_half the pre-GELU h (B, S, C4) when ``keep_h`` (else an
+# empty tensor): the dx backwards' saved operands.  They are registered on
+# the dispatcher directly (``Library.define`` / ``impl``), not through
+# ``torch.library.custom_op``, whose Python wrapper costs every eager call
+# tens of microseconds on the host.
+_LIB = torch.library.Library("rmcl", "FRAGMENT")
+_LIB.define("attn_half(Tensor x, Tensor mask, Tensor ln_w, Tensor ln_b, Tensor wqkv, "
+            "Tensor bqkv, Tensor wproj, Tensor? bproj, int num_heads, float eps, "
+            "bool residual) -> (Tensor, Tensor)")
+_LIB.define("mlp_half(Tensor x, Tensor ln_w, Tensor ln_b, Tensor w1, Tensor b1, Tensor w2, "
+            "Tensor? b2, float eps, bool residual, bool keep_h) -> (Tensor, Tensor)")
+
+
+def _attn_half_kernel(x, mask, ln_w, ln_b, wqkv, bqkv, wproj, bproj, num_heads, eps,
+                      residual):
+    """CPU and CUDA kernel of rmcl::attn_half (``_attn_fwd`` runs the plain
+    version on a CPU tensor)."""
+    out, qkv, _ = _attn_fwd(x, mask, ln_w, ln_b, wqkv, bqkv, wproj, bproj, num_heads, eps,
+                            residual)
+    return out, qkv
+
+
+def _mlp_half_kernel(x, ln_w, ln_b, w1, b1, w2, b2, eps, residual, keep_h):
+    out, h = _mlp_fwd(x, ln_w, ln_b, w1, b1, w2, b2, eps, residual, keep_h)
+    return out, (h if keep_h else x.new_empty(0))
+
+
+for _key in ("CPU", "CUDA"):
+    _LIB.impl("attn_half", _attn_half_kernel, _key)
+    _LIB.impl("mlp_half", _mlp_half_kernel, _key)
+
+
+@torch.library.register_fake("rmcl::attn_half", lib=_LIB)
+def _(x, mask, ln_w, ln_b, wqkv, bqkv, wproj, bproj, num_heads, eps, residual):
+    B, S, _ = x.shape
+    return torch.empty_like(x), x.new_empty(B, S, wqkv.shape[0])
+
+
+@torch.library.register_fake("rmcl::mlp_half", lib=_LIB)
+def _(x, ln_w, ln_b, w1, b1, w2, b2, eps, residual, keep_h):
+    B, S, _ = x.shape
+    return torch.empty_like(x), (x.new_empty(B, S, w1.shape[0]) if keep_h else x.new_empty(0))
+
+
+_attn_half_op = torch.ops.rmcl.attn_half.default
+_mlp_half_op = torch.ops.rmcl.mlp_half.default
+
+
 # ----------------------------------------------------------------- dx ops
 def attn_half_dx(x, mask, ln_w, ln_b, wqkv, bqkv, wproj, g,
                  num_heads: int, eps: float, residual: bool = True, qkv=None):
@@ -727,8 +797,8 @@ class _AttnHalf(torch.autograd.Function):
     @staticmethod
     def forward(ctx, x, mask, ln_w, ln_b, wqkv, bqkv, wproj, bproj, num_heads,
                 eps, residual, save):
-        out, qkv, _ = _attn_fwd(x, mask, ln_w, ln_b, wqkv, bqkv, wproj, bproj,
-                                num_heads, eps, residual)
+        out, qkv = _attn_half_op(x, mask, ln_w, ln_b, wqkv, bqkv, wproj, bproj,
+                                            num_heads, eps, residual)
         ctx.save_for_backward(x, mask, ln_w, ln_b, wqkv, bqkv, wproj,
                               *([qkv] if save else []))
         ctx.conf = (num_heads, eps, residual)
@@ -747,7 +817,7 @@ class _AttnHalf(torch.autograd.Function):
 class _MlpHalf(torch.autograd.Function):
     @staticmethod
     def forward(ctx, x, ln_w, ln_b, w1, b1, w2, b2, eps, residual, save):
-        out, h = _mlp_fwd(x, ln_w, ln_b, w1, b1, w2, b2, eps, residual, keep_h=save)
+        out, h = _mlp_half_op(x, ln_w, ln_b, w1, b1, w2, b2, eps, residual, save)
         ctx.save_for_backward(x, ln_w, ln_b, w1, b1, w2, *([h] if save else []))
         ctx.conf = (eps, residual)
         return out
@@ -789,24 +859,26 @@ def attn_half(x, mask, ln_w, ln_b, wqkv, bqkv, wproj, bproj,
     """``[x +] proj(MHA(qkv(LN1 x)))``.  x: (B, S, C); mask: (B, S).  A
     tensor-parallel shard passes its qkv rows (3Ci, C), proj columns (C, Ci)
     and ``num_heads`` of its own, and ``bproj=None`` but on the first shard."""
+    _cpu_or_cuda(x)
     _refuse_weight_grads(ln_w=ln_w, ln_b=ln_b, wqkv=wqkv, bqkv=bqkv,
                          wproj=wproj, bproj=bproj)
     if torch.is_grad_enabled() and x.requires_grad:
         return _AttnHalf.apply(x, mask, ln_w, ln_b, wqkv, bqkv, wproj, bproj,
                                num_heads, eps, residual, save_for_backward)
-    return _attn_fwd(x, mask, ln_w, ln_b, wqkv, bqkv, wproj, bproj,
-                     num_heads, eps, residual)[0]
+    return _attn_half_op(x, mask, ln_w, ln_b, wqkv, bqkv, wproj, bproj,
+                                    num_heads, eps, residual)[0]
 
 
 def mlp_half(x, ln_w, ln_b, w1, b1, w2, b2, eps: float, residual: bool = True,
              save_for_backward: bool = True):
     """``[x +] fc2(gelu_erf(fc1(LN2 x)))``.  x: (B, S, C); w1: (C4, C); w2: (C, C4);
     ``b2=None`` leaves out the fc2 bias (a tensor-parallel shard but the first)."""
+    _cpu_or_cuda(x)
     _refuse_weight_grads(ln_w=ln_w, ln_b=ln_b, w1=w1, b1=b1, w2=w2, b2=b2)
     if torch.is_grad_enabled() and x.requires_grad:
         return _MlpHalf.apply(x, ln_w, ln_b, w1, b1, w2, b2, eps, residual,
                               save_for_backward)
-    return _mlp_fwd(x, ln_w, ln_b, w1, b1, w2, b2, eps, residual, keep_h=False)[0]
+    return _mlp_half_op(x, ln_w, ln_b, w1, b1, w2, b2, eps, residual, False)[0]
 
 
 def attn_half_full(x, mask, ln_w, ln_b, wqkv, bqkv, wproj, bproj, num_heads: int,

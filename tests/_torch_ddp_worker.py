@@ -179,25 +179,29 @@ def full_leaves(ts, cfg, grads: bool = False):
 
 class mlp_masks:
     """Records the in-MLP keep masks (draw 0 at the MLP's hidden width) that
-    the plain training ops draw, in call order, as numpy arrays."""
+    the plain training ops and the dropout op (configuration F's plain MLP)
+    draw, in call order, as numpy arrays."""
 
     def __init__(self, hidden: int):
+        from rmcl_tpu_torch.ops import dropout as DO
         from rmcl_tpu_torch.ops import fused_block_train as FT
-        self.FT, self.hidden, self.seen = FT, hidden, []
+        self.modules, self.hidden, self.seen = (FT, DO), hidden, []
 
     def __enter__(self):
-        inner = self.inner = self.FT.keep_mask
+        inner = self.inner = self.modules[0].keep_mask
 
         def keep_mask(seeds, draw, rows, cols, p, col0=0):
             out = inner(seeds, draw, rows, cols, p, col0)
             if draw == 0 and cols != self.hidden:
                 self.seen.append(out.numpy().copy())
             return out
-        self.FT.keep_mask = keep_mask
+        for mod in self.modules:
+            mod.keep_mask = keep_mask
         return self
 
     def __exit__(self, *exc):
-        self.FT.keep_mask = self.inner
+        for mod in self.modules:
+            mod.keep_mask = self.inner
 
 
 def run_steps(run: dict) -> dict:

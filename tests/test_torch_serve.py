@@ -1,6 +1,7 @@
 """The port's serving path (rmcl_tpu_torch/serve.py, cli/run.py) against
-the JAX package's, on CPU in fp32; the port's independence from jax; and
-chip_smoke.py's refusal to run without a card."""
+the JAX package's, on CPU in fp32; the port's independence from jax (the
+live session, the CLI and the AOT artifact); and chip_smoke.py's refusal to
+run without a card."""
 
 import json
 import os
@@ -158,7 +159,27 @@ _CLI_RUN = (   # raw requests: PNG, tokenizer, image pipeline, serve CLI
     "    assert len(f.readlines()) == 1\n")
 
 
-@pytest.mark.parametrize("run", [_SESSION_RUN, _CLI_RUN], ids=["session", "cli"])
+_ARTIFACT_RUN = (   # the AOT artifact: export, load, serve wire batches
+    "import numpy as np\n"
+    "from rmcl_tpu_torch import build_config\n"
+    "from rmcl_tpu_torch.serve import ArtifactSession, export_inference, export_meta, "
+    "seeded_model\n"
+    f"cfg = build_config(**{TINY!r}, loss_names={{'vqa': 1}})\n"
+    "model = seeded_model(cfg)\n"
+    "blob = export_inference(cfg, model, 'vqa', 2, device='cpu')\n"
+    "gh, gw = cfg.grid_hw\n"
+    "r = np.random.RandomState(0)\n"
+    "b = {'image': r.randint(0, 256, (3, gh * gw, 768)).astype(np.uint8),\n"
+    "     'image_hw': np.array([[32, 48], [16, 32], [32, 16]], np.int32),\n"
+    "     'text_ids': r.randint(1, 64, (3, 10)).astype(np.int32),\n"
+    "     'text_masks': np.ones((3, 10), np.int32)}\n"
+    "sess = ArtifactSession(blob, model.state_dict(), None, export_meta(cfg, 'vqa', 2), 'cpu')\n"
+    "out = sess.infer(b)\n"
+    "assert out.shape == (3, 7) and np.isfinite(out).all()\n")
+
+
+@pytest.mark.parametrize("run", [_SESSION_RUN, _CLI_RUN, _ARTIFACT_RUN],
+                         ids=["session", "cli", "artifact"])
 def test_port_never_imports_jax(run, tmp_path):
     code = (
         f"import sys\nsys.path.insert(0, {REPO!r})\n{run}"

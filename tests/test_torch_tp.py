@@ -7,13 +7,19 @@ sharding_rules.py; models/vit.py:Block under a model axis) on the CPU.
     CPU mesh; ``gather_state_dict`` inverts ``shard_state_dict`` bit for bit,
     and the qkv shards are aligned to heads.
   * The refusals: a grid that is not the world, a model axis that does not
-    divide the heads, the MLP width or the vocabulary, configurations P and
-    F, ``zero1`` with a model axis.
+    divide the heads, the MLP width or the vocabulary, ``zero1`` with a model
+    axis.
   * The ops on the shards (plain versions, fp32): the shards' partial sums of
     every half, forward, dx and training backward, add up to the unsharded
     op within 1e-5 x max(1, max|ref|); the sharded gradients are the shards
     of the unsharded ones; the in-MLP keep mask of a shard is the columns of
     the full mask (``keep_mask`` with ``col0``), bit for bit.
+  * Blocks of configurations P and F on two shards (two threads of this
+    process as the model group: f and g sum across them) against the
+    unsharded block, deterministic and in training at p = 0.3: the output,
+    the input gradient and every parameter gradient (the shards' the shards
+    of the full ones, the LayerNorms' and row-parallel biases' summed over
+    the shards) within 1e-5 x max(1, max|ref|).
   * The attacked task_moco step of two ranks on a (1, 2) grid (fp32,
     drop_rate 0, text and image views, the greedy attack, the sizes of
     tests/test_torch_ddp.py) against the JAX package's attacked step on the
@@ -24,6 +30,8 @@ sharding_rules.py; models/vit.py:Block under a model axis) on the CPU.
 
 The ranks run tests/_torch_ddp_worker.py under torchrun while the JAX step
 compiles in this process."""
+
+import threading
 
 import jax
 import jax.numpy as jnp
@@ -137,8 +145,8 @@ def test_shard_and_gather_are_inverse_and_heads_aligned():
 
 def test_refusals():
     """A grid that is not the world, a model axis that does not divide the
-    heads, the MLP width or the vocabulary, P and F under a model axis, and
-    ``zero1`` with a model axis raise."""
+    heads, the MLP width or the vocabulary, and ``zero1`` with a model axis
+    raise."""
     cfg = port_cfg(_mlm_cfg())                 # 2 heads, MLP 128, vocabulary 64
     with pytest.raises(ValueError, match="needs 2 ranks"):
         mesh.init_grid((1, 2), ("data", "model"))
@@ -152,9 +160,6 @@ def test_refusals():
             ViLT(cfg, model_shards=m)
     with pytest.raises(ValueError, match="vocab_size"):
         check_shards(cfg.replace(vocab_size=63), 2)
-    for impls in (("pallas", "fused_train"), ("fused", "fused")):
-        with pytest.raises(NotImplementedError):
-            Block(32, 2, 4, *impls, model_shards=2)
     with pytest.raises(ValueError, match="zero1"):
         check_zero1(cfg.replace(zero1=True), 2)
     check_zero1(cfg.replace(zero1=True), 1)
@@ -297,6 +302,111 @@ def test_ops_on_shards_add_up_to_the_full_ops():
                                pr[2], p, eps, residual=k == 0, bias=k == 0, col0=k * C4)
          for k, (s, pr) in enumerate(zip(sh, parts))],
         ("ln_w", "ln_b", "w1", "b1", "w2", "b2"))
+
+
+class _TwoShards:
+    """The model group of two shards as two threads of this process: a
+    thread's ``mesh.model_rank()`` is its shard, and the model group's sum
+    (g forward, f backward) adds the two threads' tensors, shard 0's first."""
+
+    def __init__(self):
+        self.local, self.slots = threading.local(), [None, None]
+        self.barrier = threading.Barrier(2, timeout=60)
+
+    def rank(self) -> int:
+        return self.local.rank
+
+    def all_reduce(self, x):
+        self.slots[self.local.rank] = x
+        self.barrier.wait()
+        out = self.slots[0] + self.slots[1]
+        self.barrier.wait()
+        return out
+
+    def run(self, fn):
+        """fn(shard) on both shards at once; their results."""
+        out, errors = [None, None], []
+
+        def body(r):
+            self.local.rank = r
+            try:
+                out[r] = fn(r)
+            except BaseException as e:     # noqa: BLE001  re-raised below
+                errors.append(e)
+                self.barrier.abort()
+        threads = [threading.Thread(target=body, args=(r,)) for r in (0, 1)]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(timeout=120)
+        assert not any(t.is_alive() for t in threads), "a shard did not finish"
+        if errors:
+            raise errors[0]
+        return out
+
+
+@pytest.mark.parametrize("impls", [("pallas", "fused_train"), ("fused", "fused")],
+                         ids=["P", "F"])
+def test_p_and_f_blocks_on_two_shards_add_up_to_the_full_block(impls, monkeypatch):
+    """Configurations P and F: a block of C = 32, 4 heads on two shards
+    against the unsharded block, fp32, B = 2, S = 7 with a key masked:
+    deterministic, then the training forward at p = 0.3 and its backward
+    from a random output gradient; every output and gradient within 1e-5 x
+    max(1, max|ref|)."""
+    from rmcl_tpu_torch.parallel import tp
+    B, S, C, H, m, p = 2, 7, 32, 4, 2, 0.3
+    r = np.random.RandomState(2)
+    x = torch.from_numpy(r.randn(B, S, C).astype(np.float32))
+    gout = torch.from_numpy(r.randn(B, S, C).astype(np.float32))
+    mask = torch.ones(B, S, dtype=torch.int32)
+    mask[1, 5:] = 0
+    seeds = torch.tensor([[12345, -678], [91, -2 ** 31]], dtype=torch.int32)
+    full = Block(C, H, 4, *impls)
+    w = _block_weights(C, H)
+    names = {"ln_w": "norm1.weight", "ln_b": "norm1.bias", "wqkv": "attn.qkv.weight",
+             "bqkv": "attn.qkv.bias", "wproj": "attn.proj.weight", "bproj": "attn.proj.bias",
+             "w1": "mlp.fc1.weight", "b1": "mlp.fc1.bias", "w2": "mlp.fc2.weight",
+             "b2": "mlp.fc2.bias"}
+    sd = {names[k]: v for k, v in w.items()}
+    sd.update({"norm2.weight": w["ln_w"] * 0.9, "norm2.bias": -w["ln_b"]})
+    full.load_state_dict(sd)
+    shards = []
+    for k in range(m):
+        blk = Block(C, H, 4, *impls, model_shards=m)
+        blk.load_state_dict({n: shard_tensor("transformer.blocks.0." + n, v, k, m)
+                             for n, v in sd.items()})
+        shards.append(blk)
+    group = _TwoShards()
+    monkeypatch.setattr(mesh, "_active", mesh.Grid(data=1, model=m, data_rank=0, model_rank=0))
+    monkeypatch.setattr(mesh, "model_rank", group.rank)
+    monkeypatch.setattr(tp, "_all_reduce", group.all_reduce)
+
+    def infer(blk):
+        with torch.no_grad():                  # grad mode is a thread's own
+            return blk(x, mask, blk.matrices(x.dtype))
+    want = infer(full)
+    got = group.run(lambda k: infer(shards[k]))
+    for k in range(m):
+        _close(f"{impls} deterministic, shard {k}", got[k], want)
+
+    def train(blk):
+        xi = x.clone().requires_grad_(True)
+        out = blk(xi, mask, blk.matrices(x.dtype), seeds, p)
+        (out * gout).sum().backward()
+        return out.detach(), xi.grad, {n: q.grad for n, q in blk.named_parameters()}
+    want = train(full)
+    got = group.run(lambda k: train(shards[k]))
+    for k in range(m):
+        _close(f"{impls} training, shard {k}", got[k][0], want[0])
+        _close(f"{impls} dx, shard {k}", got[k][1], want[1])
+    for n, ref in want[2].items():
+        parts = [got[k][2][n] for k in range(m)]
+        if shard_dim("transformer.blocks.0." + n) is None:
+            _close(f"{impls} d{n}", sum(q for q in parts if q is not None), ref)
+        else:
+            for k in range(m):
+                _close(f"{impls} d{n} shard {k}", parts[k],
+                       shard_tensor("transformer.blocks.0." + n, ref, k, m))
 
 
 # ------------------------------------------------------- the attacked step
